@@ -1,0 +1,109 @@
+"""The port's CUDA GRU kernels against their plain versions on the card.
+
+Every test here needs a CUDA card and skips without one. The file imports
+neither JAX nor the JAX package, so it runs on a machine that has only
+PyTorch:
+
+    python -m pytest tests/test_torch_kernels.py --noconftest -m gpu
+
+(``--noconftest`` skips ``tests/conftest.py``, which configures JAX.)
+Kernel and plain version both accumulate in float32, in another order:
+atol 1e-4 on hs.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cross_patient_speech_decoding_tpu_torch.models import RealtimeRNN
+from cross_patient_speech_decoding_tpu_torch.ops import gru
+
+ATOL = 1e-4
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _args(card, seed, T, B, F, H):
+    rng = np.random.default_rng(seed)
+    arrs = [
+        rng.normal(size=(T, B, F)) * 0.5,
+        rng.normal(size=(B, H)) * 0.3,
+        rng.normal(size=(F, 3 * H)) / np.sqrt(F),
+        rng.normal(size=(3 * H,)) * 0.1,
+        rng.normal(size=(H, 3 * H)) / np.sqrt(H),
+        rng.normal(size=(3 * H,)) * 0.1,
+    ]
+    return [torch.as_tensor(a, dtype=torch.float32, device=card)
+            for a in arrs]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("T,B,F,H", [(6, 16, 10, 32), (5, 10, 9, 50),
+                                     (3, 130, 70, 97)])
+def test_gru_fwd_kernel_matches_plain(card, dtype, reverse, T, B, F, H):
+    args = _args(card, 1, T, B, F, H)
+    args[0] = args[0].to(dtype)
+    gru.reset_launch_counts()
+    with torch.no_grad():
+        got = gru.gru_layer(*args, reverse=reverse)
+        want = gru.gru_layer_plain(*args, reverse=reverse)
+    assert gru.LAUNCHES["gru_fwd"] == 1
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("batch_major", [True, False])
+@pytest.mark.parametrize("win,stride,T", [(6, 2, 26), (6, 2, 27), (4, 4, 16),
+                                          (7, 3, 23)])
+def test_gru_wfwd_kernel_matches_plain(card, win, stride, T, batch_major):
+    B, C, H = 10, 5, 50
+    args = _args(card, 2, T, B, win * C, H)
+    # bf16 raw frames as a (T, B, C) view of a batch-major (B, T, C)
+    # tensor, which the kernel reads as it is, or as time-major (T, B, C)
+    # frames, which the wrapper copies to batch-major first
+    x = torch.randn((B, T, C), device=card).to(torch.bfloat16)
+    args[0] = x.transpose(0, 1)
+    if not batch_major:
+        args[0] = args[0].contiguous()
+    assert (args[0].stride(0) == C) == batch_major
+    gru.reset_launch_counts()
+    with torch.no_grad():
+        got = gru.gru_layer_windowed(*args, win, stride)
+        want = gru.gru_layer_windowed_plain(*args, win, stride)
+    assert gru.LAUNCHES["gru_wfwd"] == 1
+    assert got.shape == ((T - win) // stride + 1, B, H)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+
+
+def test_wrappers_raise_on_cuda_instead_of_falling_back(card):
+    args = _args(card, 3, 4, 8, 6, 16)
+    with torch.no_grad():
+        with pytest.raises(TypeError, match="x must be"):
+            gru.gru_layer(args[0].double(), *args[1:])
+        with pytest.raises(ValueError, match="is on"):
+            gru.gru_layer(args[0], args[1].cpu(), *args[2:])
+        # the windowed kernel reads bf16 frames only
+        frames = torch.randn((5, 8, 3), device=card)
+        with pytest.raises(TypeError, match="bfloat16 frames"):
+            gru.gru_layer_windowed(frames, *args[1:], 2, 1)
+
+
+def test_realtime_rnn_on_card_matches_cpu(card):
+    model = RealtimeRNN(5, 32, 3, 7, win_size=6, stride=2, seed=0,
+                        device="cpu").eval()
+    x = torch.randn((12, 40, 5), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        want = model(x)
+        model.to(card)
+        gru.reset_launch_counts()
+        got = model(x.to(card)).cpu()
+    assert gru.LAUNCHES == {"gru_fwd": 2, "gru_wfwd": 1}
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=0)

@@ -1,0 +1,118 @@
+"""Package-level contracts of the PyTorch port: import hygiene, default
+device, and the C interface of the kernel library."""
+
+import ast
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from cross_patient_speech_decoding_tpu_torch.ops import _ext, gru, signal
+from cross_patient_speech_decoding_tpu_torch.models import RealtimeRNN
+from cross_patient_speech_decoding_tpu_torch.utils import resolve_device
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "cross_patient_speech_decoding_tpu_torch"
+FORBIDDEN = {"jax", "flax", "optax"}
+
+
+def _port_files():
+    # the card's tests run where JAX is not installed
+    extra = [ROOT / "tests" / "test_torch_kernels.py", ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + extra
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_nothing_of_jax():
+    files = _port_files()
+    assert len(files) > 10 and files[-1].exists()
+    bad = []
+    for path in files:
+        for name in _imports(path):
+            top = name.split(".")[0]
+            # exact match: the port's own name shares the JAX package's
+            # name as a prefix
+            if top in FORBIDDEN or top == "cross_patient_speech_decoding_tpu":
+                bad.append(f"{path.relative_to(ROOT)}: {name}")
+    assert bad == []
+
+
+def test_hygiene_check_catches_a_jax_import(tmp_path):
+    p = tmp_path / "m.py"
+    p.write_text("import jax.numpy as jnp\n"
+                 "from cross_patient_speech_decoding_tpu.ops import ctc\n"
+                 "from cross_patient_speech_decoding_tpu_torch import ops\n")
+    tops = [n.split(".")[0] for n in _imports(p)]
+    assert tops == ["jax", "cross_patient_speech_decoding_tpu",
+                    "cross_patient_speech_decoding_tpu_torch"]
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_is_cuda_and_raises_without_it(no_cuda):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_entry_points_default_to_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RealtimeRNN(4, 8, 1, 3)
+    b = np.array([[1.0, 0.0, -1.0]])
+    a = np.array([[1.0, -0.5, 0.1]])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        signal.init_stream_state(b, a, 3)
+    assert RealtimeRNN(4, 8, 1, 3, device="cpu").device.type == "cpu"
+
+
+def test_kernel_wrappers_check_their_arguments():
+    """The CUDA wrappers validate before touching the library, so the
+    checks run here on CPU tensors."""
+    T, B, F, H = 3, 4, 5, 6
+    x = torch.zeros(T, B, F)
+    args = [torch.zeros(B, H), torch.zeros(F, 3 * H), torch.zeros(3 * H),
+            torch.zeros(H, 3 * H), torch.zeros(3 * H)]
+    with pytest.raises(TypeError, match="x must be"):
+        gru._check_args(x.double(), *args, F)
+    with pytest.raises(ValueError, match="wi has shape"):
+        gru._check_args(x, args[0], torch.zeros(F + 1, 3 * H), *args[2:], F)
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        gru._check_args(x.transpose(1, 2), *args, F)
+    with pytest.raises(ValueError, match="wh must be contiguous"):
+        gru._check_args(x, *args[:3], torch.zeros(3 * H, H).t(), args[4], F)
+    wi = args[1].clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="forward only"):
+        gru._check_args(x, args[0], wi, *args[2:], F)
+    with torch.no_grad():
+        gru._check_args(x, args[0], wi, *args[2:], F)
+
+
+def test_c_interface_matches_the_source():
+    """Every ctypes signature names an extern "C" function of the source
+    with the same number of parameters, and the build flags target
+    sm_90a."""
+    src = (_ext.CSRC / "gru_fwd.cu").read_text()
+    c_part = src[src.index('extern "C" {'):]
+    found = {
+        m.group(1): len(m.group(2).split(","))
+        for m in re.finditer(r"^int (\w+)\(([^)]*)\)", c_part, re.M)
+    }
+    assert found == {k: len(v) for k, v in _ext.SIGNATURES.items()}
+    assert "arch=compute_90a,code=sm_90a" in _ext.NVCC_FLAGS
+    assert _ext.library_path().parent == _ext.BUILD_DIR
