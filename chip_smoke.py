@@ -11,20 +11,29 @@ line is never printed:
 1. device: nvidia-smi name and power limit, torch and CUDA versions,
    compute capability (9, 0) required;
 2. build: compile the kernels of ``ops/csrc`` (nvcc, sm_90a);
-3. ctc_eval (the main path): ``make_ctc_eval_step`` of a RealtimeRNN at
-   the fig_5 width (B=2000, T=600, C=60, hidden 512 x 3, 11 classes,
-   window 14 / stride 4), with the launch counts zeroed just before one
-   step and read just after, checked against the same step through the
-   plain versions on the card; step time is the median of 3 steps;
-4. streaming: 400 bins of 60 channels x 10 samples through the same
+3. ctc_eval (slice 1's main path): ``make_ctc_eval_step`` of a
+   RealtimeRNN at the fig_5 width (B=2000, T=600, C=60, hidden 512 x 3,
+   11 classes, window 14 / stride 4), with the launch counts zeroed just
+   before one step and read just after, checked against the same step
+   through the plain versions on the card; step time is the median of 3
+   steps;
+4. ctc_train (slice 2's main path), same geometry: at dropout 0 the loss
+   and every parameter's gradient through the kernels against the plain
+   forwards and plain backward functions on the card; then, with the
+   launch counts zeroed just before and read just after, one
+   ``make_ctc_train_step`` step at dropout 0.3 with AdamW, which must
+   launch all four kernels; then the median of 3 more steps, samples/s,
+   model TFLOP/s and peak memory;
+5. streaming: 400 bins of 60 channels x 10 samples through the same
    model, with the launch counts zeroed just before and read just after;
    online logits checked against the offline forward, the offline forward
    against the plain versions, and one streaming window through
    ``gru_fwd`` against its plain version at B=1, T=1, layer by layer;
-5. kernels: each kernel against its plain version at the fig_5 shapes and
+6. kernels: each kernel against its plain version at the fig_5 shapes and
    at small odd shapes, with times of the kernel, the plain version and
-   ``torch.nn.GRU``, and its bound; ends with the ``{"kernels": [...]}``
-   line.
+   ``torch.nn.GRU`` (its backward for the backward kernels), and its
+   bound; ends with the ``{"kernels": [...]}`` line, whose launch counts
+   are the train step's.
 
 Then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA card, and in a directory without the port.
@@ -50,6 +59,13 @@ PEAK_HBM = 3.35e12
 KERNEL_ATOL = 1e-4  # kernel vs plain on hs: float32 sums in another order
 LOGITS_ATOL = 1e-3  # eval step: kernel path vs plain path on the card
 LOSS_RTOL = 1e-4
+# gradients, kernel vs plain (per tensor, max |diff| over max |plain|):
+# the weight gradients are float32 sums over n_win * B = 294,000 (t, b)
+# terms taken in another order, and the recurrence carries the rounding
+# of every step back to dh0
+GRAD_RTOL = 1e-3
+# launches of one train step: layer 0 windowed, layers 1-2 plain
+TRAIN_LAUNCHES = {"gru_fwd": 2, "gru_wfwd": 1, "gru_bwd": 2, "gru_wbwd": 1}
 # online vs offline logits: offline rounds its layer-0 frames to bf16,
 # online does not; the JAX package's own bound between the two paths
 # (tests/test_realtime.py:57)
@@ -100,11 +116,12 @@ def main() -> int:
     build_s = _ext.build(verbose=True)
     _ext.lib()
     emit({"phase": "build", "seconds": build_s,
-          "library": _ext.library_path().name})
+          "libraries": [_ext.library_path(s).name for s in _ext.SOURCES]})
 
-    model, eval_res = phase_ctc_eval(torch, dev, gru)
+    model, batch = phase_ctc_eval(torch, dev, gru)
+    train_res = phase_ctc_train(torch, dev, gru, batch)
     phase_streaming(torch, dev, gru, model)
-    kernels = phase_kernels(torch, dev, gru, eval_res["launches"])
+    kernels = phase_kernels(torch, dev, gru, train_res["launches"])
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -130,21 +147,22 @@ def cuda_ms(torch, fn, reps: int = REPS) -> float:
 
 
 def plain_logits(torch, model, x):
-    """The model's forward through the plain GRU versions on x's device."""
+    """The model's forward (no dropout) through the plain GRU versions on
+    x's device; differentiable, through the plain backward functions."""
     from cross_patient_speech_decoding_tpu_torch.ops.gru import (
-        gru_layer_plain,
-        gru_layer_windowed_plain,
+        GRULayerFn,
+        GRUWindowedFn,
     )
 
     h0 = model.initial_hidden(x.shape[0])
     l0 = model.rnn.layer(0)
-    hs = gru_layer_windowed_plain(
+    hs = GRUWindowedFn.apply(
         x.to(torch.bfloat16).transpose(0, 1), h0[0].contiguous(), l0.wi,
-        l0.bi, l0.wh, l0.bh, model.win_size, model.stride)
+        l0.bi, l0.wh, l0.bh, model.win_size, model.stride, True)
     for i in range(1, model.n_layers):
         li = model.rnn.layer(i)
-        hs = gru_layer_plain(hs, h0[i].contiguous(), li.wi, li.bi, li.wh,
-                             li.bh)
+        hs = GRULayerFn.apply(hs, h0[i].contiguous(), li.wi, li.bi, li.wh,
+                              li.bh, False, True)
     return model.head(hs.transpose(0, 1))
 
 
@@ -183,9 +201,9 @@ def phase_ctc_eval(torch, dev, gru):
     torch.cuda.synchronize()
     step_times = [time.perf_counter() - t0]
     launches = dict(gru.LAUNCHES)
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in ("gru_fwd", "gru_wfwd") if launches[k] == 0]
     if missing:
-        raise RuntimeError(f"main path launched no {missing}: {launches}")
+        raise RuntimeError(f"eval step launched no {missing}: {launches}")
     for _ in range(2):  # two more timed steps: the host clock is noisy
         t0 = time.perf_counter()
         step(batch)
@@ -220,7 +238,150 @@ def phase_ctc_eval(torch, dev, gru):
         raise RuntimeError(f"loss {loss} vs plain {loss_p}")
     if not decode["decode_matches_cpu"]:
         raise RuntimeError(f"decode on the card differs from CPU: {decode}")
-    return model, res
+    return model, batch
+
+
+def ctc_flops_per_step(B, T, C, H, NL, n_cls, win, stride):
+    """Model FLOPs of one RealtimeRNN train step (forward + ~2x backward),
+    the JAX package's analytic count (bench.py:_ctc_flops_per_step), so
+    that model TFLOP/s compare across the two: windowed layer-0 input
+    projection, stacked recurrences and the head; the CTC loss is left
+    out."""
+    n_win = (T - win) // stride + 1
+    l0 = 2 * B * n_win * (win * C) * 3 * H
+    rest = (NL - 1) * 2 * B * n_win * H * 3 * H
+    rec = NL * 2 * B * n_win * H * 3 * H
+    head = 2 * B * n_win * H * n_cls
+    return 3 * (l0 + rest + rec + head)
+
+
+def _kernel_name(name: str) -> str:
+    """'void (anonymous namespace)::gate_grad_kernel<float>(float const*,
+    ...)' -> 'gate_grad_kernel': no namespace, template or arguments."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("<")[0].split("::")[-1].strip()
+
+
+def profile_step(torch, step, state, batch, gen):
+    """One more train step under ``torch.profiler``: device time summed by
+    kernel name, the device's busy time (one stream, so kernels do not
+    overlap) against the step's host-clock time, and its idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        key = _kernel_name(e.key)
+        by_kernel[key] = by_kernel.get(key, 0.0) + us / 1e3
+    busy_ms = sum(by_kernel.values())
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
+    return state, {"step_ms": wall_ms, "device_busy_ms": busy_ms,
+                   "device_idle_share": 1.0 - busy_ms / wall_ms
+                   if busy_ms else None,
+                   "device_ms_by_kernel": top}
+
+
+def _rel_errs(got, want) -> dict:
+    """max |got - want| / max |want| per named tensor."""
+    return {k: float((got[k] - want[k]).abs().max()
+                     / want[k].abs().max().clamp(min=1e-30)) for k in want}
+
+
+def phase_ctc_train(torch, dev, gru, batch):
+    import numpy as np
+
+    from cross_patient_speech_decoding_tpu_torch.models import (
+        RealtimeRNN,
+        adjusted_input_lengths,
+    )
+    from cross_patient_speech_decoding_tpu_torch.ops.ctc import ctc_loss_mean
+    from cross_patient_speech_decoding_tpu_torch.train import (
+        create_train_state,
+        make_ctc_train_step,
+        make_optimizer,
+    )
+
+    x, labels, il, ll = batch
+    in_adj = adjusted_input_lengths(il, WIN, STRIDE)
+    model = RealtimeRNN(C, H, N_LAYERS, N_CLASSES, dropout=0.3,
+                        win_size=WIN, stride=STRIDE, seed=0, device=dev)
+    names, params = zip(*model.named_parameters())
+
+    # (a) dropout 0 (eval mode): loss and gradients, kernels vs plain
+    model.eval()
+    loss_k = ctc_loss_mean(model(x), in_adj, labels, ll)
+    grads_k = dict(zip(names, torch.autograd.grad(loss_k, params)))
+    loss_p = ctc_loss_mean(plain_logits(torch, model, x), in_adj, labels, ll)
+    grads_p = dict(zip(names, torch.autograd.grad(loss_p, params)))
+    loss_k, loss_p = float(loss_k.detach()), float(loss_p.detach())
+    grad_errs = _rel_errs(grads_k, grads_p)
+    del grads_k, grads_p
+
+    # (b) one train step at dropout 0.3 with AdamW, launches counted
+    model.train()
+    tx = make_optimizer(1e-3, 1e-5, 100)
+    state = create_train_state(model, tx)
+    step = make_ctc_train_step(model, tx)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gru.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, m = step(state, batch, gen)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(gru.LAUNCHES)
+    losses = [float(m["loss"])]
+
+    # (c) 3 more steps
+    step_times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state, m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        step_times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    step_s = statistics.median(step_times)
+    state, profile = profile_step(torch, step, state, batch, gen)
+    flops = ctc_flops_per_step(B, T, C, H, N_LAYERS, N_CLASSES, WIN, STRIDE)
+    finite = all(np.isfinite(losses)) and all(
+        bool(torch.isfinite(p).all()) for p in model.parameters())
+    res = {"phase": "ctc_train", "B": B, "T": T, "C": C, "hidden": H,
+           "n_layers": N_LAYERS, "n_win": N_WIN, "dropout": 0.3,
+           "optimizer": "AdamW lr 1e-3 wd 1e-5, linear decay over 100",
+           "loss_dropout0": loss_k, "loss_dropout0_plain": loss_p,
+           "grad_max_rel_err_vs_plain": grad_errs,
+           "grad_tolerance": GRAD_RTOL, "launches": launches,
+           "first_step_s": first_s, "step_s": step_s,
+           "step_s_runs": step_times, "samples_per_s": B / step_s,
+           "model_tflops_per_s": flops / step_s / 1e12,
+           "model_flops_per_step": flops, "losses": losses,
+           "steps": state.step, "finite": finite,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "profile": profile}
+    emit(res)
+    if abs(loss_k - loss_p) > LOSS_RTOL * abs(loss_p):
+        raise RuntimeError(f"loss {loss_k} vs plain {loss_p}")
+    bad = {k: v for k, v in grad_errs.items() if not v <= GRAD_RTOL}
+    if bad:
+        raise RuntimeError(f"gradients differ from plain: {bad}")
+    if launches != TRAIN_LAUNCHES:
+        raise RuntimeError(f"train step launched {launches}, expected "
+                           f"{TRAIN_LAUNCHES}")
+    if not finite:
+        raise RuntimeError(f"non-finite loss or parameters: {losses}")
+    return res
 
 
 def check_decode(torch, model, step, batch, in_adj):
@@ -364,34 +525,64 @@ def _library_gru(torch, wi, bi, wh, bh):
 
 def _check_small(torch, gru, dev, gen):
     """Odd shapes: B=10, H=50, trailing frames, reverse, both dtypes of
-    ``gru_fwd``, batch-major and time-major frames of ``gru_wfwd``."""
-    errs = {}
+    ``gru_fwd``, batch-major and time-major frames of ``gru_wfwd``; the
+    same for the backward kernels, with and without dx. Returns (forward
+    max abs errors, backward max relative errors)."""
+    fwd, bwd = {}, {}
     Bs, Hs = 10, 50
     h0 = torch.randn((Bs, Hs), generator=gen, device=dev) * 0.3
     w = _weights(torch, gen, dev, 6 * 5, Hs)
     frames = torch.randn((Bs, 27, 5), generator=gen, device=dev).to(
         torch.bfloat16).transpose(0, 1)
+    hprev = torch.randn((11, Bs, Hs), generator=gen, device=dev) * 0.3
+    dhs = torch.randn((11, Bs, Hs), generator=gen, device=dev)
     for layout, x in (("batch_major", frames),
                       ("time_major", frames.contiguous())):
-        errs[f"gru_wfwd_{layout}"] = float(
+        fwd[f"gru_wfwd_{layout}"] = float(
             (gru.gru_wfwd_cuda(x, h0, *w, 6, 2)
              - gru.gru_layer_windowed_plain(x, h0, *w, 6, 2)).abs().max())
+        bwd[f"gru_wbwd_{layout}"] = max(_bwd_errs(
+            gru.gru_wbwd_cuda(x, hprev, dhs, *w, 6, 2),
+            gru.gru_win_backward_plain(x, hprev, dhs, *w, 6, 2)).values())
+    hprev, dhs = hprev[:6], dhs[:6].contiguous()
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype).rsplit(".", 1)[-1]
         for reverse in (False, True):
             x = torch.randn((6, Bs, 9), generator=gen, device=dev).to(dtype)
             w = _weights(torch, gen, dev, 9, Hs)
-            errs[f"gru_fwd_{dt}_rev{int(reverse)}"] = float(
+            fwd[f"gru_fwd_{dt}_rev{int(reverse)}"] = float(
                 (gru.gru_fwd_cuda(x, h0, *w, reverse=reverse)
                  - gru.gru_layer_plain(x, h0, *w, reverse)).abs().max())
-    return errs
+            for need_dx in (True, False):
+                errs = _bwd_errs(
+                    gru.gru_bwd_cuda(x, hprev, dhs, *w, reverse, need_dx),
+                    gru.gru_backward_plain(x, hprev, dhs, *w, reverse,
+                                           need_dx))
+                key = f"gru_bwd_{dt}_rev{int(reverse)}_dx{int(need_dx)}"
+                bwd[key] = max(errs.values())
+    return fwd, bwd
+
+
+BWD_OUTPUTS = ("dx", "dh0", "dwi", "dwh", "dbi", "dbh")
+
+
+def _bwd_errs(got, want) -> dict:
+    """Relative error (max |diff| / max |plain|) per output of a backward;
+    dx must be None on both sides or on neither."""
+    if (got[0] is None) != (want[0] is None):
+        raise RuntimeError("dx formed on one side only")
+    kept = [(k, g, w) for k, g, w in zip(BWD_OUTPUTS, got, want)
+            if w is not None]
+    return _rel_errs({k: g for k, g, _ in kept}, {k: w for k, _, w in kept})
 
 
 def phase_kernels(torch, dev, gru, launches):
     gen = torch.Generator(device=dev).manual_seed(2)
-    small = _check_small(torch, gru, dev, gen)
-    emit({"phase": "kernels_small", "max_abs_err": small})
+    small, small_bwd = _check_small(torch, gru, dev, gen)
+    emit({"phase": "kernels_small", "max_abs_err": small,
+          "max_rel_err_backward": small_bwd})
     bad = {k: v for k, v in small.items() if not v <= KERNEL_ATOL}
+    bad.update({k: v for k, v in small_bwd.items() if not v <= GRAD_RTOL})
     if bad:
         raise RuntimeError(f"small-shape kernels disagree: {bad}")
 
@@ -433,11 +624,81 @@ def phase_kernels(torch, dev, gru, launches):
             bytes_=_nbytes(x1, h0, *w1) + N_WIN * B * H * 4,
             launches=launches["gru_fwd"],
             shapes={"x": [N_WIN, B, H], "dtype": "f32", "hs": [N_WIN, B, H]}))
+        del x1
+    out += phase_kernels_backward(torch, dev, gru, gen, h0, launches)
+    return out
+
+
+def phase_kernels_backward(torch, dev, gru, gen, h0, launches):
+    """The backward kernels at the fig_5 shapes of the train step, on the
+    same (x, hprev, dhs) as their plain versions; the library yardstick is
+    ``torch.nn.GRU``'s backward (cuDNN), timed apart from its forward."""
+    out = []
+    hprev = torch.rand((N_WIN, B, H), generator=gen, device=dev) * 2 - 1
+    dhs = torch.randn((N_WIN, B, H), generator=gen, device=dev) * 1e-3
+    # kernel 4: layers 1-2, dx formed (their input trains)
+    x1 = torch.rand((N_WIN, B, H), generator=gen, device=dev) * 2 - 1
+    w1 = _weights(torch, gen, dev, H, H)
+    out.append(_measure_bwd(
+        torch, "gru_bwd", "cross_patient_speech_decoding_tpu/ops/"
+        "pallas_gru.py:569",
+        kernel=lambda: gru.gru_bwd_cuda(x1, hprev, dhs, *w1),
+        plain=lambda: gru.gru_backward_plain(x1, hprev, dhs, *w1),
+        library=_library_gru(torch, *w1), lib_x=x1, h0=h0, dhs=dhs,
+        flops=2 * B * 3 * H * (3 * H + 3 * H) * N_WIN,
+        bytes_=_nbytes(x1, hprev, dhs, *w1) * 2 - _nbytes(hprev, dhs)
+        + B * H * 4,
+        launches=launches["gru_bwd"],
+        shapes={"x": [N_WIN, B, H], "dtype": "f32", "need_dx": True}))
+    del x1
+    # kernel 3: layer 0 over bf16 batch-major frames, no input gradient
+    frames = torch.randn((B, T, C), generator=gen, device=dev).to(
+        torch.bfloat16).transpose(0, 1)
+    F0 = WIN * C
+    w0 = _weights(torch, gen, dev, F0, H)
+    windows = gru.reformat_time_windows(
+        frames.transpose(0, 1), WIN, STRIDE).transpose(0, 1).float()
+    windows = windows.contiguous()  # (n_win, B, win*C) for cuDNN
+    out.append(_measure_bwd(
+        torch, "gru_wbwd", "cross_patient_speech_decoding_tpu/ops/"
+        "pallas_gru.py:287",
+        kernel=lambda: gru.gru_wbwd_cuda(frames, hprev, dhs, *w0, WIN,
+                                         STRIDE),
+        plain=lambda: gru.gru_win_backward_plain(frames, hprev, dhs, *w0,
+                                                 WIN, STRIDE),
+        library=_library_gru(torch, *w0), lib_x=windows, h0=h0, dhs=dhs,
+        flops=2 * B * 3 * H * (2 * F0 + 3 * H) * N_WIN,
+        bytes_=frames.numel() * 2 + _nbytes(hprev, dhs) + 2 * _nbytes(*w0)
+        + B * H * 4,
+        launches=launches["gru_wbwd"],
+        shapes={"frames": [T, B, C], "dtype": "bf16", "win": WIN,
+                "stride": STRIDE, "need_dx": False}))
     return out
 
 
 def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _row(name, source, replaces, launches, err, times, flops, bytes_):
+    """The kernels line's row (bound_ms and what this run measured, nothing
+    else) and the extra keys of the phase line. ``times`` is (kernel,
+    plain, library) ms."""
+    ms, plain_ms, library_ms = times
+    t_ops = flops / PEAK_F32_SIMT * 1e3
+    t_bytes = bytes_ / PEAK_HBM * 1e3
+    row = {
+        "name": name, "route": "cuda",
+        "source": f"cross_patient_speech_decoding_tpu_torch/ops/csrc/{source}",
+        "replaces": replaces, "launches": launches, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": library_ms,
+    }
+    extra = {"flops": flops, "bytes": bytes_,
+             "bound_ms_bf16_tensor_core": max(flops / PEAK_BF16_TC * 1e3,
+                                              t_bytes)}
+    return row, extra
 
 
 def _measure(torch, name, replaces, kernel, plain, library, lib_x, h0,
@@ -449,28 +710,47 @@ def _measure(torch, name, replaces, kernel, plain, library, lib_x, h0,
     err = float((hs_k - hs_p).abs().max())
     lib_err = float((hs_l - hs_p).abs().max())
     del hs_k, hs_p, hs_l
-    ms = cuda_ms(torch, kernel)
-    plain_ms = cuda_ms(torch, plain)
-    library_ms = cuda_ms(torch, lambda: library(lib_x, h0[None]))
-    t_ops = flops / PEAK_F32_SIMT * 1e3
-    t_bytes = bytes_ / PEAK_HBM * 1e3
-    # the kernels line: bound_ms and what this run measured, nothing else
-    row = {
-        "name": name, "route": "cuda",
-        "source": "cross_patient_speech_decoding_tpu_torch/ops/csrc/"
-                  "gru_fwd.cu",
-        "replaces": replaces, "launches": launches, "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms,
-    }
-    emit({"phase": "kernel", **row, "flops": flops, "bytes": bytes_,
-          "bound_ms_bf16_tensor_core": max(flops / PEAK_BF16_TC * 1e3,
-                                           t_bytes),
+    times = (cuda_ms(torch, kernel), cuda_ms(torch, plain),
+             cuda_ms(torch, lambda: library(lib_x, h0[None])))
+    row, extra = _row(name, "gru_fwd.cu", replaces, launches, err, times,
+                      flops, bytes_)
+    emit({"phase": "kernel", **row, **extra,
           "library_max_abs_err_vs_plain": lib_err,
           "tolerance": KERNEL_ATOL, "shapes": shapes})
     if not err <= KERNEL_ATOL:
         raise RuntimeError(f"{name} differs from plain by {err}")
+    return row
+
+
+def _measure_bwd(torch, name, replaces, kernel, plain, library, lib_x, h0,
+                 dhs, flops, bytes_, launches, shapes):
+    got = kernel()
+    want = plain()
+    errs = _bwd_errs(got, want)
+    abs_err = max(float((g - w).abs().max())
+                  for g, w in zip(got, want) if w is not None)
+    del got, want
+    # cuDNN: forward once, then time the backward alone; dx is asked for
+    # where the kernel forms it
+    xl = lib_x.detach().requires_grad_(name == "gru_bwd")
+    h0l = h0[None].detach().requires_grad_()
+    hs_l, _ = library(xl, h0l)
+    wrt = [h0l, *library.parameters()] + ([xl] if xl.requires_grad else [])
+    times = (cuda_ms(torch, kernel), cuda_ms(torch, plain),
+             cuda_ms(torch, lambda: torch.autograd.grad(hs_l, wrt, dhs,
+                                                        retain_graph=True)))
+    del hs_l
+    row, extra = _row(name, "gru_bwd.cu", replaces, launches, abs_err, times,
+                      flops, bytes_)
+    emit({"phase": "kernel", **row, **extra,
+          "max_rel_err": errs, "tolerance_rel": GRAD_RTOL,
+          "library_note": "torch.nn.GRU backward (cuDNN), also forms dx"
+                          + ("" if name == "gru_bwd"
+                             else " internally, on materialised windows"),
+          "shapes": shapes})
+    bad = {k: v for k, v in errs.items() if not v <= GRAD_RTOL}
+    if bad:
+        raise RuntimeError(f"{name} differs from plain: {bad}")
     return row
 
 

@@ -70,7 +70,10 @@ class StackedRNN(nn.Module):
 
     Layer modules are ``fwd0``, ``fwd1``, ... as in the flax tree.
     Returns (out (B, T, H), last states (n_layers, B, H)). Inter-layer
-    dropout applies in training mode only.
+    dropout applies in training mode only, with flax's semantics (keep
+    with probability 1 - p, scale kept values by 1/(1 - p)); its mask is
+    drawn from ``generator``, the counterpart of the JAX step's dropout
+    key (torch's default generator when None).
     """
 
     def __init__(self, in_features: int, hidden: int, n_layers: int = 1,
@@ -98,7 +101,8 @@ class StackedRNN(nn.Module):
     def layer(self, i: int) -> FusedGRU:
         return getattr(self, f"fwd{i}")
 
-    def forward(self, x, h0=None, window: tuple | None = None):
+    def forward(self, x, h0=None, window: tuple | None = None,
+                generator: torch.Generator | None = None):
         out = x
         lasts = []
         for i in range(self.n_layers):
@@ -107,6 +111,14 @@ class StackedRNN(nn.Module):
                 out, h0_i, window=window if i == 0 else None
             )
             lasts.append(last)
-            if self.dropout > 0 and i < self.n_layers - 1:
-                out = nn.functional.dropout(out, self.dropout, self.training)
+            if self.training and self.dropout > 0 and i < self.n_layers - 1:
+                out = _dropout(out, self.dropout, generator)
         return out, torch.stack(lasts)
+
+
+def _dropout(x, rate: float, generator: torch.Generator | None):
+    """flax ``nn.Dropout``: where(mask, x / keep, 0), mask ~
+    Bernoulli(keep)."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), device=x.device))

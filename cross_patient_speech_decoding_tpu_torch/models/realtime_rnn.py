@@ -89,14 +89,17 @@ class RealtimeRNN(nn.Module):
     def device(self) -> torch.device:
         return self.h0.device
 
-    def forward(self, x):
-        """x (B, T, C) -> logits (B, n_win, n_classes)."""
+    def forward(self, x, generator: torch.Generator | None = None):
+        """x (B, T, C) -> logits (B, n_win, n_classes). ``generator`` draws
+        the inter-layer dropout masks in training mode."""
         h0 = self.initial_hidden(x.shape[0])
-        out, _ = self.rnn(x, h0, window=(self.win_size, self.stride))
+        out, _ = self.rnn(x, h0, window=(self.win_size, self.stride),
+                          generator=generator)
         return self.head(out)
 
     def initial_hidden(self, batch: int = 1):
-        """Trainable initial state broadcast to (n_layers, batch, H)."""
+        """Trainable initial state broadcast to (n_layers, batch, H); its
+        gradient sums over the batch, as JAX's broadcast does."""
         return self.h0.expand(self.n_layers, batch, self.hidden)
 
     def single_step(self, window, h):

@@ -1,11 +1,12 @@
 """Build and bind the hand-written CUDA kernels of ``ops/csrc``.
 
-The sources are compiled with ``nvcc`` into a shared library with a plain C
-interface, loaded with ``ctypes``, at first use. The library lands in
+Each source is compiled with ``nvcc`` into a shared library of its own
+with a plain C interface, loaded with ``ctypes``, at first use; the
+compilers of all sources run at the same time. A library lands in
 ``cross_patient_speech_decoding_tpu_torch/_build/`` under a name keyed by
-the hash of the source and the flags, so a changed source is rebuilt and
-an unchanged one is reused. Nothing here runs at import: the CPU tests
-import every module on machines without ``nvcc``.
+the hash of its source, the shared headers and the flags, so a changed
+source is rebuilt and an unchanged one is reused. Nothing here runs at
+import: the CPU tests import every module on machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -19,10 +20,11 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("gru_fwd.cu",)
+HEADERS = ("gru_tile.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -31,20 +33,36 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
-# every exported function returns a cudaError_t as int (0 = success)
-SIGNATURES = {
-    # x, sx_t, sx_b, h0, wi, bi, wh, bh, hs, T, B, F, H, reverse, stream
-    "gru_fwd_f32": (_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                    _I, _P),
-    "gru_fwd_bf16": (_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                     _I, _P),
-    # x, sx_b, C, win, stride, h0, wi, bi, wh, bh, hs, n_win, B, H, stream
-    "gru_wfwd_bf16": (_P, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
-                      _I, _P),
+# x, sx_t, sx_b, hprev, dhs, wi, bi, wh, bh, g, dhz, dh0, dx, part,
+# n_split_i, n_split_h, dwi, dwh, T, B, F, H, reverse, stream
+_BWD = (_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+        _P, _P, _I, _I, _I, _I, _I, _P)
+# source -> {exported function: argtypes}; every exported function returns
+# a cudaError_t as int (0 = success)
+SOURCES = {
+    "gru_fwd.cu": {
+        # x, sx_t, sx_b, h0, wi, bi, wh, bh, hs, T, B, F, H, reverse, stream
+        "gru_fwd_f32": (_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _I, _I, _P),
+        "gru_fwd_bf16": (_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _P),
+        # x, sx_b, C, win, stride, h0, wi, bi, wh, bh, hs, n_win, B, H,
+        # stream
+        "gru_wfwd_bf16": (_P, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
+                          _I, _I, _P),
+    },
+    "gru_bwd.cu": {
+        "gru_bwd_f32": _BWD,
+        "gru_bwd_bf16": _BWD,
+        # x, sx_b, C, win, stride, hprev, dhs, wi, bi, wh, bh, g, dhz, dh0,
+        # part, n_split_i, n_split_h, dwi, dwh, n_win, B, H, stream
+        "gru_wbwd_bf16": (_P, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                          _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P),
+    },
 }
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_lib: SimpleNamespace | None = None
 
 
 def _nvcc() -> str:
@@ -62,56 +80,76 @@ def _nvcc() -> str:
     )
 
 
-def library_path() -> Path:
+def library_path(source: str) -> Path:
+    """Where the library of ``source`` (a key of ``SOURCES``) is built."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in (source, *HEADERS):
         h.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"libcpsd_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
 def build(verbose: bool = False) -> float:
-    """Compile the kernels if the library for this source is missing.
+    """Compile the sources whose library is missing, one ``nvcc`` each,
+    all started together.
 
-    Returns the seconds spent compiling (0.0 when reused). Raises
-    ``RuntimeError`` with the compiler's output when nvcc fails.
+    Returns the seconds spent compiling (0.0 when all are reused). Raises
+    ``RuntimeError`` with the compiler's output when an nvcc fails.
     """
-    out = library_path()
-    if out.exists():
+    todo = [s for s in SOURCES if not library_path(s).exists()]
+    if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
     t0 = time.perf_counter()
+    jobs = []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        if verbose:
-            print(proc.stdout + proc.stderr, flush=True)
-        os.replace(tmp, out)  # atomic: a reader never sees a partial file
+        for source in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [_nvcc(), *NVCC_FLAGS,
+                   *(["-Xptxas", "-v"] if verbose else []),
+                   "-o", tmp, str(CSRC / source)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs.append((source, tmp, cmd, proc))
+        failed = []
+        for source, tmp, cmd, proc in jobs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): "
+                              f"{' '.join(cmd)}\n{out}")
+                continue
+            if verbose:
+                print(f"[{source}]\n{out}", flush=True)
+            # atomic: a reader never sees a partial file
+            os.replace(tmp, library_path(source))
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        for _, tmp, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
     return time.perf_counter() - t0
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+def lib() -> SimpleNamespace:
+    """The exported functions of every kernel library, built on first use,
+    as attributes (``lib().gru_fwd_f32``)."""
     global _lib
     with _lock:
         if _lib is None:
             build()
-            cdll = ctypes.CDLL(str(library_path()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(cdll, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            _lib = cdll
+            fns = {}
+            for source, signatures in SOURCES.items():
+                cdll = ctypes.CDLL(str(library_path(source)))
+                for name, argtypes in signatures.items():
+                    fn = getattr(cdll, name)
+                    fn.argtypes = list(argtypes)
+                    fn.restype = ctypes.c_int
+                    fns[name] = fn
+            _lib = SimpleNamespace(**fns)
         return _lib
 
 

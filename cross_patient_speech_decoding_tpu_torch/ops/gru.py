@@ -1,25 +1,27 @@
-"""GRU layer forward: hand-written CUDA kernels and their plain versions.
+"""GRU layers: hand-written CUDA kernels, their plain versions, autograd.
 
-Port of the forward half of ``cross_patient_speech_decoding_tpu/ops/
-pallas_gru.py``. Gate math follows the torch convention, gate order
-(r, z, n), with separate input and recurrent biases:
+Port of ``cross_patient_speech_decoding_tpu/ops/pallas_gru.py`` (the
+unidirectional forward and backward). Gate math follows the torch
+convention, gate order (r, z, n), with separate input and recurrent
+biases:
 
     r = sigmoid(x W_r + b_ir + h W_hr + b_hr)
     z = sigmoid(x W_z + b_iz + h W_hz + b_hz)
     n = tanh(x W_n + b_in + r * (h W_hn + b_hn))
     h' = (1 - z) * n + z * h
 
-``gru_layer`` and ``gru_layer_windowed`` pick their implementation from
-the device of ``x`` and nothing else: on a CUDA tensor they launch the
-kernels of ``csrc/gru_fwd.cu`` (and raise if that fails), on a CPU tensor
-they run ``gru_layer_plain`` / ``gru_layer_windowed_plain``. The TPU's
-tiling constants (128-lane hidden padding, 256-row batch padding, the
-``worthwhile`` size thresholds) have no counterpart here: any B and H go.
+``gru_layer`` and ``gru_layer_windowed`` are differentiable and pick
+their implementation from the device of ``x`` and nothing else: on a CUDA
+tensor the forward and the backward launch the kernels of
+``csrc/gru_fwd.cu`` and ``csrc/gru_bwd.cu`` (and raise if that fails), on
+a CPU tensor they run the plain versions. The TPU's tiling constants
+(128-lane hidden padding, 256-row batch padding, the ``worthwhile`` size
+thresholds) have no counterpart here: any B and H go.
 
-The kernels compute the forward only. Each op returns ``hs`` and takes
-``(x, h0, wi, bi, wh, bh)`` as they are, which is all a recomputing
-backward needs (h_{t-1} is h0 or a row of hs), so an autograd Function can
-wrap them unchanged.
+The backward mirrors the JAX custom VJPs (``_gru_bwd_rule``,
+``_gru_win_bwd_rule``): the forward keeps ``(x, h0, weights, hs)``, and the
+backward recomputes the gates from x_t and h_{t-1} (h0 or a row of hs).
+The windowed op gives no gradient to its frames, which are data.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 
 # Launch counts of the kernel wrappers: one per layer call that launched
 # the kernel (each call is one grid launch per time step or window).
-LAUNCHES = {"gru_fwd": 0, "gru_wfwd": 0}
+LAUNCHES = {"gru_fwd": 0, "gru_wfwd": 0, "gru_bwd": 0, "gru_wbwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -92,6 +94,66 @@ def gru_layer_windowed_plain(x, h0, wi, bi, wh, bh, win: int, stride: int):
     return gru_layer_plain(xw.transpose(0, 1), h0, wi, bi, wh, bh)
 
 
+def gru_backward_plain(x, hprev, dhs, wi, bi, wh, bh, reverse: bool = False,
+                       need_dx: bool = True):
+    """Backward of :func:`gru_layer_plain`, step by step in float32 with the
+    gates recomputed (the math of ``_bwd_kernel``, pallas_gru.py:602-633).
+
+    Args:
+        x: (T, B, F) the forward's input; hprev: (T, B, H) the state each
+            forward step read (h0 at the first step of the forward's sweep);
+            dhs: (T, B, H) the gradient of hs.
+
+    Returns:
+        (dx (T, B, F) float32 or None when not ``need_dx``, dh0 (B, H),
+        dwi (F, 3H), dwh (H, 3H), dbi (3H,), dbh (3H,)).
+    """
+    T, B, F = x.shape
+    H = wh.shape[0]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dh = torch.zeros((B, H), **f32)
+    dwi = torch.zeros((F, 3 * H), **f32)
+    dwh = torch.zeros((H, 3 * H), **f32)
+    dbi = torch.zeros(3 * H, **f32)
+    dbh = torch.zeros(3 * H, **f32)
+    dx = torch.empty((T, B, F), **f32) if need_dx else None
+    for s in range(T):
+        t = s if reverse else T - 1 - s  # the forward's sweep, backward
+        xt = x[t].float()
+        hp = hprev[t]
+        gi = xt @ wi + bi
+        gh = hp @ wh + bh
+        ghn = gh[:, 2 * H:]
+        r = torch.sigmoid(gi[:, :H] + gh[:, :H])
+        z = torch.sigmoid(gi[:, H:2 * H] + gh[:, H:2 * H])
+        n = torch.tanh(gi[:, 2 * H:] + r * ghn)
+        d = dh + dhs[t]
+        dz = d * (hp - n) * z * (1.0 - z)
+        dn = d * (1.0 - z) * (1.0 - n * n)
+        dr = dn * ghn * r * (1.0 - r)
+        dgi = torch.cat([dr, dz, dn], dim=1)  # d(x Wi + bi)
+        dgh = torch.cat([dr, dz, dn * r], dim=1)  # d(h Wh + bh)
+        if need_dx:
+            dx[t] = dgi @ wi.t()
+        dh = d * z + dgh @ wh.t()
+        dwi += xt.t() @ dgi
+        dwh += hp.t() @ dgh
+        dbi += dgi.sum(0)
+        dbh += dgh.sum(0)
+    return dx, dh, dwi, dwh, dbi, dbh
+
+
+def gru_win_backward_plain(x, hprev, dhs, wi, bi, wh, bh, win: int,
+                           stride: int):
+    """Backward of :func:`gru_layer_windowed_plain` (the math of
+    ``_wbwd_kernel``): materialises the windows of the (T, B, C) frames,
+    then runs :func:`gru_backward_plain` without dx. Returns the same tuple,
+    with None for the frames' gradient."""
+    xw = reformat_time_windows(x.transpose(0, 1), win, stride)
+    return gru_backward_plain(xw.transpose(0, 1), hprev, dhs, wi, bi, wh, bh,
+                              need_dx=False)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -120,12 +182,21 @@ def _check_args(x, h0, wi, bi, wh, bh, F: int):
         if tuple(params[name].shape) != shape:
             raise ValueError(f"{name} has shape {tuple(params[name].shape)}"
                              f", expected {shape}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, *params.values())):
-        raise NotImplementedError(
-            "the CUDA GRU kernels compute the forward only; run under "
-            "torch.no_grad() (the backward kernels are not ported yet)"
-        )
+
+
+def _check_streams(x, n_steps: int, H: int, **streams):
+    """The (n_steps, B, H) float32 contiguous streams of the backward."""
+    want = (n_steps, x.shape[1], H)
+    for name, t in streams.items():
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{want}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 def _stream() -> int:
@@ -154,6 +225,20 @@ def gru_fwd_cuda(x, h0, wi, bi, wh, bh, reverse: bool = False):
     return hs
 
 
+def _batch_major(x):
+    """(T, B, C) frames as a view of batch-major (B, T, C) memory: the
+    windowed kernels read a window as one run of a batch row's frames.
+    Other layouts are copied."""
+    if x.stride(0) != x.shape[2] or x.stride(2) != 1:
+        x = x.transpose(0, 1).contiguous().transpose(0, 1)
+    return x
+
+
+def _check_frames(x, name: str):
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name} reads bfloat16 frames, got {x.dtype}")
+
+
 def gru_wfwd_cuda(x, h0, wi, bi, wh, bh, win: int, stride: int):
     """Launch the ``gru_wfwd`` kernel (port of ``_wfwd_kernel``)."""
     from cross_patient_speech_decoding_tpu_torch.ops import _ext
@@ -162,11 +247,8 @@ def gru_wfwd_cuda(x, h0, wi, bi, wh, bh, win: int, stride: int):
     H = wh.shape[0]
     n_win = n_windows(T, win, stride)
     _check_args(x, h0, wi, bi, wh, bh, win * C)
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"gru_wfwd reads bfloat16 frames, got {x.dtype}")
-    if x.stride(0) != C:
-        # the kernel reads a window as one run of a batch row's frames
-        x = x.transpose(0, 1).contiguous().transpose(0, 1)
+    _check_frames(x, "gru_wfwd")
+    x = _batch_major(x)
     hs = torch.empty((n_win, B, H), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = _ext.lib().gru_wfwd_bf16(
@@ -177,6 +259,170 @@ def gru_wfwd_cuda(x, h0, wi, bi, wh, bh, win: int, stride: int):
     _ext.check(err, "gru_wfwd_bf16")
     LAUNCHES["gru_wfwd"] += 1
     return hs
+
+
+# Split of the (t, b) rows of a weight-gradient sum into fixed partials:
+# enough CTAs for several waves on 132 SMs, at most 64 partials. The tile
+# sizes mirror gru_bwd.cu's (64-wide output tiles, 16-row reduction
+# tiles); they set the CTA count only, the result holds for any split.
+_DW_TILE = 64
+_DW_CTAS = 2048
+_DW_MAX_SPLIT = 64
+
+
+def _n_split(M: int, H: int, n_steps: int, B: int) -> int:
+    """Partials of the [dW; db] (M + 1, 3H) sum over n_steps * B rows (in
+    tiles of 16): depends on the shapes only, so a run repeats its sums."""
+    tiles = -(-(M + 1) // _DW_TILE) * -(-3 * H // _DW_TILE)
+    n_q = n_steps * -(-B // 16)
+    want = -(-_DW_CTAS // tiles)
+    split = max(1, min(want, _DW_MAX_SPLIT, n_q))
+    q_per = -(-n_q // split)
+    return -(-n_q // q_per)  # no empty partial
+
+
+def _bwd_buffers(x, n_steps: int, B: int, F: int, H: int):
+    """Outputs and scratch of a backward launch (see run_backward,
+    gru_bwd.cu): the gate-gradient stream g (n_steps, B, 4H) is the large
+    one (2.4 GB at fig_5 width) and is freed when the caller drops it."""
+    f32 = dict(dtype=torch.float32, device=x.device)
+    split_i = _n_split(F, H, n_steps, B)
+    split_h = _n_split(H, H, n_steps, B)
+    part = max(split_i * (F + 1), split_h * (H + 1)) * 3 * H
+    return dict(
+        g=torch.empty((n_steps, B, 4 * H), **f32),
+        dhz=torch.empty((B, H), **f32),
+        dh0=torch.zeros((B, H), **f32),
+        part=torch.empty(part, **f32),
+        dwi=torch.empty((F + 1, 3 * H), **f32),
+        dwh=torch.empty((H + 1, 3 * H), **f32),
+        split_i=split_i, split_h=split_h,
+    )
+
+
+def _grads(buf, F: int, H: int):
+    """(dh0, dwi, dwh, dbi, dbh): the bias gradient is the last row of each
+    weight gradient."""
+    dwi, dwh = buf["dwi"], buf["dwh"]
+    return buf["dh0"], dwi[:F], dwh[:H], dwi[F], dwh[H]
+
+
+def gru_bwd_cuda(x, hprev, dhs, wi, bi, wh, bh, reverse: bool = False,
+                 need_dx: bool = True):
+    """Launch the ``gru_bwd`` kernels (port of ``_bwd_kernel``). Arguments
+    and result as :func:`gru_backward_plain`."""
+    from cross_patient_speech_decoding_tpu_torch.ops import _ext
+
+    T, B, F = x.shape
+    H = wh.shape[0]
+    if T == 0:
+        raise ValueError("gru_bwd needs at least one time step")
+    _check_args(x, hprev[0], wi, bi, wh, bh, F)
+    _check_streams(x, T, H, hprev=hprev, dhs=dhs)
+    dx = (torch.empty((T, B, F), dtype=torch.float32, device=x.device)
+          if need_dx else None)
+    buf = _bwd_buffers(x, T, B, F, H)
+    name = "gru_bwd_bf16" if x.dtype == torch.bfloat16 else "gru_bwd_f32"
+    with torch.cuda.device(x.device):
+        err = getattr(_ext.lib(), name)(
+            x.data_ptr(), x.stride(0), x.stride(1), hprev.data_ptr(),
+            dhs.data_ptr(), wi.data_ptr(), bi.data_ptr(), wh.data_ptr(),
+            bh.data_ptr(), buf["g"].data_ptr(), buf["dhz"].data_ptr(),
+            buf["dh0"].data_ptr(), None if dx is None else dx.data_ptr(),
+            buf["part"].data_ptr(), buf["split_i"], buf["split_h"],
+            buf["dwi"].data_ptr(), buf["dwh"].data_ptr(), T, B, F, H,
+            int(reverse), _stream(),
+        )
+    _ext.check(err, name)
+    LAUNCHES["gru_bwd"] += 1
+    return (dx, *_grads(buf, F, H))
+
+
+def gru_wbwd_cuda(x, hprev, dhs, wi, bi, wh, bh, win: int, stride: int):
+    """Launch the ``gru_wbwd`` kernels (port of ``_wbwd_kernel``) over bf16
+    frames. Arguments and result as :func:`gru_win_backward_plain`."""
+    from cross_patient_speech_decoding_tpu_torch.ops import _ext
+
+    T, B, C = x.shape
+    H = wh.shape[0]
+    F = win * C
+    n_win = n_windows(T, win, stride)
+    _check_args(x, hprev[0], wi, bi, wh, bh, F)
+    _check_streams(x, n_win, H, hprev=hprev, dhs=dhs)
+    _check_frames(x, "gru_wbwd")
+    x = _batch_major(x)
+    buf = _bwd_buffers(x, n_win, B, F, H)
+    with torch.cuda.device(x.device):
+        err = _ext.lib().gru_wbwd_bf16(
+            x.data_ptr(), x.stride(1), C, win, stride, hprev.data_ptr(),
+            dhs.data_ptr(), wi.data_ptr(), bi.data_ptr(), wh.data_ptr(),
+            bh.data_ptr(), buf["g"].data_ptr(), buf["dhz"].data_ptr(),
+            buf["dh0"].data_ptr(), buf["part"].data_ptr(), buf["split_i"],
+            buf["split_h"], buf["dwi"].data_ptr(), buf["dwh"].data_ptr(),
+            n_win, B, H, _stream(),
+        )
+    _ext.check(err, "gru_wbwd_bf16")
+    LAUNCHES["gru_wbwd"] += 1
+    return (None, *_grads(buf, F, H))
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+
+class GRULayerFn(torch.autograd.Function):
+    """``hs = gru_layer(x, h0, wi, bi, wh, bh, reverse)`` with its backward
+    (``_gru_core``, pallas_gru.py:766-800). ``plain`` picks the plain
+    versions over the kernels; :func:`gru_layer` sets it from the device."""
+
+    @staticmethod
+    def forward(ctx, x, h0, wi, bi, wh, bh, reverse: bool, plain: bool):
+        fwd = gru_layer_plain if plain else gru_fwd_cuda
+        hs = fwd(x, h0, wi, bi, wh, bh, reverse)
+        ctx.save_for_backward(x, h0, wi, bi, wh, bh, hs)
+        ctx.reverse, ctx.plain = reverse, plain
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        x, h0, wi, bi, wh, bh, hs = ctx.saved_tensors
+        # h_{t-1} of each step in the forward's sweep (pallas_gru.py:782-785)
+        if ctx.reverse:
+            hprev = torch.cat([hs[1:], h0[None]])
+        else:
+            hprev = torch.cat([h0[None], hs[:-1]])
+        bwd = gru_backward_plain if ctx.plain else gru_bwd_cuda
+        dx, dh0, dwi, dwh, dbi, dbh = bwd(
+            x, hprev, dhs.contiguous(), wi, bi, wh, bh, ctx.reverse,
+            need_dx=ctx.needs_input_grad[0])
+        if dx is not None:
+            dx = dx.to(x.dtype)  # the kernel emits float32 (:796)
+        return dx, dh0, dwi, dbi, dwh, dbh, None, None
+
+
+class GRUWindowedFn(torch.autograd.Function):
+    """``hs = gru_layer_windowed(x, h0, wi, bi, wh, bh, win, stride)`` with
+    its backward (``_gru_win_core``, pallas_gru.py:493-518): no gradient
+    for the frames. ``plain`` as in :class:`GRULayerFn`."""
+
+    @staticmethod
+    def forward(ctx, x, h0, wi, bi, wh, bh, win: int, stride: int,
+                plain: bool):
+        fwd = gru_layer_windowed_plain if plain else gru_wfwd_cuda
+        hs = fwd(x, h0, wi, bi, wh, bh, win, stride)
+        ctx.save_for_backward(x, h0, wi, bi, wh, bh, hs)
+        ctx.win, ctx.stride, ctx.plain = win, stride, plain
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        x, h0, wi, bi, wh, bh, hs = ctx.saved_tensors
+        hprev = torch.cat([h0[None], hs[:-1]])  # pallas_gru.py:509
+        bwd = gru_win_backward_plain if ctx.plain else gru_wbwd_cuda
+        _, dh0, dwi, dwh, dbi, dbh = bwd(x, hprev, dhs.contiguous(), wi, bi,
+                                         wh, bh, ctx.win, ctx.stride)
+        return None, dh0, dwi, dbi, dwh, dbh, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +437,7 @@ def _route(x) -> str:
 
 
 def gru_layer(x, h0, wi, bi, wh, bh, reverse: bool = False):
-    """GRU layer over time-major inputs.
+    """GRU layer over time-major inputs, differentiable in every argument.
 
     Args:
         x: (T, B, F) float32 or bfloat16, last axis contiguous.
@@ -201,10 +447,11 @@ def gru_layer(x, h0, wi, bi, wh, bh, reverse: bool = False):
 
     Returns:
         hs: (T, B, H) float32 (h_last at T-1, or at 0 when ``reverse``).
+        The gradient of x is formed only when x requires it, and has x's
+        dtype.
     """
-    if _route(x) == "cuda":
-        return gru_fwd_cuda(x, h0, wi, bi, wh, bh, reverse)
-    return gru_layer_plain(x, h0, wi, bi, wh, bh, reverse)
+    plain = _route(x) == "cpu"
+    return GRULayerFn.apply(x, h0, wi, bi, wh, bh, reverse, plain)
 
 
 def gru_layer_windowed(x, h0, wi, bi, wh, bh, win: int, stride: int):
@@ -215,15 +462,18 @@ def gru_layer_windowed(x, h0, wi, bi, wh, bh, win: int, stride: int):
             frames [w*stride, w*stride + win), flattened time-major then
             channel. On a CUDA tensor the frames must be bfloat16 and are
             read batch-major: a (T, B, C) view of a (B, T, C) tensor goes
-            in as it is, other layouts are copied to it first. On the CPU,
-            float32 or bfloat16.
+            in as it is, other layouts are copied to it first (and the
+            copy is what the backward reads). On the CPU, float32 or
+            bfloat16.
         wi: (win*C, 3H); the other arguments as in :func:`gru_layer`.
 
     Returns:
         hs: (n_win, B, H) float32, n_win = (T - win)//stride + 1. Frames
-        after the last window are never read.
+        after the last window are never read. The frames get no gradient
+        (they are data); h0 and the weights do.
     """
     n_windows(x.shape[0], win, stride)
-    if _route(x) == "cuda":
-        return gru_wfwd_cuda(x, h0, wi, bi, wh, bh, win, stride)
-    return gru_layer_windowed_plain(x, h0, wi, bi, wh, bh, win, stride)
+    plain = _route(x) == "cpu"
+    if not plain:
+        x = _batch_major(x)  # what the kernels read, kept for the backward
+    return GRUWindowedFn.apply(x, h0, wi, bi, wh, bh, win, stride, plain)

@@ -1,9 +1,10 @@
-"""Evaluation step of the CTC model.
+"""Train and eval steps of the CTC model.
 
-Port of ``make_ctc_eval_step`` (``cross_patient_speech_decoding_tpu/
-train/steps.py:172-185``): forward, CTC loss on window-adjusted lengths,
-greedy decoding under the valid-window mask, and PER. The training step
-waits for the GRU backward kernels.
+Port of ``make_ctc_train_step`` and ``make_ctc_eval_step``
+(``cross_patient_speech_decoding_tpu/train/steps.py:150-185``): forward,
+CTC loss on window-adjusted lengths; in training, dropout on, the loss's
+gradient through the GRU backward kernels and one AdamW update; in
+evaluation, greedy decoding under the valid-window mask, and PER.
 """
 
 from __future__ import annotations
@@ -18,6 +19,42 @@ from cross_patient_speech_decoding_tpu_torch.ops.ctc import (
     greedy_decode,
 )
 from cross_patient_speech_decoding_tpu_torch.ops.metrics import per_batch
+from cross_patient_speech_decoding_tpu_torch.train.loops import (
+    clip_by_global_norm_,
+)
+
+
+def make_ctc_train_step(model, tx):
+    """Build ``step(state, batch, generator) -> (state, {"loss"})``.
+
+    ``model`` gives the window geometry and the blank id; the step trains
+    ``state.model`` (a :class:`~cross_patient_speech_decoding_tpu_torch.
+    train.state.TrainState` made with the optimizer ``tx`` of
+    ``make_optimizer``) in place and returns the state with its step
+    count advanced. ``batch`` is (x (B, T, C), labels (B, L), input_lens
+    (B,), label_lens (B,)), moved to the model's device; ``generator``
+    draws the dropout masks (the JAX step's ``key``). The loss is the
+    0-d tensor of the forward, before the update.
+    """
+    win, stride, blank = model.win_size, model.stride, model.blank
+
+    def step(state, batch, generator: torch.Generator | None = None):
+        m = state.model
+        x, labels, input_lens, label_lens = (t.to(m.device) for t in batch)
+        in_adj = adjusted_input_lengths(input_lens, win, stride)
+        m.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        logits = m(x, generator=generator)
+        loss = ctc_loss_mean(logits, in_adj, labels, label_lens, blank)
+        loss.backward()
+        if tx.clip is not None:
+            clip_by_global_norm_([p.grad for p in m.parameters()], tx.clip)
+        state.optimizer.step()
+        state.schedule.step()
+        state.step += 1
+        return state, {"loss": loss.detach()}
+
+    return step
 
 
 def make_ctc_eval_step(model):

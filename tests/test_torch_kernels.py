@@ -8,7 +8,8 @@ PyTorch:
 
 (``--noconftest`` skips ``tests/conftest.py``, which configures JAX.)
 Kernel and plain version both accumulate in float32, in another order:
-atol 1e-4 on hs.
+atol 1e-4 on hs; on gradients, max |diff| <= 1e-5 x max |plain| per
+tensor (sums over batch and time).
 """
 
 import numpy as np
@@ -19,6 +20,7 @@ from cross_patient_speech_decoding_tpu_torch.models import RealtimeRNN
 from cross_patient_speech_decoding_tpu_torch.ops import gru
 
 ATOL = 1e-4
+GRAD_RTOL = 1e-5
 
 pytestmark = pytest.mark.gpu
 
@@ -96,6 +98,65 @@ def test_wrappers_raise_on_cuda_instead_of_falling_back(card):
             gru.gru_layer_windowed(frames, *args[1:], 2, 1)
 
 
+def _assert_grads_close(got, want):
+    assert (got[0] is None) == (want[0] is None)
+    for g, w in zip(got, want):
+        if w is not None:
+            tol = GRAD_RTOL * float(w.abs().max())
+            torch.testing.assert_close(g, w, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("need_dx", [True, False])
+@pytest.mark.parametrize("T,B,F,H", [(6, 16, 10, 32), (5, 10, 9, 50),
+                                     (3, 130, 70, 97)])
+def test_gru_bwd_kernel_matches_plain(card, dtype, reverse, need_dx, T, B,
+                                      F, H):
+    x, _, *w = _args(card, 4, T, B, F, H)
+    x = x.to(dtype)
+    hprev = torch.randn((T, B, H), device=card) * 0.3
+    dhs = torch.randn((T, B, H), device=card)
+    gru.reset_launch_counts()
+    got = gru.gru_bwd_cuda(x, hprev, dhs, *w, reverse, need_dx)
+    want = gru.gru_backward_plain(x, hprev, dhs, *w, reverse, need_dx)
+    assert gru.LAUNCHES["gru_bwd"] == 1
+    _assert_grads_close(got, want)
+    # fixed partials summed in a fixed order: the same gradients again
+    again = gru.gru_bwd_cuda(x, hprev, dhs, *w, reverse, need_dx)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.parametrize("batch_major", [True, False])
+@pytest.mark.parametrize("win,stride,T", [(6, 2, 26), (6, 2, 27), (4, 4, 16),
+                                          (7, 3, 23)])
+def test_gru_wbwd_kernel_matches_plain(card, win, stride, T, batch_major):
+    B, C, H = 10, 5, 50
+    n_win = (T - win) // stride + 1
+    _, _, *w = _args(card, 5, T, B, win * C, H)
+    x = torch.randn((B, T, C), device=card).to(torch.bfloat16).transpose(0, 1)
+    if not batch_major:
+        x = x.contiguous()
+    hprev = torch.randn((n_win, B, H), device=card) * 0.3
+    dhs = torch.randn((n_win, B, H), device=card)
+    gru.reset_launch_counts()
+    got = gru.gru_wbwd_cuda(x, hprev, dhs, *w, win, stride)
+    want = gru.gru_win_backward_plain(x, hprev, dhs, *w, win, stride)
+    assert gru.LAUNCHES["gru_wbwd"] == 1 and got[0] is None
+    _assert_grads_close(got, want)
+
+
+def test_backward_wrappers_raise_on_cuda(card):
+    x, _, *w = _args(card, 6, 4, 8, 6, 16)
+    hprev = torch.zeros((4, 8, 16), device=card)
+    with pytest.raises(ValueError, match="dhs has shape"):
+        gru.gru_bwd_cuda(x, hprev, hprev[:3], *w)
+    with pytest.raises(TypeError, match="bfloat16 frames"):
+        gru.gru_wbwd_cuda(torch.randn((5, 8, 3), device=card), hprev[:2],
+                          hprev[:2], torch.zeros((6, 48), device=card),
+                          *w[1:], 2, 2)
+
+
 def test_realtime_rnn_on_card_matches_cpu(card):
     model = RealtimeRNN(5, 32, 3, 7, win_size=6, stride=2, seed=0,
                         device="cpu").eval()
@@ -105,5 +166,37 @@ def test_realtime_rnn_on_card_matches_cpu(card):
         model.to(card)
         gru.reset_launch_counts()
         got = model(x.to(card)).cpu()
-    assert gru.LAUNCHES == {"gru_fwd": 2, "gru_wfwd": 1}
+    assert gru.LAUNCHES == {"gru_fwd": 2, "gru_wfwd": 1, "gru_bwd": 0,
+                            "gru_wbwd": 0}
     torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+
+
+def test_realtime_rnn_gradients_on_card_match_cpu(card):
+    """The loss's gradient through the four kernels against the same model
+    on the CPU (plain versions), one train-mode backward at dropout 0."""
+    from cross_patient_speech_decoding_tpu_torch.ops.ctc import ctc_loss_mean
+
+    model = RealtimeRNN(5, 32, 3, 7, dropout=0.0, win_size=6, stride=2,
+                        seed=0, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((12, 40, 5), generator=g)
+    labels = torch.randint(1, 7, (12, 4), generator=g)
+    il = torch.full((12,), 18)
+    ll = torch.full((12,), 4)
+
+    def grads():
+        dev = model.h0.device
+        loss = ctc_loss_mean(model(x.to(dev)), il.to(dev), labels.to(dev),
+                             ll.to(dev))
+        return [p.cpu() for p in torch.autograd.grad(
+            loss, list(model.parameters()))]
+
+    want = grads()
+    model.to(card)
+    gru.reset_launch_counts()
+    got = grads()
+    assert gru.LAUNCHES == {"gru_fwd": 2, "gru_wfwd": 1, "gru_bwd": 2,
+                            "gru_wbwd": 1}
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()),
+                                   rtol=0)

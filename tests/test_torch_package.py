@@ -96,23 +96,32 @@ def test_kernel_wrappers_check_their_arguments():
         gru._check_args(x.transpose(1, 2), *args, F)
     with pytest.raises(ValueError, match="wh must be contiguous"):
         gru._check_args(x, *args[:3], torch.zeros(3 * H, H).t(), args[4], F)
+    # parameters that train pass: the kernels have their backward
     wi = args[1].clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="forward only"):
-        gru._check_args(x, args[0], wi, *args[2:], F)
-    with torch.no_grad():
-        gru._check_args(x, args[0], wi, *args[2:], F)
+    gru._check_args(x, args[0], wi, *args[2:], F)
+    hprev = torch.zeros(T, B, H)
+    with pytest.raises(ValueError, match="dhs has shape"):
+        gru._check_streams(x, T, H, hprev=hprev, dhs=hprev[:2])
+    with pytest.raises(ValueError, match="hprev must be contiguous"):
+        gru._check_streams(x, T, H, hprev=torch.zeros(B, T, H).transpose(0, 1))
+    with pytest.raises(TypeError, match="dhs must be float32"):
+        gru._check_streams(x, T, H, hprev=hprev, dhs=hprev.double())
 
 
 def test_c_interface_matches_the_source():
-    """Every ctypes signature names an extern "C" function of the source
-    with the same number of parameters, and the build flags target
-    sm_90a."""
-    src = (_ext.CSRC / "gru_fwd.cu").read_text()
-    c_part = src[src.index('extern "C" {'):]
-    found = {
-        m.group(1): len(m.group(2).split(","))
-        for m in re.finditer(r"^int (\w+)\(([^)]*)\)", c_part, re.M)
-    }
-    assert found == {k: len(v) for k, v in _ext.SIGNATURES.items()}
+    """Every ctypes signature names an extern "C" function of its source
+    with the same number of parameters, each source builds into a library
+    of its own, and the build flags target sm_90a."""
+    assert set(_ext.SOURCES) == {"gru_fwd.cu", "gru_bwd.cu"}
+    for source, signatures in _ext.SOURCES.items():
+        src = (_ext.CSRC / source).read_text()
+        c_part = src[src.index('extern "C" {'):]
+        found = {
+            m.group(1): len(m.group(2).split(","))
+            for m in re.finditer(r"^int (\w+)\(([^)]*)\)", c_part, re.M)
+        }
+        assert found == {k: len(v) for k, v in signatures.items()}, source
+        assert _ext.library_path(source).parent == _ext.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in _ext.NVCC_FLAGS
-    assert _ext.library_path().parent == _ext.BUILD_DIR
+    paths = {_ext.library_path(s) for s in _ext.SOURCES}
+    assert len(paths) == len(_ext.SOURCES)
