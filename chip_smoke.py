@@ -29,11 +29,26 @@ line is never printed:
    online logits checked against the offline forward, the offline forward
    against the plain versions, and one streaming window through
    ``gru_fwd`` against its plain version at B=1, T=1, layer by layer;
-6. kernels: each kernel against its plain version at the fig_5 shapes and
+6. alignment (slice 3's main path): the natively batched
+   ``fit_cca_aligner`` at the JAX package's bench geometry
+   (bench.py:section_alignment: 128 pairs of 150 trials x 200 bins x 40
+   latents, 27 classes, flat layout). For each method, the Jacobi launch
+   count of one fit (zeroed just before, read just after) must be chol 1,
+   gram 2, svd 0; the kernel route is held against the same fit through
+   the plain Jacobi on the card, the first 4 pairs above the Gram floor
+   (see GRAM_FLOOR) against a float64 copy of the bench's numpy oracle,
+   and one chol fit with TF32 switched on by the caller against both; fit
+   times (median of 5), fits/s, plain-route fit times and one profiled
+   chol fit; then ``fit_mcca_aligner`` and ``joint_pca_fit`` on the card
+   against the CPU;
+7. kernels: each kernel against its plain version at the fig_5 shapes and
    at small odd shapes, with times of the kernel, the plain version and
    ``torch.nn.GRU`` (its backward for the backward kernels), and its
-   bound; ends with the ``{"kernels": [...]}`` line, whose launch counts
-   are the train step's.
+   bound; the Jacobi kernel on the alignment fit's own Gram batches and
+   odd shapes (one sweep elementwise, full solves against float64), timed
+   against its plain version and ``torch.linalg.eigh``; ends with the
+   ``{"kernels": [...]}`` line, whose launch counts are the train step's
+   and, for the Jacobi kernel, the chol fit's.
 
 Then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA card, and in a directory without the port.
@@ -71,6 +86,40 @@ TRAIN_LAUNCHES = {"gru_fwd": 2, "gru_wfwd": 1, "gru_bwd": 2, "gru_wbwd": 1}
 # (tests/test_realtime.py:57)
 STREAM_ATOL = 5e-3
 REPS = 5
+# alignment: the JAX package's bench geometry (bench.py:466-534)
+AL_PAIRS, AL_N, AL_T, AL_K, AL_C, AL_LAT = 128, 150, 200, 40, 27, 8
+AL_LAUNCHES = {"chol": 1, "gram": 2, "svd": 0}
+# kernel route vs plain route of the same fit on the card
+ROUTE_CORR_ATOL = 1e-4
+ROUTE_PROJ_RTOL = 1e-3  # x max |proj|
+# vs the float64 oracle: the JAX package's own bounds
+# (tests/test_cca.py:148-150), the transform's taken relative to its
+# largest value (|X_b proj| reaches ~20 here, O(1) in that test). They
+# are held on pairs whose smallest float64 canonical correlation is at
+# least GRAM_FLOOR = sqrt(K eps_f32): below it s^2 < K eps, the float32
+# eigenvalue of g^T g on the chol/gram route carries no digit of it, and
+# the JAX package drops or mis-resolves such a direction by design
+# (cca.py:234-240, 253). Pairs below the floor are reported, not held.
+# The chol and gram routes whiten through the float32 Gram G = L^T L and
+# lose ~eps cond(G) (cca.py:201-206): their canonical correlations are
+# held to max(5e-4, 2 eps_f32 cond(G)) with cond(G) of the pair in
+# float64 (4e3-8e3 here, so 1e-3-2e-3); svd keeps 5e-4.
+ORACLE_CORR_ATOL = 5e-4
+ORACLE_TRANSFORM_RTOL = 5e-3
+ORACLE_PAIRS = 4
+ORACLE_SCAN = 32
+EPS_F32 = 2.0 ** -23
+GRAM_FLOOR = (AL_K * EPS_F32) ** 0.5
+# MCCA / joint PCA, card vs CPU, relative to the largest value: float32
+# eighs and SVDs of another library; each view's whitener loses
+# ~eps cond(G) and L L^T carries two, so max(1e-3, 4 eps cond(G)) with
+# cond(G) the largest of the views' class-average Grams in float64
+MCCA_RTOL = 1e-3
+# Jacobi kernel vs plain (tests/test_jacobi.py bounds for full solves)
+JAC_SWEEP1_RTOL = 1e-5  # x ||A||_F, after exactly one sweep
+JAC_EIG_RTOL = 2e-4  # x max |w|: eigenvalues and reconstruction
+JAC_ORTH_ATOL = 5e-5
+JAC_HETERO_RTOL = 5e-6
 
 
 def emit(obj) -> None:
@@ -87,7 +136,7 @@ def main() -> int:
     # directory that holds the script alone, even where another copy of
     # the port is importable
     import cross_patient_speech_decoding_tpu_torch as port
-    from cross_patient_speech_decoding_tpu_torch.ops import _ext, gru
+    from cross_patient_speech_decoding_tpu_torch.ops import _ext, gru, jacobi
 
     here = Path(__file__).resolve().parent
     if Path(port.__file__).resolve().parent.parent != here:
@@ -121,7 +170,10 @@ def main() -> int:
     model, batch = phase_ctc_eval(torch, dev, gru)
     train_res = phase_ctc_train(torch, dev, gru, batch)
     phase_streaming(torch, dev, gru, model)
+    del model, batch
+    align = phase_alignment(torch, dev, jacobi)
     kernels = phase_kernels(torch, dev, gru, train_res["launches"])
+    kernels.append(phase_kernel_jacobi(torch, dev, jacobi, align))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -262,17 +314,18 @@ def _kernel_name(name: str) -> str:
     return name.split("(")[0].split("<")[0].split("::")[-1].strip()
 
 
-def profile_step(torch, step, state, batch, gen):
-    """One more train step under ``torch.profiler``: device time summed by
-    kernel name, the device's busy time (one stream, so kernels do not
-    overlap) against the step's host-clock time, and its idle share."""
+def profile_call(torch, fn):
+    """``fn()`` once under ``torch.profiler``: device time summed by kernel
+    name, the device's busy time (one stream, so kernels do not overlap)
+    against the call's host-clock time, and its idle share. Returns
+    (fn's result, that summary)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, _ = step(state, batch, gen)
+        out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel = {}
@@ -286,10 +339,18 @@ def profile_step(torch, step, state, batch, gen):
         by_kernel[key] = by_kernel.get(key, 0.0) + us / 1e3
     busy_ms = sum(by_kernel.values())
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
-    return state, {"step_ms": wall_ms, "device_busy_ms": busy_ms,
-                   "device_idle_share": 1.0 - busy_ms / wall_ms
-                   if busy_ms else None,
-                   "device_ms_by_kernel": top}
+    return out, {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                 "device_idle_share": 1.0 - busy_ms / wall_ms
+                 if busy_ms else None,
+                 "device_ms_by_kernel": top}
+
+
+def profile_step(torch, step, state, batch, gen):
+    """One more train step under ``torch.profiler`` (:func:`profile_call`);
+    the host-clock time is reported as ``step_ms``."""
+    (state, _), prof = profile_call(torch, lambda: step(state, batch, gen))
+    prof["step_ms"] = prof.pop("wall_ms")
+    return state, prof
 
 
 def _rel_errs(got, want) -> dict:
@@ -752,6 +813,426 @@ def _measure_bwd(torch, name, replaces, kernel, plain, library, lib_x, h0,
     if bad:
         raise RuntimeError(f"{name} differs from plain: {bad}")
     return row
+
+
+# ---------------------------------------------------------------------------
+# alignment (slice 3)
+# ---------------------------------------------------------------------------
+
+
+def _oracle_fit(X_a, X_b, y_a, y_b):
+    """A copy of the JAX package's bench.py:_numpy_oracle_fit (float64
+    numpy: class means, QR, SVD, pinv products), which also returns the
+    canonical correlations s[:d] and the larger condition number of the
+    two views' Grams beside the b->a projection."""
+    import numpy as np
+
+    classes = np.unique(y_a)
+    La = np.stack([X_a[y_a == c].mean(0) for c in classes]).reshape(
+        -1, X_a.shape[-1])
+    Lb = np.stack([X_b[y_b == c].mean(0) for c in classes]).reshape(
+        -1, X_b.shape[-1])
+    La = La - La.mean(0)
+    Lb = Lb - Lb.mean(0)
+    d = min(np.linalg.matrix_rank(La.T), np.linalg.matrix_rank(Lb.T))
+    qa, ra = np.linalg.qr(La)
+    qb, rb = np.linalg.qr(Lb)
+    u, s, vt = np.linalg.svd(qa.T @ qb)
+    ma = np.linalg.pinv(ra) @ u[:, :d]
+    mb = np.linalg.pinv(rb) @ vt.T[:, :d]
+    cond = max(np.linalg.cond(La.T @ La), np.linalg.cond(Lb.T @ Lb))
+    return mb @ np.linalg.pinv(ma), s[:d], cond
+
+
+def _alignment_data(torch, dev):
+    """The bench's pairs, built on the card: a shared (C, T, 8) latent
+    from numpy seed 0, per-pair random mixes to K latents, 0.3 noise; flat
+    (pairs, N, T*K) trials of each view, ids (pairs, N)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    latent = rng.normal(size=(AL_C, AL_T, AL_LAT)).astype(np.float32)
+    ids = np.repeat(np.arange(AL_C), AL_N // AL_C + 1)[:AL_N].astype(np.int32)
+    lat = torch.as_tensor(latent[ids], device=dev)  # (N, T, 8)
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def view():
+        mixes = torch.randn((AL_PAIRS, AL_LAT, AL_K), generator=gen,
+                            device=dev)
+        x = torch.einsum("ntl,blk->bntk", lat, mixes)
+        x += 0.3 * torch.randn(x.shape, generator=gen, device=dev)
+        return x.reshape(AL_PAIRS, AL_N, AL_T * AL_K)
+
+    xa, xb = view(), view()
+    ids_t = torch.as_tensor(np.tile(ids, (AL_PAIRS, 1)), device=dev)
+    return xa, xb, ids_t, ids
+
+
+class _PlainJacobi:
+    """Within the block, ``batched_eigh`` sends CUDA batches down the
+    kernel's route to the plain Jacobi (the route hook)."""
+
+    def __init__(self, jacobi):
+        self.jacobi = jacobi
+
+    def __enter__(self):
+        self.route = self.jacobi._route
+        self.jacobi._route = lambda A: "plain"
+
+    def __exit__(self, *exc):
+        self.jacobi._route = self.route
+
+
+class _RecordJacobi:
+    """Within the block, keep a copy of every batch the kernel wrapper
+    gets (launch counts are the wrapper's own)."""
+
+    def __init__(self, jacobi):
+        self.jacobi = jacobi
+        self.batches = []
+
+    def __enter__(self):
+        self.cuda = self.jacobi.jacobi_eigh_cuda
+
+        def record(A, *args, **kw):
+            self.batches.append(A.clone())
+            return self.cuda(A, *args, **kw)
+
+        self.jacobi.jacobi_eigh_cuda = record
+        return self
+
+    def __exit__(self, *exc):
+        self.jacobi.jacobi_eigh_cuda = self.cuda
+
+
+def _route_errs(torch, got, want) -> dict:
+    """Two fits of the same pairs: d equal, max |canon_corrs diff|, and
+    per pair max |proj diff| / max |proj|."""
+    a, b = got.alignment, want.alignment
+    proj = max(float(((getattr(a, n) - getattr(b, n)).abs().amax((-2, -1))
+                      / getattr(b, n).abs().amax((-2, -1))).max())
+               for n in ("proj_b_to_a", "proj_a_to_b"))
+    return {"d_equal": bool(torch.equal(a.d, b.d)),
+            "corr_max_abs_err": float((a.canon_corrs
+                                       - b.canon_corrs).abs().max()),
+            "proj_max_rel_err": proj}
+
+
+def _route_ok(errs) -> bool:
+    return (errs["d_equal"] and errs["corr_max_abs_err"] <= ROUTE_CORR_ATOL
+            and errs["proj_max_rel_err"] <= ROUTE_PROJ_RTOL)
+
+
+def _oracle_errs(fit, oracle, gram_route: bool) -> dict:
+    """Pairs of a fit against the float64 oracle: d, max |canon corr
+    diff| over its bound (see ORACLE_CORR_ATOL), max |X_b proj -
+    X_b proj_oracle| absolute and over max |X_b proj_oracle|."""
+    import numpy as np
+
+    corr = corr_ratio = trans = trans_rel = 0.0
+    d_equal = True
+    al = fit.alignment
+    for i, xb, proj_o, s_o, cond in oracle:
+        d_equal &= int(al.d[i]) == len(s_o)
+        err = float(np.abs(
+            al.canon_corrs[i].double().cpu().numpy()[:len(s_o)] - s_o).max())
+        bound = ORACLE_CORR_ATOL
+        if gram_route:
+            bound = max(bound, 2 * EPS_F32 * cond)
+        corr = max(corr, err)
+        corr_ratio = max(corr_ratio, err / bound)
+        want = xb @ proj_o
+        err = np.abs(xb @ al.proj_b_to_a[i].double().cpu().numpy()
+                     - want).max()
+        trans = max(trans, float(err))
+        trans_rel = max(trans_rel, float(err / np.abs(want).max()))
+    return {"d_equal": d_equal, "corr_max_abs_err": corr,
+            "corr_err_over_bound": corr_ratio,
+            "transform_max_abs_err": trans,
+            "transform_max_rel_err": trans_rel}
+
+
+def _oracle_ok(errs) -> bool:
+    return (errs["d_equal"] and errs["corr_err_over_bound"] <= 1.0
+            and errs["transform_max_rel_err"] <= ORACLE_TRANSFORM_RTOL)
+
+
+def phase_alignment(torch, dev, jacobi):
+    from cross_patient_speech_decoding_tpu_torch.ops import cca
+
+    xa, xb, ids_t, ids = _alignment_data(torch, dev)
+
+    def fit(method):
+        return cca.fit_cca_aligner(xa, xb, ids_t, ids_t, AL_C, method=method,
+                                   t_len=AL_T)
+
+    oracle, below = [], []
+    for i in range(min(ORACLE_SCAN, AL_PAIRS)):
+        a, b = (x[i].reshape(AL_N, AL_T, AL_K).double().cpu().numpy()
+                for x in (xa, xb))
+        proj_o, s_o, cond = _oracle_fit(a, b, ids, ids)
+        if s_o.min() >= GRAM_FLOOR:
+            oracle.append((i, b, proj_o, s_o, cond))
+        elif not below:
+            below.append((i, b, proj_o, s_o, cond))
+        if len(oracle) == ORACLE_PAIRS:
+            break
+    if len(oracle) < ORACLE_PAIRS:
+        raise RuntimeError(f"{len(oracle)} of {ORACLE_SCAN} pairs above the "
+                           f"Gram floor {GRAM_FLOOR}")
+
+    res = {"phase": "alignment", "pairs": AL_PAIRS, "N": AL_N, "T": AL_T,
+           "K": AL_K, "classes": AL_C, "layout": "flat (pairs, N, T*K)",
+           "oracle_pairs": [o[0] for o in oracle],
+           "oracle_min_canon_corr": [float(o[3].min()) for o in oracle],
+           "oracle_gram_cond": [float(o[4]) for o in oracle],
+           "gram_floor": GRAM_FLOOR,
+           "below_floor_pair": [(o[0], float(o[3].min())) for o in below],
+           "methods": {}}
+    bad = []
+    fits = {}
+    for method in ("chol", "gram", "svd"):
+        fit(method)  # warm-up: solver handles, allocator
+        torch.cuda.synchronize()
+        jacobi.reset_launch_counts()
+        out = fit(method)
+        torch.cuda.synchronize()
+        launches = jacobi.LAUNCHES["jacobi_eigh"]
+        fits[method] = out
+        ms = cuda_ms(torch, lambda: fit(method))
+        m = {"launches": launches, "fit_ms": ms,
+             "fits_per_s": AL_PAIRS / (ms / 1e3),
+             "d_min": int(out.alignment.d.min()),
+             "finite": bool(torch.isfinite(out.alignment.proj_b_to_a).all()),
+             "vs_oracle_float64": _oracle_errs(out, oracle, method != "svd"),
+             "below_floor_pair_vs_oracle":
+                 _oracle_errs(out, below, method != "svd") if below else None}
+        if launches != AL_LAUNCHES[method]:
+            bad.append(f"{method}: {launches} launches")
+        if not (m["finite"] and _oracle_ok(m["vs_oracle_float64"])):
+            bad.append(f"{method} vs oracle: {m['vs_oracle_float64']}")
+        if method != "svd":
+            with _PlainJacobi(jacobi):
+                plain = fit(method)
+                m["plain_route_fit_ms"] = cuda_ms(torch, lambda: fit(method))
+            m["vs_plain_route"] = _route_errs(torch, out, plain)
+            if not _route_ok(m["vs_plain_route"]):
+                bad.append(f"{method} vs plain: {m['vs_plain_route']}")
+            del plain
+        res["methods"][method] = m
+
+    # TF32 switched on by the caller: hdot and the solves pin float32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = fit("chol")
+        kept = torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    res["tf32_on"] = {"caller_setting_kept": kept,
+                      "vs_tf32_off": _route_errs(torch, tf32, fits["chol"]),
+                      "vs_oracle_float64": _oracle_errs(tf32, oracle, True)}
+    if not (kept and _route_ok(res["tf32_on"]["vs_tf32_off"])
+            and _oracle_ok(res["tf32_on"]["vs_oracle_float64"])):
+        bad.append(f"TF32 on: {res['tf32_on']}")
+
+    _, prof = profile_call(torch, lambda: fit("chol"))
+    # the profiler's host overhead inflates wall_ms; against the
+    # unprofiled CUDA-event time of a fit the idle share is the card's own
+    prof["device_idle_share_vs_event_time"] = (
+        1.0 - prof["device_busy_ms"] / res["methods"]["chol"]["fit_ms"])
+    res["profile_chol_fit"] = prof
+    with _RecordJacobi(jacobi) as rec:
+        fit("chol")
+        fit("gram")
+    res["multiview"] = _check_multiview(torch, xa, ids_t)
+    if not res["multiview"]["ok"]:
+        bad.append(f"multiview: {res['multiview']}")
+    emit(res)
+    if bad:
+        raise RuntimeError(f"alignment failed: {bad}")
+    # the kernel's path batches: the chol fit's g^T g (128), the gram
+    # fit's stacked whitening Grams (256)
+    return {"chol_128": rec.batches[0], "gram_256": rec.batches[1],
+            "launches": {m: res["methods"][m]["launches"] for m in AL_LAUNCHES}}
+
+
+def _check_multiview(torch, xa, ids_t) -> dict:
+    """fit_mcca_aligner (4 views, 10 components, regs 0.5) and
+    joint_pca_fit (8 components, the shared latent's rank) on the card
+    against the same functions on the CPU. Comparisons free of signs and
+    of turns among near-equal eigenvalues: generalised eigenvalues, the
+    products L L^T of each view's top-8 loadings, read-in products
+    R R^T."""
+    from cross_patient_speech_decoding_tpu_torch.ops import (
+        cca,
+        joint_pca,
+        mcca,
+    )
+
+    views = [xa[i].reshape(AL_N, AL_T, AL_K) for i in range(4)]
+    ids = [ids_t[0]] * 4
+    t0 = time.perf_counter()
+    st = mcca.fit_mcca_aligner(views, ids, AL_C, 10, regs=0.5)
+    jp = joint_pca.joint_pca_fit(views, ids, AL_C, 8)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    views_c = [v.cpu() for v in views]
+    ids_c = [i.cpu() for i in ids]
+    st_c = mcca.fit_mcca_aligner(views_c, ids_c, AL_C, 10, regs=0.5)
+    jp_c = joint_pca.joint_pca_fit(views_c, ids_c, AL_C, 8)
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max() / b.abs().max())
+
+    conds = []
+    for v in views_c:
+        avg, cnt = cca.cnd_avg(v, ids_c[0], AL_C)
+        rows = avg[cnt > 0].reshape(-1, AL_K).double()
+        rows = rows - rows.mean(0)
+        conds.append(float(torch.linalg.cond(rows.T @ rows)))
+    tol = max(MCCA_RTOL, 4 * EPS_F32 * max(conds))
+
+    # the top AL_LAT canonical directions span the shared latent: their
+    # span is well defined (a wide eigenvalue gap to the noise ones),
+    # single directions are not (4 views of one latent give near-equal
+    # eigenvalues)
+    load = max(rel(L[:, :AL_LAT].cpu() @ L[:, :AL_LAT].cpu().T,
+                   L_c[:, :AL_LAT] @ L_c[:, :AL_LAT].T)
+               for L, L_c in zip(st.loadings, st_c.loadings))
+    out = {"mcca_evals_rel_err": rel(st.evals, st_c.evals),
+           "mcca_top_span_rel_err": load,
+           "joint_pca_read_in_rel_err": max(
+               rel(R @ R.T, R_c @ R_c.T)
+               for R, R_c in zip(jp.read_ins, jp_c.read_ins)),
+           "joint_pca_n_active": [int(jp.n_active), int(jp_c.n_active)],
+           "view_gram_cond": max(conds), "card_s": card_s,
+           "tolerance_rel": tol}
+    out["ok"] = (out["mcca_evals_rel_err"] <= tol and load <= tol
+                 and out["joint_pca_read_in_rel_err"] <= tol
+                 and int(jp.n_active) == int(jp_c.n_active)
+                 and bool(torch.equal(st.shared_mask.cpu(), st_c.shared_mask)))
+    return out
+
+
+def _sym_batch(torch, dev, seed, b, k, cond=50.0):
+    """(b, k, k) float32 symmetric with eigenvalues log-uniform in [1,
+    cond] (tests/test_jacobi.py:_sym)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.normal(size=(b, k, k)))
+    w = np.exp(rng.uniform(0, np.log(cond), (b, k)))
+    A = (q * w[:, None, :]) @ np.swapaxes(q, 1, 2)
+    return torch.as_tensor(A.astype(np.float32), device=dev)
+
+
+def _jacobi_cases(torch, dev, align):
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    small = _sym_batch(torch, "cpu", 8, 1, 8)[0].numpy()
+    big = 1e4 * (np.diag(rng.uniform(1, 2, 8))
+                 + 1e-6 * _sym_batch(torch, "cpu", 9, 1, 8)[0].numpy())
+    hetero = np.stack([small, (big + big.T) / 2]).astype(np.float32)
+    x = rng.normal(size=(32, 8, 24))
+    corr = np.stack([np.corrcoef(a) for a in x]).astype(np.float32)
+    return {
+        "path_chol_fit": align["chol_128"],
+        "path_gram_fit": align["gram_256"],
+        "odd_17x41": _sym_batch(torch, dev, 10, 17, 41),
+        "odd_300x13": _sym_batch(torch, dev, 11, 300, 13),
+        "odd_1x64": _sym_batch(torch, dev, 12, 1, 64),
+        "heterogeneous_scale_2x8": torch.as_tensor(hetero, device=dev),
+        "correlation_32x8": torch.as_tensor(corr, device=dev),
+    }
+
+
+def _check_jacobi(torch, jacobi, A) -> dict:
+    """The kernel against its plain version on A (B, K, K): one sweep
+    elementwise, full solves (w, V and sweep counts), and the sorted
+    solve against float64 eigvalsh, its reconstruction and V^T V."""
+    Ap, K, _ = jacobi._pad_odd(A)
+    Ap = Ap.contiguous()
+    pairs = jacobi._pairs_on(Ap.shape[-1], Ap.device)
+    norm = torch.linalg.matrix_norm(Ap)[:, None]
+    out = {}
+    for sweeps in (1, 8):
+        w, V, n = jacobi.jacobi_eigh_cuda(Ap, pairs, sweeps)
+        w_p, V_p, n_p = jacobi.jacobi_eigh_plain(Ap, pairs, sweeps)
+        err = torch.maximum((w - w_p).abs().amax(-1),
+                            (V - V_p).abs().amax((-2, -1)))
+        out[f"sweeps{sweeps}_max_abs_err"] = float(err.max())
+        out[f"sweeps{sweeps}_max_err_over_norm"] = float(
+            (err / norm[:, 0]).max())
+        out[f"sweeps{sweeps}_bitwise"] = bool(torch.equal(w, w_p)
+                                              and torch.equal(V, V_p))
+        out[f"sweeps{sweeps}_counts_equal"] = bool(torch.equal(n, n_p))
+    out["sweeps_run"] = n.tolist() if n.numel() <= 2 else {
+        "min": int(n.min()), "max": int(n.max()), "sum": int(n.sum())}
+    out["sweeps_sum"] = int(n.sum())
+    ws, Vs = jacobi.jacobi_eigh_pallas(A)
+    w64 = torch.linalg.eigvalsh(A.double().cpu())
+    scale = w64.abs().amax(-1)
+    rec = (Vs @ (ws[..., None] * Vs.mT)).double().cpu()
+    out["eig_err_over_max_w"] = float(((ws.double().cpu() - w64).abs()
+                                       .amax(-1) / scale).max())
+    out["rec_err_over_max_w"] = float(((rec - A.double().cpu()).abs()
+                                       .amax((-2, -1)) / scale).max())
+    eye = torch.eye(K, device=A.device)
+    out["orth_err"] = float((Vs.mT @ Vs - eye).abs().max())
+    return out
+
+
+def _jacobi_ok(name, r) -> bool:
+    tol = JAC_HETERO_RTOL if name.startswith("heterogeneous") else JAC_EIG_RTOL
+    return (r["sweeps1_max_err_over_norm"] <= JAC_SWEEP1_RTOL
+            and r["sweeps1_counts_equal"] and r["sweeps8_counts_equal"]
+            and r["eig_err_over_max_w"] <= JAC_EIG_RTOL
+            and r["rec_err_over_max_w"] <= tol
+            and r["orth_err"] <= JAC_ORTH_ATOL)
+
+
+def phase_kernel_jacobi(torch, dev, jacobi, align):
+    """The Jacobi kernel against its plain version on the alignment fit's
+    own Gram batches and on odd shapes; times of the kernel, the plain
+    version and torch.linalg.eigh on the path batches; the bound from the
+    sweeps these inputs ran. Returns the kernels line's row (launches of
+    one chol fit)."""
+    checks = {name: _check_jacobi(torch, jacobi, A)
+              for name, A in _jacobi_cases(torch, dev, align).items()}
+    bad = {k: v for k, v in checks.items() if not _jacobi_ok(k, v)}
+    rows = {}
+    for name, A in (("path_chol_fit", align["chol_128"]),
+                    ("path_gram_fit", align["gram_256"])):
+        B, Kp, _ = A.shape
+        pairs = jacobi._pairs_on(Kp, A.device)
+        times = (cuda_ms(torch, lambda: jacobi.jacobi_eigh_cuda(A, pairs)),
+                 cuda_ms(torch, lambda: jacobi.jacobi_eigh_plain(A, pairs)),
+                 cuda_ms(torch, lambda: torch.linalg.eigh(A)))
+        flops = 9 * Kp * Kp * (Kp - 1) * checks[name]["sweeps_sum"]
+        bytes_ = 2 * B * Kp * Kp * 4 + B * Kp * 4 + B * 4
+        err = checks[name]["sweeps8_max_abs_err"]
+        row, extra = _row("jacobi_eigh", "jacobi.cu",
+                          "cross_patient_speech_decoding_tpu/ops/jacobi.py:216",
+                          align["launches"]["chol"], err, times, flops, bytes_)
+        rows[name] = row
+        emit({"phase": "kernel", **row, "shape": [B, Kp, Kp],
+              "flops": flops, "bytes": bytes_,
+              "sweeps_run": checks[name]["sweeps_run"],
+              "launches_per_fit": align["launches"],
+              "library_note": "torch.linalg.eigh (cuSOLVER) on the same "
+                              "batch; the port never calls it for a batch "
+                              "the kernel takes"})
+    emit({"phase": "kernel_jacobi_checks", "checks": checks,
+          "tolerances": {"sweep1_and_plain_over_norm": JAC_SWEEP1_RTOL,
+                         "eig_and_rec_over_max_w": JAC_EIG_RTOL,
+                         "hetero_rec_over_max_w": JAC_HETERO_RTOL,
+                         "orth": JAC_ORTH_ATOL}})
+    if bad:
+        raise RuntimeError(f"jacobi kernel checks failed: {list(bad)}")
+    return rows["path_chol_fit"]
 
 
 if __name__ == "__main__":

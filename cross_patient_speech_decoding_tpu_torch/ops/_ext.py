@@ -59,6 +59,10 @@ SOURCES = {
         "gru_wbwd_bf16": (_P, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                           _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P),
     },
+    "jacobi.cu": {
+        # A, pairs, w, V, n_sweeps, B, Kp, sweeps, stream
+        "jacobi_eigh_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    },
 }
 
 _lock = threading.Lock()

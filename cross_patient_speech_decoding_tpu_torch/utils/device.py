@@ -23,3 +23,11 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(f"device {device!r} requested but CUDA is "
                            "not available")
     return dev
+
+
+def same_device(*tensors) -> None:
+    """Raise ``ValueError`` unless every tensor given (None skipped) lies on
+    one device: the alignment ops run on their inputs' device."""
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) > 1:
+        raise ValueError(f"inputs on mixed devices: {sorted(map(str, devices))}")

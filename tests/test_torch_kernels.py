@@ -1,4 +1,4 @@
-"""The port's CUDA GRU kernels against their plain versions on the card.
+"""The port's CUDA kernels against their plain versions on the card.
 
 Every test here needs a CUDA card and skips without one. The file imports
 neither JAX nor the JAX package, so it runs on a machine that has only
@@ -7,9 +7,13 @@ PyTorch:
     python -m pytest tests/test_torch_kernels.py --noconftest -m gpu
 
 (``--noconftest`` skips ``tests/conftest.py``, which configures JAX.)
-Kernel and plain version both accumulate in float32, in another order:
-atol 1e-4 on hs; on gradients, max |diff| <= 1e-5 x max |plain| per
-tensor (sums over batch and time).
+GRU: kernel and plain version both accumulate in float32, in another
+order: atol 1e-4 on hs; on gradients, max |diff| <= 1e-5 x max |plain|
+per tensor (sums over batch and time). Jacobi: the kernel rounds every
+rotation as the plain version's tensor ops do, so w and V agree within
+1e-5 x ||A||_F (in practice bitwise) and the sweep counts are equal; the
+alignment fit on the card agrees with the CPU's within 1e-4 on the
+canonical correlations and 1e-3 x max |proj| on the projections.
 """
 
 import numpy as np
@@ -17,7 +21,7 @@ import pytest
 import torch
 
 from cross_patient_speech_decoding_tpu_torch.models import RealtimeRNN
-from cross_patient_speech_decoding_tpu_torch.ops import gru
+from cross_patient_speech_decoding_tpu_torch.ops import cca, gru, jacobi
 
 ATOL = 1e-4
 GRAD_RTOL = 1e-5
@@ -200,3 +204,107 @@ def test_realtime_rnn_gradients_on_card_match_cpu(card):
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()),
                                    rtol=0)
+
+
+def _sym(seed, b, k, cond=50.0):
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.normal(size=(b, k, k)))
+    w = np.exp(rng.uniform(0, np.log(cond), (b, k)))
+    return ((q * w[:, None, :]) @ np.swapaxes(q, 1, 2)).astype(np.float32)
+
+
+def _corr(seed, b, k):
+    x = np.random.default_rng(seed).normal(size=(b, k, 3 * k))
+    return np.stack([np.corrcoef(a) for a in x]).astype(np.float32)
+
+
+@pytest.mark.parametrize("sweeps", [1, 8])
+@pytest.mark.parametrize("B,K,kind", [(256, 40, "sym"), (128, 40, "sym"),
+                                      (17, 41, "sym"), (300, 13, "sym"),
+                                      (1, 64, "sym"), (32, 8, "corr")])
+def test_jacobi_kernel_matches_plain(card, B, K, kind, sweeps):
+    A = (_sym if kind == "sym" else _corr)(7, B, K)
+    Ap, _, _ = jacobi._pad_odd(torch.from_numpy(A).to(card))
+    Ap = Ap.contiguous()
+    pairs = jacobi._pairs_on(Ap.shape[-1], card)
+    jacobi.reset_launch_counts()
+    w, V, n = jacobi.jacobi_eigh_cuda(Ap, pairs, sweeps)
+    w_p, V_p, n_p = jacobi.jacobi_eigh_plain(Ap, pairs, sweeps)
+    assert jacobi.LAUNCHES["jacobi_eigh"] == 1
+    assert torch.equal(n, n_p) and int(n.max()) <= sweeps
+    tol = 1e-5 * float(torch.linalg.matrix_norm(Ap).max())
+    torch.testing.assert_close(w, w_p, atol=tol, rtol=0)
+    torch.testing.assert_close(V, V_p, atol=tol, rtol=0)
+    if sweeps == 8:
+        w_s, V_s = jacobi.jacobi_eigh_pallas(torch.from_numpy(A).to(card))
+        w64 = torch.linalg.eigvalsh(torch.from_numpy(A).double())
+        scale = float(w64.abs().max())
+        torch.testing.assert_close(w_s.cpu().double(), w64,
+                                   atol=2e-4 * scale, rtol=0)
+        rec = V_s @ (w_s[..., None] * V_s.mT)
+        torch.testing.assert_close(rec.cpu(), torch.from_numpy(A),
+                                   atol=2e-4 * scale, rtol=0)
+        eye = torch.eye(K, device=card).expand(B, K, K)
+        torch.testing.assert_close(V_s.mT @ V_s, eye, atol=5e-5, rtol=0)
+
+
+def test_batched_eigh_launches_the_kernel(card):
+    A = torch.from_numpy(_sym(8, 32, 40)).to(card)
+    jacobi.reset_launch_counts()
+    jacobi.batched_eigh(A)
+    jacobi.batched_eigh(A.reshape(2, 16, 40, 40))
+    assert jacobi.LAUNCHES["jacobi_eigh"] == 2
+    jacobi.batched_eigh(A[:15])  # too few matrices: torch.linalg.eigh
+    jacobi.batched_eigh(torch.from_numpy(_sym(8, 16, 65)).to(card))
+    assert jacobi.LAUNCHES["jacobi_eigh"] == 2
+
+
+def test_jacobi_wrapper_raises_instead_of_falling_back(card):
+    pairs = jacobi._pairs_on(8, card)
+    A = torch.eye(8, device=card).expand(4, 8, 8).contiguous()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        jacobi.jacobi_eigh_cuda(A.cpu(), pairs.cpu())
+    with pytest.raises(TypeError, match="float32"):
+        jacobi.jacobi_eigh_cuda(A.double(), pairs)
+    with pytest.raises(ValueError, match="even"):
+        jacobi.jacobi_eigh_cuda(torch.zeros((2, 9, 9), device=card), pairs)
+    with pytest.raises(ValueError, match="even"):
+        jacobi.jacobi_eigh_cuda(torch.zeros((2, 66, 66), device=card), pairs)
+    with pytest.raises(ValueError, match="contiguous"):
+        jacobi.jacobi_eigh_cuda(A.mT, pairs)
+    with pytest.raises(ValueError, match="pairs"):
+        jacobi.jacobi_eigh_cuda(A, pairs[:3])
+
+
+def _pairs_of_trials(seed, B=16, N=30, T=10, K=8, C=5, noise=0.3):
+    """Flat (B, N, T*K) trials of two views sharing a K-dim latent."""
+    rng = np.random.default_rng(seed)
+    latent = rng.normal(size=(C, T, K))
+    ids = np.broadcast_to(np.arange(N) % C, (B, N)).astype(np.int32)
+    views = []
+    for _ in range(2):
+        mix = rng.normal(size=(B, K, K))
+        x = np.einsum("bntl,blk->bntk", latent[ids], mix)
+        x = x + noise * rng.normal(size=x.shape)
+        views.append(torch.from_numpy(x.reshape(B, N, T * K).astype(
+            np.float32)))
+    return views, torch.from_numpy(ids)
+
+
+@pytest.mark.parametrize("method,launches", [("chol", 1), ("gram", 2),
+                                             ("svd", 0)])
+def test_fit_cca_aligner_on_card_matches_cpu(card, method, launches):
+    (xa, xb), ids = _pairs_of_trials(9)
+    want = cca.fit_cca_aligner(xa, xb, ids, ids, 5, method=method, t_len=10)
+    jacobi.reset_launch_counts()
+    got = cca.fit_cca_aligner(xa.to(card), xb.to(card), ids.to(card),
+                              ids.to(card), 5, method=method, t_len=10)
+    assert jacobi.LAUNCHES["jacobi_eigh"] == launches
+    got_a, want_a = got.alignment, want.alignment
+    assert torch.equal(got_a.d.cpu(), want_a.d)
+    torch.testing.assert_close(got_a.canon_corrs.cpu(), want_a.canon_corrs,
+                               atol=1e-4, rtol=0)
+    for name in ("proj_b_to_a", "proj_a_to_b"):
+        w = getattr(want_a, name)
+        torch.testing.assert_close(getattr(got_a, name).cpu(), w,
+                                   atol=1e-3 * float(w.abs().max()), rtol=0)

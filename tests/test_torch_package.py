@@ -81,6 +81,16 @@ def test_entry_points_default_to_cuda(no_cuda):
     assert RealtimeRNN(4, 8, 1, 3, device="cpu").device.type == "cpu"
 
 
+def test_state_from_numpy_defaults_to_cuda(no_cuda):
+    from cross_patient_speech_decoding_tpu_torch.ops import state_from_numpy
+    from cross_patient_speech_decoding_tpu_torch.ops.pca import PCAState
+
+    state = {name: np.zeros(2, np.float32) for name in PCAState._fields}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        state_from_numpy(PCAState, state)
+    assert state_from_numpy(PCAState, state, "cpu").mean.device.type == "cpu"
+
+
 def test_kernel_wrappers_check_their_arguments():
     """The CUDA wrappers validate before touching the library, so the
     checks run here on CPU tensors."""
@@ -112,7 +122,7 @@ def test_c_interface_matches_the_source():
     """Every ctypes signature names an extern "C" function of its source
     with the same number of parameters, each source builds into a library
     of its own, and the build flags target sm_90a."""
-    assert set(_ext.SOURCES) == {"gru_fwd.cu", "gru_bwd.cu"}
+    assert set(_ext.SOURCES) == {"gru_fwd.cu", "gru_bwd.cu", "jacobi.cu"}
     for source, signatures in _ext.SOURCES.items():
         src = (_ext.CSRC / source).read_text()
         c_part = src[src.index('extern "C" {'):]

@@ -1,0 +1,224 @@
+#!/usr/bin/env python3
+"""Probes of the PyTorch port's alignment core, one JSON line per result.
+
+Run from the repository root:
+
+    python tools/port_probes.py jacobi   # on a CUDA card
+    python tools/port_probes.py tf32     # on a CUDA card
+    python tools/port_probes.py oracle --pairs 4 --seed 0   # on the CPU
+
+- ``jacobi``: builds the kernels, then holds the Jacobi kernel against its
+  plain version (one sweep and eight) on synthetic symmetric batches
+  (cond 50) and a correlation batch, with the float64 eigenvalue,
+  reconstruction and orthonormality errors; at 100 or more matrices also
+  the kernel, plain and ``torch.linalg.eigh`` times (CUDA events, median
+  of 5).
+- ``tf32``: the error of a 1024^3 float32 product against float64, as a
+  plain ``@`` and through ``ops.precision.hdot``, under four caller
+  settings of TF32, with the settings before and after the call.
+- ``oracle``: batched ``fit_cca_aligner`` on the CPU at the bench
+  geometry (150 trials x 200 bins x 40 latents, 27 classes) for
+  ``--pairs`` pairs made from ``--seed``, down the kernel's route (the
+  plain Jacobi, the Gram-route SVD forced as on the card), each pair
+  against the float64 oracle of ``chip_smoke.py``.
+
+Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from cross_patient_speech_decoding_tpu_torch.ops import (  # noqa: E402
+    _ext,
+    cca,
+    jacobi,
+    precision,
+)
+
+
+def _emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def _card() -> torch.device:
+    if not torch.cuda.is_available():
+        raise SystemExit("this probe needs a CUDA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    _emit({"nvidia_smi": smi, "torch": torch.__version__})
+    return torch.device("cuda", 0)
+
+
+def _cuda_ms(fn, reps: int = 5) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _sym(rng, b, k, cond=50.0):
+    q, _ = np.linalg.qr(rng.normal(size=(b, k, k)))
+    w = np.exp(rng.uniform(0, np.log(cond), (b, k)))
+    return ((q * w[:, None, :]) @ np.swapaxes(q, 1, 2)).astype(np.float32)
+
+
+def probe_jacobi() -> None:
+    dev = _card()
+    _emit({"build_s": _ext.build(verbose=True)})
+    rng = np.random.default_rng(0)
+    cases = [("sym256x40", _sym(rng, 256, 40)), ("sym128x40", _sym(rng, 128, 40)),
+             ("sym17x41", _sym(rng, 17, 41)), ("sym300x13", _sym(rng, 300, 13)),
+             ("sym1x64", _sym(rng, 1, 64)), ("sym5x64", _sym(rng, 5, 64))]
+    x = rng.normal(size=(32, 8, 30))
+    cases.append(("corr32x8",
+                  np.stack([np.corrcoef(a) for a in x]).astype(np.float32)))
+    for name, A in cases:
+        At = torch.from_numpy(A).to(dev)
+        Ap, _, _ = jacobi._pad_odd(At)
+        Ap = Ap.contiguous()
+        pairs = jacobi._pairs_on(Ap.shape[-1], dev)
+        for sweeps in (1, 8):
+            wk, Vk, nk = jacobi.jacobi_eigh_cuda(Ap, pairs, sweeps)
+            wp, Vp, n_p = jacobi.jacobi_eigh_plain(Ap, pairs, sweeps)
+            res = {"case": name, "sweeps": sweeps,
+                   "w_err": float((wk - wp).abs().max()),
+                   "V_err": float((Vk - Vp).abs().max()),
+                   "bitwise": bool(torch.equal(wk, wp) and torch.equal(Vk, Vp)),
+                   "sweep_counts_equal": bool(torch.equal(nk, n_p)),
+                   "sweeps_run": sorted(set(nk.tolist()))}
+            if sweeps == 8:
+                w, V = jacobi.jacobi_eigh_pallas(At)
+                w64 = torch.linalg.eigvalsh(At.cpu().double())
+                scale = float(w64.abs().max())
+                rec = V @ (w[..., None] * V.mT)
+                res["eig_err_over_max_w"] = float(
+                    (w.cpu().double() - w64).abs().max()) / scale
+                res["rec_err_over_max_w"] = float((rec - At).abs().max()) / scale
+                eye = torch.eye(V.shape[-1], device=dev)
+                res["orth_err"] = float((V.mT @ V - eye).abs().max())
+                if Ap.shape[0] >= 100:
+                    res["kernel_ms"] = _cuda_ms(
+                        lambda: jacobi.jacobi_eigh_cuda(Ap, pairs))
+                    res["plain_ms"] = _cuda_ms(
+                        lambda: jacobi.jacobi_eigh_plain(Ap, pairs))
+                    res["eigh_ms"] = _cuda_ms(lambda: torch.linalg.eigh(At))
+            _emit(res)
+
+
+def _settings():
+    m = torch.backends.cuda.matmul
+    out = []
+    for get in (lambda: m.fp32_precision, lambda: m.allow_tf32,
+                torch.get_float32_matmul_precision):
+        try:
+            out.append(str(get()))
+        except RuntimeError:
+            out.append("raises")
+    return out
+
+
+def probe_tf32() -> None:
+    dev = _card()
+    m = torch.backends.cuda.matmul
+    gen = torch.Generator(device=dev).manual_seed(0)
+    A = torch.randn(1024, 1024, generator=gen, device=dev)
+    B = torch.randn(1024, 1024, generator=gen, device=dev)
+    ref = A.double() @ B.double()
+    callers = {
+        "default": lambda: None,
+        "legacy_allow_tf32": lambda: setattr(m, "allow_tf32", True),
+        "legacy_precision_high": lambda: torch.set_float32_matmul_precision(
+            "high"),
+        "new_api_tf32": lambda: setattr(m, "fp32_precision", "tf32"),
+    }
+    for name, setup in callers.items():
+        torch.set_float32_matmul_precision("highest")
+        m.fp32_precision = "ieee"
+        setup()
+        before = _settings()
+        plain = float((A @ B - ref).abs().max())
+        hdot = float((precision.hdot(A, B) - ref).abs().max())
+        _emit({"caller": name, "settings_before": before,
+               "settings_after": _settings(), "plain_err": plain,
+               "hdot_err": hdot})
+
+
+def probe_oracle(n_pairs: int, seed: int) -> None:
+    import chip_smoke as cs
+
+    torch.set_num_threads(4)
+    N, T, K, C, lat = cs.AL_N, cs.AL_T, cs.AL_K, cs.AL_C, cs.AL_LAT
+    rng = np.random.default_rng(0)
+    latent = rng.normal(size=(C, T, lat)).astype(np.float32)
+    ids = np.repeat(np.arange(C), N // C + 1)[:N].astype(np.int32)
+    lat_t = torch.from_numpy(latent[ids])
+    gen = torch.Generator().manual_seed(seed)
+
+    def view():
+        mixes = torch.randn((n_pairs, lat, K), generator=gen)
+        noise = 0.3 * torch.randn((n_pairs, N, T, K), generator=gen)
+        x = torch.einsum("ntl,blk->bntk", lat_t, mixes) + noise
+        return x.reshape(n_pairs, N, T * K)
+
+    xa, xb = view(), view()
+    ids_t = torch.from_numpy(np.tile(ids, (n_pairs, 1)))
+    svd_small = cca._svd_small
+    # the card's route on CPU tensors: plain Jacobi, Gram-route SVD
+    jacobi._route = lambda A: "plain"
+    cca._svd_small = lambda g, method, force_gram=None: svd_small(
+        g, method, force_gram=method == "gram")
+    fits = {m: cca.fit_cca_aligner(xa, xb, ids_t, ids_t, C, method=m,
+                                   t_len=T) for m in ("chol", "gram", "svd")}
+    for i in range(n_pairs):
+        a, b = (x[i].reshape(N, T, K).double().numpy() for x in (xa, xb))
+        proj_o, s_o, cond = cs._oracle_fit(a, b, ids, ids)
+        want = b @ proj_o
+        res = {"pair": i, "oracle_min_canon_corr": float(s_o.min()),
+               "gram_cond": float(cond)}
+        for method, fit in fits.items():
+            al = fit.alignment
+            corr = np.abs(al.canon_corrs[i].double().numpy()[:len(s_o)] - s_o)
+            err = np.abs(b @ al.proj_b_to_a[i].double().numpy() - want).max()
+            res[method] = {"d": int(al.d[i]), "d_oracle": len(s_o),
+                           "corr_max_abs_err": float(corr.max()),
+                           "transform_max_rel_err":
+                               float(err / np.abs(want).max())}
+        _emit(res)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("probe", choices=("jacobi", "tf32", "oracle"))
+    ap.add_argument("--pairs", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if args.probe == "jacobi":
+        probe_jacobi()
+    elif args.probe == "tf32":
+        probe_tf32()
+    else:
+        probe_oracle(args.pairs, args.seed)
+
+
+if __name__ == "__main__":
+    main()
