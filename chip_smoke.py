@@ -29,6 +29,20 @@ line is never printed:
    online logits checked against the offline forward, the offline forward
    against the plain versions, and one streaming window through
    ``gru_fwd`` against its plain version at B=1, T=1, layer by layer;
+5a. seq2seq_train (slice 4's main path): a Seq2SeqRNN at the JAX
+   package's bench geometry (bench.py:section_seq2seq: B=1000, T=200,
+   C=30, 100 conv filters of width 10, hidden 500, 3 decoder steps, 9
+   classes; seed 0; depth not cut). At dropout 0 and teacher forcing 1
+   the loss and every parameter's gradient through the kernels against
+   the same model through the plain GRU versions on the card; then, with
+   the launch counts zeroed just before and read just after, one
+   ``make_seq2seq_train_step`` step at dropout 0.3, teacher forcing 0.5,
+   AdamW, whose exact launches are asserted (SEQ2SEQ_TRAIN_LAUNCHES); the
+   median of 3 more steps, samples/s, model TFLOP/s, peak memory and one
+   profiled step; the conv with TF32 switched on by the caller;
+5b. seq2seq_eval: ``make_seq2seq_eval_step`` on the same batch, with its
+   exact launches (SEQ2SEQ_EVAL_LAUNCHES), logits, loss and accuracy
+   against the plain path on the card, the median of 3 steps;
 6. alignment (slice 3's main path): the natively batched
    ``fit_cca_aligner`` at the JAX package's bench geometry
    (bench.py:section_alignment: 128 pairs of 150 trials x 200 bins x 40
@@ -41,14 +55,17 @@ line is never printed:
    times (median of 5), fits/s, plain-route fit times and one profiled
    chol fit; then ``fit_mcca_aligner`` and ``joint_pca_fit`` on the card
    against the CPU;
-7. kernels: each kernel against its plain version at the fig_5 shapes and
-   at small odd shapes, with times of the kernel, the plain version and
-   ``torch.nn.GRU`` (its backward for the backward kernels), and its
+7. kernels: each kernel against its plain version at the fig_5 shapes
+   (``gru_bifwd`` at the seq2seq encoder's) and at small odd shapes, with
+   times of the kernel, the plain version and ``torch.nn.GRU`` (its
+   backward for the backward kernels, bidirectional for ``gru_bifwd``,
+   beside which the two-``gru_fwd`` alternative is timed too), and its
    bound; the Jacobi kernel on the alignment fit's own Gram batches and
    odd shapes (one sweep elementwise, full solves against float64), timed
    against its plain version and ``torch.linalg.eigh``; ends with the
-   ``{"kernels": [...]}`` line, whose launch counts are the train step's
-   and, for the Jacobi kernel, the chol fit's.
+   ``{"kernels": [...]}`` line, whose launch counts are the CTC train
+   step's, for ``gru_bifwd`` the seq2seq train step's and, for the Jacobi
+   kernel, the chol fit's.
 
 Then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA card, and in a directory without the port.
@@ -80,7 +97,23 @@ LOSS_RTOL = 1e-4
 # of every step back to dh0
 GRAD_RTOL = 1e-3
 # launches of one train step: layer 0 windowed, layers 1-2 plain
-TRAIN_LAUNCHES = {"gru_fwd": 2, "gru_wfwd": 1, "gru_bwd": 2, "gru_wbwd": 1}
+TRAIN_LAUNCHES = {"gru_fwd": 2, "gru_wfwd": 1, "gru_bifwd": 0, "gru_bwd": 2,
+                  "gru_wbwd": 1}
+# seq2seq: the JAX package's bench geometry (bench.py:558-596)
+S2S_B, S2S_T, S2S_C, S2S_F, S2S_K, S2S_H, S2S_L, S2S_CLS = (
+    1000, 200, 30, 100, 10, 500, 3, 9)
+S2S_TC = S2S_T - S2S_K + 1  # VALID conv: the encoder's 191 steps
+# one forward: the one-layer bidirectional encoder is one gru_bifwd
+# launch, the one-layer decoder one gru_fwd launch (T=1) per step; the
+# backward: gru_bwd forward and reversed for the encoder, one per decoder
+# step
+SEQ2SEQ_EVAL_LAUNCHES = {"gru_fwd": S2S_L, "gru_wfwd": 0, "gru_bifwd": 1,
+                         "gru_bwd": 0, "gru_wbwd": 0}
+SEQ2SEQ_TRAIN_LAUNCHES = {**SEQ2SEQ_EVAL_LAUNCHES, "gru_bwd": 2 + S2S_L}
+# the conv with the caller's TF32 on, against TF32 off (x max |out|): the
+# module pins float32, so the two agree to float32 roundoff (a TF32 conv
+# errs ~1e-3)
+CONV_TF32_RTOL = 1e-5
 # online vs offline logits: offline rounds its layer-0 frames to bf16,
 # online does not; the JAX package's own bound between the two paths
 # (tests/test_realtime.py:57)
@@ -171,8 +204,12 @@ def main() -> int:
     train_res = phase_ctc_train(torch, dev, gru, batch)
     phase_streaming(torch, dev, gru, model)
     del model, batch
+    s2s_model, s2s_batch, s2s_launches = phase_seq2seq_train(torch, dev, gru)
+    phase_seq2seq_eval(torch, dev, gru, s2s_model, s2s_batch)
+    del s2s_model, s2s_batch
     align = phase_alignment(torch, dev, jacobi)
-    kernels = phase_kernels(torch, dev, gru, train_res["launches"])
+    kernels = phase_kernels(torch, dev, gru, train_res["launches"],
+                            s2s_launches)
     kernels.append(phase_kernel_jacobi(torch, dev, jacobi, align))
     emit({"kernels": kernels})
     print(smi, flush=True)
@@ -560,6 +597,286 @@ def check_stream_step(torch, gru, model, window):
     return errs
 
 
+# ---------------------------------------------------------------------------
+# seq2seq (slice 4)
+# ---------------------------------------------------------------------------
+
+
+def seq2seq_flops_per_step(B, T, C, F, H, K, L, n_cls):
+    """Model FLOPs of one Seq2SeqRNN train step (forward + ~2x backward),
+    the JAX package's analytic count (bench.py:_seq2seq_flops_per_step),
+    so that model TFLOP/s compare across the two."""
+    Tc = T - K + 1  # VALID conv shrink
+    conv = 2 * B * Tc * K * C * F
+    enc = 2 * (2 * B * Tc * F * 3 * H + 2 * B * Tc * H * 3 * H)  # bidir
+    dec = L * (2 * B * H * 3 * H * 2 + 2 * B * H * n_cls)
+    return 3 * (conv + enc + dec)
+
+
+class _PlainGRU:
+    """Within the block, the GRU ops take their plain versions (forward
+    and backward) on CUDA tensors too: the route hook, the reference path
+    of the seq2seq checks."""
+
+    def __init__(self, gru):
+        self.gru = gru
+
+    def __enter__(self):
+        self.route = self.gru._route
+        self.gru._route = lambda x: "cpu"
+
+    def __exit__(self, *exc):
+        self.gru._route = self.route
+
+
+def _s2s_batch(torch, dev):
+    import numpy as np
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((S2S_B, S2S_T, S2S_C), generator=gen, device=dev)
+    y = np.random.default_rng(0).integers(0, S2S_CLS, (S2S_B, S2S_L))
+    return x, torch.as_tensor(y, device=dev)
+
+
+def _s2s_loss_grads(torch, model, x, y):
+    """Train-mode loss (teacher forcing 1: no coin decides a token) and
+    its gradient per parameter name; the BatchNorm's running averages are
+    put back after the forward."""
+    import torch.nn.functional as F
+
+    saved = [b.clone() for b in model.buffers()]
+    logits = model(x, y, 1.0)
+    loss = F.cross_entropy(logits.reshape(-1, S2S_CLS), y.reshape(-1))
+    names, params = zip(*model.named_parameters())
+    grads = dict(zip(names, torch.autograd.grad(loss, params)))
+    with torch.no_grad():
+        for b, s in zip(model.buffers(), saved):
+            b.copy_(s)
+    return float(loss.detach()), grads
+
+
+def _s2s_grad_errs(grads_k, grads_p) -> dict:
+    """max |kernel - plain| / max |plain| per parameter; the conv bias's
+    gradient is 0 in exact arithmetic (the BatchNorm removes any
+    per-filter shift), so it is taken over the conv weight's largest."""
+    errs = {}
+    for name, want in grads_p.items():
+        scale = grads_p["conv.weight" if name == "conv.bias" else name]
+        errs[name] = float((grads_k[name] - want).abs().max()
+                           / scale.abs().max().clamp(min=1e-30))
+    return errs
+
+
+def _check_conv_tf32(torch, model, x) -> dict:
+    """The model's conv (forward and gradients) with TF32 switched on by the
+    caller through both of PyTorch's APIs, against TF32 off; a plain
+    ``F.conv1d`` under TF32 for contrast, against float64."""
+    import torch.nn.functional as F
+
+    from cross_patient_speech_decoding_tpu_torch.models.layers import (
+        Conv1dF32,
+    )
+
+    conv = model.conv
+    xt = x[:256].transpose(1, 2)
+
+    def run():  # what TemporalConv runs, forward and weight gradient
+        w = conv.weight.detach().requires_grad_()
+        y = Conv1dF32.apply(xt, w, conv.bias.detach(), conv.stride)
+        (gw,) = torch.autograd.grad(y, w, torch.ones_like(y))
+        return y.detach(), gw
+
+    off = run()
+    cudnn = torch.backends.cudnn
+    cudnn.allow_tf32 = True
+    cudnn.conv.fp32_precision = "tf32"
+    try:
+        on = run()
+        raw = F.conv1d(xt, conv.weight.detach(), conv.bias.detach())
+        kept = cudnn.conv.fp32_precision == "tf32" and cudnn.allow_tf32
+    finally:
+        cudnn.allow_tf32 = False
+    ref = F.conv1d(xt.double(), conv.weight.detach().double(),
+                   conv.bias.detach().double())
+    scale = float(ref.abs().max())
+    return {"caller_setting_kept": kept,
+            "out_rel_diff_vs_tf32_off": float((on[0] - off[0]).abs().max())
+            / scale,
+            "wgrad_rel_diff_vs_tf32_off": float(
+                (on[1] - off[1]).abs().max() / off[1].abs().max()),
+            "out_rel_err_vs_float64": float((on[0].double() - ref).abs()
+                                            .max()) / scale,
+            "plain_conv1d_tf32_rel_err_vs_float64": float(
+                (raw.double() - ref).abs().max()) / scale}
+
+
+def phase_seq2seq_train(torch, dev, gru):
+    import numpy as np
+
+    from cross_patient_speech_decoding_tpu_torch.models import Seq2SeqRNN
+    from cross_patient_speech_decoding_tpu_torch.train import (
+        create_train_state,
+        make_optimizer,
+        make_seq2seq_train_step,
+    )
+
+    x, y = _s2s_batch(torch, dev)
+    model = Seq2SeqRNN(S2S_C, S2S_F, S2S_H, S2S_CLS, kernel_size=S2S_K,
+                       seq_length=S2S_L, seed=0, device=dev)
+
+    # (a) dropout 0: loss and gradients, kernels vs plain
+    model.train()
+    model.conv.dropout = 0.0  # the one dropout of this one-layer model
+    loss_k, grads_k = _s2s_loss_grads(torch, model, x, y)
+    with _PlainGRU(gru):
+        loss_p, grads_p = _s2s_loss_grads(torch, model, x, y)
+    grad_errs = _s2s_grad_errs(grads_k, grads_p)
+    del grads_k, grads_p
+    model.conv.dropout = 0.3
+    conv_tf32 = _check_conv_tf32(torch, model, x)
+
+    # (b) one train step at dropout 0.3, teacher forcing 0.5, launches
+    tx = make_optimizer(1e-3, 1e-5, 100)
+    state = create_train_state(model, tx)
+    step = make_seq2seq_train_step(model, tx, teacher_forcing=0.5)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    batch = (x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gru.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, m = step(state, batch, gen)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(gru.LAUNCHES)
+    losses, accs = [float(m["loss"])], [float(m["acc"])]
+
+    # (c) 3 more steps
+    step_times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state, m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        step_times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        accs.append(float(m["acc"]))
+    step_s = statistics.median(step_times)
+    state, profile = profile_step(torch, step, state, batch, gen)
+    flops = seq2seq_flops_per_step(S2S_B, S2S_T, S2S_C, S2S_F, S2S_H, S2S_K,
+                                   S2S_L, S2S_CLS)
+    finite = all(np.isfinite(losses)) and all(
+        bool(torch.isfinite(t).all()) for t in model.state_dict().values())
+    res = {"phase": "seq2seq_train", "B": S2S_B, "T": S2S_T, "C": S2S_C,
+           "filters": S2S_F, "kernel_size": S2S_K, "hidden": S2S_H,
+           "seq_length": S2S_L, "classes": S2S_CLS, "encoder_steps": S2S_TC,
+           "dropout": 0.3, "teacher_forcing": 0.5,
+           "optimizer": "AdamW lr 1e-3 wd 1e-5, linear decay over 100",
+           "loss_dropout0": loss_k, "loss_dropout0_plain": loss_p,
+           "grad_max_rel_err_vs_plain": grad_errs,
+           "grad_tolerance": GRAD_RTOL, "conv_tf32_on": conv_tf32,
+           "launches": launches, "first_step_s": first_s, "step_s": step_s,
+           "step_s_runs": step_times, "samples_per_s": S2S_B / step_s,
+           "model_tflops_per_s": flops / step_s / 1e12,
+           "model_flops_per_step": flops, "losses": losses, "accs": accs,
+           "steps": state.step, "finite": finite,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "profile": profile}
+    emit(res)
+    if abs(loss_k - loss_p) > LOSS_RTOL * abs(loss_p):
+        raise RuntimeError(f"seq2seq loss {loss_k} vs plain {loss_p}")
+    bad = {k: v for k, v in grad_errs.items() if not v <= GRAD_RTOL}
+    if bad:
+        raise RuntimeError(f"seq2seq gradients differ from plain: {bad}")
+    if not (conv_tf32["caller_setting_kept"]
+            and conv_tf32["out_rel_diff_vs_tf32_off"] <= CONV_TF32_RTOL
+            and conv_tf32["wgrad_rel_diff_vs_tf32_off"] <= CONV_TF32_RTOL):
+        raise RuntimeError(f"conv under the caller's TF32: {conv_tf32}")
+    if launches != SEQ2SEQ_TRAIN_LAUNCHES:
+        raise RuntimeError(f"seq2seq train step launched {launches}, "
+                           f"expected {SEQ2SEQ_TRAIN_LAUNCHES}")
+    if not (finite and all(0.0 <= a <= 1.0 for a in accs)):
+        raise RuntimeError(f"seq2seq: non-finite or bad {losses} {accs}")
+    return model, batch, launches
+
+
+def _feedback_flips(torch, logits_k, logits_p):
+    """Samples whose fed-back tokens (the argmax of steps 0..L-2) differ
+    between two eval runs, and the largest top-2 margin at each such
+    sample's first differing step (a flip is only admissible within a
+    tie)."""
+    tok_k = logits_k[:, :-1].argmax(-1)
+    tok_p = logits_p[:, :-1].argmax(-1)
+    differ = (tok_k != tok_p).any(-1)
+    margin = 0.0
+    for b in differ.nonzero()[:, 0].tolist():
+        i = int((tok_k[b] != tok_p[b]).nonzero()[0, 0])
+        top2 = logits_p[b, i].topk(2).values
+        margin = max(margin, float(top2[0] - top2[1]))
+    return differ, margin
+
+
+def phase_seq2seq_eval(torch, dev, gru, model, batch):
+    import numpy as np
+
+    from cross_patient_speech_decoding_tpu_torch.train import (
+        make_seq2seq_eval_step,
+    )
+
+    step = make_seq2seq_eval_step(model)
+    step(batch)  # warm-up
+    torch.cuda.synchronize()
+    gru.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = step(batch)
+    torch.cuda.synchronize()
+    step_times = [time.perf_counter() - t0]
+    launches = dict(gru.LAUNCHES)
+    for _ in range(2):
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        step_times.append(time.perf_counter() - t0)
+    step_s = statistics.median(step_times)
+    loss, acc = float(out["loss"]), float(out["acc"])
+    with _PlainGRU(gru):
+        out_p = step(batch)
+    loss_p, acc_p = float(out_p["loss"]), float(out_p["acc"])
+    x, _ = batch
+    model.eval()
+    try:
+        with torch.no_grad():
+            logits_k = model(x, None, 0.0)
+            with _PlainGRU(gru):
+                logits_p = model(x, None, 0.0)
+    finally:
+        model.train()
+    differ, flip_margin = _feedback_flips(torch, logits_k, logits_p)
+    same = ~differ
+    logit_err = float((logits_k[same] - logits_p[same]).abs().max())
+    res = {"phase": "seq2seq_eval", "B": S2S_B, "loss": loss, "acc": acc,
+           "loss_plain": loss_p, "acc_plain": acc_p,
+           "logits_max_abs_err_vs_plain": logit_err,
+           "feedback_flips": int(differ.sum()),
+           "flip_max_top2_margin": flip_margin, "launches": launches,
+           "step_s": step_s, "step_s_runs": step_times,
+           "samples_per_s": S2S_B / step_s}
+    emit(res)
+    if tuple(logits_k.shape) != (S2S_B, S2S_L, S2S_CLS) or not (
+            bool(torch.isfinite(logits_k).all()) and np.isfinite(loss)
+            and 0.0 <= acc <= 1.0):
+        raise RuntimeError(f"seq2seq eval output: {res}")
+    if launches != SEQ2SEQ_EVAL_LAUNCHES:
+        raise RuntimeError(f"seq2seq eval step launched {launches}, "
+                           f"expected {SEQ2SEQ_EVAL_LAUNCHES}")
+    if not logit_err <= LOGITS_ATOL:
+        raise RuntimeError(f"seq2seq logits differ from plain: {logit_err}")
+    if not flip_margin <= 2 * LOGITS_ATOL:
+        raise RuntimeError(f"a fed-back token flipped outside a tie: {res}")
+    if not differ.any() and not (abs(loss - loss_p) <= LOSS_RTOL * abs(loss_p)
+                                 and acc == acc_p):
+        raise RuntimeError(f"seq2seq eval loss/acc vs plain: {res}")
+
+
 def _weights(torch, gen, dev, F, Hh):
     """Random (wi, bi, wh, bh) of a GRU layer with F inputs, Hh units."""
 
@@ -621,6 +938,17 @@ def _check_small(torch, gru, dev, gen):
                                            need_dx))
                 key = f"gru_bwd_{dt}_rev{int(reverse)}_dx{int(need_dx)}"
                 bwd[key] = max(errs.values())
+        # the fused bidirectional forward: one step, B and H at 1 and odd
+        for Bb, Hb in ((1, 1), (1, 33), (7, 1), (7, 33)):
+            x = torch.randn((1, Bb, 5), generator=gen, device=dev).to(dtype)
+            h0s = [torch.randn((Bb, Hb), generator=gen, device=dev) * 0.3
+                   for _ in range(2)]
+            ws = _weights(torch, gen, dev, 5, Hb) + _weights(torch, gen, dev,
+                                                              5, Hb)
+            got = gru.gru_bifwd_cuda(x, *h0s, *ws)
+            want = gru.gru_layer_bidir_plain(x, *h0s, *ws)
+            fwd[f"gru_bifwd_{dt}_B{Bb}_H{Hb}_T1"] = max(
+                float((g - w).abs().max()) for g, w in zip(got, want))
     return fwd, bwd
 
 
@@ -637,7 +965,7 @@ def _bwd_errs(got, want) -> dict:
     return _rel_errs({k: g for k, g, _ in kept}, {k: w for k, _, w in kept})
 
 
-def phase_kernels(torch, dev, gru, launches):
+def phase_kernels(torch, dev, gru, launches, s2s_launches):
     gen = torch.Generator(device=dev).manual_seed(2)
     small, small_bwd = _check_small(torch, gru, dev, gen)
     emit({"phase": "kernels_small", "max_abs_err": small,
@@ -686,8 +1014,78 @@ def phase_kernels(torch, dev, gru, launches):
             launches=launches["gru_fwd"],
             shapes={"x": [N_WIN, B, H], "dtype": "f32", "hs": [N_WIN, B, H]}))
         del x1
+        out.append(phase_kernel_bifwd(torch, dev, gru, gen,
+                                      s2s_launches["gru_bifwd"]))
     out += phase_kernels_backward(torch, dev, gru, gen, h0, launches)
     return out
+
+
+def _library_bigru(torch, ws):
+    """``torch.nn.GRU(bidirectional=True)`` holding the same function as
+    the two directions' (wi, bi, wh, bh)."""
+    F, H3 = ws[0].shape
+    g = torch.nn.GRU(F, H3 // 3, bidirectional=True).to(ws[0].device)
+    with torch.no_grad():
+        for sfx, (wi, bi, wh, bh) in (("", ws[:4]), ("_reverse", ws[4:])):
+            getattr(g, f"weight_ih_l0{sfx}").copy_(wi.t())
+            getattr(g, f"weight_hh_l0{sfx}").copy_(wh.t())
+            getattr(g, f"bias_ih_l0{sfx}").copy_(bi)
+            getattr(g, f"bias_hh_l0{sfx}").copy_(bh)
+    g.flatten_parameters()
+    return g
+
+
+def phase_kernel_bifwd(torch, dev, gru, gen, launches):
+    """``gru_bifwd`` at the seq2seq encoder's shapes (T'=191, B=1000,
+    F=100, H=500, f32 x): against its plain version (two plain sweeps),
+    timed beside the plain version, cuDNN's bidirectional GRU on the same
+    weights, and the unfused alternative, two ``gru_fwd`` launches (forward
+    and reversed), which is recorded only and decides nothing."""
+    Tc, Bs, F, Hs = S2S_TC, S2S_B, S2S_F, S2S_H
+    x = torch.rand((Tc, Bs, F), generator=gen, device=dev) * 2 - 1
+    h0s = [torch.randn((Bs, Hs), generator=gen, device=dev) * 0.3
+           for _ in range(2)]
+    ws = _weights(torch, gen, dev, F, Hs) + _weights(torch, gen, dev, F, Hs)
+    args = (x, *h0s, *ws)
+    lib = _library_bigru(torch, ws)
+    h0l = torch.stack(h0s)
+
+    def kernel():
+        return gru.gru_bifwd_cuda(*args)
+
+    def plain():
+        return gru.gru_layer_bidir_plain(*args)
+
+    def two_launches():
+        return (gru.gru_fwd_cuda(x, h0s[0], *ws[:4]),
+                gru.gru_fwd_cuda(x, h0s[1], *ws[4:], reverse=True))
+
+    got, want, unfused = kernel(), plain(), two_launches()
+    lib_out, _ = lib(x, h0l)
+    torch.cuda.synchronize()
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    lib_err = float((lib_out - torch.cat(want, -1)).abs().max())
+    bitwise = all(torch.equal(g, u) for g, u in zip(got, unfused))
+    del got, want, unfused, lib_out
+    times = (cuda_ms(torch, kernel), cuda_ms(torch, plain),
+             cuda_ms(torch, lambda: lib(x, h0l)))
+    two_ms = cuda_ms(torch, two_launches)
+    flops = 2 * Tc * 2 * Bs * (F + Hs) * 3 * Hs
+    bytes_ = _nbytes(x, *h0s, *ws) + 2 * Tc * Bs * Hs * 4
+    row, extra = _row("gru_bifwd", "gru_fwd.cu", "cross_patient_speech_"
+                      "decoding_tpu/ops/pallas_gru.py:140", launches, err,
+                      times, flops, bytes_)
+    emit({"phase": "kernel", **row, **extra,
+          "library_max_abs_err_vs_plain": lib_err,
+          "two_gru_fwd_ms": two_ms, "bitwise_equal_to_two_gru_fwd": bitwise,
+          "library_note": "torch.nn.GRU(bidirectional=True) forward (cuDNN) "
+                          "on the same weights",
+          "tolerance": KERNEL_ATOL,
+          "shapes": {"x": [Tc, Bs, F], "dtype": "f32",
+                     "hs": [2, Tc, Bs, Hs]}})
+    if not err <= KERNEL_ATOL:
+        raise RuntimeError(f"gru_bifwd differs from plain by {err}")
+    return row
 
 
 def phase_kernels_backward(torch, dev, gru, gen, h0, launches):

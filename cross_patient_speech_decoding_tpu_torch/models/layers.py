@@ -1,25 +1,58 @@
-"""GRU building blocks: window reformat, one GRU layer, the GRU stack.
+"""Building blocks: window reformat, GRU layers and stacks, temporal conv.
 
 Port of ``cross_patient_speech_decoding_tpu/models/layers.py``
-(``reformat_time_windows``, ``FusedGRU``, ``StackedRNN``). Parameters keep
-the flax names and the (in, out) layout: ``wi`` (F, 3H), ``wh`` (H, 3H),
-``bi`` and ``bh`` (3H,), gate order (r, z, n). Initialisation follows
+(``reformat_time_windows``, ``FusedGRU``, ``StackedRNN``,
+``TemporalConv``). Parameters keep the flax names and the (in, out)
+layout: ``wi`` (F, 3H), ``wh`` (H, 3H), ``bi`` and ``bh`` (3H,), gate order
+(r, z, n); a dense layer's ``kernel`` (in, out). Initialisation follows
 flax, not torch's defaults: xavier-uniform ``wi``, orthogonal ``wh``, zero
-biases.
+biases, lecun-normal dense and conv kernels.
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from cross_patient_speech_decoding_tpu_torch.ops.gru import (
     gru_layer,
+    gru_layer_bidir,
     gru_layer_windowed,
     reformat_time_windows,
 )
 
-__all__ = ["FusedGRU", "StackedRNN", "reformat_time_windows"]
+__all__ = ["BatchNorm", "Conv1dF32", "Dense", "FusedGRU", "StackedRNN",
+           "TemporalConv", "conv_f32", "reformat_time_windows"]
+
+# flax lecun_normal draws from a normal truncated at +-2 and rescales by
+# this constant (the truncated unit normal's standard deviation)
+TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(t, fan_in: int, generator: torch.Generator | None = None):
+    """flax ``lecun_normal``: truncated at +-2 std, std sqrt(1/fan_in)."""
+    std = math.sqrt(1.0 / fan_in) / TRUNC_STD
+    return nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
+                                 generator=generator)
+
+
+class Dense(nn.Module):
+    """``x @ kernel + bias`` with flax's (in, out) kernel layout; the kernel
+    starts lecun-normal, the bias at 0."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(in_features, out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+        lecun_normal_(self.kernel, in_features, generator)
+
+    def forward(self, x):
+        return x @ self.kernel + self.bias
 
 
 class FusedGRU(nn.Module):
@@ -66,25 +99,27 @@ class FusedGRU(nn.Module):
 
 
 class StackedRNN(nn.Module):
-    """Multi-layer unidirectional GRU stack (``nn.GRU(num_layers)``).
+    """Multi-layer, optionally bidirectional GRU stack
+    (``nn.GRU(num_layers, bidirectional)``).
 
-    Layer modules are ``fwd0``, ``fwd1``, ... as in the flax tree.
-    Returns (out (B, T, H), last states (n_layers, B, H)). Inter-layer
-    dropout applies in training mode only, with flax's semantics (keep
-    with probability 1 - p, scale kept values by 1/(1 - p)); its mask is
-    drawn from ``generator``, the counterpart of the JAX step's dropout
-    key (torch's default generator when None).
+    Layer modules are ``fwd0``, ``fwd1``, ... and, when bidirectional,
+    ``bwd0``, ``bwd1``, ... as in the flax tree; a bidirectional layer
+    above the first reads the 2H features of the one below. Each
+    bidirectional layer runs both directions through the fused op
+    ``gru_layer_bidir`` (one kernel launch a step on the card). Returns
+    (out (B, T, H * n_dir), last states (n_layers * n_dir, B, H)), the last
+    states per layer forward then reverse (the reverse direction's is its
+    state at t = 0). ``h0`` is laid out as the last states. Inter-layer
+    dropout applies in training mode only, with flax's semantics (keep with
+    probability 1 - p, scale kept values by 1/(1 - p)); its mask is drawn
+    from ``generator``, the counterpart of the JAX step's dropout key
+    (torch's default generator when None).
     """
 
     def __init__(self, in_features: int, hidden: int, n_layers: int = 1,
                  dropout: float = 0.0, bidirectional: bool = False,
                  cell: str = "gru", generator: torch.Generator | None = None):
         super().__init__()
-        if bidirectional:
-            raise NotImplementedError(
-                "bidirectional StackedRNN: waits for the fused bidirectional "
-                "kernel (ROADMAP queue 2, item 6: _bifwd_kernel)"
-            )
         if cell != "gru":
             raise NotImplementedError(
                 "LSTM StackedRNN: waits for FusedLSTM (ROADMAP queue 1, "
@@ -93,27 +128,54 @@ class StackedRNN(nn.Module):
         self.hidden = hidden
         self.n_layers = n_layers
         self.dropout = dropout
+        self.bidirectional = bidirectional
+        n_dir = 2 if bidirectional else 1
         for layer in range(n_layers):
-            F = in_features if layer == 0 else hidden
+            F = in_features if layer == 0 else hidden * n_dir
             self.add_module(f"fwd{layer}", FusedGRU(F, hidden,
                                                     generator=generator))
+            if bidirectional:
+                self.add_module(f"bwd{layer}", FusedGRU(
+                    F, hidden, reverse=True, generator=generator))
 
-    def layer(self, i: int) -> FusedGRU:
-        return getattr(self, f"fwd{i}")
+    def layer(self, i: int, direction: str = "fwd") -> FusedGRU:
+        return getattr(self, f"{direction}{i}")
 
     def forward(self, x, h0=None, window: tuple | None = None,
                 generator: torch.Generator | None = None):
+        if window is not None and self.bidirectional:
+            raise NotImplementedError(
+                "windowed bidirectional StackedRNN: comes with the "
+                "bidirectional RealtimeRNN (ROADMAP queue 1, item 7)")
         out = x
         lasts = []
+        n_dir = 2 if self.bidirectional else 1
         for i in range(self.n_layers):
-            h0_i = None if h0 is None else h0[i]
-            out, last = self.layer(i)(
-                out, h0_i, window=window if i == 0 else None
-            )
-            lasts.append(last)
+            h0_i = [None if h0 is None else h0[i * n_dir + d]
+                    for d in range(n_dir)]
+            if self.bidirectional:
+                out, *last = self._bidir_layer(i, out, *h0_i)
+                lasts += last
+            else:
+                out, last = self.layer(i)(
+                    out, *h0_i, window=window if i == 0 else None
+                )
+                lasts.append(last)
             if self.training and self.dropout > 0 and i < self.n_layers - 1:
                 out = _dropout(out, self.dropout, generator)
         return out, torch.stack(lasts)
+
+    def _bidir_layer(self, i: int, x, h0_f, h0_b):
+        """(out (B, T, 2H), forward last state, reverse last state)."""
+        f, b = self.layer(i), self.layer(i, "bwd")
+        z = torch.zeros((x.shape[0], self.hidden), dtype=torch.float32,
+                        device=x.device)
+        h0_f, h0_b = ((z if h is None else h).float().contiguous()
+                      for h in (h0_f, h0_b))
+        hs_f, hs_b = gru_layer_bidir(x.transpose(0, 1), h0_f, h0_b, f.wi,
+                                     f.bi, f.wh, f.bh, b.wi, b.bi, b.wh, b.bh)
+        fwd, bwd = hs_f.transpose(0, 1), hs_b.transpose(0, 1)
+        return torch.cat([fwd, bwd], dim=-1), hs_f[-1], hs_b[0]
 
 
 def _dropout(x, rate: float, generator: torch.Generator | None):
@@ -122,3 +184,125 @@ def _dropout(x, rate: float, generator: torch.Generator | None):
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), device=x.device))
+
+
+@contextlib.contextmanager
+def conv_f32():
+    """cuDNN convolutions in full float32 inside the block, whatever the
+    caller set: PyTorch lets cuDNN run float32 convolutions in TF32 by
+    default (about three decimal digits), where the JAX package's conv is
+    float32. Only the convolution's own setting
+    (``torch.backends.cudnn.conv.fp32_precision``) is touched, and it is
+    restored on exit; setting it never makes the legacy getters raise."""
+    conv = torch.backends.cudnn.conv
+    before = conv.fp32_precision
+    conv.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        conv.fp32_precision = before
+
+
+class Conv1dF32(torch.autograd.Function):
+    """``F.conv1d(x, w, b, stride)`` with its forward and its backward under
+    :func:`conv_f32`: autograd runs a backward after the forward's block
+    has closed, so a plain ``F.conv1d`` inside the block would still take
+    its gradients in the caller's precision."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride: int):
+        ctx.save_for_backward(x, w)
+        ctx.stride = stride
+        with conv_f32():
+            return F.conv1d(x, w, b, stride=stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        need_x, need_w, need_b, _ = ctx.needs_input_grad
+        dx = dw = db = None
+        with conv_f32():
+            if need_x:
+                dx = torch.nn.grad.conv1d_input(x.shape, w, g, ctx.stride)
+            if need_w:
+                dw = torch.nn.grad.conv1d_weight(x, w.shape, g, ctx.stride)
+        if need_b:
+            db = g.sum((0, 2))
+        return dx, dw, db, None
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over the last axis of (B, T, C): momentum 0.99,
+    eps 1e-5, statistics over (B, T). In training mode it normalises with
+    the batch's mean and biased variance, E[x^2] - E[x]^2 clipped at 0
+    (flax's ``use_fast_variance``), and moves the running averages
+    ``mean <- 0.99 mean + 0.01 batch_mean`` (likewise ``var``, biased); in
+    eval mode it normalises with the running averages. The running
+    averages are buffers, so they go with ``state_dict`` and checkpoints.
+    (``nn.BatchNorm1d`` differs: momentum 0.1 on the new value, unbiased
+    running variance, channels on axis 1.)"""
+
+    MOMENTUM = 0.99
+    EPS = 1e-5
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x):
+        if self.training:
+            dims = tuple(range(x.dim() - 1))
+            mean = x.mean(dims)
+            var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.mean.mul_(m).add_((1.0 - m) * mean)
+                self.var.mul_(m).add_((1.0 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        return (x - mean) * (torch.rsqrt(var + self.EPS) * self.scale) \
+            + self.bias
+
+
+class TemporalConv(nn.Module):
+    """Conv1d over time + BatchNorm + ReLU + Dropout (the JAX
+    ``TemporalConv``, reference models.py:599-636). (B, T, C_in) ->
+    (B, T', n_filters) with VALID padding, T' = (T - kernel_size) // stride
+    + 1.
+
+    The conv weight is stored as ``F.conv1d`` takes it, (n_filters, C_in,
+    kernel_size) (flax keeps (kernel_size, C_in, n_filters);
+    ``models.convert`` transposes), initialised as flax's: lecun-normal over
+    fan_in C_in * kernel_size, zero bias. The conv and its gradients run
+    in full float32 (:class:`Conv1dF32`). Dropout draws its mask from the
+    ``generator`` given to ``forward``, in training mode only.
+    """
+
+    def __init__(self, in_channels: int, n_filters: int, kernel_size: int,
+                 stride: int = 1, dropout: float = 0.3,
+                 activation: bool = True,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.stride = stride
+        self.dropout = dropout
+        self.activation = activation
+        self.weight = nn.Parameter(
+            torch.empty(n_filters, in_channels, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(n_filters))
+        lecun_normal_(self.weight, in_channels * kernel_size, generator)
+        self.norm = BatchNorm(n_filters)
+
+    def forward(self, x, generator: torch.Generator | None = None):
+        y = Conv1dF32.apply(x.transpose(1, 2), self.weight, self.bias,
+                            self.stride)
+        # (B, T', F) with the feature axis contiguous, as the GRU kernels
+        # read it
+        y = self.norm(y.transpose(1, 2).contiguous())
+        if self.activation:
+            y = torch.relu(y)
+        if self.training and self.dropout > 0:
+            y = _dropout(y, self.dropout, generator)
+        return y

@@ -15,14 +15,13 @@ import math
 import torch
 from torch import nn
 
-from cross_patient_speech_decoding_tpu_torch.models.layers import StackedRNN
+from cross_patient_speech_decoding_tpu_torch.models.layers import (
+    Dense,
+    StackedRNN,
+)
 from cross_patient_speech_decoding_tpu_torch.utils.device import (
     resolve_device,
 )
-
-# flax lecun_normal draws from a normal truncated at +-2 and rescales by
-# this constant (the truncated unit normal's standard deviation)
-_TRUNC_STD = 0.87962566103423978
 
 
 def adjusted_input_lengths(input_lengths, win: int, stride: int):
@@ -30,18 +29,6 @@ def adjusted_input_lengths(input_lengths, win: int, stride: int):
     realtime_nn_model.py:214)."""
     return torch.div(input_lengths - win, stride,
                      rounding_mode="floor") + 1
-
-
-class Dense(nn.Module):
-    """``x @ kernel + bias`` with flax's (in, out) kernel layout."""
-
-    def __init__(self, in_features: int, out_features: int):
-        super().__init__()
-        self.kernel = nn.Parameter(torch.empty(in_features, out_features))
-        self.bias = nn.Parameter(torch.zeros(out_features))
-
-    def forward(self, x):
-        return x @ self.kernel + self.bias
 
 
 class RealtimeRNN(nn.Module):
@@ -59,6 +46,11 @@ class RealtimeRNN(nn.Module):
                  blank: int = 0, seed: int = 0, device=None):
         super().__init__()
         dev = resolve_device(device)
+        if bidirectional:
+            raise NotImplementedError(
+                "bidirectional RealtimeRNN: its (n_layers*2) initial state "
+                "and 2H-wide head are not ported yet (ROADMAP queue 1, "
+                "item 7)")
         self.in_channels = in_channels
         self.hidden = hidden
         self.n_layers = n_layers
@@ -74,12 +66,8 @@ class RealtimeRNN(nn.Module):
         lim = math.sqrt(6.0 / (n_layers * (1 + hidden)))
         nn.init.uniform_(self.h0, -lim, lim, generator=gen)
         self.rnn = StackedRNN(win_size * in_channels, hidden, n_layers,
-                              dropout=dropout, bidirectional=bidirectional,
-                              generator=gen)
-        self.head = Dense(hidden, n_classes)
-        std = math.sqrt(1.0 / hidden) / _TRUNC_STD
-        nn.init.trunc_normal_(self.head.kernel, 0.0, std, -2 * std, 2 * std,
-                              generator=gen)
+                              dropout=dropout, generator=gen)
+        self.head = Dense(hidden, n_classes, generator=gen)
         with torch.no_grad():
             self.head.bias.fill_(-2.0)  # suppress phonemes early
             self.head.bias[blank] = 2.0  # encourage blank early

@@ -37,6 +37,9 @@ _I = ctypes.c_int
 # n_split_i, n_split_h, dwi, dwh, T, B, F, H, reverse, stream
 _BWD = (_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
         _P, _P, _I, _I, _I, _I, _I, _P)
+# x, sx_t, sx_b, h0_f, wi_f, bi_f, wh_f, bh_f, h0_b, wi_b, bi_b, wh_b, bh_b,
+# hs_f, hs_b, T, B, F, H, stream
+_BIFWD = (_P, _LL, _LL) + (_P,) * 12 + (_I, _I, _I, _I, _P)
 # source -> {exported function: argtypes}; every exported function returns
 # a cudaError_t as int (0 = success)
 SOURCES = {
@@ -50,6 +53,8 @@ SOURCES = {
         # stream
         "gru_wfwd_bf16": (_P, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
                           _I, _I, _P),
+        "gru_bifwd_f32": _BIFWD,
+        "gru_bifwd_bf16": _BIFWD,
     },
     "gru_bwd.cu": {
         "gru_bwd_f32": _BWD,

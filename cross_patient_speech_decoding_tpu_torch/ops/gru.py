@@ -1,7 +1,8 @@
 """GRU layers: hand-written CUDA kernels, their plain versions, autograd.
 
 Port of ``cross_patient_speech_decoding_tpu/ops/pallas_gru.py`` (the
-unidirectional forward and backward). Gate math follows the torch
+unidirectional and the fused bidirectional forward, the backward). Gate
+math follows the torch
 convention, gate order (r, z, n), with separate input and recurrent
 biases:
 
@@ -10,18 +11,23 @@ biases:
     n = tanh(x W_n + b_in + r * (h W_hn + b_hn))
     h' = (1 - z) * n + z * h
 
-``gru_layer`` and ``gru_layer_windowed`` are differentiable and pick
-their implementation from the device of ``x`` and nothing else: on a CUDA
-tensor the forward and the backward launch the kernels of
-``csrc/gru_fwd.cu`` and ``csrc/gru_bwd.cu`` (and raise if that fails), on
-a CPU tensor they run the plain versions. The TPU's tiling constants
-(128-lane hidden padding, 256-row batch padding, the ``worthwhile`` size
-thresholds) have no counterpart here: any B and H go.
+``gru_layer``, ``gru_layer_windowed`` and ``gru_layer_bidir`` are
+differentiable and pick their implementation from the device of ``x`` and
+nothing else: on a CUDA tensor the forward and the backward launch the
+kernels of ``csrc/gru_fwd.cu`` and ``csrc/gru_bwd.cu`` (and raise if that
+fails), on a CPU tensor they run the plain versions. The TPU's tiling
+constants (128-lane hidden padding, 256-row batch padding, the
+``worthwhile`` size thresholds) have no counterpart here: any B and H go.
+Nor does the JAX package's ``BIDIR_FUSED`` switch, which keeps the fused
+bidirectional kernel off for reasons of the TPU's VMEM: the port's
+bidirectional layer always takes it.
 
 The backward mirrors the JAX custom VJPs (``_gru_bwd_rule``,
-``_gru_win_bwd_rule``): the forward keeps ``(x, h0, weights, hs)``, and the
-backward recomputes the gates from x_t and h_{t-1} (h0 or a row of hs).
-The windowed op gives no gradient to its frames, which are data.
+``_gru_win_bwd_rule``, ``_gru_bidir_bwd_rule``): the forward keeps
+``(x, h0, weights, hs)``, and the backward recomputes the gates from x_t
+and h_{t-1} (h0 or a row of hs); the bidirectional layer's backward is the
+unidirectional one per direction, with dx summed. The windowed op gives no
+gradient to its frames, which are data.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ import torch
 
 # Launch counts of the kernel wrappers: one per layer call that launched
 # the kernel (each call is one grid launch per time step or window).
-LAUNCHES = {"gru_fwd": 0, "gru_wfwd": 0, "gru_bwd": 0, "gru_wbwd": 0}
+LAUNCHES = {"gru_fwd": 0, "gru_wfwd": 0, "gru_bifwd": 0, "gru_bwd": 0,
+            "gru_wbwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -75,6 +82,15 @@ def gru_layer_plain(x, h0, wi, bi, wh, bh, reverse: bool = False):
         h = (1.0 - z) * n + z * h
         hs[t] = h
     return hs
+
+
+def gru_layer_bidir_plain(x, h0_f, h0_b, wi_f, bi_f, wh_f, bh_f, wi_b, bi_b,
+                          wh_b, bh_b):
+    """Both directions of a bidirectional layer as two
+    :func:`gru_layer_plain` sweeps, the second reversed; returns (hs_f,
+    hs_b), each (T, B, H) float32 in the original time order."""
+    return (gru_layer_plain(x, h0_f, wi_f, bi_f, wh_f, bh_f),
+            gru_layer_plain(x, h0_b, wi_b, bi_b, wh_b, bh_b, reverse=True))
 
 
 def reformat_time_windows(x, win: int, stride: int):
@@ -223,6 +239,37 @@ def gru_fwd_cuda(x, h0, wi, bi, wh, bh, reverse: bool = False):
     _ext.check(err, name)
     LAUNCHES["gru_fwd"] += 1
     return hs
+
+
+def gru_bifwd_cuda(x, h0_f, h0_b, wi_f, bi_f, wh_f, bh_f, wi_b, bi_b, wh_b,
+                   bh_b):
+    """Launch the ``gru_bifwd`` kernel (port of ``_bifwd_kernel``): both
+    directions in one grid per step. Arguments and result as
+    :func:`gru_layer_bidir_plain`."""
+    from cross_patient_speech_decoding_tpu_torch.ops import _ext
+
+    T, B, F = x.shape
+    H = wh_f.shape[0]
+    _check_args(x, h0_f, wi_f, bi_f, wh_f, bh_f, F)
+    _check_args(x, h0_b, wi_b, bi_b, wh_b, bh_b, F)
+    if wh_b.shape[0] != H:
+        raise ValueError(f"the directions' hidden sizes differ: {H} and "
+                         f"{wh_b.shape[0]}")
+    hs_f = torch.empty((T, B, H), dtype=torch.float32, device=x.device)
+    hs_b = torch.empty_like(hs_f)
+    if T == 0:
+        return hs_f, hs_b
+    name = "gru_bifwd_bf16" if x.dtype == torch.bfloat16 else "gru_bifwd_f32"
+    with torch.cuda.device(x.device):
+        err = getattr(_ext.lib(), name)(
+            x.data_ptr(), x.stride(0), x.stride(1),
+            *(t.data_ptr() for t in (h0_f, wi_f, bi_f, wh_f, bh_f,
+                                     h0_b, wi_b, bi_b, wh_b, bh_b)),
+            hs_f.data_ptr(), hs_b.data_ptr(), T, B, F, H, _stream(),
+        )
+    _ext.check(err, name)
+    LAUNCHES["gru_bifwd"] += 1
+    return hs_f, hs_b
 
 
 def _batch_major(x):
@@ -401,6 +448,42 @@ class GRULayerFn(torch.autograd.Function):
         return dx, dh0, dwi, dbi, dwh, dbh, None, None
 
 
+class GRUBidirFn(torch.autograd.Function):
+    """``(hs_f, hs_b) = gru_layer_bidir(x, h0_f, h0_b, wi_f, bi_f, wh_f,
+    bh_f, wi_b, bi_b, wh_b, bh_b)`` with its backward
+    (``_gru_bidir_core``, pallas_gru.py:846-881): the unidirectional
+    backward once forward and once reversed, dx summed and formed only when
+    x needs it. ``plain`` as in :class:`GRULayerFn`."""
+
+    @staticmethod
+    def forward(ctx, x, h0_f, h0_b, wi_f, bi_f, wh_f, bh_f, wi_b, bi_b, wh_b,
+                bh_b, plain: bool):
+        fwd = gru_layer_bidir_plain if plain else gru_bifwd_cuda
+        hs_f, hs_b = fwd(x, h0_f, h0_b, wi_f, bi_f, wh_f, bh_f, wi_b, bi_b,
+                         wh_b, bh_b)
+        ctx.save_for_backward(x, h0_f, h0_b, wi_f, bi_f, wh_f, bh_f, wi_b,
+                              bi_b, wh_b, bh_b, hs_f, hs_b)
+        ctx.plain = plain
+        return hs_f, hs_b
+
+    @staticmethod
+    def backward(ctx, dhs_f, dhs_b):
+        (x, h0_f, h0_b, wi_f, bi_f, wh_f, bh_f, wi_b, bi_b, wh_b, bh_b,
+         hs_f, hs_b) = ctx.saved_tensors
+        need_dx = ctx.needs_input_grad[0]
+        bwd = gru_backward_plain if ctx.plain else gru_bwd_cuda
+        # h_{t-1} of each step in each direction's sweep (:860, :865)
+        dx_f, dh0_f, dwi_f, dwh_f, dbi_f, dbh_f = bwd(
+            x, torch.cat([h0_f[None], hs_f[:-1]]), dhs_f.contiguous(), wi_f,
+            bi_f, wh_f, bh_f, False, need_dx=need_dx)
+        dx_b, dh0_b, dwi_b, dwh_b, dbi_b, dbh_b = bwd(
+            x, torch.cat([hs_b[1:], h0_b[None]]), dhs_b.contiguous(), wi_b,
+            bi_b, wh_b, bh_b, True, need_dx=need_dx)
+        dx = (dx_f + dx_b).to(x.dtype) if need_dx else None
+        return (dx, dh0_f, dh0_b, dwi_f, dbi_f, dwh_f, dbh_f, dwi_b, dbi_b,
+                dwh_b, dbh_b, None)
+
+
 class GRUWindowedFn(torch.autograd.Function):
     """``hs = gru_layer_windowed(x, h0, wi, bi, wh, bh, win, stride)`` with
     its backward (``_gru_win_core``, pallas_gru.py:493-518): no gradient
@@ -452,6 +535,29 @@ def gru_layer(x, h0, wi, bi, wh, bh, reverse: bool = False):
     """
     plain = _route(x) == "cpu"
     return GRULayerFn.apply(x, h0, wi, bi, wh, bh, reverse, plain)
+
+
+def gru_layer_bidir(x, h0_f, h0_b, wi_f, bi_f, wh_f, bh_f, wi_b, bi_b, wh_b,
+                    bh_b):
+    """Bidirectional GRU layer over time-major inputs, both directions in
+    one time loop (the JAX ``gru_layer_bidir``, argument order kept),
+    differentiable in every argument.
+
+    Args:
+        x: (T, B, F) float32 or bfloat16, last axis contiguous.
+        h0_f, h0_b: (B, H) float32 initial states of the forward and the
+            reverse direction.
+        wi_*, bi_*, wh_*, bh_*: each direction's weights, as in
+            :func:`gru_layer`.
+
+    Returns:
+        (hs_f, hs_b), each (T, B, H) float32 in the original time order
+        (the reverse direction's last state is ``hs_b[0]``). The gradient of
+        x is formed only when x requires it, and has x's dtype.
+    """
+    plain = _route(x) == "cpu"
+    return GRUBidirFn.apply(x, h0_f, h0_b, wi_f, bi_f, wh_f, bh_f, wi_b, bi_b,
+                            wh_b, bh_b, plain)
 
 
 def gru_layer_windowed(x, h0, wi, bi, wh, bh, win: int, stride: int):

@@ -1,11 +1,31 @@
-"""Edit distance and phoneme error rate over padded batches.
+"""Decode-quality metrics: confusion-matrix accuracy, edit distance and
+phoneme error rate over padded batches.
 
-Port of ``cross_patient_speech_decoding_tpu/ops/metrics.py:179-232``.
+Port of ``cross_patient_speech_decoding_tpu/ops/metrics.py:19-58`` and
+``:179-232``.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def confusion_matrix(y_true, y_pred, n_classes: int, sample_mask=None):
+    """(n_classes, n_classes) float32 confusion counts, rows true, columns
+    predicted; ``sample_mask`` weights each sample (default 1)."""
+    idx = (y_true.long() * n_classes + y_pred.long()).reshape(-1)
+    w = (torch.ones(idx.shape, dtype=torch.float32, device=idx.device)
+         if sample_mask is None else sample_mask.float().reshape(-1))
+    flat = torch.zeros(n_classes * n_classes, dtype=torch.float32,
+                       device=idx.device).index_add_(0, idx, w)
+    return flat.reshape(n_classes, n_classes)
+
+
+def cmat_acc(y_true, y_pred, n_classes: int, sample_mask=None):
+    """trace(confusion) / sum(confusion), the reference's NN accuracy
+    (nn_models/models.py:875-889); 0-d float32."""
+    cm = confusion_matrix(y_true, y_pred, n_classes, sample_mask)
+    return torch.trace(cm) / cm.sum().clamp(min=1.0)
 
 
 def edit_distance(pred, pred_len, target, target_len):

@@ -1,4 +1,5 @@
-"""Train state, optimizer, loop, checkpoints and the CTC steps."""
+"""Train state, optimizer, loop, checkpoints and the CTC and seq2seq
+steps."""
 
 from cross_patient_speech_decoding_tpu_torch.train.loops import (
     FitResult,
@@ -15,6 +16,8 @@ from cross_patient_speech_decoding_tpu_torch.train.state import (
 from cross_patient_speech_decoding_tpu_torch.train.steps import (
     make_ctc_eval_step,
     make_ctc_train_step,
+    make_seq2seq_eval_step,
+    make_seq2seq_train_step,
 )
 
 __all__ = [
@@ -27,5 +30,7 @@ __all__ = [
     "make_ctc_eval_step",
     "make_ctc_train_step",
     "make_optimizer",
+    "make_seq2seq_eval_step",
+    "make_seq2seq_train_step",
     "save_checkpoint",
 ]

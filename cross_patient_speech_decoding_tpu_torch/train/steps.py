@@ -1,15 +1,21 @@
-"""Train and eval steps of the CTC model.
+"""Train and eval steps of the CTC and the seq2seq models.
 
-Port of ``make_ctc_train_step`` and ``make_ctc_eval_step``
-(``cross_patient_speech_decoding_tpu/train/steps.py:150-185``): forward,
-CTC loss on window-adjusted lengths; in training, dropout on, the loss's
-gradient through the GRU backward kernels and one AdamW update; in
-evaluation, greedy decoding under the valid-window mask, and PER.
+Port of ``make_ctc_train_step``, ``make_ctc_eval_step``,
+``make_seq2seq_train_step`` and ``make_seq2seq_eval_step``
+(``cross_patient_speech_decoding_tpu/train/steps.py:44-96, 150-185``).
+CTC: forward, CTC loss on window-adjusted lengths; in training, dropout
+on, the loss's gradient through the GRU backward kernels and one AdamW
+update; in evaluation, greedy decoding under the valid-window mask, and
+PER. Seq2seq: mean cross-entropy over the B * seq_length tokens and
+confusion-matrix accuracy; in training, dropout, teacher forcing, the
+BatchNorm's running averages moved and one AdamW update; in evaluation,
+no teacher forcing and the running averages.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from cross_patient_speech_decoding_tpu_torch.models.realtime_rnn import (
     adjusted_input_lengths,
@@ -18,10 +24,24 @@ from cross_patient_speech_decoding_tpu_torch.ops.ctc import (
     ctc_loss_mean,
     greedy_decode,
 )
-from cross_patient_speech_decoding_tpu_torch.ops.metrics import per_batch
+from cross_patient_speech_decoding_tpu_torch.ops.metrics import (
+    cmat_acc,
+    per_batch,
+)
 from cross_patient_speech_decoding_tpu_torch.train.loops import (
     clip_by_global_norm_,
 )
+
+
+def _update(state, tx) -> None:
+    """Clip (when ``tx`` clips), step the optimizer and the schedule, count
+    the step."""
+    if tx.clip is not None:
+        clip_by_global_norm_([p.grad for p in state.model.parameters()],
+                             tx.clip)
+    state.optimizer.step()
+    state.schedule.step()
+    state.step += 1
 
 
 def make_ctc_train_step(model, tx):
@@ -47,11 +67,7 @@ def make_ctc_train_step(model, tx):
         logits = m(x, generator=generator)
         loss = ctc_loss_mean(logits, in_adj, labels, label_lens, blank)
         loss.backward()
-        if tx.clip is not None:
-            clip_by_global_norm_([p.grad for p in m.parameters()], tx.clip)
-        state.optimizer.step()
-        state.schedule.step()
-        state.step += 1
+        _update(state, tx)
         return state, {"loss": loss.detach()}
 
     return step
@@ -87,5 +103,68 @@ def make_ctc_eval_step(model):
         finally:
             model.train(was_training)
         return {"loss": loss, "per": per}
+
+    return step
+
+
+def _seq2seq_metrics(logits, y, n_classes: int):
+    """(mean cross-entropy over the B * seq_length tokens, cmat accuracy
+    of the argmax), both 0-d."""
+    flat = logits.reshape(-1, logits.shape[-1])
+    labels = y.reshape(-1).long()
+    loss = F.cross_entropy(flat, labels)
+    acc = cmat_acc(labels, flat.detach().argmax(dim=-1), n_classes)
+    return loss, acc
+
+
+def make_seq2seq_train_step(model, tx, teacher_forcing: float = 0.5):
+    """Build ``step(state, batch, generator) -> (state, {"loss", "acc"})``.
+
+    ``model`` gives the class count; the step trains ``state.model`` (a
+    Seq2SeqRNN in a state made with the optimizer ``tx`` of
+    ``make_optimizer``) in place, in training mode: dropout on, teacher
+    forcing at ``teacher_forcing``, the BatchNorm's running averages moved
+    by this batch. ``batch`` is (x (B, T, C), y (B, seq_length)), moved to
+    the model's device; ``generator`` draws the dropout masks and the
+    teacher-forcing coins (the JAX step's key; order in
+    ``models/seq2seq.py``). Loss and accuracy are those of the forward,
+    before the update.
+    """
+    n_classes = model.num_classes
+
+    def step(state, batch, generator: torch.Generator | None = None):
+        m = state.model
+        x, y = (t.to(m.device) for t in batch)
+        m.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        logits = m(x, y, teacher_forcing, generator=generator)
+        loss, acc = _seq2seq_metrics(logits, y, n_classes)
+        loss.backward()
+        _update(state, tx)
+        return state, {"loss": loss.detach(), "acc": acc}
+
+    return step
+
+
+def make_seq2seq_eval_step(model):
+    """Build ``step(batch) -> {"loss", "acc"}`` for a Seq2SeqRNN.
+
+    The model runs in eval mode (no dropout, no teacher forcing, the
+    BatchNorm's running averages), and is left in the mode it was in.
+    ``batch`` is (x (B, T, C), y (B, seq_length)); the tensors are moved to
+    the model's device and the results are 0-d tensors there.
+    """
+
+    def step(batch):
+        x, y = (t.to(model.device) for t in batch)
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                logits = model(x, None, 0.0)
+                loss, acc = _seq2seq_metrics(logits, y, model.num_classes)
+        finally:
+            model.train(was_training)
+        return {"loss": loss, "acc": acc}
 
     return step

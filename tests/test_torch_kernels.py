@@ -170,8 +170,8 @@ def test_realtime_rnn_on_card_matches_cpu(card):
         model.to(card)
         gru.reset_launch_counts()
         got = model(x.to(card)).cpu()
-    assert gru.LAUNCHES == {"gru_fwd": 2, "gru_wfwd": 1, "gru_bwd": 0,
-                            "gru_wbwd": 0}
+    assert gru.LAUNCHES == {"gru_fwd": 2, "gru_wfwd": 1, "gru_bifwd": 0,
+                            "gru_bwd": 0, "gru_wbwd": 0}
     torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
 
 
@@ -199,11 +199,130 @@ def test_realtime_rnn_gradients_on_card_match_cpu(card):
     model.to(card)
     gru.reset_launch_counts()
     got = grads()
-    assert gru.LAUNCHES == {"gru_fwd": 2, "gru_wfwd": 1, "gru_bwd": 2,
-                            "gru_wbwd": 1}
+    assert gru.LAUNCHES == {"gru_fwd": 2, "gru_wfwd": 1, "gru_bifwd": 0,
+                            "gru_bwd": 2, "gru_wbwd": 1}
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()),
                                    rtol=0)
+
+
+def _bidir_args(card, seed, T, B, F, H, dtype):
+    x, h0_f, *w_f = _args(card, seed, T, B, F, H)
+    _, h0_b, *w_b = _args(card, seed + 1, T, B, F, H)
+    return [x.to(dtype), h0_f, h0_b, *w_f, *w_b]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,F,H", [(1, 1, 3, 1), (1, 7, 5, 33),
+                                     (6, 16, 10, 32), (3, 130, 70, 97)])
+def test_gru_bifwd_kernel_matches_plain(card, dtype, T, B, F, H):
+    """Both directions in one launch a step: against the plain version
+    (two plain sweeps) to ATOL, and bitwise equal to two gru_fwd launches
+    (each CTA runs gru_fwd's step body on its direction)."""
+    args = _bidir_args(card, 7, T, B, F, H, dtype)
+    x, h0_f, h0_b, *w = args
+    gru.reset_launch_counts()
+    with torch.no_grad():
+        got = gru.gru_layer_bidir(*args)
+        want = gru.gru_layer_bidir_plain(*args)
+    assert gru.LAUNCHES["gru_bifwd"] == 1 and gru.LAUNCHES["gru_fwd"] == 0
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, atol=ATOL, rtol=0)
+    assert torch.equal(got[0], gru.gru_fwd_cuda(x, h0_f, *w[:4]))
+    assert torch.equal(got[1], gru.gru_fwd_cuda(x, h0_b, *w[4:],
+                                                reverse=True))
+
+
+@pytest.mark.parametrize("need_dx", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_bidir_grads_match_plain(card, need_dx, dtype):
+    """GRUBidirFn through the kernels (gru_bifwd, then gru_bwd forward and
+    reversed) against the same Function through the plain versions, on
+    the card: every gradient to GRAD_RTOL x its largest value."""
+    args = _bidir_args(card, 8, 5, 10, 9, 50, dtype)
+    rng = np.random.default_rng(9)
+    dhs = [torch.as_tensor(rng.normal(size=(5, 10, 50)), dtype=torch.float32,
+                           device=card) for _ in range(2)]
+
+    def grads(plain):
+        ts = [a.detach().clone().requires_grad_(i > 0 or need_dx)
+              for i, a in enumerate(args)]
+        out = gru.GRUBidirFn.apply(*ts, plain)
+        torch.autograd.backward(out, dhs)
+        return [t.grad for t in ts]
+
+    gru.reset_launch_counts()
+    got = grads(False)
+    assert gru.LAUNCHES["gru_bifwd"] == 1 and gru.LAUNCHES["gru_bwd"] == 2
+    want = grads(True)
+    assert (got[0] is None) == (not need_dx)
+    if need_dx and dtype == torch.bfloat16:
+        # dx comes back in x's dtype: one bf16 rounding of a float32 sum
+        assert got[0].dtype == torch.bfloat16
+        torch.testing.assert_close(got[0].float(), want[0].float(),
+                                   atol=1e-2 * float(want[0].abs().max()),
+                                   rtol=0)
+        got[0] = want[0] = None
+    _assert_grads_close(got, want)
+
+
+def test_bifwd_wrapper_raises_on_cuda(card):
+    args = _bidir_args(card, 10, 4, 8, 6, 16, torch.float32)
+    other = _args(card, 11, 4, 8, 6, 17)  # a reverse direction of H=17
+    with pytest.raises(ValueError, match="hidden sizes differ"):
+        gru.gru_bifwd_cuda(args[0], args[1], other[1], *args[3:7],
+                           *other[2:])
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        gru.gru_bifwd_cuda(args[0].transpose(0, 2).contiguous()
+                           .transpose(0, 2), *args[1:])
+    with pytest.raises(ValueError, match="is on"):
+        gru.gru_bifwd_cuda(args[0], args[1], args[2].cpu(), *args[3:])
+
+
+def test_seq2seq_on_card_matches_cpu(card):
+    """A small Seq2SeqRNN on the card against the same model on the CPU:
+    eval logits to ATOL, and the train-mode loss's gradients (teacher
+    forcing 1, dropout 0) to 1e-4 x their largest value (the conv bias's,
+    0 in exact arithmetic behind the BatchNorm, to 1e-4 x the conv
+    weight's), with one gru_bifwd and three gru_fwd launches a forward and
+    five gru_bwd launches a backward."""
+    from cross_patient_speech_decoding_tpu_torch.models import Seq2SeqRNN
+
+    model = Seq2SeqRNN(3, 5, 12, 5, kernel_size=4, cnn_dropout=0.0,
+                       rnn_dropout=0.0, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((6, 16, 3), generator=g)
+    y = torch.randint(0, 5, (6, 3), generator=g)
+
+    def run():
+        dev = model.device
+        model.eval()
+        with torch.no_grad():
+            logits = model(x.to(dev), None, 0.0).cpu()
+        model.train()
+        state = [b.clone() for b in model.buffers()]
+        out = model(x.to(dev), y.to(dev), 1.0)
+        loss = torch.nn.functional.cross_entropy(out.reshape(-1, 5),
+                                                 y.to(dev).reshape(-1))
+        grads = [p.cpu() for p in torch.autograd.grad(
+            loss, list(model.parameters()))]
+        for b, s in zip(model.buffers(), state):
+            b.copy_(s)
+        return logits, grads
+
+    want = run()
+    model.to(card)
+    gru.reset_launch_counts()
+    got = run()
+    assert gru.LAUNCHES == {"gru_fwd": 6, "gru_wfwd": 0, "gru_bifwd": 2,
+                            "gru_bwd": 5, "gru_wbwd": 0}
+    torch.testing.assert_close(got[0], want[0], atol=ATOL, rtol=0)
+    names = [n for n, _ in model.named_parameters()]
+    scale = {n: float(b.abs().max()) for n, b in zip(names, want[1])}
+    scale["conv.bias"] = scale["conv.weight"]
+    for n, a, b in zip(names, got[1], want[1]):
+        torch.testing.assert_close(a, b, atol=1e-4 * scale[n], rtol=0,
+                                   msg=n)
 
 
 def _sym(seed, b, k, cond=50.0):

@@ -124,10 +124,40 @@ def test_adjusted_input_lengths_matches_jax():
     np.testing.assert_array_equal(got, want)
 
 
-def test_bidirectional_and_lstm_are_not_ported_yet():
+def test_lstm_is_not_ported_yet():
     from cross_patient_speech_decoding_tpu_torch.models import StackedRNN
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StackedRNN(4, 8, bidirectional=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         StackedRNN(4, 8, cell="lstm")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        StackedRNN(4, 8, bidirectional=True, cell="lstm")
+
+
+def test_bidirectional_stack_runs_both_directions():
+    """StackedRNN(bidirectional=True): modules fwd{l} and bwd{l}, layer 1
+    reads 2H features; out is [forward | reverse] and the last states are
+    per layer the forward's at T-1 and the reverse's at 0, each equal to
+    its own one-direction layer. The bidirectional RealtimeRNN (a 2H head)
+    is not ported."""
+    from cross_patient_speech_decoding_tpu_torch.models import StackedRNN
+
+    stack = StackedRNN(4, 8, n_layers=2, bidirectional=True,
+                       generator=torch.Generator().manual_seed(0))
+    assert stack.layer(1, "bwd").wi.shape == (16, 24)
+    x = torch.from_numpy(_x(B=3, T=7, C=4))
+    with torch.no_grad():
+        out, lasts = stack(x)
+        f0, _ = stack.layer(0)(x)
+        b0, _ = stack.layer(0, "bwd")(x)
+        l0 = torch.cat([f0, b0], dim=-1)
+        f1, _ = stack.layer(1)(l0)
+        b1, _ = stack.layer(1, "bwd")(l0)
+    assert out.shape == (3, 7, 16) and lasts.shape == (4, 3, 8)
+    torch.testing.assert_close(out, torch.cat([f1, b1], dim=-1), atol=1e-6,
+                               rtol=0)
+    want = torch.stack([f0[:, -1], b0[:, 0], f1[:, -1], b1[:, 0]])
+    torch.testing.assert_close(lasts, want, atol=1e-6, rtol=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        RealtimeRNN(5, 8, 1, 3, bidirectional=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        stack(x, window=(2, 1))

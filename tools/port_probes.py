@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Probes of the PyTorch port's alignment core, one JSON line per result.
+"""Probes of the PyTorch port's kernels, one JSON line per result.
 
 Run from the repository root:
 
     python tools/port_probes.py jacobi   # on a CUDA card
+    python tools/port_probes.py bifwd    # on a CUDA card
     python tools/port_probes.py tf32     # on a CUDA card
     python tools/port_probes.py oracle --pairs 4 --seed 0   # on the CPU
 
@@ -13,6 +14,11 @@ Run from the repository root:
   reconstruction and orthonormality errors; at 100 or more matrices also
   the kernel, plain and ``torch.linalg.eigh`` times (CUDA events, median
   of 5).
+- ``bifwd``: builds the kernels, then holds the bidirectional GRU kernel
+  against its plain version and against two ``gru_fwd`` launches (bitwise)
+  at odd shapes and at the seq2seq encoder's (T=191, B=1000, F=100,
+  H=500), f32 and bf16 x; at B >= 100 also the kernel, two-launch and
+  plain times.
 - ``tf32``: the error of a 1024^3 float32 product against float64, as a
   plain ``@`` and through ``ops.precision.hdot``, under four caller
   settings of TF32, with the settings before and after the call.
@@ -42,6 +48,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from cross_patient_speech_decoding_tpu_torch.ops import (  # noqa: E402
     _ext,
     cca,
+    gru,
     jacobi,
     precision,
 )
@@ -122,6 +129,46 @@ def probe_jacobi() -> None:
                     res["plain_ms"] = _cuda_ms(
                         lambda: jacobi.jacobi_eigh_plain(Ap, pairs))
                     res["eigh_ms"] = _cuda_ms(lambda: torch.linalg.eigh(At))
+            _emit(res)
+
+
+def probe_bifwd() -> None:
+    dev = _card()
+    _emit({"build_s": _ext.build(verbose=True)})
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def case(T, B, F, H, dtype):
+        def rn(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device=dev) * scale
+
+        x = rn(T, B, F, scale=0.5).to(dtype)
+        h0 = [rn(B, H, scale=0.3), rn(B, H, scale=0.3)]
+        w = [[rn(F, 3 * H, scale=F ** -0.5), rn(3 * H, scale=0.1),
+              rn(H, 3 * H, scale=H ** -0.5), rn(3 * H, scale=0.1)]
+             for _ in range(2)]
+        return x, h0, w
+
+    for T, B, F, H in ((1, 1, 3, 1), (1, 7, 5, 33), (5, 7, 9, 33),
+                       (3, 1, 4, 1), (191, 1000, 100, 500)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, h0, w = case(T, B, F, H, dtype)
+            args = (x, h0[0], h0[1], *w[0], *w[1])
+            kf, kb = gru.gru_bifwd_cuda(*args)
+            pf, pb = gru.gru_layer_bidir_plain(*args)
+            uf = gru.gru_fwd_cuda(x, h0[0], *w[0])
+            ub = gru.gru_fwd_cuda(x, h0[1], *w[1], reverse=True)
+            res = {"T": T, "B": B, "F": F, "H": H, "dtype": str(dtype),
+                   "err_vs_plain": max(float((kf - pf).abs().max()),
+                                       float((kb - pb).abs().max())),
+                   "bitwise_vs_two_gru_fwd": bool(torch.equal(kf, uf)
+                                                  and torch.equal(kb, ub))}
+            if B >= 100:
+                res["kernel_ms"] = _cuda_ms(lambda: gru.gru_bifwd_cuda(*args))
+                res["two_gru_fwd_ms"] = _cuda_ms(lambda: (
+                    gru.gru_fwd_cuda(x, h0[0], *w[0]),
+                    gru.gru_fwd_cuda(x, h0[1], *w[1], reverse=True)))
+                res["plain_ms"] = _cuda_ms(
+                    lambda: gru.gru_layer_bidir_plain(*args))
             _emit(res)
 
 
@@ -208,12 +255,14 @@ def probe_oracle(n_pairs: int, seed: int) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("probe", choices=("jacobi", "tf32", "oracle"))
+    ap.add_argument("probe", choices=("jacobi", "bifwd", "tf32", "oracle"))
     ap.add_argument("--pairs", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if args.probe == "jacobi":
         probe_jacobi()
+    elif args.probe == "bifwd":
+        probe_bifwd()
     elif args.probe == "tf32":
         probe_tf32()
     else:
