@@ -83,11 +83,17 @@ from pathlib import Path
 # fig_5 geometry (the JAX package's bench.py section_ctc)
 B, T, C, H, N_LAYERS, N_CLASSES, WIN, STRIDE = 2000, 600, 60, 512, 3, 11, 14, 4
 N_WIN = (T - WIN) // STRIDE + 1
-# H100 SXM peaks (NVIDIA data sheet): float32 SIMT, bf16 dense tensor
-# cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): float32 SIMT, bf16 and TF32 dense
+# tensor cores, HBM3
 PEAK_F32_SIMT = 67e12
 PEAK_BF16_TC = 989e12
+PEAK_TF32_TC = 495e12
 PEAK_HBM = 3.35e12
+# the backward kernels' products run as 3xTF32 (three TF32 products per
+# float32 product, gru_mma.cuh), two where the A operand is bf16 (exact in
+# TF32): their float32-equivalent peaks
+PEAK_3XTF32 = PEAK_TF32_TC / 3
+PEAK_2XTF32 = PEAK_TF32_TC / 2
 KERNEL_ATOL = 1e-4  # kernel vs plain on hs: float32 sums in another order
 LOGITS_ATOL = 1e-3  # eval step: kernel path vs plain path on the card
 LOSS_RTOL = 1e-4
@@ -345,9 +351,21 @@ def ctc_flops_per_step(B, T, C, H, NL, n_cls, win, stride):
 
 
 def _kernel_name(name: str) -> str:
-    """'void (anonymous namespace)::gate_grad_kernel<float>(float const*,
-    ...)' -> 'gate_grad_kernel': no namespace, template or arguments."""
+    """'void (anonymous namespace)::step_grad_kernel(float*, ...)' ->
+    'step_grad_kernel': no namespace, template or arguments; the tensor-core
+    product keeps its tile, A type and operand layouts, which tell the
+    backward's phases apart ('mma_gemm_kernel<128x128,bf16,MK,KN>')."""
+    import re
+
     name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    m = re.match(r"mma_gemm_kernel<MmaCfg<(\d+), (\d+),[^>]*>, (\w+), "
+                 r"(\w+), (\w+)>", name)
+    if m:
+        bm, bn, ta, km, kn = m.groups()
+        return (f"mma_gemm_kernel<{bm}x{bn},"
+                f"{'bf16' if 'bfloat16' in ta else 'f32'},"
+                f"{'KM' if km == 'true' else 'MK'},"
+                f"{'KN' if kn == 'true' else 'NK'}>")
     return name.split("(")[0].split("<")[0].split("::")[-1].strip()
 
 
@@ -904,9 +922,16 @@ def _library_gru(torch, wi, bi, wh, bh):
 def _check_small(torch, gru, dev, gen):
     """Odd shapes: B=10, H=50, trailing frames, reverse, both dtypes of
     ``gru_fwd``, batch-major and time-major frames of ``gru_wfwd``; the
-    same for the backward kernels, with and without dx. Returns (forward
-    max abs errors, backward max relative errors)."""
-    fwd, bwd = {}, {}
+    same for the backward kernels, with and without dx, and ``gru_bwd`` at
+    the seq2seq encoder's and decoder's shapes. Returns (forward max abs
+    errors, backward max relative errors, backward bitwise repeats)."""
+    fwd, bwd, rep = {}, {}, {}
+
+    def check_bwd(key, kernel, plain):
+        got = kernel()
+        rep[key] = _bitwise_repeat(torch, got, kernel())
+        bwd[key] = max(_bwd_errs(got, plain()).values())
+
     Bs, Hs = 10, 50
     h0 = torch.randn((Bs, Hs), generator=gen, device=dev) * 0.3
     w = _weights(torch, gen, dev, 6 * 5, Hs)
@@ -919,9 +944,9 @@ def _check_small(torch, gru, dev, gen):
         fwd[f"gru_wfwd_{layout}"] = float(
             (gru.gru_wfwd_cuda(x, h0, *w, 6, 2)
              - gru.gru_layer_windowed_plain(x, h0, *w, 6, 2)).abs().max())
-        bwd[f"gru_wbwd_{layout}"] = max(_bwd_errs(
-            gru.gru_wbwd_cuda(x, hprev, dhs, *w, 6, 2),
-            gru.gru_win_backward_plain(x, hprev, dhs, *w, 6, 2)).values())
+        check_bwd(f"gru_wbwd_{layout}",
+                  lambda: gru.gru_wbwd_cuda(x, hprev, dhs, *w, 6, 2),
+                  lambda: gru.gru_win_backward_plain(x, hprev, dhs, *w, 6, 2))
     hprev, dhs = hprev[:6], dhs[:6].contiguous()
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype).rsplit(".", 1)[-1]
@@ -932,12 +957,28 @@ def _check_small(torch, gru, dev, gen):
                 (gru.gru_fwd_cuda(x, h0, *w, reverse=reverse)
                  - gru.gru_layer_plain(x, h0, *w, reverse)).abs().max())
             for need_dx in (True, False):
-                errs = _bwd_errs(
-                    gru.gru_bwd_cuda(x, hprev, dhs, *w, reverse, need_dx),
-                    gru.gru_backward_plain(x, hprev, dhs, *w, reverse,
-                                           need_dx))
-                key = f"gru_bwd_{dt}_rev{int(reverse)}_dx{int(need_dx)}"
-                bwd[key] = max(errs.values())
+                check_bwd(f"gru_bwd_{dt}_rev{int(reverse)}_dx{int(need_dx)}",
+                          lambda: gru.gru_bwd_cuda(x, hprev, dhs, *w,
+                                                   reverse, need_dx),
+                          lambda: gru.gru_backward_plain(x, hprev, dhs, *w,
+                                                         reverse, need_dx))
+        # the seq2seq train step's backward shapes: the encoder (T'=191,
+        # B=1000, F=100, H=500, 3H=1500) reversed, and a decoder step
+        # (T=1, F=H=500), both with dx
+        for name, (Tb, Fb, rev) in (
+                ("s2s_encoder", (S2S_TC, S2S_F, True)),
+                ("s2s_decoder", (1, S2S_H, False))):
+            x = (torch.randn((Tb, S2S_B, Fb), generator=gen, device=dev)
+                 * 0.5).to(dtype)
+            hp = torch.randn((Tb, S2S_B, S2S_H), generator=gen,
+                             device=dev) * 0.3
+            dh = torch.randn((Tb, S2S_B, S2S_H), generator=gen,
+                             device=dev) * 1e-3
+            w = _weights(torch, gen, dev, Fb, S2S_H)
+            check_bwd(f"gru_bwd_{name}_{dt}",
+                      lambda: gru.gru_bwd_cuda(x, hp, dh, *w, rev),
+                      lambda: gru.gru_backward_plain(x, hp, dh, *w, rev))
+            del x, hp, dh
         # the fused bidirectional forward: one step, B and H at 1 and odd
         for Bb, Hb in ((1, 1), (1, 33), (7, 1), (7, 33)):
             x = torch.randn((1, Bb, 5), generator=gen, device=dev).to(dtype)
@@ -949,7 +990,7 @@ def _check_small(torch, gru, dev, gen):
             want = gru.gru_layer_bidir_plain(x, *h0s, *ws)
             fwd[f"gru_bifwd_{dt}_B{Bb}_H{Hb}_T1"] = max(
                 float((g - w).abs().max()) for g, w in zip(got, want))
-    return fwd, bwd
+    return fwd, bwd, rep
 
 
 BWD_OUTPUTS = ("dx", "dh0", "dwi", "dwh", "dbi", "dbh")
@@ -967,11 +1008,13 @@ def _bwd_errs(got, want) -> dict:
 
 def phase_kernels(torch, dev, gru, launches, s2s_launches):
     gen = torch.Generator(device=dev).manual_seed(2)
-    small, small_bwd = _check_small(torch, gru, dev, gen)
+    small, small_bwd, small_rep = _check_small(torch, gru, dev, gen)
     emit({"phase": "kernels_small", "max_abs_err": small,
-          "max_rel_err_backward": small_bwd})
+          "max_rel_err_backward": small_bwd,
+          "bitwise_repeat_backward": small_rep})
     bad = {k: v for k, v in small.items() if not v <= KERNEL_ATOL}
     bad.update({k: v for k, v in small_bwd.items() if not v <= GRAD_RTOL})
+    bad.update({k: "repeat differs" for k, v in small_rep.items() if not v})
     if bad:
         raise RuntimeError(f"small-shape kernels disagree: {bad}")
 
@@ -1104,7 +1147,7 @@ def phase_kernels_backward(torch, dev, gru, gen, h0, launches):
         kernel=lambda: gru.gru_bwd_cuda(x1, hprev, dhs, *w1),
         plain=lambda: gru.gru_backward_plain(x1, hprev, dhs, *w1),
         library=_library_gru(torch, *w1), lib_x=x1, h0=h0, dhs=dhs,
-        flops=2 * B * 3 * H * (3 * H + 3 * H) * N_WIN,
+        flops=_bwd_flops(N_WIN * B, H, H, x_bf16=False, need_dx=True),
         bytes_=_nbytes(x1, hprev, dhs, *w1) * 2 - _nbytes(hprev, dhs)
         + B * H * 4,
         launches=launches["gru_bwd"],
@@ -1126,7 +1169,7 @@ def phase_kernels_backward(torch, dev, gru, gen, h0, launches):
         plain=lambda: gru.gru_win_backward_plain(frames, hprev, dhs, *w0,
                                                  WIN, STRIDE),
         library=_library_gru(torch, *w0), lib_x=windows, h0=h0, dhs=dhs,
-        flops=2 * B * 3 * H * (2 * F0 + 3 * H) * N_WIN,
+        flops=_bwd_flops(N_WIN * B, F0, H, x_bf16=True, need_dx=False),
         bytes_=frames.numel() * 2 + _nbytes(hprev, dhs) + 2 * _nbytes(*w0)
         + B * H * 4,
         launches=launches["gru_wbwd"],
@@ -1139,12 +1182,32 @@ def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def _row(name, source, replaces, launches, err, times, flops, bytes_):
+def _bwd_flops(N, F, H, x_bf16, need_dx):
+    """The backward's products over N = T B rows as {product: (FLOPs,
+    peak)}: each at the 3xTF32 rate, those whose A operand is x at the
+    2xTF32 rate when x is bf16 (gru_mma.cuh skips lo_a hi_b there)."""
+    x_peak = PEAK_2XTF32 if x_bf16 else PEAK_3XTF32
+    ops = {"recompute_x": (2 * N * F * 3 * H, x_peak),
+           "recompute_h": (2 * N * H * 3 * H, PEAK_3XTF32),
+           "dh_wh": (2 * N * 3 * H * H, PEAK_3XTF32),
+           "dwi": (2 * N * F * 3 * H, x_peak),
+           "dwh": (2 * N * H * 3 * H, PEAK_3XTF32)}
+    if need_dx:
+        ops["dx"] = (2 * N * 3 * H * F, PEAK_3XTF32)
+    return ops
+
+
+def _row(name, source, replaces, launches, err, times, flops, bytes_,
+         peak=PEAK_F32_SIMT):
     """The kernels line's row (bound_ms and what this run measured, nothing
     else) and the extra keys of the phase line. ``times`` is (kernel,
-    plain, library) ms."""
+    plain, library) ms; ``flops`` a count at ``peak``, the FLOP/s of the
+    units the products run on (float32 SIMT), or {product: (FLOPs, peak)}
+    where products run at different rates (the backward's tensor cores)."""
     ms, plain_ms, library_ms = times
-    t_ops = flops / PEAK_F32_SIMT * 1e3
+    ops = flops if isinstance(flops, dict) else {"all": (flops, peak)}
+    total = sum(f for f, _ in ops.values())
+    t_ops = sum(f / p for f, p in ops.values()) * 1e3
     t_bytes = bytes_ / PEAK_HBM * 1e3
     row = {
         "name": name, "route": "cuda",
@@ -1154,8 +1217,10 @@ def _row(name, source, replaces, launches, err, times, flops, bytes_):
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": library_ms,
     }
-    extra = {"flops": flops, "bytes": bytes_,
-             "bound_ms_bf16_tensor_core": max(flops / PEAK_BF16_TC * 1e3,
+    extra = {"flops": total, "bytes": bytes_,
+             "bound_flops_at_peak": {k: [f, p] for k, (f, p) in ops.items()},
+             "bound_ms_f32_simt": max(total / PEAK_F32_SIMT * 1e3, t_bytes),
+             "bound_ms_bf16_tensor_core": max(total / PEAK_BF16_TC * 1e3,
                                               t_bytes)}
     return row, extra
 
@@ -1181,9 +1246,18 @@ def _measure(torch, name, replaces, kernel, plain, library, lib_x, h0,
     return row
 
 
+def _bitwise_repeat(torch, got, again) -> bool:
+    """Two launches of a backward kernel on the same inputs: every output
+    equal bit for bit (dx None on both or on neither)."""
+    return all((a is None and b is None)
+               or (a is not None and b is not None and torch.equal(a, b))
+               for a, b in zip(got, again))
+
+
 def _measure_bwd(torch, name, replaces, kernel, plain, library, lib_x, h0,
                  dhs, flops, bytes_, launches, shapes):
     got = kernel()
+    repeat = _bitwise_repeat(torch, got, kernel())
     want = plain()
     errs = _bwd_errs(got, want)
     abs_err = max(float((g - w).abs().max())
@@ -1202,7 +1276,10 @@ def _measure_bwd(torch, name, replaces, kernel, plain, library, lib_x, h0,
     row, extra = _row(name, "gru_bwd.cu", replaces, launches, abs_err, times,
                       flops, bytes_)
     emit({"phase": "kernel", **row, **extra,
+          "bound_scheme": "3xTF32 tensor cores (495/3 TFLOP/s); bf16 A "
+                          "operands 2xTF32 (495/2)",
           "max_rel_err": errs, "tolerance_rel": GRAD_RTOL,
+          "bitwise_repeat": repeat,
           "library_note": "torch.nn.GRU backward (cuDNN), also forms dx"
                           + ("" if name == "gru_bwd"
                              else " internally, on materialised windows"),
@@ -1210,6 +1287,8 @@ def _measure_bwd(torch, name, replaces, kernel, plain, library, lib_x, h0,
     bad = {k: v for k, v in errs.items() if not v <= GRAD_RTOL}
     if bad:
         raise RuntimeError(f"{name} differs from plain: {bad}")
+    if not repeat:
+        raise RuntimeError(f"{name}: two runs are not bitwise equal")
     return row
 
 

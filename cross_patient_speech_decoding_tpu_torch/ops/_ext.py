@@ -24,7 +24,9 @@ from types import SimpleNamespace
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-HEADERS = ("gru_tile.cuh",)
+# every local header a source includes (tests/test_torch_package.py checks
+# the list against the sources): each enters every library's hash
+HEADERS = ("gru_mma.cuh", "gru_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -33,10 +35,10 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
-# x, sx_t, sx_b, hprev, dhs, wi, bi, wh, bh, g, dhz, dh0, dx, part,
-# n_split_i, n_split_h, dwi, dwh, T, B, F, H, reverse, stream
-_BWD = (_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-        _P, _P, _I, _I, _I, _I, _I, _P)
+# x, sx_t, sx_b, hprev, dhs, wi, bi, wh, bh, g, dhz, dh0, dx, part, dwi,
+# dwh, T, B, F, H, reverse, stream
+_BWD = (_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _P)
 # x, sx_t, sx_b, h0_f, wi_f, bi_f, wh_f, bh_f, h0_b, wi_b, bi_b, wh_b, bh_b,
 # hs_f, hs_b, T, B, F, H, stream
 _BIFWD = (_P, _LL, _LL) + (_P,) * 12 + (_I, _I, _I, _I, _P)
@@ -57,12 +59,14 @@ SOURCES = {
         "gru_bifwd_bf16": _BIFWD,
     },
     "gru_bwd.cu": {
+        # n_steps, B, F, H, part (out: floats of the `part` scratch)
+        "gru_bwd_scratch": (_I, _I, _I, _I, ctypes.POINTER(_LL)),
         "gru_bwd_f32": _BWD,
         "gru_bwd_bf16": _BWD,
         # x, sx_b, C, win, stride, hprev, dhs, wi, bi, wh, bh, g, dhz, dh0,
-        # part, n_split_i, n_split_h, dwi, dwh, n_win, B, H, stream
+        # part, dwi, dwh, n_win, B, H, stream
         "gru_wbwd_bf16": (_P, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                          _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P),
+                          _P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
     "jacobi.cu": {
         # A, pairs, w, V, n_sweeps, B, Kp, sweeps, stream
@@ -89,34 +93,49 @@ def _nvcc() -> str:
     )
 
 
-def library_path(source: str) -> Path:
-    """Where the library of ``source`` (a key of ``SOURCES``) is built."""
+def library_path(source: str, defines=()) -> Path:
+    """Where the library of ``source`` (a key of ``SOURCES``) is built;
+    ``defines`` (``"NAME=value"`` strings) build a variant of it."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update("\n".join(defines).encode())
     for name in (source, *HEADERS):
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"lib{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
-def build(verbose: bool = False) -> float:
-    """Compile the sources whose library is missing, one ``nvcc`` each,
-    all started together.
+def build(verbose: bool = False, defines=(), sources=None) -> float:
+    """Compile the sources (default: all) whose library is missing, one
+    ``nvcc`` each, all started together, with the preprocessor
+    ``defines`` of a variant (the tuning macros of ``gru_mma.cuh``).
 
     Returns the seconds spent compiling (0.0 when all are reused). Raises
     ``RuntimeError`` with the compiler's output when an nvcc fails.
     """
-    todo = [s for s in SOURCES if not library_path(s).exists()]
+    sources = list(SOURCES) if sources is None else list(sources)
+    todo = [s for s in sources if not library_path(s, defines).exists()]
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     jobs = []
+    wrappers = []
     try:
         for source in todo:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
+            src = str(CSRC / source)
+            if defines:
+                # a source that defines, then includes: nvcc's -D splits
+                # its value at commas, and a tile shape has them
+                fd, src = tempfile.mkstemp(suffix=".cu", dir=BUILD_DIR)
+                wrappers.append(src)
+                with os.fdopen(fd, "w") as f:
+                    f.writelines(f"#define {d.replace('=', ' ', 1)}\n"
+                                 for d in defines)
+                    f.write(f'#include "{CSRC / source}"\n')
             cmd = [_nvcc(), *NVCC_FLAGS,
                    *(["-Xptxas", "-v"] if verbose else []),
-                   "-o", tmp, str(CSRC / source)]
+                   "-o", tmp, src]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
             jobs.append((source, tmp, cmd, proc))
@@ -130,7 +149,7 @@ def build(verbose: bool = False) -> float:
             if verbose:
                 print(f"[{source}]\n{out}", flush=True)
             # atomic: a reader never sees a partial file
-            os.replace(tmp, library_path(source))
+            os.replace(tmp, library_path(source, defines))
         if failed:
             raise RuntimeError("\n".join(failed))
     finally:
@@ -140,7 +159,26 @@ def build(verbose: bool = False) -> float:
                 proc.wait()
             if os.path.exists(tmp):
                 os.unlink(tmp)
+        for src in wrappers:
+            os.unlink(src)
     return time.perf_counter() - t0
+
+
+def load(defines=(), sources=None) -> SimpleNamespace:
+    """Build (where missing) and load the libraries of ``sources``
+    (default: all) with ``defines``: their exported functions as
+    attributes."""
+    sources = list(SOURCES) if sources is None else list(sources)
+    build(defines=defines, sources=sources)
+    fns = {}
+    for source in sources:
+        cdll = ctypes.CDLL(str(library_path(source, defines)))
+        for name, argtypes in SOURCES[source].items():
+            fn = getattr(cdll, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+    return SimpleNamespace(**fns)
 
 
 def lib() -> SimpleNamespace:
@@ -149,16 +187,7 @@ def lib() -> SimpleNamespace:
     global _lib
     with _lock:
         if _lib is None:
-            build()
-            fns = {}
-            for source, signatures in SOURCES.items():
-                cdll = ctypes.CDLL(str(library_path(source)))
-                for name, argtypes in signatures.items():
-                    fn = getattr(cdll, name)
-                    fn.argtypes = list(argtypes)
-                    fn.restype = ctypes.c_int
-                    fns[name] = fn
-            _lib = SimpleNamespace(**fns)
+            _lib = load()
         return _lib
 
 

@@ -13,8 +13,8 @@
 // as the contract.
 //
 // Math of one step at time t (pallas_gru.py:602-633), the gates recomputed
-// from (x_t, h_{t-1}) as in the forward (gru_tile.cuh), ghn = h_{t-1} Wh_n
-// + bh_n, dh the gradient carried from the later step:
+// from (x_t, h_{t-1}) as in the forward, ghn = h_{t-1} Wh_n + bh_n, dh the
+// gradient carried from the later step:
 //   d   = dh + dhs[t]
 //   dz  = d (h_{t-1} - n) z (1 - z),   dn = d (1 - z)(1 - n^2)
 //   dr  = dn ghn r (1 - r),            dgn = dn r
@@ -24,314 +24,105 @@
 //   dWi += x_t^T dgi,  dWh += h_{t-1}^T dgh,  dbi += sum_b dgi,  dbh += ...
 //
 // Design. The TPU kernel carries dh, dWi, dWh and db in VMEM across a grid
-// that runs in order. Blocks on Hopper run in no order and share nothing,
-// so the work is split by what depends on what:
-//   1. The dh recurrence, one step at a time from the host loop below (the
-//      launch boundary is the grid-wide barrier), two grids a step:
-//      gate_grad_kernel recomputes the gates for a (TB x TH) block exactly as
-//      the forward does (gate_products), forms dr, dz, dn and dgn in
-//      registers, and writes them to a scratch stream g (T, B, 4H) beside
-//      d*z (B, H); then rowmm_kernel forms dh' = d z + dgh Wh^T over the
-//      whole row (dgh needs every column of the step). The gates are not
-//      stored by the forward: recomputing them is what the TPU kernel does.
-//   2. After the sweep, everything that is off the recurrence reads the
-//      gate-gradient stream g as a whole: dx = dgi Wi^T over all T*B rows
-//      (rowmm_kernel again), and dWi, dWh with their biases as one
-//      reduction each over all (t, b) rows (wgrad_kernel). A ones column
-//      appended to x (and to h_{t-1}) makes the bias gradient the last row
-//      of the same product. The t*b axis is split over CTAs into a fixed
-//      number of partial sums, which sum_parts_kernel adds in a fixed
-//      order: no float atomics, so two runs give the same gradients.
-// For the windowed kernel the x rows of the gate recompute and of the dWi
-// sum are the window rows of the batch-major frames, read in place as the
-// forward reads them: the (n_win, B, win*C) window stream is never built.
+// that runs in order. On Hopper only dh' = d z + dgh Wh^T depends on the
+// step before: the gate pre-activations read x and hprev, which are inputs
+// of the backward, and the weight and input gradients read the gate
+// gradients of all steps at once. So the backward runs in three phases,
+// every product on the tensor cores (gru_mma.cuh: 3xTF32 mma.sync, a
+// 3-stage cp.async ring):
+//   1. Before the sweep, the gate pre-activations of all N = T B rows as
+//      three products over [x_t | h_{t-1}], biases added in the epilogue,
+//      into the scratch stream g (T, B, 4H) as [r_pre | z_pre | in_pre |
+//      hn_pre]: r and z take x Wi + h Wh, n keeps x Wi_n and h Wh_n apart
+//      (r scales the second). For the windowed kernel row (t, b) of x is
+//      window t of batch row b, read in place from the batch-major frames:
+//      the (n_win, B, win*C) window stream is never built.
+//   2. The sweep, one step at a time from the host loop below (the launch
+//      boundary is the grid-wide barrier), two launches a step:
+//      step_grad_kernel reads g[t], hprev[t], dhs[t] and the carried dh,
+//      overwrites g[t] in place with [dr | dz | dn | dgn] and writes d z;
+//      then the tensor-core product dgh Wh^T (B x 3H by 3H x H), dgh read
+//      from g[t] as two column runs ([dr | dz] and dgn), split over K into
+//      a few partial sums so that its small grid fills the card; the next
+//      step's elementwise pass forms dh' = d z + the partials in a fixed
+//      order.
+//   3. After the sweep, off the recurrence: dx = dgi Wi^T over all N rows
+//      when asked, and [dWi; dbi] = [x, 1]^T dgi, [dWh; dbh] = [hprev, 1]^T
+//      dgh, the bias row (the ones column's) summed from the B tiles by the
+//      CTAs of the first row block. The N rows of each weight gradient are
+//      split over CTAs into a fixed number of partial sums, which
+//      sum_parts_kernel adds in a fixed order: no float atomics, so two runs
+//      give the same gradients bit for bit.
+// The elementwise pass stays its own launch: fusing it into the dh'
+// product's A loads would have every column block recompute its rows'
+// gradients from g, and the pass is a small share of the step.
 //
-// What bounds it. Per step and layer the work is 2*B*3H*(3F + 3H) FLOPs
-// (recompute, dh Wh^T, dx, dWi, dWh; 2F + 3H without dx) against
-// O(B*(F + H) + (F + H)*3H) inputs, far above the card's operations-per-
-// byte line: bound by operations. As written every product runs in float32
-// on the SIMT units (67 TFLOP/s peak), which keeps the gradients within
-// float32 roundoff of the plain version. The g stream costs 16*B*H bytes a
-// step (2.4 GB a layer at fig_5 width, freed by the caller after the layer)
-// and is read back twice, a small share of the time beside the products.
-// Faster forms, for later work: tensor cores (split-TF32 or bf16 wgmma) for
-// the large dx and dW products, and a persistent kernel that keeps Wh on
-// chip across steps.
+// What bounds it. The products are 2 N 3H (3F + 3H) FLOPs (recompute,
+// dh Wh^T, dx, dWi, dWh; 2F + 3H without dx) against O(N (F + H)) bytes:
+// bound by operations, at the card's 495 TFLOP/s TF32 rate over the three
+// products of the split, 165 TFLOP/s float32-equivalent; the products whose
+// A is bf16 (x's half of the recompute and dWi, for bf16 x and the frames)
+// take two, 247.5 TFLOP/s. The g stream
+// (16 N H bytes, 2.4 GB a layer at fig_5 width, freed by the caller after
+// the layer) is written once, read and rewritten once in the sweep, and
+// read three times after it: ~10 GB, a few ms beside the products.
 
+#include "gru_mma.cuh"
 #include "gru_tile.cuh"
 
 namespace {
 
-// Gate recompute and gate gradients of one step for the CTA's (TB x TH)
-// block. x, hprev and dhs point at this step's rows; dh is the gradient
-// carried from the later step (zero at the first step of the sweep). Writes
-// g row b = [dr | dz | dn | dgn] (4H values) and dhz = d * z.
-template <typename T>
-__global__ void __launch_bounds__(NT, 2)
-    gate_grad_kernel(const T* __restrict__ x, long long sx_b,
-                     const float* __restrict__ hprev,
-                     const float* __restrict__ dhs,
-                     const float* __restrict__ dh,
-                     const float* __restrict__ wi, const float* __restrict__ bi,
-                     const float* __restrict__ wh, const float* __restrict__ bh,
-                     float* __restrict__ g, float* __restrict__ dhz, int B,
-                     int F, int H) {
-  __shared__ __align__(16) Tiles s;
-  float acc_r[RPT], acc_z[RPT], acc_in[RPT], acc_hn[RPT];
-  gate_products<T>(s, x, sx_b, hprev, wi, wh, B, F, H, acc_r, acc_z, acc_in,
-                   acc_hn);
-
-  const int tx = threadIdx.x % TH;
-  const int ty = threadIdx.x / TH;
-  const int b0 = blockIdx.y * TB;
-  const int j = blockIdx.x * TH + tx;
-  if (j >= H) return;
-  const float br = bi[j] + bh[j];
-  const float bz = bi[H + j] + bh[H + j];
-  const float bin = bi[2 * H + j];
-  const float bhn = bh[2 * H + j];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int b = b0 + ty * RPT + i;
-    if (b >= B) break;
-    const long long o = static_cast<long long>(b) * H + j;
-    const float r = sigmoid_f32(acc_r[i] + br);
-    const float z = sigmoid_f32(acc_z[i] + bz);
-    const float ghn = acc_hn[i] + bhn;
-    const float n = tanhf(acc_in[i] + bin + r * ghn);
-    const float d = dh[o] + dhs[o];
-    const float dz = d * (hprev[o] - n) * z * (1.0f - z);
-    const float dn = d * (1.0f - z) * (1.0f - n * n);
-    const float dr = dn * ghn * r * (1.0f - r);
-    float* __restrict__ gb = g + static_cast<long long>(b) * 4 * H;
-    gb[j] = dr;
-    gb[H + j] = dz;
-    gb[2 * H + j] = dn;
-    gb[3 * H + j] = dn * r;
-    dhz[o] = d * z;
-  }
+// The carried gradient dh = dhz + dhp[0] + ... + dhp[n_part - 1] (B, H),
+// summed in that order: d z of the step before and the n_part partial sums
+// of its dgh Wh^T over K; 0 when n_part = 0 (the first step of the sweep).
+__device__ __forceinline__ float carried(const float* __restrict__ dhz,
+                                         const float* __restrict__ dhp,
+                                         int n_part, long long BH,
+                                         long long o) {
+  if (n_part == 0) return 0.0f;
+  float v = dhz[o];
+  for (int z = 0; z < n_part; ++z) v += dhp[z * BH + o];
+  return v;
 }
 
-// ---------------------------------------------------------------------------
-// 64 x 64 output tiles, 16 deep, 4 x 4 outputs a thread: the products off
-// the gate recompute (dh Wh^T, dx, dW).
-// ---------------------------------------------------------------------------
-
-constexpr int MT = 64;      // output tile rows and columns
-constexpr int MK = 16;      // reduction depth per tile
-constexpr int MP = MT + 4;  // padded tile row (16-byte aligned)
-constexpr int M_PER_T = MT * MK / NT;  // operand elements a thread stages
-
-static_assert(M_PER_T == 4, "each thread stages 4 elements of each operand");
-static_assert((MT / 4) * (MT / 4) == NT, "4 x 4 outputs per thread");
-
-struct MTiles {
-  float a[2][MK][MP];  // [k][output row]
-  float b[2][MK][MP];  // [k][output column]
-};
-
-__device__ __forceinline__ int gap_col(int k, int gap_at, int gap) {
-  return k < gap_at ? k : k + gap;
+// Gate gradients of step t for one (b, j): g points at the step's (B, 4H)
+// pre-activations [r_pre | z_pre | in_pre | hn_pre] (biases in), which are
+// replaced by [dr | dz | dn | dgn]; dhz (read as the carried gradient's
+// first term, then) = d * z.
+__global__ void step_grad_kernel(float* __restrict__ g,
+                                 const float* __restrict__ hprev,
+                                 const float* __restrict__ dhs,
+                                 float* __restrict__ dhz,
+                                 const float* __restrict__ dhp, int n_part,
+                                 int B, int H) {
+  const long long BH = static_cast<long long>(B) * H;
+  const long long o = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (o >= BH) return;
+  const int b = static_cast<int>(o / H);
+  const int j = static_cast<int>(o - static_cast<long long>(b) * H);
+  float* __restrict__ gb = g + static_cast<long long>(b) * 4 * H;
+  const float r = sigmoid_f32(gb[j]);
+  const float z = sigmoid_f32(gb[H + j]);
+  const float ghn = gb[3 * H + j];
+  const float n = tanhf(gb[2 * H + j] + r * ghn);
+  const float d = carried(dhz, dhp, n_part, BH, o) + dhs[o];
+  const float dz = d * (hprev[o] - n) * z * (1.0f - z);
+  const float dn = d * (1.0f - z) * (1.0f - n * n);
+  gb[j] = dn * ghn * r * (1.0f - r);
+  gb[H + j] = dz;
+  gb[2 * H + j] = dn;
+  gb[3 * H + j] = dn * r;
+  dhz[o] = d * z;
 }
 
-// acc[r][c] += sum_k A[k][ty*4 + r] * Bt[k][tx*4 + c]
-__device__ __forceinline__ void mma_4x4(const float (*A)[MP],
-                                        const float (*Bt)[MP], int ty, int tx,
-                                        float (&acc)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < MK; ++kk) {
-    const float4 a4 = *reinterpret_cast<const float4*>(&A[kk][ty * 4]);
-    const float4 b4 = *reinterpret_cast<const float4*>(&Bt[kk][tx * 4]);
-    const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-    const float b[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-    }
-  }
-}
-
-// Rows [n0, n0 + MT) of a and [i0, i0 + MT) of w, reduction columns
-// [k0, k0 + MK): both operands hold k contiguously in a row.
-__device__ __forceinline__ void rowmm_fetch(
-    const float* __restrict__ a, long long lda, int gap_at, int gap,
-    const float* __restrict__ w, long long n0, int i0, int k0, long long N,
-    int NO, int K, float (&ra)[M_PER_T], float (&rw)[M_PER_T]) {
-#pragma unroll
-  for (int i = 0; i < M_PER_T; ++i) {
-    const int e = threadIdx.x + i * NT;
-    const int row = e / MK;
-    const int k = k0 + e % MK;
-    const long long n = n0 + row;
-    ra[i] = (n < N && k < K) ? a[n * lda + gap_col(k, gap_at, gap)] : 0.0f;
-    rw[i] = (i0 + row < NO && k < K)
-                ? w[static_cast<long long>(i0 + row) * K + k]
-                : 0.0f;
-  }
-}
-
-__device__ __forceinline__ void rowmm_store(MTiles& s, int buf,
-                                            const float (&ra)[M_PER_T],
-                                            const float (&rw)[M_PER_T]) {
-#pragma unroll
-  for (int i = 0; i < M_PER_T; ++i) {
-    const int e = threadIdx.x + i * NT;
-    s.a[buf][e % MK][e / MK] = ra[i];
-    s.b[buf][e % MK][e / MK] = rw[i];
-  }
-}
-
-// out[n, i] = add[n, i] + sum_{k < K} a[n*lda + gap_col(k)] * w[i*K + k]
-// for n < N, i < NO (add may be null). With a = a step's g rows, gap_col
-// skipping dn (gap_at 2H, gap H) and w = Wh (H, 3H), this is dh' = d z +
-// dgh Wh^T; with no gap and w = Wi (F, 3H) over all rows, dx = dgi Wi^T.
-__global__ void __launch_bounds__(NT)
-    rowmm_kernel(const float* __restrict__ a, long long lda, int gap_at,
-                 int gap, const float* __restrict__ w,
-                 const float* __restrict__ add, float* __restrict__ out,
-                 long long N, int NO, int K) {
-  __shared__ __align__(16) MTiles s;
-  const long long n0 = static_cast<long long>(blockIdx.x) * MT;
-  const int i0 = blockIdx.y * MT;
-  const int ty = threadIdx.x / (MT / 4);
-  const int tx = threadIdx.x % (MT / 4);
-  const int n_tiles = (K + MK - 1) / MK;
-
-  float acc[4][4] = {};
-  float ra[M_PER_T], rw[M_PER_T];
-  rowmm_fetch(a, lda, gap_at, gap, w, n0, i0, 0, N, NO, K, ra, rw);
-  rowmm_store(s, 0, ra, rw);
-  __syncthreads();
-  for (int it = 0; it < n_tiles; ++it) {
-    const int cur = it & 1;
-    const bool more = it + 1 < n_tiles;
-    if (more) {
-      rowmm_fetch(a, lda, gap_at, gap, w, n0, i0, (it + 1) * MK, N, NO, K, ra,
-                  rw);
-    }
-    mma_4x4(s.a[cur], s.b[cur], ty, tx, acc);
-    if (more) rowmm_store(s, cur ^ 1, ra, rw);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const long long n = n0 + ty * 4 + r;
-    if (n >= N) break;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int i = i0 + tx * 4 + c;
-      if (i >= NO) break;
-      const long long o = n * NO + i;
-      out[o] = add ? add[o] + acc[r][c] : acc[r][c];
-    }
-  }
-}
-
-// Reduction rows (t, b0 .. b0 + MK) of the weight gradient: A(n, m) is row
-// (t, b) of x (or h_{t-1}) at a + t*sa_t + b*sa_b, with 1 in column M (the
-// bias row) and 0 beyond; G(n, c) is column gap_col(c) of g row t*B + b.
-// Rows b >= B are 0.
-template <typename T>
-__device__ __forceinline__ void wgrad_fetch(
-    const T* __restrict__ a, long long sa_t, long long sa_b, int M,
-    const float* __restrict__ g, long long ldg, int gap_at, int gap, int NC,
-    int t, int b0, int m0, int c0, int B, float (&ra)[M_PER_T],
-    float (&rg)[M_PER_T]) {
-#pragma unroll
-  for (int i = 0; i < M_PER_T; ++i) {
-    const int e = threadIdx.x + i * NT;
-    const int b = b0 + e / MT;
-    const int m = m0 + e % MT;
-    const int c = c0 + e % MT;
-    float va = 0.0f, vg = 0.0f;
-    if (b < B) {
-      if (m < M) {
-        va = to_f32(a[t * sa_t + b * sa_b + m]);
-      } else if (m == M) {
-        va = 1.0f;
-      }
-      if (c < NC) {
-        vg = g[(static_cast<long long>(t) * B + b) * ldg +
-               gap_col(c, gap_at, gap)];
-      }
-    }
-    ra[i] = va;
-    rg[i] = vg;
-  }
-}
-
-__device__ __forceinline__ void wgrad_store(MTiles& s, int buf,
-                                            const float (&ra)[M_PER_T],
-                                            const float (&rg)[M_PER_T]) {
-#pragma unroll
-  for (int i = 0; i < M_PER_T; ++i) {
-    const int e = threadIdx.x + i * NT;
-    s.a[buf][e / MT][e % MT] = ra[i];
-    s.b[buf][e / MT][e % MT] = rg[i];
-  }
-}
-
-// Partial p = blockIdx.z of the weight gradient:
-//   part[p][m][c] = sum over row tiles q in [p*q_per, (p+1)*q_per) of
-//                   sum_n A(n, m) G(n, c),   m <= M, c < NC,
-// where row tile q is time t = q / nbt, batch rows (q % nbt)*MK .. + MK.
-template <typename T>
-__global__ void __launch_bounds__(NT)
-    wgrad_kernel(const T* __restrict__ a, long long sa_t, long long sa_b,
-                 int M, const float* __restrict__ g, long long ldg,
-                 int gap_at, int gap, int NC, float* __restrict__ part, int B,
-                 long long n_q, long long q_per) {
-  __shared__ __align__(16) MTiles s;
-  const int m0 = blockIdx.x * MT;
-  const int c0 = blockIdx.y * MT;
-  const int ty = threadIdx.x / (MT / 4);
-  const int tx = threadIdx.x % (MT / 4);
-  const int nbt = (B + MK - 1) / MK;
-  const long long q0 = blockIdx.z * q_per;
-  const long long q1 = q0 + q_per < n_q ? q0 + q_per : n_q;
-
-  float acc[4][4] = {};
-  if (q0 < q1) {
-    int t = static_cast<int>(q0 / nbt);
-    int b0 = static_cast<int>(q0 % nbt) * MK;
-    float ra[M_PER_T], rg[M_PER_T];
-    wgrad_fetch<T>(a, sa_t, sa_b, M, g, ldg, gap_at, gap, NC, t, b0, m0, c0,
-                   B, ra, rg);
-    wgrad_store(s, 0, ra, rg);
-    __syncthreads();
-    for (long long q = q0; q < q1; ++q) {
-      const int cur = static_cast<int>((q - q0) & 1);
-      const bool more = q + 1 < q1;
-      if (more) {
-        b0 += MK;
-        if (b0 >= B) {
-          b0 = 0;
-          ++t;
-        }
-        wgrad_fetch<T>(a, sa_t, sa_b, M, g, ldg, gap_at, gap, NC, t, b0, m0,
-                       c0, B, ra, rg);
-      }
-      mma_4x4(s.a[cur], s.b[cur], ty, tx, acc);
-      if (more) wgrad_store(s, cur ^ 1, ra, rg);
-      __syncthreads();
-    }
-  }
-
-  float* __restrict__ out =
-      part + static_cast<long long>(blockIdx.z) * (M + 1) * NC;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int m = m0 + ty * 4 + r;
-    if (m > M) break;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int cc = c0 + tx * 4 + c;
-      if (cc >= NC) break;
-      out[static_cast<long long>(m) * NC + cc] = acc[r][c];
-    }
-  }
+// dh0 = the gradient carried out of the last step
+__global__ void carried_kernel(const float* __restrict__ dhz,
+                               const float* __restrict__ dhp, int n_part,
+                               long long BH, float* __restrict__ dh) {
+  const long long o = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (o < BH) dh[o] = carried(dhz, dhp, n_part, BH, o);
 }
 
 // out[e] = sum_{p < n_part} part[p*n + e], in the order p = 0, 1, ...
@@ -345,28 +136,133 @@ __global__ void sum_parts_kernel(const float* __restrict__ part, int n_part,
   out[e] = v;
 }
 
-#define RETURN_IF_LAUNCH_FAILED()                    \
-  do {                                               \
-    const cudaError_t err_ = cudaGetLastError();     \
-    if (err_ != cudaSuccess) return (int)err_;       \
+// The step product's K split: about one wave of CTAs (MIN_BLOCKS MmaSmall
+// CTAs on each of the H100's 132 SMs), at most MAX_DH_PARTS parts.
+constexpr int DH_CTAS = MmaSmall::MIN_BLOCKS * 132;
+constexpr int MAX_DH_PARTS = 4;
+// The weight gradients' row split: as many CTAs as fit in four waves of
+// one MmaBig CTA on each SM, at most DW_MAX_SPLIT partials.
+constexpr long long DW_CTAS = 4 * 132;
+constexpr long long DW_MAX_SPLIT = 64;
+
+// How a backward of n_steps x B rows splits its sums, from the shapes
+// alone (so a run repeats its sums bit for bit), and the floats of the
+// `part` scratch that the splits fill.
+struct BwdPlan {
+  int split_i, split_h;  // partials of [dWi; dbi] and [dWh; dbh]
+  int n_kz, kt_per;      // the step product's K split, tiles per part
+  long long part;
+};
+
+// Partials of a [dW; db] (M + 1, 3H) sum over N rows in tiles of BK (the
+// bias row rides on the first row block); no partial is empty.
+int dw_split(int M, int H, long long N) {
+  const long long tiles = static_cast<long long>(
+                              (M + MmaBig::BM - 1) / MmaBig::BM) *
+                          ((3 * H + MmaBig::BN - 1) / MmaBig::BN);
+  const long long n_q = (N + MmaBig::BK - 1) / MmaBig::BK;
+  long long split = DW_CTAS / tiles;
+  split = split < DW_MAX_SPLIT ? split : DW_MAX_SPLIT;
+  split = split < n_q ? split : n_q;
+  split = split < 1 ? 1 : split;
+  const long long q_per = (n_q + split - 1) / split;
+  return static_cast<int>((n_q + q_per - 1) / q_per);
+}
+
+BwdPlan bwd_plan(int n_steps, int B, int F, int H) {
+  BwdPlan pl;
+  const long long N = static_cast<long long>(n_steps) * B;
+  pl.split_i = dw_split(F, H, N);
+  pl.split_h = dw_split(H, H, N);
+  const int tiles = ((B + MmaSmall::BM - 1) / MmaSmall::BM) *
+                    ((H + MmaSmall::BN - 1) / MmaSmall::BN);
+  const int k_tiles = (2 * H + MmaSmall::BK - 1) / MmaSmall::BK +
+                      (H + MmaSmall::BK - 1) / MmaSmall::BK;
+  int n_kz = (DH_CTAS + tiles / 2) / tiles;
+  n_kz = n_kz < 1 ? 1 : (n_kz > MAX_DH_PARTS ? MAX_DH_PARTS : n_kz);
+  n_kz = n_kz > k_tiles ? k_tiles : n_kz;
+  pl.kt_per = (k_tiles + n_kz - 1) / n_kz;
+  pl.n_kz = (k_tiles + pl.kt_per - 1) / pl.kt_per;
+  const long long H3 = 3LL * H;
+  const long long a = pl.split_i * (F + 1LL) * H3;
+  const long long b = pl.split_h * (H + 1LL) * H3;
+  const long long c = static_cast<long long>(pl.n_kz) * B * H;
+  pl.part = a > b ? (a > c ? a : c) : (b > c ? b : c);
+  return pl;
+}
+
+#define RETURN_IF_FAILED(expr)            \
+  do {                                    \
+    const int err_ = (expr);              \
+    if (err_ != 0) return err_;           \
   } while (0)
 
-// [dW; db] (M + 1, 3H) = sum over all (t, b) rows of [a_row, 1]^T G_row, in
-// n_split fixed partials of the rows, then summed in order.
+#define RETURN_IF_LAUNCH_FAILED() \
+  RETURN_IF_FAILED(static_cast<int>(cudaGetLastError()))
+
+// A segment whose A rows are the data rows (t, b) of x at x + t*sx_t +
+// b*sx_b, K = F; rows in one (t-major) run when sx_t = B sx_b.
 template <typename T>
-int weight_grad(const T* a, long long sa_t, long long sa_b, int M,
-                const float* g, int gap_at, int gap, float* part,
-                int n_split, float* out, int n_steps, int B, int H,
+MmaSeg x_seg(const T* x, long long sx_t, long long sx_b, int B, int F) {
+  constexpr int E = 16 / static_cast<int>(sizeof(T));
+  MmaSeg s = {};
+  s.a = x;
+  s.a_b = sx_t == B * sx_b ? 0 : B;
+  s.a_st = sx_t;
+  s.a_sb = sx_b;
+  s.a_vec = aligned16(x) && sx_t % E == 0 && sx_b % E == 0;
+  s.K = F;
+  return s;
+}
+
+// A segment over a row-major float matrix: row n at a + n*lda.
+MmaSeg f32_seg(const float* a, long long lda, int K) {
+  MmaSeg s = {};
+  s.a = a;
+  s.a_sb = lda;
+  s.a_vec = aligned16(a) && lda % 4 == 0;
+  s.K = K;
+  return s;
+}
+
+void set_b(MmaSeg& s, const float* b, long long ldb, bool extra_ok = true) {
+  s.b = b;
+  s.ldb = ldb;
+  s.b_vec = extra_ok && aligned16(b) && ldb % 4 == 0;
+}
+
+MmaArgs out_args(float* out, long long ldo, int out_col, long long M, int N) {
+  MmaArgs p = {};
+  p.out = out;
+  p.ldo = ldo;
+  p.out_col = out_col;
+  p.M = M;
+  p.N = N;
+  p.gap_at = N;
+  return p;
+}
+
+// [dW; db] (M + 1, 3H) = sum over all N data rows of [A_row, 1]^T G_row,
+// G the step's gate gradients at columns 0..3H of g, or (gapped)
+// [dr | dz | dgn]; n_split fixed partials of the rows, then summed in order.
+template <typename T>
+int weight_grad(const MmaSeg& a, int M, const float* g, bool gapped,
+                float* part, int n_split, float* out, long long N, int H,
                 cudaStream_t stream) {
   const int NC = 3 * H;
-  const long long n_q = static_cast<long long>(n_steps) * ((B + MK - 1) / MK);
-  const long long q_per = (n_q + n_split - 1) / n_split;
-  const dim3 grid((M + 1 + MT - 1) / MT, (NC + MT - 1) / MT, n_split);
-  wgrad_kernel<T><<<grid, NT, 0, stream>>>(a, sa_t, sa_b, M, g, 4LL * H,
-                                           gap_at, gap, NC, part, B, n_q,
-                                           q_per);
-  RETURN_IF_LAUNCH_FAILED();
-  const long long n = static_cast<long long>(M + 1) * NC;
+  MmaArgs p = out_args(part, NC, 0, M, NC);
+  p.seg[0] = a;
+  set_b(p.seg[0], g, 4LL * H, !gapped || H % 4 == 0);
+  if (gapped) {
+    p.gap_at = 2 * H;
+    p.gap = H;
+  }
+  p.k_total = N;
+  const long long k_tiles = (N + MmaBig::BK - 1) / MmaBig::BK;
+  p.k_per = (k_tiles + n_split - 1) / n_split * MmaBig::BK;
+  p.out_z = static_cast<long long>(M + 1) * NC;
+  RETURN_IF_FAILED((launch_mma<MmaBig, T, true, true>(p, n_split, stream)));
+  const long long n = p.out_z;
   sum_parts_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
                      stream>>>(part, n_split, n, out);
   RETURN_IF_LAUNCH_FAILED();
@@ -376,47 +272,90 @@ int weight_grad(const T* a, long long sa_t, long long sa_b, int M,
 // The backward of one layer. Step s of the sweep handles time t = T-1-s
 // (or s when the forward ran reversed). x rows of step t start at
 // x + t*sx_t, row b sx_b further on; hprev[t] is the state the forward
-// step t read. dh must hold zeros on entry and holds dh0 on return. dx may
+// step t read. dh receives dh0. dx may
 // be null (no input gradient). dwi (F+1, 3H) and dwh (H+1, 3H) receive the
 // weight gradients with the bias gradient as their last row. g (T, B, 4H),
-// dhz (B, H) and part (max(n_split_i*(F+1), n_split_h*(H+1)) * 3H floats)
-// are scratch.
+// dhz (B, H) and part (bwd_plan(...).part floats, gru_bwd_scratch) are
+// scratch.
 template <typename T>
 int run_backward(const T* x, long long sx_t, long long sx_b,
                  const float* hprev, const float* dhs, const float* wi,
                  const float* bi, const float* wh, const float* bh, float* g,
-                 float* dhz, float* dh, float* dx, float* part, int n_split_i,
-                 int n_split_h, float* dwi, float* dwh, int n_steps, int B,
-                 int F, int H, int reverse, cudaStream_t stream) {
+                 float* dhz, float* dh, float* dx, float* part, float* dwi,
+                 float* dwh, int n_steps, int B, int F, int H, int reverse,
+                 cudaStream_t stream) {
+  const long long N = static_cast<long long>(n_steps) * B;
   const long long BH = static_cast<long long>(B) * H;
   const long long G4 = 4LL * H;
-  const dim3 step_grid((H + TH - 1) / TH, (B + TB - 1) / TB);
-  const dim3 dh_grid((B + MT - 1) / MT, (H + MT - 1) / MT);
+  const long long H3 = 3LL * H;
+  const BwdPlan pl = bwd_plan(n_steps, B, F, H);
+  const MmaSeg xs = x_seg<T>(x, sx_t, sx_b, B, F);
+  const MmaSeg hs = f32_seg(hprev, H, H);
+
+  // 1. gate pre-activations of all rows: [r | z] over [x | h], n's input
+  // half over x, its recurrent half over h
+  {
+    MmaArgs p = out_args(g, G4, 0, N, 2 * H);
+    p.seg[0] = xs;
+    set_b(p.seg[0], wi, H3);
+    p.seg[1] = hs;
+    set_b(p.seg[1], wh, H3);
+    p.bias0 = bi;
+    p.bias1 = bh;
+    RETURN_IF_FAILED((launch_mma<MmaBig, T, false, true>(p, 1, stream)));
+  }
+  {
+    MmaArgs p = out_args(g, G4, 2 * H, N, H);
+    p.seg[0] = xs;
+    set_b(p.seg[0], wi + 2 * H, H3);
+    p.bias0 = bi + 2 * H;
+    RETURN_IF_FAILED((launch_mma<MmaBig, T, false, true>(p, 1, stream)));
+  }
+  {
+    MmaArgs p = out_args(g, G4, 3 * H, N, H);
+    p.seg[1] = hs;
+    set_b(p.seg[1], wh + 2 * H, H3);
+    p.bias0 = bh + 2 * H;
+    RETURN_IF_FAILED((launch_mma<MmaBig, T, false, true>(p, 1, stream)));
+  }
+
+  // 2. the sweep. dgh Wh^T = [dr | dz] Wh[:, :2H]^T + dgn Wh[:, 2H:]^T is
+  // split over K into n_kz partial sums (into part), so that the step's
+  // small grid fills the card; the next step's elementwise pass adds them
+  // to d z in a fixed order.
+  const int n_kz = pl.n_kz;
+  const unsigned ew_blocks = static_cast<unsigned>((BH + 255) / 256);
   for (int s = 0; s < n_steps; ++s) {
     const int t = reverse ? s : n_steps - 1 - s;
-    float* gt = g + t * B * G4;
-    gate_grad_kernel<T><<<step_grid, NT, 0, stream>>>(
-        x + t * sx_t, sx_b, hprev + t * BH, dhs + t * BH, dh, wi, bi, wh, bh,
-        gt, dhz, B, F, H);
+    float* gt = g + static_cast<long long>(t) * B * G4;
+    step_grad_kernel<<<ew_blocks, 256, 0, stream>>>(
+        gt, hprev + t * BH, dhs + t * BH, dhz, part, s == 0 ? 0 : n_kz, B,
+        H);
     RETURN_IF_LAUNCH_FAILED();
-    rowmm_kernel<<<dh_grid, NT, 0, stream>>>(gt, G4, 2 * H, H, wh, dhz, dh, B,
-                                             H, 3 * H);
-    RETURN_IF_LAUNCH_FAILED();
+    MmaArgs p = out_args(part, H, 0, B, H);
+    p.seg[0] = f32_seg(gt, G4, 2 * H);
+    set_b(p.seg[0], wh, H3);
+    p.seg[1] = f32_seg(gt + 3 * H, G4, H);
+    set_b(p.seg[1], wh + 2 * H, H3);
+    p.kt_per = pl.kt_per;
+    p.out_z = BH;
+    RETURN_IF_FAILED(
+        (launch_mma<MmaSmall, float, false, false>(p, n_kz, stream)));
   }
+  carried_kernel<<<ew_blocks, 256, 0, stream>>>(dhz, part, n_kz, BH, dh);
+  RETURN_IF_LAUNCH_FAILED();
+
+  // 3. off the recurrence
   if (dx != nullptr) {
-    const long long N = static_cast<long long>(n_steps) * B;
-    const dim3 dx_grid(static_cast<unsigned>((N + MT - 1) / MT),
-                       (F + MT - 1) / MT);
-    rowmm_kernel<<<dx_grid, NT, 0, stream>>>(g, G4, 3 * H, 0, wi, nullptr, dx,
-                                             N, F, 3 * H);
-    RETURN_IF_LAUNCH_FAILED();
+    MmaArgs p = out_args(dx, F, 0, N, F);
+    p.seg[0] = f32_seg(g, G4, 3 * H);
+    set_b(p.seg[0], wi, H3);
+    RETURN_IF_FAILED((launch_mma<MmaBig, float, false, false>(p, 1, stream)));
   }
-  int err = weight_grad<T>(x, sx_t, sx_b, F, g, 3 * H, 0, part, n_split_i,
-                           dwi, n_steps, B, H, stream);
-  if (err != 0) return err;
-  err = weight_grad<float>(hprev, BH, H, H, g, 2 * H, H, part, n_split_h, dwh,
-                           n_steps, B, H, stream);
-  if (err != 0) return err;
+  RETURN_IF_FAILED(weight_grad<T>(xs, F, g, false, part, pl.split_i, dwi, N,
+                                  H, stream));
+  RETURN_IF_FAILED(weight_grad<float>(hs, H, g, true, part, pl.split_h, dwh,
+                                      N, H, stream));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -424,15 +363,23 @@ int run_backward(const T* x, long long sx_t, long long sx_b,
 
 extern "C" {
 
+// The floats of the `part` scratch that a backward of n_steps x B rows,
+// F inputs and H units needs, into *part: the caller sizes its buffer
+// from this, so the splits that fill it are decided here alone.
+int gru_bwd_scratch(int n_steps, int B, int F, int H, long long* part) {
+  *part = bwd_plan(n_steps, B, F, H).part;
+  return 0;
+}
+
 // Backward of the plain GRU layer over x (T, B, F) with strides
 // (sx_t, sx_b, 1); hprev, dhs (T, B, H) float32 contiguous. See
 // run_backward for the outputs and scratch.
 int gru_bwd_f32(const void* x, long long sx_t, long long sx_b,
                 const void* hprev, const void* dhs, const void* wi,
                 const void* bi, const void* wh, const void* bh, void* g,
-                void* dhz, void* dh0, void* dx, void* part, int n_split_i,
-                int n_split_h, void* dwi, void* dwh, int T, int B, int F,
-                int H, int reverse, void* stream) {
+                void* dhz, void* dh0, void* dx, void* part, void* dwi,
+                void* dwh, int T, int B, int F, int H, int reverse,
+                void* stream) {
   return run_backward<float>(
       static_cast<const float*>(x), sx_t, sx_b,
       static_cast<const float*>(hprev), static_cast<const float*>(dhs),
@@ -440,17 +387,17 @@ int gru_bwd_f32(const void* x, long long sx_t, long long sx_b,
       static_cast<const float*>(wh), static_cast<const float*>(bh),
       static_cast<float*>(g), static_cast<float*>(dhz),
       static_cast<float*>(dh0), static_cast<float*>(dx),
-      static_cast<float*>(part), n_split_i, n_split_h,
-      static_cast<float*>(dwi), static_cast<float*>(dwh), T, B, F, H, reverse,
+      static_cast<float*>(part), static_cast<float*>(dwi),
+      static_cast<float*>(dwh), T, B, F, H, reverse,
       static_cast<cudaStream_t>(stream));
 }
 
 int gru_bwd_bf16(const void* x, long long sx_t, long long sx_b,
                  const void* hprev, const void* dhs, const void* wi,
                  const void* bi, const void* wh, const void* bh, void* g,
-                 void* dhz, void* dh0, void* dx, void* part, int n_split_i,
-                 int n_split_h, void* dwi, void* dwh, int T, int B, int F,
-                 int H, int reverse, void* stream) {
+                 void* dhz, void* dh0, void* dx, void* part, void* dwi,
+                 void* dwh, int T, int B, int F, int H, int reverse,
+                 void* stream) {
   return run_backward<__nv_bfloat16>(
       static_cast<const __nv_bfloat16*>(x), sx_t, sx_b,
       static_cast<const float*>(hprev), static_cast<const float*>(dhs),
@@ -458,8 +405,8 @@ int gru_bwd_bf16(const void* x, long long sx_t, long long sx_b,
       static_cast<const float*>(wh), static_cast<const float*>(bh),
       static_cast<float*>(g), static_cast<float*>(dhz),
       static_cast<float*>(dh0), static_cast<float*>(dx),
-      static_cast<float*>(part), n_split_i, n_split_h,
-      static_cast<float*>(dwi), static_cast<float*>(dwh), T, B, F, H, reverse,
+      static_cast<float*>(part), static_cast<float*>(dwi),
+      static_cast<float*>(dwh), T, B, F, H, reverse,
       static_cast<cudaStream_t>(stream));
 }
 
@@ -470,9 +417,8 @@ int gru_bwd_bf16(const void* x, long long sx_t, long long sx_b,
 int gru_wbwd_bf16(const void* x, long long sx_b, int C, int win, int stride,
                   const void* hprev, const void* dhs, const void* wi,
                   const void* bi, const void* wh, const void* bh, void* g,
-                  void* dhz, void* dh0, void* part, int n_split_i,
-                  int n_split_h, void* dwi, void* dwh, int n_win, int B, int H,
-                  void* stream) {
+                  void* dhz, void* dh0, void* part, void* dwi, void* dwh,
+                  int n_win, int B, int H, void* stream) {
   return run_backward<__nv_bfloat16>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<long long>(stride) * C, sx_b,
@@ -481,9 +427,8 @@ int gru_wbwd_bf16(const void* x, long long sx_b, int C, int win, int stride,
       static_cast<const float*>(wh), static_cast<const float*>(bh),
       static_cast<float*>(g), static_cast<float*>(dhz),
       static_cast<float*>(dh0), nullptr, static_cast<float*>(part),
-      n_split_i, n_split_h, static_cast<float*>(dwi),
-      static_cast<float*>(dwh), n_win, B, win * C, H, 0,
-      static_cast<cudaStream_t>(stream));
+      static_cast<float*>(dwi), static_cast<float*>(dwh), n_win, B, win * C,
+      H, 0, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

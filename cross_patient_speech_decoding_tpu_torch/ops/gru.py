@@ -32,6 +32,8 @@ gradient to its frames, which are data.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 # Launch counts of the kernel wrappers: one per layer call that launched
@@ -308,42 +310,26 @@ def gru_wfwd_cuda(x, h0, wi, bi, wh, bh, win: int, stride: int):
     return hs
 
 
-# Split of the (t, b) rows of a weight-gradient sum into fixed partials:
-# enough CTAs for several waves on 132 SMs, at most 64 partials. The tile
-# sizes mirror gru_bwd.cu's (64-wide output tiles, 16-row reduction
-# tiles); they set the CTA count only, the result holds for any split.
-_DW_TILE = 64
-_DW_CTAS = 2048
-_DW_MAX_SPLIT = 64
-
-
-def _n_split(M: int, H: int, n_steps: int, B: int) -> int:
-    """Partials of the [dW; db] (M + 1, 3H) sum over n_steps * B rows (in
-    tiles of 16): depends on the shapes only, so a run repeats its sums."""
-    tiles = -(-(M + 1) // _DW_TILE) * -(-3 * H // _DW_TILE)
-    n_q = n_steps * -(-B // 16)
-    want = -(-_DW_CTAS // tiles)
-    split = max(1, min(want, _DW_MAX_SPLIT, n_q))
-    q_per = -(-n_q // split)
-    return -(-n_q // q_per)  # no empty partial
-
-
 def _bwd_buffers(x, n_steps: int, B: int, F: int, H: int):
     """Outputs and scratch of a backward launch (see run_backward,
     gru_bwd.cu): the gate-gradient stream g (n_steps, B, 4H) is the large
-    one (2.4 GB at fig_5 width) and is freed when the caller drops it."""
+    one (2.4 GB at fig_5 width) and is freed when the caller drops it. The
+    size of the partial-sum scratch comes from the library, which decides
+    the splits that fill it."""
+    from cross_patient_speech_decoding_tpu_torch.ops import _ext
+
+    part = ctypes.c_longlong()
+    _ext.check(_ext.lib().gru_bwd_scratch(n_steps, B, F, H,
+                                          ctypes.byref(part)),
+               "gru_bwd_scratch")
     f32 = dict(dtype=torch.float32, device=x.device)
-    split_i = _n_split(F, H, n_steps, B)
-    split_h = _n_split(H, H, n_steps, B)
-    part = max(split_i * (F + 1), split_h * (H + 1)) * 3 * H
     return dict(
         g=torch.empty((n_steps, B, 4 * H), **f32),
         dhz=torch.empty((B, H), **f32),
-        dh0=torch.zeros((B, H), **f32),
-        part=torch.empty(part, **f32),
+        dh0=torch.empty((B, H), **f32),
+        part=torch.empty(part.value, **f32),
         dwi=torch.empty((F + 1, 3 * H), **f32),
         dwh=torch.empty((H + 1, 3 * H), **f32),
-        split_i=split_i, split_h=split_h,
     )
 
 
@@ -376,9 +362,8 @@ def gru_bwd_cuda(x, hprev, dhs, wi, bi, wh, bh, reverse: bool = False,
             dhs.data_ptr(), wi.data_ptr(), bi.data_ptr(), wh.data_ptr(),
             bh.data_ptr(), buf["g"].data_ptr(), buf["dhz"].data_ptr(),
             buf["dh0"].data_ptr(), None if dx is None else dx.data_ptr(),
-            buf["part"].data_ptr(), buf["split_i"], buf["split_h"],
-            buf["dwi"].data_ptr(), buf["dwh"].data_ptr(), T, B, F, H,
-            int(reverse), _stream(),
+            buf["part"].data_ptr(), buf["dwi"].data_ptr(),
+            buf["dwh"].data_ptr(), T, B, F, H, int(reverse), _stream(),
         )
     _ext.check(err, name)
     LAUNCHES["gru_bwd"] += 1
@@ -404,9 +389,9 @@ def gru_wbwd_cuda(x, hprev, dhs, wi, bi, wh, bh, win: int, stride: int):
             x.data_ptr(), x.stride(1), C, win, stride, hprev.data_ptr(),
             dhs.data_ptr(), wi.data_ptr(), bi.data_ptr(), wh.data_ptr(),
             bh.data_ptr(), buf["g"].data_ptr(), buf["dhz"].data_ptr(),
-            buf["dh0"].data_ptr(), buf["part"].data_ptr(), buf["split_i"],
-            buf["split_h"], buf["dwi"].data_ptr(), buf["dwh"].data_ptr(),
-            n_win, B, H, _stream(),
+            buf["dh0"].data_ptr(), buf["part"].data_ptr(),
+            buf["dwi"].data_ptr(), buf["dwh"].data_ptr(), n_win, B, H,
+            _stream(),
         )
     _ext.check(err, "gru_wbwd_bf16")
     LAUNCHES["gru_wbwd"] += 1

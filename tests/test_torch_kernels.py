@@ -7,9 +7,11 @@ PyTorch:
     python -m pytest tests/test_torch_kernels.py --noconftest -m gpu
 
 (``--noconftest`` skips ``tests/conftest.py``, which configures JAX.)
-GRU: kernel and plain version both accumulate in float32, in another
-order: atol 1e-4 on hs; on gradients, max |diff| <= 1e-5 x max |plain|
-per tensor (sums over batch and time). Jacobi: the kernel rounds every
+GRU forward: kernel and plain version both accumulate in float32, in
+another order: atol 1e-4 on hs. GRU backward: the kernels' products run
+on tensor cores as 3xTF32 (float32-class, ~1e-7 of the largest output per
+product) with float32 sums in another order: on gradients, max |diff| <=
+1e-5 x max |plain| per tensor (sums over batch and time). Jacobi: the kernel rounds every
 rotation as the plain version's tensor ops do, so w and V agree within
 1e-5 x ||A||_F (in practice bitwise) and the sweep counts are equal; the
 alignment fit on the card agrees with the CPU's within 1e-4 on the
@@ -148,6 +150,50 @@ def test_gru_wbwd_kernel_matches_plain(card, win, stride, T, batch_major):
     want = gru.gru_win_backward_plain(x, hprev, dhs, *w, win, stride)
     assert gru.LAUNCHES["gru_wbwd"] == 1 and got[0] is None
     _assert_grads_close(got, want)
+    again = gru.gru_wbwd_cuda(x, hprev, dhs, *w, win, stride)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(again, got))
+
+
+# shapes that cross the tensor-core tiles' edges: H = 500 (3H = 1500),
+# F = 840, T = 1, B off the 128- and 64-row tiles, odd H and F
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("need_dx", [True, False])
+@pytest.mark.parametrize("T,B,F,H", [(3, 131, 100, 500), (1, 1000, 500, 500),
+                                     (2, 70, 840, 64), (1, 129, 33, 97)])
+def test_gru_bwd_kernel_tile_edges(card, dtype, reverse, need_dx, T, B, F,
+                                   H):
+    x, _, *w = _args(card, 12, T, B, F, H)
+    x = x.to(dtype)
+    hprev = torch.randn((T, B, H), device=card) * 0.3
+    dhs = torch.randn((T, B, H), device=card)
+    got = gru.gru_bwd_cuda(x, hprev, dhs, *w, reverse, need_dx)
+    want = gru.gru_backward_plain(x, hprev, dhs, *w, reverse, need_dx)
+    _assert_grads_close(got, want)
+    again = gru.gru_bwd_cuda(x, hprev, dhs, *w, reverse, need_dx)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(again, got))
+
+
+# window rows of F = win*C = 840 (C = 60, 16-byte aligned, as at fig_5
+# width) and of C = 5 (2-byte aligned), B off the tiles, H = 500 and 97
+@pytest.mark.parametrize("batch_major", [True, False])
+@pytest.mark.parametrize("win,stride,T,C,B,H", [(14, 4, 30, 60, 67, 500),
+                                                (14, 4, 40, 60, 130, 97),
+                                                (6, 2, 27, 5, 129, 64)])
+def test_gru_wbwd_kernel_tile_edges(card, win, stride, T, C, B, H,
+                                    batch_major):
+    n_win = (T - win) // stride + 1
+    _, _, *w = _args(card, 13, T, B, win * C, H)
+    x = torch.randn((B, T, C), device=card).to(torch.bfloat16).transpose(0, 1)
+    if not batch_major:
+        x = x.contiguous()
+    hprev = torch.randn((n_win, B, H), device=card) * 0.3
+    dhs = torch.randn((n_win, B, H), device=card)
+    got = gru.gru_wbwd_cuda(x, hprev, dhs, *w, win, stride)
+    want = gru.gru_win_backward_plain(x, hprev, dhs, *w, win, stride)
+    _assert_grads_close(got, want)
+    again = gru.gru_wbwd_cuda(x, hprev, dhs, *w, win, stride)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(again, got))
 
 
 def test_backward_wrappers_raise_on_cuda(card):

@@ -135,3 +135,77 @@ def test_c_interface_matches_the_source():
     assert "arch=compute_90a,code=sm_90a" in _ext.NVCC_FLAGS
     paths = {_ext.library_path(s) for s in _ext.SOURCES}
     assert len(paths) == len(_ext.SOURCES)
+
+
+def _local_includes(path: Path):
+    return re.findall(r'^\s*#\s*include\s+"([^"]+)"', path.read_text(), re.M)
+
+
+def test_headers_list_every_local_include():
+    """Every ``#include "..."`` of a source or header in csrc/ names a file
+    of csrc/ that ``_ext.HEADERS`` lists (so that it enters the libraries'
+    hash), and every listed header is included somewhere."""
+    files = sorted(_ext.CSRC.glob("*.cu")) + sorted(_ext.CSRC.glob("*.cuh"))
+    assert {f.name for f in files} >= set(_ext.SOURCES)
+    included = set()
+    for path in files:
+        for name in _local_includes(path):
+            assert (_ext.CSRC / name).is_file(), f"{path.name}: {name}"
+            included.add(name)
+    assert included == set(_ext.HEADERS)
+    assert {f.name for f in files if f.suffix == ".cuh"} == set(_ext.HEADERS)
+
+
+@pytest.mark.parametrize("header", _ext.HEADERS)
+def test_library_path_follows_every_header(header, tmp_path, monkeypatch):
+    """Editing any listed header renames every library (a rebuild)."""
+    for path in _ext.CSRC.iterdir():
+        (tmp_path / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(_ext, "CSRC", tmp_path)
+    before = {s: _ext.library_path(s) for s in _ext.SOURCES}
+    with open(tmp_path / header, "a") as f:
+        f.write("\n// edited\n")
+    after = {s: _ext.library_path(s) for s in _ext.SOURCES}
+    assert all(before[s] != after[s] for s in _ext.SOURCES)
+
+
+def test_include_check_finds_includes(tmp_path):
+    p = tmp_path / "k.cu"
+    p.write_text('#include "a.cuh"\n  #  include "b.cuh"\n'
+                 "#include <cuda_runtime.h>\n// #include \"c.cuh\" is prose\n")
+    assert _local_includes(p) == ["a.cuh", "b.cuh"]
+
+
+def test_library_path_keys_build_variants():
+    """A variant's defines give it a library of its own, beside the
+    default build (no defines), under the same build directory."""
+    base = _ext.library_path("gru_bwd.cu")
+    variant = ("GRU_MMA_BIG=128, 128, 4, 4, 3, 1",)
+    assert _ext.library_path("gru_bwd.cu", ()) == base
+    assert _ext.library_path("gru_bwd.cu", variant) != base
+    assert (_ext.library_path("gru_bwd.cu", variant)
+            == _ext.library_path("gru_bwd.cu", list(variant)))
+    assert _ext.library_path("gru_bwd.cu", variant).parent == _ext.BUILD_DIR
+
+
+def _probe_variants():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "port_probes", ROOT / "tools" / "port_probes.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.BWD_VARIANTS
+
+
+@pytest.mark.parametrize("variant", sorted(_probe_variants()))
+def test_probe_variants_name_the_header_macros(variant):
+    """Every define of the backward probe's variants overrides a macro
+    that gru_mma.cuh defaults with #ifndef, and a tile shape has the six
+    MmaCfg parameters."""
+    header = (_ext.CSRC / "gru_mma.cuh").read_text()
+    for d in _probe_variants()[variant]:
+        name, value = d.split("=", 1)
+        assert re.search(rf"^#ifndef {name}$", header, re.M), name
+        if name in ("GRU_MMA_BIG", "GRU_MMA_SMALL"):
+            assert len([int(v) for v in value.split(",")]) == 6

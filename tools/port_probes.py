@@ -5,6 +5,7 @@ Run from the repository root:
 
     python tools/port_probes.py jacobi   # on a CUDA card
     python tools/port_probes.py bifwd    # on a CUDA card
+    python tools/port_probes.py bwd      # on a CUDA card
     python tools/port_probes.py tf32     # on a CUDA card
     python tools/port_probes.py oracle --pairs 4 --seed 0   # on the CPU
 
@@ -19,6 +20,16 @@ Run from the repository root:
   at odd shapes and at the seq2seq encoder's (T=191, B=1000, F=100,
   H=500), f32 and bf16 x; at B >= 100 also the kernel, two-launch and
   plain times.
+- ``bwd``: builds the kernels (printing the ptxas report) and the
+  backward library's variants of ``BWD_VARIANTS`` (one TF32 pass, three
+  passes without the split, other tile shapes), then, at ``chip_smoke.py``'s
+  fig_5 backward shapes and the seq2seq encoder's (T=191, B=1000, F=100,
+  H=500, reversed, dx) and decoder's (T=1), holds each variant against the
+  plain version (relative error, bitwise repeat) and times it (CUDA events,
+  median of 5), with device ms, registers, shared memory and the CTAs per
+  SM they allow for each kernel name (``torch.profiler`` trace). The
+  defaults run first and last. Small shapes are the card tests' (``-m gpu``
+  in ``tests/test_torch_kernels.py``).
 - ``tf32``: the error of a 1024^3 float32 product against float64, as a
   plain ``@`` and through ``ops.precision.hdot``, under four caller
   settings of TF32, with the settings before and after the call.
@@ -172,6 +183,155 @@ def probe_bifwd() -> None:
             _emit(res)
 
 
+# Builds of the backward library timed by ``bwd`` (gru_mma.cuh's macros,
+# MmaCfg<BM, BN, warps along M, warps along N, stages, CTAs per SM>):
+# the defaults, the two diagnostics that price the split (one TF32 pass;
+# three passes without the split), and tile shapes beside the defaults.
+BWD_VARIANTS = {
+    "default": (),
+    "one_pass": ("GRU_MMA_PASSES=1",),
+    "no_split": ("GRU_MMA_SPLIT=0",),
+    "big_16_warps": ("GRU_MMA_BIG=128, 128, 4, 4, 3, 1",),
+    "big_4_stages": ("GRU_MMA_BIG=128, 128, 2, 4, 4, 1",),
+    "big_128x64": ("GRU_MMA_BIG=128, 64, 2, 2, 3, 2",),
+    "small_64x128": ("GRU_MMA_SMALL=64, 128, 2, 4, 3, 2",),
+}
+# H100 SM limits: 64K registers (allocated 256 a warp), 228 KiB of shared
+# memory (1 KiB of it reserved per CTA), 2048 threads, 32 CTAs
+_SM_REGS, _SM_SMEM, _SM_THREADS, _SM_CTAS = 65536, 233472, 2048, 32
+
+
+def _ctas_per_sm(regs: int, smem: int, threads: int) -> int:
+    """CTAs of a launch that fit on one SM at once (its registers, shared
+    memory and threads)."""
+    warps = -(-threads // 32)
+    regs_warp = -(-regs * 32 // 256) * 256
+    return min(_SM_REGS // (regs_warp * warps), _SM_SMEM // (smem + 1024),
+               _SM_THREADS // threads, _SM_CTAS)
+
+
+def _trace_kernels(fn) -> dict:
+    """``fn()`` once under ``torch.profiler``: per kernel name
+    (chip_smoke's), device ms, launches, and the first launch's registers
+    per thread, shared memory, block and grid from the trace, with the
+    CTAs per SM they allow."""
+    import os
+    import tempfile
+
+    import chip_smoke as cs
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        r = out.setdefault(cs._kernel_name(e["name"]),
+                           {"ms": 0.0, "launches": 0})
+        r["ms"] += e["dur"] / 1e3
+        r["launches"] += 1
+        a = e.get("args", {})
+        if "regs" not in r and "registers per thread" in a:
+            r.update(regs=a["registers per thread"],
+                     smem=a.get("shared memory"), block=a.get("block"),
+                     grid=a.get("grid"),
+                     est_occupancy_pct=a.get("est. achieved occupancy %"))
+            block = a.get("block")
+            if isinstance(block, list) and r["smem"] is not None:
+                r["ctas_per_sm"] = _ctas_per_sm(
+                    r["regs"], r["smem"], int(np.prod(block)))
+    if not out:  # no kernel events in the trace: device ms alone
+        _, prof = cs.profile_call(torch, fn)
+        out = {k: {"ms": v} for k, v in prof["device_ms_by_kernel"].items()}
+    return out
+
+
+def probe_bwd() -> None:
+    import threading
+    from types import SimpleNamespace
+
+    import chip_smoke as cs
+
+    dev = _card()
+    _emit({"build_s": _ext.build(verbose=True)})
+    builds = {}
+
+    def build(name, defines):
+        builds[name] = _ext.build(defines=defines, sources=["gru_bwd.cu"])
+
+    threads = [threading.Thread(target=build, args=item)
+               for item in BWD_VARIANTS.items() if item[1]]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    _emit({"variant_build_s": builds})
+    default = _ext.lib()
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    # chip_smoke.py's fig_5 backward shapes, then the seq2seq train step's:
+    # the encoder reversed with dx, a decoder step
+    cases = {}
+    x1 = torch.rand((cs.N_WIN, cs.B, cs.H), generator=gen, device=dev) * 2 - 1
+    hp, dh = (torch.rand((cs.N_WIN, cs.B, cs.H), generator=gen, device=dev)
+              * 2 - 1), rn(cs.N_WIN, cs.B, cs.H, scale=1e-3)
+    w1 = cs._weights(torch, gen, dev, cs.H, cs.H)
+    cases["gru_bwd_fig5"] = (
+        lambda: gru.gru_bwd_cuda(x1, hp, dh, *w1),
+        lambda: gru.gru_backward_plain(x1, hp, dh, *w1))
+    frames = rn(cs.B, cs.T, cs.C).to(torch.bfloat16).transpose(0, 1)
+    w0 = cs._weights(torch, gen, dev, cs.WIN * cs.C, cs.H)
+    cases["gru_wbwd_fig5"] = (
+        lambda: gru.gru_wbwd_cuda(frames, hp, dh, *w0, cs.WIN, cs.STRIDE),
+        lambda: gru.gru_win_backward_plain(frames, hp, dh, *w0, cs.WIN,
+                                           cs.STRIDE))
+    for name, T, F, rev in (("s2s_encoder", cs.S2S_TC, cs.S2S_F, True),
+                            ("s2s_decoder", 1, cs.S2S_H, False)):
+        xs = rn(T, cs.S2S_B, F, scale=0.5)
+        hs, ds = rn(T, cs.S2S_B, cs.S2S_H, scale=0.3), rn(
+            T, cs.S2S_B, cs.S2S_H, scale=1e-3)
+        ws = cs._weights(torch, gen, dev, F, cs.S2S_H)
+        cases[f"gru_bwd_{name}"] = (
+            lambda xs=xs, hs=hs, ds=ds, ws=ws, rev=rev:
+                gru.gru_bwd_cuda(xs, hs, ds, *ws, rev),
+            lambda xs=xs, hs=hs, ds=ds, ws=ws, rev=rev:
+                gru.gru_backward_plain(xs, hs, ds, *ws, rev))
+    # the defaults first and last: the spread between them is the noise
+    order = [*BWD_VARIANTS, "default"]
+    for case, (kernel, plain) in cases.items():
+        want = plain()
+        res = {"case": case, "plain_ms": _cuda_ms(plain)}
+        _emit(res)
+        for variant in order:
+            defines = BWD_VARIANTS[variant]
+            _ext._lib = (SimpleNamespace(**{**vars(default), **vars(
+                _ext.load(defines, ["gru_bwd.cu"]))}) if defines else default)
+            got = kernel()
+            errs = cs._bwd_errs(got, want)
+            res = {"case": case, "variant": variant, "defines": defines,
+                   "max_rel_err": max(errs.values()), "rel_err": errs,
+                   "bitwise_repeat": cs._bitwise_repeat(torch, got, kernel()),
+                   "kernel_ms": _cuda_ms(kernel),
+                   "by_kernel": _trace_kernels(kernel)}
+            del got
+            _emit(res)
+        _ext._lib = default
+        del want
+
+
 def _settings():
     m = torch.backends.cuda.matmul
     out = []
@@ -255,7 +415,8 @@ def probe_oracle(n_pairs: int, seed: int) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("probe", choices=("jacobi", "bifwd", "tf32", "oracle"))
+    ap.add_argument("probe",
+                    choices=("jacobi", "bifwd", "bwd", "tf32", "oracle"))
     ap.add_argument("--pairs", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -263,6 +424,8 @@ def main() -> None:
         probe_jacobi()
     elif args.probe == "bifwd":
         probe_bifwd()
+    elif args.probe == "bwd":
+        probe_bwd()
     elif args.probe == "tf32":
         probe_tf32()
     else:
