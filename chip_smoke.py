@@ -16,7 +16,7 @@ line is never printed:
    11 classes, window 14 / stride 4), with the launch counts zeroed just
    before one step and read just after, checked against the same step
    through the plain versions on the card; step time is the median of 3
-   steps;
+   steps, then one profiled step;
 4. ctc_train (slice 2's main path), same geometry: at dropout 0 the loss
    and every parameter's gradient through the kernels against the plain
    forwards and plain backward functions on the card; then, with the
@@ -89,9 +89,9 @@ PEAK_F32_SIMT = 67e12
 PEAK_BF16_TC = 989e12
 PEAK_TF32_TC = 495e12
 PEAK_HBM = 3.35e12
-# the backward kernels' products run as 3xTF32 (three TF32 products per
-# float32 product, gru_mma.cuh), two where the A operand is bf16 (exact in
-# TF32): their float32-equivalent peaks
+# the unidirectional GRU kernels' products (forward and backward) run as
+# 3xTF32 (three TF32 products per float32 product, gru_mma.cuh), two where
+# the A operand is bf16 (exact in TF32): their float32-equivalent peaks
 PEAK_3XTF32 = PEAK_TF32_TC / 3
 PEAK_2XTF32 = PEAK_TF32_TC / 2
 KERNEL_ATOL = 1e-4  # kernel vs plain on hs: float32 sums in another order
@@ -305,6 +305,7 @@ def phase_ctc_eval(torch, dev, gru):
         torch.cuda.synchronize()
         step_times.append(time.perf_counter() - t0)
     step_s = statistics.median(step_times)
+    _, prof = profile_call(torch, lambda: step(batch))
 
     loss, per = float(out["loss"]), float(out["per"])
     with torch.no_grad():
@@ -320,7 +321,8 @@ def phase_ctc_eval(torch, dev, gru):
            "samples_per_s": B / step_s,
            "launches": launches, "logits_max_abs_err_vs_plain": logit_err,
            "loss_plain": loss_p, **decode,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "profile": prof}
     emit(res)
     if not (np.isfinite(loss) and np.isfinite(per)
             and bool(torch.isfinite(logits_k).all())):
@@ -921,7 +923,8 @@ def _library_gru(torch, wi, bi, wh, bh):
 
 def _check_small(torch, gru, dev, gen):
     """Odd shapes: B=10, H=50, trailing frames, reverse, both dtypes of
-    ``gru_fwd``, batch-major and time-major frames of ``gru_wfwd``; the
+    ``gru_fwd`` (also at T=1 and across its step tile's edges),
+    batch-major and time-major frames of ``gru_wfwd``; the
     same for the backward kernels, with and without dx, and ``gru_bwd`` at
     the seq2seq encoder's and decoder's shapes. Returns (forward max abs
     errors, backward max relative errors, backward bitwise repeats)."""
@@ -962,6 +965,17 @@ def _check_small(torch, gru, dev, gen):
                                                    reverse, need_dx),
                           lambda: gru.gru_backward_plain(x, hprev, dhs, *w,
                                                          reverse, need_dx))
+        # the forward's T = 1 (a seq2seq decoder step: B = 1000, F = H =
+        # 500) and its step tile's edges (B off the 64-row tile, H = 1 and
+        # off the 32-unit tile)
+        for Tf, Bf, Ff, Hf in ((1, S2S_B, S2S_H, S2S_H), (3, 131, 33, 1),
+                               (2, 65, 70, 97)):
+            x = torch.randn((Tf, Bf, Ff), generator=gen, device=dev).to(dtype)
+            h0f = torch.randn((Bf, Hf), generator=gen, device=dev) * 0.3
+            w = _weights(torch, gen, dev, Ff, Hf)
+            fwd[f"gru_fwd_{dt}_T{Tf}_B{Bf}_H{Hf}"] = float(
+                (gru.gru_fwd_cuda(x, h0f, *w)
+                 - gru.gru_layer_plain(x, h0f, *w)).abs().max())
         # the seq2seq train step's backward shapes: the encoder (T'=191,
         # B=1000, F=100, H=500, 3H=1500) reversed, and a decoder step
         # (T=1, F=H=500), both with dx
@@ -1037,7 +1051,7 @@ def phase_kernels(torch, dev, gru, launches, s2s_launches):
             plain=lambda: gru.gru_layer_windowed_plain(frames, h0, *w0, WIN,
                                                        STRIDE),
             library=_library_gru(torch, *w0), lib_x=windows, h0=h0,
-            flops=2 * B * N_WIN * (F0 + H) * 3 * H,
+            flops=_fwd_flops(N_WIN * B, F0, H, x_bf16=True),
             bytes_=frames.numel() * 2 + _nbytes(h0, *w0) + N_WIN * B * H * 4,
             launches=launches["gru_wfwd"],
             shapes={"frames": [T, B, C], "dtype": "bf16", "win": WIN,
@@ -1052,7 +1066,7 @@ def phase_kernels(torch, dev, gru, launches, s2s_launches):
             kernel=lambda: gru.gru_fwd_cuda(x1, h0, *w1),
             plain=lambda: gru.gru_layer_plain(x1, h0, *w1),
             library=_library_gru(torch, *w1), lib_x=x1, h0=h0,
-            flops=2 * B * N_WIN * (H + H) * 3 * H,
+            flops=_fwd_flops(N_WIN * B, H, H, x_bf16=False),
             bytes_=_nbytes(x1, h0, *w1) + N_WIN * B * H * 4,
             launches=launches["gru_fwd"],
             shapes={"x": [N_WIN, B, H], "dtype": "f32", "hs": [N_WIN, B, H]}))
@@ -1083,7 +1097,7 @@ def phase_kernel_bifwd(torch, dev, gru, gen, launches):
     F=100, H=500, f32 x): against its plain version (two plain sweeps),
     timed beside the plain version, cuDNN's bidirectional GRU on the same
     weights, and the unfused alternative, two ``gru_fwd`` launches (forward
-    and reversed), which is recorded only and decides nothing."""
+    and reversed), timed and held to KERNEL_ATOL."""
     Tc, Bs, F, Hs = S2S_TC, S2S_B, S2S_F, S2S_H
     x = torch.rand((Tc, Bs, F), generator=gen, device=dev) * 2 - 1
     h0s = [torch.randn((Bs, Hs), generator=gen, device=dev) * 0.3
@@ -1108,7 +1122,10 @@ def phase_kernel_bifwd(torch, dev, gru, gen, launches):
     torch.cuda.synchronize()
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     lib_err = float((lib_out - torch.cat(want, -1)).abs().max())
-    bitwise = all(torch.equal(g, u) for g, u in zip(got, unfused))
+    # two gru_fwd launches run the same function on the tensor cores (two
+    # phases, 3xTF32), gru_bifwd in float32 SIMT: equal to roundoff
+    unfused_err = max(float((g - u).abs().max())
+                      for g, u in zip(got, unfused))
     del got, want, unfused, lib_out
     times = (cuda_ms(torch, kernel), cuda_ms(torch, plain),
              cuda_ms(torch, lambda: lib(x, h0l)))
@@ -1120,7 +1137,8 @@ def phase_kernel_bifwd(torch, dev, gru, gen, launches):
                       times, flops, bytes_)
     emit({"phase": "kernel", **row, **extra,
           "library_max_abs_err_vs_plain": lib_err,
-          "two_gru_fwd_ms": two_ms, "bitwise_equal_to_two_gru_fwd": bitwise,
+          "two_gru_fwd_ms": two_ms,
+          "max_abs_err_vs_two_gru_fwd": unfused_err,
           "library_note": "torch.nn.GRU(bidirectional=True) forward (cuDNN) "
                           "on the same weights",
           "tolerance": KERNEL_ATOL,
@@ -1128,6 +1146,9 @@ def phase_kernel_bifwd(torch, dev, gru, gen, launches):
                      "hs": [2, Tc, Bs, Hs]}})
     if not err <= KERNEL_ATOL:
         raise RuntimeError(f"gru_bifwd differs from plain by {err}")
+    if not unfused_err <= KERNEL_ATOL:
+        raise RuntimeError(f"gru_bifwd differs from two gru_fwd launches by "
+                           f"{unfused_err}")
     return row
 
 
@@ -1180,6 +1201,15 @@ def phase_kernels_backward(torch, dev, gru, gen, h0, launches):
 
 def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _fwd_flops(N, F, H, x_bf16):
+    """The unidirectional forward's products over N = T B rows as
+    {product: (FLOPs, peak)}: the input projection x Wi before the sweep
+    (2xTF32 for bf16 x) and the sweep's h Wh (3xTF32)."""
+    return {"projection": (2 * N * F * 3 * H,
+                           PEAK_2XTF32 if x_bf16 else PEAK_3XTF32),
+            "recurrent": (2 * N * H * 3 * H, PEAK_3XTF32)}
 
 
 def _bwd_flops(N, F, H, x_bf16, need_dx):
@@ -1239,6 +1269,8 @@ def _measure(torch, name, replaces, kernel, plain, library, lib_x, h0,
     row, extra = _row(name, "gru_fwd.cu", replaces, launches, err, times,
                       flops, bytes_)
     emit({"phase": "kernel", **row, **extra,
+          "bound_scheme": "3xTF32 tensor cores (495/3 TFLOP/s); the "
+                          "projection of bf16 x 2xTF32 (495/2)",
           "library_max_abs_err_vs_plain": lib_err,
           "tolerance": KERNEL_ATOL, "shapes": shapes})
     if not err <= KERNEL_ATOL:

@@ -35,6 +35,8 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
+# x, sx_t, sx_b, h0, wi, bi, wh, bh, hs, gi, T, B, F, H, reverse, stream
+_FWD = (_P, _LL, _LL) + (_P,) * 7 + (_I, _I, _I, _I, _I, _P)
 # x, sx_t, sx_b, hprev, dhs, wi, bi, wh, bh, g, dhz, dh0, dx, part, dwi,
 # dwh, T, B, F, H, reverse, stream
 _BWD = (_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -46,15 +48,12 @@ _BIFWD = (_P, _LL, _LL) + (_P,) * 12 + (_I, _I, _I, _I, _P)
 # a cudaError_t as int (0 = success)
 SOURCES = {
     "gru_fwd.cu": {
-        # x, sx_t, sx_b, h0, wi, bi, wh, bh, hs, T, B, F, H, reverse, stream
-        "gru_fwd_f32": (_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                        _I, _I, _P),
-        "gru_fwd_bf16": (_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                         _I, _I, _P),
-        # x, sx_b, C, win, stride, h0, wi, bi, wh, bh, hs, n_win, B, H,
+        "gru_fwd_f32": _FWD,
+        "gru_fwd_bf16": _FWD,
+        # x, sx_b, C, win, stride, h0, wi, bi, wh, bh, hs, gi, n_win, B, H,
         # stream
-        "gru_wfwd_bf16": (_P, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
-                          _I, _I, _P),
+        "gru_wfwd_bf16": ((_P, _LL, _I, _I, _I) + (_P,) * 7
+                          + (_I, _I, _I, _P)),
         "gru_bifwd_f32": _BIFWD,
         "gru_bifwd_bf16": _BIFWD,
     },

@@ -191,57 +191,6 @@ BwdPlan bwd_plan(int n_steps, int B, int F, int H) {
   return pl;
 }
 
-#define RETURN_IF_FAILED(expr)            \
-  do {                                    \
-    const int err_ = (expr);              \
-    if (err_ != 0) return err_;           \
-  } while (0)
-
-#define RETURN_IF_LAUNCH_FAILED() \
-  RETURN_IF_FAILED(static_cast<int>(cudaGetLastError()))
-
-// A segment whose A rows are the data rows (t, b) of x at x + t*sx_t +
-// b*sx_b, K = F; rows in one (t-major) run when sx_t = B sx_b.
-template <typename T>
-MmaSeg x_seg(const T* x, long long sx_t, long long sx_b, int B, int F) {
-  constexpr int E = 16 / static_cast<int>(sizeof(T));
-  MmaSeg s = {};
-  s.a = x;
-  s.a_b = sx_t == B * sx_b ? 0 : B;
-  s.a_st = sx_t;
-  s.a_sb = sx_b;
-  s.a_vec = aligned16(x) && sx_t % E == 0 && sx_b % E == 0;
-  s.K = F;
-  return s;
-}
-
-// A segment over a row-major float matrix: row n at a + n*lda.
-MmaSeg f32_seg(const float* a, long long lda, int K) {
-  MmaSeg s = {};
-  s.a = a;
-  s.a_sb = lda;
-  s.a_vec = aligned16(a) && lda % 4 == 0;
-  s.K = K;
-  return s;
-}
-
-void set_b(MmaSeg& s, const float* b, long long ldb, bool extra_ok = true) {
-  s.b = b;
-  s.ldb = ldb;
-  s.b_vec = extra_ok && aligned16(b) && ldb % 4 == 0;
-}
-
-MmaArgs out_args(float* out, long long ldo, int out_col, long long M, int N) {
-  MmaArgs p = {};
-  p.out = out;
-  p.ldo = ldo;
-  p.out_col = out_col;
-  p.M = M;
-  p.N = N;
-  p.gap_at = N;
-  return p;
-}
-
 // [dW; db] (M + 1, 3H) = sum over all N data rows of [A_row, 1]^T G_row,
 // G the step's gate gradients at columns 0..3H of g, or (gapped)
 // [dr | dz | dgn]; n_split fixed partials of the rows, then summed in order.

@@ -10,10 +10,6 @@
 //   - _bifwd_kernel (launched by _gru_bidir_forward, public
 //     gru_layer_bidir): both directions of a bidirectional layer in one
 //     time loop.
-// The first two launch one step kernel, gru_step_kernel<T>, templated over
-// the data type of x (float or bf16); they differ only in where a step's
-// rows start. The bidirectional kernel, gru_bistep_kernel<T>, runs the same
-// step body (gru_step) on each direction's operands.
 //
 // Gate math (torch convention, pallas_gru.py:25-31), gate order (r, z, n):
 //   r = sigmoid(x Wi_r + bi_r + h Wh_r + bh_r)
@@ -21,63 +17,257 @@
 //   n = tanh(x Wi_n + bi_n + r * (h Wh_n + bh_n))
 //   h' = (1 - z) * n + z * h
 //
-// Design. Every step needs all of h_{t-1}, so a step is one grid and the
-// host loop below launches one grid per step on the caller's stream: the
-// launch boundary is the grid-wide barrier. Each CTA owns a (TB x TH)
-// block of h_t (TB batch rows, TH hidden columns) and computes, for those
+// Unidirectional layers (gru_fwd, gru_wfwd): one code path, two phases,
+// every product on the tensor cores (gru_mma.cuh: 3xTF32 mma.sync fed by a
+// cp.async ring). The two differ only in where a row of x starts.
+//   1. Before the sweep, the input projection of all N = T B rows,
+//      gi = x Wi + bi (T, B, 3H), as one product (mma_gemm_kernel): x Wi
+//      does not depend on the recurrence, so it leaves the step loop and
+//      runs at the rate of a large product. For the windowed kernel, row
+//      (t, b) of x is window t of batch row b, read in place from the
+//      batch-major frames: the window w of row b, flattened time-major then
+//      channel (_window_row, pallas_gru.py:254-260), is the run of win*C
+//      values that starts at frame w*stride, so the (n_win, B, win*C)
+//      window stream is never built. A bf16 x (the frames) is exact in
+//      TF32 and takes two passes, a float32 x three. gi is scratch that the
+//      caller allocates (1.8 GB at fig_5 width) and frees after the call.
+//   2. The sweep: one launch of gru_step_mma_kernel a step, from the host
+//      loop below. Every step needs all of h_{t-1}, so the launch boundary
+//      is the grid-wide barrier. A CTA computes h_{t-1} Wh for BM batch rows
+//      and the r, z and n columns of BN/3 hidden units over the whole of
+//      K = H (no split over K: the gate math needs the whole sum), then
+//      applies the gate math in its epilogue, reading gi[t], bh and
+//      h_{t-1}, and writes h_t. bh is added there, to the product, as the
+//      plain version adds it to h Wh.
+// The three gates' columns. A CTA reads Wh's three column runs
+// [g H + j0, g H + j0 + BN/3), g = r, z, n, where they lie, and places them
+// in its shared-memory tile so that each warp's columns hold the r, z and
+// n runs of the warp's own units side by side; the m16n8 tiles of one
+// thread then hold all three gates of the same units. Nothing is permuted
+// in device memory: Wh and gi keep the layout that the backward and the
+// plain version read, and no call copies or reorders Wh (3 MB at H = 512).
+//
+// What bounds it. The projection is 2 N F 3H FLOPs and the recurrence
+// 2 N H 3H, against O(N (F + H)) bytes: bound by operations, at 495/3
+// TFLOP/s float32-equivalent (3xTF32), 495/2 for the projection of a bf16
+// x. The gi stream (12 N H bytes) is written once and read once. A step is
+// a small grid (ceil(B/BM) x ceil(H/(BN/3)) CTAs, 512 at fig_5 width's
+// B = 2000, H = 512) that reads h_{t-1} and its slices of Wh from L2 each
+// step; its latency, more than the tensor cores' rate, sets the sweep's
+// pace. Faster forms, for later work: a persistent kernel that keeps a
+// slice of Wh resident in shared memory across steps and syncs the grid
+// once a step, and wgmma.
+//
+// Bidirectional layer (gru_bifwd): float32 SIMT, one grid a step for both
+// directions, with blockIdx.z as the direction: at host step s the forward
+// direction (z = 0) reads x[s] and writes hs_f[s], the reverse one (z = 1)
+// reads x[T-1-s] and writes hs_b[T-1-s], each from the h_{t-1} of its own
+// stream. Each CTA owns a (TB x TH) block of h_t and computes, for those
 // columns of all three gates, x_t Wi and h_{t-1} Wh as a shared-memory
 // tiled SIMT product in float32 (gate_products, gru_tile.cuh), then
-// applies the gate math in registers and writes h_t. The (T, B, 3H) input
-// projection is never stored. Row b of a step's input is F contiguous
-// values at x + b*sx_b. For
-// the windowed kernel the frames are batch-major ((B, frames, C) memory,
-// frame stride C), so window w of batch row b, flattened time-major then
-// channel (_window_row, pallas_gru.py:254-260), is the run of win*C values
-// that starts at frame w*stride: the (n_win, B, win*C) window stream is
-// never built, and a window row is read exactly like a plain row.
-//
-// What bounds it. Per step the work is 2*B*(F+H)*3H FLOPs against
-// B*(F+H) + (F+H)*3H inputs: at B=2000, H=512 it is far above the card's
-// operations-per-byte line, so the kernel is bound by operations. As
-// written it runs in float32 on the SIMT units (67 TFLOP/s peak), which
-// keeps it within float32 roundoff of the plain version. Each warp issues
-// 24 FMA instructions per k-step beside 5 shared-memory loads (two float4
-// reads of the A tile that the whole warp shares, three weight reads), and
-// __launch_bounds__ caps a thread at 128 registers so that 2 CTAs fit an
-// SM (chip_smoke.py prints ptxas's count at build), so issue slots and
-// latency, not the FMA rate alone, set its pace. Wi and Wh are re-read
-// from L2 by every CTA at every step (3 MB of Wh in f32 at H=512 does not
-// fit one SM's 227 KB). Faster forms, for later work: larger per-thread
-// tiles, tensor cores (bf16 wgmma, or split-TF32 to stay near float32)
-// with TMA-fed tiles, and a persistent kernel that keeps a slice of Wh
-// resident per SM and syncs the grid once per step.
-//
-// Bidirectional layer. One grid per step advances both directions, with
-// blockIdx.z as the direction: at host step s the forward direction
-// (z = 0) reads x[s] and writes hs_f[s], the reverse one (z = 1) reads
-// x[T-1-s] and writes hs_b[T-1-s], each from the h_{t-1} of its own
-// stream. Each CTA runs gru_step on its direction's operands, so each
-// direction computes what gru_fwd computes for it, bit for bit. On the TPU
-// the fusion put two independent recurrence products back to back on the
-// one MXU; on Hopper the two directions are simply more CTAs of one
-// launch. At the seq2seq bench's B=1000, H=500 one direction's grid is
-// 16 x 16 = 256 CTAs against 264 resident slots (2 per SM on 132 SMs), so
-// the fused grid of 512 CTAs runs in about two waves a step, as two
-// one-direction launches do: what fusion saves is one launch a step (191
-// at that bench's T' = 191). It is bound by operations as gru_fwd is
-// (4*B*(F+H)*3H FLOPs a step) and runs the same float32 SIMT product; the
-// faster forms above apply to it too. The weights come as two pointer
-// sets, not stacked arrays: the port keeps fwd{l} and bwd{l} as separate
-// parameters, and stacking them at every call would copy them.
+// applies the gate math in registers. On the TPU the fusion put two
+// independent recurrence products back to back on the one MXU; on Hopper
+// the two directions are simply more CTAs of one launch. At the seq2seq
+// bench's B=1000, H=500 one direction's grid is 16 x 16 = 256 CTAs against
+// 264 resident slots (2 per SM on 132 SMs), so the fused grid of 512 CTAs
+// runs in about two waves a step: what fusion saves is one launch a step
+// (191 at that bench's T' = 191). It is bound by operations (4*B*(F+H)*3H
+// FLOPs a step, on the SIMT units' 67 TFLOP/s); the two phases above are
+// its faster form. The weights come as two pointer sets, not stacked
+// arrays: the port keeps fwd{l} and bwd{l} as separate parameters, and
+// stacking them at every call would copy them.
 
+#include "gru_mma.cuh"
 #include "gru_tile.cuh"
 
 namespace {
 
-// One GRU step of this CTA's (TB x TH) block of h_t. x points at this
-// step's row of batch 0: x[t] (plain) or the window's first frame
-// (windowed); row b starts sx_b elements further on and holds F contiguous
-// values.
+// The sweep's step tile, as MmaCfg<BM, BN, warps along M, warps along N,
+// stages, CTAs per SM> with BN = 3 x the hidden units of a CTA: a warp
+// owns BN / (3 x warps along N) units, whole m16n8 column tiles of each
+// gate. The default, 64 rows x 32 units in 4 warps of 32 rows x 16 units,
+// gives 32 x 16 = 512 CTAs a step at fig_5 width. `python
+// tools/port_probes.py fwd` times other shapes (-DGRU_FWD_STEP=...).
+#ifndef GRU_FWD_STEP
+#define GRU_FWD_STEP 64, 96, 2, 2, 3, 2
+#endif
+using StepCfg = MmaCfg<GRU_FWD_STEP>;
+
+// One step's operands: h = h_{t-1} (B, H) as the A segment, gi the step's
+// (B, 3H) rows of x Wi + bi, hout the step's (B, H) rows of hs.
+struct StepArgs {
+  MmaSeg h;
+  const float* wh;
+  const float* bh;
+  const float* gi;
+  float* hout;
+  int B, H;
+  int wh_vec;  // every run of Wh's three column runs 16-byte aligned
+};
+
+// Stage rows [k0, k0 + BK) of the CTA's Wh columns: tile column j of warp
+// column block w = j / WN is unit j0 + w WU + (j % WN) % WU of gate
+// (j % WN) / WU, WU = WN / 3.
+template <class C>
+__device__ __forceinline__ void stage_wh(unsigned char* st,
+                                         const StepArgs& p, int j0, int k0) {
+  constexpr int WU = C::WN / 3;
+  float* s = reinterpret_cast<float*>(st + a_bytes<C, false>());
+  const long long H3 = 3LL * p.H;
+  stage_tile<float, C::BK, C::BN, b_pitch<C, true>(), C::NT>(
+      s, p.wh_vec, [&](int r, int j) {
+        const int k = k0 + r;
+        const int rem = j % C::WN;
+        const int u = j0 + (j / C::WN) * WU + rem % WU;
+        if (k >= p.H || u >= p.H) return Run{p.wh, 0};
+        return Run{p.wh + k * H3 + (rem / WU) * p.H + u, p.H - u};
+      });
+}
+
+// One step of the sweep (see the note at the head): this CTA's BM rows
+// and BN/3 units of h_t.
+template <class C>
+__global__ void __launch_bounds__(C::NT, C::MIN_BLOCKS)
+    gru_step_mma_kernel(const StepArgs p) {
+  static_assert(C::BN % 3 == 0 && C::WN % 24 == 0,
+                "a warp owns whole m16n8 column tiles of each gate");
+  static_assert(b_pitch<C, true>() % 16 == 4,
+                "Wh tile pitch 4 mod 16: conflict-free fragment reads");
+  constexpr int WU = C::WN / 3;
+  constexpr int NU = WU / 8;  // column tiles of one gate in a warp
+  constexpr int STAGE = stage_bytes<C, false, true>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  // unit blocks run fastest, so that the CTAs that read the same rows of
+  // h_{t-1} run together
+  const int n_tu = (p.H + C::BN / 3 - 1) / (C::BN / 3);
+  MmaCtx c = {};
+  c.m0 = static_cast<long long>(blockIdx.x / n_tu) * C::BM;
+  c.M = p.B;
+  const int j0 = (blockIdx.x % n_tu) * (C::BN / 3);
+  const int n_it = (p.H + C::BK - 1) / C::BK;
+
+  auto issue = [&](int i) {
+    unsigned char* st = smem + (i % C::STAGES) * STAGE;
+    stage_a<C, float, false>(st, p.h, c, i * C::BK);
+    stage_wh<C>(st, p, j0, i * C::BK);
+  };
+
+  float acc[C::MI][C::NI][4];
+#pragma unroll
+  for (int mi = 0; mi < C::MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < C::NI; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < C::STAGES - 1; ++s) {
+    if (s < n_it) issue(s);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_it; ++i) {
+    cp_async_wait<C::STAGES - 2>();
+    __syncthreads();  // tile i landed; every warp is done with i - 1
+    if (i + C::STAGES - 1 < n_it) issue(i + C::STAGES - 1);
+    cp_async_commit();
+    mma_stage<C, float, false, true>(smem + (i % C::STAGES) * STAGE, acc);
+  }
+  cp_async_wait<0>();
+
+  // the gate math: acc[mi][g NU + nu] holds gate g of units
+  // wu + nu*8 + 2t + e, rows g + 8h of the warp's tile mi
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp / C::WARPS_N) * C::WM;
+  const int wu = j0 + (warp % C::WARPS_N) * WU;
+  const int H = p.H;
+  const float* __restrict__ hprev = static_cast<const float*>(p.h.a);
+#pragma unroll
+  for (int mi = 0; mi < C::MI; ++mi) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long m = c.m0 + wm + mi * 16 + g + h * 8;
+      if (m >= p.B) continue;
+      const float* __restrict__ gi = p.gi + m * 3 * H;
+#pragma unroll
+      for (int nu = 0; nu < NU; ++nu) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = wu + nu * 8 + 2 * t + e;
+          if (j >= H) continue;
+          const int q = 2 * h + e;
+          const float r = sigmoid_f32(gi[j] + (acc[mi][nu][q] + p.bh[j]));
+          const float z = sigmoid_f32(
+              gi[H + j] + (acc[mi][NU + nu][q] + p.bh[H + j]));
+          const float n = tanhf(
+              gi[2 * H + j] + r * (acc[mi][2 * NU + nu][q] + p.bh[2 * H + j]));
+          const long long o = m * H + j;
+          p.hout[o] = (1.0f - z) * n + z * hprev[o];
+        }
+      }
+    }
+  }
+}
+
+template <class C>
+int launch_step(const StepArgs& p, cudaStream_t stream) {
+  constexpr int SMEM = C::STAGES * stage_bytes<C, false, true>();
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gru_step_mma_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
+  const int units = C::BN / 3;
+  const long long ctas = static_cast<long long>((p.B + C::BM - 1) / C::BM) *
+                         ((p.H + units - 1) / units);
+  if (ctas <= 0) return 0;
+  gru_step_mma_kernel<C><<<static_cast<unsigned>(ctas), C::NT, SMEM,
+                           stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The unidirectional layer over the A segment xs (rows (t, b), K = F, of
+// type T): 1. gi = x Wi + bi over all rows; 2. the sweep, step s at time
+// t = s (or T-1-s when reverse), its h_{t-1} h0 at s == 0, else the hs
+// row written by the step before. gi (n_steps, B, 3H) is scratch. Returns
+// the first launch error, else cudaGetLastError().
+template <typename T>
+int run_layer(const MmaSeg& xs, const float* h0, const float* wi,
+              const float* bi, const float* wh, const float* bh, float* hs,
+              float* gi, int n_steps, int B, int H, int reverse,
+              cudaStream_t stream) {
+  const long long H3 = 3LL * H;
+  const long long BH = static_cast<long long>(B) * H;
+  {
+    MmaArgs p = out_args(gi, H3, 0, static_cast<long long>(n_steps) * B,
+                         3 * H);
+    p.seg[0] = xs;
+    set_b(p.seg[0], wi, H3);
+    p.bias0 = bi;
+    RETURN_IF_FAILED((launch_mma<MmaBig, T, false, true>(p, 1, stream)));
+  }
+  StepArgs p = {};
+  p.wh = wh;
+  p.bh = bh;
+  p.B = B;
+  p.H = H;
+  p.wh_vec = aligned16(wh) && H % 4 == 0;
+  for (int s = 0; s < n_steps; ++s) {
+    const int t = reverse ? n_steps - 1 - s : s;
+    p.h = f32_seg(s == 0 ? h0 : hs + (reverse ? t + 1 : t - 1) * BH, H, H);
+    p.gi = gi + t * B * H3;
+    p.hout = hs + t * BH;
+    RETURN_IF_FAILED(launch_step<StepCfg>(p, stream));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One GRU step of this CTA's (TB x TH) block of h_t, float32 SIMT. x
+// points at this step's row of batch 0, x[t]; row b starts sx_b elements
+// further on and holds F contiguous values.
 template <typename T>
 __device__ __forceinline__ void gru_step(
     Tiles& s, const T* __restrict__ x, long long sx_b,
@@ -110,17 +300,6 @@ __device__ __forceinline__ void gru_step(
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT, 2)
-    gru_step_kernel(const T* __restrict__ x, long long sx_b,
-                    const float* __restrict__ hprev,
-                    const float* __restrict__ wi, const float* __restrict__ bi,
-                    const float* __restrict__ wh, const float* __restrict__ bh,
-                    float* __restrict__ hout, int B, int F, int H) {
-  __shared__ __align__(16) Tiles s;
-  gru_step<T>(s, x, sx_b, hprev, wi, bi, wh, bh, hout, B, F, H);
-}
-
 // One direction's operands of a bidirectional step: its input row, its
 // h_{t-1}, its weights, and the hs row it writes.
 template <typename T>
@@ -144,28 +323,6 @@ __global__ void __launch_bounds__(NT, 2)
   const DirStep<T> d = blockIdx.z == 0 ? fwd : bwd;
   gru_step<T>(s, d.x, sx_b, d.hprev, d.wi, d.bi, d.wh, d.bh, d.hout, B, F,
               H);
-}
-
-// Host loop: one grid per step. Step s handles time t = s (or T-1-s when
-// reverse); its rows start at x + t*sx_step, and its h_{t-1} is h0 at
-// s == 0, else the hs row written by the previous step. Returns the first
-// launch error, else cudaGetLastError().
-template <typename T>
-int run_layer(const T* x, long long sx_step, long long sx_b, const float* h0,
-              const float* wi, const float* bi, const float* wh,
-              const float* bh, float* hs, int n_steps, int B, int F, int H,
-              int reverse, cudaStream_t stream) {
-  const dim3 grid((H + TH - 1) / TH, (B + TB - 1) / TB);
-  const long long BH = static_cast<long long>(B) * H;
-  for (int s = 0; s < n_steps; ++s) {
-    const int t = reverse ? n_steps - 1 - s : s;
-    const float* hp = s == 0 ? h0 : hs + (reverse ? t + 1 : t - 1) * BH;
-    gru_step_kernel<T><<<grid, NT, 0, stream>>>(
-        x + t * sx_step, sx_b, hp, wi, bi, wh, bh, hs + t * BH, B, F, H);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // Host loop of the bidirectional layer: one grid of both directions per
@@ -214,46 +371,51 @@ int bifwd(const void* x, long long sx_t, long long sx_b, const void* h0_f,
 extern "C" {
 
 // Plain GRU layer over x (T, B, F) with strides (sx_t, sx_b, 1):
-// hs (T, B, H) float32, contiguous.
+// hs (T, B, H) float32, contiguous; gi (T, B, 3H) float32 scratch.
 int gru_fwd_f32(const void* x, long long sx_t, long long sx_b,
                 const void* h0, const void* wi, const void* bi,
-                const void* wh, const void* bh, void* hs, int T, int B,
-                int F, int H, int reverse, void* stream) {
+                const void* wh, const void* bh, void* hs, void* gi, int T,
+                int B, int F, int H, int reverse, void* stream) {
+  const float* f = static_cast<const float*>(x);
   return run_layer<float>(
-      static_cast<const float*>(x), sx_t, sx_b,
-      static_cast<const float*>(h0), static_cast<const float*>(wi),
-      static_cast<const float*>(bi), static_cast<const float*>(wh),
-      static_cast<const float*>(bh), static_cast<float*>(hs), T, B, F, H,
-      reverse, static_cast<cudaStream_t>(stream));
+      x_seg<float>(f, sx_t, sx_b, B, F), static_cast<const float*>(h0),
+      static_cast<const float*>(wi), static_cast<const float*>(bi),
+      static_cast<const float*>(wh), static_cast<const float*>(bh),
+      static_cast<float*>(hs), static_cast<float*>(gi), T, B, H, reverse,
+      static_cast<cudaStream_t>(stream));
 }
 
 int gru_fwd_bf16(const void* x, long long sx_t, long long sx_b,
                  const void* h0, const void* wi, const void* bi,
-                 const void* wh, const void* bh, void* hs, int T, int B,
-                 int F, int H, int reverse, void* stream) {
+                 const void* wh, const void* bh, void* hs, void* gi, int T,
+                 int B, int F, int H, int reverse, void* stream) {
+  const __nv_bfloat16* f = static_cast<const __nv_bfloat16*>(x);
   return run_layer<__nv_bfloat16>(
-      static_cast<const __nv_bfloat16*>(x), sx_t, sx_b,
+      x_seg<__nv_bfloat16>(f, sx_t, sx_b, B, F),
       static_cast<const float*>(h0), static_cast<const float*>(wi),
       static_cast<const float*>(bi), static_cast<const float*>(wh),
-      static_cast<const float*>(bh), static_cast<float*>(hs), T, B, F, H,
-      reverse, static_cast<cudaStream_t>(stream));
+      static_cast<const float*>(bh), static_cast<float*>(hs),
+      static_cast<float*>(gi), T, B, H, reverse,
+      static_cast<cudaStream_t>(stream));
 }
 
 // Windowed GRU layer over raw bf16 frames, batch-major: frame f of batch
 // row b starts at x + b*sx_b + f*C and holds C contiguous channels. Window
 // w is frames [w*stride, w*stride + win), F = win*C; hs (n_win, B, H)
-// float32, contiguous.
+// float32, contiguous; gi (n_win, B, 3H) float32 scratch.
 int gru_wfwd_bf16(const void* x, long long sx_b, int C, int win, int stride,
                   const void* h0, const void* wi, const void* bi,
-                  const void* wh, const void* bh, void* hs, int n_win, int B,
-                  int H, void* stream) {
+                  const void* wh, const void* bh, void* hs, void* gi,
+                  int n_win, int B, int H, void* stream) {
+  const __nv_bfloat16* f = static_cast<const __nv_bfloat16*>(x);
   return run_layer<__nv_bfloat16>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<long long>(stride) * C, sx_b,
+      x_seg<__nv_bfloat16>(f, static_cast<long long>(stride) * C, sx_b, B,
+                           win * C),
       static_cast<const float*>(h0), static_cast<const float*>(wi),
       static_cast<const float*>(bi), static_cast<const float*>(wh),
-      static_cast<const float*>(bh), static_cast<float*>(hs), n_win, B,
-      win * C, H, 0, static_cast<cudaStream_t>(stream));
+      static_cast<const float*>(bh), static_cast<float*>(hs),
+      static_cast<float*>(gi), n_win, B, H, 0,
+      static_cast<cudaStream_t>(stream));
 }
 
 // Bidirectional GRU layer over x (T, B, F) with strides (sx_t, sx_b, 1),

@@ -1,5 +1,6 @@
-// Tensor-core products of the GRU backward (gru_bwd.cu): out = A B over
-// 3xTF32 mma.sync, operands staged by a multi-stage cp.async ring.
+// Tensor-core products of the GRU backward (gru_bwd.cu) and of the
+// unidirectional forward (gru_fwd.cu): out = A B over 3xTF32 mma.sync,
+// operands staged by a multi-stage cp.async ring.
 //
 // Precision. Each float32 operand value v is split in registers, between
 // the shared-memory read and the mma, into hi = tf32(v) and lo =
@@ -585,6 +586,59 @@ int launch_mma(const MmaArgs& p, int n_z, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>(tiles), 1, n_z);
   mma_gemm_kernel<C, TA, KM, KN><<<grid, C::NT, SMEM, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Host side: the segments and arguments of a product.
+
+#define RETURN_IF_FAILED(expr)            \
+  do {                                    \
+    const int err_ = (expr);              \
+    if (err_ != 0) return err_;           \
+  } while (0)
+
+#define RETURN_IF_LAUNCH_FAILED() \
+  RETURN_IF_FAILED(static_cast<int>(cudaGetLastError()))
+
+// A segment whose A rows are the data rows (t, b) of x at x + t*sx_t +
+// b*sx_b, K = F; rows in one (t-major) run when sx_t = B sx_b.
+template <typename T>
+MmaSeg x_seg(const T* x, long long sx_t, long long sx_b, int B, int F) {
+  constexpr int E = 16 / static_cast<int>(sizeof(T));
+  MmaSeg s = {};
+  s.a = x;
+  s.a_b = sx_t == B * sx_b ? 0 : B;
+  s.a_st = sx_t;
+  s.a_sb = sx_b;
+  s.a_vec = aligned16(x) && sx_t % E == 0 && sx_b % E == 0;
+  s.K = F;
+  return s;
+}
+
+// A segment over a row-major float matrix: row n at a + n*lda.
+MmaSeg f32_seg(const float* a, long long lda, int K) {
+  MmaSeg s = {};
+  s.a = a;
+  s.a_sb = lda;
+  s.a_vec = aligned16(a) && lda % 4 == 0;
+  s.K = K;
+  return s;
+}
+
+void set_b(MmaSeg& s, const float* b, long long ldb, bool extra_ok = true) {
+  s.b = b;
+  s.ldb = ldb;
+  s.b_vec = extra_ok && aligned16(b) && ldb % 4 == 0;
+}
+
+MmaArgs out_args(float* out, long long ldo, int out_col, long long M, int N) {
+  MmaArgs p = {};
+  p.out = out;
+  p.ldo = ldo;
+  p.out_col = out_col;
+  p.M = M;
+  p.N = N;
+  p.gap_at = N;
+  return p;
 }
 
 }  // namespace

@@ -1,6 +1,6 @@
 // The tiled float32 SIMT product of one GRU step's gate pre-activations,
-// shared by the forward step kernel (gru_fwd.cu) and the backward step
-// kernel that recomputes the gates (gru_bwd.cu).
+// run by the bidirectional forward's step kernel (gru_fwd.cu); its
+// sigmoid_f32 serves every GRU kernel.
 //
 // A CTA owns a (TB x TH) block of the step's output: TB batch rows, and TH
 // hidden columns of each of the three gates. gate_products computes, for

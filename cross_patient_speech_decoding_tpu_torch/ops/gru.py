@@ -37,7 +37,8 @@ import ctypes
 import torch
 
 # Launch counts of the kernel wrappers: one per layer call that launched
-# the kernel (each call is one grid launch per time step or window).
+# the kernel. On the device a gru_fwd or gru_wfwd call is 1 + T grids (the
+# input projection, then one a step), a gru_bifwd call T.
 LAUNCHES = {"gru_fwd": 0, "gru_wfwd": 0, "gru_bifwd": 0, "gru_bwd": 0,
             "gru_wbwd": 0}
 
@@ -221,6 +222,14 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _gi_scratch(n_steps: int, B: int, H: int, device):
+    """The input projection x Wi + bi of every row, (n_steps, B, 3H)
+    float32, that the forward kernels write before their sweep (1.8 GB at
+    fig_5 width); freed when the call returns."""
+    return torch.empty((n_steps, B, 3 * H), dtype=torch.float32,
+                       device=device)
+
+
 def gru_fwd_cuda(x, h0, wi, bi, wh, bh, reverse: bool = False):
     """Launch the ``gru_fwd`` kernel (port of ``_fwd_kernel``)."""
     from cross_patient_speech_decoding_tpu_torch.ops import _ext
@@ -231,12 +240,14 @@ def gru_fwd_cuda(x, h0, wi, bi, wh, bh, reverse: bool = False):
     hs = torch.empty((T, B, H), dtype=torch.float32, device=x.device)
     if T == 0:
         return hs
+    gi = _gi_scratch(T, B, H, x.device)
     name = "gru_fwd_bf16" if x.dtype == torch.bfloat16 else "gru_fwd_f32"
     with torch.cuda.device(x.device):
         err = getattr(_ext.lib(), name)(
             x.data_ptr(), x.stride(0), x.stride(1), h0.data_ptr(),
             wi.data_ptr(), bi.data_ptr(), wh.data_ptr(), bh.data_ptr(),
-            hs.data_ptr(), T, B, F, H, int(reverse), _stream(),
+            hs.data_ptr(), gi.data_ptr(), T, B, F, H, int(reverse),
+            _stream(),
         )
     _ext.check(err, name)
     LAUNCHES["gru_fwd"] += 1
@@ -299,11 +310,12 @@ def gru_wfwd_cuda(x, h0, wi, bi, wh, bh, win: int, stride: int):
     _check_frames(x, "gru_wfwd")
     x = _batch_major(x)
     hs = torch.empty((n_win, B, H), dtype=torch.float32, device=x.device)
+    gi = _gi_scratch(n_win, B, H, x.device)
     with torch.cuda.device(x.device):
         err = _ext.lib().gru_wfwd_bf16(
             x.data_ptr(), x.stride(1), C, win, stride, h0.data_ptr(),
             wi.data_ptr(), bi.data_ptr(), wh.data_ptr(), bh.data_ptr(),
-            hs.data_ptr(), n_win, B, H, _stream(),
+            hs.data_ptr(), gi.data_ptr(), n_win, B, H, _stream(),
         )
     _ext.check(err, "gru_wfwd_bf16")
     LAUNCHES["gru_wfwd"] += 1

@@ -1,5 +1,5 @@
-"""The operand split of the backward kernels' tensor-core products, emulated
-in numpy on the CPU.
+"""The operand split of the GRU kernels' tensor-core products, emulated in
+numpy on the CPU.
 
 ``csrc/gru_mma.cuh`` multiplies float32 operands on TF32 tensor cores as
 3xTF32: each value v is split into hi = tf32(v) and lo = tf32(v - hi) (round
@@ -13,7 +13,10 @@ fig_5 dW sum (n_win * B = 147 * 2000 = 294,000 rows, split into 6
 partials), the recurrent dh Wh^T (K = 3H = 1536) and the gate recompute
 (K = F + H = 1352). Against float64, the split product must stay 10x inside
 the 1e-3 that chip_smoke.py holds the gradients to (GRAD_RTOL), and the
-one-pass TF32 and bf16 products, which it replaces, are shown not to.
+one-pass TF32 and bf16 products, which it replaces, are shown not to. The
+forward (csrc/gru_fwd.cu) is emulated over 120 steps of its recurrence
+against the 1e-4 that hs is held to, and its step kernel's column map is
+mirrored and checked.
 """
 
 import numpy as np
@@ -139,3 +142,199 @@ def test_tf32_rounds_to_nearest_ties_away(v):
     if abs(float(x) / float(ulp) - np.round(float(x) / float(ulp))) == 0.5:
         assert abs(float(hi[0])) > abs(float(x))
     assert float(hi[0]) + float(lo[0]) == pytest.approx(float(x), rel=5e-7)
+
+
+# ---------------------------------------------------------------------------
+# the forward (csrc/gru_fwd.cu): 3xTF32 input projection before the sweep,
+# 3xTF32 h Wh in every step, the gate math in float32
+# ---------------------------------------------------------------------------
+
+KERNEL_ATOL = 1e-4  # chip_smoke.py: kernel vs plain on hs
+
+
+def _sigmoid(v):
+    return 1.0 / (1.0 + np.exp(-v))
+
+
+def _gru_operands(T, B, F, H, x_bf16, seed=0):
+    """chip_smoke.py's scales: x uniform in [-1, 1), Wi ~ N/sqrt(F), Wh ~
+    N/sqrt(H), biases 0.1 N, h0 0.3 N."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1, 1, (T, B, F)).astype(np.float32)
+    if x_bf16:
+        x = bf16(x)
+    return (x, (rng.normal(size=(B, H)) * 0.3).astype(np.float32),
+            (rng.normal(size=(F, 3 * H)) / np.sqrt(F)).astype(np.float32),
+            (rng.normal(size=3 * H) * 0.1).astype(np.float32),
+            (rng.normal(size=(H, 3 * H)) / np.sqrt(H)).astype(np.float32),
+            (rng.normal(size=3 * H) * 0.1).astype(np.float32))
+
+
+def forward_recurrence(x, h0, wi, bi, wh, bh, product, x_exact=False):
+    """hs of the GRU over x (T, B, F) with both products taken by
+    ``product(a, b, a_exact)``: gi = x Wi + bi for all rows first, then a
+    step's r = sigmoid(gi_r + (h Wh_r + bh_r)), ... in the working type of
+    the product's result (float64 for the reference)."""
+    T, B, F = x.shape
+    H = wh.shape[0]
+    gi = (product(x.reshape(-1, F), wi, x_exact) + bi).reshape(T, B, 3 * H)
+    h = h0.astype(gi.dtype)
+    hs = []
+    for t in range(T):
+        gh = product(h, wh, False) + bh
+        g = gi[t]
+        r = _sigmoid(g[:, :H] + gh[:, :H])
+        z = _sigmoid(g[:, H:2 * H] + gh[:, H:2 * H])
+        n = np.tanh(g[:, 2 * H:] + r * gh[:, 2 * H:])
+        h = ((1 - z) * n + z * h).astype(gi.dtype)
+        hs.append(h)
+    return np.stack(hs)
+
+
+def _f64(a, b, _):
+    return a.astype(np.float64) @ b.astype(np.float64)
+
+
+def _3xtf32(a, b, a_exact):
+    return split_product(a, b, a_exact=a_exact)
+
+
+def _1xtf32(a, b, _):
+    return one_pass(a, b, tf32)
+
+
+@pytest.mark.parametrize("x_bf16", [False, True])
+@pytest.mark.parametrize("H", [64, 128])
+def test_forward_split_recurrence_stays_within_kernel_atol(H, x_bf16):
+    """120 steps of the forward with both products 3xTF32 (the projection
+    of bf16 x 2xTF32): within 1e-4 of float64 on every h_t, 10x inside."""
+    ops = _gru_operands(120, 16, 64, H, x_bf16)
+    want = forward_recurrence(*ops, _f64)
+    got = forward_recurrence(*ops, _3xtf32, x_exact=x_bf16)
+    err = float(np.abs(got - want).max())
+    print(f"H={H} bf16 x={x_bf16}: 3xTF32 max |hs - hs64| {err:.2e}")
+    assert err <= KERNEL_ATOL / 10
+
+
+@pytest.mark.parametrize("x_bf16", [False, True])
+@pytest.mark.parametrize("H", [64, 128])
+def test_forward_one_pass_recurrence_drifts_past_kernel_atol(H, x_bf16):
+    """What the split buys in the forward: with one TF32 pass per product
+    the same 120 steps drift past the 1e-4 that hs is held to."""
+    ops = _gru_operands(120, 16, 64, H, x_bf16)
+    want = forward_recurrence(*ops, _f64)
+    err = float(np.abs(forward_recurrence(*ops, _1xtf32) - want).max())
+    print(f"H={H} bf16 x={x_bf16}: one TF32 pass max |hs - hs64| {err:.2e}")
+    assert err > KERNEL_ATOL
+
+
+# The step kernel's column map (gru_fwd.cu: stage_wh and the epilogue of
+# gru_step_mma_kernel), mirrored: a CTA's tile holds, for each warp column
+# block, the r, z and n runs of the warp's units side by side.
+
+def _step_tiles():
+    """The default GRU_FWD_STEP of gru_fwd.cu and the probe's variants,
+    each as (BM, BN, warps along M, warps along N, stages, CTAs per SM)."""
+    import importlib.util
+    import re
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    src = (root / "cross_patient_speech_decoding_tpu_torch" / "ops" / "csrc"
+           / "gru_fwd.cu").read_text()
+    tiles = {"default": re.search(r"^#define GRU_FWD_STEP (.+)$", src,
+                                  re.M).group(1)}
+    spec = importlib.util.spec_from_file_location(
+        "port_probes", root / "tools" / "port_probes.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    for name, defines in mod.FWD_VARIANTS.items():
+        for d in defines:
+            if d.startswith("GRU_FWD_STEP="):
+                tiles[name] = d.split("=", 1)[1]
+    return {k: tuple(int(v) for v in t.split(",")) for k, t in tiles.items()}
+
+
+STEP_TILES = _step_tiles()
+
+
+def tile_column(j, j0, H, BN, warps_n):
+    """stage_wh: the Wh column (gate H + unit) of tile column j in the CTA
+    whose units start at j0; None past the last unit."""
+    WN = BN // warps_n
+    WU = WN // 3
+    rem = j % WN
+    u = j0 + (j // WN) * WU + rem % WU
+    return None if u >= H else (rem // WU) * H + u
+
+
+def thread_columns(H, BN, warps_n):
+    """The epilogue: for each unit j, the Wh columns whose products the
+    thread that writes h_t[:, j] holds as gates r, z and n (acc[mi][g NU +
+    nu][2h + e], tile column wn WN + (g NU + nu) 8 + 2t + e)."""
+    WN = BN // warps_n
+    WU, NU = WN // 3, WN // 24
+    cols = {}
+    for j0 in range(0, H, BN // 3):
+        for wn in range(warps_n):
+            for t in range(4):
+                for nu in range(NU):
+                    for e in range(2):
+                        j = j0 + wn * WU + nu * 8 + 2 * t + e
+                        if j < H:
+                            cols[j] = [tile_column(
+                                wn * WN + (g * NU + nu) * 8 + 2 * t + e, j0,
+                                H, BN, warps_n) for g in range(3)]
+    return cols
+
+
+@pytest.mark.parametrize("H", [1, 50, 97, 500, 512])
+@pytest.mark.parametrize("tile", sorted(STEP_TILES))
+def test_step_tiles_cover_every_column_once(tile, H):
+    BM, BN, warps_m, warps_n, stages, ctas = STEP_TILES[tile]
+    WN = BN // warps_n
+    assert BN % 3 == 0 and WN % 24 == 0 and (BN + 4) % 16 == 4
+    seen = [tile_column(j, j0, H, BN, warps_n)
+            for j0 in range(0, H, BN // 3) for j in range(BN)]
+    seen = [c for c in seen if c is not None]
+    assert sorted(seen) == list(range(3 * H))
+    # and a thread holds r, z and n of the unit it writes
+    cols = thread_columns(H, BN, warps_n)
+    assert sorted(cols) == list(range(H))
+    assert all(c == [j, H + j, 2 * H + j] for j, c in cols.items())
+
+
+@pytest.mark.parametrize("tile", sorted(STEP_TILES))
+def test_gate_math_on_the_tile_layout_matches_plain(tile):
+    """Take each step's products in the tile layout (h Wh's columns as the
+    tiles hold them), run the plain gate math from there, write h_t back by
+    unit: gru_layer_plain's hs, bit for bit."""
+    import torch
+
+    from cross_patient_speech_decoding_tpu_torch.ops import gru
+
+    _, BN, _, warps_n, _, _ = STEP_TILES[tile]
+    T, B, F, H = 4, 5, 7, 50
+    x, h0, wi, bi, wh, bh = (torch.from_numpy(a) for a in _gru_operands(
+        T, B, F, H, False, seed=3))
+    cols = thread_columns(H, BN, warps_n)
+    tiles = [[tile_column(j, j0, H, BN, warps_n) for j in range(BN)]
+             for j0 in range(0, H, BN // 3)]
+    # the layout: a (B, tiles x BN) product, a thread's three columns in it
+    flat = [c for t_ in tiles for c in t_]
+    where = {c: i for i, c in enumerate(flat) if c is not None}
+    idx = [torch.tensor([where[cols[j][g]] for j in range(H)])
+           for g in range(3)]
+    h = h0
+    hs = torch.empty((T, B, H))
+    for t in range(T):
+        gi = x[t] @ wi + bi
+        full = h @ wh + bh
+        in_tiles = torch.stack([full[:, c] if c is not None
+                                else torch.zeros(B) for c in flat], 1)
+        r = torch.sigmoid(gi[:, :H] + in_tiles[:, idx[0]])
+        z = torch.sigmoid(gi[:, H:2 * H] + in_tiles[:, idx[1]])
+        n = torch.tanh(gi[:, 2 * H:] + r * in_tiles[:, idx[2]])
+        h = (1.0 - z) * n + z * h
+        hs[t] = h
+    assert torch.equal(hs, gru.gru_layer_plain(x, h0, wi, bi, wh, bh))

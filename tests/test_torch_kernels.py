@@ -7,8 +7,10 @@ PyTorch:
     python -m pytest tests/test_torch_kernels.py --noconftest -m gpu
 
 (``--noconftest`` skips ``tests/conftest.py``, which configures JAX.)
-GRU forward: kernel and plain version both accumulate in float32, in
-another order: atol 1e-4 on hs. GRU backward: the kernels' products run
+GRU forward: the unidirectional kernels' products run on tensor cores as
+3xTF32 (float32-class), the bidirectional kernel's in float32 SIMT; each
+against the plain version in float32 sums of another order: atol 1e-4 on
+hs. GRU backward: the kernels' products run
 on tensor cores as 3xTF32 (float32-class, ~1e-7 of the largest output per
 product) with float32 sums in another order: on gradients, max |diff| <=
 1e-5 x max |plain| per tensor (sums over batch and time). Jacobi: the kernel rounds every
@@ -87,6 +89,42 @@ def test_gru_wfwd_kernel_matches_plain(card, win, stride, T, batch_major):
         got = gru.gru_layer_windowed(*args, win, stride)
         want = gru.gru_layer_windowed_plain(*args, win, stride)
     assert gru.LAUNCHES["gru_wfwd"] == 1
+    assert got.shape == ((T - win) // stride + 1, B, H)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+
+
+# shapes that cross the forward's tiles: B off the step kernel's 64-row
+# tile and the projection's 128-row tile, H = 500 (off the 32-unit tile),
+# H = 1, T = 1, odd F
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("T,B,F,H", [(3, 131, 100, 500), (1, 1000, 500, 500),
+                                     (4, 65, 33, 1), (1, 1, 840, 512),
+                                     (2, 129, 70, 97)])
+def test_gru_fwd_kernel_tile_edges(card, dtype, reverse, T, B, F, H):
+    args = _args(card, 14, T, B, F, H)
+    args[0] = args[0].to(dtype)
+    with torch.no_grad():
+        got = gru.gru_fwd_cuda(*args, reverse=reverse)
+        want = gru.gru_layer_plain(*args, reverse=reverse)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+
+
+# window rows of F = win*C = 840 (C = 60, 16-byte aligned, as at fig_5
+# width) and of C = 5 (2-byte aligned), B off the tiles, H = 500, 97, 1
+@pytest.mark.parametrize("batch_major", [True, False])
+@pytest.mark.parametrize("win,stride,T,C,B,H", [(14, 4, 30, 60, 67, 500),
+                                                (14, 4, 40, 60, 130, 97),
+                                                (6, 2, 27, 5, 129, 64),
+                                                (6, 2, 11, 5, 3, 1)])
+def test_gru_wfwd_kernel_tile_edges(card, win, stride, T, C, B, H,
+                                    batch_major):
+    args = _args(card, 15, T, B, win * C, H)
+    x = torch.randn((B, T, C), device=card).to(torch.bfloat16).transpose(0, 1)
+    args[0] = x if batch_major else x.contiguous()
+    with torch.no_grad():
+        got = gru.gru_wfwd_cuda(*args, win, stride)
+        want = gru.gru_layer_windowed_plain(*args, win, stride)
     assert got.shape == ((T - win) // stride + 1, B, H)
     torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
 
@@ -263,8 +301,8 @@ def _bidir_args(card, seed, T, B, F, H, dtype):
                                      (6, 16, 10, 32), (3, 130, 70, 97)])
 def test_gru_bifwd_kernel_matches_plain(card, dtype, T, B, F, H):
     """Both directions in one launch a step: against the plain version
-    (two plain sweeps) to ATOL, and bitwise equal to two gru_fwd launches
-    (each CTA runs gru_fwd's step body on its direction)."""
+    (two plain sweeps) and two gru_fwd launches to ATOL (gru_fwd runs the
+    same function on the tensor cores, gru_bifwd in float32 SIMT)."""
     args = _bidir_args(card, 7, T, B, F, H, dtype)
     x, h0_f, h0_b, *w = args
     gru.reset_launch_counts()
@@ -274,9 +312,11 @@ def test_gru_bifwd_kernel_matches_plain(card, dtype, T, B, F, H):
     assert gru.LAUNCHES["gru_bifwd"] == 1 and gru.LAUNCHES["gru_fwd"] == 0
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, atol=ATOL, rtol=0)
-    assert torch.equal(got[0], gru.gru_fwd_cuda(x, h0_f, *w[:4]))
-    assert torch.equal(got[1], gru.gru_fwd_cuda(x, h0_b, *w[4:],
-                                                reverse=True))
+    with torch.no_grad():
+        unfused = (gru.gru_fwd_cuda(x, h0_f, *w[:4]),
+                   gru.gru_fwd_cuda(x, h0_b, *w[4:], reverse=True))
+    for g, u in zip(got, unfused):
+        torch.testing.assert_close(g, u, atol=ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("need_dx", [True, False])

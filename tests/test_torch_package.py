@@ -188,14 +188,18 @@ def test_library_path_keys_build_variants():
     assert _ext.library_path("gru_bwd.cu", variant).parent == _ext.BUILD_DIR
 
 
-def _probe_variants():
+def _probes():
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
         "port_probes", ROOT / "tools" / "port_probes.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.BWD_VARIANTS
+    return mod
+
+
+def _probe_variants():
+    return _probes().BWD_VARIANTS
 
 
 @pytest.mark.parametrize("variant", sorted(_probe_variants()))
@@ -208,4 +212,18 @@ def test_probe_variants_name_the_header_macros(variant):
         name, value = d.split("=", 1)
         assert re.search(rf"^#ifndef {name}$", header, re.M), name
         if name in ("GRU_MMA_BIG", "GRU_MMA_SMALL"):
+            assert len([int(v) for v in value.split(",")]) == 6
+
+
+@pytest.mark.parametrize("variant", sorted(_probes().FWD_VARIANTS))
+def test_forward_probe_variants_name_the_source_macros(variant):
+    """Every define of the forward probe's variants overrides a macro that
+    gru_fwd.cu or gru_mma.cuh defaults with #ifndef, and a step tile has
+    the six MmaCfg parameters."""
+    text = "\n".join((_ext.CSRC / f).read_text()
+                     for f in ("gru_fwd.cu", "gru_mma.cuh"))
+    for d in _probes().FWD_VARIANTS[variant]:
+        name, value = d.split("=", 1)
+        assert re.search(rf"^#ifndef {name}$", text, re.M), name
+        if name == "GRU_FWD_STEP":
             assert len([int(v) for v in value.split(",")]) == 6

@@ -6,7 +6,10 @@ Run from the repository root:
     python tools/port_probes.py jacobi   # on a CUDA card
     python tools/port_probes.py bifwd    # on a CUDA card
     python tools/port_probes.py bwd      # on a CUDA card
+    python tools/port_probes.py fwd      # on a CUDA card
     python tools/port_probes.py tf32     # on a CUDA card
+    python tools/port_probes.py ab --against DIR [--phases streaming]
+        [--repeats 5]                    # on a CUDA card
     python tools/port_probes.py oracle --pairs 4 --seed 0   # on the CPU
 
 - ``jacobi``: builds the kernels, then holds the Jacobi kernel against its
@@ -16,8 +19,8 @@ Run from the repository root:
   the kernel, plain and ``torch.linalg.eigh`` times (CUDA events, median
   of 5).
 - ``bifwd``: builds the kernels, then holds the bidirectional GRU kernel
-  against its plain version and against two ``gru_fwd`` launches (bitwise)
-  at odd shapes and at the seq2seq encoder's (T=191, B=1000, F=100,
+  against its plain version and against two ``gru_fwd`` launches (max abs
+  error) at odd shapes and at the seq2seq encoder's (T=191, B=1000, F=100,
   H=500), f32 and bf16 x; at B >= 100 also the kernel, two-launch and
   plain times.
 - ``bwd``: builds the kernels (printing the ptxas report) and the
@@ -30,9 +33,27 @@ Run from the repository root:
   SM they allow for each kernel name (``torch.profiler`` trace). The
   defaults run first and last. Small shapes are the card tests' (``-m gpu``
   in ``tests/test_torch_kernels.py``).
+- ``fwd``: builds the kernels (printing the ptxas report) and the forward
+  library's variants of ``FWD_VARIANTS`` (one TF32 pass, other step tile
+  shapes), then, at ``chip_smoke.py``'s fig_5 forward shapes (``gru_fwd``
+  over float32 x, ``gru_wfwd`` over the bf16 frames), the seq2seq
+  decoder's (T=1, B=1000, F=H=500) and the streaming step's (T=1, B=1,
+  F=840, H=512), holds each variant against the plain version (max abs
+  error on hs) and times it (CUDA events, median of 5), with device ms,
+  launches, registers, shared memory and CTAs per SM of the projection
+  and the step kernel (``torch.profiler`` trace). The defaults run first
+  and last. Then streaming ms per bin (``chip_smoke.phase_streaming``, 400
+  bins at fig_5 width) with the defaults, twice.
 - ``tf32``: the error of a 1024^3 float32 product against float64, as a
   plain ``@`` and through ``ops.precision.hdot``, under four caller
   settings of TF32, with the settings before and after the call.
+- ``ab``: end-to-end phases of ``chip_smoke.py`` (``--phases``: ``ctc``,
+  the CTC eval and train steps; ``streaming``; default both) from another
+  checkout of the repository, ``DIR`` (say, the parent commit unpacked
+  with ``git archive``), and from this one, in turns: DIR, this, this,
+  DIR, ``--repeats`` times. Each turn is a process of its own that builds
+  (or reuses) its checkout's kernels and prints the phases' JSON lines,
+  tagged here with the turn and the checkout.
 - ``oracle``: batched ``fit_cca_aligner`` on the CPU at the bench
   geometry (150 trials x 200 bins x 40 latents, 27 classes) for
   ``--pairs`` pairs made from ``--seed``, down the kernel's route (the
@@ -171,8 +192,8 @@ def probe_bifwd() -> None:
             res = {"T": T, "B": B, "F": F, "H": H, "dtype": str(dtype),
                    "err_vs_plain": max(float((kf - pf).abs().max()),
                                        float((kb - pb).abs().max())),
-                   "bitwise_vs_two_gru_fwd": bool(torch.equal(kf, uf)
-                                                  and torch.equal(kb, ub))}
+                   "err_vs_two_gru_fwd": max(float((kf - uf).abs().max()),
+                                             float((kb - ub).abs().max()))}
             if B >= 100:
                 res["kernel_ms"] = _cuda_ms(lambda: gru.gru_bifwd_cuda(*args))
                 res["two_gru_fwd_ms"] = _cuda_ms(lambda: (
@@ -257,25 +278,13 @@ def _trace_kernels(fn) -> dict:
 
 
 def probe_bwd() -> None:
-    import threading
     from types import SimpleNamespace
 
     import chip_smoke as cs
 
     dev = _card()
     _emit({"build_s": _ext.build(verbose=True)})
-    builds = {}
-
-    def build(name, defines):
-        builds[name] = _ext.build(defines=defines, sources=["gru_bwd.cu"])
-
-    threads = [threading.Thread(target=build, args=item)
-               for item in BWD_VARIANTS.items() if item[1]]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    _emit({"variant_build_s": builds})
+    _emit({"variant_build_s": _build_variants(BWD_VARIANTS, "gru_bwd.cu")})
     default = _ext.lib()
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -330,6 +339,152 @@ def probe_bwd() -> None:
             _emit(res)
         _ext._lib = default
         del want
+
+
+# Builds of the forward library timed by ``fwd``: the defaults, one TF32
+# pass (gru_mma.cuh's diagnostic, in both phases), and step tiles beside
+# the default (gru_fwd.cu's GRU_FWD_STEP, MmaCfg<BM, 3 x units, warps along
+# M, warps along N, stages, CTAs per SM>).
+FWD_VARIANTS = {
+    "default": (),
+    "one_pass": ("GRU_MMA_PASSES=1",),
+    "step_128x32": ("GRU_FWD_STEP=128, 96, 4, 2, 3, 2",),
+    "step_64x16": ("GRU_FWD_STEP=64, 48, 2, 1, 3, 4",),
+    "step_warps_4x1": ("GRU_FWD_STEP=64, 96, 4, 1, 3, 2",),
+    "step_3_ctas": ("GRU_FWD_STEP=64, 96, 2, 2, 3, 3",),
+    "step_4_stages": ("GRU_FWD_STEP=64, 96, 2, 2, 4, 2",),
+}
+
+
+def _build_variants(variants, source) -> dict:
+    """Build the variants' libraries of ``source``, all nvccs at once;
+    returns the seconds each took."""
+    import threading
+
+    builds = {}
+
+    def build(name, defines):
+        builds[name] = _ext.build(defines=defines, sources=[source])
+
+    threads = [threading.Thread(target=build, args=item)
+               for item in variants.items() if item[1]]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return builds
+
+
+def probe_fwd() -> None:
+    from types import SimpleNamespace
+
+    import chip_smoke as cs
+    from cross_patient_speech_decoding_tpu_torch.models import RealtimeRNN
+
+    dev = _card()
+    _emit({"build_s": _ext.build(verbose=True)})
+    _emit({"variant_build_s": _build_variants(FWD_VARIANTS, "gru_fwd.cu")})
+    default = _ext.lib()
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    h0 = rn(cs.B, cs.H, scale=0.3)
+    x1 = torch.rand((cs.N_WIN, cs.B, cs.H), generator=gen, device=dev) * 2 - 1
+    w1 = cs._weights(torch, gen, dev, cs.H, cs.H)
+    frames = rn(cs.B, cs.T, cs.C).to(torch.bfloat16).transpose(0, 1)
+    w0 = cs._weights(torch, gen, dev, cs.WIN * cs.C, cs.H)
+    xd = rn(1, cs.S2S_B, cs.S2S_H, scale=0.5)
+    hd = rn(cs.S2S_B, cs.S2S_H, scale=0.3)
+    wd = cs._weights(torch, gen, dev, cs.S2S_H, cs.S2S_H)
+    xs = rn(1, 1, cs.WIN * cs.C)
+    hs0 = rn(1, cs.H, scale=0.3)
+    cases = {
+        "gru_fwd_fig5": (lambda: gru.gru_fwd_cuda(x1, h0, *w1),
+                         lambda: gru.gru_layer_plain(x1, h0, *w1)),
+        "gru_wfwd_fig5": (
+            lambda: gru.gru_wfwd_cuda(frames, h0, *w0, cs.WIN, cs.STRIDE),
+            lambda: gru.gru_layer_windowed_plain(frames, h0, *w0, cs.WIN,
+                                                 cs.STRIDE)),
+        "gru_fwd_s2s_decoder": (lambda: gru.gru_fwd_cuda(xd, hd, *wd),
+                                lambda: gru.gru_layer_plain(xd, hd, *wd)),
+        "gru_fwd_stream_step": (lambda: gru.gru_fwd_cuda(xs, hs0, *w0),
+                                lambda: gru.gru_layer_plain(xs, hs0, *w0)),
+    }
+    order = [*FWD_VARIANTS, "default"]
+    with torch.no_grad():
+        for case, (kernel, plain) in cases.items():
+            want = plain()
+            _emit({"case": case, "plain_ms": _cuda_ms(plain)})
+            for variant in order:
+                defines = FWD_VARIANTS[variant]
+                _ext._lib = (SimpleNamespace(**{**vars(default), **vars(
+                    _ext.load(defines, ["gru_fwd.cu"]))})
+                    if defines else default)
+                got = kernel()
+                _emit({"case": case, "variant": variant, "defines": defines,
+                       "max_abs_err": float((got - want).abs().max()),
+                       "kernel_ms": _cuda_ms(kernel),
+                       "by_kernel": _trace_kernels(kernel)})
+                del got
+            _ext._lib = default
+            del want
+        model = RealtimeRNN(cs.C, cs.H, cs.N_LAYERS, cs.N_CLASSES,
+                            win_size=cs.WIN, stride=cs.STRIDE, seed=0,
+                            device=dev).eval()
+        for _ in range(2):  # the spread of two runs
+            cs.phase_streaming(torch, dev, gru, model)
+
+
+# One turn of ``ab``, run with the checkout as working directory and
+# first on the path: its own chip_smoke.py, port and kernels. The CTC
+# phases, then streaming, as ``sys.argv[1]`` names them.
+_AB_TURN = """
+import sys
+import torch
+import chip_smoke as cs
+from cross_patient_speech_decoding_tpu_torch.models import RealtimeRNN
+from cross_patient_speech_decoding_tpu_torch.ops import _ext, gru
+_ext.lib()
+dev = torch.device("cuda", 0)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+phases = sys.argv[1].split(",")
+if "ctc" in phases:
+    model, batch = cs.phase_ctc_eval(torch, dev, gru)
+    cs.phase_ctc_train(torch, dev, gru, batch)
+    del model, batch
+if "streaming" in phases:
+    model = RealtimeRNN(cs.C, cs.H, cs.N_LAYERS, cs.N_CLASSES,
+                        win_size=cs.WIN, stride=cs.STRIDE, seed=0,
+                        device=dev).eval()
+    cs.phase_streaming(torch, dev, gru, model)
+"""
+AB_PHASES = ("ctc", "streaming")
+
+
+def probe_ab(against: str, phases: str, repeats: int) -> None:
+    import os
+
+    _card()
+    here = Path(__file__).resolve().parents[1]
+    other = Path(against).resolve()
+    turns = [other, here, here, other] * repeats
+    for turn, root in enumerate(turns):
+        env = {**os.environ, "PYTHONPATH": str(root)}
+        proc = subprocess.run([sys.executable, "-c", _AB_TURN, phases],
+                              cwd=root, env=env, capture_output=True,
+                              text=True)
+        for line in proc.stdout.splitlines():
+            if line.startswith("{"):
+                obj = json.loads(line)
+                for key in ("step_s_runs", "decode_matches_cpu"):
+                    obj.pop(key, None)
+                _emit({"turn": turn, "checkout": str(root), **obj})
+        if proc.returncode != 0:
+            raise SystemExit(f"turn {turn} in {root} failed:\n"
+                             f"{proc.stderr[-4000:]}")
 
 
 def _settings():
@@ -416,7 +571,14 @@ def probe_oracle(n_pairs: int, seed: int) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("probe",
-                    choices=("jacobi", "bifwd", "bwd", "tf32", "oracle"))
+                    choices=("jacobi", "bifwd", "bwd", "fwd", "tf32",
+                             "ab", "oracle"))
+    ap.add_argument("--against", help="ab: the other checkout")
+    ap.add_argument("--phases", default=",".join(AB_PHASES),
+                    help="ab: comma-separated, of " + ", ".join(AB_PHASES))
+    ap.add_argument("--repeats", type=int, default=1,
+                    help="ab: how many times the turns DIR, this, this, "
+                         "DIR run")
     ap.add_argument("--pairs", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -426,8 +588,16 @@ def main() -> None:
         probe_bifwd()
     elif args.probe == "bwd":
         probe_bwd()
+    elif args.probe == "fwd":
+        probe_fwd()
     elif args.probe == "tf32":
         probe_tf32()
+    elif args.probe == "ab":
+        if not args.against:
+            ap.error("ab needs --against DIR")
+        if not set(args.phases.split(",")) <= set(AB_PHASES):
+            ap.error(f"--phases takes {AB_PHASES}")
+        probe_ab(args.against, args.phases, args.repeats)
     else:
         probe_oracle(args.pairs, args.seed)
 
