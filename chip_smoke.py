@@ -56,7 +56,8 @@ line is never printed:
    chol fit; then ``fit_mcca_aligner`` and ``joint_pca_fit`` on the card
    against the CPU;
 7. kernels: each kernel against its plain version at the fig_5 shapes
-   (``gru_bifwd`` at the seq2seq encoder's) and at small odd shapes, with
+   (``gru_bifwd`` at the seq2seq encoder's, two runs bitwise equal) and
+   at small odd shapes, with
    times of the kernel, the plain version and ``torch.nn.GRU`` (its
    backward for the backward kernels, bidirectional for ``gru_bifwd``,
    beside which the two-``gru_fwd`` alternative is timed too), and its
@@ -1094,10 +1095,11 @@ def _library_bigru(torch, ws):
 
 def phase_kernel_bifwd(torch, dev, gru, gen, launches):
     """``gru_bifwd`` at the seq2seq encoder's shapes (T'=191, B=1000,
-    F=100, H=500, f32 x): against its plain version (two plain sweeps),
-    timed beside the plain version, cuDNN's bidirectional GRU on the same
-    weights, and the unfused alternative, two ``gru_fwd`` launches (forward
-    and reversed), timed and held to KERNEL_ATOL."""
+    F=100, H=500, f32 x): against its plain version (two plain sweeps)
+    to KERNEL_ATOL and two ``gru_fwd`` launches (forward and reversed),
+    which run the same kernels, bitwise; two runs bitwise equal; timed
+    beside the plain version, cuDNN's bidirectional GRU on the same
+    weights and the two launches."""
     Tc, Bs, F, Hs = S2S_TC, S2S_B, S2S_F, S2S_H
     x = torch.rand((Tc, Bs, F), generator=gen, device=dev) * 2 - 1
     h0s = [torch.randn((Bs, Hs), generator=gen, device=dev) * 0.3
@@ -1117,28 +1119,35 @@ def phase_kernel_bifwd(torch, dev, gru, gen, launches):
         return (gru.gru_fwd_cuda(x, h0s[0], *ws[:4]),
                 gru.gru_fwd_cuda(x, h0s[1], *ws[4:], reverse=True))
 
-    got, want, unfused = kernel(), plain(), two_launches()
+    got, again, want, unfused = kernel(), kernel(), plain(), two_launches()
     lib_out, _ = lib(x, h0l)
     torch.cuda.synchronize()
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     lib_err = float((lib_out - torch.cat(want, -1)).abs().max())
-    # two gru_fwd launches run the same function on the tensor cores (two
-    # phases, 3xTF32), gru_bifwd in float32 SIMT: equal to roundoff
+    repeat = all(torch.equal(g, a) for g, a in zip(got, again))
+    # gru_bifwd runs gru_fwd's kernels, forward then reversed
     unfused_err = max(float((g - u).abs().max())
                       for g, u in zip(got, unfused))
-    del got, want, unfused, lib_out
+    unfused_bitwise = all(torch.equal(g, u) for g, u in zip(got, unfused))
+    del got, again, want, unfused, lib_out
     times = (cuda_ms(torch, kernel), cuda_ms(torch, plain),
              cuda_ms(torch, lambda: lib(x, h0l)))
     two_ms = cuda_ms(torch, two_launches)
-    flops = 2 * Tc * 2 * Bs * (F + Hs) * 3 * Hs
+    N = Tc * Bs
+    flops = {"projection": (2 * 2 * N * F * 3 * Hs, PEAK_3XTF32),
+             "recurrent": (2 * 2 * N * Hs * 3 * Hs, PEAK_3XTF32)}
     bytes_ = _nbytes(x, *h0s, *ws) + 2 * Tc * Bs * Hs * 4
     row, extra = _row("gru_bifwd", "gru_fwd.cu", "cross_patient_speech_"
                       "decoding_tpu/ops/pallas_gru.py:140", launches, err,
                       times, flops, bytes_)
     emit({"phase": "kernel", **row, **extra,
+          "bound_scheme": "3xTF32 tensor cores (495/3 TFLOP/s), both "
+                          "directions' projection and recurrence",
+          "bitwise_repeat": repeat,
           "library_max_abs_err_vs_plain": lib_err,
           "two_gru_fwd_ms": two_ms,
           "max_abs_err_vs_two_gru_fwd": unfused_err,
+          "bitwise_equal_to_two_gru_fwd": unfused_bitwise,
           "library_note": "torch.nn.GRU(bidirectional=True) forward (cuDNN) "
                           "on the same weights",
           "tolerance": KERNEL_ATOL,
@@ -1146,9 +1155,11 @@ def phase_kernel_bifwd(torch, dev, gru, gen, launches):
                      "hs": [2, Tc, Bs, Hs]}})
     if not err <= KERNEL_ATOL:
         raise RuntimeError(f"gru_bifwd differs from plain by {err}")
-    if not unfused_err <= KERNEL_ATOL:
+    if not unfused_bitwise:
         raise RuntimeError(f"gru_bifwd differs from two gru_fwd launches by "
                            f"{unfused_err}")
+    if not repeat:
+        raise RuntimeError("gru_bifwd: two runs are not bitwise equal")
     return row
 
 
@@ -1232,8 +1243,9 @@ def _row(name, source, replaces, launches, err, times, flops, bytes_,
     """The kernels line's row (bound_ms and what this run measured, nothing
     else) and the extra keys of the phase line. ``times`` is (kernel,
     plain, library) ms; ``flops`` a count at ``peak``, the FLOP/s of the
-    units the products run on (float32 SIMT), or {product: (FLOPs, peak)}
-    where products run at different rates (the backward's tensor cores)."""
+    units the products run on (float32 SIMT: the Jacobi kernel), or
+    {product: (FLOPs, peak)} where products run at their own rates (the GRU
+    kernels' tensor cores)."""
     ms, plain_ms, library_ms = times
     ops = flops if isinstance(flops, dict) else {"all": (flops, peak)}
     total = sum(f for f, _ in ops.values())

@@ -42,8 +42,8 @@ _FWD = (_P, _LL, _LL) + (_P,) * 7 + (_I, _I, _I, _I, _I, _P)
 _BWD = (_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _P)
 # x, sx_t, sx_b, h0_f, wi_f, bi_f, wh_f, bh_f, h0_b, wi_b, bi_b, wh_b, bh_b,
-# hs_f, hs_b, T, B, F, H, stream
-_BIFWD = (_P, _LL, _LL) + (_P,) * 12 + (_I, _I, _I, _I, _P)
+# hs_f, hs_b, gi, T, B, F, H, stream
+_BIFWD = (_P, _LL, _LL) + (_P,) * 13 + (_I, _I, _I, _I, _P)
 # source -> {exported function: argtypes}; every exported function returns
 # a cudaError_t as int (0 = success)
 SOURCES = {

@@ -54,28 +54,28 @@
 // a small grid (ceil(B/BM) x ceil(H/(BN/3)) CTAs, 512 at fig_5 width's
 // B = 2000, H = 512) that reads h_{t-1} and its slices of Wh from L2 each
 // step; its latency, more than the tensor cores' rate, sets the sweep's
-// pace. Faster forms, for later work: a persistent kernel that keeps a
-// slice of Wh resident in shared memory across steps and syncs the grid
-// once a step, and wgmma.
+// pace. Faster form, for later work: wgmma. A persistent kernel that keeps
+// each CTA's slice of Wh in shared memory across steps and syncs only the
+// CTAs that share rows of h was tried for the bidirectional layer at the
+// seq2seq bench's shape and ran no faster than one launch a step
+// (PERF.md, section 6).
 //
-// Bidirectional layer (gru_bifwd): float32 SIMT, one grid a step for both
-// directions, with blockIdx.z as the direction: at host step s the forward
-// direction (z = 0) reads x[s] and writes hs_f[s], the reverse one (z = 1)
-// reads x[T-1-s] and writes hs_b[T-1-s], each from the h_{t-1} of its own
-// stream. Each CTA owns a (TB x TH) block of h_t and computes, for those
-// columns of all three gates, x_t Wi and h_{t-1} Wh as a shared-memory
-// tiled SIMT product in float32 (gate_products, gru_tile.cuh), then
-// applies the gate math in registers. On the TPU the fusion put two
-// independent recurrence products back to back on the one MXU; on Hopper
-// the two directions are simply more CTAs of one launch. At the seq2seq
-// bench's B=1000, H=500 one direction's grid is 16 x 16 = 256 CTAs against
-// 264 resident slots (2 per SM on 132 SMs), so the fused grid of 512 CTAs
-// runs in about two waves a step: what fusion saves is one launch a step
-// (191 at that bench's T' = 191). It is bound by operations (4*B*(F+H)*3H
-// FLOPs a step, on the SIMT units' 67 TFLOP/s); the two phases above are
-// its faster form. The weights come as two pointer sets, not stacked
-// arrays: the port keeps fwd{l} and bwd{l} as separate parameters, and
-// stacking them at every call would copy them.
+// Bidirectional layer (gru_bifwd): the unidirectional layer twice, forward
+// then reversed, each in its two phases, over the one x (its strides as
+// given: the seq2seq encoder passes a (T, B, F) view of batch-major conv
+// output) and one gi scratch (T, B, 3H) that the reversed pass overwrites
+// once the forward sweep has read it (the stream orders them; 1.15 GB at
+// the seq2seq bench's T = 191, B = 1000, H = 500). On the TPU the fused
+// kernel put two independent recurrence products back to back on the one
+// MXU. On Hopper one direction's step grid already fills the card (at
+// B = 1000, H = 500: 16 x 16 = 256 CTAs against 264 slots of 2 per SM), so
+// both directions in one grid a step (the direction as the grid's z) run
+// in two waves and were measured slower than the two sweeps one after the
+// other (PERF.md, section 6). The weights come as two pointer sets, not
+// stacked arrays: the port keeps fwd{l} and bwd{l} as separate
+// parameters, and stacking them at every call would copy them. What bounds
+// it: 2 x 2 T B (F + H) 3H FLOPs at 495/3 TFLOP/s (3xTF32; the projection
+// of a bf16 x at 495/2): 4.17 ms at the seq2seq bench's shape.
 
 #include "gru_mma.cuh"
 #include "gru_tile.cuh"
@@ -265,108 +265,27 @@ int run_layer(const MmaSeg& xs, const float* h0, const float* wi,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One GRU step of this CTA's (TB x TH) block of h_t, float32 SIMT. x
-// points at this step's row of batch 0, x[t]; row b starts sx_b elements
-// further on and holds F contiguous values.
-template <typename T>
-__device__ __forceinline__ void gru_step(
-    Tiles& s, const T* __restrict__ x, long long sx_b,
-    const float* __restrict__ hprev, const float* __restrict__ wi,
-    const float* __restrict__ bi, const float* __restrict__ wh,
-    const float* __restrict__ bh, float* __restrict__ hout, int B, int F,
-    int H) {
-  float acc_r[RPT], acc_z[RPT], acc_in[RPT], acc_hn[RPT];
-  gate_products<T>(s, x, sx_b, hprev, wi, wh, B, F, H, acc_r, acc_z, acc_in,
-                   acc_hn);
-
-  const int tx = threadIdx.x % TH;
-  const int ty = threadIdx.x / TH;
-  const int b0 = blockIdx.y * TB;
-  const int j = blockIdx.x * TH + tx;
-  if (j >= H) return;
-  const float br = bi[j] + bh[j];
-  const float bz = bi[H + j] + bh[H + j];
-  const float bin = bi[2 * H + j];
-  const float bhn = bh[2 * H + j];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int b = b0 + ty * RPT + i;
-    if (b >= B) break;
-    const long long o = static_cast<long long>(b) * H + j;
-    const float r = sigmoid_f32(acc_r[i] + br);
-    const float z = sigmoid_f32(acc_z[i] + bz);
-    const float n = tanhf(acc_in[i] + bin + r * (acc_hn[i] + bhn));
-    hout[o] = (1.0f - z) * n + z * hprev[o];
-  }
-}
-
-// One direction's operands of a bidirectional step: its input row, its
-// h_{t-1}, its weights, and the hs row it writes.
-template <typename T>
-struct DirStep {
-  const T* x;
-  const float* hprev;
-  const float* wi;
-  const float* bi;
-  const float* wh;
-  const float* bh;
-  float* hout;
-};
-
-// Bidirectional step (port of _bifwd_kernel, pallas_gru.py:140; see the
-// note at the head): blockIdx.z picks the direction.
-template <typename T>
-__global__ void __launch_bounds__(NT, 2)
-    gru_bistep_kernel(DirStep<T> fwd, DirStep<T> bwd, long long sx_b, int B,
-                      int F, int H) {
-  __shared__ __align__(16) Tiles s;
-  const DirStep<T> d = blockIdx.z == 0 ? fwd : bwd;
-  gru_step<T>(s, d.x, sx_b, d.hprev, d.wi, d.bi, d.wh, d.bh, d.hout, B, F,
-              H);
-}
-
-// Host loop of the bidirectional layer: one grid of both directions per
-// step. Step s: the forward direction at t = s reads h0_f at s == 0, else
-// hs_f[t-1]; the reverse one at t = T-1-s reads h0_b at s == 0, else
-// hs_b[t+1].
-template <typename T>
-int run_bidir(const T* x, long long sx_t, long long sx_b, const float* h0_f,
-              const float* wi_f, const float* bi_f, const float* wh_f,
-              const float* bh_f, const float* h0_b, const float* wi_b,
-              const float* bi_b, const float* wh_b, const float* bh_b,
-              float* hs_f, float* hs_b, int n_steps, int B, int F, int H,
-              cudaStream_t stream) {
-  const dim3 grid((H + TH - 1) / TH, (B + TB - 1) / TB, 2);
-  const long long BH = static_cast<long long>(B) * H;
-  for (int s = 0; s < n_steps; ++s) {
-    const int tf = s;
-    const int tb = n_steps - 1 - s;
-    const DirStep<T> fwd{x + tf * sx_t, s == 0 ? h0_f : hs_f + (tf - 1) * BH,
-                         wi_f, bi_f, wh_f, bh_f, hs_f + tf * BH};
-    const DirStep<T> bwd{x + tb * sx_t, s == 0 ? h0_b : hs_b + (tb + 1) * BH,
-                         wi_b, bi_b, wh_b, bh_b, hs_b + tb * BH};
-    gru_bistep_kernel<T><<<grid, NT, 0, stream>>>(fwd, bwd, sx_b, B, F, H);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
+// The bidirectional layer over the A segment xs (see the note at the
+// head): run_layer forward, then reversed, on one gi scratch.
 template <typename T>
 int bifwd(const void* x, long long sx_t, long long sx_b, const void* h0_f,
           const void* wi_f, const void* bi_f, const void* wh_f,
           const void* bh_f, const void* h0_b, const void* wi_b,
           const void* bi_b, const void* wh_b, const void* bh_b, void* hs_f,
-          void* hs_b, int T_, int B, int F, int H, void* stream) {
+          void* hs_b, void* gi, int T_, int B, int F, int H, void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  return run_bidir<T>(static_cast<const T*>(x), sx_t, sx_b, f(h0_f),
-                      f(wi_f), f(bi_f), f(wh_f), f(bh_f), f(h0_b), f(wi_b),
-                      f(bi_b), f(wh_b), f(bh_b), static_cast<float*>(hs_f),
-                      static_cast<float*>(hs_b), T_, B, F, H,
-                      static_cast<cudaStream_t>(stream));
+  const MmaSeg xs = x_seg<T>(static_cast<const T*>(x), sx_t, sx_b, B, F);
+  const auto s = static_cast<cudaStream_t>(stream);
+  RETURN_IF_FAILED(run_layer<T>(xs, f(h0_f), f(wi_f), f(bi_f), f(wh_f),
+                                f(bh_f), static_cast<float*>(hs_f),
+                                static_cast<float*>(gi), T_, B, H, 0, s));
+  return run_layer<T>(xs, f(h0_b), f(wi_b), f(bi_b), f(wh_b), f(bh_b),
+                      static_cast<float*>(hs_b), static_cast<float*>(gi), T_,
+                      B, H, 1, s);
 }
 
 }  // namespace
+
 
 extern "C" {
 
@@ -420,26 +339,28 @@ int gru_wfwd_bf16(const void* x, long long sx_b, int C, int win, int stride,
 
 // Bidirectional GRU layer over x (T, B, F) with strides (sx_t, sx_b, 1),
 // one weight set per direction: hs_f and hs_b (T, B, H) float32,
-// contiguous, both in the original time order.
+// contiguous, both in the original time order; gi (T, B, 3H) float32
+// scratch, used by one direction after the other.
 int gru_bifwd_f32(const void* x, long long sx_t, long long sx_b,
                   const void* h0_f, const void* wi_f, const void* bi_f,
                   const void* wh_f, const void* bh_f, const void* h0_b,
                   const void* wi_b, const void* bi_b, const void* wh_b,
-                  const void* bh_b, void* hs_f, void* hs_b, int T, int B,
-                  int F, int H, void* stream) {
+                  const void* bh_b, void* hs_f, void* hs_b, void* gi, int T,
+                  int B, int F, int H, void* stream) {
   return bifwd<float>(x, sx_t, sx_b, h0_f, wi_f, bi_f, wh_f, bh_f, h0_b,
-                      wi_b, bi_b, wh_b, bh_b, hs_f, hs_b, T, B, F, H, stream);
+                      wi_b, bi_b, wh_b, bh_b, hs_f, hs_b, gi, T, B, F, H,
+                      stream);
 }
 
 int gru_bifwd_bf16(const void* x, long long sx_t, long long sx_b,
                    const void* h0_f, const void* wi_f, const void* bi_f,
                    const void* wh_f, const void* bh_f, const void* h0_b,
                    const void* wi_b, const void* bi_b, const void* wh_b,
-                   const void* bh_b, void* hs_f, void* hs_b, int T, int B,
-                   int F, int H, void* stream) {
+                   const void* bh_b, void* hs_f, void* hs_b, void* gi, int T,
+                   int B, int F, int H, void* stream) {
   return bifwd<__nv_bfloat16>(x, sx_t, sx_b, h0_f, wi_f, bi_f, wh_f, bh_f,
-                              h0_b, wi_b, bi_b, wh_b, bh_b, hs_f, hs_b, T, B,
-                              F, H, stream);
+                              h0_b, wi_b, bi_b, wh_b, bh_b, hs_f, hs_b, gi, T,
+                              B, F, H, stream);
 }
 
 }  // extern "C"

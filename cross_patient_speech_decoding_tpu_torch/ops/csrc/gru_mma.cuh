@@ -1,5 +1,5 @@
 // Tensor-core products of the GRU backward (gru_bwd.cu) and of the
-// unidirectional forward (gru_fwd.cu): out = A B over 3xTF32 mma.sync,
+// forward kernels (gru_fwd.cu): out = A B over 3xTF32 mma.sync,
 // operands staged by a multi-stage cp.async ring.
 //
 // Precision. Each float32 operand value v is split in registers, between

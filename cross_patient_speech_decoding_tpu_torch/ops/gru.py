@@ -38,7 +38,8 @@ import torch
 
 # Launch counts of the kernel wrappers: one per layer call that launched
 # the kernel. On the device a gru_fwd or gru_wfwd call is 1 + T grids (the
-# input projection, then one a step), a gru_bifwd call T.
+# input projection, then one a step), a gru_bifwd call 2 + 2T (the same,
+# forward, then reversed).
 LAUNCHES = {"gru_fwd": 0, "gru_wfwd": 0, "gru_bifwd": 0, "gru_bwd": 0,
             "gru_wbwd": 0}
 
@@ -225,7 +226,8 @@ def _stream() -> int:
 def _gi_scratch(n_steps: int, B: int, H: int, device):
     """The input projection x Wi + bi of every row, (n_steps, B, 3H)
     float32, that the forward kernels write before their sweep (1.8 GB at
-    fig_5 width); freed when the call returns."""
+    fig_5 width; gru_bifwd's two directions use it in turn); freed when the
+    call returns."""
     return torch.empty((n_steps, B, 3 * H), dtype=torch.float32,
                        device=device)
 
@@ -256,9 +258,9 @@ def gru_fwd_cuda(x, h0, wi, bi, wh, bh, reverse: bool = False):
 
 def gru_bifwd_cuda(x, h0_f, h0_b, wi_f, bi_f, wh_f, bh_f, wi_b, bi_b, wh_b,
                    bh_b):
-    """Launch the ``gru_bifwd`` kernel (port of ``_bifwd_kernel``): both
-    directions in one grid per step. Arguments and result as
-    :func:`gru_layer_bidir_plain`."""
+    """Launch the ``gru_bifwd`` kernels (port of ``_bifwd_kernel``): the
+    forward direction's projection and sweep, then the reversed one's, on
+    one gi scratch. Arguments and result as :func:`gru_layer_bidir_plain`."""
     from cross_patient_speech_decoding_tpu_torch.ops import _ext
 
     T, B, F = x.shape
@@ -270,15 +272,17 @@ def gru_bifwd_cuda(x, h0_f, h0_b, wi_f, bi_f, wh_f, bh_f, wi_b, bi_b, wh_b,
                          f"{wh_b.shape[0]}")
     hs_f = torch.empty((T, B, H), dtype=torch.float32, device=x.device)
     hs_b = torch.empty_like(hs_f)
-    if T == 0:
+    if T == 0 or B == 0:
         return hs_f, hs_b
+    gi = _gi_scratch(T, B, H, x.device)
     name = "gru_bifwd_bf16" if x.dtype == torch.bfloat16 else "gru_bifwd_f32"
     with torch.cuda.device(x.device):
         err = getattr(_ext.lib(), name)(
             x.data_ptr(), x.stride(0), x.stride(1),
             *(t.data_ptr() for t in (h0_f, wi_f, bi_f, wh_f, bh_f,
                                      h0_b, wi_b, bi_b, wh_b, bh_b)),
-            hs_f.data_ptr(), hs_b.data_ptr(), T, B, F, H, _stream(),
+            hs_f.data_ptr(), hs_b.data_ptr(), gi.data_ptr(), T, B, F, H,
+            _stream(),
         )
     _ext.check(err, name)
     LAUNCHES["gru_bifwd"] += 1

@@ -15,8 +15,9 @@ partials), the recurrent dh Wh^T (K = 3H = 1536) and the gate recompute
 the 1e-3 that chip_smoke.py holds the gradients to (GRAD_RTOL), and the
 one-pass TF32 and bf16 products, which it replaces, are shown not to. The
 forward (csrc/gru_fwd.cu) is emulated over 120 steps of its recurrence
-against the 1e-4 that hs is held to, and its step kernel's column map is
-mirrored and checked.
+against the 1e-4 that hs is held to, and over the seq2seq encoder's 191
+steps at H = 500 (gru_bifwd's shape there); its step kernel's column map
+is mirrored and checked.
 """
 
 import numpy as np
@@ -65,10 +66,12 @@ def _tiled(a, b, n_parts: int = 1):
     return out
 
 
-def split_product(a, b, n_parts: int = 1, a_exact: bool = False):
-    """The kernel's 3xTF32 product (2 products when a is exact in TF32)."""
+def split_product(a, b, n_parts: int = 1, a_exact: bool = False,
+                  b_split=None):
+    """The kernel's 3xTF32 product (2 products when a is exact in TF32);
+    ``b_split`` is b's (hi, lo) where the caller keeps it."""
     ah, al = (tf32(a), None) if a_exact else split(a)
-    bh, bl = split(b)
+    bh, bl = split(b) if b_split is None else b_split
     out = _tiled(ah, bh, n_parts) + _tiled(ah, bl, n_parts)
     if al is not None:
         out += _tiled(al, bh, n_parts)
@@ -226,6 +229,28 @@ def test_forward_one_pass_recurrence_drifts_past_kernel_atol(H, x_bf16):
     err = float(np.abs(forward_recurrence(*ops, _1xtf32) - want).max())
     print(f"H={H} bf16 x={x_bf16}: one TF32 pass max |hs - hs64| {err:.2e}")
     assert err > KERNEL_ATOL
+
+
+@pytest.mark.parametrize("x_bf16", [False, True])
+def test_seq2seq_encoder_recurrence_stays_within_kernel_atol(x_bf16):
+    """The seq2seq encoder's sweep at its own length and width (T = 191
+    steps, F = 100, H = 500; B = 4 rows): gru_bifwd takes every product
+    3xTF32, as gru_fwd does, and each direction is this recurrence (the
+    reverse one over the reversed x). Within 1e-4 of float64 on every h_t,
+    10x inside."""
+    ops = _gru_operands(191, 4, 100, 500, x_bf16, seed=5)
+    splits = {}
+
+    def product(a, b, a_exact):
+        if id(b) not in splits:  # Wi and Wh: split once, as they stay put
+            splits[id(b)] = split(b)
+        return split_product(a, b, a_exact=a_exact, b_split=splits[id(b)])
+
+    want = forward_recurrence(*ops, _f64)
+    got = forward_recurrence(*ops, product, x_exact=x_bf16)
+    err = float(np.abs(got - want).max())
+    print(f"T=191 H=500 bf16 x={x_bf16}: 3xTF32 max |hs - hs64| {err:.2e}")
+    assert err <= KERNEL_ATOL / 10
 
 
 # The step kernel's column map (gru_fwd.cu: stage_wh and the epilogue of

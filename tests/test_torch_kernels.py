@@ -7,10 +7,10 @@ PyTorch:
     python -m pytest tests/test_torch_kernels.py --noconftest -m gpu
 
 (``--noconftest`` skips ``tests/conftest.py``, which configures JAX.)
-GRU forward: the unidirectional kernels' products run on tensor cores as
-3xTF32 (float32-class), the bidirectional kernel's in float32 SIMT; each
-against the plain version in float32 sums of another order: atol 1e-4 on
-hs. GRU backward: the kernels' products run
+GRU forward: every forward kernel's products run on tensor cores as
+3xTF32 (float32-class), the bidirectional kernel as the unidirectional
+one's two phases per direction; each against the plain version in float32
+sums of another order: atol 1e-4 on hs. GRU backward: the kernels' products run
 on tensor cores as 3xTF32 (float32-class, ~1e-7 of the largest output per
 product) with float32 sums in another order: on gradients, max |diff| <=
 1e-5 x max |plain| per tensor (sums over batch and time). Jacobi: the kernel rounds every
@@ -296,27 +296,38 @@ def _bidir_args(card, seed, T, B, F, H, dtype):
     return [x.to(dtype), h0_f, h0_b, *w_f, *w_b]
 
 
+# (T, B, F, H): T at 1, 2 and 191, odd B and H, the seq2seq encoder's
+# B = 1000, H = 500, and wide H
+BIFWD_CASES = [
+    (1, 1, 3, 1), (1, 7, 5, 33), (2, 7, 5, 33), (6, 16, 10, 32),
+    (3, 130, 70, 97), (191, 33, 20, 7), (2, 1000, 100, 500),
+    (191, 1000, 100, 500), (2, 40, 9, 544), (2, 40, 9, 800),
+    (3, 65, 33, 1024), (2, 7, 5, 833),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T,B,F,H", [(1, 1, 3, 1), (1, 7, 5, 33),
-                                     (6, 16, 10, 32), (3, 130, 70, 97)])
+@pytest.mark.parametrize("T,B,F,H", BIFWD_CASES)
 def test_gru_bifwd_kernel_matches_plain(card, dtype, T, B, F, H):
-    """Both directions in one launch a step: against the plain version
-    (two plain sweeps) and two gru_fwd launches to ATOL (gru_fwd runs the
-    same function on the tensor cores, gru_bifwd in float32 SIMT)."""
+    """The forward direction's projection and sweep, then the reversed
+    one's: one launch count a call, two runs bitwise equal, bitwise equal
+    to two gru_fwd launches, and against the plain version (two plain
+    sweeps) to ATOL."""
     args = _bidir_args(card, 7, T, B, F, H, dtype)
     x, h0_f, h0_b, *w = args
     gru.reset_launch_counts()
     with torch.no_grad():
         got = gru.gru_layer_bidir(*args)
+        assert gru.LAUNCHES == {"gru_fwd": 0, "gru_wfwd": 0, "gru_bifwd": 1,
+                                "gru_bwd": 0, "gru_wbwd": 0}
+        again = gru.gru_bifwd_cuda(*args)
         want = gru.gru_layer_bidir_plain(*args)
-    assert gru.LAUNCHES["gru_bifwd"] == 1 and gru.LAUNCHES["gru_fwd"] == 0
-    for g, w_ in zip(got, want):
-        torch.testing.assert_close(g, w_, atol=ATOL, rtol=0)
-    with torch.no_grad():
         unfused = (gru.gru_fwd_cuda(x, h0_f, *w[:4]),
                    gru.gru_fwd_cuda(x, h0_b, *w[4:], reverse=True))
-    for g, u in zip(got, unfused):
-        torch.testing.assert_close(g, u, atol=ATOL, rtol=0)
+    for g, a, w_, u in zip(got, again, want, unfused):
+        assert torch.equal(g, a)
+        assert torch.equal(g, u)
+        torch.testing.assert_close(g, w_, atol=ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("need_dx", [True, False])

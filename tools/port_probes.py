@@ -18,11 +18,16 @@ Run from the repository root:
   reconstruction and orthonormality errors; at 100 or more matrices also
   the kernel, plain and ``torch.linalg.eigh`` times (CUDA events, median
   of 5).
-- ``bifwd``: builds the kernels, then holds the bidirectional GRU kernel
-  against its plain version and against two ``gru_fwd`` launches (max abs
-  error) at odd shapes and at the seq2seq encoder's (T=191, B=1000, F=100,
-  H=500), f32 and bf16 x; at B >= 100 also the kernel, two-launch and
-  plain times.
+- ``bifwd``: builds the kernels and prints the ptxas report of
+  ``gru_fwd.cu`` (registers, stack, spills per kernel), then holds the
+  bidirectional GRU kernel against its plain version and two ``gru_fwd``
+  launches (max abs error, bitwise equality, two runs bitwise equal) at the
+  seq2seq encoder's shape (T=191, B=1000, F=100, H=500; f32 and bf16 x),
+  at H=1024 and at small odd shapes. At B >= 100 also the kernel,
+  two-launch and cuDNN times (CUDA events, median of 5; cuDNN with TF32
+  off, in float32 as the kernel) and, from the profiler trace, the
+  projections' and the sweeps' device ms, µs a step, and each kernel's
+  registers, shared memory and CTAs per SM.
 - ``bwd``: builds the kernels (printing the ptxas report) and the
   backward library's variants of ``BWD_VARIANTS`` (one TF32 pass, three
   passes without the split, other tile shapes), then, at ``chip_smoke.py``'s
@@ -48,7 +53,9 @@ Run from the repository root:
   plain ``@`` and through ``ops.precision.hdot``, under four caller
   settings of TF32, with the settings before and after the call.
 - ``ab``: end-to-end phases of ``chip_smoke.py`` (``--phases``: ``ctc``,
-  the CTC eval and train steps; ``streaming``; default both) from another
+  the CTC eval and train steps; ``streaming``; ``seq2seq``, its train and
+  eval steps; ``kernels``, the forward kernels' times at the fig_5 and
+  seq2seq shapes, median of 7; default all four) from another
   checkout of the repository, ``DIR`` (say, the parent commit unpacked
   with ``git archive``), and from this one, in turns: DIR, this, this,
   DIR, ``--repeats`` times. Each turn is a process of its own that builds
@@ -164,43 +171,111 @@ def probe_jacobi() -> None:
             _emit(res)
 
 
+def _ptxas_report(source: str) -> dict:
+    """Build ``source`` once more with ``-Xptxas -v`` (as a variant, so a
+    cached library does not skip the compiler) and return, per kernel
+    (name<config numbers>, ``,bf16`` for a bf16 A operand), its registers,
+    stack frame and spill bytes."""
+    import contextlib
+    import io
+    import re
+
+    defines = ("GRU_PTXAS_REPORT=1",)
+    _ext.library_path(source, defines).unlink(missing_ok=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _ext.build(verbose=True, defines=defines, sources=[source])
+    out, name = {}, None
+    for line in buf.getvalue().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            kernel = re.search(r"([a-z][a-z_]*_kernel)I", mangled).group(1)
+            cfg = re.findall(r"Li(\d+)E", mangled)
+            name = (f"{kernel}<{','.join(cfg)}"
+                    f"{',bf16' if 'bfloat16' in mangled else ''}>")
+            out[name] = {}
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m and name:
+            out[name].update(stack=int(m.group(1)), spill=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["regs"] = int(m.group(1))
+    return out
+
+
+def _bidir_case(gen, dev, T, B, F, H, dtype):
+    """gru_bifwd's arguments at chip_smoke.py's scales."""
+    import chip_smoke as cs
+
+    x = (torch.rand((T, B, F), generator=gen, device=dev) * 2 - 1).to(dtype)
+    h0 = [torch.randn((B, H), generator=gen, device=dev) * 0.3
+          for _ in range(2)]
+    w = [cs._weights(torch, gen, dev, F, H) for _ in range(2)]
+    return (x, h0[0], h0[1], *w[0], *w[1])
+
+
 def probe_bifwd() -> None:
+    """``gru_bifwd`` at the seq2seq encoder's shape, at H=1024 and at small
+    shapes: errors, times, and the projections and sweeps from the
+    profiler trace."""
+    import chip_smoke as cs
+
     dev = _card()
-    _emit({"build_s": _ext.build(verbose=True)})
+    # cuDNN's yardstick in float32, as the kernel and chip_smoke.py's row
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _emit({"build_s": _ext.build()})
+    _emit({"ptxas": _ptxas_report("gru_fwd.cu")})
     gen = torch.Generator(device=dev).manual_seed(0)
+    T, B, F = cs.S2S_TC, cs.S2S_B, cs.S2S_F
+    cases = [("s2s_f32", T, B, F, cs.S2S_H, torch.float32),
+             ("s2s_bf16", T, B, F, cs.S2S_H, torch.bfloat16),
+             ("h1024_f32", T, B, F, 1024, torch.float32)]
+    for T_, B_, F_, H_ in ((1, 1, 3, 1), (2, 7, 5, 33), (191, 33, 20, 7)):
+        cases.append((f"small_{T_}x{B_}x{F_}x{H_}", T_, B_, F_, H_,
+                      torch.float32))
+    with torch.no_grad():
+        for name, T_, B_, F_, H_, dtype in cases:
+            args = _bidir_case(gen, dev, T_, B_, F_, H_, dtype)
+            x, h0f, h0b, *w = args
 
-    def case(T, B, F, H, dtype):
-        def rn(*shape, scale=1.0):
-            return torch.randn(shape, generator=gen, device=dev) * scale
+            def kernel():
+                return gru.gru_bifwd_cuda(*args)
 
-        x = rn(T, B, F, scale=0.5).to(dtype)
-        h0 = [rn(B, H, scale=0.3), rn(B, H, scale=0.3)]
-        w = [[rn(F, 3 * H, scale=F ** -0.5), rn(3 * H, scale=0.1),
-              rn(H, 3 * H, scale=H ** -0.5), rn(3 * H, scale=0.1)]
-             for _ in range(2)]
-        return x, h0, w
+            def two_launches():
+                return (gru.gru_fwd_cuda(x, h0f, *w[:4]),
+                        gru.gru_fwd_cuda(x, h0b, *w[4:], reverse=True))
 
-    for T, B, F, H in ((1, 1, 3, 1), (1, 7, 5, 33), (5, 7, 9, 33),
-                       (3, 1, 4, 1), (191, 1000, 100, 500)):
-        for dtype in (torch.float32, torch.bfloat16):
-            x, h0, w = case(T, B, F, H, dtype)
-            args = (x, h0[0], h0[1], *w[0], *w[1])
-            kf, kb = gru.gru_bifwd_cuda(*args)
-            pf, pb = gru.gru_layer_bidir_plain(*args)
-            uf = gru.gru_fwd_cuda(x, h0[0], *w[0])
-            ub = gru.gru_fwd_cuda(x, h0[1], *w[1], reverse=True)
-            res = {"T": T, "B": B, "F": F, "H": H, "dtype": str(dtype),
-                   "err_vs_plain": max(float((kf - pf).abs().max()),
-                                       float((kb - pb).abs().max())),
-                   "err_vs_two_gru_fwd": max(float((kf - uf).abs().max()),
-                                             float((kb - ub).abs().max()))}
-            if B >= 100:
-                res["kernel_ms"] = _cuda_ms(lambda: gru.gru_bifwd_cuda(*args))
-                res["two_gru_fwd_ms"] = _cuda_ms(lambda: (
-                    gru.gru_fwd_cuda(x, h0[0], *w[0]),
-                    gru.gru_fwd_cuda(x, h0[1], *w[1], reverse=True)))
-                res["plain_ms"] = _cuda_ms(
-                    lambda: gru.gru_layer_bidir_plain(*args))
+            got, again = kernel(), kernel()
+            want = gru.gru_layer_bidir_plain(*args)
+            unfused = two_launches()
+            res = {"case": name, "shape": [T_, B_, F_, H_],
+                   "dtype": str(dtype),
+                   "err_vs_plain": max(float((g - p).abs().max())
+                                       for g, p in zip(got, want)),
+                   "err_vs_two_gru_fwd": max(float((g - u).abs().max())
+                                             for g, u in zip(got, unfused)),
+                   "bitwise_equal_to_two_gru_fwd": all(
+                       torch.equal(g, u) for g, u in zip(got, unfused)),
+                   "bitwise_repeat": all(torch.equal(g, a)
+                                         for g, a in zip(got, again))}
+            del got, again, want, unfused
+            if B_ >= 100:
+                lib = cs._library_bigru(torch, w)
+                xl, h0l = x.float(), torch.stack([h0f, h0b])
+                res["kernel_ms"] = _cuda_ms(kernel)
+                res["two_gru_fwd_ms"] = _cuda_ms(two_launches)
+                res["cudnn_ms"] = _cuda_ms(lambda: lib(xl, h0l))
+                by = _trace_kernels(kernel)
+                res["by_kernel"] = by
+                res["projection_ms"] = sum(
+                    v["ms"] for k, v in by.items()
+                    if k.startswith("mma_gemm_kernel"))
+                res["sweep_ms"] = sum(v["ms"] for k, v in by.items()
+                                      if k == "gru_step_mma_kernel")
+                res["us_per_step"] = res["sweep_ms"] / (2 * T_) * 1e3
             _emit(res)
 
 
@@ -460,8 +535,36 @@ if "streaming" in phases:
                         win_size=cs.WIN, stride=cs.STRIDE, seed=0,
                         device=dev).eval()
     cs.phase_streaming(torch, dev, gru, model)
+    del model
+if "seq2seq" in phases:
+    model, batch, _ = cs.phase_seq2seq_train(torch, dev, gru)
+    cs.phase_seq2seq_eval(torch, dev, gru, model, batch)
+    del model, batch
+if "kernels" in phases:
+    import json
+    gen = torch.Generator(device=dev).manual_seed(0)
+    h0 = torch.randn((cs.B, cs.H), generator=gen, device=dev) * 0.3
+    x1 = torch.rand((cs.N_WIN, cs.B, cs.H), generator=gen, device=dev) * 2 - 1
+    w1 = cs._weights(torch, gen, dev, cs.H, cs.H)
+    frames = torch.randn((cs.B, cs.T, cs.C), generator=gen, device=dev).to(
+        torch.bfloat16).transpose(0, 1)
+    w0 = cs._weights(torch, gen, dev, cs.WIN * cs.C, cs.H)
+    xb = torch.rand((cs.S2S_TC, cs.S2S_B, cs.S2S_F), generator=gen,
+                    device=dev) * 2 - 1
+    hb = [torch.randn((cs.S2S_B, cs.S2S_H), generator=gen, device=dev) * 0.3
+          for _ in range(2)]
+    wb = (cs._weights(torch, gen, dev, cs.S2S_F, cs.S2S_H)
+          + cs._weights(torch, gen, dev, cs.S2S_F, cs.S2S_H))
+    with torch.no_grad():
+        res = {"phase": "kernels", "gru_bifwd_ms": cs.cuda_ms(
+                   torch, lambda: gru.gru_bifwd_cuda(xb, *hb, *wb), 7),
+               "gru_fwd_ms": cs.cuda_ms(
+                   torch, lambda: gru.gru_fwd_cuda(x1, h0, *w1), 7),
+               "gru_wfwd_ms": cs.cuda_ms(torch, lambda: gru.gru_wfwd_cuda(
+                   frames, h0, *w0, cs.WIN, cs.STRIDE), 7)}
+    print(json.dumps(res), flush=True)
 """
-AB_PHASES = ("ctc", "streaming")
+AB_PHASES = ("ctc", "streaming", "seq2seq", "kernels")
 
 
 def probe_ab(against: str, phases: str, repeats: int) -> None:
