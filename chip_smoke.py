@@ -51,10 +51,13 @@ line is never printed:
    gram 2, svd 0; the kernel route is held against the same fit through
    the plain Jacobi on the card, the first 4 pairs above the Gram floor
    (see GRAM_FLOOR) against a float64 copy of the bench's numpy oracle,
-   and one chol fit with TF32 switched on by the caller against both; fit
-   times (median of 5), fits/s, plain-route fit times and one profiled
-   chol fit; then ``fit_mcca_aligner`` and ``joint_pca_fit`` on the card
-   against the CPU;
+   and one chol fit with TF32 switched on by the caller against both; the
+   same oracle pairs fitted one at a time by chol and gram (the kernel
+   then takes batches of 1 and 2), with their launches, against the
+   oracle within the same bounds; fit times (median of 5), fits/s,
+   plain-route fit times and one profiled chol fit; then
+   ``fit_mcca_aligner`` and ``joint_pca_fit`` on the card against the
+   CPU;
 7. kernels: each kernel against its plain version at the fig_5 shapes
    (``gru_bifwd`` at the seq2seq encoder's, two runs bitwise equal) and
    at small odd shapes, with
@@ -62,8 +65,10 @@ line is never printed:
    backward for the backward kernels, bidirectional for ``gru_bifwd``,
    beside which the two-``gru_fwd`` alternative is timed too), and its
    bound; the Jacobi kernel on the alignment fit's own Gram batches and
-   odd shapes (one sweep elementwise, full solves against float64), timed
-   against its plain version and ``torch.linalg.eigh``; ends with the
+   odd shapes (one sweep and full solves bit for bit equal to the plain
+   version, as are two launches; full solves against float64) and at
+   every even Kp from 2 to 64 at batch 1 and 133, timed against its plain
+   version and ``torch.linalg.eigh``, with µs a step; ends with the
    ``{"kernels": [...]}`` line, whose launch counts are the CTC train
    step's, for ``gru_bifwd`` the seq2seq train step's and, for the Jacobi
    kernel, the chol fit's.
@@ -160,6 +165,13 @@ JAC_SWEEP1_RTOL = 1e-5  # x ||A||_F, after exactly one sweep
 JAC_EIG_RTOL = 2e-4  # x max |w|: eigenvalues and reconstruction
 JAC_ORTH_ATOL = 5e-5
 JAC_HETERO_RTOL = 5e-6
+# ... and, since the kernel rounds every operation as the plain version's
+# tensor ops do, bit for bit equal to it (w, V, sweep counts) and between
+# two launches, on every case and at every Kp; a batch wider than the
+# card's 132 SMs
+JAC_WIDE_BATCH = 133
+# the Jacobi kernel's time: launches back to back a timed run
+JAC_INNER = 20
 
 
 def emit(obj) -> None:
@@ -226,19 +238,23 @@ def main() -> int:
     return 0
 
 
-def cuda_ms(torch, fn, reps: int = REPS) -> float:
+def cuda_ms(torch, fn, reps: int = REPS, inner: int = 1) -> float:
     """Median milliseconds of ``fn`` over ``reps`` runs after one warm-up,
-    from CUDA events."""
+    from CUDA events; with ``inner`` > 1 each run is that many calls back
+    to back, divided by ``inner``, so that a call's host time overlaps the
+    card's work on the one before (a kernel of a fraction of a millisecond
+    waits on its wrapper's host time otherwise)."""
     fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -1551,6 +1567,10 @@ def phase_alignment(torch, dev, jacobi):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    res["unbatched"] = _check_unbatched(torch, jacobi, cca, xa, xb, ids_t,
+                                        oracle, below)
+    if not res["unbatched"]["ok"]:
+        bad.append(f"unbatched: {res['unbatched']}")
     res["tf32_on"] = {"caller_setting_kept": kept,
                       "vs_tf32_off": _route_errs(torch, tf32, fits["chol"]),
                       "vs_oracle_float64": _oracle_errs(tf32, oracle, True)}
@@ -1577,6 +1597,41 @@ def phase_alignment(torch, dev, jacobi):
     # fit's stacked whitening Grams (256)
     return {"chol_128": rec.batches[0], "gram_256": rec.batches[1],
             "launches": {m: res["methods"][m]["launches"] for m in AL_LAUNCHES}}
+
+
+def _check_unbatched(torch, jacobi, cca, xa, xb, ids_t, oracle, below):
+    """The oracle pairs (and the pair below the Gram floor) fitted one at
+    a time by chol and gram, as a caller with a single pair of patients
+    fits: at K = AL_K >= ANY_BATCH_K the Jacobi kernel solves the chol
+    fit's Gram SVD as a batch of 1 and the gram fit's whitening as a batch
+    of 2, so the launches must be AL_LAUNCHES a fit; each pair against the
+    float64 oracle within the batched fits' bounds."""
+    from types import SimpleNamespace
+
+    def fits(method, pairs):
+        # indexed by pair, as _oracle_errs reads a batched fit
+        got = {i: cca.fit_cca_aligner(xa[i], xb[i], ids_t[i], ids_t[i], AL_C,
+                                      method=method, t_len=AL_T).alignment
+               for i, *_ in pairs}
+        return SimpleNamespace(alignment=SimpleNamespace(**{
+            n: {i: getattr(a, n) for i, a in got.items()}
+            for n in ("d", "canon_corrs", "proj_b_to_a")}))
+
+    out = {"ok": True}
+    for method in ("chol", "gram"):
+        jacobi.reset_launch_counts()
+        on_oracle = fits(method, oracle)
+        torch.cuda.synchronize()
+        launches = jacobi.LAUNCHES["jacobi_eigh"]
+        m = {"fits": len(oracle), "launches": launches,
+             "vs_oracle_float64": _oracle_errs(on_oracle, oracle, True),
+             "below_floor_pair_vs_oracle":
+                 _oracle_errs(fits(method, below), below, True)
+                 if below else None}
+        out[method] = m
+        out["ok"] &= (launches == AL_LAUNCHES[method] * len(oracle)
+                      and _oracle_ok(m["vs_oracle_float64"]))
+    return out
 
 
 def _check_multiview(torch, xa, ids_t) -> dict:
@@ -1680,7 +1735,7 @@ def _check_jacobi(torch, jacobi, A) -> dict:
     norm = torch.linalg.matrix_norm(Ap)[:, None]
     out = {}
     for sweeps in (1, 8):
-        w, V, n = jacobi.jacobi_eigh_cuda(Ap, pairs, sweeps)
+        w, V, n = jacobi.jacobi_eigh_cuda(Ap, sweeps)
         w_p, V_p, n_p = jacobi.jacobi_eigh_plain(Ap, pairs, sweeps)
         err = torch.maximum((w - w_p).abs().amax(-1),
                             (V - V_p).abs().amax((-2, -1)))
@@ -1690,9 +1745,13 @@ def _check_jacobi(torch, jacobi, A) -> dict:
         out[f"sweeps{sweeps}_bitwise"] = bool(torch.equal(w, w_p)
                                               and torch.equal(V, V_p))
         out[f"sweeps{sweeps}_counts_equal"] = bool(torch.equal(n, n_p))
+    again = jacobi.jacobi_eigh_cuda(Ap, 8)  # the 8-sweep solve once more
+    out["repeat_bitwise"] = all(torch.equal(a, b)
+                                for a, b in zip((w, V, n), again))
     out["sweeps_run"] = n.tolist() if n.numel() <= 2 else {
         "min": int(n.min()), "max": int(n.max()), "sum": int(n.sum())}
     out["sweeps_sum"] = int(n.sum())
+    out["sweeps_max"] = int(n.max())
     ws, Vs = jacobi.jacobi_eigh_pallas(A)
     w64 = torch.linalg.eigvalsh(A.double().cpu())
     scale = w64.abs().amax(-1)
@@ -1709,10 +1768,33 @@ def _check_jacobi(torch, jacobi, A) -> dict:
 def _jacobi_ok(name, r) -> bool:
     tol = JAC_HETERO_RTOL if name.startswith("heterogeneous") else JAC_EIG_RTOL
     return (r["sweeps1_max_err_over_norm"] <= JAC_SWEEP1_RTOL
+            and r["sweeps1_bitwise"] and r["sweeps8_bitwise"]
+            and r["repeat_bitwise"]
             and r["sweeps1_counts_equal"] and r["sweeps8_counts_equal"]
             and r["eig_err_over_max_w"] <= JAC_EIG_RTOL
             and r["rec_err_over_max_w"] <= tol
             and r["orth_err"] <= JAC_ORTH_ATOL)
+
+
+def _check_every_kp(torch, jacobi, dev) -> dict:
+    """The kernel against its plain version at every Kp it takes (every
+    even Kp from 2 to 64), at batch 1 and JAC_WIDE_BATCH (more CTAs than
+    SMs), 8 sweeps: w, V and sweep counts bit for bit, and a second
+    launch bit for bit equal to the first. Returns the cases that fail."""
+    bad = {}
+    for Kp in range(2, jacobi.MAX_K + 1, 2):
+        pairs = jacobi._pairs_on(Kp, dev)
+        for b in (1, JAC_WIDE_BATCH):
+            A = _sym_batch(torch, dev, 100 + Kp, b, Kp)
+            got = jacobi.jacobi_eigh_cuda(A)
+            again = jacobi.jacobi_eigh_cuda(A)
+            want = jacobi.jacobi_eigh_plain(A, pairs)
+            fails = [k for k, g, a, p in zip(("w", "V", "n_sweeps"), got,
+                                              again, want)
+                     if not (torch.equal(g, p) and torch.equal(g, a))]
+            if fails:
+                bad[f"{b}x{Kp}"] = fails
+    return bad
 
 
 def phase_kernel_jacobi(torch, dev, jacobi, align):
@@ -1724,12 +1806,16 @@ def phase_kernel_jacobi(torch, dev, jacobi, align):
     checks = {name: _check_jacobi(torch, jacobi, A)
               for name, A in _jacobi_cases(torch, dev, align).items()}
     bad = {k: v for k, v in checks.items() if not _jacobi_ok(k, v)}
+    every_kp = _check_every_kp(torch, jacobi, dev)
+    if every_kp:
+        bad["every_kp"] = every_kp
     rows = {}
     for name, A in (("path_chol_fit", align["chol_128"]),
                     ("path_gram_fit", align["gram_256"])):
         B, Kp, _ = A.shape
         pairs = jacobi._pairs_on(Kp, A.device)
-        times = (cuda_ms(torch, lambda: jacobi.jacobi_eigh_cuda(A, pairs)),
+        times = (cuda_ms(torch, lambda: jacobi.jacobi_eigh_cuda(A),
+                         inner=JAC_INNER),
                  cuda_ms(torch, lambda: jacobi.jacobi_eigh_plain(A, pairs)),
                  cuda_ms(torch, lambda: torch.linalg.eigh(A)))
         flops = 9 * Kp * Kp * (Kp - 1) * checks[name]["sweeps_sum"]
@@ -1739,14 +1825,21 @@ def phase_kernel_jacobi(torch, dev, jacobi, align):
                           "cross_patient_speech_decoding_tpu/ops/jacobi.py:216",
                           align["launches"]["chol"], err, times, flops, bytes_)
         rows[name] = row
+        steps = checks[name]["sweeps_max"] * (Kp - 1)
         emit({"phase": "kernel", **row, "shape": [B, Kp, Kp],
               "flops": flops, "bytes": bytes_,
               "sweeps_run": checks[name]["sweeps_run"],
+              "us_per_step": row["ms"] * 1e3 / steps,
+              "ms_one_call": cuda_ms(
+                  torch, lambda: jacobi.jacobi_eigh_cuda(A)),
               "launches_per_fit": align["launches"],
               "library_note": "torch.linalg.eigh (cuSOLVER) on the same "
                               "batch; the port never calls it for a batch "
                               "the kernel takes"})
     emit({"phase": "kernel_jacobi_checks", "checks": checks,
+          "every_kp": {"kp": [2, jacobi.MAX_K], "batches": [1, JAC_WIDE_BATCH],
+                       "failed": every_kp},
+          "bitwise_required": True,
           "tolerances": {"sweep1_and_plain_over_norm": JAC_SWEEP1_RTOL,
                          "eig_and_rec_over_max_w": JAC_EIG_RTOL,
                          "hetero_rec_over_max_w": JAC_HETERO_RTOL,

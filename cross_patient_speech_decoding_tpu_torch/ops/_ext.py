@@ -68,8 +68,8 @@ SOURCES = {
                           _P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
     "jacobi.cu": {
-        # A, pairs, w, V, n_sweeps, B, Kp, sweeps, stream
-        "jacobi_eigh_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+        # A, w, V, n_sweeps, B, Kp, sweeps, stream
+        "jacobi_eigh_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
     },
 }
 

@@ -153,8 +153,8 @@ def _svd_small(g, method: str, force_gram: bool | None = None):
     """SVD of the small between-view matrix -> (u, s, vt, keep).
 
     method='gram' on a CUDA tensor: eigh of g^T g through
-    :func:`jacobi.batched_eigh` (the Jacobi kernel for a batch of 16 or
-    more), U = g V / s, with near-zero singular directions zeroed and
+    :func:`jacobi.batched_eigh` (the Jacobi kernel, at K >= 24 for any
+    batch), U = g V / s, with near-zero singular directions zeroed and
     dropped from ``keep``. Otherwise ``torch.linalg.svd``, every direction
     kept. ``force_gram`` pins the branch (the CPU tests)."""
     use_gram = (

@@ -13,13 +13,16 @@ mixes, and stripped after.
   of ``sweep_kernel``). Each step rotates the columns p, q of A and V and
   then the rows p, q of A. Before each sweep a matrix whose off-diagonal
   square-sum is at or under 5e-14 x max(||A0||_F^2, 1e-30) stops; the
-  count of sweeps each matrix ran comes back with w and V.
+  count of sweeps each matrix ran comes back with w and V. The kernel
+  runs the tournament of ``_round_robin_pairs`` by position and is bit
+  for bit the plain version with that table.
 - :func:`jacobi_eigh_pallas`: the port of the JAX entry point: pads, runs
   the kernel on CUDA tensors (the plain version on CPU tensors), sorts
   ascending and strips the padding.
-- :func:`batched_eigh`: the JAX dispatch, with CUDA in the TPU's place.
+- :func:`batched_eigh`: the JAX dispatch, with CUDA in the TPU's place
+  and the route measured on the H100 (``ANY_BATCH_K``, ``MIN_BATCH``).
 
-Two intended differences from the JAX package:
+Three intended differences from the JAX package:
 
 - At tau == 0 (equal diagonal entries) the rotation takes sign(tau) = +1,
   t = 1/(1+sqrt(2)), the textbook rule. ``jnp.sign(0)`` is 0 there, so the
@@ -28,6 +31,15 @@ Two intended differences from the JAX package:
 - Each matrix stops at its own tolerance. The JAX loop goes on rotating
   every matrix until the whole batch has converged (``jnp.any``); past its
   tolerance a matrix moves only at rounding level.
+- The route. The JAX dispatch takes its kernel only for a batch of 16 or
+  more (a TPU threshold: a vmapped grid runs serially). Here a CUDA batch
+  takes it from ``MIN_BATCH`` matrices below K = ``ANY_BATCH_K`` and at
+  any size from there (the H100's crossover), so a fit of a
+  single pair by 'chol' or 'gram' solves its Gram SVD (a batch of 1) and
+  the 'gram' whitening (a batch of 2) by Jacobi, at most 8 sweeps in
+  float32, where JAX calls ``eigh``. ``chip_smoke.py``'s alignment phase
+  (``unbatched``) holds such fits to the float64 oracle within the
+  batched fits' bounds.
 """
 
 from __future__ import annotations
@@ -42,11 +54,16 @@ from cross_patient_speech_decoding_tpu_torch.ops.precision import hdot
 # launches of the kernel wrapper (one per solve of a batch)
 LAUNCHES = {"jacobi_eigh": 0}
 
-# the sizes the kernel takes (Kp <= 64) and the batch from which
-# batched_eigh sends a CUDA batch to it; the JAX package's dispatch
-# (jacobi.py:141-143), not yet measured again on the H100
+# the sizes the kernel takes (Kp <= 64), and where batched_eigh sends a
+# CUDA batch to it: at every batch from K = ANY_BATCH_K, from MIN_BATCH
+# matrices below. Measured on the H100 (tools/port_probes.py route; PERF.md
+# section 7): at batch 1-16 the kernel's route beats torch.linalg.eigh at
+# every K of 24 to 64 (by 1.1-45x); at K 8-16 both take 0.2-0.4 ms of
+# host time, and the kernel's route loses up to batch 64 and wins or ties
+# from 128 (the JAX dispatch's 16 is the TPU's threshold).
 MAX_K = 64
-MIN_BATCH = 16
+MIN_BATCH = 128
+ANY_BATCH_K = 24
 
 # stop when the off-diagonal square-sum is at most REL_TOL * ||A0||_F^2
 REL_TOL = 5e-14
@@ -239,7 +256,7 @@ def jacobi_eigh_plain(A: torch.Tensor, pairs: torch.Tensor, sweeps: int = 8):
     return torch.diagonal(A, dim1=-2, dim2=-1).clone(), V, n_sweeps
 
 
-def _check_kernel_args(A, pairs, sweeps: int):
+def _check_kernel_args(A, sweeps: int):
     if A.device.type != "cuda":
         raise ValueError(f"jacobi_eigh kernel needs a CUDA tensor, got "
                          f"{A.device}")
@@ -252,22 +269,18 @@ def _check_kernel_args(A, pairs, sweeps: int):
         raise ValueError(f"Kp must be even and in [2, {MAX_K}], got {Kp}")
     if not A.is_contiguous():
         raise ValueError("A must be contiguous")
-    if pairs.device != A.device or pairs.dtype != torch.int32:
-        raise ValueError("pairs must be int32 on A's device")
-    if tuple(pairs.shape) != (Kp - 1, Kp // 2, 2) or not pairs.is_contiguous():
-        raise ValueError(f"pairs must be a contiguous ({Kp - 1}, {Kp // 2}, "
-                         f"2) table, got {tuple(pairs.shape)}")
     if sweeps < 0:
         raise ValueError(f"sweeps must be >= 0, got {sweeps}")
 
 
-def jacobi_eigh_cuda(A: torch.Tensor, pairs: torch.Tensor, sweeps: int = 8):
+def jacobi_eigh_cuda(A: torch.Tensor, sweeps: int = 8):
     """Launch the ``jacobi_eigh`` kernel (port of ``sweep_kernel``): one
-    CTA per matrix, the whole solve in one launch. Arguments and result as
-    :func:`jacobi_eigh_plain`."""
+    CTA per matrix, the whole solve in one launch. Result as
+    :func:`jacobi_eigh_plain` with the pairs of
+    ``_round_robin_pairs(Kp)``, which the kernel forms in closed form."""
     from cross_patient_speech_decoding_tpu_torch.ops import _ext
 
-    _check_kernel_args(A, pairs, sweeps)
+    _check_kernel_args(A, sweeps)
     B, Kp, _ = A.shape
     w = torch.empty((B, Kp), dtype=torch.float32, device=A.device)
     V = torch.empty((B, Kp, Kp), dtype=torch.float32, device=A.device)
@@ -276,8 +289,8 @@ def jacobi_eigh_cuda(A: torch.Tensor, pairs: torch.Tensor, sweeps: int = 8):
         return w, V, n_sweeps
     with torch.cuda.device(A.device):
         err = _ext.lib().jacobi_eigh_f32(
-            A.data_ptr(), pairs.data_ptr(), w.data_ptr(), V.data_ptr(),
-            n_sweeps.data_ptr(), B, Kp, sweeps,
+            A.data_ptr(), w.data_ptr(), V.data_ptr(), n_sweeps.data_ptr(), B,
+            Kp, sweeps,
             torch.cuda.current_stream().cuda_stream,
         )
     _ext.check(err, "jacobi_eigh_f32")
@@ -312,11 +325,10 @@ def jacobi_eigh_pallas(A: torch.Tensor, sweeps: int = 8):
     A3 = A.reshape(-1, K, K)
     A3, K, odd = _pad_odd(A3)
     Kp = A3.shape[-1]
-    pairs = _pairs_on(Kp, A3.device)
     if _route(A3) == "kernel":
-        w, V, _ = jacobi_eigh_cuda(A3.contiguous(), pairs, sweeps)
+        w, V, _ = jacobi_eigh_cuda(A3.contiguous(), sweeps)
     else:
-        w, V, _ = jacobi_eigh_plain(A3, pairs, sweeps)
+        w, V, _ = jacobi_eigh_plain(A3, _pairs_on(Kp, A3.device), sweeps)
     w, V = _sort_ascending(w, V)
     if odd:
         w, V = _strip_pad(w, V, K)
@@ -330,11 +342,13 @@ def symmetric_eigh(A: torch.Tensor):
 
 
 def batched_eigh(A: torch.Tensor, sweeps: int = 8):
-    """eigh dispatch: the Jacobi kernel for a CUDA batch of at least
-    MIN_BATCH matrices (leading dims flattened) with K <= MAX_K,
-    :func:`symmetric_eigh` for everything else."""
+    """eigh dispatch: the Jacobi kernel for a CUDA batch (leading dims
+    flattened) with K <= MAX_K of any size from K = ANY_BATCH_K, of at
+    least MIN_BATCH matrices below; :func:`symmetric_eigh` for everything
+    else."""
     lead = int(np.prod(A.shape[:-2])) if A.dim() > 2 else 1
-    if (_route(A) in ("kernel", "plain") and A.shape[-1] <= MAX_K
-            and lead >= MIN_BATCH):
+    K = A.shape[-1]
+    if (_route(A) in ("kernel", "plain") and K <= MAX_K
+            and (lead >= MIN_BATCH or K >= ANY_BATCH_K)):
         return jacobi_eigh_pallas(A, sweeps=sweeps)
     return symmetric_eigh(A)

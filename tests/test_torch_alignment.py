@@ -614,6 +614,9 @@ def test_batched_fit_on_kernel_route_matches_jax_pallas(method, monkeypatch):
         return plain(A, pairs, sweeps)
 
     monkeypatch.setattr(jacobi, "_route", lambda A: "plain")
+    # the card's route takes K = 8 from MIN_BATCH matrices; these 16 pairs
+    # take it as the JAX dispatch's batch of 16 does
+    monkeypatch.setattr(jacobi, "MIN_BATCH", B)
     monkeypatch.setattr(jacobi, "jacobi_eigh_plain", counted)
     monkeypatch.setattr(jjac, "batched_eigh", functools.partial(
         jjac.jacobi_eigh_pallas, block=16, interpret=True))

@@ -169,11 +169,152 @@ def test_schedule_matches_jax():
         assert len(seen) == k * (k - 1) // 2
 
 
+def _player(kp, t, pos):
+    """The player at position pos of the tournament at step t: player i
+    starts at position i, and between steps the players at positions
+    1 .. Kp-1 move on by one (Kp-1 to 1)."""
+    x = pos - 1 - t
+    return 0 if pos == 0 else 1 + (x + kp - 1 if x < 0 else x)
+
+
+def _fold(kp, pos):
+    """csrc/jacobi.cu:fold: position j < Kp/2 at index 2j, Kp-1-j at 2j+1."""
+    return 2 * pos if pos < kp // 2 else 2 * (kp - 1 - pos) + 1
+
+
+def _moved(kp, f):
+    """csrc/jacobi.cu:moved: the folded index the element at f moves to."""
+    pos = kp - 1 - f // 2 if f % 2 else f // 2
+    return _fold(kp, 0 if pos == 0 else 1 if pos == kp - 1 else pos + 1)
+
+
+@pytest.mark.parametrize("kp", range(2, 65, 2))
+def test_kernel_tournament_by_position_is_the_table(kp):
+    """The kernel runs the round-robin tournament by position: pair j of
+    every step is the players at positions j and Kp-1-j, and the players
+    at positions 1 .. Kp-1 move on by one between steps. That is
+    _round_robin_pairs(Kp), the table the plain version takes; after the
+    Kp-1 steps of a sweep every player is back at its position (the V
+    lanes' registers and the folded A rely on it); and the folded index
+    moves as the players do."""
+    table = jacobi._round_robin_pairs(kp)
+    form = np.array([[(_player(kp, t, j), _player(kp, t, kp - 1 - j))
+                      for j in range(kp // 2)] for t in range(kp - 1)])
+    np.testing.assert_array_equal(form, table)
+    assert [_player(kp, kp - 1, pos) for pos in range(kp)] == list(range(kp))
+    assert sorted(_fold(kp, pos) for pos in range(kp)) == list(range(kp))
+    for t in range(kp - 1):
+        for pos in range(kp):
+            now = _player(kp, t, pos)
+            nxt = next(q for q in range(kp)
+                       if _player(kp, (t + 1) % (kp - 1), q) == now)
+            assert _moved(kp, _fold(kp, pos)) == _fold(kp, nxt)
+
+
+def _kernel_step_mirror(A, pairs, sweeps):
+    """The CUDA kernel's step (csrc/jacobi.cu), in float32 tensor ops in
+    its order, on its layout: A held by tournament position and folded
+    (pair j's positions at indices 2j and 2j+1), in two buffers; each
+    lane's c and s from the buffer the step reads, each (row pair k,
+    column pair l) 2x2 block rotated by columns (pair l), then by rows
+    (pair k), and written into the other buffer where its players stand
+    next, every element once; V one sweep behind A, from the c and s the
+    sweep recorded, its columns by position (pair j at positions j and
+    Kp-1-j, positions 1 .. Kp-1 moving on by one a step), as the kernel's
+    V lanes hold their rows in registers. Per-matrix stop as the plain
+    version. ``pairs`` only checks that it is the tournament."""
+    B, Kp, _ = A.shape
+    H = Kp // 2
+    assert torch.equal(pairs, torch.from_numpy(jacobi._round_robin_pairs(Kp)))
+    fold = torch.tensor([_fold(Kp, pos) for pos in range(Kp)])
+    unfold = torch.argsort(fold)
+    moved = torch.tensor([_moved(Kp, f) for f in range(Kp)])
+    eye = torch.eye(Kp)
+    off_diag = (1.0 - eye).double()
+    tol = jacobi._tolerance(A)
+    bufs = [A[:, unfold][:, :, unfold].clone(), torch.empty_like(A)]
+    V = eye.expand(B, Kp, Kp).clone()
+    n_sweeps = torch.zeros(B, dtype=torch.int32)
+    cur = 0
+    j = torch.arange(H)
+    shift = torch.tensor([0, Kp - 1, *range(1, Kp - 1)][:Kp])
+    k2, l2 = (2 * j)[:, None], (2 * j)[None, :]  # rows 2k, columns 2l
+
+    def rotate_v(c, s):
+        """A step on V by position: pair j is columns j and Kp-1-j."""
+        nonlocal V
+        x, y = V[:, :, j], V[:, :, Kp - 1 - j]
+        V[:, :, j] = c[:, None, :] * x - s[:, None, :] * y
+        V[:, :, Kp - 1 - j] = c[:, None, :] * y + s[:, None, :] * x
+        V = V[:, :, shift]
+
+    for _ in range(sweeps):
+        active = jacobi._off_mass(bufs[cur], off_diag) > tol
+        A_old, V_old = bufs[cur].clone(), V.clone()
+        recorded = []
+        for _ in range(Kp - 1):
+            R = bufs[cur]
+            W = bufs[1 - cur].fill_(float("nan"))
+            app, apq = R[:, 2 * j, 2 * j], R[:, 2 * j, 2 * j + 1]
+            aqq = R[:, 2 * j + 1, 2 * j + 1]
+            small = apq.abs() < jacobi.SMALL
+            tau = (aqq - app) / (2.0 * torch.where(small, 1.0, apq))
+            r = torch.sqrt(1.0 + tau * tau)
+            t = torch.where(tau < 0, -1.0, 1.0) / (tau.abs() + r)
+            t = torch.where(small, 0.0, t)
+            c = 1.0 / torch.sqrt(1.0 + t * t)
+            s = t * c
+            ck, sk = c[:, :, None], s[:, :, None]
+            cl, sl = c[:, None, :], s[:, None, :]
+            x1, y1 = R[:, k2, l2], R[:, k2, l2 + 1]
+            x2, y2 = R[:, k2 + 1, l2], R[:, k2 + 1, l2 + 1]
+            a1, b1 = cl * x1 - sl * y1, cl * y1 + sl * x1
+            a2, b2 = cl * x2 - sl * y2, cl * y2 + sl * x2
+            mp, mq = moved[k2], moved[k2 + 1]  # rows pk, qk move to
+            np_, nq = moved[l2], moved[l2 + 1]  # columns pl, ql move to
+            W[:, mp, np_] = ck * a1 - sk * a2
+            W[:, mq, np_] = ck * a2 + sk * a1
+            W[:, mp, nq] = ck * b1 - sk * b2
+            W[:, mq, nq] = ck * b2 + sk * b1
+            assert not W.isnan().any()  # the blocks cover A once
+            recorded.append((c, s))
+            cur = 1 - cur
+        for rotation in recorded:
+            rotate_v(*rotation)
+        keep = active[:, None, None]
+        bufs[cur] = torch.where(keep, bufs[cur], A_old)
+        V = torch.where(keep, V, V_old)
+        n_sweeps += active.to(torch.int32)
+    A_end = bufs[cur][:, fold][:, :, fold]
+    return torch.diagonal(A_end, dim1=-2, dim2=-1).clone(), V, n_sweeps
+
+
+@pytest.mark.parametrize("sweeps", [1, 8])
+@pytest.mark.parametrize("kp", [2, 4, 14, 40, 42, 64])
+def test_kernel_step_mirror_bitwise_equals_plain(kp, sweeps):
+    """The kernel's one-barrier step (2x2 blocks from one buffer into the
+    other, V by (row, pair) slots one sweep late) changes who computes
+    which element and when, not any element's arithmetic: its mirror is
+    bit for bit the plain version, sweep counts included, on a diagonal
+    matrix (0 sweeps), a dense one and a correlation matrix."""
+    rng = np.random.default_rng(kp)
+    A = torch.from_numpy(np.stack([
+        np.diag(np.arange(1, kp + 1)).astype(np.float32),
+        _sym(rng, 1, kp)[0], _corr(rng, 1, kp)[0]]))
+    pairs = torch.from_numpy(jacobi._round_robin_pairs(kp))
+    got = _kernel_step_mirror(A, pairs, sweeps)
+    want = jacobi.jacobi_eigh_plain(A, pairs, sweeps)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[2][0] == 0 and got[2][1] >= 1
+
+
 def test_batched_eigh_dispatch_on_cpu(monkeypatch):
     """CPU tensors go to torch.linalg.eigh of the symmetrised input (as
     jnp.linalg.eigh symmetrises); with the route hook returning 'plain', a
-    batch of >= 16 matrices of K <= 64 takes the kernel's route to the
-    plain version, and smaller or wider ones stay with eigh."""
+    batch of >= MIN_BATCH matrices of K <= 64, or a batch of any size from
+    K = ANY_BATCH_K, takes the kernel's route to the plain version, and
+    smaller or wider ones stay with eigh."""
     rng = np.random.default_rng(5)
     A = _sym(rng, 16, 8)
     A[:, 0, 1] += 1e-3  # not symmetric: the upper triangle counts too
@@ -193,13 +334,18 @@ def test_batched_eigh_dispatch_on_cpu(monkeypatch):
 
     monkeypatch.setattr(jacobi, "_route", lambda A: "plain")
     monkeypatch.setattr(jacobi, "jacobi_eigh_plain", counted)
-    sym = torch.from_numpy(_sym(rng, 16, 8))
+    n = jacobi.MIN_BATCH
+    sym = torch.from_numpy(_sym(rng, n, 8))
     jacobi.batched_eigh(sym)
-    jacobi.batched_eigh(sym.reshape(2, 8, 8, 8))
-    assert calls == [(16, 8, 8), (16, 8, 8)]
-    jacobi.batched_eigh(sym[:15])  # batch too small
-    jacobi.batched_eigh(torch.from_numpy(_sym(rng, 16, 65)))  # too wide
+    jacobi.batched_eigh(sym.reshape(2, n // 2, 8, 8))
+    assert calls == [(n, 8, 8), (n, 8, 8)]
+    jacobi.batched_eigh(sym[:n - 1])  # batch too small
+    jacobi.batched_eigh(torch.from_numpy(_sym(rng, n, 65)))  # too wide
     assert len(calls) == 2
+    k = jacobi.ANY_BATCH_K
+    jacobi.batched_eigh(torch.from_numpy(_sym(rng, 1, k)))  # wide enough
+    jacobi.batched_eigh(torch.from_numpy(_sym(rng, n - 1, k - 1)))
+    assert calls[2:] == [(1, k, k)]
 
 
 def test_correlation_matrices_intended_difference():
@@ -248,23 +394,20 @@ def test_each_matrix_stops_at_its_own_tolerance():
 def test_kernel_wrapper_raises_instead_of_falling_back():
     """The wrapper checks before touching the library: a CPU tensor and
     every shape or type the kernel does not take raise."""
-    pairs = torch.from_numpy(jacobi._round_robin_pairs(8))
     A = torch.eye(8).expand(4, 8, 8).contiguous()
     with pytest.raises(ValueError, match="CUDA tensor"):
-        jacobi.jacobi_eigh_cuda(A, pairs)
+        jacobi.jacobi_eigh_cuda(A)
     check = functools.partial(jacobi._check_kernel_args, sweeps=8)
     with pytest.raises(TypeError, match="float32"):
-        check(_CudaLike(A.double()), pairs)
+        check(_CudaLike(A.double()))
     with pytest.raises(ValueError, match="even"):
-        check(_CudaLike(torch.zeros(2, 9, 9)), pairs)
+        check(_CudaLike(torch.zeros(2, 9, 9)))
     with pytest.raises(ValueError, match="even"):
-        check(_CudaLike(torch.zeros(2, 66, 66)), pairs)
+        check(_CudaLike(torch.zeros(2, 66, 66)))
     with pytest.raises(ValueError, match="contiguous"):
-        check(_CudaLike(torch.zeros(8, 8, 4).permute(2, 0, 1)), pairs)
-    with pytest.raises(ValueError, match="pairs"):
-        check(_CudaLike(A), pairs)  # pairs on another device
+        check(_CudaLike(torch.zeros(8, 8, 4).permute(2, 0, 1)))
     with pytest.raises(ValueError, match="sweeps"):
-        jacobi._check_kernel_args(_CudaLike(A), _CudaLike(pairs), -1)
+        jacobi._check_kernel_args(_CudaLike(A), -1)
 
 
 class _CudaLike:

@@ -14,8 +14,8 @@ sums of another order: atol 1e-4 on hs. GRU backward: the kernels' products run
 on tensor cores as 3xTF32 (float32-class, ~1e-7 of the largest output per
 product) with float32 sums in another order: on gradients, max |diff| <=
 1e-5 x max |plain| per tensor (sums over batch and time). Jacobi: the kernel rounds every
-rotation as the plain version's tensor ops do, so w and V agree within
-1e-5 x ||A||_F (in practice bitwise) and the sweep counts are equal; the
+rotation as the plain version's tensor ops do, so w, V and the sweep
+counts are bit for bit those of the plain version; the
 alignment fit on the card agrees with the CPU's within 1e-4 on the
 canonical correlations and 1e-3 x max |proj| on the projections.
 """
@@ -444,13 +444,11 @@ def test_jacobi_kernel_matches_plain(card, B, K, kind, sweeps):
     Ap = Ap.contiguous()
     pairs = jacobi._pairs_on(Ap.shape[-1], card)
     jacobi.reset_launch_counts()
-    w, V, n = jacobi.jacobi_eigh_cuda(Ap, pairs, sweeps)
+    w, V, n = jacobi.jacobi_eigh_cuda(Ap, sweeps)
     w_p, V_p, n_p = jacobi.jacobi_eigh_plain(Ap, pairs, sweeps)
     assert jacobi.LAUNCHES["jacobi_eigh"] == 1
     assert torch.equal(n, n_p) and int(n.max()) <= sweeps
-    tol = 1e-5 * float(torch.linalg.matrix_norm(Ap).max())
-    torch.testing.assert_close(w, w_p, atol=tol, rtol=0)
-    torch.testing.assert_close(V, V_p, atol=tol, rtol=0)
+    assert torch.equal(w, w_p) and torch.equal(V, V_p)
     if sweeps == 8:
         w_s, V_s = jacobi.jacobi_eigh_pallas(torch.from_numpy(A).to(card))
         w64 = torch.linalg.eigvalsh(torch.from_numpy(A).double())
@@ -464,32 +462,65 @@ def test_jacobi_kernel_matches_plain(card, B, K, kind, sweeps):
         torch.testing.assert_close(V_s.mT @ V_s, eye, atol=5e-5, rtol=0)
 
 
+@pytest.mark.parametrize("B", [1, 133])
+@pytest.mark.parametrize("Kp", range(2, jacobi.MAX_K + 1, 2))
+def test_jacobi_kernel_every_kp(card, Kp, B):
+    """Every Kp the kernel takes launches its own instance, bit for bit
+    equal to the plain version, at one matrix and at more CTAs than the
+    card's 132 SMs."""
+    A = torch.from_numpy(_sym(Kp, B, Kp)).to(card)
+    pairs = jacobi._pairs_on(Kp, card)
+    got = jacobi.jacobi_eigh_cuda(A)
+    want = jacobi.jacobi_eigh_plain(A, pairs)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_jacobi_kernel_repeats_bitwise(card):
+    """Two launches on the same input: w, V and sweep counts equal bit for
+    bit (no atomics, a fixed reduction order)."""
+    A = torch.from_numpy(_sym(3, 256, 40)).to(card)
+    pairs = jacobi._pairs_on(40, card)
+    got = jacobi.jacobi_eigh_cuda(A)
+    again = jacobi.jacobi_eigh_cuda(A)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
 def test_batched_eigh_launches_the_kernel(card):
-    A = torch.from_numpy(_sym(8, 32, 40)).to(card)
+    """The route of batched_eigh: the kernel from MIN_BATCH matrices, and
+    at any batch from K = ANY_BATCH_K; torch.linalg.eigh below both and
+    above K = 64."""
+    n, k = jacobi.MIN_BATCH, jacobi.ANY_BATCH_K
+    A = torch.from_numpy(_sym(8, 2 * n, 40)).to(card)
     jacobi.reset_launch_counts()
     jacobi.batched_eigh(A)
-    jacobi.batched_eigh(A.reshape(2, 16, 40, 40))
+    jacobi.batched_eigh(A.reshape(2, n, 40, 40))
     assert jacobi.LAUNCHES["jacobi_eigh"] == 2
-    jacobi.batched_eigh(A[:15])  # too few matrices: torch.linalg.eigh
-    jacobi.batched_eigh(torch.from_numpy(_sym(8, 16, 65)).to(card))
-    assert jacobi.LAUNCHES["jacobi_eigh"] == 2
+    jacobi.batched_eigh(A[:1])  # one matrix, K >= ANY_BATCH_K
+    assert jacobi.LAUNCHES["jacobi_eigh"] == 3
+    small = torch.from_numpy(_sym(8, n, k - 1)).to(card)
+    jacobi.batched_eigh(small[:n - 1])  # too few matrices: linalg.eigh
+    jacobi.batched_eigh(torch.from_numpy(_sym(8, n, 65)).to(card))
+    assert jacobi.LAUNCHES["jacobi_eigh"] == 3
+    jacobi.batched_eigh(small)
+    assert jacobi.LAUNCHES["jacobi_eigh"] == 4
 
 
 def test_jacobi_wrapper_raises_instead_of_falling_back(card):
-    pairs = jacobi._pairs_on(8, card)
     A = torch.eye(8, device=card).expand(4, 8, 8).contiguous()
     with pytest.raises(ValueError, match="CUDA tensor"):
-        jacobi.jacobi_eigh_cuda(A.cpu(), pairs.cpu())
+        jacobi.jacobi_eigh_cuda(A.cpu())
     with pytest.raises(TypeError, match="float32"):
-        jacobi.jacobi_eigh_cuda(A.double(), pairs)
+        jacobi.jacobi_eigh_cuda(A.double())
     with pytest.raises(ValueError, match="even"):
-        jacobi.jacobi_eigh_cuda(torch.zeros((2, 9, 9), device=card), pairs)
+        jacobi.jacobi_eigh_cuda(torch.zeros((2, 9, 9), device=card))
     with pytest.raises(ValueError, match="even"):
-        jacobi.jacobi_eigh_cuda(torch.zeros((2, 66, 66), device=card), pairs)
+        jacobi.jacobi_eigh_cuda(torch.zeros((2, 66, 66), device=card))
     with pytest.raises(ValueError, match="contiguous"):
-        jacobi.jacobi_eigh_cuda(A.mT, pairs)
-    with pytest.raises(ValueError, match="pairs"):
-        jacobi.jacobi_eigh_cuda(A, pairs[:3])
+        jacobi.jacobi_eigh_cuda(A.mT)
+    with pytest.raises(ValueError, match="sweeps"):
+        jacobi.jacobi_eigh_cuda(A, -1)
 
 
 def _pairs_of_trials(seed, B=16, N=30, T=10, K=8, C=5, noise=0.3):
@@ -510,7 +541,8 @@ def _pairs_of_trials(seed, B=16, N=30, T=10, K=8, C=5, noise=0.3):
 @pytest.mark.parametrize("method,launches", [("chol", 1), ("gram", 2),
                                              ("svd", 0)])
 def test_fit_cca_aligner_on_card_matches_cpu(card, method, launches):
-    (xa, xb), ids = _pairs_of_trials(9)
+    # K = 8: batched_eigh takes the kernel from MIN_BATCH pairs
+    (xa, xb), ids = _pairs_of_trials(9, B=jacobi.MIN_BATCH)
     want = cca.fit_cca_aligner(xa, xb, ids, ids, 5, method=method, t_len=10)
     jacobi.reset_launch_counts()
     got = cca.fit_cca_aligner(xa.to(card), xb.to(card), ids.to(card),

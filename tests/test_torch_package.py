@@ -227,3 +227,48 @@ def test_forward_probe_variants_name_the_source_macros(variant):
         assert re.search(rf"^#ifndef {name}$", text, re.M), name
         if name == "GRU_FWD_STEP":
             assert len([int(v) for v in value.split(",")]) == 6
+
+
+@pytest.mark.parametrize("variant", sorted(_probes().JACOBI_VARIANTS))
+def test_jacobi_probe_variants_name_the_source_macros(variant):
+    """Every define of the Jacobi probe's variants overrides a macro that
+    jacobi.cu defaults with #ifndef, with an integer value."""
+    text = (_ext.CSRC / "jacobi.cu").read_text()
+    for d in _probes().JACOBI_VARIANTS[variant]:
+        name, value = d.split("=", 1)
+        assert re.search(rf"^#ifndef {name}$", text, re.M), name
+        assert int(value) >= 0
+
+
+def test_jacobi_source_takes_the_wrappers_sizes():
+    """The kernel's largest instance (KMAX, csrc/jacobi.cu) is the
+    wrapper's bound (MAX_K): every Kp the wrapper lets through has an
+    instance."""
+    from cross_patient_speech_decoding_tpu_torch.ops import jacobi
+
+    text = (_ext.CSRC / "jacobi.cu").read_text()
+    kmax = int(re.search(r"constexpr int KMAX = (\d+);", text).group(1))
+    assert kmax == jacobi.MAX_K
+
+
+def test_ab_summary_counts_pairs_won_and_quartiles():
+    """The A/B summary pairs turns 0-1 and 2-3 (DIR, this, this, DIR),
+    counts the pairs this checkout won, and gives each checkout's median,
+    quartiles and range of a fit's ms; the Jacobi kernel's times by
+    checkout and shape."""
+    def turn(t, root, ms):
+        return {"turn": t, "checkout": root, "phase": "alignment",
+                "methods": {"gram": {"fit_ms": ms}}}
+
+    run = [turn(0, "dir", 4.0), turn(1, "this", 3.0),
+           turn(2, "this", 5.0), turn(3, "dir", 4.5),
+           {"turn": 1, "checkout": "this", "phase": "kernel",
+            "sweeps_run": [7], "shape": [128, 40, 40], "ms": 0.1}]
+    fit, kernel = _probes().ab_summary([run, run[:2]])
+    assert fit["method"] == "gram"
+    assert (fit["pairs"], fit["pairs_this_faster"]) == (3, 2)
+    assert fit["fit_ms"]["dir"]["range"] == [4.0, 4.5]
+    assert fit["fit_ms"]["this"]["median"] == 3.0
+    assert fit["fit_ms"]["this"]["n"] == 3
+    assert kernel["jacobi_kernel_ms"]["this"]["128x40x40 ms"] == {
+        "median": 0.1, "range": [0.1, 0.1]}

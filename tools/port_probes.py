@@ -4,20 +4,33 @@
 Run from the repository root:
 
     python tools/port_probes.py jacobi   # on a CUDA card
+    python tools/port_probes.py route    # on a CUDA card
     python tools/port_probes.py bifwd    # on a CUDA card
     python tools/port_probes.py bwd      # on a CUDA card
     python tools/port_probes.py fwd      # on a CUDA card
     python tools/port_probes.py tf32     # on a CUDA card
     python tools/port_probes.py ab --against DIR [--phases streaming]
         [--repeats 5]                    # on a CUDA card
+    python tools/port_probes.py ab --summary FILE [FILE ...]   # anywhere
     python tools/port_probes.py oracle --pairs 4 --seed 0   # on the CPU
 
-- ``jacobi``: builds the kernels, then holds the Jacobi kernel against its
-  plain version (one sweep and eight) on synthetic symmetric batches
+- ``jacobi``: builds the kernels and prints the ptxas report of
+  ``jacobi.cu`` (registers, stack, spills of every Kp's instance), builds
+  the variants of ``JACOBI_VARIANTS`` (the warps a matrix gives A), then
+  holds the Jacobi kernel against its plain version (one sweep and
+  eight: bitwise equality, sweep counts) on the alignment
+  fit's own batches (128 and 256 x 40 x 40), synthetic symmetric batches
   (cond 50) and a correlation batch, with the float64 eigenvalue,
-  reconstruction and orthonormality errors; at 100 or more matrices also
-  the kernel, plain and ``torch.linalg.eigh`` times (CUDA events, median
-  of 5).
+  reconstruction and orthonormality errors and the plain and
+  ``torch.linalg.eigh`` times; then, for each variant (the defaults first
+  and last), bitwise equality, the kernel's time (CUDA events, 20
+  launches a run, median of 7), the most sweeps a matrix ran, µs a step
+  (time / (most sweeps x (Kp-1))), registers and shared memory from the
+  profiler trace.
+- ``route``: the Jacobi kernel's route (``jacobi_eigh_pallas``) against
+  ``torch.linalg.eigh`` (``symmetric_eigh``) at batch 1-16 and K 8-64,
+  and at batch 32-256 for K below 24: the crossover that sets
+  ``ops/jacobi.py``'s ``ANY_BATCH_K`` and ``MIN_BATCH``.
 - ``bifwd``: builds the kernels and prints the ptxas report of
   ``gru_fwd.cu`` (registers, stack, spills per kernel), then holds the
   bidirectional GRU kernel against its plain version and two ``gru_fwd``
@@ -55,12 +68,20 @@ Run from the repository root:
 - ``ab``: end-to-end phases of ``chip_smoke.py`` (``--phases``: ``ctc``,
   the CTC eval and train steps; ``streaming``; ``seq2seq``, its train and
   eval steps; ``kernels``, the forward kernels' times at the fig_5 and
-  seq2seq shapes, median of 7; default all four) from another
+  seq2seq shapes, median of 7; ``alignment``, the alignment fits, the
+  Jacobi kernel's phase and 20-launch times, and one profiled ``chol``
+  and ``gram`` fit with the host's enqueue time and the card's idle
+  gaps; default all five) from another
   checkout of the repository, ``DIR`` (say, the parent commit unpacked
   with ``git archive``), and from this one, in turns: DIR, this, this,
   DIR, ``--repeats`` times. Each turn is a process of its own that builds
   (or reuses) its checkout's kernels and prints the phases' JSON lines,
-  tagged here with the turn and the checkout.
+  tagged here with the turn and the checkout. Last, one ``ab_summary``
+  line for each alignment fit: for each method and checkout the median,
+  quartiles and range of the fit's ms over the turns, and in how many
+  pairs of adjacent turns (DIR, this) this checkout was faster; and one
+  for the Jacobi kernel's times, median and range for each checkout.
+  ``--summary`` prints those lines for the output of earlier runs.
 - ``oracle``: batched ``fit_cca_aligner`` on the CPU at the bench
   geometry (150 trials x 200 bins x 40 latents, 27 classes) for
   ``--pairs`` pairs made from ``--seed``, down the kernel's route (the
@@ -107,19 +128,11 @@ def _card() -> torch.device:
     return torch.device("cuda", 0)
 
 
-def _cuda_ms(fn, reps: int = 5) -> float:
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def _cuda_ms(fn, reps: int = 5, inner: int = 1) -> float:
+    """chip_smoke.cuda_ms: median ms a call, ``inner`` calls a run."""
+    import chip_smoke as cs
+
+    return cs.cuda_ms(torch, fn, reps, inner)
 
 
 def _sym(rng, b, k, cond=50.0):
@@ -128,23 +141,55 @@ def _sym(rng, b, k, cond=50.0):
     return ((q * w[:, None, :]) @ np.swapaxes(q, 1, 2)).astype(np.float32)
 
 
+# Builds of the Jacobi library timed by ``jacobi`` (jacobi.cu's macro):
+# the warps a matrix gives A (at Kp = 40 up to 20 have a row pair).
+JACOBI_VARIANTS = {
+    "default": (),
+    "a_warps_2": ("JACOBI_WARPS=2",),
+    "a_warps_8": ("JACOBI_WARPS=8",),
+}
+
+
+def _path_batches(dev) -> dict:
+    """The alignment fit's own Jacobi batches at chip_smoke.py's bench
+    geometry: the chol fit's g^T g (128 x 40 x 40) and the gram fit's
+    stacked whitening Grams (256 x 40 x 40)."""
+    import chip_smoke as cs
+
+    xa, xb, ids_t, _ = cs._alignment_data(torch, dev)
+    with cs._RecordJacobi(jacobi) as rec:
+        for method in ("chol", "gram"):
+            cca.fit_cca_aligner(xa, xb, ids_t, ids_t, cs.AL_C, method=method,
+                                t_len=cs.AL_T)
+    return {"path_chol_128x40": rec.batches[0],
+            "path_gram_256x40": rec.batches[1]}
+
+
 def probe_jacobi() -> None:
+    """The Jacobi kernel: ptxas report, checks against the plain version
+    and float64, then each variant's time and µs a step."""
+    from types import SimpleNamespace
+
     dev = _card()
-    _emit({"build_s": _ext.build(verbose=True)})
+    _emit({"build_s": _ext.build()})
+    _emit({"ptxas": _ptxas_report("jacobi.cu")})
+    _emit({"variant_build_s": _build_variants(JACOBI_VARIANTS, "jacobi.cu")})
+    default = _ext.lib()
     rng = np.random.default_rng(0)
-    cases = [("sym256x40", _sym(rng, 256, 40)), ("sym128x40", _sym(rng, 128, 40)),
-             ("sym17x41", _sym(rng, 17, 41)), ("sym300x13", _sym(rng, 300, 13)),
-             ("sym1x64", _sym(rng, 1, 64)), ("sym5x64", _sym(rng, 5, 64))]
     x = rng.normal(size=(32, 8, 30))
-    cases.append(("corr32x8",
-                  np.stack([np.corrcoef(a) for a in x]).astype(np.float32)))
-    for name, A in cases:
-        At = torch.from_numpy(A).to(dev)
+    cases = {**_path_batches(dev)}
+    for b, k in ((128, 32), (128, 16), (17, 41), (300, 13), (1, 40),
+                 (1, 64), (133, 64)):
+        cases[f"sym{b}x{k}"] = torch.from_numpy(_sym(rng, b, k)).to(dev)
+    cases["corr32x8"] = torch.from_numpy(
+        np.stack([np.corrcoef(a) for a in x]).astype(np.float32)).to(dev)
+    want = {}
+    for name, At in cases.items():
         Ap, _, _ = jacobi._pad_odd(At)
         Ap = Ap.contiguous()
         pairs = jacobi._pairs_on(Ap.shape[-1], dev)
         for sweeps in (1, 8):
-            wk, Vk, nk = jacobi.jacobi_eigh_cuda(Ap, pairs, sweeps)
+            wk, Vk, nk = jacobi.jacobi_eigh_cuda(Ap, sweeps)
             wp, Vp, n_p = jacobi.jacobi_eigh_plain(Ap, pairs, sweeps)
             res = {"case": name, "sweeps": sweeps,
                    "w_err": float((wk - wp).abs().max()),
@@ -153,6 +198,7 @@ def probe_jacobi() -> None:
                    "sweep_counts_equal": bool(torch.equal(nk, n_p)),
                    "sweeps_run": sorted(set(nk.tolist()))}
             if sweeps == 8:
+                want[name] = (Ap, pairs, wp, Vp, n_p)
                 w, V = jacobi.jacobi_eigh_pallas(At)
                 w64 = torch.linalg.eigvalsh(At.cpu().double())
                 scale = float(w64.abs().max())
@@ -162,13 +208,79 @@ def probe_jacobi() -> None:
                 res["rec_err_over_max_w"] = float((rec - At).abs().max()) / scale
                 eye = torch.eye(V.shape[-1], device=dev)
                 res["orth_err"] = float((V.mT @ V - eye).abs().max())
-                if Ap.shape[0] >= 100:
-                    res["kernel_ms"] = _cuda_ms(
-                        lambda: jacobi.jacobi_eigh_cuda(Ap, pairs))
-                    res["plain_ms"] = _cuda_ms(
-                        lambda: jacobi.jacobi_eigh_plain(Ap, pairs))
-                    res["eigh_ms"] = _cuda_ms(lambda: torch.linalg.eigh(At))
+                res["plain_ms"] = _cuda_ms(
+                    lambda: jacobi.jacobi_eigh_plain(Ap, pairs))
+                res["eigh_ms"] = _cuda_ms(lambda: torch.linalg.eigh(At))
             _emit(res)
+    # the defaults first and last: the spread between them is the noise
+    for variant in [*JACOBI_VARIANTS, "default"]:
+        defines = JACOBI_VARIANTS[variant]
+        _ext._lib = (SimpleNamespace(**{**vars(default), **vars(
+            _ext.load(defines, ["jacobi.cu"]))}) if defines else default)
+        for name, (Ap, pairs, wp, Vp, n_p) in want.items():
+            w, V, n = jacobi.jacobi_eigh_cuda(Ap)
+            ms = _cuda_ms(lambda: jacobi.jacobi_eigh_cuda(Ap), reps=7,
+                          inner=20)
+            steps = int(n_p.max()) * (Ap.shape[-1] - 1)
+            res = {"variant": variant, "defines": defines, "case": name,
+                   "shape": list(Ap.shape),
+                   "bitwise": bool(torch.equal(w, wp) and torch.equal(V, Vp)
+                                   and torch.equal(n, n_p)),
+                   "kernel_ms": ms, "max_sweeps": int(n_p.max()),
+                   "us_per_step": ms * 1e3 / steps if steps else None}
+            res["by_kernel"] = _trace_kernels(
+                lambda: jacobi.jacobi_eigh_cuda(Ap))
+            _emit(res)
+    _ext._lib = default
+
+
+# The route's crossover (ops/jacobi.py ANY_BATCH_K, MIN_BATCH): batch
+# sizes and K, then larger batches at the K below ANY_BATCH_K
+ROUTE_BATCHES = (1, 2, 4, 8, 16)
+ROUTE_KS = (8, 16, 20, 24, 32, 40, 64)
+ROUTE_WIDE_BATCHES = (32, 64, 128, 256)
+ROUTE_SMALL_KS = (8, 12, 16, 20)
+
+
+def probe_route() -> None:
+    """The two solvers ``batched_eigh`` chooses between on a CUDA batch,
+    each as the route runs it: the Jacobi kernel's route
+    (``jacobi_eigh_pallas``: pad, kernel, sort, strip) and
+    ``symmetric_eigh`` (``torch.linalg.eigh``), at every batch of
+    ROUTE_BATCHES and K of ROUTE_KS, then of ROUTE_WIDE_BATCHES and
+    ROUTE_SMALL_KS: CUDA-event and host-clock ms (median of 9; the host
+    clock until a synchronize)."""
+    import time
+
+    dev = _card()
+    _ext.lib()
+    rng = np.random.default_rng(0)
+
+    def host_ms(fn, reps=9):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    grid = [(K, b) for K in ROUTE_KS for b in ROUTE_BATCHES]
+    grid += [(K, b) for K in ROUTE_SMALL_KS for b in ROUTE_WIDE_BATCHES]
+    for K, b in grid:
+        A = torch.from_numpy(_sym(rng, b, K)).to(dev)
+        fns = {"kernel_route": lambda: jacobi.jacobi_eigh_pallas(A),
+               "eigh": lambda: jacobi.symmetric_eigh(A)}
+        res = {"batch": b, "K": K}
+        for name, fn in fns.items():
+            res[f"{name}_ms"] = _cuda_ms(fn, reps=9)
+            res[f"{name}_host_ms"] = host_ms(fn)
+        res["kernel_route_faster"] = (
+            res["kernel_route_ms"] < res["eigh_ms"]
+            and res["kernel_route_host_ms"] < res["eigh_host_ms"])
+        _emit(res)
 
 
 def _ptxas_report(source: str) -> dict:
@@ -513,8 +625,8 @@ def probe_fwd() -> None:
 
 
 # One turn of ``ab``, run with the checkout as working directory and
-# first on the path: its own chip_smoke.py, port and kernels. The CTC
-# phases, then streaming, as ``sys.argv[1]`` names them.
+# first on the path: its own chip_smoke.py, port and kernels. The phases
+# that ``sys.argv[1]`` names, in AB_PHASES' order.
 _AB_TURN = """
 import sys
 import torch
@@ -563,8 +675,117 @@ if "kernels" in phases:
                "gru_wfwd_ms": cs.cuda_ms(torch, lambda: gru.gru_wfwd_cuda(
                    frames, h0, *w0, cs.WIN, cs.STRIDE), 7)}
     print(json.dumps(res), flush=True)
+if "alignment" in phases:
+    import json
+    from cross_patient_speech_decoding_tpu_torch.ops import cca, jacobi
+    align = cs.phase_alignment(torch, dev, jacobi)
+    cs.phase_kernel_jacobi(torch, dev, jacobi, align)
+    # the kernel alone: 20 launches back to back a timed run (the parent's
+    # chip_smoke.cuda_ms times one call)
+    import inspect
+    res = {"phase": "jacobi_kernel_20_launches"}
+    # the wrapper took the pair table before the kernel formed it itself
+    table = "pairs" in inspect.signature(jacobi.jacobi_eigh_cuda).parameters
+    for name in ("chol_128", "gram_256"):
+        A = align[name]
+        args = (jacobi._pairs_on(A.shape[-1], A.device),) if table else ()
+        res[f"{name}_ms"] = cs.cuda_ms(torch, lambda: [
+            jacobi.jacobi_eigh_cuda(A, *args) for _ in range(20)], 7) / 20
+    print(json.dumps(res), flush=True)
+    del align
+    xa, xb, ids_t, _ = cs._alignment_data(torch, dev)
+    import time
+    from torch.profiler import ProfilerActivity, profile
+    for method in ("chol", "gram"):
+        def fit():
+            return cca.fit_cca_aligner(xa, xb, ids_t, ids_t, cs.AL_C,
+                                       method=method, t_len=cs.AL_T)
+        _, prof = cs.profile_call(torch, fit)
+        # the host's time to enqueue one fit (no synchronize inside)
+        enqueue = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit()
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        # the device's timeline of one fit: kernels in order, the idle gaps
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            fit()
+            torch.cuda.synchronize()
+        ks = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in p.events() if e.device_type.name == "CUDA")
+        gaps = sorted(((b[0] - a[1], cs._kernel_name(a[2]),
+                        cs._kernel_name(b[2])) for a, b in zip(ks, ks[1:])),
+                      reverse=True)
+        print(json.dumps({
+            "phase": "profile_fit", "method": method, **prof,
+            "enqueue_ms": sorted(enqueue),
+            "span_us": ks[-1][1] - ks[0][0] if ks else None,
+            "kernels": len(ks),
+            "busy_us": sum(e - b for b, e, _ in ks),
+            "gaps_us_top": [[round(g, 1), a, b] for g, a, b in gaps[:6]],
+            "jacobi_at_us": [round(b - ks[0][0], 1) for b, _, n in ks
+                             if "jacobi" in n]}), flush=True)
 """
-AB_PHASES = ("ctc", "streaming", "seq2seq", "kernels")
+AB_PHASES = ("ctc", "streaming", "seq2seq", "kernels", "alignment")
+
+
+def ab_summary(runs) -> list:
+    """The alignment fits of ``ab`` runs (``runs``: each run's lines as
+    dicts, its turns numbered from 0): for each method and checkout the
+    median, quartiles and range of the fit's ms, and the pairs of
+    adjacent turns (2i, 2i+1: one from each checkout) in which the
+    second turn's checkout (this one) was faster."""
+    out = []
+    fits = [[o for o in run if o.get("phase") == "alignment"] for run in runs]
+    methods = sorted({m for run in fits for o in run for m in o["methods"]})
+    for method in methods:
+        ms, wins, pairs = {}, 0, 0
+        for run in fits:
+            by_turn = {o["turn"]: o for o in run}
+            for o in run:
+                ms.setdefault(o["checkout"], []).append(
+                    o["methods"][method]["fit_ms"])
+            for t in range(0, max(by_turn, default=-1), 2):
+                a, b = by_turn.get(t), by_turn.get(t + 1)
+                if a and b and a["checkout"] != b["checkout"]:
+                    pairs += 1
+                    # turns run DIR, this, this, DIR
+                    this, other = (a, b) if t % 4 == 2 else (b, a)
+                    wins += (this["methods"][method]["fit_ms"]
+                             < other["methods"][method]["fit_ms"])
+        stats = {}
+        for root, v in ms.items():
+            q = statistics.quantiles(v, n=4) if len(v) > 1 else [v[0]] * 3
+            stats[root] = {"n": len(v), "median": statistics.median(v),
+                           "quartiles": [q[0], q[2]],
+                           "range": [min(v), max(v)]}
+        out.append({"phase": "ab_summary", "method": method,
+                    "fit_ms": stats, "pairs": pairs,
+                    "pairs_this_faster": wins})
+    # the Jacobi kernel's times: the kernel phase's row (``ms``; one call
+    # a timing before the kernel's redesign, 20 after, and ``ms_one_call``
+    # since) and the 20-launch timing that every turn makes
+    times = {}
+    for run in runs:
+        for o in run:
+            if o.get("phase") == "kernel" and "sweeps_run" in o:
+                shape = "x".join(map(str, o["shape"]))
+                for f in ("ms", "ms_one_call"):
+                    if f in o:
+                        times.setdefault(o["checkout"], {}).setdefault(
+                            f"{shape} {f}", []).append(o[f])
+            elif o.get("phase") == "jacobi_kernel_20_launches":
+                for f in ("chol_128_ms", "gram_256_ms"):
+                    times.setdefault(o["checkout"], {}).setdefault(
+                        f"20 launches {f}", []).append(o[f])
+    if times:
+        out.append({"phase": "ab_summary", "jacobi_kernel_ms": {
+            root: {k: {"median": statistics.median(v),
+                       "range": [min(v), max(v)]} for k, v in t.items()}
+            for root, t in times.items()}})
+    return out
 
 
 def probe_ab(against: str, phases: str, repeats: int) -> None:
@@ -574,6 +795,7 @@ def probe_ab(against: str, phases: str, repeats: int) -> None:
     here = Path(__file__).resolve().parents[1]
     other = Path(against).resolve()
     turns = [other, here, here, other] * repeats
+    lines = []
     for turn, root in enumerate(turns):
         env = {**os.environ, "PYTHONPATH": str(root)}
         proc = subprocess.run([sys.executable, "-c", _AB_TURN, phases],
@@ -584,10 +806,13 @@ def probe_ab(against: str, phases: str, repeats: int) -> None:
                 obj = json.loads(line)
                 for key in ("step_s_runs", "decode_matches_cpu"):
                     obj.pop(key, None)
-                _emit({"turn": turn, "checkout": str(root), **obj})
+                lines.append({"turn": turn, "checkout": str(root), **obj})
+                _emit(lines[-1])
         if proc.returncode != 0:
             raise SystemExit(f"turn {turn} in {root} failed:\n"
                              f"{proc.stderr[-4000:]}")
+    for obj in ab_summary([lines]):
+        _emit(obj)
 
 
 def _settings():
@@ -674,11 +899,13 @@ def probe_oracle(n_pairs: int, seed: int) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("probe",
-                    choices=("jacobi", "bifwd", "bwd", "fwd", "tf32",
-                             "ab", "oracle"))
+                    choices=("jacobi", "route", "bifwd", "bwd", "fwd",
+                             "tf32", "ab", "oracle"))
     ap.add_argument("--against", help="ab: the other checkout")
     ap.add_argument("--phases", default=",".join(AB_PHASES),
                     help="ab: comma-separated, of " + ", ".join(AB_PHASES))
+    ap.add_argument("--summary", nargs="+", metavar="FILE",
+                    help="ab: summarise the output of earlier runs")
     ap.add_argument("--repeats", type=int, default=1,
                     help="ab: how many times the turns DIR, this, this, "
                          "DIR run")
@@ -687,6 +914,8 @@ def main() -> None:
     args = ap.parse_args()
     if args.probe == "jacobi":
         probe_jacobi()
+    elif args.probe == "route":
+        probe_route()
     elif args.probe == "bifwd":
         probe_bifwd()
     elif args.probe == "bwd":
@@ -695,6 +924,11 @@ def main() -> None:
         probe_fwd()
     elif args.probe == "tf32":
         probe_tf32()
+    elif args.probe == "ab" and args.summary:
+        runs = [[json.loads(line) for line in Path(f).read_text().splitlines()
+                 if line.startswith("{")] for f in args.summary]
+        for obj in ab_summary(runs):
+            _emit(obj)
     elif args.probe == "ab":
         if not args.against:
             ap.error("ab needs --against DIR")
