@@ -24,6 +24,26 @@ line is never printed:
    ``make_ctc_train_step`` step at dropout 0.3 with AdamW, which must
    launch all four kernels; then the median of 3 more steps, samples/s,
    model TFLOP/s and peak memory;
+4a. ctc_driver (slice 9's main path): ``cli.experiments.run_train_ctc``,
+   the ``train-ctc`` entry point, in the aligned context at the
+   reference's production scale (8 synthetic patients of 243 trials,
+   T=600, made on the card), fig_5 width, batch 512, all five
+   augmentations, beam 100, dropout 0.3, one iteration of 2 epochs (the
+   epochs cut), writing its results under a temporary ``out``. With the
+   launch counts zeroed just before and read just after, the iteration
+   must launch exactly 7 ``jacobi_eigh`` (one per CCA fit), one
+   ``gru_wbwd`` and two ``gru_bwd`` per train step and one ``gru_wfwd``
+   and two ``gru_fwd`` per forward (train steps, validation, test,
+   beam and saved log-probs), counted by wrappers; the plain GRU and
+   Jacobi versions raise on CUDA tensors throughout. Finite losses, PER in
+   [0, 100 x 147 / 3], the native beam search taken and equal to the
+   Python one on 8 test rows, results_h5 read back where h5py is
+   installed, and a second call resuming with no launch. Prep (PCA, CCA),
+   epoch, validation and beam times, samples/s, wall time, peak memory
+   and a profiled epoch. Then hidden 64 x 2, 3 patients, T=200, one epoch
+   at dropout 0 on the card and on the CPU from the same data: latents,
+   validation losses and PER against each other, and ``fir_filter``
+   under the caller's TF32 against the CPU;
 5. streaming: 400 bins of 60 channels x 10 samples through the same
    model, with the launch counts zeroed just before and read just after;
    online logits checked against the offline forward, the offline forward
@@ -172,6 +192,27 @@ JAC_HETERO_RTOL = 5e-6
 JAC_WIDE_BATCH = 133
 # the Jacobi kernel's time: launches back to back a timed run
 JAC_INNER = 20
+# the CTC experiment driver (cli/experiments.py:run_train_ctc): the aligned
+# context at the reference's production scale (the JAX package's
+# utils/config.py:338-347: 8 patients, 243 trials of 27 classes, T=600)
+# and fig_5 width (bench.py:section_ctc), the reference YAML's batch of
+# 512 (utils/config.py:292-297) and augmentations; only the epochs cut
+DRV_CFG = dict(context="aligned", synth_patients=8, synth_trials=250,
+               synth_T=600, hidden=H, n_layers=N_LAYERS, win_size=WIN,
+               stride=STRIDE, batch_size=512, augmentations="all",
+               decode="beam", beam_size=100, dropout=0.3, n_iter=1,
+               epochs=2, seed=0, save_logits=True)
+DRV_JACOBI = 7  # one chol CCA fit a cross patient, K = 32, batch 1
+DRV_BEAM_ROWS = 8  # test rows decoded by the native and the Python search
+# small depth on the card and on the CPU from the same data and weights
+DRV_SMALL = dict(context="aligned", synth_patients=3, synth_T=200,
+                 hidden=64, n_layers=2, epochs=1, n_iter=1, dropout=0.0,
+                 augmentations="", seed=0)
+DRV_PCA_RTOL = 2e-4  # latents, tests/test_torch_alignment.py's PCA bound
+DRV_ALIGNED_RTOL = 1e-3  # CCA-mapped latents, its projection bound
+DRV_VAL_RTOL = 1e-3  # per-epoch validation loss, card vs CPU
+FIR_RTOL = 1e-5  # fir_filter under the caller's TF32, card vs CPU
+
 
 
 def emit(obj) -> None:
@@ -221,6 +262,7 @@ def main() -> int:
 
     model, batch = phase_ctc_eval(torch, dev, gru)
     train_res = phase_ctc_train(torch, dev, gru, batch)
+    phase_ctc_driver(torch, dev, gru, jacobi, smi)
     phase_streaming(torch, dev, gru, model)
     del model, batch
     s2s_model, s2s_batch, s2s_launches = phase_seq2seq_train(torch, dev, gru)
@@ -549,6 +591,414 @@ def check_decode(torch, model, step, batch, in_adj):
             and per_card == per_cpu == per_step)
     return {"per_unbiased_head": per_card, "per_unbiased_head_cpu": per_cpu,
             "symbols_decoded": int(dec_len.sum()), "decode_matches_cpu": same}
+
+
+class _NoPlainOnCuda:
+    """Within the block, the plain GRU and Jacobi versions raise when given
+    a CUDA tensor: the driver's path must take the kernels."""
+
+    PLAIN = ("gru_layer_plain", "gru_layer_windowed_plain",
+             "gru_layer_bidir_plain", "gru_backward_plain",
+             "gru_win_backward_plain")
+
+    def __init__(self, torch, gru, jacobi):
+        self.torch = torch
+        self.saved = [(gru, n, getattr(gru, n)) for n in self.PLAIN]
+        self.saved.append((jacobi, "jacobi_eigh_plain",
+                           jacobi.jacobi_eigh_plain))
+
+    def __enter__(self):
+        torch = self.torch
+        for mod, name, fn in self.saved:
+            def guard(*args, _fn=fn, _name=name, **kw):
+                if any(torch.is_tensor(a) and a.is_cuda for a in args):
+                    raise RuntimeError(f"{_name} ran on a CUDA tensor")
+                return _fn(*args, **kw)
+            setattr(mod, name, guard)
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+class _DriverProbe:
+    """Counting and timing wrappers around what ``run_train_ctc`` calls,
+    installed for a block: train steps (each synchronised and timed, its
+    loss and row count kept), eval steps (validation and test, timed),
+    model forwards by mode, PCA and CCA fits of the prep (timed), and the
+    beam rescoring (timed). ``fit`` is wrapped to keep its last arguments,
+    for the profiled epoch after the counted run."""
+
+    def __init__(self, torch, exp):
+        import cross_patient_speech_decoding_tpu_torch.train as train
+        from cross_patient_speech_decoding_tpu_torch.models import (
+            RealtimeRNN,
+        )
+        from cross_patient_speech_decoding_tpu_torch.train import loops
+
+        self.torch, self.exp, self.train, self.loops = torch, exp, train, loops
+        self.rnn = RealtimeRNN
+        self.steps = self.rows = self.evals = 0
+        self.fwd = {"train": 0, "eval": 0}
+        self.step_s, self.eval_s, self.losses = [], [], []
+        self.pca_s, self.cca_s, self.beam_s, self.data_s = [], [], [], []
+        self.fit_args = None
+
+    def _timed(self, fn, store):
+        torch = self.torch
+
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            store.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def __enter__(self):
+        exp, train, loops = self.exp, self.train, self.loops
+        self.saved = [(train, "make_ctc_train_step"),
+                      (train, "make_ctc_eval_step"), (loops, "fit"),
+                      (self.rnn, "forward"), (exp, "_pca_fit_lat"),
+                      (exp, "_cca_align_lat"), (exp, "_beam_rescore_per"),
+                      (exp, "make_synthetic_patients_device")]
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.saved]
+        orig = {n: f for _, n, f in self.saved}
+        probe = self
+
+        def make_train(model, tx):
+            step = orig["make_ctc_train_step"](model, tx)
+
+            def counted(state, batch, gen=None):
+                probe.steps += 1
+                probe.rows += int(batch[0].shape[0])
+                out = probe._timed(step, probe.step_s)(state, batch, gen)
+                probe.losses.append(float(out[1]["loss"]))
+                return out
+            return counted
+
+        def make_eval(model):
+            step = orig["make_ctc_eval_step"](model)
+
+            def counted(batch):
+                probe.evals += 1
+                return probe._timed(step, probe.eval_s)(batch)
+            return counted
+
+        def fit(*a, **k):
+            probe.fit_args = (a, k)
+            return orig["fit"](*a, **k)
+
+        def forward(model, *a, **k):
+            probe.fwd["train" if model.training else "eval"] += 1
+            return orig["forward"](model, *a, **k)
+
+        train.make_ctc_train_step = make_train
+        train.make_ctc_eval_step = make_eval
+        self.loops.fit = fit
+        self.rnn.forward = forward
+        exp._pca_fit_lat = self._timed(orig["_pca_fit_lat"], self.pca_s)
+        exp._cca_align_lat = self._timed(orig["_cca_align_lat"], self.cca_s)
+        exp._beam_rescore_per = self._timed(orig["_beam_rescore_per"],
+                                            self.beam_s)
+        exp.make_synthetic_patients_device = self._timed(
+            orig["make_synthetic_patients_device"], self.data_s)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def _launch_counts(gru, jacobi) -> dict:
+    return {**gru.LAUNCHES, "jacobi_eigh": jacobi.LAUNCHES["jacobi_eigh"]}
+
+
+def _reset_counts(gru, jacobi) -> None:
+    gru.reset_launch_counts()
+    jacobi.reset_launch_counts()
+
+
+def _history(out: str, context: str) -> list:
+    import csv
+
+    path = Path(out).parent / "logs" / f"S14_{context}_ctcRnn" / "iter000.csv"
+    with open(path) as f:
+        return [{k: float(v) for k, v in r.items()} for r in csv.DictReader(f)]
+
+
+def _rel(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def phase_ctc_driver(torch, dev, gru, jacobi, smi):
+    """The CTC experiment driver end to end at full width, then a
+    small-depth run on the card and on the CPU from the same data."""
+    import tempfile
+
+    import numpy as np
+
+    from cross_patient_speech_decoding_tpu_torch.cli import experiments as exp
+    from cross_patient_speech_decoding_tpu_torch.data.loaders import load_pkl
+    from cross_patient_speech_decoding_tpu_torch.ops.ctc import (
+        prefix_beam_search as py_beam,
+    )
+    from cross_patient_speech_decoding_tpu_torch.realtime import beam
+    from cross_patient_speech_decoding_tpu_torch.utils.config import (
+        TrainCTCConfig,
+    )
+
+    if not beam.native_available():
+        raise RuntimeError("the native beam search did not build")
+    try:
+        import h5py  # noqa: F401  (results_h5 needs it)
+        have_h5 = True
+    except ImportError:
+        have_h5 = False
+    tmp = tempfile.TemporaryDirectory()
+    out = str(Path(tmp.name) / "full" / "ctc.pkl")
+    cfg = TrainCTCConfig(**DRV_CFG, out=out, results_h5=(
+        str(Path(tmp.name) / "full" / "r.h5") if have_h5 else ""))
+    n_win = (cfg.synth_T - WIN) // STRIDE + 1
+
+    # (a) one full-width iteration, counts zeroed just before
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(gru, jacobi)
+    with _NoPlainOnCuda(torch, gru, jacobi), _DriverProbe(torch, exp) as pr:
+        t0 = time.perf_counter()
+        pers = exp.run_train_ctc(cfg, verbose=True, device=dev)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    launches = _launch_counts(gru, jacobi)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_fwd = pr.fwd["train"] + pr.fwd["eval"]
+    want = {"gru_wfwd": n_fwd, "gru_fwd": 2 * n_fwd,
+            "gru_wbwd": pr.steps, "gru_bwd": 2 * pr.steps,
+            "gru_bifwd": 0, "jacobi_eigh": DRV_JACOBI}
+
+    # (b) the native beam search against the Python one on test rows
+    lp = load_pkl(out)["extra"][0]["logits"]
+    t0 = time.perf_counter()
+    nat = [beam.prefix_beam_search(lp[i], cfg.beam_size)
+           for i in range(DRV_BEAM_ROWS)]
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pyb = [py_beam(lp[i], cfg.beam_size) for i in range(DRV_BEAM_ROWS)]
+    python_s = time.perf_counter() - t0
+    beam_same = [a[0] for a in nat] == [b[0] for b in pyb]
+    h5_back = None
+    if have_h5:
+        with h5py.File(cfg.results_h5, "r") as f:
+            h5_back = np.asarray(f["phoneme_error_rate"]).tolist()
+
+    # (c) the same call again resumes: the stored PER, no launch
+    _reset_counts(gru, jacobi)
+    again = exp.run_train_ctc(cfg, verbose=True, device=dev)
+    torch.cuda.synchronize()
+    resume_launches = _launch_counts(gru, jacobi)
+
+    # (d) one more epoch of the same training set, profiled
+    from cross_patient_speech_decoding_tpu_torch.train import (
+        create_train_state,
+        make_ctc_eval_step,
+        make_ctc_train_step,
+        make_optimizer,
+    )
+    from cross_patient_speech_decoding_tpu_torch.train.loops import fit
+
+    (_, _, _, train_b, val_b), _ = pr.fit_args
+    pr.fit_args = None
+    model = exp._init_model(cfg, train_b[0].shape[-1], 0, dev)
+    tx = make_optimizer(cfg.lr, cfg.weight_decay, cfg.decay_steps,
+                        clip=cfg.clip)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    _, prof = profile_call(torch, lambda: fit(
+        create_train_state(model, tx), make_ctc_train_step(model, tx),
+        make_ctc_eval_step(model), train_b, val_b, epochs=1, generator=gen,
+        batch_size=cfg.batch_size))
+    del train_b, val_b, model
+
+    epoch_s = sum(pr.step_s) / cfg.epochs
+    res = {"phase": "ctc_driver", "nvidia_smi": smi,
+           "config": {k: v for k, v in DRV_CFG.items()},
+           "note": ("batch_size 512, the reference YAML's: full-batch "
+                    "training of the ~11,100 augmented rows would need "
+                    "several times the B=2000 step's 8.8 GB"),
+           "per": pers.tolist(), "launches": launches,
+           "launches_expected": want, "train_steps": pr.steps,
+           "eval_steps": pr.evals, "forwards": pr.fwd,
+           "train_rows_per_epoch": pr.rows // cfg.epochs,
+           "losses_first_last": [pr.losses[0], pr.losses[-1]],
+           "losses_finite": bool(np.isfinite(pr.losses).all()),
+           "data_ms": sum(pr.data_s) * 1e3,
+           "prep_ms": {"pca": sum(pr.pca_s) * 1e3, "cca": sum(pr.cca_s) * 1e3,
+                       "pca_fit_ms": [t * 1e3 for t in pr.pca_s],
+                       "cca_fit_ms": [t * 1e3 for t in pr.cca_s]},
+           "ms_per_epoch": epoch_s * 1e3,
+           "train_samples_per_s": pr.rows / sum(pr.step_s),
+           "train_step_ms_median": statistics.median(pr.step_s) * 1e3,
+           "validation_ms": sum(pr.eval_s[:-1]) * 1e3,
+           "test_eval_ms": pr.eval_s[-1] * 1e3,
+           "beam_ms": sum(pr.beam_s) * 1e3,
+           "iteration_wall_s": wall_s, "peak_mem_gb": peak_gb,
+           "beam_native": beam.native_available(),
+           "beam_native_vs_python_same_prefixes": beam_same,
+           "beam_rows_s": {"native": native_s, "python": python_s},
+           "results_h5_read_back": (h5_back if have_h5 else
+                                    "not checked: h5py is not installed "
+                                    "on this machine"),
+           "resume_per": again.tolist(), "resume_launches": resume_launches,
+           "epoch_profile": prof}
+    small = _driver_small(torch, dev, exp, tmp.name)
+    small["fir"] = _check_fir_tf32(torch, dev)
+    res["small_depth_card_vs_cpu"] = small
+    emit(res)
+    tmp.cleanup()
+
+    if launches != want:
+        raise RuntimeError(f"driver launched {launches}, expected {want}")
+    if pr.fwd["train"] != pr.steps or pr.steps == 0:
+        raise RuntimeError(f"train forwards {pr.fwd} vs steps {pr.steps}")
+    if not res["losses_finite"]:
+        raise RuntimeError(f"non-finite training loss: {pr.losses}")
+    if not all(0.0 <= p <= 100.0 * n_win / 3 for p in pers):
+        raise RuntimeError(f"PER out of range: {pers}")
+    if not beam_same:
+        raise RuntimeError(f"native beam {nat} vs Python {pyb}")
+    if have_h5 and h5_back != pers.tolist():
+        raise RuntimeError(f"results_h5 read back {h5_back} != {pers}")
+    if again.tolist() != pers.tolist() or any(resume_launches.values()):
+        raise RuntimeError(f"resume returned {again} with launches "
+                           f"{resume_launches}")
+    bad = {k: v for k, v in small.items()
+           if k.endswith("_ok") and v is not True}
+    if bad:
+        raise RuntimeError(f"small-depth card vs CPU: {bad}")
+    return res
+
+
+def _driver_small(torch, dev, exp, tmp):
+    """Small depth on the card, then on the CPU from the card's synthetic
+    data (copied into the CPU's cache entry) and the same initial weights
+    (``RealtimeRNN`` draws them on the CPU from the seed): prepared
+    latents, validation losses and PER."""
+    import numpy as np
+
+    from cross_patient_speech_decoding_tpu_torch.data.splits import (
+        train_val_test_masks,
+    )
+    from cross_patient_speech_decoding_tpu_torch.utils.config import (
+        TrainCTCConfig,
+    )
+
+    def cfg_on(name):
+        return TrainCTCConfig(**DRV_SMALL,
+                              out=str(Path(tmp) / name / "ctc.pkl"))
+
+    cfg = cfg_on("card")
+    rng = np.random.default_rng(cfg.seed)  # the driver's iteration 0
+    tr, _, _ = train_val_test_masks(exp._synthetic_ctc_n_trials(cfg), rng,
+                                    cfg.val_frac, cfg.test_frac)
+
+    def prep(d):
+        return exp._prep_ctc_context(cfg, rng, tar_train_mask=tr,
+                                     device=d)[0]
+
+    prep_card = prep(dev)
+    pers_card = exp.run_train_ctc(cfg, verbose=False, device=dev)
+    (key, data), = exp._SYNTH_CTC_CACHE.items()
+    exp._SYNTH_CTC_CACHE.clear()
+    exp._SYNTH_CTC_CACHE[key[:-1] + ("cpu",)] = [
+        (X.cpu(),) + tuple(rest) for X, *rest in data]
+    with _CardCcaRoute():
+        prep_cpu = prep(torch.device("cpu"))
+        pers_cpu = exp.run_train_ctc(cfg_on("cpu"), verbose=False,
+                                     device="cpu")
+    exp._SYNTH_CTC_CACHE.clear()
+
+    sep = _separated(prep_cpu[0][0])
+    lat_errs = [_rel(c[0].cpu()[..., sep], g[0][..., sep])
+                for c, g in zip(prep_card, prep_cpu)]
+    lat_ok = all(e <= (DRV_ALIGNED_RTOL if i else DRV_PCA_RTOL)
+                 for i, e in enumerate(lat_errs))
+    h_card = _history(cfg.out, "aligned")
+    h_cpu = _history(cfg_on("cpu").out, "aligned")
+    val_errs = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                for a, b in zip(h_card, h_cpu)]
+    # one edit of the test set's 22 rows x 3 labels
+    one_edit = 100.0 / (3 * round(exp._synthetic_ctc_n_trials(cfg)
+                                  * cfg.test_frac))
+    return {"config": DRV_SMALL, "latent_rel_errs": lat_errs,
+            "latent_columns_compared": int(sep.sum()),
+            "latents_ok": lat_ok, "val_history_card": h_card,
+            "val_history_cpu": h_cpu, "val_loss_rel_errs": val_errs,
+            "val_ok": len(h_card) == len(h_cpu) == cfg.epochs
+            and all(e <= DRV_VAL_RTOL for e in val_errs),
+            "per_card": pers_card.tolist(), "per_cpu": pers_cpu.tolist(),
+            "per_ok": bool(np.abs(pers_card - pers_cpu).max()
+                           <= one_edit + 1e-9)}
+
+
+class _CardCcaRoute:
+    """Within the block, the CCA's small SVD takes the Gram route on CPU
+    tensors too, as it does on the card (``cca._svd_small``: eigh of
+    g^T g, near-zero canonical directions dropped); on the CPU it runs
+    ``torch.linalg.svd`` and keeps them, which moves the projection."""
+
+    def __enter__(self):
+        from cross_patient_speech_decoding_tpu_torch.ops import cca
+
+        self.cca, self.svd = cca, cca._svd_small
+        svd = self.svd
+        cca._svd_small = lambda g, method, force_gram=None: svd(
+            g, method, True if method == "gram" else force_gram)
+
+    def __exit__(self, *exc):
+        self.cca._svd_small = self.svd
+
+
+def _separated(lat):
+    """Latent columns whose singular value (a PCA latent's column norm)
+    stands apart from its neighbours by 1 % of the largest, the alignment
+    tests' rule (tests/test_torch_alignment.py:_check_pca): near-equal
+    noise directions turn within their span between two eigensolvers."""
+    s = lat.reshape(-1, lat.shape[-1]).double().norm(dim=0)
+    apart = (s[1:] - s[:-1]).abs() > 1e-2 * s.max()
+    sep = s > 0
+    sep[:-1] &= apart
+    sep[1:] &= apart
+    return sep
+
+
+def _check_fir_tf32(torch, dev):
+    """``fir_filter`` on the card with TF32 switched on by the caller
+    (cuDNN's legacy switch and the conv's own) against the CPU: 128
+    channels, 2,000 samples, 8 bands of 65 taps."""
+    from cross_patient_speech_decoding_tpu_torch.ops.signal import fir_filter
+
+    gen = torch.Generator().manual_seed(5)
+    data = torch.randn(128, 2000, generator=gen)
+    coefs = torch.randn(8, 65, generator=gen) / 65
+    conv = torch.backends.cudnn.conv
+    before = (torch.backends.cudnn.allow_tf32, conv.fp32_precision)
+    torch.backends.cudnn.allow_tf32 = True
+    conv.fp32_precision = "tf32"
+    try:
+        got = fir_filter(data.to(dev), coefs.to(dev))
+        # the same convolution without the pin, for scale
+        raw = torch.nn.functional.conv1d(
+            torch.nn.functional.pad(data.to(dev), (64, 0))[:, None],
+            coefs.flip(-1)[:, None].to(dev)).transpose(1, 2)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = before[0]
+        conv.fp32_precision = before[1]
+    want = fir_filter(data, coefs)
+    err = _rel(got.cpu(), want)
+    return {"rel_err": err, "unpinned_conv_rel_err": _rel(raw.cpu(), want),
+            "fir_ok": err <= FIR_RTOL}
 
 
 def phase_streaming(torch, dev, gru, model):

@@ -1,0 +1,834 @@
+"""The CTC experiment driver: ``run_train_ctc`` (``cpsd train-ctc``).
+
+Port of the CTC section of ``cross_patient_speech_decoding_tpu/cli/
+experiments.py`` (:142-230, :1065-1750, the analog of the reference's
+``train_ctc_rnn.py``). One run trains and tests the realtime CTC RNN in
+one of four contexts: ``chance`` (target data, labels permuted or drawn
+at random), ``patient`` (target data only), ``unaligned`` (the target
+pooled with cross patients, each PCA'd to 32 latents) and ``aligned``
+(the cross patients' latents mapped into the target's by class-averaged
+CCA). Each of ``n_iter`` iterations splits the target, prepares the
+pooled set, augments it, trains with ``train.loops.fit``, tests, and
+appends its PER to a results pickle, from which a rerun resumes.
+
+The same numpy ``rng`` calls happen in the same order as in the JAX
+package, so splits, chance labels and subsamples are equal. Where the
+JAX package draws from ``jax.random.key(seed + k)``, the port draws from
+a ``torch.Generator`` on the run's device seeded with the same integer:
+the initial weights from ``seed + it`` (``RealtimeRNN``'s own generator),
+the augmentations from ``seed + 500 + it``, dropout from
+``seed + 1000 + it``. Those streams differ from JAX's by design.
+
+Not ported yet, and refused: ``init_ckpt`` (ROADMAP queue 1, item 10),
+``n_devices > 0`` (item 11), ``log_format='tb'`` (item 10, refused by
+``train.loops.append_metrics`` on the first epoch logged).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import re
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from cross_patient_speech_decoding_tpu_torch.data import (
+    make_synthetic_patients_device,
+)
+from cross_patient_speech_decoding_tpu_torch.data.loaders import (
+    append_results_pkl,
+    load_pkl,
+)
+from cross_patient_speech_decoding_tpu_torch.data.splits import (
+    train_val_test_masks,
+)
+from cross_patient_speech_decoding_tpu_torch.utils.config import (
+    TrainCTCConfig,
+)
+from cross_patient_speech_decoding_tpu_torch.utils.device import (
+    resolve_device,
+)
+from cross_patient_speech_decoding_tpu_torch.utils.labels import (
+    encode_label_sequences,
+    to_class_ids,
+)
+
+# Pooled contexts fit PCA and CCA to this common latent width.
+MAX_K = 32
+
+# ---------------------------------------------------------- synthetic data --
+
+# One entry, keyed by (seed, sizes, device): pooled synthetic contexts
+# re-prepare every iteration, but the dataset is a function of its key, so
+# it is made once. One entry only: at reference scale it holds ~0.4 GB of
+# device memory, and a sweep over seeds in one process must drop the last
+# seed's arrays. Values are (X tensor on the device, labels, input lengths,
+# label lengths as numpy) per patient; no caller changes them in place.
+_SYNTH_CTC_CACHE: dict = {}
+
+
+def _synthetic_ctc_key(seed, n_patients, n_trials, T, channels, vocab,
+                       seq_len, device) -> tuple:
+    return (seed, n_patients, n_trials, T, tuple(channels), vocab, seq_len,
+            str(resolve_device(device)))
+
+
+def _synthetic_ctc(seed=0, n_patients=3, n_trials=120, T=200,
+                   channels=(64, 80, 72), vocab=9, seq_len=3, device=None):
+    """Synthetic CTC dataset: per patient (X (N, T, C) float32 on the
+    device, labels (N, seq_len) in 1..9, input lengths, label lengths)."""
+    key = _synthetic_ctc_key(seed, n_patients, n_trials, T, channels, vocab,
+                             seq_len, device)
+    if key in _SYNTH_CTC_CACHE:
+        return _SYNTH_CTC_CACHE[key]
+    _SYNTH_CTC_CACHE.clear()  # free the last entry before making this one
+    ds = make_synthetic_patients_device(
+        seed=seed, n_patients=n_patients, n_classes=min(27, vocab**2),
+        trials_per_class=max(1, n_trials // 27), T=T, channels=channels,
+        latent_dim=12, noise=0.5, seq_len=seq_len, device=device)
+    out = []
+    for p in range(n_patients):
+        n = len(ds.X[p])
+        out.append((
+            ds.X[p].to(torch.float32).contiguous(),
+            np.asarray(ds.y_seq[p], np.int32),
+            np.full(n, T, np.int32),
+            np.full(n, seq_len, np.int32),
+        ))
+    _SYNTH_CTC_CACHE[key] = out
+    return out
+
+
+def _synthetic_ctc_channels(cfg) -> tuple:
+    n_p = getattr(cfg, "synth_patients", 3)
+    return (64, 80, 72, 111, 96, 128, 56, 104)[:n_p]
+
+
+def _synthetic_ctc_cfg(cfg, device=None):
+    """:func:`_synthetic_ctc` sized by the config's ``synth_*`` knobs
+    (reference CTC production scale: 8 patients, ~250 trials, T=600)."""
+    return _synthetic_ctc(
+        seed=cfg.seed, n_patients=getattr(cfg, "synth_patients", 3),
+        n_trials=getattr(cfg, "synth_trials", 120),
+        T=getattr(cfg, "synth_T", 200), channels=_synthetic_ctc_channels(cfg),
+        device=device,
+    )
+
+
+def _synthetic_ctc_n_trials(cfg) -> int:
+    """Per-patient trial count of :func:`_synthetic_ctc_cfg` without making
+    the dataset (27 sequence classes x trials // 27 each)."""
+    return 27 * max(1, getattr(cfg, "synth_trials", 120) // 27)
+
+
+# ------------------------------------------------------------------- prep --
+
+def _pca_fit_lat(X, mask, n_comp, max_k):
+    """Per-patient PCA (the CTC datamodules' low-component guard,
+    ``low_refit_k=30``) and the patient's latents.
+
+    A component's sign is free, and the eigensolvers of the card and of
+    the CPU choose it differently; each is flipped so that its largest
+    loading is positive, so a run sees the same latents on every device.
+    (The JAX package keeps its eigensolver's sign.)
+    """
+    from cross_patient_speech_decoding_tpu_torch.decoders.pooled import (
+        _fit_pca_latents,
+        _transform_latents,
+    )
+
+    st = _fit_pca_latents(X, n_comp, max_k, sample_mask=mask, low_refit_k=30)
+    comp = st.components
+    lead = comp.gather(0, comp.abs().argmax(0, keepdim=True))[0]
+    st = st._replace(components=comp * torch.where(lead < 0, -1.0, 1.0))
+    return st, _transform_latents(st, X, max_k)
+
+
+def _pca_apply(st, X, max_k):
+    from cross_patient_speech_decoding_tpu_torch.decoders.pooled import (
+        _transform_latents,
+    )
+
+    return _transform_latents(st, X, max_k)
+
+
+def _cca_align_lat(lat_a, lat_b, ids_a, ids_b, mask_a, n_classes):
+    """A cross patient's latents mapped into the target's by class-averaged
+    CCA (``chol``), fitted on the target rows of ``mask_a``."""
+    from cross_patient_speech_decoding_tpu_torch.ops.cca import (
+        fit_cca_aligner,
+        transform_b_to_a,
+    )
+
+    al = fit_cca_aligner(lat_a, lat_b, ids_a, ids_b, n_classes,
+                         mask_a=mask_a)
+    return transform_b_to_a(al, lat_b)
+
+
+def _tuple_arg(s: str):
+    return tuple(float(x) for x in str(s).split(","))
+
+
+def _subsample_ctc_set(d, frac: float, rng: np.random.Generator):
+    """Stratified (by first label) row subsample of one CTC dataset tuple,
+    the fig_5 data-scaling axis applied to a cross patient's trials."""
+    X, y, il, ll = d
+    y = np.asarray(y)
+    keep = []
+    for c in np.unique(y[:, 0]):
+        idx = np.where(y[:, 0] == c)[0]
+        n_keep = max(1, int(round(frac * len(idx))))
+        keep.append(rng.permutation(idx)[:n_keep])
+    keep = np.sort(np.concatenate(keep))
+    return (_take(X, keep), y[keep], np.asarray(il)[keep],
+            np.asarray(ll)[keep])
+
+
+def _take(X, idx):
+    """Rows ``idx`` of X: a tensor is indexed on its own device."""
+    if torch.is_tensor(X):
+        return X[torch.as_tensor(idx, device=X.device)]
+    return np.asarray(X)[idx]
+
+
+def _with_labels(X, y, T=None):
+    """(X, labels) -> CTC tuple (X, labels, input_lens, label_lens). A
+    tensor X stays where it is (float32); anything else becomes numpy."""
+    n = len(X)
+    T = X.shape[1] if T is None else T
+    X = X.to(torch.float32) if torch.is_tensor(X) else np.asarray(
+        X, np.float32)
+    return (
+        X,
+        np.asarray(y, np.int32),
+        np.full(n, T, np.int32),
+        np.full(n, y.shape[1], np.int32),
+    )
+
+
+def _chance_labels(cfg: TrainCTCConfig, y: np.ndarray,
+                   rng: np.random.Generator) -> np.ndarray:
+    """Chance-context label null: permutation (train_ctc_rnn.py:155-158)
+    or fresh random sequences (tune_ctc_rnn.py make_chance_labels)."""
+    if cfg.chance_mode == "random":
+        from cross_patient_speech_decoding_tpu_torch.utils.labels import (
+            make_chance_labels,
+        )
+
+        return make_chance_labels(rng, len(y), y.shape[1], n_sil=cfg.n_sil)
+    if cfg.chance_mode != "permute":
+        raise ValueError(
+            f"chance_mode must be 'permute' or 'random', got {cfg.chance_mode!r}"
+        )
+    return y[rng.permutation(len(y))]
+
+
+def _class_ids(ys, device):
+    """Sequence labels of every patient -> compact class ids on ``device``
+    over their shared universe, and the universe's size."""
+    enc = [encode_label_sequences(y) for y in ys]
+    uni = np.unique(np.concatenate(enc))
+    ids = [torch.as_tensor(to_class_ids(e, uni)[0], device=device)
+           for e in enc]
+    return ids, len(uni)
+
+
+def _load_ctc_files(cfg: TrainCTCConfig, rng: np.random.Generator,
+                    device=None):
+    """Reference CTC ingestion from the HDF5 file (train_ctc_rnn.py:88-150).
+
+    Target train/test from the file's split; optional stratified target
+    subsample; pooled contexts load every ``train_pts`` patient (one-block
+    patients train-only, others train and test), project through
+    precomputed PCA/CCA transforms when ``pca_path`` is set, or fit PCA
+    (+ CCA) on ``device`` otherwise.
+
+    Returns (datasets, C, test): datasets[0] is the target train set.
+    """
+    from cross_patient_speech_decoding_tpu_torch.data.loaders import (
+        apply_latent_xform,
+        load_cca_xform,
+        load_ctc_h5,
+        load_pca_xform,
+    )
+
+    dev = resolve_device(device)
+    tw_sel, tw_orig = _tuple_arg(cfg.tw_select), _tuple_arg(cfg.tw_orig)
+    X_t, y_t, X_te, y_te = load_ctc_h5(
+        cfg.data, cfg.target_pt, tw_sel, tw_orig, zscore=cfg.zscore,
+        n_sil=cfg.n_sil,
+    )
+    if cfg.target_subsample < 1.0:
+        # stratified train-size subsample by first phoneme (:104-116)
+        keep = []
+        for c in np.unique(y_t[:, 0]):
+            idx = np.where(y_t[:, 0] == c)[0]
+            n_keep = max(1, int(round(cfg.target_subsample * len(idx))))
+            keep.append(rng.permutation(idx)[:n_keep])
+        keep = np.concatenate(keep)
+        X_t, y_t = X_t[keep], y_t[keep]
+
+    if cfg.context == "chance":
+        y_t = _chance_labels(cfg, y_t, rng)
+
+    pooled = cfg.context in ("unaligned", "aligned")
+    cross = []
+    if pooled and cfg.train_pts:
+        only_train_set = set(filter(None, cfg.only_train_pts.split(",")))
+        for pt in cfg.train_pts.split(","):
+            pt = pt.strip()
+            if not pt or pt == cfg.target_pt:
+                continue
+            one_block = pt in only_train_set
+            X_p, y_p, _, _ = load_ctc_h5(
+                cfg.data, pt, tw_sel, tw_orig, zscore=cfg.zscore,
+                only_train=one_block, load_all=not one_block,
+                n_sil=cfg.n_sil,
+            )
+            cross.append((pt, X_p, y_p))
+
+    if not pooled or not cross:
+        datasets = [_with_labels(X_t, y_t)]
+        return datasets, X_t.shape[-1], _with_labels(X_te, y_te)
+
+    align_pt = cfg.align_pt or cfg.target_pt
+    if cfg.pca_path:
+        # precomputed offline transforms (tune_ctc_rnn.py:109-205)
+        W_t = load_pca_xform(cfg.pca_path, cfg.target_pt)
+        M_t = None
+        if cfg.context == "aligned" and cfg.target_pt != align_pt:
+            M_t = load_cca_xform(cfg.cca_path, align_pt, cfg.target_pt)
+        lat_t = apply_latent_xform(X_t, W_t, M_t)
+        lat_te = apply_latent_xform(X_te, W_t, M_t)
+        lats = []
+        for pt, X_p, y_p in cross:
+            W_p = load_pca_xform(cfg.pca_path, pt)
+            M_p = None
+            if cfg.context == "aligned" and pt != align_pt:
+                M_p = load_cca_xform(cfg.cca_path, align_pt, pt)
+            lats.append((apply_latent_xform(X_p, W_p, M_p), y_p))
+        if cfg.context == "unaligned":
+            # truncate to common latent width (tune_ctc_rnn.py:197-205)
+            min_dim = min([lat_t.shape[-1]] + [l.shape[-1] for l, _ in lats])
+            lat_t, lat_te = lat_t[..., :min_dim], lat_te[..., :min_dim]
+            lats = [(l[..., :min_dim], y) for l, y in lats]
+        datasets = [_with_labels(lat_t, y_t)]
+        datasets += [_with_labels(l, y) for l, y in lats]
+        return datasets, lat_t.shape[-1], _with_labels(lat_te, y_te)
+
+    # on-the-fly PCA (+ CCA for the aligned context), fit on train only
+    def on_dev(X):
+        return torch.as_tensor(X, dtype=torch.float32, device=dev)
+
+    pca_t, lat_t = _pca_fit_lat(on_dev(X_t), None, cfg.n_components, MAX_K)
+    lat_te = _pca_apply(pca_t, on_dev(X_te), MAX_K)
+    cross_lats = [_pca_fit_lat(on_dev(X_p), None, cfg.n_components, MAX_K)[1]
+                  for _, X_p, _ in cross]
+    ids, n_cls = _class_ids([y_t] + [y_p for _, _, y_p in cross], dev)
+
+    datasets = [_with_labels(lat_t, y_t)]
+    for i, (lat, (_, _, y_p)) in enumerate(zip(cross_lats, cross)):
+        if cfg.context == "aligned":
+            lat = _cca_align_lat(lat_t, lat, ids[0], ids[i + 1], None, n_cls)
+        datasets.append(_with_labels(lat, y_p))
+    return datasets, MAX_K, _with_labels(lat_te, y_te)
+
+
+def _prep_ctc_context(cfg: TrainCTCConfig, rng: np.random.Generator,
+                      tar_train_mask=None, device=None):
+    """Pool and align CTC data per context (select_datamodule analog).
+
+    Returns (datasets, n_features, test): datasets[0] is the target train
+    set; ``test`` is the file-defined held-out set (None for synthetic
+    data, where the caller splits by mask).
+
+    ``tar_train_mask`` (synthetic pooled contexts): (n_tar,) float mask of
+    the iteration's target train rows. The target PCA and every CCA fit
+    are restricted to it, so held-out trials never shape the pooled
+    features; cross patients' own fits use all their rows.
+    """
+    if cfg.data != "synthetic":
+        return _load_ctc_files(cfg, rng, device)
+
+    dev = resolve_device(device)
+    pts = _synthetic_ctc_cfg(cfg, dev)
+    X_t, y_t, il_t, ll_t = pts[0]
+    if cfg.context == "chance":
+        y_t = _chance_labels(cfg, y_t, rng)
+        return [(X_t, y_t, il_t, ll_t)], X_t.shape[-1], None
+
+    if cfg.context == "patient":
+        return [(X_t, y_t, il_t, ll_t)], X_t.shape[-1], None
+
+    # pooled contexts: per-patient PCA to a common width
+    mask = (None if tar_train_mask is None else
+            torch.as_tensor(tar_train_mask, dtype=torch.float32, device=dev))
+    lats = [_pca_fit_lat(X, mask if i == 0 else None, cfg.n_components,
+                         MAX_K)[1]
+            for i, (X, _, _, _) in enumerate(pts)]
+    ids, n_cls = _class_ids([y for _, y, _, _ in pts], dev)
+
+    out = []
+    for i, lat in enumerate(lats):
+        if cfg.context == "aligned" and i > 0:
+            lat = _cca_align_lat(lats[0], lat, ids[0], ids[i], mask, n_cls)
+        _, y, il, ll = pts[i]
+        out.append((lat.to(torch.float32), y, il, ll))
+    return out, MAX_K, None
+
+
+_HPARAM_TO_CFG = {
+    # reference tuned-hparam h5 keys -> config field (train_ctc_rnn.py:394-401)
+    "learning_rate": "lr",
+    "gclip_val": "clip",
+    "hidden_size": "hidden",
+    "n_layers": "n_layers",
+    "dropout": "dropout",
+    "l2_reg": "weight_decay",
+}
+
+_CONTEXT_NAMES = {
+    # config context -> reference context string (train_ctc_rnn.py:404-412)
+    "aligned": "aligned",
+    "unaligned": "unaligned",
+    "chance": "chance",
+    "patient": "ptSpecific",
+}
+
+
+def _apply_tuned_hparams(cfg: TrainCTCConfig) -> TrainCTCConfig:
+    """Overlay tuned hparams from a sweep output dir onto the config."""
+    if not cfg.hparam_dir:
+        return cfg
+    from cross_patient_speech_decoding_tpu_torch.data.loaders import (
+        load_tuned_hparams,
+    )
+
+    defaults = {k: getattr(cfg, f) for k, f in _HPARAM_TO_CFG.items()}
+    tuned = load_tuned_hparams(
+        cfg.hparam_dir, cfg.target_pt, _CONTEXT_NAMES[cfg.context], defaults
+    )
+    updates = {f: type(getattr(cfg, f))(tuned[k])
+               for k, f in _HPARAM_TO_CFG.items()}
+    return dataclasses.replace(cfg, **updates)
+
+
+# ------------------------------------------------------------- persistence --
+
+def _same_run_config(stored: dict, current: dict) -> bool:
+    """True when a persisted results file belongs to this run's config.
+
+    ``n_iter`` and ``out`` may differ (resuming with a larger iteration
+    budget is the use case), as may the output and observability fields
+    that cannot change results (``results_h5``, ``log_metrics``,
+    ``log_format``, ``trace``) and the execution topology
+    (``n_devices``). Anything else, e.g. another ``context`` writing to
+    the same default path, must not resume.
+    """
+    skip = {"n_iter", "out", "results_h5", "log_metrics",
+            "log_format", "trace", "n_devices"}
+    keys = (set(stored) | set(current)) - skip
+    return all(stored.get(k) == current.get(k) for k in keys)
+
+
+# set-aside copies kept per results file name: repeated mismatched reruns
+# leave a bounded footprint while the newest few survive
+STALE_KEEP = 10
+
+_STALE_STAMP = r"\d{8}-\d{6}(?:\.\d+)?_"
+
+
+def _stale_copies(stale_dir: Path, name: str):
+    """The set-asides of results file ``name`` in ``stale_dir``: exactly
+    ``{timestamp}_{name}`` or ``{timestamp}.{n}_{name}``. (The JAX package
+    globs ``*_{name}``, which also matches set-asides of a sibling stem
+    such as ``x_ctc.pkl`` beside ``ctc.pkl``, and then prunes them.)"""
+    pat = re.compile(_STALE_STAMP + re.escape(name))
+    return [f for f in stale_dir.iterdir()
+            if f.is_file() and pat.fullmatch(f.name)]
+
+
+def _set_aside_stale(p: Path) -> Path:
+    """Move a config-mismatched results file into the ``_stale/`` sidecar
+    next to it (timestamped, collision-safe), then prune that file's
+    set-asides to the newest :data:`STALE_KEEP`."""
+    stale_dir = p.parent / "_stale"
+    stale_dir.mkdir(parents=True, exist_ok=True)
+    ts = time.strftime("%Y%m%d-%H%M%S")
+    stale = stale_dir / f"{ts}_{p.name}"
+    n = 1
+    while stale.exists():
+        stale = stale_dir / f"{ts}.{n}_{p.name}"
+        n += 1
+    p.rename(stale)
+    # rename keeps the file's mtime, so this orders by when each store
+    # was last written (ns resolution breaks same-second ties)
+    olds = sorted(_stale_copies(stale_dir, p.name),
+                  key=lambda f: f.stat().st_mtime_ns)
+    for f in olds[:-STALE_KEEP]:
+        f.unlink()
+    return stale
+
+
+def _completed_results(out_path: str, params: dict, scalar: bool = True,
+                       set_aside: bool = True):
+    """Per-iteration results already persisted, for kill-and-resume.
+
+    The incremental results pickle is the manifest. A file written by a
+    different config is set aside (:func:`_set_aside_stale`) so stale
+    results never pass for this run's; ``set_aside=False`` makes the check
+    read-only (mismatches return [] and the file stays).
+    """
+    if not out_path:
+        return []
+    p = Path(out_path)
+    if not p.is_file():
+        return []
+    store = load_pkl(p)
+    if not _same_run_config(store.get("params", {}), params):
+        if not set_aside:
+            return []
+        stale = _set_aside_stale(p)
+        print(f"config mismatch: prior results moved to {stale}", flush=True)
+        return []
+    accs = store.get("accs", [])
+    if scalar:
+        return [float(np.asarray(a).ravel()[0]) for a in accs]
+    return [np.asarray(a) for a in accs]
+
+
+# ----------------------------------------------------------- augmentation --
+
+_CTC_AUGS = (
+    "time_warping", "time_masking", "time_shifting", "noise_jitter",
+    "scaling",
+)
+
+
+def _parse_augmentations(spec: str):
+    """training.augmentations YAML list analog: '' = none, 'all' = the
+    reference default (all five transforms, train_ctc_rnn_config.yaml)."""
+    if not spec:
+        return ()
+    names = _CTC_AUGS if spec == "all" else tuple(
+        s.strip() for s in spec.split(",") if s.strip()
+    )
+    bad = [n for n in names if n not in _CTC_AUGS]
+    if bad:
+        raise ValueError(f"unknown augmentations {bad}; pick from {_CTC_AUGS}")
+    return names
+
+
+def _augment_stack(x, names, generator):
+    """[x, aug1(x), aug2(x), ...] concatenated on the trial axis; each
+    transform sees the original tensor (the reference datamodules' concat
+    semantics, realtime_datamodule.py:239-244)."""
+    from cross_patient_speech_decoding_tpu_torch.ops import augment
+
+    return torch.cat([x] + [getattr(augment, name)(generator, x)
+                            for name in names])
+
+
+def _apply_ctc_augmentations(train_batch, names, generator):
+    """Augmented copies of the pooled CTC train set; labels and lengths
+    repeat."""
+    x, y, il, ll = train_batch
+    reps = len(names) + 1
+    return (_augment_stack(x, names, generator), torch.cat([y] * reps),
+            torch.cat([il] * reps), torch.cat([ll] * reps))
+
+
+# ----------------------------------------------------------- observability --
+
+def _run_log_path(out: str, run_name: str, it: int, fold: int | None = None,
+                  fmt: str = "csv"):
+    """Per-epoch metrics log path next to the results file:
+    ``logs/{run_name}/iter{it:03d}[_fold{k:02d}].{csv|jsonl}``, or for
+    ``tb`` a run directory. Called only for iterations about to run, so a
+    file already there is an earlier run's and is removed."""
+    if not out:
+        return None
+    d = Path(out).parent / "logs" / run_name
+    stem = f"iter{it:03d}" + ("" if fold is None else f"_fold{fold:02d}")
+    if fmt == "tb":
+        run_dir = d / stem
+        if run_dir.is_dir():
+            for old_ev in run_dir.glob("events.out.tfevents.*"):
+                old_ev.unlink()
+        return str(run_dir)
+    p = d / (stem + (".jsonl" if fmt == "jsonl" else ".csv"))
+    if p.exists():
+        p.unlink()
+    return str(p)
+
+
+def _maybe_trace(enabled: bool, out: str, run_name: str):
+    """``torch.profiler`` trace of the first executed iteration
+    (``trace=true``), under ``trace/{run_name}`` beside the results file."""
+    if not enabled:
+        return contextlib.nullcontext()
+    from cross_patient_speech_decoding_tpu_torch.utils.profiling import trace
+
+    d = Path(out or "results").parent / "trace" / run_name
+    d.mkdir(parents=True, exist_ok=True)
+    return trace(str(d))
+
+
+# --------------------------------------------------------------- train ctc --
+
+def _init_model(cfg: TrainCTCConfig, in_channels: int, it: int, device):
+    """Iteration ``it``'s model, initial weights from seed ``cfg.seed +
+    it`` (the JAX driver's ``model.init(jax.random.key(seed + it))``)."""
+    from cross_patient_speech_decoding_tpu_torch.models import RealtimeRNN
+
+    return RealtimeRNN(in_channels, cfg.hidden, cfg.n_layers, 11,
+                       dropout=cfg.dropout, win_size=cfg.win_size,
+                       stride=cfg.stride, seed=cfg.seed + it, device=device)
+
+
+def _on(a, dev):
+    """A tensor or a numpy array as a tensor on ``dev``."""
+    return a.to(dev) if torch.is_tensor(a) else torch.as_tensor(
+        np.asarray(a), device=dev)
+
+
+def run_train_ctc(cfg: TrainCTCConfig, verbose: bool = True, device=None):
+    """CTC training and test for one context; returns the test PER of each
+    iteration, as numpy.
+
+    Runs on ``device`` (default: the first CUDA card; raises without one
+    unless ``device='cpu'``). File-backed runs (``data=<path.h5>``) follow
+    the reference pipeline: h5 ingestion and pooling, tuned-hparam
+    override, per-iteration incremental persistence to ``out``, and resume
+    (completed iterations are skipped on restart).
+    """
+    from cross_patient_speech_decoding_tpu_torch.train import (
+        create_train_state,
+        make_ctc_eval_step,
+        make_ctc_train_step,
+    )
+    from cross_patient_speech_decoding_tpu_torch.train.loops import (
+        fit as fit_loop,
+        make_optimizer,
+    )
+
+    dev = resolve_device(device)
+    if cfg.init_ckpt:
+        raise NotImplementedError(
+            "init_ckpt: loading the reference's Lightning checkpoints is not "
+            "ported yet (ROADMAP queue 1, item 10: models/torch_import)")
+    if getattr(cfg, "n_devices", 0) > 0:
+        raise NotImplementedError(
+            "n_devices > 0: multi-device training is not ported yet "
+            "(ROADMAP queue 1, item 11: parallel/)")
+    cfg = _apply_tuned_hparams(cfg)
+    if cfg.results_h5 and not (cfg.save_logits and cfg.out):
+        # the reference's save_results writes `logits` unconditionally
+        # (train_ctc_rnn.py:448-491): warn before training, not after
+        print(
+            "WARNING: results_h5 is set but logits will be OMITTED from "
+            "the h5 (needs save_logits=true and a results pkl via out=); "
+            "reference notebooks reading f['logits'] will fail on it",
+            flush=True,
+        )
+    done = _completed_results(cfg.out, vars(cfg)) if cfg.out else []
+    pers = list(done[: cfg.n_iter])
+    if pers and verbose:
+        print(f"resuming: {len(pers)}/{cfg.n_iter} iterations already done",
+              flush=True)
+    if cfg.out:
+        Path(cfg.out).parent.mkdir(parents=True, exist_ok=True)
+    run_name = f"{cfg.target_pt}_{_CONTEXT_NAMES[cfg.context]}_ctcRnn"
+    start_it = len(pers)
+
+    # prep depends on the iteration's rng only for chance labels and the
+    # target subsample, and synthetic pooled contexts fit the target PCA
+    # and CCA on each iteration's train rows; otherwise prepare once
+    synth_pooled = (
+        cfg.data == "synthetic" and cfg.context in ("aligned", "unaligned")
+    )
+    prep_invariant = (
+        cfg.context != "chance" and cfg.target_subsample >= 1.0
+        and not synth_pooled
+    )
+    prep_cache = None
+    if prep_invariant and len(pers) < cfg.n_iter:
+        prep_cache = _prep_ctc_context(cfg, np.random.default_rng(cfg.seed),
+                                       device=dev)
+    n_tar = _synthetic_ctc_n_trials(cfg) if synth_pooled else None
+    tx = make_optimizer(cfg.lr, cfg.weight_decay, cfg.decay_steps,
+                        clip=cfg.clip)
+    aug_names = _parse_augmentations(cfg.augmentations)
+
+    for it in range(len(pers), cfg.n_iter):
+        # per-iteration generator so resumed runs are deterministic
+        rng = np.random.default_rng(cfg.seed + 7919 * it)
+        if synth_pooled:
+            # split first (prep draws nothing here), then fit the
+            # target-side PCA and CCA on the train rows only
+            tr, va, te = train_val_test_masks(
+                n_tar, rng, cfg.val_frac, cfg.test_frac
+            )
+            datasets, C, test = _prep_ctc_context(
+                cfg, rng, tar_train_mask=tr, device=dev
+            )
+            te_i = np.where(te > 0)[0]
+        else:
+            datasets, C, test = (
+                prep_cache if prep_cache is not None
+                else _prep_ctc_context(cfg, rng, device=dev)
+            )
+            n = len(datasets[0][0])
+            if test is None:
+                tr, va, te = train_val_test_masks(
+                    n, rng, cfg.val_frac, cfg.test_frac
+                )
+                te_i = np.where(te > 0)[0]
+            else:
+                tr, va, _ = train_val_test_masks(n, rng, cfg.val_frac, 0.0)
+                te_i = None
+        tar = datasets[0]
+        tr_i, va_i = np.where(tr > 0)[0], np.where(va > 0)[0]
+
+        def batch(idx):
+            return tuple(_on(_take(a, idx), dev) for a in tar)
+
+        train_batch = batch(tr_i)
+        if len(datasets) > 1:  # append the pooled cross data to train
+            cross_sets = datasets[1:]
+            if cfg.cross_subsample < 1.0:
+                # fig_5 data-scaling axis: per-iteration stratified
+                # subsample of each cross patient's pooled trials
+                cross_sets = [
+                    _subsample_ctc_set(d, cfg.cross_subsample, rng)
+                    for d in cross_sets
+                ]
+            train_batch = tuple(
+                torch.cat([train_batch[j]] + [_on(d[j], dev)
+                                              for d in cross_sets])
+                for j in range(4))
+
+        test_batch = batch(te_i) if test is None else tuple(
+            _on(a, dev) for a in test)
+
+        if aug_names:
+            gen_aug = torch.Generator(device=dev).manual_seed(
+                cfg.seed + 500 + it)
+            train_batch = _apply_ctc_augmentations(train_batch, aug_names,
+                                                   gen_aug)
+
+        model = _init_model(cfg, train_batch[0].shape[-1], it, dev)
+        state = create_train_state(model, tx)
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1000 + it)
+        with _maybe_trace(cfg.trace and it == start_it, cfg.out, run_name):
+            res = fit_loop(
+                state,
+                make_ctc_train_step(model, tx),
+                make_ctc_eval_step(model),
+                train_batch,
+                batch(va_i),
+                epochs=cfg.epochs,
+                generator=gen,
+                monitor="per",
+                mode="min",
+                batch_size=cfg.batch_size or None,
+                eval_every=max(1, cfg.epochs // 30),
+                log_path=(
+                    _run_log_path(cfg.out, run_name, it,
+                                  fmt=cfg.log_format)
+                    if cfg.log_metrics else None
+                ),
+                log_format=cfg.log_format,
+            )
+        best = res.best_state.model
+        per = float(make_ctc_eval_step(best)(test_batch)["per"])
+        if cfg.decode == "beam":
+            per = _beam_rescore_per(best, test_batch, cfg)
+        pers.append(per)
+        extra = None
+        if cfg.save_logits:
+            # per-iteration test log-probs, the reference results-h5
+            # 'logits' dataset (train_ctc_rnn.py:215-224, 483)
+            extra = {"logits": _test_log_probs(best, test_batch[0])}
+        if cfg.out:
+            append_results_pkl(cfg.out, np.asarray([per]), params=vars(cfg),
+                               extra=extra)
+        if verbose:
+            print(f"iter {it} [{cfg.context}]: test PER {per:.1f}%", flush=True)
+        del res, state, model, best, train_batch
+    if cfg.results_h5:
+        _write_results_h5(cfg, pers)
+    return np.asarray(pers)
+
+
+def _test_log_probs(model, x) -> np.ndarray:
+    """log-softmax of the model's logits (eval mode) as float32 numpy."""
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            lp = torch.log_softmax(model(x), dim=-1)
+    finally:
+        model.train(was_training)
+    return lp.cpu().numpy()
+
+
+def _write_results_h5(cfg: TrainCTCConfig, pers) -> None:
+    """The reference's results-h5 layout (train_ctc_rnn.py:448-491); the
+    logits come from the incremental pkl when they were saved."""
+    from cross_patient_speech_decoding_tpu_torch.data.loaders import (
+        save_ctc_results_h5,
+    )
+    from cross_patient_speech_decoding_tpu_torch.utils.labels import PHON_DICT
+
+    logits = None
+    if cfg.save_logits and cfg.out and Path(cfg.out).exists():
+        # extras append in lockstep with accs: the first len(pers) are the
+        # iterations reported (the pkl may hold more after a resume with
+        # a smaller n_iter)
+        ex = load_pkl(cfg.out).get("extra", [])[: len(pers)]
+        if len(ex) == len(pers) and all(e and "logits" in e for e in ex):
+            logits = np.stack([e["logits"] for e in ex])
+    save_ctc_results_h5(
+        cfg.results_h5, np.asarray(pers), logits, PHON_DICT,
+        model_hparams={
+            "hidden_size": cfg.hidden, "n_layers": cfg.n_layers,
+            "dropout": cfg.dropout, "learning_rate": cfg.lr,
+            "l2_reg": cfg.weight_decay, "win_size": cfg.win_size,
+            "stride": cfg.stride,
+        },
+    )
+
+
+def _beam_rescore_per(model, batch, cfg) -> float:
+    """Test PER with prefix beam search on the host (the reference's
+    ctc_decoder.py beam path; C++ through ``realtime.beam``, Python where
+    the library cannot be built)."""
+    from cross_patient_speech_decoding_tpu_torch.models import (
+        adjusted_input_lengths,
+    )
+    from cross_patient_speech_decoding_tpu_torch.realtime.beam import (
+        edit_distance_batch,
+        prefix_beam_search,
+    )
+
+    x, labels, input_lens, label_lens = batch
+    lp = _test_log_probs(model, x)
+    in_adj = adjusted_input_lengths(input_lens, cfg.win_size,
+                                    cfg.stride).cpu().numpy()
+    labels, label_lens = labels.cpu().numpy(), label_lens.cpu().numpy()
+    preds, pred_lens = [], []
+    max_len = lp.shape[1]
+    for i in range(lp.shape[0]):
+        seq, _ = prefix_beam_search(lp[i, : in_adj[i]], cfg.beam_size)
+        seq = list(seq)[:max_len]
+        preds.append(seq + [0] * (max_len - len(seq)))
+        pred_lens.append(len(seq))
+    dists = edit_distance_batch(
+        np.asarray(preds, np.int32), np.asarray(pred_lens, np.int32),
+        np.asarray(labels, np.int32), np.asarray(label_lens, np.int32),
+    )
+    return float(dists.sum() / max(1, int(label_lens.sum())) * 100.0)

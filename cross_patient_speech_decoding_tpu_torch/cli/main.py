@@ -1,0 +1,116 @@
+"""``cpsd`` command line of the port.
+
+Port of ``cross_patient_speech_decoding_tpu/cli/main.py``: a subcommand
+takes an optional ``--config file.yaml`` and Hydra-style ``key=value``
+overrides. ``train-ctc`` is the only command ported so far; every other
+command of the JAX package is listed and refused with the ROADMAP item
+that ports it. ``device=cpu`` (or ``device=cuda:1``) picks the device;
+the default is the first CUDA card.
+
+Example::
+
+    python -m cross_patient_speech_decoding_tpu_torch.cli.main train-ctc \\
+        context=aligned n_iter=5 epochs=100 device=cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+
+from cross_patient_speech_decoding_tpu_torch.utils.config import (
+    REQUIRED,
+    TrainCTCConfig,
+    load_config,
+)
+
+_COMMANDS = {
+    "train-ctc": (TrainCTCConfig, "run_train_ctc"),
+}
+
+# the JAX package's other commands -> the ROADMAP queue 1 item that ports
+# them (prewarm-ctc filled XLA's compile cache; see item 10)
+_NOT_PORTED = {
+    "svm-decode": 6,
+    "train-seq2seq": 7,
+    "train-nn": 7,
+    "prewarm-ctc": 10,
+    "prewarm-seq2seq": 10,
+    "tune-ctc": 8,
+    "realtime-sim": 10,
+    "analyze": 10,
+    "make-xforms": 10,
+    "subsample-trials": 9,
+    "subsample-grid": 9,
+    "subsample-spatial": 9,
+    "subsample-pitch": 9,
+    "reproduce": 10,
+}
+
+
+def _config_epilog(cfg_cls) -> str:
+    """Field table for ``<cmd> --help``: every key=value override with its
+    default."""
+    lines = ["overridable keys (key=value):", "  device=(first CUDA card)"]
+    for f in dataclasses.fields(cfg_cls):
+        if f.default is dataclasses.MISSING or f.default is REQUIRED:
+            lines.append(f"  {f.name}=(required)")
+        else:
+            lines.append(f"  {f.name}={f.default!r}")
+    return "\n".join(lines)
+
+
+def _split_device(overrides):
+    """(``device=`` value or None, the other overrides): the device is an
+    argument of the run, not a field of the experiment's config, so it
+    does not enter the results file's config and a run resumes across
+    devices."""
+    device, rest = None, []
+    for ov in overrides:
+        if ov.startswith("device="):
+            device = ov.split("=", 1)[1]
+        else:
+            rest.append(ov)
+    return device, rest
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="cpsd",
+        description="Cross-patient speech decoding, PyTorch port",
+    )
+    sub = parser.add_subparsers(dest="command", required=True)
+    for name, (cfg_cls, _) in _COMMANDS.items():
+        doc = (cfg_cls.__doc__ or "").strip()
+        p = sub.add_parser(
+            name,
+            help=doc.splitlines()[0] if doc else None,
+            description=doc or None,
+            epilog=_config_epilog(cfg_cls),
+            formatter_class=argparse.RawDescriptionHelpFormatter,
+        )
+        p.add_argument("--config", default=None, help="YAML config file")
+        p.add_argument("overrides", nargs="*", help="key=value overrides")
+    for name, item in _NOT_PORTED.items():
+        p = sub.add_parser(name, help=f"not ported yet (ROADMAP queue 1, "
+                                      f"item {item})")
+        p.add_argument("rest", nargs=argparse.REMAINDER)
+
+    args = parser.parse_args(argv)
+    if args.command in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{args.command}: not ported yet (ROADMAP queue 1, item "
+            f"{_NOT_PORTED[args.command]})")
+    cfg_cls, fn_name = _COMMANDS[args.command]
+    device, overrides = _split_device(args.overrides)
+    cfg = load_config(cfg_cls, args.config, overrides)
+
+    from cross_patient_speech_decoding_tpu_torch.cli import experiments
+
+    result = getattr(experiments, fn_name)(cfg, device=device)
+    return 0 if result is not None else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

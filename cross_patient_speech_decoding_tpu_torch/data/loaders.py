@@ -1,0 +1,241 @@
+"""File IO of the CTC driver: result pickles, the CTC HDF5 layout,
+offline PCA/CCA transforms, tuned hyperparameters and the results h5.
+
+Port of the CTC part of ``cross_patient_speech_decoding_tpu/data/
+loaders.py`` (numpy, the port's own copy): the same keys, layouts and
+bytes, so files written by either package are read by the other.
+``h5py`` is imported inside the functions that need it, so the module
+imports where it is not installed. The ``.mat`` readers come with the
+classical decoders (ROADMAP queue 1, item 6).
+
+Everything returns numpy; device placement happens in the driver.
+"""
+
+from __future__ import annotations
+
+import pickle
+from pathlib import Path
+
+import numpy as np
+
+
+# ------------------------------------------------------------- pickles ----
+
+def save_pkl(obj, path):
+    with open(path, "wb") as f:
+        pickle.dump(obj, f, protocol=-1)
+
+
+def load_pkl(path):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+# ----------------------------------------------------------------- HDF5 ----
+
+SIL_TOKEN = 10  # train_ctc_rnn.py:34 (PHON_DICT entry 10 = 'sil')
+
+
+def load_ctc_h5(path: str | Path, pt: str, tw_select=(0.5, 3.5),
+                tw_orig=(0.0, 4.0), zscore: bool = False,
+                only_train: bool = False, load_all: bool = False,
+                n_sil: int = 0, sil_token: int = SIL_TOKEN):
+    """Load one patient's CTC train/test data from the reference HDF5 layout.
+
+    Exact contract of ``train_ctc_rnn.load_data``
+    (the reference's `scripts/train_ctc_rnn.py:264-320`):
+
+    - train features at ``{pt}/norm_rt_HG_pow[_z]``, test features at
+      ``{pt}/norm_rt_HG_test_pow[_z]``, both stored (trials, channels,
+      time) and transposed to (trials, time, channels) on load;
+    - labels at ``{pt}/labels_train`` / ``{pt}/labels_test``;
+    - time-window crop via the *inclusive* linspace mask over
+      ``tw_orig`` -> ``tw_select`` (not an index round);
+    - ``n_sil`` silence tokens prepended AND appended to every label row;
+    - ``only_train`` skips test arrays; ``load_all`` concatenates
+      train+test into one training set (used for non-target patients).
+
+    Returns ``(X_train, y_train, X_test, y_test)``; test entries are None
+    under ``only_train``/``load_all`` (which are mutually exclusive:
+    ``load_all`` needs the test block ``only_train`` skips).
+    """
+    import h5py
+
+    if only_train and load_all:
+        raise ValueError("only_train and load_all are mutually exclusive")
+
+    key_train = "norm_rt_HG_pow_z" if zscore else "norm_rt_HG_pow"
+    key_test = "norm_rt_HG_test_pow_z" if zscore else "norm_rt_HG_test_pow"
+    with h5py.File(str(path), "r") as f:
+        X_train = np.asarray(f[f"{pt}/{key_train}"], np.float32).transpose(0, 2, 1)
+        y_train = np.asarray(f[f"{pt}/labels_train"], np.int64)
+        if only_train:
+            X_test = y_test = None
+        else:
+            X_test = np.asarray(f[f"{pt}/{key_test}"], np.float32).transpose(0, 2, 1)
+            y_test = np.asarray(f[f"{pt}/labels_test"], np.int64)
+
+    t_orig = np.linspace(tw_orig[0], tw_orig[1], X_train.shape[1])
+    mask = (t_orig >= tw_select[0]) & (t_orig <= tw_select[1])
+    X_train = X_train[:, mask, :]
+    if not only_train:
+        X_test = X_test[:, mask, :]
+
+    for _ in range(n_sil):
+        y_train = np.insert(y_train, 0, sil_token, axis=1)
+        y_train = np.insert(y_train, y_train.shape[1], sil_token, axis=1)
+        if not only_train:
+            y_test = np.insert(y_test, 0, sil_token, axis=1)
+            y_test = np.insert(y_test, y_test.shape[1], sil_token, axis=1)
+
+    if load_all:
+        X_train = np.concatenate([X_train, X_test], axis=0)
+        y_train = np.concatenate([y_train, y_test], axis=0)
+        X_test = y_test = None
+    return X_train, y_train, X_test, y_test
+
+
+def save_ctc_h5(path: str | Path, pt: str, X_train: np.ndarray,
+                y_train: np.ndarray, X_test: np.ndarray | None = None,
+                y_test: np.ndarray | None = None, zscore: bool = False):
+    """Write the reference CTC HDF5 layout (inverse of :func:`load_ctc_h5`).
+
+    Features are given (trials, time, channels) and stored
+    (trials, channels, time) as the reference files are.
+    """
+    import h5py
+
+    key_train = "norm_rt_HG_pow_z" if zscore else "norm_rt_HG_pow"
+    key_test = "norm_rt_HG_test_pow_z" if zscore else "norm_rt_HG_test_pow"
+    items = [(key_train, X_train.transpose(0, 2, 1)), ("labels_train", y_train)]
+    if X_test is not None:
+        items += [(key_test, X_test.transpose(0, 2, 1)), ("labels_test", y_test)]
+    with h5py.File(str(path), "a") as f:
+        g = f.require_group(pt)
+        for k, v in items:
+            if k in g:
+                del g[k]
+            g.create_dataset(k, data=v)
+
+
+# ------------------------------------------- precomputed latent transforms ----
+
+def load_pca_xform(pca_path: str | Path, pt: str) -> np.ndarray:
+    """Per-patient offline PCA projection, transposed for X @ W use.
+
+    Contract of ``tune_ctc_rnn.load_pca_xform``
+    (the reference's `scripts/tune_ctc_rnn.py:1050-1063`):
+    components stored (n_components, n_channels) at ``{pt}/components``.
+    """
+    import h5py
+
+    with h5py.File(str(pca_path), "r") as f:
+        return np.asarray(f[f"{pt}/components"]).T
+
+
+def load_cca_xform(cca_path: str | Path, align_pt: str, source_pt: str) -> np.ndarray:
+    """CCA map from ``source_pt`` latent space into ``align_pt`` space.
+
+    Contract of ``tune_ctc_rnn.load_cca_xform`` (`tune_ctc_rnn.py:
+    1066-1079`): matrix stored at ``{source_pt}_to_{align_pt}/components``.
+    """
+    import h5py
+
+    with h5py.File(str(cca_path), "r") as f:
+        return np.asarray(f[f"{source_pt}_to_{align_pt}/components"])
+
+
+def apply_latent_xform(X: np.ndarray, pca_xform: np.ndarray,
+                       cca_xform: np.ndarray | None = None) -> np.ndarray:
+    """Project (trials, time, channels) through offline PCA (+ optional CCA).
+
+    Mirrors the tune-time application (`tune_ctc_rnn.py:122-148,169-185`):
+    demean over flattened (trials*time) rows in realtime space (NOT the
+    saved offline mean), then ``X @ pca_xform``, then optionally
+    ``@ cca_xform`` into the alignment patient's space.
+    """
+    n_tr, n_t, n_ch = X.shape
+    Xr = X.reshape(-1, n_ch).astype(np.float64)
+    Xr = Xr - Xr.mean(axis=0, keepdims=True)
+    Xr = Xr @ np.asarray(pca_xform, np.float64)
+    if cca_xform is not None:
+        Xr = Xr @ np.asarray(cca_xform, np.float64)
+    return np.ascontiguousarray(Xr.reshape(n_tr, n_t, -1), dtype=np.float32)
+
+
+# -------------------------------------------------------- tuned hparams ----
+
+def load_tuned_hparams(hparam_dir: str | Path, target_pt: str, context: str,
+                       defaults: dict) -> dict:
+    """Overlay tuned hyperparameters from a previous sweep onto defaults.
+
+    Contract of ``train_ctc_rnn.load_hparams`` (`train_ctc_rnn.py:375-423`):
+    file ``{hparam_dir}/{pt}/{pt}_ctcRNN_{context}_hp.h5`` holds scalar
+    datasets; any key present in ``defaults`` is replaced; a missing file
+    falls back to the defaults (with a console note, as the reference does).
+    Context names: 'aligned' | 'unaligned' | 'chance' | 'ptSpecific'.
+    """
+    import h5py
+
+    out = dict(defaults)
+    fname = Path(hparam_dir).expanduser() / target_pt / (
+        f"{target_pt}_ctcRNN_{context}_hp.h5"
+    )
+    try:
+        with h5py.File(str(fname), "r") as f:
+            for k, v in f.items():
+                if k in out:
+                    val = v[()]
+                    out[k] = val.item() if hasattr(val, "item") else val
+    except (FileNotFoundError, OSError):
+        print(
+            "Saved hyperparameters not found! Using defaults from config.",
+            flush=True,
+        )
+    return out
+
+
+# --------------------------------------------------------------- results ----
+
+def save_ctc_results_h5(path: str | Path, pers, logits=None,
+                        phon_dict: dict | None = None,
+                        model_hparams: dict | None = None) -> Path:
+    """Write CTC results in the reference's h5 layout (the one the JAX
+    package's ``load_ctc_results_h5`` reads) so notebooks written against
+    ``train_ctc_rnn``'s output keep working on this framework's runs."""
+    import h5py
+
+    path = Path(path).expanduser()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with h5py.File(str(path), "w") as f:
+        f.create_dataset("phoneme_error_rate", data=np.asarray(pers))
+        if logits is not None:
+            f.create_dataset("logits", data=np.asarray(logits))
+        if phon_dict:
+            f.create_dataset(
+                "phon_keys", data=np.asarray(list(phon_dict.keys()), int)
+            )
+            f.create_dataset(
+                "phon_vals",
+                data=np.asarray(list(phon_dict.values()), dtype="S"),
+            )
+        grp = f.create_group("model_hparams")
+        for k, v in (model_hparams or {}).items():
+            grp.attrs[k] = v
+    return path
+
+
+def append_results_pkl(path: str | Path, accs, params: dict | None = None,
+                       extra: dict | None = None):
+    """Incremental result persistence (data_saving.py:22-83 behavior):
+    append per-iteration accuracies (+ params once) into a pickle."""
+    path = Path(path)
+    if path.exists():
+        store = load_pkl(path)
+    else:
+        store = {"accs": [], "params": params or {}}
+    store["accs"].append(np.asarray(accs))
+    if extra:
+        store.setdefault("extra", []).append(extra)
+    save_pkl(store, path)
+    return store

@@ -1,13 +1,17 @@
-"""CTC loss and greedy decoding on tensors.
+"""CTC loss, greedy decoding and prefix beam search.
 
-Port of ``cross_patient_speech_decoding_tpu/ops/ctc.py:26-106``. The loss
-is ``torch.nn.functional.ctc_loss``, the library counterpart of the JAX
-package's optax call (no Pallas kernel is involved). Prefix beam search
-is not ported yet.
+Port of ``cross_patient_speech_decoding_tpu/ops/ctc.py``. The loss is
+``torch.nn.functional.ctc_loss``, the library counterpart of the JAX
+package's optax call (no Pallas kernel is involved); greedy decoding runs
+on tensors. :func:`prefix_beam_search` is host Python over numpy, the
+oracle of the native beam search in ``realtime/beam.py``.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -77,3 +81,70 @@ def greedy_decode(log_probs, blank_id: int = 0, frame_mask=None):
     out = torch.full((B, T + 1), blank_id, dtype=best.dtype, device=dev)
     out.scatter_(1, tgt, best)
     return out[:, :T], lengths
+
+
+NEG_INF = -float("inf")
+
+
+def _logsumexp2(a: float, b: float) -> float:
+    if a == NEG_INF and b == NEG_INF:
+        return NEG_INF
+    m = max(a, b)
+    return m + math.log(math.exp(a - m) + math.exp(b - m))
+
+
+def prefix_beam_search(
+    log_probs: np.ndarray, beam_size: int = 100, blank_id: int = 0
+):
+    """CTC prefix beam search (host-side; Hannun 2014 algorithm).
+
+    Args:
+        log_probs: (T, V) log-probabilities for one sequence.
+
+    Returns:
+        (best_prefix_tuple, neg_log_likelihood).
+
+    ``realtime.beam.prefix_beam_search`` runs the C++ version of
+    ``native/beam.cpp``; this pure-Python version is its fallback and test
+    oracle.
+    """
+    T, V = log_probs.shape
+    # beam entries: prefix -> (log p ending in blank, log p ending non-blank)
+    beam = {(): (0.0, NEG_INF)}
+
+    for t in range(T):
+        row = log_probs[t]
+        nxt: dict = {}
+
+        def upd(prefix, pb, pnb):
+            old = nxt.get(prefix, (NEG_INF, NEG_INF))
+            nxt[prefix] = (_logsumexp2(old[0], pb), _logsumexp2(old[1], pnb))
+
+        for prefix, (p_b, p_nb) in beam.items():
+            total = _logsumexp2(p_b, p_nb)
+            # extend with blank: prefix unchanged
+            upd(prefix, total + row[blank_id], NEG_INF)
+            last = prefix[-1] if prefix else None
+            for s in range(V):
+                if s == blank_id:
+                    continue
+                p = row[s]
+                if s == last:
+                    # repeat: merges unless separated by blank
+                    upd(prefix, NEG_INF, p_nb + p)
+                    upd(prefix + (s,), NEG_INF, p_b + p)
+                else:
+                    upd(prefix + (s,), NEG_INF, total + p)
+
+        beam = dict(
+            sorted(
+                nxt.items(),
+                key=lambda kv: _logsumexp2(*kv[1]),
+                reverse=True,
+            )[:beam_size]
+        )
+
+    best, (p_b, p_nb) = max(
+        beam.items(), key=lambda kv: _logsumexp2(*kv[1])
+    )
+    return best, -_logsumexp2(p_b, p_nb)

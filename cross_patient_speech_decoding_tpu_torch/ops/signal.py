@@ -1,9 +1,11 @@
-"""Streaming DSP: CAR, stateful IIR band filtering, RMS bin power.
+"""Streaming DSP: CAR, stateful IIR and stateless FIR band filtering, RMS
+bin power.
 
-Port of what ``process_hg_chunk`` needs from
-``cross_patient_speech_decoding_tpu/ops/signal.py`` (:29-101, :160-198):
-the reference's realtime chain CAR -> per-band stateful IIR -> RMS power,
-with the IIR in transposed direct form II and scipy's ``zi`` convention.
+Port of ``cross_patient_speech_decoding_tpu/ops/signal.py`` (:29-198):
+the reference's realtime chain CAR -> per-band filter -> RMS power, with
+the IIR in transposed direct form II and scipy's ``zi`` convention, the
+FIR as one convolution, and ``filter_hg_bin`` routing a bin to either by
+the shape of its coefficients.
 """
 
 from __future__ import annotations
@@ -12,6 +14,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from cross_patient_speech_decoding_tpu_torch.models.layers import conv_f32
 
 from cross_patient_speech_decoding_tpu_torch.utils.device import (
     resolve_device,
@@ -77,6 +82,58 @@ def iir_filter_stateful(data, b, a, zi):
         z = z_shift + b_rest * xb[..., None] - a_rest * y[..., None]
         ys.append(y)
     return torch.stack(ys, dim=0).permute(2, 0, 1), z  # (C, T, bands)
+
+
+def fir_filter(data, coefs):
+    """Stateless causal FIR per band. data (C, T), coefs (n_bands, taps)
+    -> (C, T, n_bands).
+
+    One convolution with the channels as its batch and the bands as its
+    output features, in float32 whatever the caller set for cuDNN's TF32
+    (the JAX package pins ``Precision.HIGHEST``)."""
+    taps = coefs.shape[1]
+    padded = F.pad(data, (taps - 1, 0))[:, None, :]  # (C, 1, T+taps-1)
+    weight = coefs.flip(-1)[:, None, :].to(data.dtype)  # conv1d correlates
+    with conv_f32():
+        out = F.conv1d(padded, weight)  # (C, bands, T)
+    return out.transpose(1, 2)
+
+
+def filter_hg_bin(data, coefs, band_ics=None):
+    """Route a bin through IIR or FIR bandpass filtering by coefficient
+    shape (the reference ``filter_HG_bin``).
+
+    Args:
+        data: (C, T) chunk.
+        coefs: IIR as a ``(b, a)`` pair of (n_bands, taps) rows or a
+            stacked (n_bands, taps, 2) array ([..., 0] = a, [..., 1] = b,
+            the reference layout); FIR as a single (n_bands, taps) array.
+            numpy arrays or tensors.
+        band_ics: carried IIR state (n_bands, C, order), or None to start
+            from each channel's ``lfilter_zi`` steady state.
+
+    Returns:
+        (filtered (C, T, n_bands), new state, or None for the FIR).
+    """
+    def on_data(a):
+        return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a)
+                               else a, dtype=data.dtype, device=data.device)
+
+    if isinstance(coefs, (tuple, list)):
+        b, a = coefs
+    else:
+        coefs = on_data(coefs)
+        if coefs.dim() == 2:  # FIR
+            return fir_filter(data, coefs), None
+        if coefs.dim() != 3:
+            raise ValueError("coefs must be 2-D (FIR) or 3-D / (b, a) (IIR)")
+        a, b = coefs[..., 0], coefs[..., 1]
+    if band_ics is None:
+        host = [np.asarray(v.cpu() if torch.is_tensor(v) else v, np.float64)
+                for v in (b, a)]
+        band_ics = init_stream_state(*host, data.shape[0],
+                                     device=data.device).zi.to(data.dtype)
+    return iir_filter_stateful(data, on_data(b), on_data(a), band_ics)
 
 
 def compute_bin_power(filtered):

@@ -1,0 +1,176 @@
+"""Dataclass configs with YAML loading.
+
+Port of ``cross_patient_speech_decoding_tpu/utils/config.py``: the
+key=value coercion, ``load_config`` (defaults <- YAML <- overrides; PyYAML
+imported only when a file is given), ``config_from_values`` and the CTC
+trainer's config. The other drivers' configs come with their drivers.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+from pathlib import Path
+from typing import Any
+
+def _coerce(val: str, typ):
+    if typ is bool or isinstance(typ, type) and issubclass(typ, bool):
+        return str(val).lower() in ("1", "true", "yes", "y")
+    if typ is tuple:
+        # comma list override (e.g. win_sizes=2,4 or pitches=1.5,2.5);
+        # elements become int/float when possible, else stay strings
+        # (the grid sweep's 'AxB' rectangular window specs)
+        def elem(s):
+            for t in (int, float):
+                try:
+                    return t(s)
+                except ValueError:
+                    continue
+            return s
+
+        return tuple(elem(s) for s in str(val).split(",") if s != "")
+    try:
+        if typ in (int, float, str):
+            return typ(val)
+    except (TypeError, ValueError):
+        pass
+    # int-or-float unions and strings fall through
+    for t in (int, float):
+        try:
+            return t(val)
+        except (TypeError, ValueError):
+            continue
+    return val
+
+
+def load_config(cls, yaml_path: str | None = None, overrides: list[str] | None = None):
+    """Build config dataclass from defaults <- YAML <- key=value overrides."""
+    values: dict[str, Any] = {}
+    if yaml_path:
+        import yaml
+
+        values.update(yaml.safe_load(Path(yaml_path).read_text()) or {})
+    for ov in overrides or []:
+        if "=" not in ov:
+            raise ValueError(f"override must be key=value, got {ov!r}")
+        k, v = ov.split("=", 1)
+        values[k] = v
+    return config_from_values(cls, values)
+
+
+def config_from_values(cls, values: dict):
+    """Build a config dataclass from an already-merged value dict
+    (YAML-typed or string values; strings are coerced per field type).
+    Shared by :func:`load_config` and the ``cpsd reproduce`` matrix
+    expansion."""
+    import typing
+
+    hints = typing.get_type_hints(cls)
+    names = {f.name for f in fields(cls)}
+    kwargs = {}
+    for k, v in values.items():
+        if k not in names:
+            raise KeyError(f"unknown config key {k!r} for {cls.__name__}")
+        typ = hints.get(k, str)
+        kwargs[k] = _coerce(v, typ if isinstance(typ, type) else str) if isinstance(v, str) else v
+    cfg = cls(**kwargs)
+    for f in fields(cls):
+        if getattr(cfg, f.name) is REQUIRED:
+            raise ValueError(f"missing required config field {f.name!r}")
+    return cfg
+
+
+REQUIRED = object()  # sentinel: Hydra's ??? equivalent
+
+
+@dataclass
+class TrainCTCConfig:
+    """CTC trainer (train_ctc_rnn.py analog).
+
+    ``data`` is 'synthetic' or a path to the reference CTC HDF5 file
+    (keys ``{pt}/norm_rt_HG_pow[_z]``/``labels_train``/test splits —
+    train_ctc_rnn.py:264-320). File-backed runs honor the full reference
+    ingestion: tw crop, sil tokens, per-patient pooling with the
+    only-train patient list, stratified target subsampling, tuned-hparam
+    overrides, and optional precomputed PCA/CCA transforms.
+    """
+
+    data: str = "synthetic"
+    target_pt: str = "S14"
+    train_pts: str = ""  # comma list of pooled patients ('' = target only)
+    only_train_pts: str = "S33"  # pts with 1 data block (train_ctc_rnn.py:125)
+    zscore: bool = False
+    tw_orig: str = "0,4"
+    tw_select: str = "0.5,3.5"
+    n_sil: int = 0
+    target_subsample: float = 1.0  # stratified train-size fraction
+    # stratified fraction of each CROSS patient's pooled trials (the
+    # fig_5 data-scaling axis: PER vs cross-patient trial count; the
+    # log-regression cell of fig_5.ipynb fits over runs at several
+    # fractions) — 1.0 pools everything
+    cross_subsample: float = 1.0
+    hparam_dir: str = ""  # tuned-hparams h5 dir (train_ctc_rnn.py:375-423)
+    pca_path: str = ""  # precomputed {pt}/components h5 (tune_ctc_rnn.py:1050)
+    cca_path: str = ""  # precomputed {src}_to_{tgt}/components h5
+    align_pt: str = ""  # alignment space for precomputed CCA ('' = target)
+    context: str = "aligned"  # chance | patient | unaligned | aligned
+    n_iter: int = 50
+    epochs: int = 300
+    # minibatch size (training.batch_size: 512 in the reference YAML);
+    # 0 = full-batch, one step per epoch (the JAX package's default)
+    batch_size: int = 0
+    # train-set augmentations (training.augmentations YAML list): comma
+    # list of time_warping,time_masking,time_shifting,noise_jitter,scaling;
+    # 'all' = every transform appending one augmented copy of the pooled
+    # train set (realtime_datamodule.py:239-244). NOTE the reference YAML
+    # ships with all five ENABLED — pass augmentations=all for the exact
+    # reference training recipe; '' keeps the default run 6x lighter.
+    augmentations: str = ""
+    hidden: int = 128
+    n_layers: int = 2
+    dropout: float = 0.3
+    win_size: int = 14
+    stride: int = 4
+    lr: float = 1e-3  # training.learning_rate (train_ctc_rnn_config.yaml)
+    weight_decay: float = 1e-4  # model.l2_reg in the reference YAML
+    decay_steps: int = 100
+    clip: float = 5.0  # training.gclip_val in the reference YAML
+    n_components: float = 0.9
+    val_frac: float = 0.2  # training.val_size in the reference YAML
+    test_frac: float = 0.2
+    decode: str = "greedy"  # greedy | beam (prefix beam rescoring at test)
+    beam_size: int = 100
+    # chance-context label null: 'permute' shuffles the real labels across
+    # trials (train_ctc_rnn.py:155-158, marginal-preserving); 'random'
+    # draws fresh uniform phoneme sequences (tune_ctc_rnn.py
+    # make_chance_labels)
+    chance_mode: str = "permute"
+    # persist per-iteration test-set log-probs in the results pkl like the
+    # reference's results-h5 'logits' dataset (train_ctc_rnn.py:448-491)
+    save_logits: bool = False
+    log_metrics: bool = True  # per-epoch CSV under logs/{run_name}/
+    # csv | jsonl (tailable) | tb (TensorBoard: not ported yet, refused by
+    # train.loops.append_metrics on the first epoch logged)
+    log_format: str = "csv"
+    trace: bool = False  # device profile of the first iteration
+    # data-parallel training over the first n devices; 0 = one device.
+    # Multi-device training is not ported yet: run_train_ctc raises for
+    # n > 0 (ROADMAP queue 1, item 11)
+    n_devices: int = 0
+    # synthetic-data scale (data='synthetic' only): reference CTC
+    # production scale is 8 patients, ~250 trials, T=600 bins (4 s @
+    # 200 Hz cropped to 3 s). synth_trials is the TOTAL per patient,
+    # rounded down to a multiple of the 27 sequence classes (unlike
+    # TrainSeq2SeqConfig.synth_trials, which is per class).
+    synth_patients: int = 3
+    synth_trials: int = 120
+    synth_T: int = 200
+    seed: int = 0
+    # warm-start every iteration from a reference Lightning checkpoint;
+    # not ported yet: run_train_ctc raises when it is set (ROADMAP queue 1,
+    # item 10)
+    init_ckpt: str = ""
+    out: str = "results/ctc.pkl"  # incremental per-iteration results (resume)
+    # additionally write the reference's results-h5 layout
+    # (train_ctc_rnn.py:448-491: phoneme_error_rate/logits/phon table/
+    # model_hparams attrs) at this path when set
+    results_h5: str = ""

@@ -79,6 +79,22 @@ def test_entry_points_default_to_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         signal.init_stream_state(b, a, 3)
     assert RealtimeRNN(4, 8, 1, 3, device="cpu").device.type == "cpu"
+    from cross_patient_speech_decoding_tpu_torch.cli.experiments import (
+        run_train_ctc,
+    )
+    from cross_patient_speech_decoding_tpu_torch.data import (
+        make_synthetic_patients_device,
+    )
+    from cross_patient_speech_decoding_tpu_torch.utils.config import (
+        TrainCTCConfig,
+    )
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_synthetic_patients_device(T=4)
+    assert make_synthetic_patients_device(
+        T=4, device="cpu").X[0].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_train_ctc(TrainCTCConfig(out=""))
 
 
 def test_state_from_numpy_defaults_to_cuda(no_cuda):
