@@ -78,6 +78,30 @@ line is never printed:
    plain-route fit times and one profiled chol fit; then
    ``fit_mcca_aligner`` and ``joint_pca_fit`` on the card against the
    CPU;
+6a. svm_decode (slice 10's main path): ``cli.experiments.run_svm_decode``,
+   the ``svm-decode`` entry point, sep_align with the RBF kernel ridge
+   head at the reference's scale (8 synthetic patients of 9 classes x 15
+   trials, a pooled training set of 1080, T=200, max_k 32, made on the
+   card): 2 fixed-parameter iterations of 20 folds in one batch (the
+   iterations cut from 50), then one nested iteration (20 outer folds, 2
+   TPE rounds of 5 points x 5 inner folds; the rounds cut from 5). With
+   the launch counts zeroed just before each call and read just after, a
+   fixed iteration must launch exactly 7 ``jacobi_eigh`` (one per source
+   patient's batched chol CCA fit) and the nested one 77 (7 per fit batch:
+   5 scoring batches a round, one refit batch), counted by the wrapper,
+   and nothing else; the plain Jacobi version raises on CUDA tensors;
+   accuracies finite in [0, 1]; a second call resumes with no launch.
+   Iteration wall time, folds/s, peak memory, the prep (PCA, CCA), fit
+   and predict ms of one more iteration (each part synchronised) and its
+   device idle share under ``torch.profiler``. Then 3 patients, T=40, 4
+   folds on the card and on the CPU from the same data, at the driver's
+   noise and at one that leaves hard trials (the CPU's Jacobi on the
+   kernel's route through its plain version): all four strategies
+   and a bagged head of 3, predictions equal where the CPU's top two
+   scores differ by more than 1e-4 of their magnitude, fold accuracies
+   within the weight of the undecided test trials, sep_align's latents
+   on the target's separated columns within 2e-4 (PCA) and 1e-3 (mapped
+   sources);
 7. kernels: each kernel against its plain version at the fig_5 shapes
    (``gru_bifwd`` at the seq2seq encoder's, two runs bitwise equal) and
    at small odd shapes, with
@@ -91,7 +115,8 @@ line is never printed:
    version and ``torch.linalg.eigh``, with µs a step; ends with the
    ``{"kernels": [...]}`` line, whose launch counts are the CTC train
    step's, for ``gru_bifwd`` the seq2seq train step's and, for the Jacobi
-   kernel, the chol fit's.
+   kernel, the chol fit's, with its launches per svm-decode iteration
+   (fixed and nested) beside them.
 
 Then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA card, and in a directory without the port.
@@ -99,7 +124,9 @@ Exits non-zero without a CUDA card, and in a directory without the port.
 
 from __future__ import annotations
 
+import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -212,6 +239,25 @@ DRV_PCA_RTOL = 2e-4  # latents, tests/test_torch_alignment.py's PCA bound
 DRV_ALIGNED_RTOL = 1e-3  # CCA-mapped latents, its projection bound
 DRV_VAL_RTOL = 1e-3  # per-epoch validation loss, card vs CPU
 FIR_RTOL = 1e-5  # fir_filter under the caller's TF32, card vs CPU
+# the classical decoder (cli/experiments.py:run_svm_decode, sep_align, rbf)
+# at the reference's scale: 8 patients of 9 classes x 15 trials (135
+# each, a pooled training set of 1080), T=200, max_k 32, 20 folds in one
+# batch (docs/ARCHITECTURE.md:109's (20, 1080, 1080) systems); cut: 2
+# iterations (the reference runs 50), and the nested search to 2 TPE
+# rounds of 5 points over 5 inner folds (the reference: 5 rounds)
+SVM_CFG = dict(strategy="sep_align", synth_patients=8, synth_trials=15,
+               synth_T=200, max_k=32, kernel="rbf", n_folds=20,
+               fold_batch=20, iter_batch=1, n_iter=2, seed=0)
+SVM_NESTED = dict(SVM_CFG, nested=True, n_iter=1, nested_rounds=2,
+                  nested_points=5, nested_inner=5)
+SVM_FIT_BATCH = 100  # nested_cv_decode_bayes's fit_batch, the driver's
+# small depth on the card and on the CPU from the same data and seed
+SVM_SMALL = dict(synth_patients=3, synth_trials=15, synth_T=40, n_folds=4,
+                 max_k=32, seed=0)
+SVM_SMALL_NOISE = (0.6, 8.0)  # the driver's; one that leaves hard trials
+SVM_FULL_NOISE = 16.0  # at SVM_CFG's scale: mean accuracy ~0.6 (chance 1/7)
+SVM_DECIDED = 1e-4  # a prediction counts where its top two scores differ
+                    # by more than this much of their magnitude
 
 
 
@@ -269,9 +315,11 @@ def main() -> int:
     phase_seq2seq_eval(torch, dev, gru, s2s_model, s2s_batch)
     del s2s_model, s2s_batch
     align = phase_alignment(torch, dev, jacobi)
+    svm_launches = phase_svm_decode(torch, dev, gru, jacobi, smi)
     kernels = phase_kernels(torch, dev, gru, train_res["launches"],
                             s2s_launches)
-    kernels.append(phase_kernel_jacobi(torch, dev, jacobi, align))
+    kernels.append({**phase_kernel_jacobi(torch, dev, jacobi, align),
+                    **svm_launches})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -999,6 +1047,493 @@ def _check_fir_tf32(torch, dev):
     err = _rel(got.cpu(), want)
     return {"rel_err": err, "unpinned_conv_rel_err": _rel(raw.cpu(), want),
             "fir_ok": err <= FIR_RTOL}
+
+
+class _SvmProbe:
+    """Wrappers around what one ``run_svm_decode`` iteration runs, for a
+    block: the decoder returned by ``make_cv_decoder`` (each call
+    synchronised and timed, with the Jacobi launches it made), and, with
+    ``breakdown``, the fold program's parts, each synchronised and timed:
+    PCA (``pooled._pca_latents``), CCA (``fit_cca_aligner`` and
+    ``transform_b_to_a``), the classifier fit and the prediction with its
+    balanced accuracy."""
+
+    PARTS = {"pca": ("_pca_latents",),
+             "cca": ("fit_cca_aligner", "transform_b_to_a"),
+             "fit": ("kernel_classifier_fit",),
+             "predict": ("kernel_classifier_predict", "balanced_accuracy")}
+
+    def __init__(self, torch, jacobi, breakdown=False):
+        from cross_patient_speech_decoding_tpu_torch.decoders import pooled
+
+        self.torch, self.jacobi, self.pooled = torch, jacobi, pooled
+        self.breakdown = breakdown
+        self.calls = []  # (seconds, jacobi launches) per decoder call
+        self.parts = {k: 0.0 for k in self.PARTS}
+
+    def _sync_timed(self, fn, part):
+        torch = self.torch
+
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.parts[part] += time.perf_counter() - t0
+            return out
+        return run
+
+    def __enter__(self):
+        torch, jacobi, pooled = self.torch, self.jacobi, self.pooled
+        self.saved = [(pooled, "make_cv_decoder", pooled.make_cv_decoder)]
+        make = pooled.make_cv_decoder
+
+        def make_timed(*a, **k):
+            dec = make(*a, **k)
+
+            def run(*args):
+                torch.cuda.synchronize()
+                n0 = jacobi.LAUNCHES["jacobi_eigh"]
+                t0 = time.perf_counter()
+                out = dec(*args)
+                torch.cuda.synchronize()
+                self.calls.append((time.perf_counter() - t0,
+                                   jacobi.LAUNCHES["jacobi_eigh"] - n0))
+                return out
+            return run
+
+        pooled.make_cv_decoder = make_timed
+        if self.breakdown:
+            for part, names in self.PARTS.items():
+                for n in names:
+                    fn = getattr(self.pooled, n)
+                    self.saved.append((self.pooled, n, fn))
+                    setattr(self.pooled, n, self._sync_timed(fn, part))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def svm_jacobi_launches(cfg: dict, fit_batch: int = SVM_FIT_BATCH) -> int:
+    """``jacobi_eigh`` launches of one svm-decode iteration of sep_align:
+    one a source patient and fold batch (the batched chol CCA fit's Gram
+    SVD, K = max_k >= ANY_BATCH_K). Fixed parameters: the iteration's
+    folds in batches of ``fold_batch``. Nested: each TPE round scores its
+    outer folds max(1, fit_batch // (points x inner)) at a time
+    (``nested_cv.make_candidate_scorer``), then one refit batch of
+    min(n_folds, fit_batch) folds."""
+    n_src = cfg["synth_patients"] - 1
+    n = cfg["n_folds"]
+    if not cfg.get("nested"):
+        return n_src * math.ceil(n / cfg["fold_batch"])
+    bs = max(1, fit_batch // (cfg["nested_points"] * cfg["nested_inner"]))
+    return n_src * (cfg["nested_rounds"] * math.ceil(n / bs)
+                    + math.ceil(n / min(n, fit_batch)))
+
+
+def _svm_run(torch, exp, jacobi, gru, cfg, dev):
+    """One counted ``run_svm_decode`` call on the card (counts zeroed just
+    before, read just after), keeping the first batch of each shape that
+    the Jacobi kernel gets, then the same call again, which must resume
+    with no launch. Returns the phase's figures."""
+    import numpy as np
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(gru, jacobi)
+    with _NoPlainOnCuda(torch, gru, jacobi), _SvmProbe(torch, jacobi) as pr, \
+            _RecordJacobi(jacobi, first_per_shape=True) as rec:
+        t0 = time.perf_counter()
+        accs = exp.run_svm_decode(cfg, verbose=True, device=dev)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    launches = _launch_counts(gru, jacobi)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _reset_counts(gru, jacobi)
+    again = exp.run_svm_decode(cfg, verbose=True, device=dev)
+    torch.cuda.synchronize()
+    return {"accs": accs, "again": again, "wall_s": wall_s,
+            "launches": launches, "resume_launches": _launch_counts(gru,
+                                                                   jacobi),
+            "peak_mem_gb": peak_gb, "decoder_calls": pr.calls,
+            "jacobi_batches": rec.batches,
+            "accs_finite": bool(np.isfinite(accs).all())}
+
+
+def _svm_iteration(torch, exp, spec, dev):
+    """A function that runs the device work of the driver's first
+    iteration for ``spec`` (the fold program over its folds, or the nested
+    search), on data and masks made once, as ``run_svm_decode`` makes
+    them, and the data's number of classes."""
+    from cross_patient_speech_decoding_tpu_torch.data.splits import (
+        repeated_stratified_kfold_masks,
+    )
+    from cross_patient_speech_decoding_tpu_torch.decoders import pooled
+    from cross_patient_speech_decoding_tpu_torch.decoders.nested_cv import (
+        nested_cv_decode_bayes,
+    )
+
+    tar, cross, n_y, n_a = exp.patients_from_config(
+        "synthetic", "S14", seed=spec["seed"],
+        trials_per_class=spec["synth_trials"],
+        n_patients=spec["synth_patients"], T=spec["synth_T"], device=dev)
+    dcfg = pooled.DecodeConfig(max_k=spec["max_k"], n_classes=n_y,
+                               n_align_classes=n_a, kernel=spec["kernel"],
+                               seed=spec["seed"])
+    if spec.get("nested"):
+        return lambda: nested_cv_decode_bayes(
+            tar, cross, dcfg, n_folds=spec["n_folds"],
+            n_rounds=spec["nested_rounds"], n_points=spec["nested_points"],
+            n_inner=spec["nested_inner"], strategy=spec["strategy"],
+            seed=spec["seed"], return_preds=True), n_y
+    tr, te = repeated_stratified_kfold_masks(tar.y.cpu().numpy(),
+                                             spec["n_folds"], 1,
+                                             seed=spec["seed"])
+    tr, te = (torch.as_tensor(m, dtype=torch.float32, device=dev)
+              for m in (tr, te))
+    dec = pooled.make_cv_decoder(spec["strategy"], dcfg,
+                                 fold_batch=spec["fold_batch"],
+                                 return_preds=True)
+    return lambda: dec(tar, cross, tr, te), n_y
+
+
+def _svm_breakdown(torch, exp, jacobi, spec, dev):
+    """One iteration's work with its parts synchronised and timed
+    (:class:`_SvmProbe`), then once more under ``torch.profiler``."""
+    fn, n_y = _svm_iteration(torch, exp, spec, dev)
+    fn()
+    torch.cuda.synchronize()
+    with _SvmProbe(torch, jacobi, breakdown=True) as pr:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        probed_s = time.perf_counter() - t0
+    _, prof = profile_call(torch, fn)
+    return {"probed_wall_s": probed_s, "n_classes": n_y,
+            "parts_ms": {k: v * 1e3 for k, v in pr.parts.items()},
+            "profile": prof}
+
+
+def phase_svm_decode(torch, dev, gru, jacobi, smi):
+    """The classical decoder end to end at the reference's scale: a
+    fixed-parameter decode of 2 iterations and one nested iteration, each
+    with exact Jacobi launches, a resume with none, times, idle share and
+    peak memory, and the kernel against its plain version bit for bit on
+    the first batch of each shape it got; then one fold batch at that
+    scale and small depth on the card and on the CPU."""
+    import tempfile
+
+    from cross_patient_speech_decoding_tpu_torch.cli import experiments as exp
+    from cross_patient_speech_decoding_tpu_torch.utils.config import (
+        SVMDecodeConfig,
+    )
+
+    tmp = tempfile.TemporaryDirectory()
+    res = {"phase": "svm_decode", "nvidia_smi": smi}
+    bad = {}
+    for name, spec, n_iter in (("fixed", SVM_CFG, SVM_CFG["n_iter"]),
+                               ("nested", SVM_NESTED, 1)):
+        cfg = SVMDecodeConfig(**spec, out=str(Path(tmp.name) / name
+                                              / "svm.pkl"))
+        want = svm_jacobi_launches(spec)
+        r = _svm_run(torch, exp, jacobi, gru, cfg, dev)
+        r.update(_svm_breakdown(torch, exp, jacobi, spec, dev))
+        it_s = ([s for s, _ in r["decoder_calls"]] if name == "fixed"
+                else [r["wall_s"]])
+        per_it = [n for _, n in r["decoder_calls"]]
+        launches = r.pop("launches")
+        accs = r.pop("accs")
+        checks = {}
+        for A in r.pop("jacobi_batches"):
+            key = "x".join(map(str, A.shape))
+            checks[key] = _check_jacobi(torch, jacobi, A)
+            if not _jacobi_ok(key, checks[key]):
+                bad[f"{name}_jacobi_{key}"] = checks[key]
+        res[name] = {
+            "config": spec,
+            "jacobi_launches_per_iteration_expected": want,
+            "jacobi_launches": launches["jacobi_eigh"],
+            "jacobi_launches_per_decoder_call": per_it,
+            "other_launches": {k: v for k, v in launches.items()
+                               if k != "jacobi_eigh"},
+            "iteration_s": it_s,
+            "folds_per_s": [spec["n_folds"] / s for s in it_s],
+            "run_wall_s": r["wall_s"], "peak_mem_gb": r["peak_mem_gb"],
+            "parts_ms": r["parts_ms"],
+            "probed_iteration_s": r["probed_wall_s"],
+            "iteration_profile": r["profile"],
+            "note": "parts_ms and the profile are of one more iteration's "
+                    "device work (data made before); parts each "
+                    "synchronised",
+            "jacobi_path_batches": checks,
+            "mean_acc": float(accs.mean()), "chance": 1.0 / r["n_classes"],
+            "accs_shape": list(accs.shape),
+            "resume_launches": r["resume_launches"],
+        }
+        if launches["jacobi_eigh"] != want * n_iter or any(
+                v for k, v in launches.items() if k != "jacobi_eigh"):
+            bad[f"{name}_launches"] = launches
+        if name == "fixed" and per_it != [want] * n_iter:
+            bad["fixed_launches_per_iteration"] = per_it
+        if not checks:
+            bad[f"{name}_jacobi_batches"] = "none recorded"
+        if not (r["accs_finite"] and accs.shape == (n_iter, spec["n_folds"])
+                and 0.0 <= accs.min() and accs.max() <= 1.0):
+            bad[f"{name}_accs"] = accs.tolist()
+        if (r["again"].tolist() != accs.tolist()
+                or any(r["resume_launches"].values())):
+            bad[f"{name}_resume"] = r["resume_launches"]
+    full = _svm_full(torch, exp, dev)
+    res["full_scale_card_vs_cpu"] = full
+    small = _svm_small(torch, exp, dev)
+    res["small_depth_card_vs_cpu"] = small
+    emit(res)
+    tmp.cleanup()
+    if not full["ok"]:
+        bad["full_scale_card_vs_cpu"] = full
+    bad.update({k: v for k, v in small.items()
+                if k.endswith("_ok") and v is not True})
+    if bad:
+        raise RuntimeError(f"svm_decode checks failed: {list(bad)}")
+    return {"launches_svm_decode_iteration":
+            res["fixed"]["jacobi_launches_per_decoder_call"][0],
+            "launches_svm_nested_iteration":
+            res["nested"]["jacobi_launches"]}
+
+
+class _ScoreProbe:
+    """Records the decision scores of every prediction of the fold
+    program (summed over a bagged ensemble) and, with ``latents``, the
+    target's PCA latents and the CCA-mapped source latents."""
+
+    def __init__(self, latents=False):
+        from cross_patient_speech_decoding_tpu_torch.decoders import pooled
+        from cross_patient_speech_decoding_tpu_torch.ops import classifiers
+
+        self.pooled, self.cl = pooled, classifiers
+        self.latents = latents
+        self.scores, self.tar, self.aligned = [], [], []
+
+    def __enter__(self):
+        pooled, cl = self.pooled, self.cl
+        self.saved = [(pooled, n, getattr(pooled, n)) for n in (
+            "kernel_classifier_predict", "bagged_classifier_predict")
+            + (("_pca_latents", "transform_b_to_a") if self.latents else ())]
+        orig = {n: f for _, n, f in self.saved}
+
+        def predict(clf, X, kernel):
+            self.scores.append(cl.kernel_classifier_decision(clf, X, kernel))
+            return orig["kernel_classifier_predict"](clf, X, kernel)
+
+        def bagged(clf, X, kernel):
+            self.scores.append(cl.kernel_classifier_decision(
+                clf, X[..., None, :, :], kernel).sum(-3))
+            return orig["bagged_classifier_predict"](clf, X, kernel)
+
+        def pca_lat(X, n_comp, max_k, sample_mask=None, **kw):
+            st, lat = orig["_pca_latents"](X, n_comp, max_k, sample_mask,
+                                           **kw)
+            if sample_mask is not None:
+                self.tar.append(lat)
+            return st, lat
+
+        def aligned(al, X):
+            out = orig["transform_b_to_a"](al, X)
+            self.aligned.append(out)
+            return out
+
+        pooled.kernel_classifier_predict = predict
+        pooled.bagged_classifier_predict = bagged
+        if self.latents:
+            pooled._pca_latents = pca_lat
+            pooled.transform_b_to_a = aligned
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+class _PlainJacobiOnCpu:
+    """Within the block, ``batched_eigh`` sends a CPU batch down the
+    kernel's route to its plain version (bit for bit the kernel), and the
+    CCA's small SVD takes the card's Gram route (:class:`_CardCcaRoute`)."""
+
+    def __enter__(self):
+        from cross_patient_speech_decoding_tpu_torch.ops import jacobi
+
+        self.jacobi, self.route = jacobi, jacobi._route
+        route = self.route
+        jacobi._route = lambda A: "plain" if A.device.type == "cpu" \
+            else route(A)
+        self.cca = _CardCcaRoute()
+        self.cca.__enter__()
+
+    def __exit__(self, *exc):
+        self.cca.__exit__(*exc)
+        self.jacobi._route = self.route
+
+
+def _undecided(scores, rtol=SVM_DECIDED):
+    """(B, N0) trials whose top two scores differ by at most ``rtol`` of
+    their magnitude."""
+    top2 = scores.double().topk(2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]) <= rtol * top2.abs().amax(-1)
+
+
+def _held(torch, y, te, card, cpu, cpu_scores) -> dict:
+    """Card against CPU for one decoder call: ``card``/``cpu`` its (accs
+    (B,), preds (B, N0)). Predictions equal on the trials the CPU's scores
+    decide (:func:`_undecided`); fold accuracies equal where all test
+    trials are decided and within the balanced weight of the undecided
+    ones elsewhere."""
+    import numpy as np
+
+    (a_g, p_g), (a_c, p_c) = ((a.cpu().numpy(), p.cpu().numpy())
+                              for a, p in (card, cpu))
+    und = _undecided(torch.cat(cpu_scores)).numpy()
+    slack = []
+    for f in range(len(te)):
+        cls, sup = np.unique(y[te[f] > 0], return_counts=True)
+        w = dict(zip(cls, 1.0 / (len(cls) * sup)))
+        slack.append(float(sum(w[y[i]] for i in
+                               np.where((te[f] > 0) & und[f])[0])))
+    r = {"accs_card": a_g.tolist(), "accs_cpu": a_c.tolist(),
+         "undecided_trials": int(und.sum()),
+         "pred_mismatch_decided": int((p_g != p_c)[~und].sum()),
+         "acc_slack": slack}
+    r["ok"] = (r["pred_mismatch_decided"] == 0
+               and all(abs(g - h) <= s + 1e-6
+                       for g, h, s in zip(a_g, a_c, slack)))
+    return r
+
+
+def _svm_full(torch, exp, dev):
+    """One fold batch at the timed scale (SVM_CFG: 8 patients x 135
+    trials, T=200, max_k 32, 20 folds) on the card and on the CPU from the
+    same data and seed, at a noise at which the decode is far from perfect
+    (SVM_FULL_NOISE), the CPU's Jacobi on the kernel's route through its
+    plain version; held as :func:`_held` holds it."""
+    from cross_patient_speech_decoding_tpu_torch.data.splits import (
+        repeated_stratified_kfold_masks,
+    )
+    from cross_patient_speech_decoding_tpu_torch.decoders import pooled
+
+    c = SVM_CFG
+    tar, cross, n_y, n_a = exp.patients_from_config(
+        "synthetic", "S14", seed=c["seed"], noise=SVM_FULL_NOISE,
+        trials_per_class=c["synth_trials"], n_patients=c["synth_patients"],
+        T=c["synth_T"], device=dev)
+    tar_c = pooled.PatientArrays(*(t.cpu() for t in tar))
+    cross_c = tuple(pooled.PatientArrays(*(t.cpu() for t in p))
+                    for p in cross)
+    y = tar_c.y.numpy()
+    tr, te = repeated_stratified_kfold_masks(y, c["n_folds"], 1,
+                                             seed=c["seed"])
+    dcfg = pooled.DecodeConfig(max_k=c["max_k"], n_classes=n_y,
+                               n_align_classes=n_a, kernel=c["kernel"],
+                               seed=c["seed"])
+    dec = pooled.make_cv_decoder(c["strategy"], dcfg,
+                                 fold_batch=c["fold_batch"],
+                                 return_preds=True)
+    with _ScoreProbe():
+        card = dec(tar, cross, *(torch.as_tensor(m, dtype=torch.float32,
+                                                 device=dev)
+                                 for m in (tr, te)))
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _PlainJacobiOnCpu(), _ScoreProbe() as cpu:
+        got = dec(tar_c, cross_c, *(torch.as_tensor(m, dtype=torch.float32)
+                                    for m in (tr, te)))
+    cpu_s = time.perf_counter() - t0
+    return {"config": c, "noise": SVM_FULL_NOISE,
+            "decided_rtol": SVM_DECIDED, "chance": 1.0 / n_y,
+            "mean_acc_card": float(card[0].mean()), "cpu_s": cpu_s,
+            **_held(torch, y, te, card, got, cpu.scores)}
+
+
+def _svm_small(torch, exp, dev):
+    """Small depth (3 patients, T=40, 4 folds) on the card and on the CPU
+    from the same data and seed, at the driver's noise and at a noise no
+    strategy decodes perfectly, the CPU's Jacobi on the kernel's route
+    through its plain version: predictions equal on the trials the CPU's
+    scores decide (:func:`_undecided`), fold accuracies equal where all
+    test trials are decided and within the weight of the undecided ones
+    elsewhere; for sep_align the target's and the mapped sources' latents
+    on the target's separated columns (``_separated``, per fold): two
+    target components of near-equal variance turn within their span
+    between the two eigensolvers, and the sources mapped into the target's
+    space turn with them."""
+    from cross_patient_speech_decoding_tpu_torch.data.splits import (
+        repeated_stratified_kfold_masks,
+    )
+    from cross_patient_speech_decoding_tpu_torch.decoders import pooled
+
+    c = SVM_SMALL
+
+    def data(noise):
+        tar, cross, n_y, n_a = exp.patients_from_config(
+            "synthetic", "S14", seed=c["seed"], noise=noise,
+            trials_per_class=c["synth_trials"],
+            n_patients=c["synth_patients"], T=c["synth_T"], device=dev)
+        return (tar, cross, pooled.PatientArrays(*(t.cpu() for t in tar)),
+                tuple(pooled.PatientArrays(*(t.cpu() for t in p))
+                      for p in cross), n_y, n_a)
+
+    # the driver's noise, and a noise at which no strategy decodes every
+    # trial, so that predictions are held where they are not easy
+    sets = {"": data(SVM_SMALL_NOISE[0]), "_noisy": data(SVM_SMALL_NOISE[1])}
+    y = sets[""][2].y.numpy()
+    tr, te = repeated_stratified_kfold_masks(y, c["n_folds"], 1,
+                                             seed=c["seed"])
+    out = {"config": c, "noise": SVM_SMALL_NOISE,
+           "decided_rtol": SVM_DECIDED,
+           "latent_rtol": [DRV_PCA_RTOL, DRV_ALIGNED_RTOL]}
+    for (name, strategy, bag), (suffix, ds) in itertools.product(
+            (("sep_align", "sep_align", 0), ("sep_dimred", "sep_dimred", 0),
+             ("joint_pca", "joint_pca", 0), ("mcca", "mcca", 0),
+             ("bagging3", "sep_align", 3)), sets.items()):
+        tar, cross, tar_c, cross_c, n_y, n_a = ds
+        name += suffix
+        dcfg = pooled.DecodeConfig(max_k=c["max_k"], n_classes=n_y,
+                                   n_align_classes=n_a, bagging=bag,
+                                   seed=c["seed"])
+        dec = pooled.make_cv_decoder(strategy, dcfg, return_preds=True)
+        with _ScoreProbe(latents=True) as card:
+            a_g, p_g = dec(tar, cross,
+                           torch.as_tensor(tr, dtype=torch.float32,
+                                           device=dev),
+                           torch.as_tensor(te, dtype=torch.float32,
+                                           device=dev))
+            torch.cuda.synchronize()
+        with _PlainJacobiOnCpu(), _ScoreProbe(latents=True) as cpu:
+            a_c, p_c = dec(tar_c, cross_c,
+                           torch.as_tensor(tr, dtype=torch.float32),
+                           torch.as_tensor(te, dtype=torch.float32))
+        r = _held(torch, y, te, (a_g, p_g), (a_c, p_c), cpu.scores)
+        if name == "sep_align":
+            # the target's latent columns: a fold's separated ones for its
+            # target latents and for the sources mapped into its space (at
+            # the driver's noise; at the high one few columns stand apart)
+            errs = []
+            for b in range(c["n_folds"]):
+                sep = _separated(cpu.tar[0][b])
+                for lg, lc, tol in ([(card.tar[0], cpu.tar[0], DRV_PCA_RTOL)]
+                                    + [(g, h, DRV_ALIGNED_RTOL) for g, h in
+                                       zip(card.aligned, cpu.aligned)]):
+                    # no separated column: nothing to hold, a failure
+                    errs.append((_rel(lg[b].cpu()[..., sep], lc[b][..., sep])
+                                 if sep.any() else float("inf"), tol,
+                                 int(sep.sum())))
+            r["latent_rel_errs"] = [e for e, _, _ in errs]
+            r["latent_columns_compared"] = [n for _, _, n in errs]
+            r["latents_ok"] = all(e <= t for e, t, _ in errs)
+            out["latents_ok"] = r["latents_ok"]
+        out[name] = r
+        out[f"{name}_ok"] = r["ok"]
+    return out
 
 
 def phase_streaming(torch, dev, gru, model):
@@ -1872,17 +2407,21 @@ class _PlainJacobi:
 
 class _RecordJacobi:
     """Within the block, keep a copy of every batch the kernel wrapper
-    gets (launch counts are the wrapper's own)."""
+    gets, or with ``first_per_shape`` of the first batch of each shape
+    (launch counts are the wrapper's own)."""
 
-    def __init__(self, jacobi):
+    def __init__(self, jacobi, first_per_shape=False):
         self.jacobi = jacobi
+        self.first_per_shape = first_per_shape
         self.batches = []
 
     def __enter__(self):
         self.cuda = self.jacobi.jacobi_eigh_cuda
 
         def record(A, *args, **kw):
-            self.batches.append(A.clone())
+            if not (self.first_per_shape and any(
+                    b.shape == A.shape for b in self.batches)):
+                self.batches.append(A.clone())
             return self.cuda(A, *args, **kw)
 
         self.jacobi.jacobi_eigh_cuda = record

@@ -1,9 +1,20 @@
-"""The CTC experiment driver: ``run_train_ctc`` (``cpsd train-ctc``).
+"""The experiment drivers: ``run_train_ctc`` (``cpsd train-ctc``) and
+``run_svm_decode`` (``cpsd svm-decode``).
 
-Port of the CTC section of ``cross_patient_speech_decoding_tpu/cli/
-experiments.py`` (:142-230, :1065-1750, the analog of the reference's
-``train_ctc_rnn.py``). One run trains and tests the realtime CTC RNN in
-one of four contexts: ``chance`` (target data, labels permuted or drawn
+Port of the CTC and classical-decode sections of
+``cross_patient_speech_decoding_tpu/cli/experiments.py`` (:57-132,
+:142-230, :245-451, :1065-1750).
+
+``run_svm_decode`` is the analog of the reference's
+``aligned_decode_svm[_ncv].py``: repeated stratified CV of pooled
+cross-patient classical decoding (``decoders/pooled.py``, optionally the
+nested TPE search of ``decoders/nested_cv.py``), with the same numpy
+splits as the JAX package, per-iteration results appended to a pickle and
+a resume from it. Its synthetic data is drawn on the card
+(``make_synthetic_patients_device``).
+
+``run_train_ctc`` is the analog of ``train_ctc_rnn.py``. One run trains
+and tests the realtime CTC RNN in one of four contexts: ``chance`` (target data, labels permuted or drawn
 at random), ``patient`` (target data only), ``unaligned`` (the target
 pooled with cross patients, each PCA'd to 32 latents) and ``aligned``
 (the cross patients' latents mapped into the target's by class-averaged
@@ -46,6 +57,7 @@ from cross_patient_speech_decoding_tpu_torch.data.splits import (
     train_val_test_masks,
 )
 from cross_patient_speech_decoding_tpu_torch.utils.config import (
+    SVMDecodeConfig,
     TrainCTCConfig,
 )
 from cross_patient_speech_decoding_tpu_torch.utils.device import (
@@ -128,23 +140,14 @@ def _synthetic_ctc_n_trials(cfg) -> int:
 
 def _pca_fit_lat(X, mask, n_comp, max_k):
     """Per-patient PCA (the CTC datamodules' low-component guard,
-    ``low_refit_k=30``) and the patient's latents.
-
-    A component's sign is free, and the eigensolvers of the card and of
-    the CPU choose it differently; each is flipped so that its largest
-    loading is positive, so a run sees the same latents on every device.
-    (The JAX package keeps its eigensolver's sign.)
-    """
+    ``low_refit_k=30``) and the patient's latents, each component's sign
+    fixed as the fold program fixes it (``decoders.pooled._pca_latents``),
+    so a run sees the same latents on every device."""
     from cross_patient_speech_decoding_tpu_torch.decoders.pooled import (
-        _fit_pca_latents,
-        _transform_latents,
+        _pca_latents,
     )
 
-    st = _fit_pca_latents(X, n_comp, max_k, sample_mask=mask, low_refit_k=30)
-    comp = st.components
-    lead = comp.gather(0, comp.abs().argmax(0, keepdim=True))[0]
-    st = st._replace(components=comp * torch.where(lead < 0, -1.0, 1.0))
-    return st, _transform_latents(st, X, max_k)
+    return _pca_latents(X, n_comp, max_k, mask, low_refit_k=30)
 
 
 def _pca_apply(st, X, max_k):
@@ -832,3 +835,244 @@ def _beam_rescore_per(model, batch, cfg) -> float:
         np.asarray(labels, np.int32), np.asarray(label_lens, np.int32),
     )
     return float(dists.sum() / max(1, int(label_lens.sum())) * 100.0)
+
+
+# ------------------------------------------------------------- svm decode --
+
+def _build_patient_arrays(Xs, ys, aligns, device):
+    """Encode labels to shared class ids and wrap per-patient
+    ``PatientArrays`` on ``device`` (numpy or tensor X alike).
+
+    Returns (pts, n_classes, n_align_classes)."""
+    from cross_patient_speech_decoding_tpu_torch.decoders.pooled import (
+        PatientArrays,
+    )
+
+    y_enc = [encode_label_sequences(np.asarray(y)) for y in ys]
+    y_uni = np.unique(np.concatenate(y_enc))
+    a_enc = [encode_label_sequences(np.asarray(a)) for a in aligns]
+    a_uni = np.unique(np.concatenate(a_enc))
+
+    def ids(enc, uni):
+        return torch.as_tensor(to_class_ids(enc, uni)[0], dtype=torch.int64,
+                               device=device)
+
+    pts = [
+        PatientArrays(X=torch.as_tensor(X, dtype=torch.float32,
+                                        device=device),
+                      y=ids(ye, y_uni), y_align=ids(ae, a_uni))
+        for X, ye, ae in zip(Xs, y_enc, a_enc)
+    ]
+    return pts, len(y_uni), len(a_uni)
+
+
+def patients_from_config(data: str, target_pt: str, p_ind: int = -1,
+                         lab_type: str = "phon", algn_type: str = "phon_seq",
+                         seed: int = 0, random_data: bool = False,
+                         noise: float = 0.6, trials_per_class: int = 15,
+                         n_patients: int = 4, T: int = 40,
+                         return_names: bool = False, device=None):
+    """(tar, cross, n_classes, n_align_classes) ``PatientArrays`` from a
+    decoding-data pkl or synthetic data made on ``device`` (the first CUDA
+    card by default); with ``return_names`` also the patient names, target
+    first (for file data the pkl's ``pre_pts`` order)."""
+    dev = resolve_device(device)
+    if data == "synthetic":
+        chans = (96, 111, 80, 64, 128, 72, 56, 104)[:n_patients]
+        ds = make_synthetic_patients_device(
+            seed=seed, n_patients=n_patients, n_classes=9,
+            trials_per_class=trials_per_class, T=T, channels=chans,
+            latent_dim=10, noise=noise, device=dev)
+        Xs, ys, aligns = ds.X, ds.y_first, ds.y_seq
+        names = [f"synthetic{i}" for i in range(n_patients)]
+    else:
+        from cross_patient_speech_decoding_tpu_torch.data.loaders import (
+            decoding_data_from_dict,
+        )
+
+        pt_data = load_pkl(data)
+        (X_t, y_t, ya_t), pre = decoding_data_from_dict(
+            pt_data, target_pt, p_ind, lab_type, algn_type)
+        Xs = [X_t] + [x for x, _, _ in pre]
+        ys = [y_t] + [y for _, y, _ in pre]
+        aligns = [ya_t] + [ya for _, _, ya in pre]
+        names = [target_pt] + list(pt_data[target_pt]["pre_pts"])
+
+    rng = np.random.default_rng(seed)
+    if random_data:  # -r control: destroy cross-patient structure
+        Xs = [Xs[0]] + [rng.random(tuple(x.shape)).astype(np.float32)
+                        for x in Xs[1:]]
+
+    pts, n_y, n_a = _build_patient_arrays(Xs, ys, aligns, dev)
+    if return_names:
+        return pts[0], tuple(pts[1:]), n_y, n_a, names
+    return pts[0], tuple(pts[1:]), n_y, n_a
+
+
+def apply_pool_filters(cross, cross_names, pool_train: bool, pooled_pts: str):
+    """The cross patients to pool: none with ``pool_train=False`` (the
+    reference's single-patient branch), else all, or the named subset of
+    ``pooled_pts`` in the user's order. Returns (cross, cross_names)."""
+    if not pool_train:
+        return (), ()
+    if pooled_pts in ("", "all"):
+        return tuple(cross), tuple(cross_names)
+    want = [p.strip() for p in pooled_pts.split(",") if p.strip()]
+    missing = [p for p in want if p not in cross_names]
+    if missing:
+        raise ValueError(
+            f"pooled_pts {missing} not among cross patients "
+            f"{list(cross_names)}")
+    return tuple(cross[list(cross_names).index(p)] for p in want), tuple(want)
+
+
+def _prediction_records(y_host, preds, test_masks):
+    """(y_true, y_pred, wrong_trs) of one iteration in the reference's
+    order: folds in turn, each fold's test rows ascending; ``wrong_trs``
+    are the target-trial indices of the mispredicted test rows."""
+    y_true, y_pred, wrong = [], [], []
+    for f in range(test_masks.shape[0]):
+        idx = np.where(test_masks[f] > 0)[0]
+        yt = y_host[idx]
+        yp = np.asarray(preds[f])[idx]
+        y_true.append(yt)
+        y_pred.append(yp)
+        wrong.append(idx[yt != yp])
+    return (np.concatenate(y_true), np.concatenate(y_pred),
+            np.concatenate(wrong))
+
+
+def run_svm_decode(cfg: SVMDecodeConfig, verbose: bool = True, device=None):
+    """Repeated stratified-CV pooled decode (``cpsd svm-decode``) with
+    incremental pkl persistence; returns the (n_iter, n_folds) balanced
+    accuracies as numpy.
+
+    Each iteration splits the target with its own seed and decodes all its
+    folds in batches of ``fold_batch`` (``iter_batch`` iterations' folds
+    stacked into one batch of rows), or, with ``nested``, runs the
+    per-outer-fold TPE search. A rerun with the same ``out`` resumes after
+    the iterations stored there. Controls: ``chance`` permutes the
+    target's labels, ``random_data`` replaces the cross patients' data
+    with uniform noise. ``device`` is the first CUDA card by default.
+
+    Not ported yet, and refused: ``surrogate`` other than 'none' (ROADMAP
+    queue 1, item 9) and ``n_devices > 0`` (item 11).
+    """
+    from cross_patient_speech_decoding_tpu_torch.data.splits import (
+        repeated_stratified_kfold_masks,
+        stratified_train_subsample_masks,
+    )
+    from cross_patient_speech_decoding_tpu_torch.decoders.nested_cv import (
+        nested_cv_decode_bayes,
+    )
+    from cross_patient_speech_decoding_tpu_torch.decoders.pooled import (
+        DecodeConfig,
+        PatientArrays,
+        make_cv_decoder,
+    )
+
+    if cfg.surrogate != "none":
+        raise NotImplementedError(
+            f"surrogate={cfg.surrogate!r}: the surrogate controls are not "
+            "ported yet (ROADMAP queue 1, item 9)")
+    if cfg.n_devices > 0:
+        raise NotImplementedError(
+            "n_devices > 0: multi-GPU fold sharding is not ported yet "
+            "(ROADMAP queue 1, item 11)")
+    dev = resolve_device(device)
+    tar, cross, n_y, n_a, names = patients_from_config(
+        cfg.data, cfg.target_pt, cfg.p_ind, cfg.lab_type, cfg.algn_type,
+        cfg.seed, cfg.random_data, trials_per_class=cfg.synth_trials,
+        n_patients=cfg.synth_patients, T=cfg.synth_T, return_names=True,
+        device=dev)
+    cross, _ = apply_pool_filters(cross, names[1:], cfg.pool_train,
+                                  cfg.pooled_pts)
+    rng_ctl = np.random.default_rng(cfg.seed + 777)
+    if cfg.chance:
+        perm = torch.as_tensor(rng_ctl.permutation(len(tar.y)), device=dev)
+        tar = PatientArrays(X=tar.X, y=tar.y[perm], y_align=tar.y_align[perm])
+    dcfg = DecodeConfig(
+        n_comp=cfg.n_comp, max_k=cfg.max_k, n_classes=n_y,
+        n_align_classes=n_a, lam=cfg.lam, kernel=cfg.kernel,
+        # single-patient mode trains on the target by definition
+        tar_in_train=cfg.tar_in_train or not cfg.pool_train,
+        bagging=cfg.bagging, seed=cfg.seed,
+    )
+    y_host = tar.y.cpu().numpy()
+
+    Path(cfg.out).parent.mkdir(parents=True, exist_ok=True)
+    all_accs = _completed_results(cfg.out, vars(cfg), scalar=False)[
+        : cfg.n_iter]
+    if all_accs and verbose:
+        print(f"resuming: {len(all_accs)}/{cfg.n_iter} iterations done",
+              flush=True)
+
+    if cfg.nested:
+        for it in range(len(all_accs), cfg.n_iter):
+            out = nested_cv_decode_bayes(
+                tar, cross, dcfg, n_folds=cfg.n_folds,
+                n_rounds=cfg.nested_rounds, n_points=cfg.nested_points,
+                n_inner=cfg.nested_inner, strategy=cfg.strategy,
+                seed=cfg.seed + 104729 * it,
+                train_frac=cfg.trial_subsample,
+                return_preds=cfg.save_preds,
+            )
+            extra = {}
+            if cfg.save_preds:
+                accs, hp_best, preds, te = out
+                yt, yp, wr = _prediction_records(y_host, preds, te)
+                extra.update(y_true=yt, y_pred=yp, wrong_trs=wr)
+            else:
+                accs, hp_best = out
+            extra.update({k: v.cpu().numpy() for k, v in hp_best.items()})
+            all_accs.append(accs)
+            append_results_pkl(cfg.out, accs, params=vars(cfg), extra=extra)
+            if verbose:
+                print(f"iter {it} [nested]: balanced acc {accs.mean():.3f} "
+                      f"(chance {1.0 / n_y:.3f})", flush=True)
+        return np.stack(all_accs)
+
+    decoder = make_cv_decoder(cfg.strategy, dcfg, fold_batch=cfg.fold_batch,
+                              return_preds=cfg.save_preds)
+    ib = max(1, cfg.iter_batch)
+    it = len(all_accs)
+    while it < cfg.n_iter:
+        k = min(ib, cfg.n_iter - it)
+        pairs = [
+            repeated_stratified_kfold_masks(y_host, cfg.n_folds, 1,
+                                            seed=cfg.seed + it + j)
+            for j in range(k)
+        ]
+        if cfg.trial_subsample < 1.0:
+            # -tss, seeded per iteration: the same masks at any iter_batch
+            # and across a resume
+            pairs = [
+                (stratified_train_subsample_masks(
+                    p[0], y_host, cfg.trial_subsample,
+                    np.random.default_rng(cfg.seed + 3571 * (it + j + 1))),
+                 p[1])
+                for j, p in enumerate(pairs)
+            ]
+        tr = np.concatenate([p[0] for p in pairs], axis=0)
+        te = np.concatenate([p[1] for p in pairs], axis=0)
+        out = decoder(tar, cross,
+                      torch.as_tensor(tr, dtype=torch.float32, device=dev),
+                      torch.as_tensor(te, dtype=torch.float32, device=dev))
+        if cfg.save_preds:
+            accs_all, preds_all = out[0].cpu().numpy(), out[1].cpu().numpy()
+        else:
+            accs_all, preds_all = out.cpu().numpy(), None
+        for j in range(k):
+            sl = slice(j * cfg.n_folds, (j + 1) * cfg.n_folds)
+            accs = accs_all[sl]
+            all_accs.append(accs)
+            extra = None
+            if preds_all is not None:
+                yt, yp, wr = _prediction_records(y_host, preds_all[sl], te[sl])
+                extra = {"y_true": yt, "y_pred": yp, "wrong_trs": wr}
+            append_results_pkl(cfg.out, accs, params=vars(cfg), extra=extra)
+            if verbose:
+                print(f"iter {it + j}: balanced acc {accs.mean():.3f} "
+                      f"(chance {1.0 / n_y:.3f})", flush=True)
+        it += k
+    return np.stack(all_accs)

@@ -2,15 +2,17 @@
 
 Port of ``cross_patient_speech_decoding_tpu/cli/main.py``: a subcommand
 takes an optional ``--config file.yaml`` and Hydra-style ``key=value``
-overrides. ``train-ctc`` is the only command ported so far; every other
-command of the JAX package is listed and refused with the ROADMAP item
-that ports it. ``device=cpu`` (or ``device=cuda:1``) picks the device;
-the default is the first CUDA card.
+overrides. ``train-ctc`` and ``svm-decode`` are ported so far; every
+other command of the JAX package is listed and refused with the ROADMAP
+item that ports it. ``device=cpu`` (or ``device=cuda:1``) picks the
+device; the default is the first CUDA card.
 
 Example::
 
     python -m cross_patient_speech_decoding_tpu_torch.cli.main train-ctc \\
         context=aligned n_iter=5 epochs=100 device=cpu
+    python -m cross_patient_speech_decoding_tpu_torch.cli.main svm-decode \\
+        synth_patients=3 synth_T=20 n_iter=2 n_folds=4 device=cpu
 """
 
 from __future__ import annotations
@@ -21,18 +23,19 @@ import sys
 
 from cross_patient_speech_decoding_tpu_torch.utils.config import (
     REQUIRED,
+    SVMDecodeConfig,
     TrainCTCConfig,
     load_config,
 )
 
 _COMMANDS = {
     "train-ctc": (TrainCTCConfig, "run_train_ctc"),
+    "svm-decode": (SVMDecodeConfig, "run_svm_decode"),
 }
 
 # the JAX package's other commands -> the ROADMAP queue 1 item that ports
 # them (prewarm-ctc filled XLA's compile cache; see item 10)
 _NOT_PORTED = {
-    "svm-decode": 6,
     "train-seq2seq": 7,
     "train-nn": 7,
     "prewarm-ctc": 10,

@@ -1,12 +1,13 @@
-"""File IO of the CTC driver: result pickles, the CTC HDF5 layout,
-offline PCA/CCA transforms, tuned hyperparameters and the results h5.
+"""File IO of the drivers: result pickles, the reference's decoding-data
+pickle, the CTC HDF5 layout, offline PCA/CCA transforms, tuned
+hyperparameters and the results h5.
 
-Port of the CTC part of ``cross_patient_speech_decoding_tpu/data/
-loaders.py`` (numpy, the port's own copy): the same keys, layouts and
+Port of ``cross_patient_speech_decoding_tpu/data/loaders.py`` (numpy, the
+port's own copy) without its ``.mat`` readers: the same keys, layouts and
 bytes, so files written by either package are read by the other.
 ``h5py`` is imported inside the functions that need it, so the module
 imports where it is not installed. The ``.mat`` readers come with the
-classical decoders (ROADMAP queue 1, item 6).
+drivers that read them (ROADMAP queue 1, items 9 and 10).
 
 Everything returns numpy; device placement happens in the driver.
 """
@@ -17,6 +18,8 @@ import pickle
 from pathlib import Path
 
 import numpy as np
+
+from cross_patient_speech_decoding_tpu_torch.utils.labels import phon_to_artic
 
 
 # ------------------------------------------------------------- pickles ----
@@ -29,6 +32,37 @@ def save_pkl(obj, path):
 def load_pkl(path):
     with open(path, "rb") as f:
         return pickle.load(f)
+
+
+def decoding_data_from_dict(data_dict: dict, pt: str, p_ind: int,
+                            lab_type: str = "phon",
+                            algn_type: str = "phon_seq"):
+    """Unpack a ``pt_decoding_data*.pkl`` dict (the reference's
+    alignment_utils.py:127-184 contract).
+
+    Returns ((X_tar, y_tar, y_align_tar), [(X, y, y_align), ...]) for the
+    target and its ``pre_pts``: ``p_ind=-1`` selects the arrays collapsed
+    across phoneme positions and tiles the full sequence labels x3;
+    ``lab_type='artic'`` maps phonemes to articulators.
+    """
+
+    def one(pt_key):
+        d = data_dict[pt_key]
+        lab_full = d["y_full_" + algn_type[: -len("_seq")]]
+        if p_ind == -1:
+            X = d["X_collapsed"]
+            y = d["y_" + lab_type + "_collapsed"]
+            lab_full = np.tile(lab_full, (3, 1))
+        else:
+            X = d[f"X{p_ind}"]
+            y = d[f"y{p_ind}"]
+        if lab_type == "artic":
+            y = phon_to_artic(y)
+        return X, y, lab_full
+
+    tar = one(pt)
+    pre = [one(p) for p in data_dict[pt]["pre_pts"]]
+    return tar, pre
 
 
 # ----------------------------------------------------------------- HDF5 ----

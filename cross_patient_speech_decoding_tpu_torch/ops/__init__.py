@@ -1,5 +1,6 @@
 """Ops of the port: GRU kernels, CTC, metrics, streaming DSP, and the
-alignment core (PCA, CCA, MCCA, joint PCA, the Jacobi eigensolver)."""
+alignment core (PCA, CCA, MCCA, joint PCA, the Jacobi eigensolver), and
+the kernel ridge classifiers of the classical decoders."""
 
 from cross_patient_speech_decoding_tpu_torch.ops.cca import (
     CCAAlignment,
@@ -12,6 +13,14 @@ from cross_patient_speech_decoding_tpu_torch.ops.cca import (
     transform_a_to_b,
     transform_b_to_a,
     transform_shared,
+)
+from cross_patient_speech_decoding_tpu_torch.ops.classifiers import (
+    KernelClassifier,
+    bagged_classifier_fit,
+    bagged_classifier_predict,
+    kernel_classifier_decision,
+    kernel_classifier_fit,
+    kernel_classifier_predict,
 )
 from cross_patient_speech_decoding_tpu_torch.ops.convert import state_from_numpy
 from cross_patient_speech_decoding_tpu_torch.ops.jacobi import (
@@ -45,8 +54,11 @@ __all__ = [
     "CCAAlignment",
     "FittedAligner",
     "JointPCAState",
+    "KernelClassifier",
     "MCCAState",
     "PCAState",
+    "bagged_classifier_fit",
+    "bagged_classifier_predict",
     "batched_eigh",
     "cca_align",
     "cnd_avg",
@@ -57,6 +69,9 @@ __all__ = [
     "hpinv",
     "jacobi_eigh",
     "jacobi_eigh_pallas",
+    "kernel_classifier_decision",
+    "kernel_classifier_fit",
+    "kernel_classifier_predict",
     "joint_pca_fit",
     "joint_pca_transform",
     "mcca_fit",

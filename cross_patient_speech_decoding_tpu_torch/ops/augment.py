@@ -11,8 +11,8 @@ random numbers from a ``torch.Generator`` on x's device, and
 feed the JAX package's own draws to the apply. ``<name>(generator, x)``
 is the two in turn. The draws' distributions are the JAX package's; the
 streams differ (``torch.Generator`` against ``jax.random``). MixUp and
-the time-jitter windows come with the classical decoders (ROADMAP queue
-1, item 6).
+the time-jitter windows, which no ported driver uses, come with the
+offline NN family (ROADMAP queue 1, item 7).
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
-"""Fitted alignment states of the JAX package as the port's NamedTuples.
+"""Fitted states of the JAX package as the port's NamedTuples.
 
-The alignment has no weights: its state is fitted from data. A state
-fitted by the JAX package (``CCAAlignment``, ``FittedAligner``,
-``PCAState``, ``MCCAState``, ``JointPCAState``), handed over as numpy
-arrays, becomes the port's NamedTuple of the same name and field order,
-so that the port's transforms apply it.
+The alignment and the classifiers have no trained weights: their state is
+fitted from data. A state fitted by the JAX package (``CCAAlignment``,
+``FittedAligner``, ``PCAState``, ``MCCAState``, ``JointPCAState``,
+``KernelClassifier``), handed over as numpy arrays, becomes the port's
+NamedTuple of the same name and field order, so that the port's
+transforms and predictions apply it.
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 phoneme error rate over padded batches.
 
 Port of ``cross_patient_speech_decoding_tpu/ops/metrics.py:19-58`` and
-``:179-232``.
+``:179-232``. ``balanced_accuracy`` takes leading batch dims (one score a
+fold).
 """
 
 from __future__ import annotations
@@ -19,6 +20,30 @@ def confusion_matrix(y_true, y_pred, n_classes: int, sample_mask=None):
     flat = torch.zeros(n_classes * n_classes, dtype=torch.float32,
                        device=idx.device).index_add_(0, idx, w)
     return flat.reshape(n_classes, n_classes)
+
+
+def balanced_accuracy(y_true, y_pred, n_classes: int, sample_mask=None):
+    """Mean per-class recall over the classes present in ``y_true``
+    (sklearn's ``balanced_accuracy_score``), weighted by ``sample_mask``.
+
+    y_true, y_pred and the mask may carry leading dims (they broadcast);
+    returns one float32 score per leading index. The confusion counts are
+    a scatter-add along the last axis, exact for integer weights.
+    """
+    shape = torch.broadcast_shapes(
+        y_true.shape, y_pred.shape,
+        () if sample_mask is None else sample_mask.shape)
+    idx = (y_true.long() * n_classes + y_pred.long()).expand(shape)
+    w = (torch.ones(shape, dtype=torch.float32, device=idx.device)
+         if sample_mask is None else sample_mask.float().expand(shape))
+    cm = torch.zeros(shape[:-1] + (n_classes * n_classes,),
+                     dtype=torch.float32, device=idx.device)
+    cm = cm.scatter_add_(-1, idx, w).reshape(
+        shape[:-1] + (n_classes, n_classes))
+    support = cm.sum(-1)
+    recall = torch.diagonal(cm, dim1=-2, dim2=-1) / support.clamp(min=1.0)
+    present = (support > 0).to(recall.dtype)
+    return (recall * present).sum(-1) / present.sum(-1).clamp(min=1.0)
 
 
 def cmat_acc(y_true, y_pred, n_classes: int, sample_mask=None):

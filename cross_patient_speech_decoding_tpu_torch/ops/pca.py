@@ -43,13 +43,19 @@ class PCAState(NamedTuple):
 def _resolve_n_active(evr, s, n_components, max_k: int):
     """Number of active components from an int, a variance fraction (a
     Python float in (0, 1) or a floating tensor), a whole-count float, or
-    None (the rank). ``evr`` and ``s`` are the full (min(N, F),) arrays."""
+    None (the rank). ``evr`` and ``s`` are the full (..., min(N, F))
+    arrays; a tensor ``n_components`` of shape (...) gives one count per
+    row, broadcast against their leading dims (the nested search's
+    per-candidate ``n_comp``)."""
 
     def _fraction(frac):
-        csum = torch.cumsum(evr, dim=0)
+        csum = torch.cumsum(evr, dim=-1)
         frac = torch.as_tensor(frac, dtype=csum.dtype, device=csum.device)
-        # sklearn: searchsorted(cumsum, frac, side='right') + 1
-        n = torch.searchsorted(csum, frac.reshape(1), right=True)[0] + 1
+        lead = torch.broadcast_shapes(csum.shape[:-1], frac.shape)
+        csum = csum.expand(lead + csum.shape[-1:]).contiguous()
+        # sklearn: searchsorted(cumsum, frac, side='right') + 1, per row
+        n = torch.searchsorted(csum, frac.expand(lead)[..., None].contiguous(),
+                               right=True)[..., 0] + 1
         return n.clamp(max=max_k).to(torch.int32)
 
     if isinstance(n_components, float):
@@ -64,12 +70,13 @@ def _resolve_n_active(evr, s, n_components, max_k: int):
                 "float n_components must be in (0, 1) or a whole count > 1"
             )
     if n_components is None:
-        n = (s > 0).sum().to(torch.int32)  # rank
+        n = (s > 0).sum(-1).to(torch.int32)  # rank
         return n.clamp(max=max_k)
     if isinstance(n_components, torch.Tensor) and n_components.is_floating_point():
         return _fraction(n_components)
     n = torch.as_tensor(n_components, dtype=torch.int32, device=s.device)
-    return n.clamp(max=max_k)
+    return n.expand(torch.broadcast_shapes(n.shape, s.shape[:-1])).clamp(
+        max=max_k)
 
 
 def pca_fit(
@@ -83,45 +90,56 @@ def pca_fit(
     low_refit_k: int = 0,
     low_thresh: int = 5,
 ) -> PCAState:
-    """Fit (masked) PCA on X of shape (N, F).
+    """Fit (masked) PCA on X of shape (..., N, F).
 
     Args:
-        X: (N, F) data. Rows where ``sample_mask == 0`` are ignored exactly.
-        n_components: int, float in (0,1) (variance fraction), or None (rank).
+        X: (..., N, F) data; leading dims are a batch of fits. Rows where
+            ``sample_mask == 0`` are ignored exactly.
+        n_components: int, float in (0,1) (variance fraction), None (rank),
+            or a tensor of per-row counts or fractions broadcast against
+            the batch.
         max_components: static output width K; defaults to min(N, F).
         center: subtract the (masked) mean. False reproduces NoCenterPCA.
-        sample_mask: optional (N,) {0,1} validity mask.
+        sample_mask: optional (..., N) {0,1} validity mask, broadcast
+            against X's leading dims (an unbatched X with a (B, N) mask
+            fits B problems).
         method: 'svd' (default) or 'gram' (eigh of the (F, F) Gram).
         low_refit_k: if > 0 and the selection yields <= ``low_thresh``
             components, use ``low_refit_k`` components instead (the
             reference CTC datamodules' artifact guard).
         low_thresh: component-count threshold for ``low_refit_k``.
+
+    The state's fields carry the batch's leading dims; ``mean`` keeps
+    X's and the mask's, the component fields also those of a per-row
+    ``n_components``.
     """
     same_device(X, sample_mask)
-    N, F = X.shape
+    N, F = X.shape[-2:]
     full_k = min(N, F)
     K = full_k if max_components is None else min(max_components, full_k)
 
-    zero_mean = torch.zeros(F, dtype=X.dtype, device=X.device)
     if sample_mask is None:
-        mean = X.mean(0) if center else zero_mean
-        Xc = X - mean
+        mean = X.mean(-2) if center else torch.zeros(
+            X.shape[:-2] + (F,), dtype=X.dtype, device=X.device)
+        Xc = X - mean[..., None, :]
     else:
         w = sample_mask.to(X.dtype)
-        n_valid = w.sum().clamp(min=1.0)
-        mean = (X * w[:, None]).sum(0) / n_valid if center else zero_mean
+        n_valid = w.sum(-1).clamp(min=1.0)
+        lead = torch.broadcast_shapes(X.shape[:-2], w.shape[:-1])
+        mean = ((X * w[..., None]).sum(-2) / n_valid[..., None] if center
+                else torch.zeros(lead + (F,), dtype=X.dtype, device=X.device))
         # invalid rows become exactly zero: nothing of them in X^T X
-        Xc = (X - mean) * w[:, None]
+        Xc = (X - mean[..., None, :]) * w[..., None]
 
     if method == "gram":
-        wv, v = symmetric_eigh(hdot(Xc.T, Xc))
-        s = torch.sqrt(wv.flip(-1).clamp(min=0.0))[:full_k]
-        vt = v.flip(-1).T[:full_k]
+        wv, v = symmetric_eigh(hdot(Xc.mT, Xc))
+        s = torch.sqrt(wv.flip(-1).clamp(min=0.0))[..., :full_k]
+        vt = v.flip(-1).mT[..., :full_k, :]
     else:
         _, s, vt = torch.linalg.svd(Xc, full_matrices=False)
 
     var = s**2
-    total = var.sum().clamp(min=torch.finfo(X.dtype).tiny)
+    total = var.sum(-1, keepdim=True).clamp(min=torch.finfo(X.dtype).tiny)
     evr_full = var / total
 
     n_active = _resolve_n_active(evr_full, s, n_components, K)
@@ -132,28 +150,40 @@ def pca_fit(
                                         device=X.device), max=K),
             n_active,
         )
-    mask = (torch.arange(K, device=X.device) < n_active).to(X.dtype)
+    mask = (torch.arange(K, device=X.device) < n_active[..., None]).to(
+        X.dtype)
 
-    components = vt[:K].T * mask[None, :]
+    components = vt[..., :K, :].mT * mask[..., None, :]
+    lead = components.shape[:-2]
     return PCAState(
         mean=mean,
         components=components,
-        explained_variance_ratio=evr_full[:K],
-        singular_values=s[:K],
+        explained_variance_ratio=evr_full[..., :K].expand(lead + (K,)),
+        singular_values=s[..., :K].expand(lead + (K,)),
         n_active=n_active,
         mask=mask,
     )
 
 
+def _mean_rows(state: PCAState) -> torch.Tensor:
+    """The mean to subtract from rows (..., N, F): a batched state's (B, F)
+    mean as (B, 1, F)."""
+    m = state.mean
+    return m if m.dim() == 1 else m[..., None, :]
+
+
 def pca_transform(state: PCAState, X: torch.Tensor) -> torch.Tensor:
-    """Project X (..., F) onto the fitted components -> (..., K)."""
-    return hdot(X - state.mean, state.components)
+    """Project X onto the fitted components: X (..., F) -> (..., K) for an
+    unbatched state; X (..., N, F) -> (..., N, K) for a state with
+    leading dims, which broadcast against X's."""
+    return hdot(X - _mean_rows(state), state.components)
 
 
 def pca_inverse_transform(state: PCAState, Z: torch.Tensor) -> torch.Tensor:
     """Map latents (..., K) back to feature space (..., F), as sklearn's
     ``PCA.inverse_transform``; masked latent columns are zero."""
-    return hdot(Z * state.mask, state.components.mT) + state.mean
+    mask = state.mask if state.mask.dim() == 1 else state.mask[..., None, :]
+    return hdot(Z * mask, state.components.mT) + _mean_rows(state)
 
 
 def pca_fit_transform(X, n_components=None, **kwargs):

@@ -2,8 +2,11 @@
 
 Port of ``cross_patient_speech_decoding_tpu/utils/config.py``: the
 key=value coercion, ``load_config`` (defaults <- YAML <- overrides; PyYAML
-imported only when a file is given), ``config_from_values`` and the CTC
-trainer's config. The other drivers' configs come with their drivers.
+imported only when a file is given), ``config_from_values``, the
+classical decoder's config and the CTC trainer's. The other drivers'
+configs come with their drivers. Field names and defaults are the JAX
+package's, so a results file written by either driver resumes in the
+other.
 """
 
 from __future__ import annotations
@@ -80,6 +83,68 @@ def config_from_values(cls, values: dict):
 
 
 REQUIRED = object()  # sentinel: Hydra's ??? equivalent
+
+
+@dataclass
+class SVMDecodeConfig:
+    """Classical cross-patient decode (aligned_decode_svm_ncv.py analog)."""
+
+    target_pt: str = "S14"
+    data: str = "synthetic"  # path to pt_decoding_data pkl or 'synthetic'
+    p_ind: int = -1
+    lab_type: str = "phon"
+    algn_type: str = "phon_seq"
+    strategy: str = "sep_align"  # sep_align | sep_dimred | joint_pca | mcca
+    n_iter: int = 50
+    n_folds: int = 20
+    n_comp: float = 0.8
+    max_k: int = 32
+    lam: float = 1.0
+    kernel: str = "rbf"
+    tar_in_train: bool = True
+    # -po flag: False = single-patient decode (no cross data pooled: the
+    # reference's PCA+SVC-on-target-only branch,
+    # aligned_decode_svm_ncv.py:415-437, fig_3's per-patient baseline)
+    pool_train: bool = True
+    # -pp flag: comma list of cross patients to pool ('all' = every
+    # pre_pt; also covers the legacy -n/--no_S23 exclusion),
+    # aligned_decode_svm_ncv.py:280-282
+    pooled_pts: str = "all"
+    # -tss flag: stratified per-fold subsample of the TARGET train split
+    # (aligned_decode_svm_ncv.py:351-360)
+    trial_subsample: float = 1.0
+    # persist per-iteration y_true/y_pred/wrong_trs next to the accs
+    # (out_data keys of aligned_decode_svm_ncv.py:440-456)
+    save_preds: bool = True
+    # nested Bayesian hyperparameter search per outer fold, the
+    # reference's do_cv flag wiring BayesSearchCV(n_iter=25, n_points=5)
+    # into the main driver (aligned_decode_svm_ncv.py:373-404);
+    # nested_rounds x nested_points = its n_iter candidate budget
+    nested: bool = False
+    nested_rounds: int = 5
+    nested_points: int = 5
+    nested_inner: int = 5
+    bagging: int = 0  # >0: bootstrap ensemble head (aligned_decode_svm.py:262)
+    random_data: bool = False  # -r control: replace cross data with noise
+    # none | tme | shuffle (supp_fig_11 controls); the surrogates are not
+    # ported yet: run_svm_decode raises for anything but 'none' (ROADMAP
+    # queue 1, item 9)
+    surrogate: str = "none"
+    chance: bool = False  # label-shuffle chance decoding
+    fold_batch: int = 20  # folds solved as one batch
+    # iterations per batch of folds (stacked as extra fold rows;
+    # per-iteration seeds and persistence unchanged)
+    iter_batch: int = 1
+    # fold sharding over the first n devices; 0 = one device. Not ported
+    # yet: run_svm_decode raises for n > 0 (ROADMAP queue 1, item 11)
+    n_devices: int = 0
+    # synthetic-data scale (data='synthetic' only): patients / trial length
+    # / trials-per-class; reference scale is 8 patients, T=200
+    synth_patients: int = 4
+    synth_T: int = 40
+    synth_trials: int = 15
+    seed: int = 0
+    out: str = "results/svm_decode.pkl"
 
 
 @dataclass
