@@ -63,6 +63,36 @@ line is never printed:
 5b. seq2seq_eval: ``make_seq2seq_eval_step`` on the same batch, with its
    exact launches (SEQ2SEQ_EVAL_LAUNCHES), logits, loss and accuracy
    against the plain path on the card, the median of 3 steps;
+5c. seq2seq_driver (slice 11's main path): ``cli.experiments.
+   run_train_seq2seq``, the ``train-seq2seq`` entry point, fold-parallel,
+   at the reference's width (100 filters of width 10, hidden 500, one
+   encoder and one decoder layer, dropout 0.3, teacher forcing 0.5, AdamW)
+   and data scale (8 synthetic patients of 9 classes x 17 trials, a pooled
+   set of 1224, T=200, made on the card; 20 folds in one chunk); cut: one
+   iteration of 2 epochs (the reference: 50 of 500). With the launch
+   counts zeroed just before and read just after, the iteration must
+   launch exactly 7 ``jacobi_eigh`` (one per source patient's chol CCA
+   fit, batched over the folds at K = 24), per fold and epoch one train
+   step's kernels and per fold one evaluation's (``s2s_driver_launches``:
+   60 ``gru_bifwd``, 180 ``gru_fwd``, 200 ``gru_bwd``), counted by the
+   wrappers; the plain GRU and Jacobi versions raise on CUDA tensors.
+   Accuracies finite in [0, 1], the results CSV and the progress pickle
+   written, a second call resuming with no launch. Every Jacobi batch of
+   that run (20 x 24 x 24) bit for bit its plain version, and the first
+   ``gru_bifwd``, ``gru_fwd`` and ``gru_bwd`` launch of each shape (the
+   encoder both ways and the decoder, at the fold's B = 1224) against
+   their plain versions on the same inputs (forward 1e-4, backward 1e-3
+   relative). Iteration wall time,
+   the per-fold features' ms (PCA, CCA), ms per fold-epoch, training
+   samples/s, eval ms, peak memory, and the device idle share of one
+   fold-epoch and of one whole iteration under ``torch.profiler``. Then
+   hidden 32, 8 filters, 3 patients, T=40, 4 folds, 3 epochs at dropout 0
+   and teacher forcing 1 on the card and on the CPU from the same data and
+   weights: per-fold latents on the target's separated columns (2e-4, 1e-3
+   mapped), every fold-epoch loss within 1e-3, accuracies equal up to the
+   test trials whose top two logits lie within 1e-4; the same on the card
+   with the reference's post-alignment augmentations (masks tiled over the
+   copies); and ``run_prewarm_seq2seq`` at that depth;
 6. alignment (slice 3's main path): the natively batched
    ``fit_cca_aligner`` at the JAX package's bench geometry
    (bench.py:section_alignment: 128 pairs of 150 trials x 200 bins x 40
@@ -116,7 +146,9 @@ line is never printed:
    ``{"kernels": [...]}`` line, whose launch counts are the CTC train
    step's, for ``gru_bifwd`` the seq2seq train step's and, for the Jacobi
    kernel, the chol fit's, with its launches per svm-decode iteration
-   (fixed and nested) beside them.
+   (fixed and nested) beside them, and for ``gru_bifwd``, ``gru_fwd``,
+   ``gru_bwd`` and ``jacobi_eigh`` their launches per ``seq2seq_driver``
+   iteration.
 
 Then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA card, and in a directory without the port.
@@ -258,7 +290,24 @@ SVM_SMALL_NOISE = (0.6, 8.0)  # the driver's; one that leaves hard trials
 SVM_FULL_NOISE = 16.0  # at SVM_CFG's scale: mean accuracy ~0.6 (chance 1/7)
 SVM_DECIDED = 1e-4  # a prediction counts where its top two scores differ
                     # by more than this much of their magnitude
-
+# the seq2seq experiment driver (cli/experiments.py:run_train_seq2seq,
+# fold-parallel) at the reference's width (utils/config.py's
+# TrainSeq2SeqConfig: 100 filters of width 10, hidden 500, one encoder and
+# one decoder layer, dropout 0.3, teacher forcing 0.5, AdamW) and data
+# scale (8 patients of 9 classes x 17 trials: 153 each, the reference's
+# ~150; a pooled set of 1224; T=200; 20 folds in one chunk). Cut: one
+# iteration of 2 epochs (the reference: 50 iterations of 500)
+S2S_DRV_CFG = dict(synth_patients=8, synth_trials=17, synth_T=200,
+                   n_filters=100, hidden=500, kernel_size=10, n_folds=20,
+                   fold_chunk=0, n_iter=1, epochs=2, seed=0)
+# small depth on the card and on the CPU from the same data and weights,
+# at dropout 0 and teacher forcing 1
+S2S_SMALL = dict(synth_patients=3, synth_trials=12, synth_T=40, hidden=32,
+                 n_filters=8, n_folds=4, n_iter=1, epochs=3, seed=0)
+S2S_AUGS = "time_shifting,noise_jitter,scaling"  # train_seq2seq.py:91
+S2S_LOSS_RTOL = 1e-3  # every fold-epoch's training loss, card vs CPU
+S2S_DECIDED = 1e-4  # a test trial counts where its top two logits differ
+                    # by more than this much of their magnitude
 
 
 def emit(obj) -> None:
@@ -314,12 +363,17 @@ def main() -> int:
     s2s_model, s2s_batch, s2s_launches = phase_seq2seq_train(torch, dev, gru)
     phase_seq2seq_eval(torch, dev, gru, s2s_model, s2s_batch)
     del s2s_model, s2s_batch
+    s2s_drv_launches = phase_seq2seq_driver(torch, dev, gru, jacobi, smi)
     align = phase_alignment(torch, dev, jacobi)
     svm_launches = phase_svm_decode(torch, dev, gru, jacobi, smi)
     kernels = phase_kernels(torch, dev, gru, train_res["launches"],
                             s2s_launches)
     kernels.append({**phase_kernel_jacobi(torch, dev, jacobi, align),
                     **svm_launches})
+    for row in kernels:
+        if row["name"] in s2s_drv_launches:
+            row["launches_seq2seq_driver_iteration"] = s2s_drv_launches[
+                row["name"]]
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -478,16 +532,18 @@ def _kernel_name(name: str) -> str:
     return name.split("(")[0].split("<")[0].split("::")[-1].strip()
 
 
-def profile_call(torch, fn):
+def profile_call(torch, fn, cpu: bool = True):
     """``fn()`` once under ``torch.profiler``: device time summed by kernel
     name, the device's busy time (one stream, so kernels do not overlap)
-    against the call's host-clock time, and its idle share. Returns
-    (fn's result, that summary)."""
+    against the call's host-clock time, and its idle share. ``cpu=False``
+    records the CUDA activity alone, for a call of ~10^5 kernels whose
+    host-side events would take minutes to summarise. Returns (fn's
+    result, that summary)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -1897,6 +1953,459 @@ def phase_seq2seq_eval(torch, dev, gru, model, batch):
     if not differ.any() and not (abs(loss - loss_p) <= LOSS_RTOL * abs(loss_p)
                                  and acc == acc_p):
         raise RuntimeError(f"seq2seq eval loss/acc vs plain: {res}")
+
+
+class _S2sProbe:
+    """Wrappers around what one ``run_train_seq2seq`` call runs, for a
+    block: the data (timed), the PCA fits (``exp._seq2seq_pca``: the
+    sources' once a run, the target's per-fold batch an iteration) and the
+    batched CCA fits (``exp._seq2seq_align``), each synchronised and timed
+    with its latents kept where ``keep`` is set; every fold-epoch and fold
+    evaluation of the fold trainer (synchronised and timed where ``timed``
+    is set, each loss kept); the pooled arrays; with ``cpu_slack`` the
+    share of each fold's test
+    rows whose top two logits lie within S2S_DECIDED of their magnitude
+    (trials that may flip between two devices)."""
+
+    def __init__(self, torch, exp, timed=True, keep=False, cpu_slack=False):
+        from cross_patient_speech_decoding_tpu_torch.train import (
+            fold_parallel,
+        )
+
+        self.torch, self.exp, self.fp = torch, exp, fold_parallel
+        self.timed, self.keep, self.cpu_slack = timed, keep, cpu_slack
+        self.data_s, self.pca_src_s, self.pca_tar_s = [], [], []
+        self.cca_s = []
+        self.epoch_s, self.eval_s, self.losses, self.slack = [], [], [], []
+        self.tar_lat, self.aligned, self.pooled = [], [], []
+        self.data = None
+
+    def _timed(self, fn, store):
+        torch = self.torch
+
+        def run(*a, **k):
+            if not self.timed:
+                return fn(*a, **k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            store.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def __enter__(self):
+        exp, fp, probe = self.exp, self.fp, self
+        self.saved = [(exp, n, getattr(exp, n)) for n in (
+            "_seq2seq_arrays", "_seq2seq_pca", "_seq2seq_align")]
+        self.saved += [(fp, n, getattr(fp, n)) for n in (
+            "_fold_epoch", "_fold_eval", "pooled_fold_arrays")]
+        orig = {n: f for _, n, f in self.saved}
+
+        def arrays(*a, **k):
+            out = probe._timed(orig["_seq2seq_arrays"], probe.data_s)(*a, **k)
+            probe.data = out
+            return out
+
+        def pca(X, mask, max_k):
+            store = probe.pca_src_s if mask is None else probe.pca_tar_s
+            lat = probe._timed(orig["_seq2seq_pca"], store)(X, mask, max_k)
+            if probe.keep and mask is not None:
+                probe.tar_lat.append(lat)
+            return lat
+
+        def align(*a, **k):
+            out = probe._timed(orig["_seq2seq_align"], probe.cca_s)(*a, **k)
+            if probe.keep:
+                probe.aligned.append(out)
+            return out
+
+        def epoch(*a, **k):
+            loss = probe._timed(orig["_fold_epoch"], probe.epoch_s)(*a, **k)
+            probe.losses.append(loss)
+            return loss
+
+        def evaluate(model, x, y, test_mask):
+            acc = probe._timed(orig["_fold_eval"], probe.eval_s)(
+                model, x, y, test_mask)
+            if probe.cpu_slack:
+                with probe.torch.no_grad():
+                    und = _undecided(model(x, None, 0.0),
+                                     S2S_DECIDED).any(-1)
+                rows = test_mask > 0
+                probe.slack.append(float((und & rows).sum())
+                                   / max(1, int(rows.sum())))
+            return acc
+
+        def pooled(*a, **k):
+            out = orig["pooled_fold_arrays"](*a, **k)
+            probe.pooled.append(out)
+            return out
+
+        exp._seq2seq_arrays, exp._seq2seq_pca = arrays, pca
+        exp._seq2seq_align = align
+        fp._fold_epoch, fp._fold_eval = epoch, evaluate
+        fp.pooled_fold_arrays = pooled
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+class _RecordGru:
+    """Within the block, keep a copy of the arguments and of the result of
+    the first launch of ``gru_bifwd``, ``gru_fwd`` and ``gru_bwd`` at each
+    shape, dtype, direction and ``need_dx`` (launch counts are the
+    wrappers' own); ``nbytes`` is what the copies hold on the device."""
+
+    PLAIN = {"gru_bifwd_cuda": "gru_layer_bidir_plain",
+             "gru_fwd_cuda": "gru_layer_plain",
+             "gru_bwd_cuda": "gru_backward_plain"}
+
+    def __init__(self, torch, gru):
+        self.torch, self.gru = torch, gru
+        self.calls, self.nbytes = {}, 0
+
+    def _copy(self, v):
+        if self.torch.is_tensor(v):
+            self.nbytes += v.numel() * v.element_size()
+            return v.clone()
+        if isinstance(v, tuple):
+            return tuple(self._copy(t) for t in v)
+        return v
+
+    def __enter__(self):
+        import inspect
+
+        self.saved = {n: getattr(self.gru, n) for n in self.PLAIN}
+        for name, fn in self.saved.items():
+            sig = inspect.signature(fn)
+
+            def record(*args, _name=name, _fn=fn, _sig=sig, **kw):
+                out = _fn(*args, **kw)
+                bound = _sig.bind(*args, **kw)
+                bound.apply_defaults()
+                a = bound.arguments
+                x = a["x"]
+                label = "_".join(
+                    [_name[:-5], "x".join(map(str, x.shape)),
+                     str(x.dtype).rsplit(".", 1)[-1]]
+                    + [f"{k}{int(a[k])}" for k in ("reverse", "need_dx")
+                       if k in a])
+                if label not in self.calls:
+                    self.calls[label] = (_name, self._copy(bound.args),
+                                         self._copy(out))
+                return out
+            setattr(self.gru, name, record)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.gru, name, fn)
+
+
+def _check_path_gru(gru, rec) -> dict:
+    """Each recorded launch's result against the plain version on its
+    recorded arguments, on the card: the forwards' hs to KERNEL_ATOL, the
+    backward's outputs to GRAD_RTOL relative (``_bwd_errs``)."""
+    out = {}
+    for label, (name, args, got) in rec.calls.items():
+        want = getattr(gru, _RecordGru.PLAIN[name])(*args)
+        if name == "gru_bwd_cuda":
+            err = max(_bwd_errs(got, want).values())
+            out[label] = {"max_rel_err": err, "ok": err <= GRAD_RTOL}
+        else:
+            if name == "gru_fwd_cuda":
+                got, want = (got,), (want,)
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            out[label] = {"max_abs_err": err, "ok": err <= KERNEL_ATOL}
+        del want
+    return out
+
+
+def s2s_driver_launches(cfg: dict) -> dict:
+    """Launches of one fold-parallel ``run_train_seq2seq`` iteration: one
+    ``jacobi_eigh`` per source patient (its chol CCA fit batched over the
+    folds, K = S2S_MAX_K); per fold, each epoch one train step
+    (SEQ2SEQ_TRAIN_LAUNCHES) and after the last one evaluation
+    (SEQ2SEQ_EVAL_LAUNCHES)."""
+    F, E = cfg["n_folds"], cfg["epochs"]
+    return {k: F * (E * SEQ2SEQ_TRAIN_LAUNCHES[k] + SEQ2SEQ_EVAL_LAUNCHES[k])
+            for k in SEQ2SEQ_TRAIN_LAUNCHES} | {
+                "jacobi_eigh": cfg["synth_patients"] - 1}
+
+
+def _s2s_cfg(spec: dict, out: str, **kw):
+    from cross_patient_speech_decoding_tpu_torch.utils.config import (
+        TrainSeq2SeqConfig,
+    )
+
+    return TrainSeq2SeqConfig(**{**spec, **kw}, out=out)
+
+
+def phase_seq2seq_driver(torch, dev, gru, jacobi, smi):
+    """The seq2seq experiment driver end to end at the reference's width
+    and data scale: exact launches, the kernels' launches of that run
+    against their plain versions, a resume with none, times, idle shares
+    and peak memory; then small depth on the card and on the CPU,
+    with augmentations on the card, and the prewarm command."""
+    import tempfile
+
+    import numpy as np
+
+    from cross_patient_speech_decoding_tpu_torch.cli import experiments as exp
+    from cross_patient_speech_decoding_tpu_torch.data.loaders import load_pkl
+    from cross_patient_speech_decoding_tpu_torch.train import (
+        create_train_state,
+        fold_parallel,
+        make_optimizer,
+    )
+
+    tmp = tempfile.TemporaryDirectory()
+    cfg = _s2s_cfg(S2S_DRV_CFG, str(Path(tmp.name) / "full" / "s2s.csv"))
+    want = s2s_driver_launches(S2S_DRV_CFG)
+
+    # (a) one iteration at full width, counts zeroed just before; the
+    # Jacobi kernel's batches and the first GRU launch of each shape are
+    # kept for (a') (copies held on the card from fold 0's first step on,
+    # so the peak they add is taken out of peak_mem_gb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(gru, jacobi)
+    with _NoPlainOnCuda(torch, gru, jacobi), _S2sProbe(torch, exp) as pr, \
+            _RecordJacobi(jacobi) as jrec, _RecordGru(torch, gru) as grec:
+        t0 = time.perf_counter()
+        accs = exp.run_train_seq2seq(cfg, verbose=True, device=dev)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    launches = _launch_counts(gru, jacobi)
+    kept = grec.nbytes + sum(A.numel() * A.element_size()
+                             for A in jrec.batches)
+    peak_raw = torch.cuda.max_memory_allocated()
+    peak_gb = (peak_raw - kept) / 1e9
+
+    # (a') every kernel launch kept from (a) against its plain version on
+    # the same inputs: the Jacobi batches (20 x 24 x 24) bit for bit, the
+    # GRU kernels at the fold's B = 1224 (encoder and decoder)
+    path_jacobi = {f"batch{i}_{'x'.join(map(str, A.shape))}":
+                   _check_jacobi(torch, jacobi, A)
+                   for i, A in enumerate(jrec.batches)}
+    path_gru = _check_path_gru(gru, grec)
+    del grec, jrec
+    (X, y, w, te), = pr.pooled
+    n_rows = int(X.shape[1])
+    csv_back = np.loadtxt(cfg.out, delimiter=",").tolist()
+    progress = load_pkl(str(Path(cfg.out).with_suffix(".progress.pkl")))
+
+    # (b) the same call again resumes: the stored accuracies, no launch
+    _reset_counts(gru, jacobi)
+    again = exp.run_train_seq2seq(cfg, verbose=True, device=dev)
+    torch.cuda.synchronize()
+    resume_launches = _launch_counts(gru, jacobi)
+
+    # (c) one fold-epoch and one whole iteration under torch.profiler
+    model = exp._seq2seq_model(cfg)(X.shape[-1], seed=0, device=dev)
+    tx = make_optimizer(cfg.lr, cfg.weight_decay, cfg.decay_iters,
+                        end_factor=0.01, clip=cfg.clip)
+    state = create_train_state(model, tx)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def one_epoch():
+        return fold_parallel._fold_epoch(state, tx, X[0], y, w[0], 0.5, gen)
+
+    one_epoch()
+    torch.cuda.synchronize()
+    _, epoch_prof = profile_call(torch, one_epoch)
+    del model, state, X, y, w, te, pr.pooled
+    cfg_p = _s2s_cfg(S2S_DRV_CFG, str(Path(tmp.name) / "prof" / "s2s.csv"))
+    t0 = time.perf_counter()
+    _, iter_prof = profile_call(
+        torch, lambda: exp.run_train_seq2seq(cfg_p, verbose=False,
+                                             device=dev), cpu=False)
+    iter_prof["profiled_call_s"] = time.perf_counter() - t0
+    for p in (epoch_prof, iter_prof):
+        p["device_ms_by_kernel"] = dict(list(
+            p["device_ms_by_kernel"].items())[:6])
+
+    fold_epoch_ms = statistics.median(pr.epoch_s) * 1e3
+    losses = [float(v) for v in pr.losses]
+    res = {"phase": "seq2seq_driver", "nvidia_smi": smi,
+           "config": S2S_DRV_CFG,
+           "cut": "1 iteration of 2 epochs (the reference: 50 of 500)",
+           "pooled_rows": n_rows, "accs": accs.tolist(),
+           "mean_acc": float(accs.mean()), "chance": 1.0 / 9,
+           "launches": launches, "launches_expected": want,
+           "fold_epochs": len(pr.epoch_s), "fold_evals": len(pr.eval_s),
+           "losses_first_last": [losses[0], losses[-1]],
+           "losses_finite": bool(np.isfinite(losses).all()),
+           "iteration_wall_s": wall_s, "data_ms": sum(pr.data_s) * 1e3,
+           "source_pca_ms": sum(pr.pca_src_s) * 1e3,
+           "fold_features_ms": {"pca": sum(pr.pca_tar_s) * 1e3,
+                                "cca": sum(pr.cca_s) * 1e3,
+                                "cca_fit_ms": [t * 1e3 for t in pr.cca_s]},
+           "ms_per_fold_epoch": fold_epoch_ms,
+           "fold_epoch_ms_min_max": [min(pr.epoch_s) * 1e3,
+                                     max(pr.epoch_s) * 1e3],
+           "train_samples_per_s": n_rows / (fold_epoch_ms / 1e3),
+           "eval_ms_per_fold": statistics.median(pr.eval_s) * 1e3,
+           "eval_ms": sum(pr.eval_s) * 1e3, "peak_mem_gb": peak_gb,
+           "peak_mem_gb_with_kept_copies": peak_raw / 1e9,
+           "path_kernels_vs_plain": {
+               "jacobi_eigh": path_jacobi, "gru": path_gru,
+               "tolerance": {"jacobi": "bit for bit (_jacobi_ok)",
+                             "gru_fwd_abs": KERNEL_ATOL,
+                             "gru_bwd_rel": GRAD_RTOL}},
+           "results_csv_read_back": csv_back == accs.tolist(),
+           "progress_iterations": len(progress["accs"]),
+           "resume_accs_same": again.tolist() == accs.tolist(),
+           "resume_launches": resume_launches,
+           "fold_epoch_profile": epoch_prof,
+           "iteration_profile": iter_prof,
+           "note": "times of (a), each part synchronised; the profiles are "
+                   "of one more fold-epoch and one more whole iteration"}
+    t0 = time.perf_counter()
+    small = _s2s_small(torch, dev, exp)
+    small["s"] = time.perf_counter() - t0
+    res["small_depth_card_vs_cpu"] = small
+    _reset_counts(gru, jacobi)
+    t0 = time.perf_counter()
+    warm = exp.run_prewarm_seq2seq(_s2s_cfg(S2S_SMALL, ""), verbose=True,
+                                   device=dev)
+    torch.cuda.synchronize()
+    res["prewarm"] = {"s": time.perf_counter() - t0,
+                      "launches": _launch_counts(gru, jacobi),
+                      "returned": list(np.shape(warm))}
+    emit(res)
+    tmp.cleanup()
+
+    bad = {}
+    if launches != want:
+        bad["launches"] = launches
+    bad.update({f"path_{k}": v for k, v in path_jacobi.items()
+                if not _jacobi_ok(k, v)})
+    bad.update({f"path_{k}": v for k, v in path_gru.items() if not v["ok"]})
+    # kept: every Jacobi batch, the encoder's gru_bifwd, the decoder's
+    # gru_fwd, gru_bwd over the encoder both ways and over a decoder step
+    kinds = [label.split("_")[1] for label in path_gru]
+    if (len(path_jacobi) != want["jacobi_eigh"] or "bifwd" not in kinds
+            or "fwd" not in kinds or kinds.count("bwd") < 3):
+        bad["path_recorded"] = [len(path_jacobi), list(path_gru)]
+    if not (res["losses_finite"] and accs.shape == (cfg.n_folds,)
+            and np.isfinite(accs).all() and 0.0 <= accs.min()
+            and accs.max() <= 1.0):
+        bad["accs"] = accs.tolist()
+    if not (res["results_csv_read_back"] and res["progress_iterations"] == 1):
+        bad["results_files"] = [csv_back, res["progress_iterations"]]
+    if not res["resume_accs_same"] or any(resume_launches.values()):
+        bad["resume"] = resume_launches
+    if res["prewarm"]["returned"] != [0] or not res["prewarm"]["launches"][
+            "gru_bifwd"]:
+        bad["prewarm"] = res["prewarm"]
+    bad.update({k: v for k, v in small.items()
+                if k.endswith("_ok") and v is not True})
+    if bad:
+        raise RuntimeError(f"seq2seq_driver checks failed: {list(bad)}")
+    return {k: v for k, v in launches.items() if v}
+
+
+def _s2s_small(torch, dev, exp):
+    """Small depth (S2S_SMALL) at dropout 0 and teacher forcing 1 on the
+    card, then on the CPU from the card's data and the same initial weights
+    (``Seq2SeqRNN`` draws them on the host from the seed), the CPU's Jacobi
+    on the kernel's route through its plain version: per-fold latents on
+    the target's separated columns (PCA 2e-4, mapped sources 1e-3, as
+    svm_decode's small depth), every fold-epoch loss within S2S_LOSS_RTOL,
+    accuracies equal up to the test rows whose top two logits the CPU's
+    model leaves within S2S_DECIDED. Then the card with the reference's
+    post-alignment augmentations: the pooled masks tiled over the copies."""
+    import functools
+
+    import numpy as np
+
+    from cross_patient_speech_decoding_tpu_torch.models import Seq2SeqRNN
+    from cross_patient_speech_decoding_tpu_torch.train import fold_parallel
+
+    fp = fold_parallel
+    saved = [(exp, "_seq2seq_model", exp._seq2seq_model),
+             (exp, "_seq2seq_arrays", exp._seq2seq_arrays),
+             (fp, "make_seq2seq_fold_trainer_fn",
+              fp.make_seq2seq_fold_trainer_fn)]
+    make_fn = fp.make_seq2seq_fold_trainer_fn
+    exp._seq2seq_model = lambda cfg: functools.partial(
+        Seq2SeqRNN, n_filters=cfg.n_filters, hidden=cfg.hidden,
+        num_classes=9, kernel_size=cfg.kernel_size, cnn_dropout=0.0,
+        rnn_dropout=0.0)
+    fp.make_seq2seq_fold_trainer_fn = lambda m, **k: make_fn(
+        m, **{**k, "teacher_forcing": 1.0})
+    out = {"config": S2S_SMALL, "dropout": 0.0, "teacher_forcing": 1.0,
+           "latent_rtol": [DRV_PCA_RTOL, DRV_ALIGNED_RTOL],
+           "loss_rtol": S2S_LOSS_RTOL, "decided_rtol": S2S_DECIDED}
+    try:
+        with _S2sProbe(torch, exp, timed=False, keep=True) as card:
+            acc_g = exp.run_train_seq2seq(_s2s_cfg(S2S_SMALL, ""), False, dev)
+            torch.cuda.synchronize()
+        Xs, ys = card.data
+        exp._seq2seq_arrays = lambda cfg, device=None: (
+            [X.cpu() for X in Xs], ys)
+        t0 = time.perf_counter()
+        with _PlainJacobiOnCpu(), _S2sProbe(torch, exp, timed=False,
+                                            keep=True, cpu_slack=True) as cpu:
+            acc_c = exp.run_train_seq2seq(_s2s_cfg(S2S_SMALL, ""), False,
+                                          "cpu")
+        out["cpu_s"] = time.perf_counter() - t0
+        exp._seq2seq_arrays = saved[1][2]
+        with _S2sProbe(torch, exp, timed=False) as aug:
+            acc_a = exp.run_train_seq2seq(_s2s_cfg(
+                S2S_SMALL, "", augmentations=S2S_AUGS), False, dev)
+            torch.cuda.synchronize()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+    # latents: each fold's separated target columns
+    errs = []
+    tar_c = cpu.tar_lat[0]
+    for b in range(S2S_SMALL["n_folds"]):
+        sep = _separated(tar_c[b])
+        for lg, lc, tol in ([(card.tar_lat[0], tar_c, DRV_PCA_RTOL)]
+                            + [(g, h, DRV_ALIGNED_RTOL) for g, h in
+                               zip(card.aligned, cpu.aligned)]):
+            errs.append((_rel(lg[b].cpu()[..., sep], lc[b][..., sep])
+                         if sep.any() else float("inf"), tol,
+                         int(sep.sum())))
+    out["latent_rel_errs"] = [e for e, _, _ in errs]
+    out["latent_columns_compared"] = [n for _, _, n in errs]
+    out["latents_ok"] = all(e <= t for e, t, _ in errs)
+    l_g = np.asarray([float(v) for v in card.losses])
+    l_c = np.asarray([float(v) for v in cpu.losses])
+    out["loss_rel_errs"] = (np.abs(l_g - l_c) / np.abs(l_c)).tolist()
+    out["final_losses_card"] = l_g[S2S_SMALL["epochs"] - 1::
+                                   S2S_SMALL["epochs"]].tolist()
+    out["final_losses_cpu"] = l_c[S2S_SMALL["epochs"] - 1::
+                                  S2S_SMALL["epochs"]].tolist()
+    out["losses_ok"] = (len(l_g) == len(l_c) > 0
+                        and max(out["loss_rel_errs"]) <= S2S_LOSS_RTOL)
+    out["accs_card"], out["accs_cpu"] = acc_g.tolist(), acc_c.tolist()
+    out["acc_slack"] = cpu.slack
+    out["accs_ok"] = bool(len(acc_g) == len(cpu.slack) and all(
+        abs(g - c) <= s + 1e-6 for g, c, s in zip(acc_g, acc_c, cpu.slack)))
+
+    # augmentations: train masks tiled over the copies, test rows only
+    # on the originals
+    (X, _, w, te), = aug.pooled
+    n0 = len(Xs[0])
+    reps = len(S2S_AUGS.split(",")) + 1
+    w_t = w[:, : n0 * reps].reshape(len(w), reps, n0)
+    out["augmented"] = {"augmentations": S2S_AUGS, "pooled_shape":
+                        list(X.shape), "accs": acc_a.tolist()}
+    out["augmented_ok"] = bool(
+        X.shape[1] == reps * sum(len(x) for x in Xs)
+        and (w_t == w_t[:, :1]).all() and (w[:, n0 * reps:] == 1).all()
+        and (te[:, n0:] == 0).all() and (te[:, :n0] == 1 - w[:, :n0]).all()
+        and np.isfinite(acc_a).all() and 0.0 <= acc_a.min()
+        and acc_a.max() <= 1.0)
+    return out
 
 
 def _weights(torch, gen, dev, F, Hh):

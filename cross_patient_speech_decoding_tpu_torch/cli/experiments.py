@@ -1,9 +1,10 @@
-"""The experiment drivers: ``run_train_ctc`` (``cpsd train-ctc``) and
-``run_svm_decode`` (``cpsd svm-decode``).
+"""The experiment drivers: ``run_train_ctc`` (``cpsd train-ctc``),
+``run_svm_decode`` (``cpsd svm-decode``), ``run_train_seq2seq`` (``cpsd
+train-seq2seq``) and the two prewarm commands.
 
-Port of the CTC and classical-decode sections of
+Port of the CTC, seq2seq, classical-decode and prewarm sections of
 ``cross_patient_speech_decoding_tpu/cli/experiments.py`` (:57-132,
-:142-230, :245-451, :1065-1750).
+:142-230, :245-821, :1065-1820).
 
 ``run_svm_decode`` is the analog of the reference's
 ``aligned_decode_svm[_ncv].py``: repeated stratified CV of pooled
@@ -12,6 +13,15 @@ nested TPE search of ``decoders/nested_cv.py``), with the same numpy
 splits as the JAX package, per-iteration results appended to a pickle and
 a resume from it. Its synthetic data is drawn on the card
 (``make_synthetic_patients_device``).
+
+``run_train_seq2seq`` is the analog of ``train_seq2seq.py``: per-fold
+PCA of the target and chol CCA of each source into it, refitted on the
+fold's train rows with the folds a batch axis (one Jacobi launch per
+source on the card), then a Seq2SeqRNN per fold, through the fold trainer
+of ``train/fold_parallel.py`` (one model per fold in turn, where the JAX
+package vmaps the folds) or one ``train.loops.fit`` per fold. Splits are
+the JAX package's numpy draws; weights come from ``Seq2SeqRNN(seed=)``,
+the dropout masks, coins and augmentations from ``torch.Generator``s.
 
 ``run_train_ctc`` is the analog of ``train_ctc_rnn.py``. One run trains
 and tests the realtime CTC RNN in one of four contexts: ``chance`` (target data, labels permuted or drawn
@@ -30,18 +40,25 @@ the initial weights from ``seed + it`` (``RealtimeRNN``'s own generator),
 the augmentations from ``seed + 500 + it``, dropout from
 ``seed + 1000 + it``. Those streams differ from JAX's by design.
 
-Not ported yet, and refused: ``init_ckpt`` (ROADMAP queue 1, item 10),
-``n_devices > 0`` (item 11), ``log_format='tb'`` (item 10, refused by
-``train.loops.append_metrics`` on the first epoch logged).
+The prewarm commands build the kernel libraries and run one epoch, which
+pays the card's library set-up; the JAX package filled its compile cache
+there, which the port does not have.
+
+Not ported yet, and refused: ``init_ckpt`` (ROADMAP queue 1, item 10b),
+``n_devices > 0`` (item 11), ``log_format='tb'`` (item 10b; refused by
+``train.loops.append_metrics`` on the first epoch logged, and by
+``run_train_seq2seq`` up front).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import re
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -59,6 +76,7 @@ from cross_patient_speech_decoding_tpu_torch.data.splits import (
 from cross_patient_speech_decoding_tpu_torch.utils.config import (
     SVMDecodeConfig,
     TrainCTCConfig,
+    TrainSeq2SeqConfig,
 )
 from cross_patient_speech_decoding_tpu_torch.utils.device import (
     resolve_device,
@@ -1076,3 +1094,439 @@ def run_svm_decode(cfg: SVMDecodeConfig, verbose: bool = True, device=None):
                       f"(chance {1.0 / n_y:.3f})", flush=True)
         it += k
     return np.stack(all_accs)
+
+
+# ---------------------------------------------------------- train seq2seq --
+
+# latent width of the seq2seq driver's PCA and CCA: ops.jacobi.ANY_BATCH_K,
+# so on the card each source's batched chol CCA fit is one Jacobi launch
+S2S_MAX_K = 24
+S2S_CHANNELS = (64, 72, 56, 96, 111, 128, 80, 104)
+S2S_N_CLASSES = 9  # phoneme digits 1-9, minus 1
+
+
+def _seq2seq_arrays(cfg: TrainSeq2SeqConfig, device=None):
+    """(Xs, y_seq_raw) per patient, target first: X (N, T, C) float32
+    tensors on the device and the (N, 3) label sequences (digits 1-9) as
+    numpy. Synthetic data is made on the device (9 sequence classes x
+    ``synth_trials`` trials a patient). A ``pt_decoding_data*.pkl`` is read
+    as train_seq2seq.py:78-96 reads it: ``decoding_data_from_dict`` with
+    ``p_ind``, the targets the full phoneme sequences, the ``pre_pts``
+    pooled when ``pooled`` is set."""
+    dev = resolve_device(device)
+    if cfg.data == "synthetic":
+        ds = make_synthetic_patients_device(
+            seed=cfg.seed, n_patients=cfg.synth_patients, n_classes=9,
+            trials_per_class=cfg.synth_trials, T=cfg.synth_T,
+            channels=S2S_CHANNELS[: cfg.synth_patients], latent_dim=10,
+            noise=0.5, device=dev)
+        Xs, ys = ds.X, ds.y_seq
+    else:
+        from cross_patient_speech_decoding_tpu_torch.data.loaders import (
+            decoding_data_from_dict,
+        )
+
+        (X_t, _, ya_t), pre = decoding_data_from_dict(
+            load_pkl(cfg.data), cfg.target_pt, cfg.p_ind, cfg.lab_type,
+            cfg.algn_type)
+        Xs, ys = [X_t], [ya_t]
+        if cfg.pooled:
+            Xs += [X for X, _, _ in pre]
+            ys += [ya for _, _, ya in pre]
+    return ([torch.as_tensor(X, dtype=torch.float32, device=dev).contiguous()
+             for X in Xs], [np.asarray(y) for y in ys])
+
+
+def _seq2seq_pca(X, mask, max_k: int):
+    """A patient's PCA latents at 0.9 explained variance: (N, T, K), or
+    (F, N, T, K) fitted on the trials of each row of an (F, N) mask, each
+    component's sign fixed by ``decoders.pooled._pca_latents``' rule."""
+    from cross_patient_speech_decoding_tpu_torch.decoders.pooled import (
+        _pca_latents,
+    )
+
+    return _pca_latents(X, 0.9, max_k, mask)[1]
+
+
+def _seq2seq_align(lat_t, lat_s, ids_t, ids_s, n_classes: int, mask):
+    """A source's latents (Ns, T, K) mapped into the target's space by
+    class-averaged chol CCA, fitted on the target rows of ``mask``: one
+    fit batched over the mask's leading (fold) dims, lat_t (..., N0, T, K).
+    Returns (..., Ns, T, K)."""
+    from cross_patient_speech_decoding_tpu_torch.ops.cca import (
+        fit_cca_aligner,
+        transform_b_to_a,
+    )
+
+    lead = tuple(mask.shape[:-1])
+    al = fit_cca_aligner(lat_t, lat_s.expand(lead + lat_s.shape),
+                         ids_t.expand(lead + ids_t.shape),
+                         ids_s.expand(lead + ids_s.shape), n_classes,
+                         mask_a=mask)
+    Ns, T, K = lat_s.shape
+    return transform_b_to_a(al, lat_s.reshape(Ns * T, K)).reshape(
+        lead + (Ns, T, -1))
+
+
+def _seq2seq_fold_features(tarX, cross_lats, ids, n_classes: int, masks,
+                           max_k: int = S2S_MAX_K):
+    """[target latents, aligned cross latents...] of the folds of (F, N0)
+    train masks (or of one fold's (N0,) mask). The target PCA and every CCA
+    fit are refitted on the fold's train rows only (the reference's
+    per-fold process_aligner, datamodules.py:470-472), so held-out trials
+    never shape the pooled features; the cross patients' own latents
+    (``cross_lats``) are fitted once a run, on all their rows. Without
+    cross patients: the raw target channels, shared by every fold (the
+    reference's SimpleMicroDataModule path, train_seq2seq.py:110-116)."""
+    if not cross_lats:
+        return [tarX]
+    lat_t = _seq2seq_pca(tarX, masks, max_k)
+    return [lat_t] + [
+        _seq2seq_align(lat_t, lat, ids[0], ids[p], n_classes, masks)
+        for p, lat in enumerate(cross_lats, start=1)]
+
+
+def _augment_stack_folds(x, names, generator):
+    """:func:`_augment_stack` over (F, N, T, C) per-fold stacks: the copies
+    concatenated on the trial axis (1), each fold's rows drawn
+    independently."""
+    from cross_patient_speech_decoding_tpu_torch.ops import augment
+
+    n_folds, N, T, C = x.shape
+    flat = x.reshape(n_folds * N, T, C)
+    return torch.cat([x] + [
+        getattr(augment, name)(generator, flat).reshape(n_folds, N, T, C)
+        for name in names], dim=1)
+
+
+def _augmented_fold_masks(tr_m, te_m, reps: int):
+    """(train, test) masks over the target rows followed by their
+    ``reps - 1`` augmented copies: the copies of train rows train, the
+    copies of test rows are in neither set."""
+    return (np.tile(tr_m, (1, reps)),
+            np.concatenate([te_m, np.zeros((te_m.shape[0],
+                                            te_m.shape[1] * (reps - 1)))],
+                           axis=1))
+
+
+def _seq2seq_model(cfg: TrainSeq2SeqConfig):
+    """The run's model: ``model(in_channels, seed=, device=)`` makes a
+    ``Seq2SeqRNN`` at the config's widths, 9 classes, default dropouts."""
+    from cross_patient_speech_decoding_tpu_torch.models import Seq2SeqRNN
+
+    return functools.partial(
+        Seq2SeqRNN, n_filters=cfg.n_filters, hidden=cfg.hidden,
+        num_classes=S2S_N_CLASSES, n_enc_layers=cfg.n_enc_layers,
+        n_dec_layers=cfg.n_dec_layers, kernel_size=cfg.kernel_size)
+
+
+def _build_libraries(dev, beam: bool = False) -> None:
+    """Build what a run on ``dev`` loads at first use: the CUDA kernel
+    libraries on a card, and with ``beam`` the native beam search (which
+    falls back to Python where it cannot be built)."""
+    if dev.type == "cuda":
+        from cross_patient_speech_decoding_tpu_torch.ops import _ext
+
+        _ext.build()
+        _ext.lib()
+    if beam:
+        from cross_patient_speech_decoding_tpu_torch.realtime import (
+            beam as native_beam,
+        )
+
+        native_beam.native_available()
+
+
+class _Seq2SeqPrep(NamedTuple):
+    """What every iteration of a seq2seq run shares: the target's raw
+    trials, the cross patients' latents (fitted once a run), the class ids
+    of the CCA fits and the stratification, and the labels (digit - 1)."""
+
+    tarX: torch.Tensor
+    cross_lats: list
+    ids: list
+    n_classes: int
+    strat: np.ndarray
+    y_seqs: list
+
+
+def _seq2seq_prep(cfg: TrainSeq2SeqConfig, dev) -> _Seq2SeqPrep:
+    Xs, y_raw = _seq2seq_arrays(cfg, dev)
+    ids, n_cls = _class_ids(y_raw, dev)
+    cross_lats = [_seq2seq_pca(X, None, S2S_MAX_K) for X in Xs[1:]]
+    # phoneme digits 1..9 -> classes 0..8 (train_seq2seq.py:95-96); the
+    # start token is the model's num_classes
+    y_seqs = [torch.as_tensor(np.asarray(y, np.int64) - 1, device=dev)
+              for y in y_raw]
+    return _Seq2SeqPrep(Xs[0], cross_lats, ids, n_cls,
+                        ids[0].cpu().numpy(), y_seqs)
+
+
+def run_train_seq2seq(cfg: TrainSeq2SeqConfig, verbose: bool = True,
+                      device=None, *, prewarm_only: bool = False):
+    """Seq2seq training, aligned pooling and k-fold CV (``cpsd
+    train-seq2seq``); returns every fold's test accuracy, iteration after
+    iteration, as numpy, also written to ``out`` as a CSV.
+
+    Each of ``n_iter`` iterations splits the target into ``n_folds``
+    stratified folds (numpy, as the JAX driver), refits the target PCA
+    and the sources' CCA on each fold's train rows, pools, trains a
+    Seq2SeqRNN per fold with teacher forcing and tests it. With
+    ``fold_parallel`` (the default) the folds go through
+    ``train.fold_parallel`` in chunks of ``fold_chunk``, each fold one
+    full-batch step an epoch and one test after the last; otherwise each
+    fold is one ``train.loops.fit`` that keeps its best test accuracy,
+    checked every ``epochs // 20`` epochs. Per-iteration accuracies go to
+    ``<out stem>.progress.pkl``, from which a rerun resumes.
+
+    Runs on ``device`` (default: the first CUDA card; raises without one
+    unless ``device='cpu'``). ``prewarm_only`` builds the kernel libraries
+    and runs one epoch of one fold chunk (one fold sequentially), which
+    pays the card's library set-up, and writes nothing.
+
+    Not ported yet, and refused: ``n_devices > 0`` (ROADMAP queue 1, item
+    11) and ``log_format='tb'`` (item 10b).
+    """
+    if cfg.n_devices > 0 and not cfg.fold_parallel:
+        raise ValueError(
+            "n_devices requires fold_parallel=true: fold-axis sharding "
+            "is the seq2seq driver's multi-chip strategy (the sequential "
+            "path trains one fold at a time on one device)")
+    if cfg.n_devices > 0:
+        raise NotImplementedError(
+            "n_devices > 0: multi-GPU fold sharding is not ported yet "
+            "(ROADMAP queue 1, item 11)")
+    if cfg.log_format == "tb":
+        raise NotImplementedError(
+            "log_format='tb' needs the TensorBoard event writer, not ported "
+            "yet (ROADMAP queue 1, item 10b: utils/tb_events)")
+    dev = resolve_device(device)
+    if prewarm_only:
+        _build_libraries(dev)
+        cfg = dataclasses.replace(cfg, n_iter=1, epochs=1, out="",
+                                  log_metrics=False, trace=False)
+
+    progress = (str(Path(cfg.out).with_suffix(".progress.pkl")) if cfg.out
+                else "")
+    done = _completed_results(progress, vars(cfg), scalar=False)[: cfg.n_iter]
+    if done and verbose:
+        print(f"resuming: {len(done)}/{cfg.n_iter} iterations done",
+              flush=True)
+    results = [float(a) for accs in done for a in np.ravel(accs)]
+    if len(done) < cfg.n_iter:
+        if progress:
+            Path(progress).parent.mkdir(parents=True, exist_ok=True)
+        run = (_seq2seq_fold_parallel if cfg.fold_parallel
+               else _seq2seq_sequential)
+        results += run(cfg, dev, len(done), progress, verbose, prewarm_only)
+    if prewarm_only:
+        return np.asarray([])
+    out = np.asarray(results)
+    if cfg.out:
+        Path(cfg.out).parent.mkdir(parents=True, exist_ok=True)
+        np.savetxt(cfg.out, out, delimiter=",")
+    return out
+
+
+def _seq2seq_run_name(cfg: TrainSeq2SeqConfig) -> str:
+    return (f"{cfg.target_pt}_{'aligned' if cfg.pooled else 'ptSpecific'}"
+            "_seq2seq")
+
+
+def _seq2seq_iter_rng(cfg: TrainSeq2SeqConfig, it: int):
+    return np.random.default_rng(cfg.seed + 7919 * it)
+
+
+def _seq2seq_fold_parallel(cfg, dev, start_it, progress, verbose,
+                           prewarm_only):
+    """The fold-parallel iterations from ``start_it``: every fold of an
+    iteration through the fold trainer (in chunks of ``fold_chunk``, the
+    chunk at fold c0 seeded ``seed + it + 31 c0``); one row of per-fold
+    accuracies an iteration in ``logs/<run>/fold_accs.csv``."""
+    from cross_patient_speech_decoding_tpu_torch.data.splits import (
+        stratified_kfold_masks,
+    )
+    from cross_patient_speech_decoding_tpu_torch.train import fold_parallel
+    from cross_patient_speech_decoding_tpu_torch.train.loops import (
+        append_metrics,
+    )
+
+    prep = _seq2seq_prep(cfg, dev)
+    trainer_fn = fold_parallel.make_seq2seq_fold_trainer_fn(
+        _seq2seq_model(cfg), lr=cfg.lr, weight_decay=cfg.weight_decay,
+        decay_iters=cfg.decay_iters, clip=cfg.clip, rnn_impl=cfg.rnn_impl)
+    aug_names = _parse_augmentations(cfg.augmentations)
+    run_name = _seq2seq_run_name(cfg)
+    fold_log = (Path(cfg.out).parent / "logs" / run_name / "fold_accs.csv"
+                if cfg.log_metrics and cfg.out else None)
+    if fold_log is not None and start_it == 0 and fold_log.exists():
+        # a fresh run: a log already there is an earlier run's
+        fold_log.unlink()
+    results = []
+    for it in range(start_it, cfg.n_iter):
+        tr_m, te_m = stratified_kfold_masks(prep.strat, cfg.n_folds,
+                                            _seq2seq_iter_rng(cfg, it))
+        feats = _seq2seq_fold_features(
+            prep.tarX, prep.cross_lats, prep.ids, prep.n_classes,
+            torch.as_tensor(tr_m, dtype=torch.float32, device=dev))
+        tar_f, cross_f = feats[0], feats[1:]
+        tar_y, cross_y = prep.y_seqs[0], prep.y_seqs[1:]
+        te_pass = None
+        if aug_names:
+            # augmented copies of the aligned rows (datamodules.py:491-494)
+            reps = len(aug_names) + 1
+            gen = torch.Generator(device=dev).manual_seed(
+                cfg.seed + 900 + it)
+            if tar_f.dim() == 3:  # raw channels, shared: one copy a fold
+                tar_f = tar_f.expand((len(tr_m),) + tar_f.shape)
+            tar_f = _augment_stack_folds(tar_f, aug_names, gen)
+            cross_f = [_augment_stack_folds(f, aug_names, gen)
+                       for f in cross_f]
+            tar_y = torch.cat([tar_y] * reps)
+            cross_y = [torch.cat([y] * reps) for y in cross_y]
+            tr_m, te_pass = _augmented_fold_masks(tr_m, te_m, reps)
+        X_pool, y_pool, w, te = fold_parallel.pooled_fold_arrays(
+            tar_f, tar_y, cross_f, cross_y, tr_m, test_masks=te_pass)
+        del feats, tar_f, cross_f
+        n_folds = w.shape[0]
+        chunk = cfg.fold_chunk if cfg.fold_chunk > 0 else n_folds
+        per_fold_x = X_pool.dim() == 4
+
+        def chunk_args(c0):
+            sl = slice(c0, c0 + chunk)
+            return (X_pool[sl] if per_fold_x else X_pool), y_pool, w[sl], \
+                te[sl]
+
+        if prewarm_only:
+            trainer_fn(*chunk_args(0), cfg.seed + it, cfg.epochs)
+            return []
+        with _maybe_trace(cfg.trace and it == start_it, cfg.out, run_name):
+            parts = [trainer_fn(*chunk_args(c0), cfg.seed + it + 31 * c0,
+                                cfg.epochs)[0]
+                     for c0 in range(0, n_folds, chunk)]
+        accs = torch.cat(parts).cpu().numpy()
+        del X_pool, parts
+        results.extend(accs.tolist())
+        if progress:
+            append_results_pkl(progress, accs, params=vars(cfg))
+        if fold_log is not None:
+            append_metrics(str(fold_log), {
+                "iter": it,
+                **{f"fold{j}": float(a) for j, a in enumerate(accs)}})
+        if verbose:
+            print(f"iter {it}: {cfg.n_folds} folds, mean test acc "
+                  f"{accs.mean():.3f}", flush=True)
+    return results
+
+
+def _seq2seq_sequential(cfg, dev, start_it, progress, verbose,
+                        prewarm_only):
+    """The sequential iterations from ``start_it``: one ``fit`` per fold on
+    the target's train rows and every aligned cross row, its test rows
+    evaluated every ``max(1, epochs // 20)`` epochs and its best test
+    accuracy kept (fold k's weights from ``seed + k``, its draws from
+    ``seed + 100 + k``, its augmentations from ``seed + 900 + 100 it +
+    k``); per-epoch logs under ``logs/<run>/``."""
+    from cross_patient_speech_decoding_tpu_torch.data.splits import (
+        stratified_kfold_masks,
+    )
+    from cross_patient_speech_decoding_tpu_torch.train import (
+        create_train_state,
+        make_seq2seq_eval_step,
+        make_seq2seq_train_step,
+    )
+    from cross_patient_speech_decoding_tpu_torch.train.loops import (
+        fit as fit_loop,
+        make_optimizer,
+    )
+
+    prep = _seq2seq_prep(cfg, dev)
+    model = _seq2seq_model(cfg)
+    tx = make_optimizer(cfg.lr, cfg.weight_decay, cfg.decay_iters,
+                        end_factor=0.01, clip=cfg.clip)
+    aug_names = _parse_augmentations(cfg.augmentations)
+    run_name = _seq2seq_run_name(cfg)
+    y_t, y_cross = prep.y_seqs[0], prep.y_seqs[1:]
+    results = []
+    for it in range(start_it, cfg.n_iter):
+        tr_m, te_m = stratified_kfold_masks(prep.strat, cfg.n_folds,
+                                            _seq2seq_iter_rng(cfg, it))
+        iter_accs = []
+        for k in range(cfg.n_folds):
+            tr_i = torch.as_tensor(np.where(tr_m[k] > 0)[0], device=dev)
+            te_i = torch.as_tensor(np.where(te_m[k] > 0)[0], device=dev)
+            feats = _seq2seq_fold_features(
+                prep.tarX, prep.cross_lats, prep.ids, prep.n_classes,
+                torch.as_tensor(tr_m[k], dtype=torch.float32, device=dev))
+            X_train = torch.cat([feats[0][tr_i]] + feats[1:])
+            y_train = torch.cat([y_t[tr_i]] + y_cross)
+            if aug_names:
+                gen = torch.Generator(device=dev).manual_seed(
+                    cfg.seed + 900 + it * 100 + k)
+                X_train = _augment_stack(X_train, aug_names, gen)
+                y_train = torch.cat([y_train] * (len(aug_names) + 1))
+            m = model(X_train.shape[-1], seed=cfg.seed + k, device=dev)
+            state = create_train_state(m, tx)
+            gen = torch.Generator(device=dev).manual_seed(cfg.seed + 100 + k)
+            with _maybe_trace(cfg.trace and it == start_it and k == 0,
+                              cfg.out, run_name):
+                res = fit_loop(
+                    state, make_seq2seq_train_step(m, tx),
+                    make_seq2seq_eval_step(m), (X_train, y_train),
+                    (feats[0][te_i], y_t[te_i]), epochs=cfg.epochs,
+                    generator=gen, monitor="acc", mode="max",
+                    batch_size=cfg.batch_size or None,
+                    eval_every=max(1, cfg.epochs // 20),
+                    log_path=(_run_log_path(cfg.out, run_name, it, k,
+                                            fmt=cfg.log_format)
+                              if cfg.log_metrics else None),
+                    log_format=cfg.log_format)
+            if prewarm_only:
+                return []
+            iter_accs.append(res.best_metric)
+            if verbose:
+                print(f"iter {it} fold {k}: best test acc "
+                      f"{res.best_metric:.3f}", flush=True)
+            del res, state, m, feats, X_train
+        results.extend(iter_accs)
+        if progress:
+            append_results_pkl(progress, np.asarray(iter_accs),
+                               params=vars(cfg))
+    return results
+
+
+# ----------------------------------------------------------------- prewarm --
+
+def run_prewarm_ctc(cfg: TrainCTCConfig, verbose: bool = True, device=None):
+    """Ready a CTC run ahead of time (``cpsd prewarm-ctc``): build the
+    kernel and native beam libraries, then train one epoch of one
+    iteration at the config's shapes, which pays the card's library
+    set-up (cuBLAS, cuDNN, cuSOLVER). The JAX package filled its compile
+    cache here; the port has none. Writes no results; returns an empty
+    array."""
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    _build_libraries(dev, beam=True)
+    run_train_ctc(dataclasses.replace(cfg, n_iter=1, epochs=1, out="",
+                                      log_metrics=False, trace=False,
+                                      results_h5=""),
+                  verbose=False, device=dev)
+    if verbose:
+        print(f"ctc libraries built and one epoch run in "
+              f"{time.perf_counter() - t0:.1f}s (context={cfg.context})",
+              flush=True)
+    return np.asarray([])
+
+
+def run_prewarm_seq2seq(cfg: TrainSeq2SeqConfig, verbose: bool = True,
+                        device=None):
+    """Ready a seq2seq run ahead of time (``cpsd prewarm-seq2seq``):
+    ``run_train_seq2seq(..., prewarm_only=True)``, the kernel libraries
+    built and one epoch of one fold chunk run. Writes no results; returns
+    an empty array."""
+    t0 = time.perf_counter()
+    run_train_seq2seq(cfg, verbose=False, device=device, prewarm_only=True)
+    if verbose:
+        print(f"seq2seq libraries built and one epoch run in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return np.asarray([])

@@ -2,10 +2,11 @@
 
 Port of ``cross_patient_speech_decoding_tpu/cli/main.py``: a subcommand
 takes an optional ``--config file.yaml`` and Hydra-style ``key=value``
-overrides. ``train-ctc`` and ``svm-decode`` are ported so far; every
-other command of the JAX package is listed and refused with the ROADMAP
-item that ports it. ``device=cpu`` (or ``device=cuda:1``) picks the
-device; the default is the first CUDA card.
+overrides. ``train-ctc``, ``svm-decode``, ``train-seq2seq``,
+``prewarm-ctc`` and ``prewarm-seq2seq`` are ported so far; every other
+command of the JAX package is listed and refused with the ROADMAP item
+that ports it. ``device=cpu`` (or ``device=cuda:1``) picks the device;
+the default is the first CUDA card.
 
 Example::
 
@@ -13,6 +14,9 @@ Example::
         context=aligned n_iter=5 epochs=100 device=cpu
     python -m cross_patient_speech_decoding_tpu_torch.cli.main svm-decode \\
         synth_patients=3 synth_T=20 n_iter=2 n_folds=4 device=cpu
+    python -m cross_patient_speech_decoding_tpu_torch.cli.main \\
+        train-seq2seq synth_patients=3 synth_T=40 synth_trials=4 n_iter=2 \\
+        n_folds=4 epochs=3 hidden=16 n_filters=8 device=cpu
 """
 
 from __future__ import annotations
@@ -25,21 +29,22 @@ from cross_patient_speech_decoding_tpu_torch.utils.config import (
     REQUIRED,
     SVMDecodeConfig,
     TrainCTCConfig,
+    TrainSeq2SeqConfig,
     load_config,
 )
 
 _COMMANDS = {
     "train-ctc": (TrainCTCConfig, "run_train_ctc"),
     "svm-decode": (SVMDecodeConfig, "run_svm_decode"),
+    "train-seq2seq": (TrainSeq2SeqConfig, "run_train_seq2seq"),
+    "prewarm-ctc": (TrainCTCConfig, "run_prewarm_ctc"),
+    "prewarm-seq2seq": (TrainSeq2SeqConfig, "run_prewarm_seq2seq"),
 }
 
 # the JAX package's other commands -> the ROADMAP queue 1 item that ports
-# them (prewarm-ctc filled XLA's compile cache; see item 10)
+# them
 _NOT_PORTED = {
-    "train-seq2seq": 7,
     "train-nn": 7,
-    "prewarm-ctc": 10,
-    "prewarm-seq2seq": 10,
     "tune-ctc": 8,
     "realtime-sim": 10,
     "analyze": 10,

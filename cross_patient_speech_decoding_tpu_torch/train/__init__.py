@@ -1,6 +1,11 @@
-"""Train state, optimizer, loop, checkpoints and the CTC and seq2seq
-steps."""
+"""Train state, optimizer, loop, checkpoints, the CTC and seq2seq steps
+and the fold-parallel seq2seq trainer."""
 
+from cross_patient_speech_decoding_tpu_torch.train.fold_parallel import (
+    make_seq2seq_fold_trainer,
+    make_seq2seq_fold_trainer_fn,
+    pooled_fold_arrays,
+)
 from cross_patient_speech_decoding_tpu_torch.train.loops import (
     FitResult,
     append_metrics,
@@ -30,7 +35,10 @@ __all__ = [
     "make_ctc_eval_step",
     "make_ctc_train_step",
     "make_optimizer",
+    "make_seq2seq_fold_trainer",
+    "make_seq2seq_fold_trainer_fn",
     "make_seq2seq_eval_step",
     "make_seq2seq_train_step",
+    "pooled_fold_arrays",
     "save_checkpoint",
 ]

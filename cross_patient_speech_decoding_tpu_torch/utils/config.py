@@ -3,10 +3,10 @@
 Port of ``cross_patient_speech_decoding_tpu/utils/config.py``: the
 key=value coercion, ``load_config`` (defaults <- YAML <- overrides; PyYAML
 imported only when a file is given), ``config_from_values``, the
-classical decoder's config and the CTC trainer's. The other drivers'
-configs come with their drivers. Field names and defaults are the JAX
-package's, so a results file written by either driver resumes in the
-other.
+classical decoder's config, the seq2seq trainer's and the CTC
+trainer's. The other drivers' configs come with their drivers. Field
+names and defaults are the JAX package's, so a results file written by
+either driver resumes in the other.
 """
 
 from __future__ import annotations
@@ -145,6 +145,68 @@ class SVMDecodeConfig:
     synth_trials: int = 15
     seed: int = 0
     out: str = "results/svm_decode.pkl"
+
+
+@dataclass
+class TrainSeq2SeqConfig:
+    """Seq2seq trainer (train_seq2seq.py analog)."""
+
+    data: str = "synthetic"  # path to pt_decoding_data*.pkl or 'synthetic'
+    target_pt: str = "S14"
+    p_ind: int = 1  # phoneme-position arrays to decode (train_seq2seq.py:82)
+    lab_type: str = "phon"
+    algn_type: str = "phon_seq"
+    n_iter: int = 50
+    n_folds: int = 20
+    epochs: int = 500
+    # minibatch size of the sequential path (fold_parallel=false); the
+    # fold-parallel path takes one full-batch step an epoch
+    batch_size: int = 5000
+    n_filters: int = 100
+    hidden: int = 500
+    n_enc_layers: int = 1
+    n_dec_layers: int = 1
+    kernel_size: int = 10
+    lr: float = 1e-4  # train_seq2seq.py:135
+    weight_decay: float = 1e-5  # l2_reg, train_seq2seq.py:136
+    clip: float = 0.5  # gclip_val, train_seq2seq.py:121
+    # LinearLR decays over max_epochs in the reference (train_seq2seq.py:169)
+    decay_iters: int = 500
+    pooled: bool = True  # cross-patient aligned pooling
+    # train the folds of an iteration through one fold trainer
+    # (train/fold_parallel.py: one model per fold, in turn); false = one
+    # train.loops.fit per fold with validation every epochs // 20
+    fold_parallel: bool = True
+    # folds per fold-trainer call (0 = all n_folds at once); each chunk's
+    # models draw from their own seeds (seed + it + 31 * first fold). In
+    # the port it sets only those seeds: the folds train one at a time
+    # whatever the chunk, so it bounds no memory
+    fold_chunk: int = 0
+    # 'scan' | 'pallas': accepted for the JAX package's configs; the port
+    # has one GRU route per device (the kernels on a CUDA tensor, their
+    # plain versions on a CPU one), so both run the same code
+    rnn_impl: str = "scan"
+    # fold sharding over the first n devices; 0 = one device. Not ported
+    # yet: run_train_seq2seq raises for n > 0 (ROADMAP queue 1, item 11)
+    n_devices: int = 0
+    # augmented copies of the pooled ALIGNED train rows (the reference's
+    # post-alignment augmentation list, train_seq2seq.py:91:
+    # time_shifting,noise_jitter,scaling); '' = none, 'all' = all five
+    augmentations: str = ""
+    log_metrics: bool = True  # per-epoch (or per-iteration) CSV logs
+    # csv | jsonl (tailable) | tb (TensorBoard: not ported yet,
+    # run_train_seq2seq raises; ROADMAP queue 1, item 10b)
+    log_format: str = "csv"
+    trace: bool = False  # device profile of the first iteration
+    # synthetic-data scale (data='synthetic' only): 9 sequence classes x
+    # synth_trials trials per patient (synth_trials is PER CLASS; the CTC
+    # config's same-named knob is the total per patient). Reference
+    # scale: 8 patients, ~150 trials (9 x 17 = 153), T=200.
+    synth_patients: int = 3
+    synth_T: int = 60
+    synth_trials: int = 12
+    seed: int = 0
+    out: str = "results/seq2seq.csv"
 
 
 @dataclass

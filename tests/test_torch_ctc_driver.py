@@ -395,9 +395,9 @@ def test_cli_train_ctc_runs_in_process(tmp_path, synth, capsys):
     assert "iter 0 [patient]: test PER" in capsys.readouterr().out
     assert "device" not in loaders.load_pkl(cfg.out)["params"]
     with pytest.raises(NotImplementedError, match="item 7"):
-        tmain.main(["train-seq2seq", "n_iter=1"])
+        tmain.main(["train-nn", "n_iter=1"])
     with pytest.raises(NotImplementedError, match="item 10"):
-        tmain.main(["prewarm-ctc"])
+        tmain.main(["make-xforms"])
 
 
 def test_unported_branches_raise(tmp_path, synth):
