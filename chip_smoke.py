@@ -132,6 +132,38 @@ line is never printed:
    within the weight of the undecided test trials, sep_align's latents
    on the target's separated columns within 2e-4 (PCA) and 1e-3 (mapped
    sources);
+6b. subsample (the sweeps' main path): ``cli.subsample_experiments``, the
+   ``subsample-{trials,grid,spatial,pitch}`` entry points, on the files
+   the reference's drivers read, written to a temporary directory at its
+   scale (the eight paper patients of 9 classes x 15 trials, T=200, the
+   port's synthetic widths with S26 at 111; geometry ``.mat`` files of
+   the figure notebooks' channel maps and seeded significant channels; a
+   ``pt_savg_data`` pickle of 2x2 and 4x4 contact averages), target S26
+   at ``SubsampleConfig``'s defaults (5 folds, max_k 24, sep_align): the
+   trial sweep (k 5-130 by 25), the grid sweep (windows 2, 4, 8), the
+   spatial average (contacts 2, 4) and the pitch sweep (1.5, 2.5, 4 mm),
+   each point twice (cut from 10), and one nested trial point (k 130, 2
+   TPE rounds of 3 points x 3 inner folds). With the launch counts zeroed
+   just before each sweep and read just after, each decode must launch
+   exactly the ``jacobi_eigh`` count its sources' PCA widths give
+   (``sweep_jacobi_launches``: one a source and fit batch from K = 24;
+   none for the 2- and 4-wide windows, one a source for the trial sweep),
+   and nothing else; the plain Jacobi and GRU versions raise on CUDA
+   tensors; accuracies finite in [0, 1], the results pickles with the
+   JAX driver's keys. Then ``run_svm_decode`` at the svm_decode phase's
+   scale with ``surrogate=tme`` (a 1000-step TME fit per cross patient on
+   the card: each within 5 % of the data's largest marginal eigenvalue,
+   one against the CPU's fit over 200 steps within 1e-3, 20 card samples'
+   mode-1 scatter against the implied eigenvalues) and ``shuffle`` (two
+   surrogates redrawn on the CPU bit for bit), 7 ``jacobi_eigh`` each.
+   Wall time, decodes/s and ms per decode a sweep, TME ms per patient and
+   µs per step, peak memory, the device idle share of one profiled
+   trial-sweep decode; the kernel bit for bit its plain version on the
+   first batch of each shape the phase gave it. Then each sweep at small
+   depth (4 patients, T=40, one iteration a point) on the card and on the
+   CPU: the same masks and indices, predictions equal where the CPU's top
+   two scores differ by more than 1e-4 of their magnitude, accuracies
+   within the weight of the undecided test trials;
 7. kernels: each kernel against its plain version at the fig_5 shapes
    (``gru_bifwd`` at the seq2seq encoder's, two runs bitwise equal) and
    at small odd shapes, with
@@ -146,9 +178,9 @@ line is never printed:
    ``{"kernels": [...]}`` line, whose launch counts are the CTC train
    step's, for ``gru_bifwd`` the seq2seq train step's and, for the Jacobi
    kernel, the chol fit's, with its launches per svm-decode iteration
-   (fixed and nested) beside them, and for ``gru_bifwd``, ``gru_fwd``,
-   ``gru_bwd`` and ``jacobi_eigh`` their launches per ``seq2seq_driver``
-   iteration.
+   (fixed and nested) and per subsample run (``launches_subsample_*``)
+   beside them, and for ``gru_bifwd``, ``gru_fwd``, ``gru_bwd`` and
+   ``jacobi_eigh`` their launches per ``seq2seq_driver`` iteration.
 
 Then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA card, and in a directory without the port.
@@ -308,6 +340,44 @@ S2S_AUGS = "time_shifting,noise_jitter,scaling"  # train_seq2seq.py:91
 S2S_LOSS_RTOL = 1e-3  # every fold-epoch's training loss, card vs CPU
 S2S_DECIDED = 1e-4  # a test trial counts where its top two logits differ
                     # by more than this much of their magnitude
+# the subsample sweeps (cli/subsample_experiments.py) at the reference's
+# scale: the eight paper patients of 9 classes x 15 trials (135 each;
+# SURVEY.md), T=200, the port's synthetic widths with S26 at its 111
+# significant channels, from the port's host generator, written as the
+# reference's pt_decoding_data and pt_savg_data pickles and
+# {pt}_channelMap.mat / {pt}_sigChannel.mat files (the figure notebooks'
+# channel maps); target S26; SubsampleConfig's defaults (5 folds, max_k
+# 24, n_comp 0.8, sep_align). Cut: 2 iterations a sweep point (the
+# reference: 10, or every target sub-grid), the nested point to 2 TPE
+# rounds of 3 points x 3 inner folds
+SUB_PTS = ("S14", "S22", "S23", "S26", "S33", "S39", "S58", "S62")
+SUB_CHANNELS = (96, 80, 64, 111, 128, 72, 56, 104)
+SUB_TARGET = "S26"
+SUB_TRIALS, SUB_T = 15, 200
+SUB_NOISE = 8.0  # 4-wide windows and 4 mm pitches decode at ~0.7, the
+                 # full arrays at ~1.0: the sweeps' curves are not flat
+SUB_SMALL_PTS, SUB_SMALL_T = ("S14", "S26", "S33", "S58"), 40
+SUB_BASE = dict(target_pt=SUB_TARGET, n_iter=2, seed=0)
+SUB_RUNS = {
+    "trials": ("run_trial_subsample", dict(k_start=5, k_step=25)),
+    "grid": ("run_grid_subsample", dict(win_sizes=(2, 4, 8))),
+    "spatial": ("run_spatial_avg", dict(contact_sizes=(2, 4))),
+    "pitch": ("run_pitch_subsample", dict(pitches=(1.5, 2.5, 4.0))),
+    "nested": ("run_trial_subsample", dict(
+        k_start=130, k_step=25, n_iter=1, nested=True, nested_rounds=2,
+        nested_points=3, nested_inner=3)),
+}
+# svm-decode's surrogate controls at the svm_decode phase's scale, one
+# iteration; the TME fit is the driver's 1000 steps a cross patient
+SUB_SVM = dict(SVM_CFG, n_iter=1)
+TME_CRITERION = 0.05  # implied vs data eigenvalues x the data's largest
+                      # (tests/test_surrogates_and_utils.py)
+TME_CMP_STEPS = 200  # one patient's fit, card vs CPU
+TME_CMP_RTOL = 1e-3  # log-parameters (absolute), implied eigenvalues (x
+                     # their largest), final loss (relative): float32 sums
+                     # of 10^4-10^5 terms in another order, over 200 steps
+TME_DRAWS = 20  # samples of the statistical check
+SUB_SHUFFLE_CPU = 2  # shuffle surrogates redrawn on the CPU, bit for bit
 
 
 def emit(obj) -> None:
@@ -366,10 +436,11 @@ def main() -> int:
     s2s_drv_launches = phase_seq2seq_driver(torch, dev, gru, jacobi, smi)
     align = phase_alignment(torch, dev, jacobi)
     svm_launches = phase_svm_decode(torch, dev, gru, jacobi, smi)
+    sub_launches = phase_subsample(torch, dev, gru, jacobi, smi)
     kernels = phase_kernels(torch, dev, gru, train_res["launches"],
                             s2s_launches)
     kernels.append({**phase_kernel_jacobi(torch, dev, jacobi, align),
-                    **svm_launches})
+                    **svm_launches, **sub_launches})
     for row in kernels:
         if row["name"] in s2s_drv_launches:
             row["launches_seq2seq_driver_iteration"] = s2s_drv_launches[
@@ -1439,17 +1510,20 @@ def _undecided(scores, rtol=SVM_DECIDED):
     return (top2[..., 0] - top2[..., 1]) <= rtol * top2.abs().amax(-1)
 
 
-def _held(torch, y, te, card, cpu, cpu_scores) -> dict:
+def _held(torch, y, te, card, cpu, cpu_scores, unstable=None) -> dict:
     """Card against CPU for one decoder call: ``card``/``cpu`` its (accs
     (B,), preds (B, N0)). Predictions equal on the trials the CPU's scores
-    decide (:func:`_undecided`); fold accuracies equal where all test
-    trials are decided and within the balanced weight of the undecided
-    ones elsewhere."""
+    decide (:func:`_undecided`) and, where given, that are not
+    ``unstable`` (B, N0); fold accuracies equal where all test trials are
+    decided and within the balanced weight of the undecided ones
+    elsewhere."""
     import numpy as np
 
     (a_g, p_g), (a_c, p_c) = ((a.cpu().numpy(), p.cpu().numpy())
                               for a, p in (card, cpu))
     und = _undecided(torch.cat(cpu_scores)).numpy()
+    if unstable is not None:
+        und = und | unstable
     slack = []
     for f in range(len(te)):
         cls, sup = np.unique(y[te[f] > 0], return_counts=True)
@@ -1590,6 +1664,600 @@ def _svm_small(torch, exp, dev):
         out[name] = r
         out[f"{name}_ok"] = r["ok"]
     return out
+
+
+# --------------------------------------------------------------- subsample --
+
+def _reference_entry(np, X, y_seq, class_ids, pre_pts) -> dict:
+    """One patient's ``pt_decoding_data`` entry in the reference layout
+    (alignment_utils.py:127-184): ``X1..X3`` three blocks of trials,
+    ``X_collapsed`` their concatenation, ``y_full_phon`` one block's
+    sequences (the reader tiles them x3). Each block holds a third of
+    every class's trials in one class order, so the tiled sequences are
+    each collapsed trial's own; the labels are the sequences' first
+    phonemes (the synthetic data's class target)."""
+    per = np.bincount(class_ids) // 3
+    blocks = [np.concatenate([np.where(class_ids == c)[0][b * n:(b + 1) * n]
+                              for c, n in enumerate(per)])
+              for b in range(3)]
+    d = {"y_full_phon": y_seq[blocks[0]], "pre_pts": list(pre_pts)}
+    for p, idx in enumerate(blocks, 1):
+        d[f"X{p}"] = np.asarray(X[idx], np.float32)
+        d[f"y{p}"] = y_seq[idx, 0]
+    d["X_collapsed"] = np.concatenate([d[f"X{p}"] for p in (1, 2, 3)])
+    d["y_phon_collapsed"] = np.concatenate([d[f"y{p}"] for p in (1, 2, 3)])
+    return d
+
+
+def _sub_files(root: Path) -> dict:
+    """The sweeps' files in ``root``: each paper patient's geometry
+    (``canonical_channel_map`` and a seeded sorted significant-channel
+    subset as long as its data's channel axis), and at full and at small
+    depth a decoding pickle (the port's host generator) and a savg pickle
+    (``spatial_avg_data`` at contact sizes 2 and 4 on that geometry)."""
+    import numpy as np
+
+    from cross_patient_speech_decoding_tpu_torch.data import (
+        loaders,
+        subsample,
+        synthetic,
+    )
+
+    widths = dict(zip(SUB_PTS, SUB_CHANNELS))
+    rng = np.random.default_rng(0)
+    geom = root / "geometry"
+    for pt in SUB_PTS:
+        cmap = loaders.canonical_channel_map(pt)
+        loaders.save_geometry_mat(geom, pt, cmap, np.sort(
+            rng.choice(cmap.ravel(), widths[pt], replace=False)))
+    out = {"geometry": str(geom)}
+    for key, pts, T in (("full", SUB_PTS, SUB_T),
+                        ("small", SUB_SMALL_PTS, SUB_SMALL_T)):
+        ds = synthetic.make_synthetic_patients(
+            seed=0, n_patients=len(pts), n_classes=9,
+            trials_per_class=SUB_TRIALS, T=T,
+            channels=tuple(widths[pt] for pt in pts), latent_dim=10,
+            noise=SUB_NOISE)
+        data, savg = {}, {}
+        for i, pt in enumerate(pts):
+            d = _reference_entry(np, ds.X[i], ds.y_seq[i], ds.class_ids[i],
+                                 [p for p in pts if p != pt])
+            data[pt] = d
+            cmap, _ = loaders.load_channel_map(geom, pt)
+            sig = loaders.load_sig_channels(geom, pt)
+            savg[pt] = {**d, "X_collapsed": {
+                f"cs_{c}x{c}": subsample.spatial_avg_data(
+                    d["X_collapsed"], subsample.spatial_avg_groups(cmap, c),
+                    channel_ids=sig).astype(np.float32)
+                for c in (2, 4)}}
+        for name, obj in (("pkl", data), ("savg", savg)):
+            path = root / f"pt_{name}_{key}.pkl"
+            loaders.save_pkl(obj, path)
+            out[f"{name}_{key}"] = str(path)
+    return out
+
+
+def _sub_cfg(sub, files: dict, name: str, depth: str, out: str = "", **kw):
+    fn, spec = SUB_RUNS[name]
+    data = files[("savg_" if name == "spatial" else "pkl_") + depth]
+    return fn, sub.SubsampleConfig(**{**SUB_BASE, **spec, **kw}, data=data,
+                                   geometry_dir=files["geometry"], out=out)
+
+
+def sweep_jacobi_launches(jacobi, latent_widths, n_folds: int,
+                          nested: dict | None = None,
+                          fit_batch: int = SVM_FIT_BATCH) -> int:
+    """``jacobi_eigh`` launches of one sweep-point decode of sep_align:
+    each source's chol CCA fit solves the eigh of its (K_s, K_s) Gram
+    g^T g over a batch of fits (``cca._svd_small``), which
+    ``batched_eigh`` sends to the kernel where ANY_BATCH_K <= K_s <= MAX_K
+    or the batch holds MIN_BATCH matrices. K_s = min(max_k, N_s T, C_s),
+    the source's PCA width. A fixed decode is one batch of its folds; a
+    nested one scores each TPE round's outer folds
+    max(1, fit_batch // (points x inner)) at a time (points x inner fits
+    each), then refits min(n_folds, fit_batch) folds a batch."""
+    if nested is None:
+        batches = [n_folds]
+    else:
+        per = nested["n_points"] * nested["n_inner"]
+        bs = max(1, fit_batch // per)
+        rb = min(n_folds, fit_batch)
+        batches = ([min(bs, n_folds - o) * per
+                    for o in range(0, n_folds, bs)] * nested["n_rounds"]
+                   + [min(rb, n_folds - o) for o in range(0, n_folds, rb)])
+    return sum(K <= jacobi.MAX_K and (K >= jacobi.ANY_BATCH_K
+                                      or b >= jacobi.MIN_BATCH)
+               for K in latent_widths for b in batches)
+
+
+class _SweepProbe:
+    """Wrappers around what a subsample sweep runs, for a block: the fold
+    masks, trial indices and channel indices it draws, and each decode
+    (the decoder of ``make_cv_decoder``, or ``nested_cv_decode_bayes``),
+    synchronised and timed, with its sources' PCA widths, its Jacobi
+    launches, its fold accuracies, test masks and target labels. Keeps
+    the last fixed decode's arguments (``last``)."""
+
+    NAMES = ("stratified_kfold_masks", "trial_subsample_indices",
+             "_gather_channels", "make_cv_decoder", "nested_cv_decode_bayes")
+
+    def __init__(self, torch, jacobi):
+        from cross_patient_speech_decoding_tpu_torch.cli import (
+            subsample_experiments,
+        )
+
+        self.torch, self.jacobi = torch, jacobi
+        self.sub = subsample_experiments
+        self.masks, self.trials, self.channels, self.decodes = [], [], [], []
+        self.last = None
+
+    def _decode(self, fn, tar, cross, nested):
+        torch, jacobi = self.torch, self.jacobi
+        if tar.X.is_cuda:
+            torch.cuda.synchronize()
+        n0 = jacobi.LAUNCHES["jacobi_eigh"]
+        t0 = time.perf_counter()
+        out = fn()
+        if tar.X.is_cuda:
+            torch.cuda.synchronize()
+        self.decodes.append({
+            "s": time.perf_counter() - t0,
+            "jacobi": jacobi.LAUNCHES["jacobi_eigh"] - n0,
+            "latent_widths": [min(self.max_k, c.X.shape[0] * c.X.shape[1],
+                                  c.X.shape[2]) for c in cross],
+            "nested": nested, "y": tar.y.cpu().numpy()})
+        return out
+
+    def __enter__(self):
+        import numpy as np
+
+        sub = self.sub
+        self.saved = [(n, getattr(sub, n)) for n in self.NAMES]
+        orig = dict(self.saved)
+
+        def masks(y, n, rng):
+            out = orig["stratified_kfold_masks"](y, n, rng)
+            self.masks.append(out)
+            return out
+
+        def trials(y, k, rng):
+            out = orig["trial_subsample_indices"](y, k, rng)
+            self.trials.append(out)
+            return out
+
+        def channels(pt, idx):
+            self.channels.append(np.asarray(idx))
+            return orig["_gather_channels"](pt, idx)
+
+        def make(strategy, dcfg):
+            dec = orig["make_cv_decoder"](strategy, dcfg)
+            self.max_k = dcfg.max_k
+
+            def run(tar, cross, tr, te):
+                self.last = (strategy, dcfg, tar, tuple(cross), tr, te)
+                accs = self._decode(lambda: dec(tar, cross, tr, te), tar,
+                                    cross, None)
+                self.decodes[-1].update(accs=accs.cpu().numpy(),
+                                        te=te.cpu().numpy())
+                return accs
+            return run
+
+        def nested(tar, cross, dcfg, **kw):
+            self.max_k = dcfg.max_k
+            spec = {k: kw[k] for k in ("n_folds", "n_rounds", "n_points",
+                                       "n_inner")}
+            out = self._decode(lambda: orig["nested_cv_decode_bayes"](
+                tar, cross, dcfg, **kw), tar, cross, spec)
+            self.decodes[-1].update(accs=np.asarray(out[0]))
+            return out
+
+        for name, fn in (("stratified_kfold_masks", masks),
+                         ("trial_subsample_indices", trials),
+                         ("_gather_channels", channels),
+                         ("make_cv_decoder", make),
+                         ("nested_cv_decode_bayes", nested)):
+            setattr(sub, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved:
+            setattr(self.sub, name, fn)
+
+
+def _same_draws(a: _SweepProbe, b: _SweepProbe) -> bool:
+    """Both runs drew the same fold masks, trial and channel indices."""
+    import numpy as np
+
+    def flat(xs):
+        return [y for x in xs for y in (x if isinstance(x, tuple) else (x,))]
+
+    return all(len(flat(getattr(a, n))) == len(flat(getattr(b, n)))
+               and all(np.array_equal(x, y) for x, y in
+                       zip(flat(getattr(a, n)), flat(getattr(b, n))))
+               for n in ("masks", "trials", "channels"))
+
+
+def _sub_results_ok(np, sub, name: str, res, cfg, n_decodes: int) -> dict:
+    """The sweep's return and its results pickle as JAX's driver gives
+    them: accuracies finite in [0, 1], one a decode; the pickle's keys."""
+    from cross_patient_speech_decoding_tpu_torch.data import loaders
+
+    if isinstance(res, tuple):
+        accs = res[1].ravel()
+        keys = ["ks", "accs"]
+    else:
+        accs = np.concatenate([np.asarray(v) for v in res.values()])
+        keys = list(res)
+    store = loaders.load_pkl(cfg.out)
+    return {
+        "accs_ok": bool(accs.size == n_decodes and np.isfinite(accs).all()
+                        and 0.0 <= accs.min() and accs.max() <= 1.0),
+        "pickle_ok": (set(store) == {"params", "sweep", "results"}
+                      and list(store["results"]) == keys
+                      and store["params"] == vars(cfg)),
+        "mean_acc": float(accs.mean()), "accs": accs.tolist()}
+
+
+def _sub_sweep(torch, sub, jacobi, gru, name, files, dev, root):
+    """One sweep at full depth on the card (counts zeroed just before,
+    read just after): its figures and checks."""
+    import numpy as np
+
+    fn, cfg = _sub_cfg(sub, files, name, "full",
+                       out=str(root / "out" / f"{name}.pkl"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(gru, jacobi)
+    with _NoPlainOnCuda(torch, gru, jacobi), _SweepProbe(torch,
+                                                         jacobi) as pr:
+        t0 = time.perf_counter()
+        out = getattr(sub, fn)(cfg, verbose=True, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = _launch_counts(gru, jacobi)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = [sweep_jacobi_launches(jacobi, d["latent_widths"], cfg.n_folds,
+                                  d["nested"]) for d in pr.decodes]
+    got = [d["jacobi"] for d in pr.decodes]
+    decode_s = [d["s"] for d in pr.decodes]
+    r = {"config": {k: v for k, v in vars(cfg).items()
+                    if k not in ("data", "geometry_dir", "out")},
+         "decodes": len(pr.decodes), "wall_s": wall,
+         "decodes_per_s": len(pr.decodes) / wall,
+         "ms_per_decode": 1e3 * statistics.median(decode_s),
+         "decode_ms": [1e3 * s for s in decode_s],
+         "jacobi_launches": launches["jacobi_eigh"],
+         "jacobi_launches_per_decode": got,
+         "jacobi_launches_expected": want,
+         "source_latent_widths": [d["latent_widths"] for d in pr.decodes],
+         "other_launches": {k: v for k, v in launches.items()
+                            if k != "jacobi_eigh"},
+         "peak_mem_gb": peak_gb,
+         **_sub_results_ok(np, sub, name, out, cfg, len(pr.decodes))}
+    r["launches_ok"] = (got == want and sum(want) == launches["jacobi_eigh"]
+                        and not any(r["other_launches"].values()))
+    return r, pr
+
+
+def _sub_profile(torch, pr):
+    """One more decode of the probe's last fixed decode (its data and
+    masks) under ``torch.profiler``: its device idle share."""
+    from cross_patient_speech_decoding_tpu_torch.decoders import pooled
+
+    strategy, dcfg, tar, cross, tr, te = pr.last
+    dec = pooled.make_cv_decoder(strategy, dcfg)
+    dec(tar, cross, tr, te)
+    torch.cuda.synchronize()
+    _, prof = profile_call(torch, lambda: dec(tar, cross, tr, te))
+    return {"trials_per_source": int(cross[0].X.shape[0]), **prof}
+
+
+class _RoundedCcaProducts:
+    """Within the block, every product of the CCA (``cca.hdot``) is formed
+    in float64 and rounded once to float32: a twin of a CPU run whose
+    predictions differ from the run's own only where one float32 rounding
+    of the alignment's products moves them. The chol CCA squares its
+    canonical correlations on the Gram route, so a weakly correlated
+    direction magnifies such a rounding into the mapped sources (1e-2 of
+    the largest decision score on the small pitch sweep's first decode,
+    PERF.md §6)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        from cross_patient_speech_decoding_tpu_torch.ops import cca
+
+        torch = self.torch
+        self.cca, self.hdot = cca, cca.hdot
+        cca.hdot = lambda a, b: torch.matmul(a.double(), b.double()).float()
+
+    def __exit__(self, *exc):
+        self.cca.hdot = self.hdot
+
+
+def _sub_small(torch, sub, jacobi, files, dev) -> dict:
+    """Each sweep at small depth (4 patients, T=40, one iteration a point)
+    on the card and on the CPU from the same files, the CPU's Jacobi on
+    the kernel's route through its plain version: the same masks and
+    indices; per decode predictions equal on the trials the CPU's scores
+    decide and fold accuracies within the weight of the undecided ones
+    (:func:`_held`). A trial also counts as undecided where the CPU run's
+    twin with its CCA products rounded once more
+    (:class:`_RoundedCcaProducts`) predicts another class: the card's
+    products round differently, so such a trial's class is the
+    function's rounding, not the card's fault."""
+    out = {}
+    for name in ("trials", "grid", "spatial", "pitch"):
+        fn, cfg = _sub_cfg(sub, files, name, "small", n_iter=1)
+        with _SweepProbe(torch, jacobi) as card, _ScoreProbe() as card_sc:
+            getattr(sub, fn)(cfg, verbose=False, device=dev)
+            torch.cuda.synchronize()
+        with _PlainJacobiOnCpu(), _SweepProbe(torch, jacobi) as cpu, \
+                _ScoreProbe() as cpu_sc:
+            getattr(sub, fn)(cfg, verbose=False, device="cpu")
+        with _PlainJacobiOnCpu(), _RoundedCcaProducts(torch), \
+                _SweepProbe(torch, jacobi) as twin, _ScoreProbe() as twin_sc:
+            getattr(sub, fn)(cfg, verbose=False, device="cpu")
+        r = {"decodes": len(card.decodes), "draws_equal":
+             _same_draws(card, cpu) and _same_draws(twin, cpu)}
+        held, dev_card, dev_twin = [], [], []
+        if len(card.decodes) == len(cpu.decodes) == len(cpu_sc.scores) \
+                == len(card_sc.scores) == len(twin_sc.scores):
+            for g, c, sg, sc, st in zip(card.decodes, cpu.decodes,
+                                        card_sc.scores, cpu_sc.scores,
+                                        twin_sc.scores):
+                held.append(_held(
+                    torch, c["y"], c["te"],
+                    (torch.as_tensor(g["accs"]), sg.argmax(-1)),
+                    (torch.as_tensor(c["accs"]), sc.argmax(-1)), [sc],
+                    unstable=(sc.argmax(-1) != st.argmax(-1)).numpy()))
+                dev_card.append(_rel(sg.cpu(), sc))
+                dev_twin.append(_rel(st, sc))
+        r["score_rel_dev_card_cpu"] = dev_card
+        r["score_rel_dev_twin_cpu"] = dev_twin
+        r["undecided_trials"] = sum(h["undecided_trials"] for h in held)
+        r["accs_card"] = [h["accs_card"] for h in held]
+        r["accs_cpu"] = [h["accs_cpu"] for h in held]
+        r["ok"] = bool(r["draws_equal"] and held and len(held)
+                       == len(card.decodes) and all(h["ok"] for h in held))
+        out[name] = r
+    return out
+
+
+class _SurrogateProbe:
+    """Records, for a block, each ``fit_tme`` (synchronised and timed,
+    its input and fit), each ``mode_shuffle_surrogate`` (its input, the
+    generator's state before and its output) and each TME sample."""
+
+    def __init__(self, torch):
+        from cross_patient_speech_decoding_tpu_torch.data import surrogates
+
+        self.torch, self.mod = torch, surrogates
+        self.fits, self.shuffles, self.samples = [], [], []
+
+    def __enter__(self):
+        import copy
+
+        torch, mod = self.torch, self.mod
+        self.saved = [(n, getattr(mod, n)) for n in (
+            "fit_tme", "mode_shuffle_surrogate", "sample_tme")]
+        orig = dict(self.saved)
+
+        def fit(X, steps=2000, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f = orig["fit_tme"](X, steps=steps, **kw)
+            torch.cuda.synchronize()
+            self.fits.append({"X": X, "fit": f, "steps": steps,
+                              "s": time.perf_counter() - t0})
+            return f
+
+        def shuffle(X, rng):
+            state = copy.deepcopy(rng.bit_generator.state)
+            out = orig["mode_shuffle_surrogate"](X, rng)
+            self.shuffles.append((X, state, out))
+            return out
+
+        def sample(f, n_samples=None, seed=0, device=None):
+            out = orig["sample_tme"](f, n_samples, seed, device)
+            self.samples.append(out)
+            return out
+
+        mod.fit_tme, mod.mode_shuffle_surrogate, mod.sample_tme = (
+            fit, shuffle, sample)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved:
+            setattr(self.mod, name, fn)
+
+
+def _tme_criterion(fit) -> float:
+    """max over modes of max |implied - data| / max data eigenvalue (JAX's
+    test: < 5 %)."""
+    return max(float(abs(m - d).max() / max(d.max(), 1e-6))
+               for d, m in zip(fit["data_eigs"], fit["implied_eigs"]))
+
+
+def _tme_checks(torch, surrogates, rec, dev) -> dict:
+    """The TME fits of the run against JAX's criterion; one patient's fit
+    on the card against the same fit on the CPU (TME_CMP_STEPS steps); the
+    mean mode-1 scatter of TME_DRAWS card samples projected on Q1 against
+    the implied eigenvalues (tests/test_surrogates_and_utils.py's
+    Gaussian tolerance)."""
+    import numpy as np
+
+    crit = [_tme_criterion(f["fit"]) for f in rec.fits]
+    X = rec.fits[0]["X"]
+    card = surrogates.fit_tme(X, steps=TME_CMP_STEPS, device=dev)
+    t0 = time.perf_counter()
+    cpu = surrogates.fit_tme(X.cpu(), steps=TME_CMP_STEPS, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    log_err = max(float(np.abs(a - b).max())
+                  for a, b in zip(card["log_abc"], cpu["log_abc"]))
+    eig_err = max(float(np.abs(a - b).max() / np.abs(b).max())
+                  for a, b in zip(card["implied_eigs"], cpu["implied_eigs"]))
+    loss_err = abs(card["final_loss"] - cpu["final_loss"]) / abs(
+        cpu["final_loss"])
+    fit = rec.fits[0]["fit"]
+    acc = None
+    for s in range(TME_DRAWS):
+        x = surrogates.sample_tme(fit, seed=100 + s, device=dev).double()
+        xc = (x - x.mean(0, keepdim=True)).reshape(x.shape[0], -1)
+        sc = xc @ xc.T
+        acc = sc if acc is None else acc + sc
+    Q1 = torch.as_tensor(np.array(fit["Qs"][0], np.float64), device=dev)
+    proj = torch.diagonal(Q1.T @ (acc / TME_DRAWS) @ Q1).cpu().numpy()
+    m1 = fit["implied_eigs"][0].astype(np.float64)
+    la, lb, lc = (v.astype(np.float64) for v in fit["log_abc"])
+    v = 1.0 / (np.exp(la)[:, None, None] + np.exp(lb)[None, :, None]
+               + np.exp(lc)[None, None, :])
+    std = np.sqrt(2.0 * (v ** 2).sum((1, 2))) / np.sqrt(TME_DRAWS)
+    k = 3
+    stat_err = np.abs(proj[:k] - m1[:k])
+    stat_tol = 4.0 * std[:k] + 0.02 * m1.max()
+    return {"criterion": crit, "criterion_max": TME_CRITERION,
+            "criterion_ok": bool(crit) and max(crit) < TME_CRITERION,
+            "card_vs_cpu": {"steps": TME_CMP_STEPS, "shape": list(X.shape),
+                            "log_abc_max_abs_err": log_err,
+                            "implied_eigs_err_over_max": eig_err,
+                            "final_loss_rel_err": loss_err,
+                            "cpu_fit_s": cpu_s, "rtol": TME_CMP_RTOL},
+            "card_vs_cpu_ok": max(log_err, eig_err, loss_err)
+            <= TME_CMP_RTOL,
+            "draws": TME_DRAWS, "mode1_proj_err": stat_err.tolist(),
+            "mode1_proj_tol": stat_tol.tolist(),
+            "statistics_ok": bool((stat_err < stat_tol).all())}
+
+
+def _sub_svm(torch, exp, jacobi, gru, surrogate, dev, root):
+    """``run_svm_decode`` with a surrogate control at svm_decode's scale on
+    the card (counts zeroed just before, read just after), with its TME
+    fits or shuffles recorded; then the control's checks."""
+    import numpy as np
+
+    from cross_patient_speech_decoding_tpu_torch.data import surrogates
+    from cross_patient_speech_decoding_tpu_torch.utils.config import (
+        SVMDecodeConfig,
+    )
+
+    cfg = SVMDecodeConfig(**SUB_SVM, surrogate=surrogate,
+                          out=str(root / "out" / f"svm_{surrogate}.pkl"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(gru, jacobi)
+    with _NoPlainOnCuda(torch, gru, jacobi), _SurrogateProbe(torch) as rec:
+        t0 = time.perf_counter()
+        accs = exp.run_svm_decode(cfg, verbose=True, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = _launch_counts(gru, jacobi)
+    want = svm_jacobi_launches(SUB_SVM)
+    n_src = SUB_SVM["synth_patients"] - 1
+    r = {"config": {**SUB_SVM, "surrogate": surrogate}, "wall_s": wall,
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "jacobi_launches": launches["jacobi_eigh"],
+         "jacobi_launches_expected": want,
+         "other_launches": {k: v for k, v in launches.items()
+                            if k != "jacobi_eigh"},
+         "mean_acc": float(accs.mean()), "accs_shape": list(accs.shape)}
+    r["launches_ok"] = (launches["jacobi_eigh"] == want
+                        and not any(r["other_launches"].values()))
+    r["accs_ok"] = bool(accs.shape == (1, SUB_SVM["n_folds"])
+                        and np.isfinite(accs).all() and 0.0 <= accs.min()
+                        and accs.max() <= 1.0)
+    if surrogate == "tme":
+        fit_s = [f["s"] for f in rec.fits]
+        r.update(fits=len(rec.fits), fit_ms_per_patient=[
+            1e3 * s for s in fit_s],
+            fit_us_per_step=[1e6 * s / f["steps"]
+                             for s, f in zip(fit_s, rec.fits)],
+            samples_finite=all(bool(torch.isfinite(s).all())
+                               for s in rec.samples))
+        r["tme"] = _tme_checks(torch, surrogates, rec, dev)
+        r["ok"] = (len(rec.fits) == len(rec.samples) == n_src
+                   and r["samples_finite"] and r["tme"]["criterion_ok"]
+                   and r["tme"]["card_vs_cpu_ok"]
+                   and r["tme"]["statistics_ok"])
+    else:
+        same = []
+        for X, state, out in rec.shuffles[:SUB_SHUFFLE_CPU]:
+            rng = np.random.default_rng()
+            rng.bit_generator.state = state
+            same.append(bool(torch.equal(
+                out.cpu(), surrogates.mode_shuffle_surrogate(X.cpu(), rng))))
+        r.update(shuffles=len(rec.shuffles), card_vs_cpu_bitwise=same)
+        r["ok"] = len(rec.shuffles) == n_src and bool(same) and all(same)
+    return r
+
+
+def phase_subsample(torch, dev, gru, jacobi, smi):
+    """The subsample sweeps and the surrogate controls end to end at the
+    reference's scale: each sweep with exact Jacobi launches from its
+    shapes, times, peak memory and results pickles; one profiled
+    trial-sweep decode; the Jacobi kernel bit for bit its plain version
+    on the first batch of each shape the phase gave it; ``svm-decode``
+    with ``surrogate=tme`` and ``shuffle``; then the sweeps at small depth
+    on the card and on the CPU. Returns the kernels line's
+    ``launches_subsample_*`` keys."""
+    import tempfile
+
+    from cross_patient_speech_decoding_tpu_torch.cli import experiments as exp
+    from cross_patient_speech_decoding_tpu_torch.cli import (
+        subsample_experiments as sub,
+    )
+
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    t0 = time.perf_counter()
+    files = _sub_files(root)
+    res = {"phase": "subsample", "nvidia_smi": smi,
+           "data": {"patients": dict(zip(SUB_PTS, SUB_CHANNELS)),
+                    "target": SUB_TARGET, "trials": 9 * SUB_TRIALS,
+                    "T": SUB_T, "noise": SUB_NOISE,
+                    "write_s": time.perf_counter() - t0}}
+    bad = {}
+    launches = {}
+    with _RecordJacobi(jacobi, first_per_shape=True) as rec:
+        for name in SUB_RUNS:
+            r, pr = _sub_sweep(torch, sub, jacobi, gru, name, files, dev,
+                               root)
+            if name == "trials":
+                r["decode_profile"] = _sub_profile(torch, pr)
+            del pr
+            res[name] = r
+            launches[f"launches_subsample_{name}"] = r["jacobi_launches"]
+            bad.update({f"{name}_{k}": r for k in ("launches_ok", "accs_ok",
+                                                   "pickle_ok")
+                        if r[k] is not True})
+        for surrogate in ("tme", "shuffle"):
+            r = _sub_svm(torch, exp, jacobi, gru, surrogate, dev, root)
+            res[f"svm_{surrogate}"] = r
+            launches[f"launches_subsample_svm_{surrogate}"] = r[
+                "jacobi_launches"]
+            bad.update({f"svm_{surrogate}_{k}": r for k in (
+                "launches_ok", "accs_ok", "ok") if r[k] is not True})
+    checks = {}
+    for A in rec.batches:
+        key = "x".join(map(str, A.shape))
+        checks[key] = _check_jacobi(torch, jacobi, A)
+        if not _jacobi_ok(key, checks[key]):
+            bad[f"jacobi_{key}"] = checks[key]
+    res["jacobi_path_batches"] = checks
+    if not checks:
+        bad["jacobi_batches"] = "none recorded"
+    for name in ("trials", "grid"):
+        if not res[name]["jacobi_launches"]:
+            bad[f"{name}_no_jacobi"] = 0
+    small = _sub_small(torch, sub, jacobi, files, dev)
+    res["small_depth_card_vs_cpu"] = small
+    bad.update({f"small_{k}": v for k, v in small.items() if not v["ok"]})
+    emit(res)
+    tmp.cleanup()
+    if bad:
+        raise RuntimeError(f"subsample checks failed: {list(bad)}")
+    return launches
 
 
 def phase_streaming(torch, dev, gru, model):

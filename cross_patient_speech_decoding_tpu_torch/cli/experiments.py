@@ -11,7 +11,9 @@ Port of the CTC, seq2seq, classical-decode and prewarm sections of
 cross-patient classical decoding (``decoders/pooled.py``, optionally the
 nested TPE search of ``decoders/nested_cv.py``), with the same numpy
 splits as the JAX package, per-iteration results appended to a pickle and
-a resume from it. Its synthetic data is drawn on the card
+a resume from it, and the reference's controls (chance labels, noise for
+the cross patients' data, and their TME and mode-shuffle surrogates of
+``data/surrogates.py``). Its synthetic data is drawn on the card
 (``make_synthetic_patients_device``).
 
 ``run_train_seq2seq`` is the analog of ``train_seq2seq.py``: per-fold
@@ -971,10 +973,13 @@ def run_svm_decode(cfg: SVMDecodeConfig, verbose: bool = True, device=None):
     per-outer-fold TPE search. A rerun with the same ``out`` resumes after
     the iterations stored there. Controls: ``chance`` permutes the
     target's labels, ``random_data`` replaces the cross patients' data
-    with uniform noise. ``device`` is the first CUDA card by default.
+    with uniform noise, ``surrogate='tme'`` with TME max-ent surrogates
+    (supp_fig_11; each fitted on the run's device) and
+    ``surrogate='shuffle'`` with mode-shuffle surrogates. ``device`` is
+    the first CUDA card by default.
 
-    Not ported yet, and refused: ``surrogate`` other than 'none' (ROADMAP
-    queue 1, item 9) and ``n_devices > 0`` (item 11).
+    Not ported yet, and refused: ``n_devices > 0`` (ROADMAP queue 1,
+    item 11).
     """
     from cross_patient_speech_decoding_tpu_torch.data.splits import (
         repeated_stratified_kfold_masks,
@@ -989,10 +994,6 @@ def run_svm_decode(cfg: SVMDecodeConfig, verbose: bool = True, device=None):
         make_cv_decoder,
     )
 
-    if cfg.surrogate != "none":
-        raise NotImplementedError(
-            f"surrogate={cfg.surrogate!r}: the surrogate controls are not "
-            "ported yet (ROADMAP queue 1, item 9)")
     if cfg.n_devices > 0:
         raise NotImplementedError(
             "n_devices > 0: multi-GPU fold sharding is not ported yet "
@@ -1009,6 +1010,22 @@ def run_svm_decode(cfg: SVMDecodeConfig, verbose: bool = True, device=None):
     if cfg.chance:
         perm = torch.as_tensor(rng_ctl.permutation(len(tar.y)), device=dev)
         tar = PatientArrays(X=tar.X, y=tar.y[perm], y_align=tar.y_align[perm])
+    if cfg.surrogate != "none":
+        from cross_patient_speech_decoding_tpu_torch.data.surrogates import (
+            mode_shuffle_surrogate,
+            tme_surrogate,
+        )
+
+        new_cross = []
+        for c in cross:
+            if cfg.surrogate == "tme":
+                Xs, _ = tme_surrogate(c.X, steps=1000, seed=cfg.seed,
+                                      device=dev)
+            else:
+                # rng_ctl after chance's permutation, as in the JAX driver
+                Xs = mode_shuffle_surrogate(c.X, rng_ctl)
+            new_cross.append(PatientArrays(X=Xs, y=c.y, y_align=c.y_align))
+        cross = tuple(new_cross)
     dcfg = DecodeConfig(
         n_comp=cfg.n_comp, max_k=cfg.max_k, n_classes=n_y,
         n_align_classes=n_a, lam=cfg.lam, kernel=cfg.kernel,

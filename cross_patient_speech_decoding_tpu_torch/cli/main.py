@@ -3,10 +3,12 @@
 Port of ``cross_patient_speech_decoding_tpu/cli/main.py``: a subcommand
 takes an optional ``--config file.yaml`` and Hydra-style ``key=value``
 overrides. ``train-ctc``, ``svm-decode``, ``train-seq2seq``,
-``prewarm-ctc`` and ``prewarm-seq2seq`` are ported so far; every other
-command of the JAX package is listed and refused with the ROADMAP item
-that ports it. ``device=cpu`` (or ``device=cuda:1``) picks the device;
-the default is the first CUDA card.
+``prewarm-ctc``, ``prewarm-seq2seq`` and the four subsample sweeps
+(``subsample-trials``, ``subsample-grid``, ``subsample-spatial``,
+``subsample-pitch``) are ported so far; every other command of the JAX
+package is listed and refused with the ROADMAP item that ports it.
+``device=cpu`` (or ``device=cuda:1``) picks the device; the default is
+the first CUDA card.
 
 Example::
 
@@ -17,6 +19,8 @@ Example::
     python -m cross_patient_speech_decoding_tpu_torch.cli.main \\
         train-seq2seq synth_patients=3 synth_T=40 synth_trials=4 n_iter=2 \\
         n_folds=4 epochs=3 hidden=16 n_filters=8 device=cpu
+    python -m cross_patient_speech_decoding_tpu_torch.cli.main \\
+        subsample-trials n_iter=2 k_step=40 device=cpu
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import argparse
 import dataclasses
 import sys
 
+from cross_patient_speech_decoding_tpu_torch.cli.subsample_experiments \
+    import SubsampleConfig
 from cross_patient_speech_decoding_tpu_torch.utils.config import (
     REQUIRED,
     SVMDecodeConfig,
@@ -39,6 +45,10 @@ _COMMANDS = {
     "train-seq2seq": (TrainSeq2SeqConfig, "run_train_seq2seq"),
     "prewarm-ctc": (TrainCTCConfig, "run_prewarm_ctc"),
     "prewarm-seq2seq": (TrainSeq2SeqConfig, "run_prewarm_seq2seq"),
+    "subsample-trials": (SubsampleConfig, "run_trial_subsample"),
+    "subsample-grid": (SubsampleConfig, "run_grid_subsample"),
+    "subsample-spatial": (SubsampleConfig, "run_spatial_avg"),
+    "subsample-pitch": (SubsampleConfig, "run_pitch_subsample"),
 }
 
 # the JAX package's other commands -> the ROADMAP queue 1 item that ports
@@ -49,10 +59,6 @@ _NOT_PORTED = {
     "realtime-sim": 10,
     "analyze": 10,
     "make-xforms": 10,
-    "subsample-trials": 9,
-    "subsample-grid": 9,
-    "subsample-spatial": 9,
-    "subsample-pitch": 9,
     "reproduce": 10,
 }
 
@@ -114,9 +120,14 @@ def main(argv=None) -> int:
     device, overrides = _split_device(args.overrides)
     cfg = load_config(cfg_cls, args.config, overrides)
 
-    from cross_patient_speech_decoding_tpu_torch.cli import experiments
+    from cross_patient_speech_decoding_tpu_torch.cli import (
+        experiments,
+        subsample_experiments,
+    )
 
-    result = getattr(experiments, fn_name)(cfg, device=device)
+    mod = (subsample_experiments if cfg_cls is SubsampleConfig
+           else experiments)
+    result = getattr(mod, fn_name)(cfg, device=device)
     return 0 if result is not None else 1
 
 

@@ -1,13 +1,13 @@
-"""File IO of the drivers: result pickles, the reference's decoding-data
-pickle, the CTC HDF5 layout, offline PCA/CCA transforms, tuned
-hyperparameters and the results h5.
+"""File IO of the drivers: the reference's ``.mat`` feature files and
+electrode geometry, result pickles, the reference's decoding-data pickle,
+the CTC HDF5 layout, offline PCA/CCA transforms, tuned hyperparameters and
+the results h5.
 
 Port of ``cross_patient_speech_decoding_tpu/data/loaders.py`` (numpy, the
-port's own copy) without its ``.mat`` readers: the same keys, layouts and
-bytes, so files written by either package are read by the other.
-``h5py`` is imported inside the functions that need it, so the module
-imports where it is not installed. The ``.mat`` readers come with the
-drivers that read them (ROADMAP queue 1, items 9 and 10).
+port's own copy): the same keys, layouts and bytes, so files written by
+either package are read by the other. ``scipy.io`` and ``h5py`` are
+imported inside the functions that need them, so the module imports where
+they are not installed.
 
 Everything returns numpy; device placement happens in the driver.
 """
@@ -20,6 +20,168 @@ from pathlib import Path
 import numpy as np
 
 from cross_patient_speech_decoding_tpu_torch.utils.labels import phon_to_artic
+
+
+# ---------------------------------------------------------------- .mat ----
+
+def mat_filename(pt: str, phon_idx: int | None = None, sig_channel: bool = True,
+                 zscore: bool = False) -> str:
+    """Reference filename scheme (feature_data_from_mat.py:95-138):
+    ``{pt}_HG[_p{n}]_{sigChannel|all}[_zscore]_goodTrials.mat``."""
+    parts = [pt, "HG"]
+    if phon_idx is not None:
+        parts.append(f"p{phon_idx}")
+    parts.append("sigChannel" if sig_channel else "all")
+    if zscore:
+        parts.append("zscore")
+    parts.append("goodTrials")
+    return "_".join(parts) + ".mat"
+
+
+def load_high_gamma_mat(path: str | Path):
+    """Load one .mat file -> dict with hgMap (tr, t, ch), labels (tr, L).
+
+    Accepts the reference's key conventions: ``hgMap`` (trials, time,
+    channels), optional ``hgTrace`` (trials, cx, cy, time), and
+    ``phonSeqLabels`` (trials, seq_len).
+    """
+    from scipy.io import loadmat
+
+    raw = loadmat(str(path))
+    out = {}
+    # pre-averaged spatial keys cs_{a}x{b} (feature_data_from_mat.py:165-185)
+    cs_keys = [k for k in raw if k.startswith("cs_")]
+    for k in cs_keys:
+        out[k] = np.asarray(raw[k], np.float32)
+    if "hgMap" in raw:
+        out["X"] = np.asarray(raw["hgMap"], np.float32)
+    elif "hgTrace" in raw:
+        tr = np.asarray(raw["hgTrace"], np.float32)  # (tr, cx, cy, t)
+        out["X"] = tr.reshape(tr.shape[0], -1, tr.shape[-1]).transpose(0, 2, 1)
+    if "phonSeqLabels" in raw:
+        out["y_seq"] = np.asarray(raw["phonSeqLabels"], np.int64)
+    return out
+
+
+def load_subject_phoneme_data(data_dir: str | Path, pt: str, n_phon: int = 3,
+                              sig_channel: bool = True, zscore: bool = False):
+    """Per-phoneme files -> subject dict X1..Xn, y1..yn, y_full_phon.
+
+    Mirrors ``load_subject_high_gamma_phoneme`` (feature_data_from_mat.py:
+    38-67): one .mat per phoneme position plus full sequence labels.
+    """
+    data_dir = Path(data_dir)
+    subj = {}
+    for p in range(1, n_phon + 1):
+        d = load_high_gamma_mat(
+            data_dir / mat_filename(pt, p, sig_channel, zscore)
+        )
+        subj[f"X{p}"] = d["X"]
+        subj[f"y{p}"] = d["y_seq"][:, p - 1] if d["y_seq"].ndim > 1 else d["y_seq"]
+        if p == 1:
+            subj["y_full_phon"] = d["y_seq"]
+    subj["X_collapsed"] = np.concatenate(
+        [subj[f"X{p}"] for p in range(1, n_phon + 1)], axis=0
+    )
+    subj["y_phon_collapsed"] = np.concatenate(
+        [subj[f"y{p}"] for p in range(1, n_phon + 1)], axis=0
+    )
+    return subj
+
+
+def save_high_gamma_mat(path: str | Path, X: np.ndarray,
+                        y_seq: np.ndarray,
+                        hg_trace: np.ndarray | None = None,
+                        cs: dict[str, np.ndarray] | None = None):
+    """Write the reference .mat layout (inverse of
+    :func:`load_high_gamma_mat`): ``hgMap`` (trials, time, channels),
+    ``phonSeqLabels`` (trials, L), ``hgTrace`` (trials, cx, cy, time)
+    when given (reference files carry both; ``get_high_gamma_data``
+    reads both unconditionally, feature_data_from_mat.py:140-162), and
+    pre-averaged ``cs_{a}x{b}`` arrays for the spatial-avg loader
+    (:165-185)."""
+    from scipy.io import savemat
+
+    data: dict = {"hgMap": np.asarray(X), "phonSeqLabels": np.asarray(y_seq)}
+    if hg_trace is not None:
+        data["hgTrace"] = np.asarray(hg_trace)
+    for k, v in (cs or {}).items():
+        data[f"cs_{k}" if not k.startswith("cs_") else k] = np.asarray(v)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    savemat(str(path), data)
+
+
+# -------------------------------------------------- electrode geometry ----
+
+def load_channel_map(data_dir: str | Path, pt: str, trim: bool = True):
+    """Load ``{data_dir}/{pt}/{pt}_channelMap.mat`` (key ``chanMap``).
+
+    Returns ``(chan_map, transposed)``: the 2-D array of channel numbers
+    (NaN for missing corners) and whether the 24-long axis was axis 0.
+    The reference trims the full-NaN edge rows/cols of 24-wide maps and,
+    when the 24-long axis is axis 0, also transposes the requested window
+    size (``grid_subsampling.py:33-38``) — callers use ``transposed`` to
+    apply that window flip.
+    """
+    from scipy.io import loadmat
+
+    path = Path(data_dir) / pt / f"{pt}_channelMap.mat"
+    m = np.asarray(loadmat(str(path))["chanMap"], np.float64)
+    transposed = False
+    if trim:
+        if m.shape[0] == 24:
+            m = m[1:-1, :]
+            transposed = True
+        elif m.shape[1] == 24:
+            m = m[:, 1:-1]
+    return m, transposed
+
+
+def load_sig_channels(data_dir: str | Path, pt: str) -> np.ndarray:
+    """Load ``{data_dir}/{pt}/{pt}_sigChannel.mat`` (key ``sigChannel``).
+
+    1-D array of significant channel numbers — the channel axis of the
+    ``*_sigChannel`` feature files is these channels in this order
+    (``grid_subsampling.py:26-30`` load + ``feature_data_from_mat.py``
+    filename scheme).
+    """
+    from scipy.io import loadmat
+
+    path = Path(data_dir) / pt / f"{pt}_sigChannel.mat"
+    return np.squeeze(
+        np.asarray(loadmat(str(path))["sigChannel"])
+    ).astype(np.int64)
+
+
+def canonical_channel_map(pt: str) -> np.ndarray:
+    """The paper patients' flat-index channel maps (1-based), as hardcoded
+    by the figure notebooks' ``get_pt_map_from_flat`` (fig_2.ipynb and
+    supp_fig_4/6_7): 128-contact arrays are 16x8 column-major grids
+    (S23/S26 flipped up-down); 288-contact arrays are 12x24 / 24x12
+    orientations per patient. Used when no ``{pt}_channelMap.mat`` is
+    available (electrode-map visualization of full-grid data)."""
+    if pt in ("S14", "S22"):
+        return np.arange(128).reshape(8, 16).T + 1
+    if pt in ("S23", "S26"):
+        return np.flipud(np.arange(128).reshape(8, 16).T) + 1
+    if pt == "S33":
+        return np.fliplr(np.flipud(np.arange(288).reshape(12, 24))) + 1
+    if pt == "S39":
+        return np.arange(288).reshape(24, 12).T + 1
+    return np.flipud(np.arange(288).reshape(24, 12).T) + 1
+
+
+def save_geometry_mat(data_dir: str | Path, pt: str, chan_map: np.ndarray,
+                      sig_channels: np.ndarray):
+    """Write the geometry fixture files in the reference layout (inverse of
+    :func:`load_channel_map`/:func:`load_sig_channels`; tests + examples)."""
+    from scipy.io import savemat
+
+    d = Path(data_dir) / pt
+    d.mkdir(parents=True, exist_ok=True)
+    savemat(str(d / f"{pt}_channelMap.mat"), {"chanMap": chan_map})
+    savemat(str(d / f"{pt}_sigChannel.mat"),
+            {"sigChannel": np.asarray(sig_channels)})
 
 
 # ------------------------------------------------------------- pickles ----

@@ -126,9 +126,7 @@ class SVMDecodeConfig:
     nested_inner: int = 5
     bagging: int = 0  # >0: bootstrap ensemble head (aligned_decode_svm.py:262)
     random_data: bool = False  # -r control: replace cross data with noise
-    # none | tme | shuffle (supp_fig_11 controls); the surrogates are not
-    # ported yet: run_svm_decode raises for anything but 'none' (ROADMAP
-    # queue 1, item 9)
+    # none | tme | shuffle (supp_fig_11 controls)
     surrogate: str = "none"
     chance: bool = False  # label-shuffle chance decoding
     fold_batch: int = 20  # folds solved as one batch

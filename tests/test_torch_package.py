@@ -95,6 +95,20 @@ def test_entry_points_default_to_cuda(no_cuda):
         T=4, device="cpu").X[0].device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_train_ctc(TrainCTCConfig(out=""))
+    from cross_patient_speech_decoding_tpu_torch.cli import (
+        subsample_experiments as sub,
+    )
+    from cross_patient_speech_decoding_tpu_torch.data import surrogates
+
+    for sweep in (sub.run_trial_subsample, sub.run_grid_subsample,
+                  sub.run_spatial_avg, sub.run_pitch_subsample):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            sweep(sub.SubsampleConfig(), verbose=False)
+    X = np.zeros((3, 2, 2), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        surrogates.fit_tme(X, steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        surrogates.tme_surrogate(X, steps=1)
 
 
 def test_state_from_numpy_defaults_to_cuda(no_cuda):

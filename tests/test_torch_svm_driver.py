@@ -153,13 +153,15 @@ def test_cli_svm_decode_runs_in_process(tmp_path, host_synth, capsys):
 
 
 def test_unported_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        te.run_svm_decode(SVMDecodeConfig(surrogate="tme",
-                                          out=str(tmp_path / "s.pkl")),
-                          device="cpu")
+    """n_devices > 0 is refused before any work, a surrogate control
+    with it too (no data made, no file written)."""
     with pytest.raises(NotImplementedError, match="item 11"):
         te.run_svm_decode(SVMDecodeConfig(n_devices=2,
                                           out=str(tmp_path / "d.pkl")),
+                          device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        te.run_svm_decode(SVMDecodeConfig(n_devices=2, surrogate="shuffle",
+                                          out=str(tmp_path / "s.pkl")),
                           device="cpu")
     assert not list(tmp_path.iterdir())
 
