@@ -44,6 +44,35 @@ line is never printed:
    at dropout 0 on the card and on the CPU from the same data: latents,
    validation losses and PER against each other, and ``fir_filter``
    under the caller's TF32 against the CPU;
+4b. tune_ctc (slice 13's main path): ``cli.experiments.run_tune_ctc``,
+   the ``tune-ctc`` entry point, on the CTC driver's data (8 synthetic
+   patients of 243 trials, T=600, aligned): BOHB with TPE (4 trials, rungs
+   of 1 and 2 epochs, eta 3), its widths drawn from the reference's space.
+   With the launch counts zeroed just before and read just after, the run
+   must launch exactly 7 ``jacobi_eigh`` (one chol fit a cross patient)
+   and, per model of L layers trained E epochs, E + 1 ``gru_wfwd``,
+   (E + 1)(L - 1) ``gru_fwd``, E ``gru_wbwd`` and E (L - 1) ``gru_bwd``;
+   results in JAX's order with finite PERs; a second call on the same
+   manifest launches nothing. Then ``make_ctc_bucket_trainer`` on that
+   run's train and validation sets at fig_5 width (hidden 512 x 3, dropout
+   0.3), two trials of 2 epochs: exactly 6 / 12 / 4 / 8 launches, ms a
+   trial-epoch, samples/s, peak memory and the idle share of one profiled
+   trial-epoch. Then ``cv_folds=5 model_chunk=1`` (2 trials, one rung of
+   1 epoch): every fold's prep refitted, 35 ``jacobi_eigh``, the B x F
+   models in turn. Then make-xforms at the same scale (``run_make_xforms``
+   where h5py imports, else its computation ``compute_xforms``): exactly
+   the ``jacobi_eigh`` launches the latent widths give
+   (``xform_jacobi_launches``), the PCA components bit for bit the CPU's
+   and each source's projection within 1e-3 of the CPU's from the same
+   host data. Then ``run_realtime_sim`` from a Lightning checkpoint the
+   script writes in the reference's layout (60 channels, hidden 512 x 3,
+   window 14 / stride 4, 11 classes, seed 0): 400 bins, 100 per-step
+   samples of 20 steps, exactly 3 ``gru_fwd`` a GRU step, the timed
+   stream's logits within 5e-3 of the imported model's offline forward,
+   p50 below the 10 ms bin, the out pickle with JAX's keys. Last, small
+   depth on the card and on the CPU from the same data and initial
+   weights: two trials of one bucket (hidden 16 x 2, 2 epochs, dropout 0)
+   and one ``run_train_ctc init_ckpt=`` iteration;
 5. streaming: 400 bins of 60 channels x 10 samples through the same
    model, with the launch counts zeroed just before and read just after;
    online logits checked against the offline forward, the offline forward
@@ -175,7 +204,9 @@ line is never printed:
    version, as are two launches; full solves against float64) and at
    every even Kp from 2 to 64 at batch 1 and 133, timed against its plain
    version and ``torch.linalg.eigh``, with µs a step; ends with the
-   ``{"kernels": [...]}`` line, whose launch counts are the CTC train
+   ``{"kernels": [...]}`` line (rows 1-5 also carry each ``tune_ctc``
+   run's launches: ``launches_tune_ctc*``, ``launches_make_xforms``,
+   ``launches_realtime_sim``), whose launch counts are the CTC train
    step's, for ``gru_bifwd`` the seq2seq train step's and, for the Jacobi
    kernel, the chol fit's, with its launches per svm-decode iteration
    (fixed and nested) and per subsample run (``launches_subsample_*``)
@@ -188,6 +219,7 @@ Exits non-zero without a CUDA card, and in a directory without the port.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -303,6 +335,41 @@ DRV_PCA_RTOL = 2e-4  # latents, tests/test_torch_alignment.py's PCA bound
 DRV_ALIGNED_RTOL = 1e-3  # CCA-mapped latents, its projection bound
 DRV_VAL_RTOL = 1e-3  # per-epoch validation loss, card vs CPU
 FIR_RTOL = 1e-5  # fir_filter under the caller's TF32, card vs CPU
+# the CTC sweep (cli/experiments.py:run_tune_ctc) on the CTC driver's data
+# (8 synthetic patients x 243 trials, T=600, aligned): BOHB with TPE over
+# rungs of 1 and 2 epochs (the reference's budget: 30 trials, rungs 30 and
+# 100); the sampler draws the widths from the reference's space
+TUNE_CFG = dict(sampler="tpe", n_trials=4, rungs="1,2", eta=3)
+# the fig_5-width bucket on that run's held-out train and validation sets
+TUNE_FIG5_ARCH = dict(hidden=H, n_layers=N_LAYERS, dropout=0.3)
+TUNE_FIG5_OPT = ((1e-3, 1e-4), (3e-4, 1e-5))  # (lr, weight decay) a trial
+TUNE_FIG5_EPOCHS = 2
+# the CV trainable: 5 folds, each fold's prep refitted (7 chol fits a fold)
+TUNE_CV_CFG = dict(cv_folds=5, model_chunk=1, n_trials=2, rungs="1")
+# make-xforms card vs CPU: each source's proj_b_to_a, x its largest value
+# (tests/test_torch_alignment.py's projection bound)
+XF_PROJ_RTOL = 1e-3
+# realtime-sim from a fig_5-width checkpoint; p50 must stay below the bin
+TUNE_RT = dict(n_bins=400, per_step_samples=100, per_step_chain=20, seed=0)
+TUNE_RT_P50_MS = 10.0
+# small depth, card vs CPU: two trials of one bucket from the same data and
+# initial weights. Adam makes an update ~lr whatever the gradient's size,
+# so a gradient entry whose sign the two devices' rounding decides moves
+# its weight by up to 2 lr a step: the largest error is held to
+# 2 x max lr x epochs, and 99 % of the weights to 1e-4
+TUNE_SMALL_DATA = dict(synth_patients=3, synth_T=200, seed=0)
+TUNE_SMALL_ARCH = dict(hidden=16, n_layers=2, dropout=0.0)
+TUNE_SMALL_OPT = ((1e-3, 1e-4), (2e-3, 1e-5))
+TUNE_SMALL_EPOCHS = 2
+TUNE_SMALL_W_ATOL = 2 * 2e-3 * TUNE_SMALL_EPOCHS
+TUNE_SMALL_W_P99 = 1e-4
+TUNE_DECIDED = 1e-4  # a window's decode counts where the CPU's top two
+                     # logits differ by more than this much of the top one
+# one train-ctc init_ckpt iteration from a small checkpoint (hidden 16 x 2
+# on the synthetic target's 64 channels), card vs CPU
+TUNE_CKPT_CHANNELS = 64
+TUNE_INIT_CKPT = dict(context="patient", synth_patients=3, synth_T=200,
+                      n_iter=1, epochs=1, dropout=0.0, seed=0)
 # the classical decoder (cli/experiments.py:run_svm_decode, sep_align, rbf)
 # at the reference's scale: 8 patients of 9 classes x 15 trials (135
 # each, a pooled training set of 1080), T=200, max_k 32, 20 folds in one
@@ -428,6 +495,7 @@ def main() -> int:
     model, batch = phase_ctc_eval(torch, dev, gru)
     train_res = phase_ctc_train(torch, dev, gru, batch)
     phase_ctc_driver(torch, dev, gru, jacobi, smi)
+    tune_launches = phase_tune_ctc(torch, dev, gru, jacobi, smi)
     phase_streaming(torch, dev, gru, model)
     del model, batch
     s2s_model, s2s_batch, s2s_launches = phase_seq2seq_train(torch, dev, gru)
@@ -445,6 +513,7 @@ def main() -> int:
         if row["name"] in s2s_drv_launches:
             row["launches_seq2seq_driver_iteration"] = s2s_drv_launches[
                 row["name"]]
+        row.update(tune_launches.get(row["name"], {}))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -782,6 +851,16 @@ class _NoPlainOnCuda:
         self.saved.append((jacobi, "jacobi_eigh_plain",
                            jacobi.jacobi_eigh_plain))
 
+    @contextlib.contextmanager
+    def lifted(self):
+        """The plain versions themselves within the inner block: for a
+        check of the kernels inside the outer one."""
+        self.__exit__()
+        try:
+            yield
+        finally:
+            self.__enter__()
+
     def __enter__(self):
         torch = self.torch
         for mod, name, fn in self.saved:
@@ -790,6 +869,7 @@ class _NoPlainOnCuda:
                     raise RuntimeError(f"{_name} ran on a CUDA tensor")
                 return _fn(*args, **kw)
             setattr(mod, name, guard)
+        return self
 
     def __exit__(self, *exc):
         for mod, name, fn in self.saved:
@@ -1054,6 +1134,15 @@ def phase_ctc_driver(torch, dev, gru, jacobi, smi):
     return res
 
 
+def _synth_cache_to_cpu(exp) -> None:
+    """Put the one synthetic CTC data set the driver cached for the card
+    under the CPU's key, so that a CPU run reads the card's data."""
+    (key, data), = exp._SYNTH_CTC_CACHE.items()
+    exp._SYNTH_CTC_CACHE.clear()
+    exp._SYNTH_CTC_CACHE[key[:-1] + ("cpu",)] = [
+        (X.cpu(),) + tuple(rest) for X, *rest in data]
+
+
 def _driver_small(torch, dev, exp, tmp):
     """Small depth on the card, then on the CPU from the card's synthetic
     data (copied into the CPU's cache entry) and the same initial weights
@@ -1083,10 +1172,7 @@ def _driver_small(torch, dev, exp, tmp):
 
     prep_card = prep(dev)
     pers_card = exp.run_train_ctc(cfg, verbose=False, device=dev)
-    (key, data), = exp._SYNTH_CTC_CACHE.items()
-    exp._SYNTH_CTC_CACHE.clear()
-    exp._SYNTH_CTC_CACHE[key[:-1] + ("cpu",)] = [
-        (X.cpu(),) + tuple(rest) for X, *rest in data]
+    _synth_cache_to_cpu(exp)
     with _CardCcaRoute():
         prep_cpu = prep(torch.device("cpu"))
         pers_cpu = exp.run_train_ctc(cfg_on("cpu"), verbose=False,
@@ -1174,6 +1260,611 @@ def _check_fir_tf32(torch, dev):
     err = _rel(got.cpu(), want)
     return {"rel_err": err, "unpinned_conv_rel_err": _rel(raw.cpu(), want),
             "fir_ok": err <= FIR_RTOL}
+
+
+# ---------------------------------------------------------------------------
+# tune_ctc: the CTC sweep, make-xforms and realtime-sim drivers
+# ---------------------------------------------------------------------------
+
+
+class _TuneProbe:
+    """Wrappers around what the CTC sweep trains, for a block: each model
+    of a bucket (its layers, epochs and synchronised time), each
+    validation (synchronised time), and the train and validation sets the
+    held-out trainer is built on."""
+
+    def __init__(self, torch):
+        from cross_patient_speech_decoding_tpu_torch.sweep import ctc
+
+        self.torch, self.ctc = torch, ctc
+        self.models, self.train_s, self.eval_s, self.rows = [], [], [], []
+        self.holdout = None
+
+    def _sync_time(self, fn, store, *a, **k):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        self.torch.cuda.synchronize()
+        store.append(time.perf_counter() - t0)
+        return out
+
+    def __enter__(self):
+        ctc, probe = self.ctc, self
+        self.saved = [(ctc._Bucket, "train", ctc._Bucket.train),
+                      (ctc, "_val_per", ctc._val_per),
+                      (ctc, "make_ctc_bucket_trainer",
+                       ctc.make_ctc_bucket_trainer)]
+        orig = {n: f for _, n, f in self.saved}
+
+        def train(bucket, i, lr, wd, epochs, x, *a, **k):
+            probe.models.append((bucket.arch["n_layers"], epochs))
+            probe.rows.append(int(x.shape[0]) * epochs)
+            return probe._sync_time(orig["train"], probe.train_s, bucket, i,
+                                    lr, wd, epochs, x, *a, **k)
+
+        def val_per(*a, **k):
+            return probe._sync_time(orig["_val_per"], probe.eval_s, *a, **k)
+
+        def make(train_batch, val_batch, *a, **k):
+            probe.holdout = (train_batch, val_batch)
+            return orig["make_ctc_bucket_trainer"](train_batch, val_batch,
+                                                   *a, **k)
+
+        ctc._Bucket.train = train
+        ctc._val_per = val_per
+        ctc.make_ctc_bucket_trainer = make
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    def expected(self, jacobi: int) -> dict:
+        """Exact launches of the models trained: per model of L layers and
+        E epochs, E + 1 windowed forwards (the train steps and one
+        validation) and (E + 1)(L - 1) layer forwards, E windowed
+        backwards and E (L - 1) layer backwards."""
+        want = {"gru_wfwd": 0, "gru_fwd": 0, "gru_wbwd": 0, "gru_bwd": 0,
+                "gru_bifwd": 0, "jacobi_eigh": jacobi}
+        for L, E in self.models:
+            want["gru_wfwd"] += E + 1
+            want["gru_fwd"] += (E + 1) * (L - 1)
+            want["gru_wbwd"] += E
+            want["gru_bwd"] += E * (L - 1)
+        return want
+
+    def summary(self) -> dict:
+        n = sum(E for _, E in self.models)
+        return {"models": len(self.models),
+                "model_epochs": [E for _, E in self.models],
+                "model_layers": [L for L, _ in self.models],
+                "ms_per_trial_epoch": (sum(self.train_s) / n * 1e3
+                                       if n else None),
+                "train_samples_per_s": (sum(self.rows) / sum(self.train_s)
+                                        if n else None),
+                "eval_ms_median": (statistics.median(self.eval_s) * 1e3
+                                   if self.eval_s else None)}
+
+
+def _tune_results_ok(results, n_win: int) -> bool:
+    """JAX's order (full budgets first, then by metric) and finite PERs in
+    [0, 100 x n_win / 3] (a decode of n_win symbols against 3 labels)."""
+    keys = [(-r["epochs"], r["metric"]) for r in results]
+    return bool(results) and keys == sorted(keys) and all(
+        math.isfinite(r["metric"]) and 0.0 <= r["metric"] <= 100.0 * n_win / 3
+        for r in results)
+
+
+def xform_jacobi_launches(jacobi, widths: list) -> int:
+    """``jacobi_eigh`` launches of make-xforms: one gram CCA fit per source
+    (batch 1) into the target's latents. The fit whitens both Grams (one
+    eigh of the two stacked where the widths are equal, else one each),
+    then takes the eigh of g^T g at the source's width; ``batched_eigh``
+    sends a batch of 1 or 2 to the kernel where ANY_BATCH_K <= K <= MAX_K."""
+    def kernel(K):
+        return int(jacobi.ANY_BATCH_K <= K <= jacobi.MAX_K)
+
+    k_t = widths[0]
+    return sum((kernel(k_t) if k_s == k_t else kernel(k_t) + kernel(k_s))
+               + kernel(k_s) for k_s in widths[1:])
+
+
+def _stream_steps(first_bin: int, n: int, win: int, stride: int) -> int:
+    """GRU steps of the streaming loop over bins first_bin .. first_bin +
+    n - 1 (counting from 1): one where the ring is full and the stride
+    divides the bins since."""
+    return sum(b >= win and (b - win) % stride == 0
+               for b in range(first_bin, first_bin + n))
+
+
+def _write_rt_ckpt(torch, path, C_, H_, L_, K_, win, stride, seed):
+    """A Lightning checkpoint in the reference's key layout
+    (realtime_nn_model.py:122-147), random weights from ``seed``."""
+    torch.manual_seed(seed)
+    gru_ = torch.nn.GRU(win * C_, H_, num_layers=L_, batch_first=True)
+    head = torch.nn.Linear(H_, K_)
+    sd = {f"rnn.rnn.{k}": v for k, v in gru_.state_dict().items()}
+    sd["h0"] = torch.randn(L_, 1, H_)
+    sd.update({f"classifier.fc.{k}": v for k, v in head.state_dict().items()})
+    torch.save({"state_dict": sd, "hyper_parameters": dict(
+        input_size=win * C_, hidden_size=H_, n_layers=L_, n_classes=K_,
+        dropout=0.3, win_size=win, stride=stride, bidirectional=False,
+        blank=0)}, path)
+
+
+class _StreamRecord:
+    """Within the block, keep what ``run_realtime_sim``'s
+    ``simulate_stream`` calls were given and returned (the last one is the
+    timed stream)."""
+
+    def __enter__(self):
+        from cross_patient_speech_decoding_tpu_torch import realtime
+
+        self.mod, self.fn, self.calls = realtime, realtime.simulate_stream, []
+
+        def record(model, state, chunks, b, a, cfg=None):
+            out = self.fn(model, state, chunks, b, a, cfg)
+            self.calls.append((model, chunks, b, a, out))
+            return out
+
+        realtime.simulate_stream = record
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.simulate_stream = self.fn
+
+
+def _tune_cfg(**kw):
+    from cross_patient_speech_decoding_tpu_torch.utils.config import (
+        TuneCTCConfig,
+    )
+
+    scale = {k: DRV_CFG[k] for k in ("synth_patients", "synth_trials",
+                                     "synth_T", "seed")}
+    return TuneCTCConfig(**scale, align_train=True, **kw)
+
+
+def phase_tune_ctc(torch, dev, gru, jacobi, smi):
+    """The CTC sweep (holdout TPE and 5-fold CV), a fig_5-width bucket,
+    make-xforms and realtime-sim from a checkpoint at the CTC driver's
+    scale, then small depth card vs CPU. In the sweep, the bucket and the
+    CV run, the first GRU launch of each shape is held against its plain
+    version on the same inputs. Returns the launches of each run by
+    kernel."""
+    import tempfile
+
+    from cross_patient_speech_decoding_tpu_torch.cli import experiments as exp
+    from cross_patient_speech_decoding_tpu_torch.models import RealtimeRNN
+    from cross_patient_speech_decoding_tpu_torch.sweep import ctc
+    from cross_patient_speech_decoding_tpu_torch.utils.config import (
+        RealtimeSimConfig,
+    )
+
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    n_win = (DRV_CFG["synth_T"] - WIN) // STRIDE + 1
+    res = {"phase": "tune_ctc", "nvidia_smi": smi}
+    launches, peaks, fails = {}, {}, []
+    res["path_gru"] = {}
+
+    def counted(name, fn, want_fn, record=False):
+        """Run ``fn`` with the counts zeroed before and read after. With
+        ``record``, the first GRU launch of each shape is kept and then
+        held against its plain version on the same inputs; the copies are
+        taken out of the run's peak memory and freed."""
+        _reset_counts(gru, jacobi)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with (_RecordGru(torch, gru) if record
+              else contextlib.nullcontext()) as rec:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        got = _launch_counts(gru, jacobi)
+        peaks[name] = (torch.cuda.max_memory_allocated()
+                       - (rec.nbytes if record else 0)) / 1e9
+        want = want_fn()
+        launches[name] = got
+        if got != want:
+            fails.append(f"{name} launched {got}, expected {want}")
+        if record:
+            with guard.lifted():
+                checked = _check_path_gru(gru, rec)
+            res["path_gru"][name] = checked
+            bad = {k: v for k, v in checked.items() if not v["ok"]}
+            if bad:
+                fails.append(f"{name}: GRU kernels vs plain {bad}")
+            del rec
+        return out, wall, got, want
+
+    with _NoPlainOnCuda(torch, gru, jacobi) as guard:
+        # (1) the holdout sweep, aligned, TPE through rungs 1 and 2
+        cfg = _tune_cfg(**TUNE_CFG, manifest=str(root / "m.jsonl"))
+        with _TuneProbe(torch) as pr:
+            results, wall, got, want = counted(
+                "tune_ctc", lambda: exp.run_tune_ctc(cfg, device=dev),
+                lambda: pr.expected(DRV_JACOBI), record=True)
+        train_b, val_b = pr.holdout
+        res["sweep"] = {"config": TUNE_CFG, "wall_s": wall,
+                        "peak_mem_gb": peaks["tune_ctc"], "launches": got,
+                        "launches_expected": want,
+                        "results": results, **pr.summary(),
+                        "results_ok": _tune_results_ok(results, n_win),
+                        "manifest_wall_s": [
+                            json.loads(x).get("wall_s")
+                            for x in open(cfg.manifest)]}
+        if not res["sweep"]["results_ok"]:
+            fails.append(f"sweep results {results}")
+        again, _, got, _ = counted(
+            "tune_ctc_resume", lambda: exp.run_tune_ctc(cfg, device=dev),
+            lambda: {k: 0 for k in want})
+        res["sweep"]["resume_launches"] = got
+        first = {json.dumps(r, sort_keys=True) for r in results}
+        res["sweep"]["resume_ok"] = bool(again) and all(
+            json.dumps(r, sort_keys=True) in first for r in again)
+        if not res["sweep"]["resume_ok"]:
+            fails.append(f"resume returned {again}")
+
+        # (2) the fig_5-width bucket on that run's train and validation sets
+        cfgs = [dict(TUNE_FIG5_ARCH, lr=lr, weight_decay=wd)
+                for lr, wd in TUNE_FIG5_OPT]
+        trainer = ctc.make_ctc_bucket_trainer(train_b, val_b, n_classes=11,
+                                              seed=0)
+        with _TuneProbe(torch) as pb:
+            pers, wall, got, want = counted(
+                "tune_ctc_fig5_bucket",
+                lambda: trainer(cfgs, TUNE_FIG5_EPOCHS),
+                lambda: pb.expected(0), record=True)
+        _, prof = profile_call(torch, lambda: trainer(cfgs[:1], 1))
+        # a model's construction: weights drawn on the host, then copied
+        build_s = []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            RealtimeRNN(train_b[0].shape[-1], H, N_LAYERS, N_CLASSES,
+                        seed=i, device=dev)
+            torch.cuda.synchronize()
+            build_s.append(time.perf_counter() - t0)
+        res["fig5_bucket"] = {
+            "configs": cfgs, "epochs": TUNE_FIG5_EPOCHS,
+            "train_rows": int(train_b[0].shape[0]),
+            "val_rows": int(val_b[0].shape[0]), "pers": pers,
+            "wall_s": wall, "peak_mem_gb": peaks["tune_ctc_fig5_bucket"],
+            "launches": got, "launches_expected": want, **pb.summary(),
+            "one_trial_epoch_profile": prof,
+            "model_build_ms": [t * 1e3 for t in build_s]}
+        if not all(math.isfinite(p) for p in pers):
+            fails.append(f"fig5 bucket PERs {pers}")
+        del trainer, train_b, val_b
+
+        # (3) the CV path: every fold's prep refitted, B x F models in turn
+        cv_cfg = _tune_cfg(**TUNE_CV_CFG, manifest=str(root / "cv.jsonl"))
+        with _TuneProbe(torch) as pc:
+            cv_results, wall, got, want = counted(
+                "tune_ctc_cv", lambda: exp.run_tune_ctc(cv_cfg, device=dev),
+                lambda: pc.expected(DRV_JACOBI * TUNE_CV_CFG["cv_folds"]),
+                record=True)
+        res["cv"] = {"config": TUNE_CV_CFG, "wall_s": wall,
+                     "peak_mem_gb": peaks["tune_ctc_cv"],
+                     "launches": got, "launches_expected": want,
+                     "results": cv_results, **pc.summary(),
+                     "results_ok": _tune_results_ok(cv_results, n_win)}
+        if not res["cv"]["results_ok"]:
+            fails.append(f"cv results {cv_results}")
+
+        # (4) make-xforms at the same scale
+        res["make_xforms"] = _tune_xforms(torch, dev, exp, jacobi, root,
+                                          counted, fails)
+
+        # (5) realtime-sim from a fig_5-width checkpoint
+        ck = root / "rt.ckpt"
+        _write_rt_ckpt(torch, ck, C, H, N_LAYERS, N_CLASSES, WIN, STRIDE, 0)
+        rt_cfg = RealtimeSimConfig(ckpt=str(ck), out=str(root / "rt.pkl"),
+                                   **TUNE_RT)
+        steps = (2 * _stream_steps(1, rt_cfg.n_bins, WIN, STRIDE)
+                 + _stream_steps(1, rt_cfg.per_step_chain
+                                 * (1 + rt_cfg.per_step_samples), WIN,
+                                 STRIDE))
+        with _StreamRecord() as rec:
+            rt, wall, got, want = counted(
+                "realtime_sim",
+                lambda: exp.run_realtime_sim(rt_cfg, device=dev),
+                lambda: {"gru_wfwd": 0, "gru_fwd": N_LAYERS * steps,
+                         "gru_wbwd": 0, "gru_bwd": 0, "gru_bifwd": 0,
+                         "jacobi_eigh": 0})
+        res["realtime_sim"] = _tune_stream_checks(torch, rt, rec, rt_cfg,
+                                                  wall, got, want, fails)
+
+    # (6) small depth, card vs CPU
+    res["small_depth_card_vs_cpu"] = _tune_small(torch, dev, exp, ctc, root)
+    bad = {k: v for k, v in res["small_depth_card_vs_cpu"].items()
+           if k.endswith("_ok") and v is not True}
+    if bad:
+        fails.append(f"small-depth card vs CPU: {bad}")
+    res["fails"] = fails
+    emit(res)
+    fig5 = res["fig5_bucket"]
+    emit({"phase": "tune_ctc_times",
+          "sweep_wall_s": res["sweep"]["wall_s"],
+          "sweep_ms_per_trial_epoch": res["sweep"]["ms_per_trial_epoch"],
+          "fig5_ms_per_trial_epoch": fig5["ms_per_trial_epoch"],
+          "fig5_train_samples_per_s": fig5["train_samples_per_s"],
+          "fig5_eval_ms": fig5["eval_ms_median"],
+          "fig5_idle_share": fig5["one_trial_epoch_profile"].get(
+              "device_idle_share"),
+          "fig5_model_build_ms": fig5["model_build_ms"],
+          "cv_wall_s": res["cv"]["wall_s"],
+          "make_xforms_wall_s": res["make_xforms"]["wall_s"],
+          "realtime_amortized_ms": res["realtime_sim"][
+              "amortized_ms_per_bin"],
+          "realtime_p50_ms": res["realtime_sim"]["p50_ms"],
+          "realtime_p99_ms": res["realtime_sim"]["p99_ms"],
+          "realtime_max_ms": res["realtime_sim"]["max_ms"],
+          "path_gru_launches_checked": sum(
+              len(v) for v in res["path_gru"].values()),
+          "path_gru_max_abs_err": max(
+              [c["max_abs_err"] for v in res["path_gru"].values()
+               for c in v.values() if "max_abs_err" in c], default=None),
+          "path_gru_max_rel_err_backward": max(
+              [c["max_rel_err"] for v in res["path_gru"].values()
+               for c in v.values() if "max_rel_err" in c], default=None)})
+    tmp.cleanup()
+    if fails:
+        raise RuntimeError(f"tune_ctc: {fails}")
+    out = {}
+    for run, counts in launches.items():
+        if run.endswith("_resume"):
+            continue
+        for k, v in counts.items():
+            out.setdefault(k, {})[f"launches_{run}"] = v
+    return out
+
+
+def _tune_xforms(torch, dev, exp, jacobi, root, counted, fails) -> dict:
+    """make-xforms at the CTC driver's data scale (MakeXformsConfig, like
+    JAX's, has no synth_* fields: the instance carries them for
+    ``_synthetic_ctc_cfg``), then the card's transforms against the CPU's
+    from the same host data."""
+    import numpy as np
+
+    from cross_patient_speech_decoding_tpu_torch.utils.config import (
+        MakeXformsConfig,
+    )
+
+    cfg = MakeXformsConfig(pca_out=str(root / "pca.h5"),
+                           cca_out=str(root / "cca.h5"))
+    for k in ("synth_patients", "synth_trials", "synth_T"):
+        setattr(cfg, k, DRV_CFG[k])
+    try:
+        import h5py  # noqa: F401
+        have_h5 = True
+    except ImportError:
+        have_h5 = False
+    widths = []
+
+    def run():
+        if have_h5:
+            out = exp.run_make_xforms(cfg, device=dev)
+        else:
+            out = exp.compute_xforms(cfg, device=dev)
+        widths.extend(W.shape[0] for W in out["pca"].values())
+        return out
+
+    card, wall, got, want = counted(
+        "make_xforms", run,
+        lambda: {"gru_wfwd": 0, "gru_fwd": 0, "gru_wbwd": 0, "gru_bwd": 0,
+                 "gru_bifwd": 0,
+                 "jacobi_eigh": xform_jacobi_launches(jacobi, widths)})
+    _synth_cache_to_cpu(exp)
+    with _CardCcaRoute():
+        cpu = exp.compute_xforms(cfg, device="cpu")
+    exp._SYNTH_CTC_CACHE.clear()
+    pca_same = all(np.array_equal(card["pca"][k], cpu["pca"][k])
+                   for k in cpu["pca"])
+    errs = {f"{s}->{t}": float(np.abs(card["cca"][(s, t)] - M).max()
+                               / np.abs(M).max())
+            for (s, t), M in cpu["cca"].items()}
+    out = {"wall_s": wall, "latent_widths": widths, "launches": got,
+           "launches_expected": want,
+           "h5": ("written and read back" if have_h5
+                  else "not written: no h5py"),
+           "pca_card_vs_cpu_bitwise": pca_same,
+           "proj_b_to_a_rel_errs": errs,
+           "proj_ok": all(e <= XF_PROJ_RTOL for e in errs.values())}
+    if have_h5:
+        from cross_patient_speech_decoding_tpu_torch.data.loaders import (
+            load_cca_xform,
+            load_pca_xform,
+        )
+
+        names = list(card["pca"])
+        out["h5_ok"] = all(
+            np.array_equal(load_pca_xform(cfg.pca_out, n), card["pca"][n].T)
+            for n in names) and all(
+            np.array_equal(load_cca_xform(cfg.cca_out, t, s), M)
+            for (s, t), M in card["cca"].items())
+        if not out["h5_ok"]:
+            fails.append("make-xforms files differ from the transforms")
+    if not pca_same or not out["proj_ok"]:
+        fails.append(f"make-xforms card vs CPU: pca {pca_same}, {errs}")
+    return out
+
+
+def _tune_stream_checks(torch, rt, rec, cfg, wall, got, want, fails):
+    """The timed stream's online logits against the imported model's
+    offline forward of the same features; latency and the out pickle."""
+    import pickle
+
+    import numpy as np
+    import scipy.signal as sps
+
+    from cross_patient_speech_decoding_tpu_torch.ops import signal
+
+    model, chunks, b, a, (_, (emitted, logits, did_run)) = rec.calls[-1]
+    bs, as_ = [], []
+    for lo, hi in ((0.35, 0.5), (0.5, 0.65), (0.65, 0.8)):
+        b_, a_ = sps.butter(2, [lo, hi], btype="band")
+        bs.append(b_)
+        as_.append(a_)
+    st = signal.init_stream_state(np.stack(bs), np.stack(as_),
+                                  chunks.shape[1], device=chunks.device)
+    powers = []
+    with torch.no_grad():
+        for ch in chunks:
+            p, st = signal.process_hg_chunk(ch, b, a, st)
+            powers.append(p)
+        offline = model(torch.stack(powers)[None])[0]
+    err = float((logits[did_run] - offline).abs().max())
+    with open(cfg.out, "rb") as f:
+        stored = pickle.load(f)
+    keys = {"params", "amortized_ms", "p50_ms", "p99_ms", "max_ms",
+            "samples_ms"}
+    out = {"config": TUNE_RT, "channels": cfg.n_channels,
+           "hidden": cfg.hidden, "n_layers": cfg.n_layers, "wall_s": wall,
+           "launches": got, "launches_expected": want,
+           "gru_steps_timed_stream": int(did_run.sum()),
+           "symbols_emitted": int((emitted >= 0).sum()),
+           "amortized_ms_per_bin": rt["amortized_ms"],
+           "p50_ms": rt["p50_ms"], "p99_ms": rt["p99_ms"],
+           "max_ms": rt["max_ms"],
+           "online_vs_offline_max_abs_err": err,
+           "out_keys_ok": set(stored) == keys
+           and len(stored["samples_ms"]) == cfg.per_step_samples}
+    if not err <= STREAM_ATOL:
+        fails.append(f"realtime-sim online vs offline {err}")
+    if not rt["p50_ms"] < TUNE_RT_P50_MS:
+        fails.append(f"realtime-sim p50 {rt['p50_ms']} ms")
+    if not out["out_keys_ok"]:
+        fails.append(f"realtime-sim out pickle keys {sorted(stored)}")
+    return out
+
+
+def _tune_small(torch, dev, exp, ctc, root) -> dict:
+    """Two trials of one bucket (hidden 16 x 2, dropout 0, 2 epochs) on the
+    card and on the CPU from the same data and initial weights, then one
+    ``run_train_ctc init_ckpt=`` iteration from a small checkpoint on
+    both."""
+    import numpy as np
+
+    from cross_patient_speech_decoding_tpu_torch.data.splits import (
+        train_val_test_masks,
+    )
+    from cross_patient_speech_decoding_tpu_torch.models import RealtimeRNN
+    from cross_patient_speech_decoding_tpu_torch.utils.config import (
+        TrainCTCConfig,
+    )
+
+    small = TrainCTCConfig(**TUNE_SMALL_DATA)
+    X, y, il, ll = exp._synthetic_ctc_cfg(small, dev)[0]
+    tr, va, _ = train_val_test_masks(len(y), np.random.default_rng(0))
+    tr_i, va_i = np.where(tr > 0)[0], np.where(va > 0)[0]
+
+    def sets(d):
+        Xd = X.to(d)
+        return [tuple([Xd[torch.as_tensor(i, device=d)]]
+                      + [a[i] for a in (y, il, ll)]) for i in (tr_i, va_i)]
+
+    cfgs = [dict(TUNE_SMALL_ARCH, lr=lr, weight_decay=wd)
+            for lr, wd in TUNE_SMALL_OPT]
+    init = [RealtimeRNN(X.shape[-1], TUNE_SMALL_ARCH["hidden"],
+                        TUNE_SMALL_ARCH["n_layers"], 11, dropout=0.0,
+                        seed=100 + i, device="cpu").state_dict()
+            for i in range(len(cfgs))]
+    weights = {}
+    orig_sync = ctc._sync_tiny
+
+    def run(d):
+        weights[str(d)] = []
+
+        def keep(model):
+            weights[str(d)].append({k: v.detach().cpu().clone()
+                                    for k, v in model.state_dict().items()})
+            return orig_sync(model)
+
+        ctc._sync_tiny = keep
+        try:
+            tr_set, va_set = sets(d)
+            pers = ctc.make_ctc_bucket_trainer(tr_set, va_set, 11, seed=0)(
+                cfgs, TUNE_SMALL_EPOCHS, init_params=init)
+            model_logits = []
+            for w in weights[str(d)]:
+                m = RealtimeRNN(X.shape[-1], TUNE_SMALL_ARCH["hidden"],
+                                TUNE_SMALL_ARCH["n_layers"], 11,
+                                dropout=0.0, device=d)
+                m.load_state_dict(w)
+                with torch.no_grad():
+                    model_logits.append(m.eval()(va_set[0]).cpu())
+            return pers, model_logits
+        finally:
+            ctc._sync_tiny = orig_sync
+
+    pers_card, lg_card = run(dev)
+    pers_cpu, lg_cpu = run(torch.device("cpu"))
+    w_errs = [max(float((a[k] - b[k]).abs().max()) for k in a)
+              for a, b in zip(weights[str(dev)], weights["cpu"])]
+    w_p99 = [float(torch.cat([(a[k] - b[k]).abs().flatten() for k in a])
+                   .quantile(0.99))
+             for a, b in zip(weights[str(dev)], weights["cpu"])]
+    # a window's decode may differ only where the CPU's top two logits lie
+    # within TUNE_DECIDED of each other
+    flips, decided_same = [], []
+    for c, g in zip(lg_cpu, lg_card):
+        top2 = c.topk(2, dim=-1).values
+        tie = (top2[..., 0] - top2[..., 1]) <= TUNE_DECIDED * top2[
+            ..., 0].abs().clamp(min=1.0)
+        diff = c.argmax(-1) != g.argmax(-1)
+        flips.append(int(diff.sum()))
+        decided_same.append(bool((~diff | tie).all()))
+    out = {"config": {"data": TUNE_SMALL_DATA, "arch": TUNE_SMALL_ARCH,
+                      "opt": TUNE_SMALL_OPT, "epochs": TUNE_SMALL_EPOCHS},
+           "pers_card": pers_card, "pers_cpu": pers_cpu,
+           "weight_max_abs_errs": w_errs, "weight_p99_abs_errs": w_p99,
+           "weights_ok": all(e <= TUNE_SMALL_W_ATOL for e in w_errs)
+           and all(e <= TUNE_SMALL_W_P99 for e in w_p99),
+           "window_decodes_differing": flips,
+           "decodes_ok": all(decided_same),
+           "per_ok": all(p == q or n > 0 for p, q, n in
+                         zip(pers_card, pers_cpu, flips))}
+    out.update(_tune_init_ckpt(torch, dev, exp, root))
+    exp._SYNTH_CTC_CACHE.clear()
+    return out
+
+
+def _tune_init_ckpt(torch, dev, exp, root) -> dict:
+    """One ``run_train_ctc init_ckpt=`` iteration (patient context, T=200)
+    from a small checkpoint on the card, then on the CPU from the card's
+    data: validation losses and test PER."""
+    import numpy as np
+
+    from cross_patient_speech_decoding_tpu_torch.utils.config import (
+        TrainCTCConfig,
+    )
+
+    ck = root / "small.ckpt"
+    _write_rt_ckpt(torch, ck, TUNE_CKPT_CHANNELS, 16, 2, N_CLASSES, WIN,
+                   STRIDE, 1)
+
+    def cfg_on(name):
+        return TrainCTCConfig(**TUNE_INIT_CKPT, init_ckpt=str(ck),
+                              out=str(root / name / "ctc.pkl"))
+
+    pers_card = exp.run_train_ctc(cfg_on("card"), verbose=False, device=dev)
+    _synth_cache_to_cpu(exp)
+    pers_cpu = exp.run_train_ctc(cfg_on("cpu"), verbose=False, device="cpu")
+    h_card = _history(cfg_on("card").out, "ptSpecific")
+    h_cpu = _history(cfg_on("cpu").out, "ptSpecific")
+    val_errs = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                for a, b in zip(h_card, h_cpu)]
+    n_test = round(exp._synthetic_ctc_n_trials(cfg_on("x"))
+                   * cfg_on("x").test_frac)
+    one_edit = 100.0 / (3 * n_test)
+    return {"init_ckpt_per_card": pers_card.tolist(),
+            "init_ckpt_per_cpu": pers_cpu.tolist(),
+            "init_ckpt_val_loss_rel_errs": val_errs,
+            "init_ckpt_ok": len(h_card) == len(h_cpu) > 0
+            and all(e <= DRV_VAL_RTOL for e in val_errs)
+            and bool(np.abs(pers_card - pers_cpu).max() <= one_edit + 1e-9)}
 
 
 class _SvmProbe:
@@ -2723,13 +3414,15 @@ class _S2sProbe:
 
 class _RecordGru:
     """Within the block, keep a copy of the arguments and of the result of
-    the first launch of ``gru_bifwd``, ``gru_fwd`` and ``gru_bwd`` at each
-    shape, dtype, direction and ``need_dx`` (launch counts are the
-    wrappers' own); ``nbytes`` is what the copies hold on the device."""
+    the first launch of each GRU kernel at each shape, dtype, direction
+    and ``need_dx`` (launch counts are the wrappers' own); ``nbytes`` is
+    what the copies hold on the device."""
 
     PLAIN = {"gru_bifwd_cuda": "gru_layer_bidir_plain",
              "gru_fwd_cuda": "gru_layer_plain",
-             "gru_bwd_cuda": "gru_backward_plain"}
+             "gru_bwd_cuda": "gru_backward_plain",
+             "gru_wfwd_cuda": "gru_layer_windowed_plain",
+             "gru_wbwd_cuda": "gru_win_backward_plain"}
 
     def __init__(self, torch, gru):
         self.torch, self.gru = torch, gru
@@ -2776,15 +3469,15 @@ class _RecordGru:
 def _check_path_gru(gru, rec) -> dict:
     """Each recorded launch's result against the plain version on its
     recorded arguments, on the card: the forwards' hs to KERNEL_ATOL, the
-    backward's outputs to GRAD_RTOL relative (``_bwd_errs``)."""
+    backwards' outputs to GRAD_RTOL relative (``_bwd_errs``)."""
     out = {}
     for label, (name, args, got) in rec.calls.items():
         want = getattr(gru, _RecordGru.PLAIN[name])(*args)
-        if name == "gru_bwd_cuda":
+        if name in ("gru_bwd_cuda", "gru_wbwd_cuda"):
             err = max(_bwd_errs(got, want).values())
             out[label] = {"max_rel_err": err, "ok": err <= GRAD_RTOL}
         else:
-            if name == "gru_fwd_cuda":
+            if name in ("gru_fwd_cuda", "gru_wfwd_cuda"):
                 got, want = (got,), (want,)
             err = max(float((g - w).abs().max()) for g, w in zip(got, want))
             out[label] = {"max_abs_err": err, "ok": err <= KERNEL_ATOL}

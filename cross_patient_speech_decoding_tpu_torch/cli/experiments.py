@@ -1,10 +1,13 @@
 """The experiment drivers: ``run_train_ctc`` (``cpsd train-ctc``),
 ``run_svm_decode`` (``cpsd svm-decode``), ``run_train_seq2seq`` (``cpsd
-train-seq2seq``) and the two prewarm commands.
+train-seq2seq``), the two prewarm commands, ``run_tune_ctc`` (``cpsd
+tune-ctc``), ``run_make_xforms`` (``cpsd make-xforms``) and
+``run_realtime_sim`` (``cpsd realtime-sim``).
 
-Port of the CTC, seq2seq, classical-decode and prewarm sections of
+Port of the CTC, seq2seq, classical-decode, prewarm, tune, make-xforms and
+realtime-sim sections of
 ``cross_patient_speech_decoding_tpu/cli/experiments.py`` (:57-132,
-:142-230, :245-821, :1065-1820).
+:142-230, :245-821, :1065-2300).
 
 ``run_svm_decode`` is the analog of the reference's
 ``aligned_decode_svm[_ncv].py``: repeated stratified CV of pooled
@@ -46,8 +49,19 @@ The prewarm commands build the kernel libraries and run one epoch, which
 pays the card's library set-up; the JAX package filled its compile cache
 there, which the port does not have.
 
-Not ported yet, and refused: ``init_ckpt`` (ROADMAP queue 1, item 10b),
-``n_devices > 0`` (item 11), ``log_format='tb'`` (item 10b; refused by
+``run_tune_ctc`` (``cpsd tune-ctc``) is the analog of tune_ctc_rnn.py:
+random or TPE/BOHB search through successive-halving rungs over the CTC
+bucket trainers of ``sweep/ctc.py``, on a held-out split or with k-fold
+CV, resumable from its manifest, handing the winner to ``train-ctc
+hparam_dir=``. ``run_make_xforms`` (``cpsd make-xforms``) writes the
+offline PCA/CCA transforms that ``pca_path=``/``cca_path=`` read: PCA in
+float64 on the host, the ``gram`` CCA fits on the run's device.
+``run_realtime_sim`` (``cpsd realtime-sim``) streams a random or a
+checkpoint-imported model (``models/torch_import.py``) and reports its
+latency; ``run_train_ctc``'s ``init_ckpt`` fine-tunes such a checkpoint.
+
+Not ported yet, and refused: ``n_devices > 0`` (ROADMAP queue 1, item
+11), ``log_format='tb'`` (item 10b; refused by
 ``train.loops.append_metrics`` on the first epoch logged, and by
 ``run_train_seq2seq`` up front).
 """
@@ -76,9 +90,12 @@ from cross_patient_speech_decoding_tpu_torch.data.splits import (
     train_val_test_masks,
 )
 from cross_patient_speech_decoding_tpu_torch.utils.config import (
+    MakeXformsConfig,
+    RealtimeSimConfig,
     SVMDecodeConfig,
     TrainCTCConfig,
     TrainSeq2SeqConfig,
+    TuneCTCConfig,
 )
 from cross_patient_speech_decoding_tpu_torch.utils.device import (
     resolve_device,
@@ -639,15 +656,28 @@ def run_train_ctc(cfg: TrainCTCConfig, verbose: bool = True, device=None):
     )
 
     dev = resolve_device(device)
-    if cfg.init_ckpt:
-        raise NotImplementedError(
-            "init_ckpt: loading the reference's Lightning checkpoints is not "
-            "ported yet (ROADMAP queue 1, item 10: models/torch_import)")
     if getattr(cfg, "n_devices", 0) > 0:
         raise NotImplementedError(
             "n_devices > 0: multi-device training is not ported yet "
             "(ROADMAP queue 1, item 11: parallel/)")
     cfg = _apply_tuned_hparams(cfg)
+    init_sd = None
+    if cfg.init_ckpt:
+        # fine-tune a reference-trained model: the architecture from the
+        # checkpoint, its weights the warm start of every iteration
+        from cross_patient_speech_decoding_tpu_torch.models.torch_import \
+            import realtime_rnn_from_ckpt
+
+        ck_model = realtime_rnn_from_ckpt(cfg.init_ckpt, device=dev)
+        if ck_model.n_classes != 11:
+            raise ValueError(
+                f"checkpoint has {ck_model.n_classes} classes; the CTC "
+                "phoneme task uses 11 (blank + 9 phonemes + sil)"
+            )
+        cfg.hidden, cfg.n_layers = ck_model.hidden, ck_model.n_layers
+        cfg.win_size, cfg.stride = ck_model.win_size, ck_model.stride
+        init_sd = ck_model.state_dict()
+        del ck_model
     if cfg.results_h5 and not (cfg.save_logits and cfg.out):
         # the reference's save_results writes `logits` unconditionally
         # (train_ctc_rnn.py:448-491): warn before training, not after
@@ -744,6 +774,17 @@ def run_train_ctc(cfg: TrainCTCConfig, verbose: bool = True, device=None):
                                                    gen_aug)
 
         model = _init_model(cfg, train_batch[0].shape[-1], it, dev)
+        if init_sd is not None:
+            want = init_sd["rnn.fwd0.wi"].shape[0]
+            have = train_batch[0].shape[-1] * cfg.win_size
+            if want != have:
+                raise ValueError(
+                    f"checkpoint input width {want} != data width {have} "
+                    f"({train_batch[0].shape[-1]} channels x win "
+                    f"{cfg.win_size}); match n_components / channel "
+                    "selection to the checkpoint's training setup"
+                )
+            model.load_state_dict(init_sd)
         state = create_train_state(model, tx)
         gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1000 + it)
         with _maybe_trace(cfg.trace and it == start_it, cfg.out, run_name):
@@ -1547,3 +1588,512 @@ def run_prewarm_seq2seq(cfg: TrainSeq2SeqConfig, verbose: bool = True,
         print(f"seq2seq libraries built and one epoch run in "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
     return np.asarray([])
+
+
+# ---------------------------------------------------------------- tune ctc --
+
+def _tune_prep_cfg(cfg: TuneCTCConfig) -> TrainCTCConfig:
+    """The TrainCTCConfig of a tune config's data prep (shared by the
+    holdout and CV paths)."""
+    context = "aligned" if cfg.align_train else (
+        "unaligned" if cfg.pool_train else "patient"
+    )
+    return TrainCTCConfig(
+        data=cfg.data, target_pt=cfg.target_pt, train_pts=cfg.train_pts,
+        only_train_pts=cfg.only_train_pts, zscore=cfg.zscore,
+        tw_orig=cfg.tw_orig, tw_select=cfg.tw_select, n_sil=cfg.n_sil,
+        pca_path=cfg.pca_path, cca_path=cfg.cca_path,
+        align_pt=cfg.align_pt, context=context, seed=cfg.seed,
+        n_components=cfg.n_components,
+        synth_patients=cfg.synth_patients,
+        synth_trials=cfg.synth_trials, synth_T=cfg.synth_T,
+    )
+
+
+def _label_seq_class_ids(y) -> np.ndarray:
+    """Integer class per label sequence row, the stratification key (the
+    reference's select_cv stratifies on the sequence string)."""
+    enc = encode_label_sequences(np.asarray(y))
+    return to_class_ids(enc, np.unique(enc))[0]
+
+
+def _tune_cv_trainer(cfg: TuneCTCConfig, rng: np.random.Generator, F: int,
+                     device=None):
+    """The reference's CV trainable (train_func_cv, tune_ctc_rnn.py:550-634):
+    per-trial k-fold CV with the fold-mean validation PER.
+
+    Fold membership is stratified over the target's label sequences; the
+    cross patients' rows train in every fold
+    (CTCHeldOutTargetValCVDataModule). Synthetic pooled contexts fit PCA
+    and CCA per fold on that fold's target train rows (the leak-free
+    AlignCV semantics), giving a per-fold feature stack; file data uses
+    fold-invariant transforms.
+    """
+    from cross_patient_speech_decoding_tpu_torch.data.splits import (
+        stratified_kfold_masks,
+    )
+    from cross_patient_speech_decoding_tpu_torch.sweep.ctc import (
+        make_ctc_cv_bucket_trainer,
+    )
+
+    dev = resolve_device(device)
+    pooled = cfg.align_train or cfg.pool_train
+    if pooled or cfg.data != "synthetic":
+        prep_cfg = _tune_prep_cfg(cfg)
+        if cfg.data == "synthetic":
+            cls = _label_seq_class_ids(_synthetic_ctc_cfg(cfg, dev)[0][1])
+            f_tr, f_va = stratified_kfold_masks(cls, F, rng)
+            fold_sets = [
+                _prep_ctc_context(prep_cfg, rng, tar_train_mask=f_tr[f],
+                                  device=dev)[0]
+                for f in range(F)
+            ]
+            # per-fold transforms -> per-fold pooled features (F, N, T, C)
+            x = torch.stack([torch.cat([_on(d[0], dev) for d in ds])
+                             for ds in fold_sets])
+            ds0 = fold_sets[0]
+        else:
+            ds0, _, _ = _prep_ctc_context(prep_cfg, rng, device=dev)
+            cls = _label_seq_class_ids(ds0[0][1])
+            f_tr, f_va = stratified_kfold_masks(cls, F, rng)
+            x = torch.cat([_on(d[0], dev) for d in ds0])
+        y = np.concatenate([np.asarray(d[1]) for d in ds0])
+        il = np.concatenate([np.asarray(d[2]) for d in ds0])
+        ll = np.concatenate([np.asarray(d[3]) for d in ds0])
+        n_cross = len(y) - len(cls)
+        w_tr = np.concatenate([f_tr, np.ones((F, n_cross))], axis=1)
+        w_va = np.concatenate([f_va, np.zeros((F, n_cross))], axis=1)
+    else:
+        X, y, il, ll = _synthetic_ctc_cfg(cfg, dev)[0]
+        cls = _label_seq_class_ids(y)
+        w_tr, w_va = stratified_kfold_masks(cls, F, rng)
+        x = _on(X, dev)
+    return make_ctc_cv_bucket_trainer(
+        (x, y, il, ll), w_tr, w_va, n_classes=11, seed=cfg.seed,
+        model_chunk=cfg.model_chunk,
+    )
+
+
+def _tune_mesh(cfg: TuneCTCConfig):
+    """The trial mesh of ``n_devices``: None for one device; more are not
+    ported yet. ``run_tune_ctc`` checks it before any work."""
+    if cfg.n_devices <= 0:
+        return None
+    raise NotImplementedError(
+        "n_devices > 0: trial sharding over several cards is not ported "
+        "yet (ROADMAP queue 1, item 11: parallel/)")
+
+
+def _tune_holdout_trainer(cfg: TuneCTCConfig, rng: np.random.Generator,
+                          dev):
+    """The single held-out validation split: precomputed transforms
+    (pca_path) or on-the-fly PCA and CCA pooling of file or synthetic data
+    (tune_ctc_rnn[_align]), or the target alone."""
+    from cross_patient_speech_decoding_tpu_torch.sweep.ctc import (
+        make_ctc_bucket_trainer,
+    )
+
+    pooled = cfg.align_train or cfg.pool_train
+    if pooled or cfg.data != "synthetic":
+        prep_cfg = _tune_prep_cfg(cfg)
+        if cfg.data == "synthetic":
+            # split first, so the pooled PCA and CCA fits exclude the
+            # validation rows (the prep draws nothing on this path)
+            n_tar = _synthetic_ctc_n_trials(cfg)
+            tr, va, _ = train_val_test_masks(n_tar, rng)
+            datasets, _, _ = _prep_ctc_context(
+                prep_cfg, rng, tar_train_mask=tr, device=dev)
+        else:
+            datasets, _, _ = _prep_ctc_context(prep_cfg, rng, device=dev)
+            tr, va, _ = train_val_test_masks(len(datasets[0][0]), rng)
+        X, y, il, ll = datasets[0]
+        tr_i, va_i = np.where(tr > 0)[0], np.where(va > 0)[0]
+        parts = [(_take(X, tr_i), y[tr_i], il[tr_i], ll[tr_i])]
+        parts += [tuple(d) for d in datasets[1:]]
+        train = tuple(torch.cat([_on(p[j], dev) for p in parts])
+                      for j in range(4))
+        val = tuple(_on(_take(a, va_i), dev) for a in (X, y, il, ll))
+    else:
+        X, y, il, ll = _synthetic_ctc_cfg(cfg, dev)[0]
+        tr, va, _ = train_val_test_masks(len(X), rng)
+        tr_i, va_i = np.where(tr > 0)[0], np.where(va > 0)[0]
+        train = tuple(_on(_take(a, tr_i), dev) for a in (X, y, il, ll))
+        val = tuple(_on(_take(a, va_i), dev) for a in (X, y, il, ll))
+    return make_ctc_bucket_trainer(train, val, n_classes=11, seed=cfg.seed)
+
+
+def run_tune_ctc(cfg: TuneCTCConfig, verbose: bool = True, device=None):
+    """CTC hyperparameter sweep (``cpsd tune-ctc``, the reference's
+    tune_ctc_rnn.py): random trials through successive halving
+    (``sampler=random``) or BOHB brackets of TPE proposals
+    (``sampler=tpe``), each bucket of same-architecture trials trained
+    by ``sweep/ctc.py`` on the held-out split or with ``cv_folds``-fold
+    CV. Finished trials are appended to ``cfg.manifest``, from which a
+    rerun resumes (the data prep waits for the first bucket to train, so
+    a finished sweep fits nothing); ``hparam_out`` receives the winner in
+    the reference's tuned-hparams layout for ``train-ctc hparam_dir=``.
+
+    Runs on ``device`` (default: the first CUDA card; raises without one
+    unless ``device='cpu'``). Returns the search's records, best first.
+    ``n_devices > 0`` is not ported yet (ROADMAP queue 1, item 11).
+    """
+    from cross_patient_speech_decoding_tpu_torch.sweep import (
+        Manifest,
+        SweepSpace,
+        default_ctc_space,
+        run_bohb,
+        run_sweep,
+        sample_trials,
+    )
+
+    dev = resolve_device(device)
+    _tune_mesh(cfg)
+    rng = np.random.default_rng(cfg.seed)
+    built = []
+
+    def trainer(cfgs, epochs):
+        # the data prep runs at the first bucket (the samplers draw from
+        # their own seeds, not from rng), so a finished sweep resumes
+        # without fitting anything; the JAX package preps up front
+        if not built:
+            built.append(
+                _tune_cv_trainer(cfg, rng, int(cfg.cv_folds), dev)
+                if cfg.cv_folds > 0 else _tune_holdout_trainer(cfg, rng, dev))
+        return built[0](cfgs, epochs)
+
+    Path(cfg.manifest).parent.mkdir(parents=True, exist_ok=True)
+    rungs = tuple(int(r) for r in cfg.rungs.split(","))
+    if cfg.sampler == "tpe":
+        # BOHB-style model-based acquisition (tune_ctc_rnn.py:224-232)
+        results = run_bohb(
+            default_ctc_space(), trainer, n_trials=cfg.n_trials,
+            batch=min(6, cfg.n_trials), rungs=rungs, eta=cfg.eta,
+            manifest=Manifest(cfg.manifest), seed=cfg.seed,
+        )
+    else:
+        trials = sample_trials(SweepSpace(), cfg.n_trials, seed=cfg.seed)
+        results = run_sweep(
+            trials, trainer, manifest=Manifest(cfg.manifest), rungs=rungs,
+            eta=cfg.eta,
+        )
+    if results and cfg.hparam_out:
+        # the tune -> train handoff, in the reference's tuned-hparams
+        # layout (train_ctc_rnn.py:375-423)
+        from cross_patient_speech_decoding_tpu_torch.data.loaders import (
+            save_tuned_hparams,
+        )
+
+        best_cfg = results[0]["config"]
+        context = _tune_prep_cfg(cfg).context
+        path = save_tuned_hparams(
+            cfg.hparam_out, cfg.target_pt, _CONTEXT_NAMES[context],
+            {
+                "learning_rate": float(best_cfg["lr"]),
+                "l2_reg": float(best_cfg["weight_decay"]),
+                "hidden_size": int(best_cfg["hidden"]),
+                "n_layers": int(best_cfg["n_layers"]),
+                "dropout": float(best_cfg["dropout"]),
+            },
+        )
+        if verbose:
+            print(f"tuned hparams -> {path}", flush=True)
+    if verbose and results:
+        best = results[0]
+        print(f"best val PER {best['metric']:.1f}% config {best['config']}",
+              flush=True)
+    return results
+
+
+# ------------------------------------------------------------- make xforms --
+
+def _offline_pca_components(X: np.ndarray, n_components: float):
+    """PCA of a (trials, T, C) array, demeaned over the flattened rows in
+    float64 on the host (as ``apply_latent_xform`` demeans where it
+    applies the transform).
+
+    ``n_components``: a fraction in (0, 1) keeps the fewest components
+    reaching that cumulative variance; a whole value > 1 is a count
+    (``n_components=30`` parses to 30.0); 1.0 is rejected rather than
+    meaning one component.
+
+    Returns ``(components (k, C), latents (trials, T, k) float32)``.
+    """
+    Xr = X.reshape(-1, X.shape[-1]).astype(np.float64)
+    Xr = Xr - Xr.mean(axis=0, keepdims=True)
+    _, s, Vt = np.linalg.svd(Xr, full_matrices=False)
+    if 0 < n_components < 1:
+        ev = s**2
+        frac = np.cumsum(ev) / max(ev.sum(), np.finfo(np.float64).tiny)
+        k = int(np.searchsorted(frac, n_components) + 1)
+    elif n_components > 1 and float(n_components).is_integer():
+        k = min(int(n_components), len(s))
+    else:
+        raise ValueError(
+            "n_components must be a variance fraction in (0, 1) or a "
+            f"whole component count > 1, got {n_components!r}"
+        )
+    k = max(k, 1)
+    W = np.ascontiguousarray(Vt[:k])
+    lat = np.asarray((Xr @ W.T).reshape(X.shape[0], X.shape[1], -1),
+                     np.float32)
+    return W, lat
+
+
+def _xform_sources(cfg: MakeXformsConfig, dev):
+    """(patient names, their X as float32 numpy, their label arrays): the
+    target first, then the sources."""
+    from cross_patient_speech_decoding_tpu_torch.data.loaders import (
+        load_ctc_h5,
+    )
+
+    if cfg.data == "synthetic":
+        pts_data = _synthetic_ctc_cfg(cfg, dev)
+        names = [cfg.target_pt] + [
+            p.strip() for p in cfg.train_pts.split(",")
+            if p.strip() and p.strip() != cfg.target_pt
+        ]
+        names += [f"SYN{i}" for i in range(len(names), len(pts_data))]
+        names = names[: len(pts_data)]
+        Xs = [d[0].cpu().numpy().astype(np.float32)
+              for d in pts_data[: len(names)]]
+        ys = [np.asarray(d[1]) for d in pts_data[: len(names)]]
+        return names, Xs, ys
+    names = [cfg.target_pt]
+    for pt in cfg.train_pts.split(","):
+        pt = pt.strip()
+        if pt and pt != cfg.target_pt:
+            names.append(pt)
+    if len(names) < 2:
+        raise ValueError(
+            "make-xforms needs train_pts: at least one source patient "
+            "besides the target"
+        )
+    only_train_set = set(filter(None, cfg.only_train_pts.split(",")))
+    tw_sel, tw_orig = _tuple_arg(cfg.tw_select), _tuple_arg(cfg.tw_orig)
+    Xs, ys = [], []
+    for pt in names:
+        X_p, y_p, _, _ = load_ctc_h5(
+            cfg.data, pt, tw_sel, tw_orig, zscore=cfg.zscore,
+            only_train=pt in only_train_set,
+        )
+        Xs.append(np.asarray(X_p, np.float32))
+        ys.append(np.asarray(y_p))
+    return names, Xs, ys
+
+
+def compute_xforms(cfg: MakeXformsConfig, device=None) -> dict:
+    """What ``make-xforms`` writes, without writing it: each patient's PCA
+    components (float64 numpy on the host) and each source's class-averaged
+    ``gram`` CCA from its latents into the target's, fitted on ``device``
+    (default: the first CUDA card).
+
+    Returns ``{"names": [target, sources...], "pca": {pt: (k, C)},
+    "cca": {(src, target): (k_src, k_target) float64}}``.
+    """
+    from cross_patient_speech_decoding_tpu_torch.ops.cca import (
+        fit_cca_aligner,
+    )
+
+    dev = resolve_device(device)
+    names, Xs, ys = _xform_sources(cfg, dev)
+    comps, lats = {}, []
+    for name, X in zip(names, Xs):
+        W, lat = _offline_pca_components(X, cfg.n_components)
+        comps[name] = W
+        lats.append(lat)
+    ids = [encode_label_sequences(y) for y in ys]
+    lat_t = torch.as_tensor(lats[0], device=dev)
+    cca = {}
+    for name, lat, enc in zip(names[1:], lats[1:], ids[1:]):
+        uni = np.unique(np.concatenate([ids[0], enc]))
+        id_t = torch.as_tensor(to_class_ids(ids[0], uni)[0], device=dev)
+        id_s = torch.as_tensor(to_class_ids(enc, uni)[0], device=dev)
+        # the CCA takes unequal latent widths (proj_b_to_a is (k_src,
+        # k_tgt)); the gram route in case a count above the rank kept
+        # zero-variance latent columns
+        al = fit_cca_aligner(lat_t, torch.as_tensor(lat, device=dev), id_t,
+                             id_s, len(uni), method="gram")
+        proj = al.alignment.proj_b_to_a.cpu().numpy()
+        cca[(name, names[0])] = np.ascontiguousarray(proj, np.float64)
+    return {"names": names, "pca": comps, "cca": cca}
+
+
+def run_make_xforms(cfg: MakeXformsConfig, verbose: bool = True,
+                    device=None):
+    """Write the offline PCA/CCA transform h5s that ``tune-ctc`` and
+    ``train-ctc`` read through ``pca_path=``/``cca_path=`` (``cpsd
+    make-xforms``).
+
+    File layout: ``{pt}/components`` (n_components, n_channels) and
+    ``{src}_to_{tgt}/components`` (k_src, k_tgt) (tune_ctc_rnn.py:
+    1050-1079). The reference only ever reads these files; this makes
+    them from a CTC dataset's train blocks by :func:`compute_xforms` on
+    ``device`` (default: the first CUDA card). Needs ``h5py``, and raises
+    ``ImportError`` up front without it. Returns ``{"pca", "cca"}``.
+    """
+    try:
+        import h5py  # noqa: F401
+    except ImportError as e:
+        raise ImportError(
+            "make-xforms writes h5 files and needs h5py, which is not "
+            "installed") from e
+    from cross_patient_speech_decoding_tpu_torch.data.loaders import (
+        save_xforms_h5,
+    )
+
+    res = compute_xforms(cfg, device)
+    comps, cca = res["pca"], res["cca"]
+    Path(cfg.pca_out).parent.mkdir(parents=True, exist_ok=True)
+    save_xforms_h5(cfg.pca_out, pca=comps)
+    if verbose:
+        widths = {n: comps[n].shape[0] for n in res["names"]}
+        print(f"PCA components -> {cfg.pca_out} (widths {widths})",
+              flush=True)
+    Path(cfg.cca_out).parent.mkdir(parents=True, exist_ok=True)
+    save_xforms_h5(cfg.cca_out, cca=cca)
+    if verbose:
+        print(
+            f"CCA transforms -> {cfg.cca_out} "
+            f"({', '.join(f'{s}->{t}' for s, t in cca)})",
+            flush=True,
+        )
+    return {"pca": comps, "cca": cca}
+
+
+# ------------------------------------------------------------ realtime sim --
+
+def _sync(dev) -> None:
+    """Wait for ``dev``'s queue (a CPU tensor's work is already done)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_realtime_sim(cfg: RealtimeSimConfig, verbose: bool = True,
+                     device=None):
+    """Streaming decode over a synthetic recording (``cpsd realtime-sim``):
+    ms a bin over the whole stream and, with ``per_step_samples``, the
+    per-step latency distribution.
+
+    Runs on ``device`` (default: the first CUDA card; raises without one
+    unless ``device='cpu'``). ``ckpt=`` streams a reference Lightning
+    checkpoint (``models.torch_import``): its architecture and channel
+    count replace the config's, in the config itself as in the JAX
+    package. ``amortized_ms`` is the host loop of ``simulate_stream`` over
+    the bins divided by their count (the JAX package fuses the bins in one
+    scan). A per-step sample runs ``per_step_chain`` single steps, then one
+    synchronisation, less the median cost of a synchronisation on an idle
+    queue, over the chain. ``out=`` pickles the distribution with the
+    config (``per_step_samples`` > 0 required).
+    """
+    import scipy.signal as sps
+
+    from cross_patient_speech_decoding_tpu_torch.models import RealtimeRNN
+    from cross_patient_speech_decoding_tpu_torch.realtime import (
+        init_realtime_state,
+        make_realtime_step,
+        simulate_stream,
+    )
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(cfg.seed)
+    if cfg.ckpt:
+        from cross_patient_speech_decoding_tpu_torch.models.torch_import \
+            import realtime_rnn_from_ckpt
+
+        model = realtime_rnn_from_ckpt(cfg.ckpt, device=dev)
+        cfg.n_channels = model.in_channels
+        cfg.hidden, cfg.n_layers = model.hidden, model.n_layers
+        cfg.n_classes = model.n_classes
+    else:
+        model = RealtimeRNN(cfg.n_channels, cfg.hidden, cfg.n_layers,
+                            cfg.n_classes, seed=cfg.seed, device=dev)
+    model.eval()
+    bs, as_ = [], []
+    for lo, hi in ((0.35, 0.5), (0.5, 0.65), (0.65, 0.8)):
+        b, a = sps.butter(2, [lo, hi], btype="band")
+        bs.append(b)
+        as_.append(a)
+    b_np, a_np = np.stack(bs), np.stack(as_)
+    bt = torch.as_tensor(b_np, dtype=torch.float32, device=dev)
+    at = torch.as_tensor(a_np, dtype=torch.float32, device=dev)
+    chunks = torch.as_tensor(
+        rng.normal(size=(cfg.n_bins, cfg.n_channels, cfg.bin_len)),
+        dtype=torch.float32, device=dev)
+
+    def stream():
+        state = init_realtime_state(model, b_np, a_np, cfg.n_channels)
+        out = simulate_stream(model, state, chunks, bt, at)
+        _sync(dev)
+        return out
+
+    stream()  # warm-up
+    t0 = time.perf_counter()
+    _, outs = stream()
+    per_bin_ms = (time.perf_counter() - t0) / cfg.n_bins * 1e3
+    if verbose:
+        n_emit = int((outs[0] >= 0).sum())
+        print(
+            f"streamed {cfg.n_bins} bins: {per_bin_ms:.3f} ms/bin amortized, "
+            f"{n_emit} symbols emitted",
+            flush=True,
+        )
+    result = {"amortized_ms": per_bin_ms, "p50_ms": None, "p99_ms": None}
+
+    if cfg.per_step_samples > 0:
+        step = make_realtime_step(model)
+        st = init_realtime_state(model, b_np, a_np, cfg.n_channels)
+        R = cfg.per_step_chain
+        for r in range(R):  # warm-up
+            st, _ = step(st, chunks[r % cfg.n_bins], bt, at)
+        _sync(dev)
+
+        # synchronisation cost on an idle queue
+        sync = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            _sync(dev)
+            sync.append(time.perf_counter() - t0)
+        sync_base = float(np.median(sync))
+
+        samples = []
+        for s in range(cfg.per_step_samples):
+            t0 = time.perf_counter()
+            for r in range(R):
+                st, _ = step(st, chunks[(s + r) % cfg.n_bins], bt, at)
+            _sync(dev)
+            samples.append(
+                max(time.perf_counter() - t0 - sync_base, 0.0) / R * 1e3
+            )
+        result["p50_ms"] = float(np.percentile(samples, 50))
+        # an empirical p99 needs >= 100 samples; below that the tail is
+        # reported as the max
+        result["max_ms"] = float(np.max(samples))
+        if cfg.per_step_samples >= 100:
+            result["p99_ms"] = float(np.percentile(samples, 99))
+            tail_label, tail_ms = "p99", result["p99_ms"]
+        else:
+            tail_label, tail_ms = "max", result["max_ms"]
+        result["samples_ms"] = np.asarray(samples)
+        if verbose:
+            print(
+                f"per-step latency over {cfg.per_step_samples} samples x "
+                f"{R} steps: p50 {result['p50_ms']:.3f} ms, "
+                f"{tail_label} {tail_ms:.3f} ms (sync baseline "
+                f"{sync_base * 1e3:.3f} ms subtracted)",
+                flush=True,
+            )
+    if cfg.out:
+        # the distribution for the supp_fig_20/24 latency analyses, which
+        # need the per-step samples
+        if "samples_ms" not in result:
+            raise ValueError(
+                "out= persists the per-step latency distribution; set "
+                "per_step_samples > 0 (>= 100 for a meaningful p99)"
+            )
+        from cross_patient_speech_decoding_tpu_torch.data.loaders import (
+            save_pkl,
+        )
+
+        Path(cfg.out).parent.mkdir(parents=True, exist_ok=True)
+        save_pkl({"params": vars(cfg), **result}, cfg.out)
+    return result

@@ -3,10 +3,11 @@
 Port of ``cross_patient_speech_decoding_tpu/cli/main.py``: a subcommand
 takes an optional ``--config file.yaml`` and Hydra-style ``key=value``
 overrides. ``train-ctc``, ``svm-decode``, ``train-seq2seq``,
-``prewarm-ctc``, ``prewarm-seq2seq`` and the four subsample sweeps
+``prewarm-ctc``, ``prewarm-seq2seq``, the four subsample sweeps
 (``subsample-trials``, ``subsample-grid``, ``subsample-spatial``,
-``subsample-pitch``) are ported so far; every other command of the JAX
-package is listed and refused with the ROADMAP item that ports it.
+``subsample-pitch``), ``tune-ctc``, ``make-xforms`` and ``realtime-sim``
+are ported so far; every other command of the JAX package is listed and
+refused with the ROADMAP item that ports it.
 ``device=cpu`` (or ``device=cuda:1``) picks the device; the default is
 the first CUDA card.
 
@@ -21,6 +22,8 @@ Example::
         n_folds=4 epochs=3 hidden=16 n_filters=8 device=cpu
     python -m cross_patient_speech_decoding_tpu_torch.cli.main \\
         subsample-trials n_iter=2 k_step=40 device=cpu
+    python -m cross_patient_speech_decoding_tpu_torch.cli.main tune-ctc \\
+        n_trials=2 rungs=2 synth_T=60 manifest=/tmp/x/m.jsonl device=cpu
 """
 
 from __future__ import annotations
@@ -33,9 +36,12 @@ from cross_patient_speech_decoding_tpu_torch.cli.subsample_experiments \
     import SubsampleConfig
 from cross_patient_speech_decoding_tpu_torch.utils.config import (
     REQUIRED,
+    MakeXformsConfig,
+    RealtimeSimConfig,
     SVMDecodeConfig,
     TrainCTCConfig,
     TrainSeq2SeqConfig,
+    TuneCTCConfig,
     load_config,
 )
 
@@ -49,17 +55,17 @@ _COMMANDS = {
     "subsample-grid": (SubsampleConfig, "run_grid_subsample"),
     "subsample-spatial": (SubsampleConfig, "run_spatial_avg"),
     "subsample-pitch": (SubsampleConfig, "run_pitch_subsample"),
+    "tune-ctc": (TuneCTCConfig, "run_tune_ctc"),
+    "make-xforms": (MakeXformsConfig, "run_make_xforms"),
+    "realtime-sim": (RealtimeSimConfig, "run_realtime_sim"),
 }
 
 # the JAX package's other commands -> the ROADMAP queue 1 item that ports
 # them
 _NOT_PORTED = {
-    "train-nn": 7,
-    "tune-ctc": 8,
-    "realtime-sim": 10,
-    "analyze": 10,
-    "make-xforms": 10,
-    "reproduce": 10,
+    "train-nn": "7b",
+    "analyze": "10b",
+    "reproduce": "10b",
 }
 
 

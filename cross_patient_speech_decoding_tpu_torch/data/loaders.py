@@ -341,6 +341,29 @@ def load_cca_xform(cca_path: str | Path, align_pt: str, source_pt: str) -> np.nd
         return np.asarray(f[f"{source_pt}_to_{align_pt}/components"])
 
 
+def save_xforms_h5(path: str | Path, pca: dict[str, np.ndarray] | None = None,
+                   cca: dict[tuple[str, str], np.ndarray] | None = None):
+    """Write offline PCA/CCA transforms in the reference layout, the one
+    :func:`load_pca_xform` and :func:`load_cca_xform` read.
+
+    ``pca[pt]`` is (n_components, n_channels), stored as is under
+    ``{pt}/components``; ``cca[(src, tgt)]`` under
+    ``{src}_to_{tgt}/components``. The file is opened for appending, and a
+    dataset already there is replaced.
+    """
+    import h5py
+
+    with h5py.File(str(path), "a") as f:
+        groups = [(pt, comp) for pt, comp in (pca or {}).items()]
+        groups += [(f"{src}_to_{tgt}", comp)
+                   for (src, tgt), comp in (cca or {}).items()]
+        for name, comp in groups:
+            g = f.require_group(name)
+            if "components" in g:
+                del g["components"]
+            g.create_dataset("components", data=np.asarray(comp))
+
+
 def apply_latent_xform(X: np.ndarray, pca_xform: np.ndarray,
                        cca_xform: np.ndarray | None = None) -> np.ndarray:
     """Project (trials, time, channels) through offline PCA (+ optional CCA).
@@ -419,6 +442,24 @@ def save_ctc_results_h5(path: str | Path, pers, logits=None,
         for k, v in (model_hparams or {}).items():
             grp.attrs[k] = v
     return path
+
+
+def save_tuned_hparams(hparam_dir: str | Path, target_pt: str, context: str,
+                       hparams: dict) -> Path:
+    """Write a tuned-hparams h5 in the layout :func:`load_tuned_hparams`
+    (and the reference's ``train_ctc_rnn.load_hparams``) reads,
+    ``{hparam_dir}/{pt}/{pt}_ctcRNN_{context}_hp.h5`` with one scalar
+    dataset per hyperparameter: the tune -> train handoff."""
+    import h5py
+
+    fname = Path(hparam_dir).expanduser() / target_pt / (
+        f"{target_pt}_ctcRNN_{context}_hp.h5"
+    )
+    fname.parent.mkdir(parents=True, exist_ok=True)
+    with h5py.File(str(fname), "w") as f:
+        for k, v in hparams.items():
+            f.create_dataset(k, data=v)
+    return fname
 
 
 def append_results_pkl(path: str | Path, accs, params: dict | None = None,

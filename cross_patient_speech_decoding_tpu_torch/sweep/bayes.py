@@ -13,17 +13,20 @@ log-) transformed unit space with a uniform floor; categoricals get
 smoothed count ratios. Proposals are the top-n of one draw from the good
 density by l(x)/g(x).
 
-``run_bohb`` (TPE through successive-halving rungs) needs the sweep
-manifest of ``sweep/search.py`` and comes with the hyperparameter search
-of the CTC trainer (ROADMAP queue 1, item 8).
+``run_bohb`` (``:197-303``) chains TPE proposals through the
+successive-halving rungs of ``sweep/search.py`` and its resumable
+manifest; ``cpsd tune-ctc sampler=tpe`` runs it over the CTC bucket
+trainer.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Mapping, Sequence
+from typing import Callable, Mapping, Sequence
 
 import numpy as np
+
+from cross_patient_speech_decoding_tpu_torch.sweep.search import Manifest
 
 
 @dataclass(frozen=True)
@@ -186,3 +189,112 @@ class TPESampler:
         cands = self._draw_from_good(max(self.n_ei, 4 * n))
         order = np.argsort(-self._score(cands))
         return [cands[i] for i in order[:n]]
+
+
+def run_bohb(
+    space: SearchSpace,
+    train_bucket: Callable,
+    *,
+    n_trials: int = 24,
+    batch: int = 6,
+    rungs: tuple = (1,),
+    eta: int = 3,
+    n_random_init: int | None = None,
+    manifest: Manifest | None = None,
+    seed: int = 0,
+) -> list[dict]:
+    """BOHB-style search: TPE proposals fed through successive halving.
+
+    Brackets of ``batch`` configs are proposed (random until
+    ``n_random_init`` observations, then TPE) and run through the rung
+    schedule with the architecture-bucketed device trainer: every config
+    trains at ``rungs[0]`` epochs, the best 1/eta continue to the next
+    rung, etc. *Every* evaluation — including rung dropouts — enters the
+    observation pool; the TPE model fits on the largest budget that has
+    enough points (the BOHB rule), so cheap-rung evidence guides search
+    without polluting cross-budget rankings. Lower metric is better.
+
+    ``n_trials`` counts proposed configs. Returns {"config", "metric",
+    "epochs"} records; sorted best-first *within* the highest completed
+    budget first (a low-rung noisy metric never outranks a full-budget
+    result).
+    """
+    rng = np.random.default_rng(seed)
+    n_random_init = batch if n_random_init is None else n_random_init
+    sampler = TPESampler(space, seed=seed + 1)
+    manifest = manifest or Manifest(None)
+    # observations per budget: epochs -> list[(config, metric)]
+    obs: dict[int, list[tuple[dict, float]]] = {}
+    for rec in manifest.done.values():
+        obs.setdefault(int(rec.get("epochs", rungs[-1])), []).append(
+            (rec["config"], rec["metric"])
+        )
+    n_proposed = sum(len(v) for v in obs.values())
+    min_fit = len(space) + 2
+
+    while n_proposed < n_trials:
+        k = min(batch, n_trials - n_proposed)
+        fit_pool = [
+            pool for e, pool in sorted(obs.items(), reverse=True)
+            if len(pool) >= min_fit
+        ]
+        if n_proposed < n_random_init or not fit_pool:
+            cfgs = sample_random(space, k, rng)
+        else:
+            cfgs = sampler.fit(fit_pool[0]).propose(k)
+        n_proposed += len(cfgs)
+
+        # resume/dedupe: configs already completed in the manifest keep
+        # their recorded result (already in ``obs`` — loaded at startup or
+        # appended when their bracket finished) instead of retraining
+        live = [c for c in cfgs if manifest.completed(c) is None]
+        import time as _time
+
+        for i, epochs in enumerate(rungs):
+            if not live:
+                break
+            scored = []
+            for _, bucket_cfgs in _bucket_items(live):
+                t0 = _time.monotonic()
+                metrics = train_bucket(bucket_cfgs, int(epochs))
+                wall = (_time.monotonic() - t0) / max(1, len(bucket_cfgs))
+                scored.extend(
+                    (c, m, wall) for c, m in zip(bucket_cfgs, metrics)
+                )
+            scored.sort(key=lambda cm: cm[1])
+            obs.setdefault(int(epochs), []).extend(
+                (c, float(m)) for c, m, _ in scored
+            )
+            if i == len(rungs) - 1:
+                for c, m, wall in scored:
+                    manifest.record(c, float(m), {
+                        "epochs": int(epochs), "wall_s": round(wall, 2),
+                        "done_at": round(_time.time(), 1)})
+                live = []
+            else:
+                keep = max(1, len(scored) // eta)
+                live = [c for c, _, _ in scored[:keep]]
+                # rung dropouts persist too: their cheap-rung evaluations
+                # must survive a restart (they re-enter ``obs`` at their
+                # own budget) and must not retrain if TPE re-proposes them
+                for c, m, wall in scored[keep:]:
+                    manifest.record(
+                        c, float(m),
+                        {"epochs": int(epochs), "eliminated_at_rung": i,
+                         "wall_s": round(wall, 2),
+                         "done_at": round(_time.time(), 1)},
+                    )
+
+    results = []
+    for epochs in sorted(obs, reverse=True):
+        results.extend(
+            {"config": c, "metric": m, "epochs": epochs}
+            for c, m in sorted(obs[epochs], key=lambda cm: cm[1])
+        )
+    return results
+
+
+def _bucket_items(trials):
+    from cross_patient_speech_decoding_tpu_torch.sweep.search import _bucket
+
+    return _bucket(trials).items()

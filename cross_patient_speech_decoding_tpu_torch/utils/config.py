@@ -3,8 +3,9 @@
 Port of ``cross_patient_speech_decoding_tpu/utils/config.py``: the
 key=value coercion, ``load_config`` (defaults <- YAML <- overrides; PyYAML
 imported only when a file is given), ``config_from_values``, the
-classical decoder's config, the seq2seq trainer's and the CTC
-trainer's. The other drivers' configs come with their drivers. Field
+classical decoder's config, the seq2seq trainer's, the CTC trainer's,
+the CTC sweep's, the offline transforms' and the streaming simulation's.
+The subsample sweeps' config lives with their driver. Field
 names and defaults are the JAX package's, so a results file written by
 either driver resumes in the other.
 """
@@ -290,12 +291,107 @@ class TrainCTCConfig:
     synth_trials: int = 120
     synth_T: int = 200
     seed: int = 0
-    # warm-start every iteration from a reference Lightning checkpoint;
-    # not ported yet: run_train_ctc raises when it is set (ROADMAP queue 1,
-    # item 10)
+    # warm-start every iteration from a reference Lightning checkpoint
+    # (models.torch_import): the architecture comes from the checkpoint
     init_ckpt: str = ""
     out: str = "results/ctc.pkl"  # incremental per-iteration results (resume)
     # additionally write the reference's results-h5 layout
     # (train_ctc_rnn.py:448-491: phoneme_error_rate/logits/phon table/
     # model_hparams attrs) at this path when set
     results_h5: str = ""
+
+
+@dataclass
+class TuneCTCConfig:
+    """CTC hyperparameter sweep (tune_ctc_rnn.py analog)."""
+
+    data: str = "synthetic"  # 'synthetic' or the reference CTC h5 path
+    target_pt: str = "S14"
+    train_pts: str = ""
+    only_train_pts: str = "S33"
+    zscore: bool = False
+    tw_orig: str = "0,4"
+    tw_select: str = "0.5,3.5"
+    n_sil: int = 0
+    pca_path: str = ""  # precomputed transforms (tune_ctc_rnn.py:1050-1079)
+    cca_path: str = ""
+    align_pt: str = ""
+    n_trials: int = 30
+    rungs: str = "30,100"  # successive-halving epoch rungs
+    eta: int = 3
+    # per-trial k-fold CV (the reference CV trainable, train_func_cv /
+    # CTCHeldOutTargetVal[Align]CVDataModule, tune_ctc_rnn.py:550-634;
+    # reference uses 5): each trial's metric is the fold-mean val PER.
+    # 0 = single held-out val split (the cheap default). Pooled contexts
+    # with on-the-fly fitting refit PCA/CCA per fold on that fold's
+    # target-train rows (the leak-free AlignCV semantics).
+    cv_folds: int = 0
+    align_train: bool = False  # tune_ctc_rnn_align: pool aligned cross data
+    pool_train: bool = False  # pool unaligned cross data (tune_ctc_rnn)
+    sampler: str = "random"  # random | tpe (BOHB-style model-based search)
+    # trial sharding over several devices; 0 = one device. Not ported yet:
+    # run_tune_ctc raises for n > 0 (ROADMAP queue 1, item 11)
+    n_devices: int = 0
+    # how many fold models of the CV trainable train concurrently in the
+    # JAX package (0 = all at once); validated as there, but the port
+    # trains the models one at a time whatever its value
+    model_chunk: int = 0
+    n_components: float = 0.9
+    # synthetic-data scale (data='synthetic' only; see TrainCTCConfig)
+    synth_patients: int = 3
+    synth_trials: int = 120
+    synth_T: int = 200
+    seed: int = 0
+    manifest: str = "results/tune_manifest.jsonl"
+    # tune -> train handoff: when set, the winning config is written as
+    # {hparam_out}/{pt}/{pt}_ctcRNN_{context}_hp.h5 — the reference's
+    # tuned-hparams layout consumed by `cpsd train-ctc hparam_dir=...`
+    hparam_out: str = ""
+
+
+@dataclass
+class MakeXformsConfig:
+    """Generate the offline PCA/CCA transform h5s that ``tune-ctc`` /
+    ``train-ctc`` consume via ``pca_path=``/``cca_path=``
+    (`tune_ctc_rnn.py:1050-1079` contract: ``{pt}/components`` and
+    ``{src}_to_{tgt}/components``). The reference repo only ever READS
+    these files (its generator lived outside the repo); this command
+    produces them from a CTC dataset."""
+
+    data: str = "synthetic"  # 'synthetic' or the reference CTC h5 path
+    target_pt: str = "S14"
+    train_pts: str = ""  # comma list of source patients ('' = all others)
+    only_train_pts: str = "S33"
+    zscore: bool = False
+    tw_orig: str = "0,4"
+    tw_select: str = "0.5,3.5"
+    n_components: float = 0.9  # variance fraction per patient
+    seed: int = 0
+    pca_out: str = "results/pca_xforms.h5"
+    cca_out: str = "results/cca_xforms.h5"
+
+
+@dataclass
+class RealtimeSimConfig:
+    """Streaming decode simulation + latency report."""
+
+    n_channels: int = 64
+    bin_len: int = 10
+    n_bins: int = 400
+    hidden: int = 128
+    n_layers: int = 2
+    n_classes: int = 11
+    seed: int = 0
+    # stream a trained model instead of a random-init one: path to a
+    # reference Lightning checkpoint (models.torch_import) — architecture
+    # and channel count then come from the checkpoint, overriding the
+    # hidden/n_layers/n_classes/n_channels fields above
+    ckpt: str = ""
+    # per-step latency distribution: number of timed samples (0 = skip,
+    # report only the amortized figure); each sample runs
+    # ``per_step_chain`` single steps before one synchronisation
+    per_step_samples: int = 0
+    per_step_chain: int = 200
+    # persist the measured latency distribution for offline analysis
+    # (analysis.latency — the supp_fig_20/24 flows)
+    out: str = ""

@@ -397,13 +397,24 @@ def test_cli_train_ctc_runs_in_process(tmp_path, synth, capsys):
     with pytest.raises(NotImplementedError, match="item 7"):
         tmain.main(["train-nn", "n_iter=1"])
     with pytest.raises(NotImplementedError, match="item 10"):
-        tmain.main(["make-xforms"])
+        tmain.main(["analyze"])
 
 
 def test_unported_branches_raise(tmp_path, synth):
     cfg = _quick(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        te.run_train_ctc(_quick(tmp_path, init_ckpt="x.ckpt"), device="cpu")
+    # a bidirectional checkpoint: the bidirectional RealtimeRNN is item 7c
+    gru = torch.nn.GRU(6 * 64, 8, num_layers=2, batch_first=True,
+                       bidirectional=True)
+    sd = {f"rnn.rnn.{k}": v for k, v in gru.state_dict().items()}
+    sd.update({"h0": torch.zeros(4, 1, 8),
+               "classifier.fc.weight": torch.zeros(11, 16),
+               "classifier.fc.bias": torch.zeros(11)})
+    torch.save({"state_dict": sd, "hyper_parameters": {
+        "win_size": 6, "stride": 2, "bidirectional": True}},
+        tmp_path / "bi.ckpt")
+    with pytest.raises(NotImplementedError, match="item 7c"):
+        te.run_train_ctc(_quick(tmp_path, init_ckpt=str(tmp_path / "bi.ckpt")),
+                         device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         te.run_train_ctc(_quick(tmp_path, n_devices=2), device="cpu")
     synth(cfg)

@@ -109,6 +109,24 @@ def test_entry_points_default_to_cuda(no_cuda):
         surrogates.fit_tme(X, steps=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         surrogates.tme_surrogate(X, steps=1)
+    from cross_patient_speech_decoding_tpu_torch.cli import experiments
+    from cross_patient_speech_decoding_tpu_torch.sweep import ctc
+    from cross_patient_speech_decoding_tpu_torch.utils import config
+
+    for run, cfg in ((experiments.run_tune_ctc, config.TuneCTCConfig()),
+                     (experiments.compute_xforms,
+                      config.MakeXformsConfig()),
+                     (experiments.run_realtime_sim,
+                      config.RealtimeSimConfig(n_bins=2))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run(cfg)
+    batch = (np.zeros((2, 20, 3), np.float32), np.ones((2, 1), np.int32),
+             np.full(2, 20), np.ones(2, np.int32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ctc.make_ctc_bucket_trainer(batch, batch, 11)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ctc.make_ctc_cv_bucket_trainer(batch, np.ones((1, 2)),
+                                       np.ones((1, 2)), 11)
 
 
 def test_state_from_numpy_defaults_to_cuda(no_cuda):
