@@ -122,6 +122,31 @@ line is never printed:
    test trials whose top two logits lie within 1e-4; the same on the card
    with the reference's post-alignment augmentations (masks tiled over the
    copies); and ``run_prewarm_seq2seq`` at that depth;
+5d. train_nn (slice 14's main path): ``cli.experiments.run_train_nn``,
+   the ``train-nn`` entry point, for each of the four model families
+   (``tcn``, ``transformer``, ``cnn_transformer``, ``conv_rnn``) at
+   ``TrainNNConfig``'s default widths (100 filters of width 10, hidden
+   128, d_model 64, 4 heads, 2 layers, dim_ff 256, dropout 0.3, max_k 24,
+   batch 5000: one full-batch step an epoch) on a ``pt_decoding_data``
+   pickle the script writes at the reference's scale (the eight paper
+   patients of 9 classes x 15 trials, T=200, target S26); cut: one
+   iteration of 20 folds x 2 epochs (the reference: 50 of 20 x 100).
+   With the launch counts zeroed just before and read just after, the
+   iteration must launch exactly one ``jacobi_eigh`` a source and fold
+   (140) and, for ``conv_rnn``, per fold n_layers x (epochs + 1)
+   ``gru_fwd`` and n_layers x epochs ``gru_bwd`` with dx (120 and 80;
+   none for the other families: ``nn_driver_launches``); the plain GRU
+   and Jacobi versions raise on CUDA tensors; the first launch of each
+   shape of those kernels against its plain version (GRU forward 1e-4,
+   backward 1e-3 relative, Jacobi bit for bit); accuracies finite in [0,
+   1]; the results pickle with JAX's keys; a second call resumes with no
+   launch. Iteration wall time, ms per fold-epoch, training samples/s,
+   per-fold PCA and CCA ms, eval ms, peak memory and, for ``conv_rnn``,
+   the idle share of one profiled fold-epoch. Then 3 patients, T=40, 4
+   folds, narrow widths at dropout 0 for all four families on the card
+   and on the CPU from the same file and weights: every fold-epoch loss
+   within 1e-3, accuracies equal up to the test trials whose top two
+   logits lie within 1e-4;
 6. alignment (slice 3's main path): the natively batched
    ``fit_cca_aligner`` at the JAX package's bench geometry
    (bench.py:section_alignment: 128 pairs of 150 trials x 200 bins x 40
@@ -211,7 +236,9 @@ line is never printed:
    kernel, the chol fit's, with its launches per svm-decode iteration
    (fixed and nested) and per subsample run (``launches_subsample_*``)
    beside them, and for ``gru_bifwd``, ``gru_fwd``, ``gru_bwd`` and
-   ``jacobi_eigh`` their launches per ``seq2seq_driver`` iteration.
+   ``jacobi_eigh`` their launches per ``seq2seq_driver`` iteration and,
+   for ``gru_fwd``, ``gru_bwd`` and ``jacobi_eigh``, per ``train_nn``
+   iteration of each family that launches them.
 
 Then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA card, and in a directory without the port.
@@ -445,6 +472,23 @@ TME_CMP_RTOL = 1e-3  # log-parameters (absolute), implied eigenvalues (x
                      # of 10^4-10^5 terms in another order, over 200 steps
 TME_DRAWS = 20  # samples of the statistical check
 SUB_SHUFFLE_CPU = 2  # shuffle surrogates redrawn on the CPU, bit for bit
+# the NN-classifier decode driver (cli/experiments.py:run_train_nn, cpsd
+# train-nn) at TrainNNConfig's widths (100 filters of width 10, hidden 128,
+# d_model 64, 4 heads, 2 layers, dim_ff 256, dropout 0.3, max_k 24; batch
+# 5000, above the ~1,073 pooled rows: one full-batch step an epoch) on a
+# pt_decoding_data pickle of the eight paper patients at the subsample
+# phase's scale (9 classes x 15 trials, T=200), target S26, for each of
+# the four families. Cut: 1 iteration of 20 folds x 2 epochs (the
+# reference: 50 iterations of 20 folds x 100 epochs)
+NN_CFG = dict(target_pt=SUB_TARGET, n_iter=1, n_folds=20, epochs=2, seed=0)
+# small depth on the card and on the CPU from the same file and weights
+NN_SMALL_PTS = ("S14", "S26", "S33")
+NN_SMALL = dict(n_iter=1, n_folds=4, epochs=2, n_filters=8, hidden=16,
+                d_model=16, n_heads=2, n_layers=2, dim_ff=32, kernel_size=4,
+                dropout=0.0, seed=0)
+NN_LOSS_RTOL = 1e-3  # every fold-epoch's training loss, card vs CPU
+NN_DECIDED = 1e-4  # a test trial counts where its top two logits differ
+                   # by more than this much of their magnitude
 
 
 def emit(obj) -> None:
@@ -502,6 +546,7 @@ def main() -> int:
     phase_seq2seq_eval(torch, dev, gru, s2s_model, s2s_batch)
     del s2s_model, s2s_batch
     s2s_drv_launches = phase_seq2seq_driver(torch, dev, gru, jacobi, smi)
+    nn_launches = phase_train_nn(torch, dev, gru, jacobi, smi)
     align = phase_alignment(torch, dev, jacobi)
     svm_launches = phase_svm_decode(torch, dev, gru, jacobi, smi)
     sub_launches = phase_subsample(torch, dev, gru, jacobi, smi)
@@ -514,6 +559,7 @@ def main() -> int:
             row["launches_seq2seq_driver_iteration"] = s2s_drv_launches[
                 row["name"]]
         row.update(tune_launches.get(row["name"], {}))
+        row.update(nn_launches.get(row["name"], {}))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -3766,6 +3812,342 @@ def _s2s_small(torch, dev, exp):
         and (te[:, n0:] == 0).all() and (te[:, :n0] == 1 - w[:, :n0]).all()
         and np.isfinite(acc_a).all() and 0.0 <= acc_a.min()
         and acc_a.max() <= 1.0)
+    return out
+
+
+class _NNProbe:
+    """Wrappers around what ``run_train_nn`` calls, for a block: the PCA
+    fits (``exp._nn_pca``: the sources' once a run, the target's once a
+    fold) and the CCA fits (``exp._cca_align_lat``), each synchronised and
+    timed where ``timed`` is set; every train step (timed, its loss and
+    row count kept, the last one's step, state, batch and generator kept
+    for a profiled fold-epoch) and every evaluation (timed); with
+    ``cpu_slack`` the share of each fold's test rows whose top two logits
+    lie within NN_DECIDED of their magnitude (trials that may flip between
+    two devices)."""
+
+    def __init__(self, torch, exp, timed=True, cpu_slack=False):
+        import cross_patient_speech_decoding_tpu_torch.train as train
+
+        self.torch, self.exp, self.train = torch, exp, train
+        self.timed, self.cpu_slack = timed, cpu_slack
+        self.pca_src_s, self.pca_tar_s, self.cca_s = [], [], []
+        self.step_s, self.eval_s, self.losses, self.rows = [], [], [], []
+        self.slack, self.last = [], None
+
+    def _timed(self, fn, store):
+        torch = self.torch
+
+        def run(*a, **k):
+            if not self.timed:
+                return fn(*a, **k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            store.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def __enter__(self):
+        exp, train, probe = self.exp, self.train, self
+        self.saved = [(exp, "_nn_pca"), (exp, "_cca_align_lat"),
+                      (train, "make_classifier_train_step"),
+                      (train, "make_classifier_eval_step")]
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.saved]
+        orig = {n: f for _, n, f in self.saved}
+
+        def pca(X, mask, n_comp, max_k):
+            store = probe.pca_src_s if mask is None else probe.pca_tar_s
+            return probe._timed(orig["_nn_pca"], store)(X, mask, n_comp,
+                                                        max_k)
+
+        def make_train(model, tx):
+            step = orig["make_classifier_train_step"](model, tx)
+
+            def counted(state, batch, gen=None):
+                probe.rows.append(int(batch[0].shape[0]))
+                out = probe._timed(step, probe.step_s)(state, batch, gen)
+                probe.losses.append(out[1]["loss"])
+                probe.last = (step, state, batch, gen)
+                return out
+            return counted
+
+        def make_eval(model):
+            step = orig["make_classifier_eval_step"](model)
+
+            def counted(batch):
+                if probe.cpu_slack:
+                    model.eval()
+                    with probe.torch.no_grad():
+                        und = _undecided(model(batch[0]), NN_DECIDED)
+                    probe.slack.append(float(und.float().mean()))
+                return probe._timed(step, probe.eval_s)(batch)
+            return counted
+
+        exp._nn_pca = pca
+        exp._cca_align_lat = self._timed(orig["_cca_align_lat"], self.cca_s)
+        train.make_classifier_train_step = make_train
+        train.make_classifier_eval_step = make_eval
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def _nn_files(root: Path) -> dict:
+    """``pt_decoding_data`` pickles in ``root`` from the port's host
+    generator, in the reference's layout (``_reference_entry``): at full
+    depth the eight paper patients (the subsample phase's widths and
+    noise, T=200), at small depth NN_SMALL_PTS (T=40)."""
+    import numpy as np
+
+    from cross_patient_speech_decoding_tpu_torch.data import (
+        loaders,
+        synthetic,
+    )
+
+    widths = dict(zip(SUB_PTS, SUB_CHANNELS))
+    out = {}
+    for key, pts, T in (("full", SUB_PTS, SUB_T),
+                        ("small", NN_SMALL_PTS, SUB_SMALL_T)):
+        ds = synthetic.make_synthetic_patients(
+            seed=0, n_patients=len(pts), n_classes=9,
+            trials_per_class=SUB_TRIALS, T=T,
+            channels=tuple(widths[pt] for pt in pts), latent_dim=10,
+            noise=SUB_NOISE)
+        data = {pt: _reference_entry(np, ds.X[i], ds.y_seq[i],
+                                     ds.class_ids[i],
+                                     [p for p in pts if p != pt])
+                for i, pt in enumerate(pts)}
+        out[key] = str(root / f"pt_decoding_data_{key}.pkl")
+        loaders.save_pkl(data, out[key])
+    return out
+
+
+def nn_driver_launches(jacobi, cfg, widths) -> dict:
+    """Launches of one ``run_train_nn`` iteration: per fold, each source's
+    chol CCA fit solves its (K, K) between-view Gram (K = min(max_k, its
+    channels), ``sweep_jacobi_launches``) on one matrix; for ``conv_rnn``
+    per fold, every GRU layer forward in each of ``epochs`` full-batch
+    train steps and the evaluation, and backward (dx formed) in each train
+    step."""
+    F, E, L = cfg.n_folds, cfg.epochs, cfg.n_layers
+    gru = cfg.model == "conv_rnn"
+    return {"gru_fwd": F * L * (E + 1) if gru else 0, "gru_wfwd": 0,
+            "gru_bifwd": 0, "gru_bwd": F * L * E if gru else 0,
+            "gru_wbwd": 0, "jacobi_eigh": F * sweep_jacobi_launches(
+                jacobi, [min(cfg.max_k, c) for c in widths], 1)}
+
+
+def _no_encoder_dropout(exp):
+    """``exp._make_nn_classifier`` with the CNN-transformer's encoder
+    dropout (fixed at 0.1 by the model switch) set to 0; returns the
+    original."""
+    make = exp._make_nn_classifier
+
+    def make0(*a, **k):
+        m = make(*a, **k)
+        for block in getattr(m, "blocks", ()):
+            block.dropout = block.attn.dropout = 0.0
+        return m
+
+    exp._make_nn_classifier = make0
+    return make
+
+
+def phase_train_nn(torch, dev, gru, jacobi, smi):
+    """The NN-classifier decode driver end to end at TrainNNConfig's
+    widths on the reference's data scale, for each model family: exact
+    launches, the kernels' first launch of each shape against their plain
+    versions, a resume with none, times, peak memory and, for conv_rnn,
+    the idle share of a fold-epoch; then small depth on the card and on
+    the CPU for all four families."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from cross_patient_speech_decoding_tpu_torch.cli import experiments as exp
+    from cross_patient_speech_decoding_tpu_torch.data.loaders import load_pkl
+    from cross_patient_speech_decoding_tpu_torch.utils.config import (
+        TrainNNConfig,
+    )
+
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    t0 = time.perf_counter()
+    files = _nn_files(root)
+    data_s = time.perf_counter() - t0
+    widths = [c for pt, c in zip(SUB_PTS, SUB_CHANNELS) if pt != SUB_TARGET]
+    res = {"phase": "train_nn", "nvidia_smi": smi, "config": NN_CFG,
+           "widths": {f.name: f.default for f in
+                      dataclasses.fields(TrainNNConfig)
+                      if f.name in ("n_filters", "hidden", "d_model",
+                                    "n_heads", "n_layers", "dim_ff",
+                                    "kernel_size", "dropout", "max_k",
+                                    "batch_size")},
+           "data": "8 paper patients x 135 trials, T=200, 9 classes, "
+                   "target S26 (pt_decoding_data pickle)",
+           "cut": "1 iteration of 20 folds x 2 epochs (the reference: 50 "
+                  "of 20 x 100)", "data_write_s": data_s, "models": {}}
+    bad, all_launches = {}, {}
+    for model in exp.NN_MODELS:
+        cfg = TrainNNConfig(**NN_CFG, model=model, data=files["full"],
+                            out=str(root / model / "nn.pkl"))
+        want = nn_driver_launches(jacobi, cfg, widths)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts(gru, jacobi)
+        with _NoPlainOnCuda(torch, gru, jacobi), \
+                _NNProbe(torch, exp) as pr, \
+                _RecordJacobi(jacobi, first_per_shape=True) as jrec, \
+                _RecordGru(torch, gru) as grec:
+            t0 = time.perf_counter()
+            accs = exp.run_train_nn(cfg, verbose=True, device=dev)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        launches = _launch_counts(gru, jacobi)
+        kept = grec.nbytes + sum(A.numel() * A.element_size()
+                                 for A in jrec.batches)
+        peak_raw = torch.cuda.max_memory_allocated()
+        path_jacobi = {f"batch{i}_{'x'.join(map(str, A.shape))}":
+                       _check_jacobi(torch, jacobi, A)
+                       for i, A in enumerate(jrec.batches)}
+        path_gru = _check_path_gru(gru, grec)
+        del grec, jrec
+        store = load_pkl(cfg.out)
+
+        _reset_counts(gru, jacobi)
+        again = exp.run_train_nn(cfg, verbose=True, device=dev)
+        torch.cuda.synchronize()
+        resume_launches = _launch_counts(gru, jacobi)
+
+        step, state, batch, gen = pr.last
+        prof = None
+        if model == "conv_rnn":
+            _, prof = profile_call(torch, lambda: step(state, batch, gen))
+            prof["device_ms_by_kernel"] = dict(list(
+                prof["device_ms_by_kernel"].items())[:6])
+        pr.last = None
+        del step, state, batch, gen
+        losses = [float(v) for v in pr.losses]
+        step_ms = statistics.median(pr.step_s) * 1e3
+        r = {"accs": accs[0].tolist(), "mean_acc": float(accs.mean()),
+             "chance": 1.0 / 9, "launches": launches,
+             "launches_expected": want, "iteration_wall_s": wall_s,
+             "pooled_rows_min_max": [min(pr.rows), max(pr.rows)],
+             "fold_epochs": len(pr.step_s), "fold_evals": len(pr.eval_s),
+             "ms_per_fold_epoch": step_ms,
+             "fold_epoch_ms_min_max": [min(pr.step_s) * 1e3,
+                                       max(pr.step_s) * 1e3],
+             "train_samples_per_s": statistics.median(pr.rows)
+             / (step_ms / 1e3),
+             "source_pca_ms": sum(pr.pca_src_s) * 1e3,
+             "fold_features_ms": {
+                 "pca": sum(pr.pca_tar_s) * 1e3 / cfg.n_folds,
+                 "cca": sum(pr.cca_s) * 1e3 / cfg.n_folds},
+             "eval_ms": statistics.median(pr.eval_s) * 1e3,
+             "peak_mem_gb": (peak_raw - kept) / 1e9,
+             "peak_mem_gb_with_kept_copies": peak_raw / 1e9,
+             "losses_first_last": [losses[0], losses[-1]],
+             "path_kernels_vs_plain": {
+                 "jacobi_eigh": path_jacobi, "gru": path_gru,
+                 "tolerance": {"jacobi": "bit for bit (_jacobi_ok)",
+                               "gru_fwd_abs": KERNEL_ATOL,
+                               "gru_bwd_rel": GRAD_RTOL}},
+             "results_keys": sorted(store),
+             "results_params_are_the_config": set(store["params"]) == {
+                 f.name for f in dataclasses.fields(TrainNNConfig)},
+             "resume_accs_same": np.array_equal(again, accs),
+             "resume_launches": resume_launches}
+        if prof is not None:
+            r["fold_epoch_profile"] = prof
+        res["models"][model] = r
+        all_launches[model] = launches
+        b = {}
+        if launches != want:
+            b["launches"] = launches
+        b.update({f"path_{k}": v for k, v in path_jacobi.items()
+                  if not _jacobi_ok(k, v)})
+        b.update({f"path_{k}": v for k, v in path_gru.items()
+                  if not v["ok"]})
+        kinds = sorted({label.split("_")[1] for label in path_gru})
+        dx = all(label.endswith("need_dx1") for label in path_gru
+                 if label.startswith("gru_bwd"))
+        if (len(path_jacobi) != 1
+                or kinds != (["bwd", "fwd"] if want["gru_fwd"] else [])
+                or not dx):
+            b["path_recorded"] = [len(path_jacobi), list(path_gru)]
+        if not (np.isfinite(losses).all() and accs.shape == (1, cfg.n_folds)
+                and np.isfinite(accs).all() and 0.0 <= accs.min()
+                and accs.max() <= 1.0):
+            b["accs"] = accs.tolist()
+        if not (r["results_keys"] == ["accs", "params"]
+                and r["results_params_are_the_config"]
+                and len(store["accs"]) == 1):
+            b["results"] = r["results_keys"]
+        if not r["resume_accs_same"] or any(resume_launches.values()):
+            b["resume"] = resume_launches
+        bad.update({f"{model}_{k}": v for k, v in b.items()})
+        del pr
+    t0 = time.perf_counter()
+    small = _nn_small(torch, dev, exp, files["small"])
+    small["s"] = time.perf_counter() - t0
+    res["small_depth_card_vs_cpu"] = small
+    emit(res)
+    tmp.cleanup()
+    bad.update({k: v for k, v in small.items()
+                if k.endswith("_ok") and v is not True})
+    if bad:
+        raise RuntimeError(f"train_nn checks failed: {list(bad)}")
+    return {name: {f"launches_train_nn_{m}_iteration": n[name]
+                   for m, n in all_launches.items() if n[name]}
+            for name in ("gru_fwd", "gru_bwd", "jacobi_eigh")}
+
+
+def _nn_small(torch, dev, exp, data):
+    """Small depth (NN_SMALL, dropout 0, the CNN-transformer's encoder
+    dropout 0 too) for each family on the card, then on the CPU from the
+    same file and the same initial weights (the models draw them on the
+    host from the seed), the CPU's Jacobi on the kernel's route through
+    its plain version: every fold-epoch's training loss within
+    NN_LOSS_RTOL, fold accuracies equal up to the test rows whose top two
+    logits the CPU's model leaves within NN_DECIDED."""
+    import numpy as np
+
+    from cross_patient_speech_decoding_tpu_torch.utils.config import (
+        TrainNNConfig,
+    )
+
+    out = {"config": NN_SMALL, "patients": list(NN_SMALL_PTS),
+           "loss_rtol": NN_LOSS_RTOL, "decided_rtol": NN_DECIDED}
+    make = _no_encoder_dropout(exp)
+    try:
+        for model in exp.NN_MODELS:
+            cfg = TrainNNConfig(**NN_SMALL, model=model, data=data,
+                                target_pt=SUB_TARGET, out="")
+            with _NNProbe(torch, exp, timed=False) as card:
+                acc_g = exp.run_train_nn(cfg, False, dev)
+                torch.cuda.synchronize()
+            with _PlainJacobiOnCpu(), _NNProbe(torch, exp, timed=False,
+                                               cpu_slack=True) as cpu:
+                acc_c = exp.run_train_nn(cfg, False, "cpu")
+            l_g = np.asarray([float(v) for v in card.losses])
+            l_c = np.asarray([float(v) for v in cpu.losses])
+            rel = (np.abs(l_g - l_c) / np.abs(l_c)).tolist()
+            r = {"loss_rel_err_max": max(rel), "accs_card": acc_g.tolist(),
+                 "accs_cpu": acc_c.tolist(), "acc_slack": cpu.slack}
+            r["losses_ok"] = (len(l_g) == len(l_c) > 0
+                              and max(rel) <= NN_LOSS_RTOL)
+            r["accs_ok"] = bool(len(cpu.slack) == acc_g.size and all(
+                abs(g - c) <= s + 1e-6 for g, c, s in
+                zip(acc_g.ravel(), acc_c.ravel(), cpu.slack)))
+            out[model] = r
+            out[f"{model}_ok"] = r["losses_ok"] and r["accs_ok"]
+    finally:
+        exp._make_nn_classifier = make
     return out
 
 

@@ -1,13 +1,13 @@
 """The experiment drivers: ``run_train_ctc`` (``cpsd train-ctc``),
 ``run_svm_decode`` (``cpsd svm-decode``), ``run_train_seq2seq`` (``cpsd
-train-seq2seq``), the two prewarm commands, ``run_tune_ctc`` (``cpsd
-tune-ctc``), ``run_make_xforms`` (``cpsd make-xforms``) and
-``run_realtime_sim`` (``cpsd realtime-sim``).
+train-seq2seq``), ``run_train_nn`` (``cpsd train-nn``), the two prewarm
+commands, ``run_tune_ctc`` (``cpsd tune-ctc``), ``run_make_xforms``
+(``cpsd make-xforms``) and ``run_realtime_sim`` (``cpsd realtime-sim``).
 
-Port of the CTC, seq2seq, classical-decode, prewarm, tune, make-xforms and
-realtime-sim sections of
+Port of the CTC, seq2seq, NN-classifier, classical-decode, prewarm, tune,
+make-xforms and realtime-sim sections of
 ``cross_patient_speech_decoding_tpu/cli/experiments.py`` (:57-132,
-:142-230, :245-821, :1065-2300).
+:142-230, :245-1064, :1065-2300).
 
 ``run_svm_decode`` is the analog of the reference's
 ``aligned_decode_svm[_ncv].py``: repeated stratified CV of pooled
@@ -27,6 +27,17 @@ of ``train/fold_parallel.py`` (one model per fold in turn, where the JAX
 package vmaps the folds) or one ``train.loops.fit`` per fold. Splits are
 the JAX package's numpy draws; weights come from ``Seq2SeqRNN(seed=)``,
 the dropout masks, coins and augmentations from ``torch.Generator``s.
+
+``run_train_nn`` is the working analog of the reference's
+``aligned_decode_nn.py`` (which never builds its classifier): per fold,
+the target's PCA and each source's chol CCA refitted on the fold's train
+rows (one Jacobi launch a source on the card), the sources' own latents
+fitted once a run; a TCN, transformer, CNN-transformer or conv-GRU
+classifier per fold through ``train.loops.fit``, tested after the last
+epoch. Fold k of iteration it draws its weights from ``seed + 31 it + k``
+(on the host, so every device starts from the same weights) and its
+dropout from ``seed + 1000 + 31 it + k`` (a generator on the run's
+device), the numbers of the JAX package's keys.
 
 ``run_train_ctc`` is the analog of ``train_ctc_rnn.py``. One run trains
 and tests the realtime CTC RNN in one of four contexts: ``chance`` (target data, labels permuted or drawn
@@ -94,6 +105,7 @@ from cross_patient_speech_decoding_tpu_torch.utils.config import (
     RealtimeSimConfig,
     SVMDecodeConfig,
     TrainCTCConfig,
+    TrainNNConfig,
     TrainSeq2SeqConfig,
     TuneCTCConfig,
 )
@@ -1551,6 +1563,177 @@ def _seq2seq_sequential(cfg, dev, start_it, progress, verbose,
             append_results_pkl(progress, np.asarray(iter_accs),
                                params=vars(cfg))
     return results
+
+
+# ---------------------------------------------------------------- train nn --
+
+NN_MODELS = ("tcn", "transformer", "cnn_transformer", "conv_rnn")
+
+
+def _make_nn_classifier(cfg: TrainNNConfig, in_features: int,
+                        n_classes: int, seed: int = 0, device=None):
+    """The run's classifier (the model zoo switch; the classifier the
+    reference's aligned_decode_nn.py comments out and then uses), for
+    (B, T, in_features) inputs, its weights drawn from ``seed`` on the
+    host and moved to ``device``. The CNN-transformer's encoder keeps its
+    own dropout default (0.1), as in the JAX package."""
+    from cross_patient_speech_decoding_tpu_torch import models
+
+    common = dict(num_classes=n_classes, seed=seed, device=device)
+    if cfg.model == "tcn":
+        return models.TCNClassifier(
+            in_features, cfg.n_filters, kernel_size=cfg.kernel_size,
+            dropout=cfg.dropout, **common)
+    if cfg.model == "transformer":
+        return models.TransformerClassifier(
+            in_features, cfg.d_model, n_heads=cfg.n_heads,
+            n_layers=cfg.n_layers, dim_ff=cfg.dim_ff, dropout=cfg.dropout,
+            **common)
+    if cfg.model == "cnn_transformer":
+        return models.CNNTransformer(
+            in_features, cfg.n_filters, kernel_size=cfg.kernel_size,
+            n_heads=cfg.n_heads, n_layers=cfg.n_layers, dim_ff=cfg.dim_ff,
+            cnn_dropout=cfg.dropout, **common)
+    if cfg.model == "conv_rnn":
+        return models.TemporalConvRNN(
+            in_features, cfg.n_filters, cfg.hidden,
+            kernel_size=cfg.kernel_size, n_layers=cfg.n_layers,
+            cnn_dropout=cfg.dropout, rnn_dropout=cfg.dropout, **common)
+    raise ValueError(f"unknown model {cfg.model!r}; choose "
+                     + " | ".join(NN_MODELS))
+
+
+def _nn_pca(X, mask, n_comp, max_k: int):
+    """A patient's PCA latents (N, T, max_k), fitted on the trials of the
+    (N,) ``mask`` (all trials when None), each component's sign fixed by
+    ``decoders.pooled._pca_latents``' rule."""
+    from cross_patient_speech_decoding_tpu_torch.decoders.pooled import (
+        _pca_latents,
+    )
+
+    return _pca_latents(X, n_comp, max_k, mask)[1]
+
+
+def _nn_fold_features(cfg: TrainNNConfig, tar, cross, cross_lats,
+                      n_align: int, train_mask):
+    """[target latents, each source's latents mapped into them] of one
+    fold, each (N, T, K): the target's PCA and every CCA fit refitted on
+    the fold's train rows only (the reference fits them on each fold's
+    training data, datamodules.py:63-65, :471), so no test-fold label
+    shapes the pooled features."""
+    lat_t = _nn_pca(tar.X, train_mask, cfg.n_comp, cfg.max_k)
+    return [lat_t] + [
+        _cca_align_lat(lat_t, lat, tar.y_align, c.y_align, train_mask,
+                       n_align)
+        for c, lat in zip(cross, cross_lats)]
+
+
+def run_train_nn(cfg: TrainNNConfig, verbose: bool = True, device=None):
+    """NN-classifier cross-patient decode (``cpsd train-nn``); returns the
+    test accuracy of every fold, (n_iter, n_folds) as numpy.
+
+    Per-patient PCA latents, CCA alignment of each source into the
+    target's space, pooled training of the ``cfg.model`` classifier,
+    stratified k-fold CV on the target (numpy splits, as the JAX driver)
+    and confusion-matrix accuracy per fold. The pooled train set is the
+    target's train rows followed by every source's trials (the target
+    alone with ``pooled=False``). A fold trains ``epochs`` epochs of
+    mini-batches of ``batch_size`` and is tested once, after the last
+    epoch, so the test split selects no checkpoint. Each iteration's fold
+    accuracies are appended to the results pickle ``out``, from which a
+    rerun resumes; per-fold logs go to ``logs/<run>/``.
+
+    Runs on ``device`` (default: the first CUDA card; raises without one
+    unless ``device='cpu'``). Not ported yet, and refused: ``n_devices >
+    0`` (ROADMAP queue 1, item 11) and ``log_format='tb'`` (item 10b).
+    """
+    from cross_patient_speech_decoding_tpu_torch.data.splits import (
+        stratified_kfold_masks,
+    )
+    from cross_patient_speech_decoding_tpu_torch.train import (
+        create_train_state,
+        make_classifier_eval_step,
+        make_classifier_train_step,
+    )
+    from cross_patient_speech_decoding_tpu_torch.train.loops import (
+        fit as fit_loop,
+        make_optimizer,
+    )
+
+    if cfg.n_devices > 0:
+        raise NotImplementedError(
+            "n_devices > 0: the data-parallel classifier step is not ported "
+            "yet (ROADMAP queue 1, item 11)")
+    if cfg.log_format == "tb":
+        raise NotImplementedError(
+            "log_format='tb' needs the TensorBoard event writer, not ported "
+            "yet (ROADMAP queue 1, item 10b: utils/tb_events)")
+    dev = resolve_device(device)
+    tar, cross, n_y, n_a = patients_from_config(
+        cfg.data, cfg.target_pt, cfg.p_ind, cfg.lab_type, cfg.algn_type,
+        cfg.seed, device=dev)
+    if not cfg.pooled:
+        cross = ()
+    # a source's trials are all training data: its latents are fitted once
+    cross_lats = [_nn_pca(c.X, None, cfg.n_comp, cfg.max_k) for c in cross]
+    labels = [tar.y] + [c.y for c in cross]
+    tx = make_optimizer(cfg.lr, cfg.weight_decay, cfg.decay_iters,
+                        end_factor=0.01, clip=cfg.clip)
+    y_host = tar.y.cpu().numpy()
+
+    if cfg.out:
+        Path(cfg.out).parent.mkdir(parents=True, exist_ok=True)
+    all_accs = _completed_results(cfg.out, vars(cfg), scalar=False)[
+        : cfg.n_iter]
+    if all_accs and verbose:
+        print(f"resuming: {len(all_accs)}/{cfg.n_iter} iterations done",
+              flush=True)
+
+    run_name = f"{cfg.target_pt}_{cfg.model}_nnDecode"
+    start_it = len(all_accs)
+    for it in range(start_it, cfg.n_iter):
+        rng = np.random.default_rng(cfg.seed + 7919 * it)
+        tr_m, te_m = stratified_kfold_masks(y_host, cfg.n_folds, rng)
+        fold_accs = []
+        for k in range(cfg.n_folds):
+            tr_i = torch.as_tensor(np.where(tr_m[k] > 0)[0], device=dev)
+            te_i = torch.as_tensor(np.where(te_m[k] > 0)[0], device=dev)
+            feats = _nn_fold_features(
+                cfg, tar, cross, cross_lats, n_a,
+                torch.as_tensor(tr_m[k], dtype=torch.float32, device=dev))
+            X_train = torch.cat([feats[0][tr_i]] + feats[1:])
+            y_train = torch.cat([labels[0][tr_i]] + labels[1:])
+            test = (feats[0][te_i], labels[0][te_i])
+            model = _make_nn_classifier(cfg, X_train.shape[-1], n_y,
+                                        seed=cfg.seed + 31 * it + k,
+                                        device=dev)
+            gen = torch.Generator(device=dev).manual_seed(
+                cfg.seed + 1000 + 31 * it + k)
+            with _maybe_trace(cfg.trace and it == start_it and k == 0,
+                              cfg.out, run_name):
+                res = fit_loop(
+                    create_train_state(model, tx),
+                    make_classifier_train_step(model, tx),
+                    make_classifier_eval_step(model), (X_train, y_train),
+                    test, epochs=cfg.epochs, generator=gen, monitor="acc",
+                    mode="max", batch_size=cfg.batch_size,
+                    # final-epoch test only: the test split must not
+                    # select the checkpoint
+                    eval_every=cfg.epochs,
+                    log_path=(_run_log_path(cfg.out, run_name, it, k,
+                                            fmt=cfg.log_format)
+                              if cfg.log_metrics else None),
+                    log_format=cfg.log_format)
+            fold_accs.append(res.history[-1]["acc"])
+        fold_accs = np.asarray(fold_accs)
+        all_accs.append(fold_accs)
+        if cfg.out:
+            append_results_pkl(cfg.out, fold_accs, params=vars(cfg))
+        if verbose:
+            print(f"iter {it} [{cfg.model}]: mean test acc "
+                  f"{fold_accs.mean():.3f} (chance {1.0 / n_y:.3f})",
+                  flush=True)
+    return np.stack(all_accs)
 
 
 # ----------------------------------------------------------------- prewarm --

@@ -2,7 +2,7 @@
 
 Port of ``cross_patient_speech_decoding_tpu/cli/main.py``: a subcommand
 takes an optional ``--config file.yaml`` and Hydra-style ``key=value``
-overrides. ``train-ctc``, ``svm-decode``, ``train-seq2seq``,
+overrides. ``train-ctc``, ``svm-decode``, ``train-seq2seq``, ``train-nn``,
 ``prewarm-ctc``, ``prewarm-seq2seq``, the four subsample sweeps
 (``subsample-trials``, ``subsample-grid``, ``subsample-spatial``,
 ``subsample-pitch``), ``tune-ctc``, ``make-xforms`` and ``realtime-sim``
@@ -20,6 +20,9 @@ Example::
     python -m cross_patient_speech_decoding_tpu_torch.cli.main \\
         train-seq2seq synth_patients=3 synth_T=40 synth_trials=4 n_iter=2 \\
         n_folds=4 epochs=3 hidden=16 n_filters=8 device=cpu
+    python -m cross_patient_speech_decoding_tpu_torch.cli.main train-nn \
+        model=conv_rnn n_iter=2 n_folds=4 epochs=3 hidden=16 n_filters=8 \
+        device=cpu
     python -m cross_patient_speech_decoding_tpu_torch.cli.main \\
         subsample-trials n_iter=2 k_step=40 device=cpu
     python -m cross_patient_speech_decoding_tpu_torch.cli.main tune-ctc \\
@@ -40,6 +43,7 @@ from cross_patient_speech_decoding_tpu_torch.utils.config import (
     RealtimeSimConfig,
     SVMDecodeConfig,
     TrainCTCConfig,
+    TrainNNConfig,
     TrainSeq2SeqConfig,
     TuneCTCConfig,
     load_config,
@@ -49,6 +53,7 @@ _COMMANDS = {
     "train-ctc": (TrainCTCConfig, "run_train_ctc"),
     "svm-decode": (SVMDecodeConfig, "run_svm_decode"),
     "train-seq2seq": (TrainSeq2SeqConfig, "run_train_seq2seq"),
+    "train-nn": (TrainNNConfig, "run_train_nn"),
     "prewarm-ctc": (TrainCTCConfig, "run_prewarm_ctc"),
     "prewarm-seq2seq": (TrainSeq2SeqConfig, "run_prewarm_seq2seq"),
     "subsample-trials": (SubsampleConfig, "run_trial_subsample"),
@@ -63,7 +68,6 @@ _COMMANDS = {
 # the JAX package's other commands -> the ROADMAP queue 1 item that ports
 # them
 _NOT_PORTED = {
-    "train-nn": "7b",
     "analyze": "10b",
     "reproduce": "10b",
 }

@@ -1,7 +1,8 @@
-"""Model families of the port: the realtime CTC RNN, the seq2seq RNN and
-their layers."""
+"""Model families of the port: the realtime CTC RNN, the seq2seq RNN, the
+GRU, TCN and transformer classifiers and their layers."""
 
 from cross_patient_speech_decoding_tpu_torch.models.convert import (
+    nn_classifier_params_from_flax,
     realtime_rnn_params_from_flax,
     seq2seq_params_from_flax,
 )
@@ -9,8 +10,11 @@ from cross_patient_speech_decoding_tpu_torch.models.layers import (
     BatchNorm,
     Dense,
     FusedGRU,
+    PositionalEncoding,
     StackedRNN,
     TemporalConv,
+    cosine_warmup_schedule,
+    linear_decay_schedule,
     reformat_time_windows,
 )
 from cross_patient_speech_decoding_tpu_torch.models.realtime_rnn import (
@@ -21,19 +25,35 @@ from cross_patient_speech_decoding_tpu_torch.models.seq2seq import (
     DecoderRNN,
     EncoderRNN,
     Seq2SeqRNN,
+    SimpleGRU,
+    TemporalConvRNN,
+)
+from cross_patient_speech_decoding_tpu_torch.models.tcn_transformer import (
+    CNNTransformer,
+    TCNClassifier,
+    TransformerClassifier,
 )
 
 __all__ = [
     "BatchNorm",
+    "CNNTransformer",
     "DecoderRNN",
     "Dense",
     "EncoderRNN",
     "FusedGRU",
+    "PositionalEncoding",
     "RealtimeRNN",
     "Seq2SeqRNN",
+    "SimpleGRU",
     "StackedRNN",
+    "TCNClassifier",
     "TemporalConv",
+    "TemporalConvRNN",
+    "TransformerClassifier",
     "adjusted_input_lengths",
+    "cosine_warmup_schedule",
+    "linear_decay_schedule",
+    "nn_classifier_params_from_flax",
     "realtime_rnn_params_from_flax",
     "reformat_time_windows",
     "seq2seq_params_from_flax",

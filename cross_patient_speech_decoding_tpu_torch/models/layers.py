@@ -1,8 +1,10 @@
-"""Building blocks: window reformat, GRU layers and stacks, temporal conv.
+"""Building blocks: window reformat, GRU layers and stacks, temporal conv,
+positional encoding, learning-rate schedules.
 
 Port of ``cross_patient_speech_decoding_tpu/models/layers.py``
 (``reformat_time_windows``, ``FusedGRU``, ``StackedRNN``,
-``TemporalConv``). Parameters keep the flax names and the (in, out)
+``TemporalConv``, ``PositionalEncoding``, ``linear_decay_schedule``,
+``cosine_warmup_schedule``). Parameters keep the flax names and the (in, out)
 layout: ``wi`` (F, 3H), ``wh`` (H, 3H), ``bi`` and ``bh`` (3H,), gate order
 (r, z, n); a dense layer's ``kernel`` (in, out). Initialisation follows
 flax, not torch's defaults: xavier-uniform ``wi``, orthogonal ``wh``, zero
@@ -25,8 +27,9 @@ from cross_patient_speech_decoding_tpu_torch.ops.gru import (
     reformat_time_windows,
 )
 
-__all__ = ["BatchNorm", "Conv1dF32", "Dense", "FusedGRU", "StackedRNN",
-           "TemporalConv", "conv_f32", "reformat_time_windows"]
+__all__ = ["BatchNorm", "Conv1dF32", "Dense", "FusedGRU", "PositionalEncoding",
+           "StackedRNN", "TemporalConv", "conv_f32", "cosine_warmup_schedule",
+           "linear_decay_schedule", "reformat_time_windows"]
 
 # flax lecun_normal draws from a normal truncated at +-2 and rescales by
 # this constant (the truncated unit normal's standard deviation)
@@ -114,11 +117,17 @@ class StackedRNN(nn.Module):
     probability 1 - p, scale kept values by 1/(1 - p)); its mask is drawn
     from ``generator``, the counterpart of the JAX step's dropout key
     (torch's default generator when None).
+
+    ``input_grad=False`` marks the stack's input as data (``SimpleGRU``):
+    layer 0 reads it cast to bf16 on every device, as the JAX package's
+    kernel path streams such an input (models/layers.py:136-142), and,
+    since data needs no gradient, its backward forms no dx.
     """
 
     def __init__(self, in_features: int, hidden: int, n_layers: int = 1,
                  dropout: float = 0.0, bidirectional: bool = False,
-                 cell: str = "gru", generator: torch.Generator | None = None):
+                 cell: str = "gru", input_grad: bool = True,
+                 generator: torch.Generator | None = None):
         super().__init__()
         if cell != "gru":
             raise NotImplementedError(
@@ -129,6 +138,7 @@ class StackedRNN(nn.Module):
         self.n_layers = n_layers
         self.dropout = dropout
         self.bidirectional = bidirectional
+        self.input_grad = input_grad
         n_dir = 2 if bidirectional else 1
         for layer in range(n_layers):
             F = in_features if layer == 0 else hidden * n_dir
@@ -148,6 +158,8 @@ class StackedRNN(nn.Module):
                 "windowed bidirectional StackedRNN: comes with the "
                 "bidirectional RealtimeRNN (ROADMAP queue 1, item 7)")
         out = x
+        if not self.input_grad and window is None:
+            out = x.detach().to(torch.bfloat16)
         lasts = []
         n_dir = 2 if self.bidirectional else 1
         for i in range(self.n_layers):
@@ -306,3 +318,50 @@ class TemporalConv(nn.Module):
         if self.training and self.dropout > 0:
             y = _dropout(y, self.dropout, generator)
         return y
+
+
+class PositionalEncoding(nn.Module):
+    """Sinusoidal positional encoding (reference models.py:799-831): adds
+    ``pe[:T]`` to (B, T, d_model). ``pe`` (max_len, d_model) holds sin in
+    the even columns and cos in the odd ones; at an odd ``d_model`` the
+    cos lane has one fewer column than the sin lane. It is computed once,
+    in float32 on the host, as the JAX package computes it at every call,
+    and is a buffer left out of the state dict (it has no parameters)."""
+
+    def __init__(self, d_model: int, max_len: int = 5000):
+        super().__init__()
+        pos = torch.arange(max_len, dtype=torch.float32)[:, None]
+        div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32)
+                        * (-math.log(10000.0) / d_model))
+        pe = torch.zeros(max_len, d_model)
+        pe[:, 0::2] = torch.sin(pos * div)
+        pe[:, 1::2] = torch.cos(pos * div[: d_model // 2])
+        self.register_buffer("pe", pe, persistent=False)
+
+    def forward(self, x):
+        return x + self.pe[None, : x.shape[1]].to(x.dtype)
+
+
+def linear_decay_schedule(lr: float, decay_steps: int,
+                          end_factor: float = 0.0):
+    """torch LinearLR(start=1.0, end=end_factor, total_iters=decay_steps):
+    the learning rate at ``step``."""
+
+    def sched(step):
+        frac = min(step / decay_steps, 1.0)
+        return lr * (1.0 + (end_factor - 1.0) * frac)
+
+    return sched
+
+
+def cosine_warmup_schedule(lr: float, warmup: int, max_iters: int):
+    """Reference CosineWarmupScheduler (models.py:834-872): the learning
+    rate at ``step``, lr * 0.5 (1 + cos(pi step / max_iters))
+    * min(1, step / warmup)."""
+
+    def sched(step):
+        cos = 0.5 * (1.0 + math.cos(math.pi * step / max_iters))
+        warm = min(1.0, step / max(warmup, 1))
+        return lr * cos * warm
+
+    return sched

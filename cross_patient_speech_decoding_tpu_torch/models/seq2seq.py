@@ -1,11 +1,15 @@
-"""Seq2seq phoneme-sequence model (offline NN family), GRU cell.
+"""Seq2seq phoneme-sequence model and the GRU classifiers (offline NN
+family), GRU cell.
 
-Port of ``cross_patient_speech_decoding_tpu/models/seq2seq.py:31-155``
-(``EncoderRNN``, ``DecoderRNN``, ``Seq2SeqRNN``): a temporal conv, a
+Port of ``cross_patient_speech_decoding_tpu/models/seq2seq.py``
+(``EncoderRNN``, ``DecoderRNN``, ``Seq2SeqRNN``, ``SimpleGRU``,
+``TemporalConvRNN``): for the seq2seq model a temporal conv, a
 bidirectional GRU encoder whose last layer's forward and reverse last
 states are summed, and an autoregressive GRU decoder that starts from the
 token ``num_classes`` and feeds back its argmax (the first index on ties)
-or, with teacher forcing, the label.
+or, with teacher forcing, the label. The two classifiers read the last
+time step of a unidirectional GRU stack, on the data (``SimpleGRU``) or
+after a temporal conv (``TemporalConvRNN``).
 
 Random draws in training mode come from the ``generator`` given to
 ``forward`` (the JAX step's 'dropout' and 'tf' keys), in this order: the
@@ -150,3 +154,70 @@ class Seq2SeqRNN(nn.Module):
             else:
                 token = pred
         return torch.stack(outputs, dim=1)
+
+
+class SimpleGRU(nn.Module):
+    """GRU stack -> dense head on the last time step (reference
+    models.py:764-796). (B, T, F) -> logits (B, num_classes).
+
+    The stack reads the data itself: with ``input_grad=False`` (the
+    default, as in the JAX package) layer 0 reads it in bf16 and forms no
+    dx (:class:`~cross_patient_speech_decoding_tpu_torch.models.layers.
+    StackedRNN`). Weights from ``seed`` as :class:`Seq2SeqRNN`'s; the
+    inter-layer dropout masks from the ``generator`` given to ``forward``.
+    """
+
+    def __init__(self, in_features: int, hidden: int, num_classes: int,
+                 n_layers: int = 1, dropout: float = 0.3,
+                 input_grad: bool = False, seed: int = 0, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.num_classes = num_classes
+        gen = torch.Generator().manual_seed(seed)
+        self.rnn = StackedRNN(in_features, hidden, n_layers, dropout=dropout,
+                              input_grad=input_grad, generator=gen)
+        self.head = Dense(hidden, num_classes, gen)
+        self.to(dev)
+
+    def forward(self, x, generator: torch.Generator | None = None):
+        out, _ = self.rnn(x, generator=generator)
+        return self.head(out[:, -1, :])
+
+
+class TemporalConvRNN(nn.Module):
+    """TemporalConv -> unidirectional GRU stack -> optional ReLU dense
+    layers -> dense head, on the last time step (reference
+    models.py:111-205). (B, T, C) -> logits (B, num_classes).
+
+    Every GRU layer's input trains (the conv's output), so each layer's
+    backward forms its dx. Weights from ``seed`` as :class:`Seq2SeqRNN`'s;
+    the conv's and the inter-layer dropout masks, in that order, from the
+    ``generator`` given to ``forward``.
+    """
+
+    def __init__(self, in_channels: int, n_filters: int, hidden: int,
+                 num_classes: int, kernel_size: int = 10, stride: int = 1,
+                 n_layers: int = 1, cnn_dropout: float = 0.3,
+                 rnn_dropout: float = 0.3, fc_dims: tuple = (),
+                 seed: int = 0, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.num_classes = num_classes
+        gen = torch.Generator().manual_seed(seed)
+        self.conv = TemporalConv(in_channels, n_filters, kernel_size, stride,
+                                 dropout=cnn_dropout, generator=gen)
+        self.rnn = StackedRNN(n_filters, hidden, n_layers,
+                              dropout=rnn_dropout, generator=gen)
+        dims = (hidden, *fc_dims)
+        self.fc = nn.ModuleList(Dense(a, b, gen)
+                                for a, b in zip(dims[:-1], dims[1:]))
+        self.head = Dense(dims[-1], num_classes, gen)
+        self.to(dev)
+
+    def forward(self, x, generator: torch.Generator | None = None):
+        x = self.conv(x, generator)
+        out, _ = self.rnn(x, generator=generator)
+        h = out[:, -1, :]
+        for fc in self.fc:
+            h = torch.relu(fc(h))
+        return self.head(h)

@@ -1,5 +1,5 @@
-"""Train state, optimizer, loop, checkpoints, the CTC and seq2seq steps
-and the fold-parallel seq2seq trainer."""
+"""Train state, optimizer, loop, checkpoints, the CTC, seq2seq and
+classifier steps and the fold-parallel seq2seq trainer."""
 
 from cross_patient_speech_decoding_tpu_torch.train.fold_parallel import (
     make_seq2seq_fold_trainer,
@@ -19,6 +19,8 @@ from cross_patient_speech_decoding_tpu_torch.train.state import (
     create_train_state,
 )
 from cross_patient_speech_decoding_tpu_torch.train.steps import (
+    make_classifier_eval_step,
+    make_classifier_train_step,
     make_ctc_eval_step,
     make_ctc_train_step,
     make_seq2seq_eval_step,
@@ -32,6 +34,8 @@ __all__ = [
     "create_train_state",
     "fit",
     "load_checkpoint",
+    "make_classifier_eval_step",
+    "make_classifier_train_step",
     "make_ctc_eval_step",
     "make_ctc_train_step",
     "make_optimizer",

@@ -1,15 +1,20 @@
-"""Train and eval steps of the CTC and the seq2seq models.
+"""Train and eval steps of the CTC and the seq2seq models and of the
+classifiers.
 
 Port of ``make_ctc_train_step``, ``make_ctc_eval_step``,
-``make_seq2seq_train_step`` and ``make_seq2seq_eval_step``
-(``cross_patient_speech_decoding_tpu/train/steps.py:44-96, 150-185``).
+``make_seq2seq_train_step``, ``make_seq2seq_eval_step``,
+``make_classifier_train_step`` and ``make_classifier_eval_step``
+(``cross_patient_speech_decoding_tpu/train/steps.py:44-185``).
 CTC: forward, CTC loss on window-adjusted lengths; in training, dropout
 on, the loss's gradient through the GRU backward kernels and one AdamW
 update; in evaluation, greedy decoding under the valid-window mask, and
 PER. Seq2seq: mean cross-entropy over the B * seq_length tokens and
 confusion-matrix accuracy; in training, dropout, teacher forcing, the
 BatchNorm's running averages moved and one AdamW update; in evaluation,
-no teacher forcing and the running averages.
+no teacher forcing and the running averages. Classifiers (the TCN,
+transformer and GRU families): mean cross-entropy and confusion-matrix
+accuracy; in training, dropout, any BatchNorm's running averages moved
+and one AdamW update; in evaluation, no dropout and the running averages.
 """
 
 from __future__ import annotations
@@ -163,6 +168,71 @@ def make_seq2seq_eval_step(model):
             with torch.no_grad():
                 logits = model(x, None, 0.0)
                 loss, acc = _seq2seq_metrics(logits, y, model.num_classes)
+        finally:
+            model.train(was_training)
+        return {"loss": loss, "acc": acc}
+
+    return step
+
+
+def _param_device(model) -> torch.device:
+    return next(model.parameters()).device
+
+
+def _classifier_metrics(logits, y, n_classes: int):
+    """(mean cross-entropy, cmat accuracy of the argmax), both 0-d."""
+    y = y.long()
+    loss = F.cross_entropy(logits, y)
+    acc = cmat_acc(y, logits.detach().argmax(dim=-1), n_classes)
+    return loss, acc
+
+
+def make_classifier_train_step(model, tx):
+    """Build ``step(state, batch, generator) -> (state, {"loss", "acc"})``
+    for a classifier (the reference's ``BaseLightningModel.training_step``,
+    nn_models/models.py:15-108).
+
+    ``model`` gives the class count; the step trains ``state.model`` (made
+    with the optimizer ``tx`` of ``make_optimizer``) in place, in training
+    mode: dropout on, the running averages of a model that has a BatchNorm
+    moved by this batch (a model without one has none to move). ``batch``
+    is (x (B, T, C), y (B,)), moved to the model's device; ``generator``
+    draws the dropout masks (the JAX step's key). Loss and accuracy are
+    those of the forward, before the update.
+    """
+    n_classes = model.num_classes
+
+    def step(state, batch, generator: torch.Generator | None = None):
+        m = state.model
+        x, y = (t.to(_param_device(m)) for t in batch)
+        m.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, acc = _classifier_metrics(m(x, generator=generator), y,
+                                        n_classes)
+        loss.backward()
+        _update(state, tx)
+        return state, {"loss": loss.detach(), "acc": acc}
+
+    return step
+
+
+def make_classifier_eval_step(model):
+    """Build ``step(batch) -> {"loss", "acc"}`` for a classifier.
+
+    The model runs in eval mode (no dropout, the BatchNorm's running
+    averages), and is left in the mode it was in. ``batch`` is (x, y);
+    the tensors are moved to the model's device and the results are 0-d
+    tensors there.
+    """
+
+    def step(batch):
+        x, y = (t.to(_param_device(model)) for t in batch)
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                loss, acc = _classifier_metrics(model(x), y,
+                                                model.num_classes)
         finally:
             model.train(was_training)
         return {"loss": loss, "acc": acc}

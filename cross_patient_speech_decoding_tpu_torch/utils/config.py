@@ -3,9 +3,10 @@
 Port of ``cross_patient_speech_decoding_tpu/utils/config.py``: the
 key=value coercion, ``load_config`` (defaults <- YAML <- overrides; PyYAML
 imported only when a file is given), ``config_from_values``, the
-classical decoder's config, the seq2seq trainer's, the CTC trainer's,
-the CTC sweep's, the offline transforms' and the streaming simulation's.
-The subsample sweeps' config lives with their driver. Field
+classical decoder's config, the seq2seq trainer's, the NN classifier
+driver's, the CTC trainer's, the CTC sweep's, the offline transforms' and
+the streaming simulation's. The subsample sweeps' config lives with their
+driver. Field
 names and defaults are the JAX package's, so a results file written by
 either driver resumes in the other.
 """
@@ -206,6 +207,51 @@ class TrainSeq2SeqConfig:
     synth_trials: int = 12
     seed: int = 0
     out: str = "results/seq2seq.csv"
+
+
+@dataclass
+class TrainNNConfig:
+    """NN-classifier decode driver — the working version of the reference's
+    ``scripts/aligned_decode_nn.py`` (which never constructs its classifier
+    and crashes at :265; model surface `nn_models/models.py:393-596`):
+    aligned cross-patient pooling -> NN classifier -> k-fold accuracy."""
+
+    data: str = "synthetic"  # pt_decoding_data*.pkl path or 'synthetic'
+    target_pt: str = "S14"
+    p_ind: int = -1
+    lab_type: str = "phon"
+    algn_type: str = "phon_seq"
+    model: str = "tcn"  # tcn | transformer | cnn_transformer | conv_rnn
+    pooled: bool = True  # aligned cross-patient pooling (False: target only)
+    n_iter: int = 50
+    n_folds: int = 20
+    epochs: int = 100
+    batch_size: int = 5000
+    n_filters: int = 100
+    hidden: int = 128
+    d_model: int = 64
+    n_heads: int = 4
+    n_layers: int = 2
+    dim_ff: int = 256
+    kernel_size: int = 10
+    dropout: float = 0.3
+    n_comp: float = 0.9
+    max_k: int = 24
+    lr: float = 1e-3
+    weight_decay: float = 1e-5
+    clip: float = 0.5
+    decay_iters: int = 20
+    log_metrics: bool = True  # per-epoch CSV under logs/{run_name}/
+    # csv | jsonl (tailable) | tb (TensorBoard: not ported yet,
+    # run_train_nn raises; ROADMAP queue 1, item 10b)
+    log_format: str = "csv"
+    trace: bool = False  # device profile of the first iteration
+    # data-parallel classifier step over the first n devices; 0 = one
+    # device. Not ported yet: run_train_nn raises for n > 0 (ROADMAP
+    # queue 1, item 11)
+    n_devices: int = 0
+    seed: int = 0
+    out: str = "results/nn_decode.pkl"
 
 
 @dataclass

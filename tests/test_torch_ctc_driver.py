@@ -394,8 +394,8 @@ def test_cli_train_ctc_runs_in_process(tmp_path, synth, capsys):
     assert tmain.main(["train-ctc", "device=cpu", *args]) == 0
     assert "iter 0 [patient]: test PER" in capsys.readouterr().out
     assert "device" not in loaders.load_pkl(cfg.out)["params"]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tmain.main(["train-nn", "n_iter=1"])
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tmain.main(["reproduce", "n_iter=1"])
     with pytest.raises(NotImplementedError, match="item 10"):
         tmain.main(["analyze"])
 
