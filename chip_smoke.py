@@ -147,6 +147,49 @@ line is never printed:
    and on the CPU from the same file and weights: every fold-epoch loss
    within 1e-3, accuracies equal up to the test trials whose top two
    logits lie within 1e-4;
+5e. reproduce (slice 15's main path): ``cli.main.main(["reproduce",
+   "manifest=..."])``, the ``cpsd reproduce`` entry point on its default
+   device, over a manifest of six ``manifests/paper.yaml`` jobs at target
+   S26, each at the data scale and widths of the earlier phase for its
+   driver: svm-decode sep_align and joint_pca and the svm-chance control
+   (the svm_decode phase's scale, on a decoding pickle of the eight paper
+   patients noisy enough that the accuracies vary, 10 iterations of 50),
+   train-seq2seq
+   pooled (fold_chunk 4, rnn_impl pallas; the seq2seq_driver phase's
+   scale, 1 iteration of 2 epochs), train-nn conv_rnn (the train_nn
+   phase's file, 1 iteration of 2 epochs), train-ctc aligned at fig_5
+   width with ``log_format: tb`` (the ctc_driver phase's data, 1
+   iteration of 2 epochs); the cuts listed in REPRO_REDUCED. With the
+   launch counts zeroed just before and read just after, each job must
+   launch exactly what the earlier phases derive for its config (70 / 0 /
+   70 ``jacobi_eigh`` for the svm jobs, ``s2s_driver_launches``,
+   ``nn_driver_launches``, the CTC driver's per step and per forward),
+   all six kernels must run, and the plain versions raise on CUDA
+   tensors; the first launch of each kernel at each shape in that run
+   (the CTC job's full and partial batches among them) against its plain
+   version (GRU forward 1e-4, backward 1e-3 relative, Jacobi bit for
+   bit); the sep_align job's accuracies equal a direct
+   ``run_svm_decode`` of its config; the CTC job's event files parse
+   (both CRCs) with one event an epoch whose values are the records
+   ``append_metrics`` was handed, to float32. A second call skips every
+   job with no launch in under 2 s; a dry run of the chance job leaves
+   every results file's bytes and mtime. ``cpsd analyze`` over the three
+   svm results: three pairwise rows and the ANOVA, equal to the same call
+   on a copy of the files, the Wilcoxon p-values within 1e-12 of
+   ``scipy.stats.wilcoxon``, and at least one row's p finite and above
+   the least that 10 pairs allow. Then the analysis library on the
+   sep_align job's pooled features (1080 trials x 6400) on the card
+   against the CPU: the silhouette samples and their positive mean over
+   the CPU's positive samples within 1e-4 of the silhouette's range (a
+   sample whose sign differs must lie within their error of 0);
+   Calinski-Harabasz, Davies-Bouldin, ``pt_corr_multi`` (r and p, of the
+   matched conditions and of the mismatched ones, whose p-values lie
+   inside (0, 1)) and ``pt_corr_dims`` within 1e-4 relative; t-SNE's
+   affinities within 1e-3 of the largest, each of its first 10 steps from
+   the CPU's state within 1e-4 of max |y|, the final KL divergence of 500
+   iterations within 2 % (the free-running first 10 iterations are
+   reported: the loop is chaotic). Job walls, the matrix's overhead, the
+   resume's wall, analyze ms, t-SNE ms and idle share, peak memory;
 6. alignment (slice 3's main path): the natively batched
    ``fit_cca_aligner`` at the JAX package's bench geometry
    (bench.py:section_alignment: 128 pairs of 150 trials x 200 bins x 40
@@ -238,7 +281,8 @@ line is never printed:
    beside them, and for ``gru_bifwd``, ``gru_fwd``, ``gru_bwd`` and
    ``jacobi_eigh`` their launches per ``seq2seq_driver`` iteration and,
    for ``gru_fwd``, ``gru_bwd`` and ``jacobi_eigh``, per ``train_nn``
-   iteration of each family that launches them.
+   iteration of each family that launches them, and for every kernel its
+   launches in the ``reproduce`` phase's matrix (``launches_reproduce``).
 
 Then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA card, and in a directory without the port.
@@ -489,6 +533,53 @@ NN_SMALL = dict(n_iter=1, n_folds=4, epochs=2, n_filters=8, hidden=16,
 NN_LOSS_RTOL = 1e-3  # every fold-epoch's training loss, card vs CPU
 NN_DECIDED = 1e-4  # a test trial counts where its top two logits differ
                    # by more than this much of their magnitude
+# the paper-matrix runner (cli/reproduce.py, cpsd reproduce) over jobs of
+# manifests/paper.yaml at target S26, each at the data scale and widths of
+# the earlier phase for its driver: svm-decode (sep_align, joint_pca and
+# the chance control) at the svm_decode phase's (8 patients x 135 trials,
+# T=200, 20 folds), on a decoding pickle of the eight paper patients at
+# REPRO_SVM_NOISE, where sep_align and joint_pca decode below 1 and vary
+# between iterations (on the driver's own synthetic data both decode at
+# 1.000 in every iteration, and the statistics over them are degenerate),
+# train-seq2seq (pooled,
+# fold_chunk 4, rnn_impl pallas) at the seq2seq_driver phase's, train-nn
+# conv_rnn on the train_nn phase's file at TrainNNConfig's widths,
+# train-ctc aligned at fig_5 width on the ctc_driver phase's data with the
+# TensorBoard log. Cut: iterations, epochs and the matrix (REPRO_REDUCED)
+REPRO_TARGET = SUB_TARGET
+REPRO_SVM = dict(n_folds=20, n_iter=10)
+# the lowest of 16, 24, 32, 48, 64 at which a Wilcoxon row lies above the
+# least p (my chip run): sep_align 0.244, joint_pca 0.532, chance 0.218,
+# sep_align against chance p = 0.0165; at 16 sep_align 0.428, joint_pca
+# 0.928, chance 0.216, every difference of one sign
+REPRO_SVM_NOISE = 24.0
+REPRO_S2S = dict(synth_patients=8, synth_trials=17, synth_T=200, n_folds=20,
+                 n_iter=1, epochs=2, fold_chunk=4, rnn_impl="pallas")
+REPRO_NN = dict(n_iter=1, n_folds=20, epochs=2)
+REPRO_CTC = dict(synth_patients=8, synth_trials=250, synth_T=600,
+                 batch_size=512, hidden=H, n_layers=N_LAYERS, n_iter=1,
+                 epochs=2, log_format="tb")
+REPRO_REDUCED = [
+    "matrix: target S26 alone (paper.yaml: 3-6 targets a family)",
+    "svm-decode: strategies sep_align and joint_pca of 4, the chance "
+    "control; 10 iterations of 50",
+    "train-seq2seq: pooled true of [true, false]; 1 iteration of 50, 2 "
+    "epochs of 500",
+    "train-nn: conv_rnn of 4 families; 1 iteration of 50, 2 epochs of 100",
+    "train-ctc: context aligned of 4; 1 iteration of 50, 2 epochs of 300",
+    "left out: the subsample sweeps, tune-ctc (hparam_out needs h5py) and "
+    "realtime-sim, which keep their own phases",
+]
+REPRO_RESUME_S = 2.0  # run 2 resumes every job within this
+REPRO_ANALYSIS_RTOL = 1e-4  # cluster scores, pt_corr r and p, card vs CPU
+                            # (silhouettes: of their range [-1, 1])
+REPRO_TSNE_ITERS = 500
+REPRO_TSNE_STEPS = 10  # first steps of the card from the CPU's state
+REPRO_TSNE_STEP_TOL = 1e-4  # x max |y|
+# t-SNE affinities card vs CPU, x max P: float32's own error on these
+# 6400-wide latents is 5.1e-5 against float64 (a CPU run)
+REPRO_TSNE_P_TOL = 1e-3
+REPRO_TSNE_KL_RTOL = 0.02  # the final KL divergence, card vs CPU
 
 
 def emit(obj) -> None:
@@ -526,7 +617,8 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "capability": list(cap)})
+          "cuda": torch.version.cuda, "capability": list(cap),
+          "packages": _packages()})
     if tuple(cap) != (9, 0):
         raise RuntimeError(f"need compute capability (9, 0), got {cap}")
 
@@ -547,6 +639,7 @@ def main() -> int:
     del s2s_model, s2s_batch
     s2s_drv_launches = phase_seq2seq_driver(torch, dev, gru, jacobi, smi)
     nn_launches = phase_train_nn(torch, dev, gru, jacobi, smi)
+    repro_launches = phase_reproduce(torch, dev, gru, jacobi, smi)
     align = phase_alignment(torch, dev, jacobi)
     svm_launches = phase_svm_decode(torch, dev, gru, jacobi, smi)
     sub_launches = phase_subsample(torch, dev, gru, jacobi, smi)
@@ -560,12 +653,32 @@ def main() -> int:
                 row["name"]]
         row.update(tune_launches.get(row["name"], {}))
         row.update(nn_launches.get(row["name"], {}))
+        row.update(repro_launches.get(row["name"], {}))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def _packages() -> dict:
+    """Installed versions (None where absent) of the packages that the
+    port reads lazily: PyYAML (``cpsd reproduce``'s manifest), tensorboard
+    (the event-file check), scipy (p-values), matplotlib
+    (``utils/visualization.py``), h5py (results .h5 files), scikit-learn
+    (``decoders/sklearn_compat.py``)."""
+    import importlib.metadata
+    import importlib.util
+
+    out = {}
+    for mod, dist in (("yaml", "PyYAML"), ("tensorboard", "tensorboard"),
+                      ("scipy", "scipy"), ("numpy", "numpy"),
+                      ("matplotlib", "matplotlib"), ("h5py", "h5py"),
+                      ("sklearn", "scikit-learn")):
+        out[dist] = (importlib.metadata.version(dist)
+                     if importlib.util.find_spec(mod) else None)
+    return out
 
 
 def cuda_ms(torch, fn, reps: int = REPS, inner: int = 1) -> float:
@@ -3896,11 +4009,11 @@ class _NNProbe:
             setattr(mod, name, fn)
 
 
-def _nn_files(root: Path) -> dict:
-    """``pt_decoding_data`` pickles in ``root`` from the port's host
-    generator, in the reference's layout (``_reference_entry``): at full
-    depth the eight paper patients (the subsample phase's widths and
-    noise, T=200), at small depth NN_SMALL_PTS (T=40)."""
+def _decoding_pkl(root: Path, key: str, pts, T: int, noise: float) -> str:
+    """A ``pt_decoding_data`` pickle ``root/pt_decoding_data_{key}.pkl``
+    of the patients ``pts`` (the subsample phase's widths, 9 classes x
+    SUB_TRIALS, latent width 10) from the port's host generator, in the
+    reference's layout (``_reference_entry``)."""
     import numpy as np
 
     from cross_patient_speech_decoding_tpu_torch.data import (
@@ -3909,21 +4022,26 @@ def _nn_files(root: Path) -> dict:
     )
 
     widths = dict(zip(SUB_PTS, SUB_CHANNELS))
-    out = {}
-    for key, pts, T in (("full", SUB_PTS, SUB_T),
-                        ("small", NN_SMALL_PTS, SUB_SMALL_T)):
-        ds = synthetic.make_synthetic_patients(
-            seed=0, n_patients=len(pts), n_classes=9,
-            trials_per_class=SUB_TRIALS, T=T,
-            channels=tuple(widths[pt] for pt in pts), latent_dim=10,
-            noise=SUB_NOISE)
-        data = {pt: _reference_entry(np, ds.X[i], ds.y_seq[i],
-                                     ds.class_ids[i],
-                                     [p for p in pts if p != pt])
-                for i, pt in enumerate(pts)}
-        out[key] = str(root / f"pt_decoding_data_{key}.pkl")
-        loaders.save_pkl(data, out[key])
+    ds = synthetic.make_synthetic_patients(
+        seed=0, n_patients=len(pts), n_classes=9,
+        trials_per_class=SUB_TRIALS, T=T,
+        channels=tuple(widths[pt] for pt in pts), latent_dim=10,
+        noise=noise)
+    data = {pt: _reference_entry(np, ds.X[i], ds.y_seq[i], ds.class_ids[i],
+                                 [p for p in pts if p != pt])
+            for i, pt in enumerate(pts)}
+    out = str(root / f"pt_decoding_data_{key}.pkl")
+    loaders.save_pkl(data, out)
     return out
+
+
+def _nn_files(root: Path) -> dict:
+    """``pt_decoding_data`` pickles in ``root``: at full depth the eight
+    paper patients (the subsample phase's widths and noise, T=200), at
+    small depth NN_SMALL_PTS (T=40)."""
+    return {"full": _decoding_pkl(root, "full", SUB_PTS, SUB_T, SUB_NOISE),
+            "small": _decoding_pkl(root, "small", NN_SMALL_PTS, SUB_SMALL_T,
+                                   SUB_NOISE)}
 
 
 def nn_driver_launches(jacobi, cfg, widths) -> dict:
@@ -4149,6 +4267,643 @@ def _nn_small(torch, dev, exp, data):
     finally:
         exp._make_nn_classifier = make
     return out
+
+
+class _ReproProbe:
+    """Wrappers around what one ``cpsd reproduce`` call runs, for a block:
+    every driver a job calls (synchronised and timed, with the launch
+    counts it added), ``run_manifest``'s summary, the per-epoch records
+    handed to ``append_metrics`` for a TensorBoard log, and, once, the
+    pooled features and labels of the first fold of the first sep_align
+    decode (``pooled._pool_and_classify``: the target's PCA latents and
+    each source's CCA-mapped latents, flattened)."""
+
+    DRIVERS = ("run_svm_decode", "run_train_seq2seq", "run_train_nn",
+               "run_train_ctc")
+
+    def __init__(self, torch, gru, jacobi, capture=False):
+        from cross_patient_speech_decoding_tpu_torch.cli import (
+            experiments,
+            reproduce,
+        )
+        from cross_patient_speech_decoding_tpu_torch.decoders import pooled
+        from cross_patient_speech_decoding_tpu_torch.train import loops
+
+        self.torch, self.gru, self.jacobi = torch, gru, jacobi
+        self.exp, self.rep, self.pooled, self.loops = (
+            experiments, reproduce, pooled, loops)
+        self.capture = capture
+        self.jobs, self.summaries, self.tb_records = [], [], []
+        self.pooled_feats = None
+        self._sep_align = False
+
+    def __enter__(self):
+        torch, probe = self.torch, self
+        self.saved = [(self.exp, n) for n in self.DRIVERS] + [
+            (self.rep, "run_manifest"), (self.loops, "append_metrics"),
+            (self.pooled, "_pool_and_classify")]
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.saved]
+        orig = {n: f for _, n, f in self.saved}
+
+        def driver(name):
+            def run(cfg, verbose=True, device=None):
+                probe._sep_align = (name == "run_svm_decode"
+                                    and cfg.strategy == "sep_align"
+                                    and not cfg.chance)
+                torch.cuda.synchronize()
+                n0 = _launch_counts(probe.gru, probe.jacobi)
+                t0 = time.perf_counter()
+                out = orig[name](cfg, verbose=verbose, device=device)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                n1 = _launch_counts(probe.gru, probe.jacobi)
+                probe.jobs.append({"driver": name, "out": cfg.out,
+                                   "wall_s": wall, "device": str(device),
+                                   "launches": {k: n1[k] - n0[k]
+                                                for k in n1}})
+                probe._sep_align = False
+                return out
+            return run
+
+        def run_manifest(*a, **k):
+            s = orig["run_manifest"](*a, **k)
+            probe.summaries.append(s)
+            return s
+
+        def append_metrics(path, rec, fmt="csv"):
+            if fmt == "tb":
+                probe.tb_records.append((path, dict(rec)))
+            return orig["append_metrics"](path, rec, fmt)
+
+        def pool(tar_feats, tar_y, train_mask, test_mask, cross_feats,
+                 cross_ys, cfg, **kw):
+            if probe.capture and probe._sep_align and \
+                    probe.pooled_feats is None:
+                probe.pooled_feats = (
+                    torch.cat([tar_feats[0]] + [f[0] for f in cross_feats]),
+                    torch.cat([tar_y] + list(cross_ys)))
+            return orig["_pool_and_classify"](
+                tar_feats, tar_y, train_mask, test_mask, cross_feats,
+                cross_ys, cfg, **kw)
+
+        for name in self.DRIVERS:
+            setattr(self.exp, name, driver(name))
+        self.rep.run_manifest = run_manifest
+        self.loops.append_metrics = append_metrics
+        self.pooled._pool_and_classify = pool
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def _repro_manifest(root: Path, svm_data: str, nn_data: str) -> dict:
+    """The phase's manifest: jobs of manifests/paper.yaml at target S26
+    (svm-decode sep_align and joint_pca and svm-chance on ``svm_data``,
+    train-seq2seq pooled, train-nn conv_rnn on ``nn_data``, train-ctc
+    aligned), each at the data scale of the earlier phase for its driver;
+    results under ``root``."""
+    res = str(root / "results")
+    pt = {"target_pt": [REPRO_TARGET]}
+    return {
+        "defaults": {"data": "synthetic", "seed": 0},
+        "jobs": [
+            {"command": "svm-decode",
+             "matrix": {**pt, "strategy": ["sep_align", "joint_pca"]},
+             "overrides": {**REPRO_SVM, "data": svm_data,
+                           "out": res + "/svm/{target_pt}_{strategy}.pkl"}},
+            {"command": "svm-decode", "name": "svm-chance", "matrix": pt,
+             "overrides": {**REPRO_SVM, "data": svm_data, "chance": True,
+                           "out": res + "/svm/{target_pt}_chance.pkl"}},
+            {"command": "train-seq2seq",
+             "matrix": {**pt, "pooled": [True]},
+             "overrides": {**REPRO_S2S, "out": res + "/seq2seq/"
+                           "{target_pt}_pooled_{pooled}.pkl"}},
+            {"command": "train-nn", "matrix": {**pt, "model": ["conv_rnn"]},
+             "overrides": {**REPRO_NN, "data": nn_data,
+                           "out": res + "/nn/{target_pt}_{model}.pkl"}},
+            {"command": "train-ctc",
+             "matrix": {**pt, "context": ["aligned"]},
+             "overrides": {**REPRO_CTC,
+                           "out": res + "/ctc/{target_pt}_{context}.pkl"}},
+        ],
+    }
+
+
+def _repro_want(jacobi, cfg, widths, ctc_probe) -> dict:
+    """Launches of one job's run, as the earlier phases derive them:
+    svm-decode 7 ``jacobi_eigh`` an iteration of sep_align (and of its
+    chance control: the same decode on permuted labels), none for
+    joint_pca (its PCA is one SVD); the seq2seq iteration's
+    (``s2s_driver_launches``); the NN iteration's (``nn_driver_launches``);
+    the CTC driver's one ``gru_wfwd`` and n_layers - 1 ``gru_fwd`` a
+    forward, one ``gru_wbwd`` and n_layers - 1 ``gru_bwd`` a train step,
+    one ``jacobi_eigh`` a cross patient (``_DriverProbe``'s counts)."""
+    from cross_patient_speech_decoding_tpu_torch.utils import config as C
+
+    zero = dict.fromkeys(("gru_fwd", "gru_wfwd", "gru_bifwd", "gru_bwd",
+                          "gru_wbwd", "jacobi_eigh"), 0)
+    if isinstance(cfg, C.SVMDecodeConfig):
+        per_it = (0 if cfg.strategy == "joint_pca" else svm_jacobi_launches(
+            {"synth_patients": len(SUB_PTS), "n_folds": cfg.n_folds,
+             "fold_batch": cfg.fold_batch}))
+        return {**zero, "jacobi_eigh": per_it * cfg.n_iter}
+    if isinstance(cfg, C.TrainSeq2SeqConfig):
+        return {**zero, **s2s_driver_launches(
+            {"n_folds": cfg.n_folds, "epochs": cfg.epochs,
+             "synth_patients": cfg.synth_patients})}
+    if isinstance(cfg, C.TrainNNConfig):
+        return nn_driver_launches(jacobi, cfg, widths)
+    n_fwd = ctc_probe.fwd["train"] + ctc_probe.fwd["eval"]
+    return {**zero, "gru_wfwd": n_fwd,
+            "gru_fwd": (cfg.n_layers - 1) * n_fwd,
+            "gru_wbwd": ctc_probe.steps,
+            "gru_bwd": (cfg.n_layers - 1) * ctc_probe.steps,
+            "jacobi_eigh": cfg.synth_patients - 1}
+
+
+def _tb_frames(path) -> list:
+    """The payloads of a TFRecord file, with both CRCs of each record
+    checked (tests/test_tb_events.py:_read_records)."""
+    import struct
+
+    from cross_patient_speech_decoding_tpu_torch.utils.tb_events import (
+        _masked_crc,
+    )
+
+    data = Path(path).read_bytes()
+    out, i = [], 0
+    while i < len(data):
+        (ln,) = struct.unpack("<Q", data[i:i + 8])
+        (crc_len,) = struct.unpack("<I", data[i + 8:i + 12])
+        if crc_len != _masked_crc(data[i:i + 8]):
+            raise ValueError(f"{path}: length CRC at byte {i}")
+        payload = data[i + 12:i + 12 + ln]
+        (crc_pay,) = struct.unpack("<I", data[i + 12 + ln:i + 16 + ln])
+        if crc_pay != _masked_crc(payload):
+            raise ValueError(f"{path}: payload CRC at byte {i}")
+        out.append(payload)
+        i += 16 + ln
+    return out
+
+
+def _tb_check(np, probe, ctc_out: str, run_name: str) -> dict:
+    """The CTC job's event file holds the file-version record and one
+    record an epoch run, each with both CRCs right; TensorBoard's own
+    reader (``EventAccumulator``) gives, for every tag of the records
+    ``append_metrics`` was handed, one scalar an epoch at that epoch's
+    step with that record's value rounded to float32."""
+    from tensorboard.backend.event_processing.event_accumulator import (
+        EventAccumulator,
+    )
+
+    run_dir = Path(ctc_out).parent / "logs" / run_name / "iter000"
+    files = sorted(run_dir.glob("events.out.tfevents.*"))
+    recs = [r for p, r in probe.tb_records if Path(p) == run_dir]
+    r = {"files": [f.name for f in files], "records": len(recs)}
+    if len(files) != 1 or not recs:
+        r["ok"] = False
+        return r
+    frames = _tb_frames(files[0])
+    acc = EventAccumulator(str(run_dir))
+    acc.Reload()
+    got = {tag: [(e.step, e.value) for e in acc.Scalars(tag)]
+           for tag in acc.Tags()["scalars"]}
+    want = {tag: [(int(rec["epoch"]), float(np.float32(rec[tag])))
+                  for rec in recs]
+            for tag, v in recs[0].items()
+            if tag != "epoch" and isinstance(v, (int, float))}
+    r["frames"] = len(frames)
+    r["tags"] = sorted(got)
+    r["steps"] = sorted({s for v in got.values() for s, _ in v})
+    r["ok"] = (len(frames) == 1 + len(recs)
+               and b"brain.Event:2" in frames[0] and got == want
+               and r["steps"] == list(range(len(recs))))
+    return r
+
+
+def _snapshot(root: Path) -> dict:
+    """Every file under ``root``: (bytes, mtime in ns)."""
+    return {str(p): (p.read_bytes(), p.stat().st_mtime_ns)
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def _repro_run(torch, gru, jacobi, main, argv, capture=False):
+    """One ``cpsd reproduce`` call (``cli.main.main(argv)``) with the
+    launch counts zeroed just before and read just after. Returns (probe,
+    wall s, launches)."""
+    torch.cuda.synchronize()
+    _reset_counts(gru, jacobi)
+    with _ReproProbe(torch, gru, jacobi, capture) as pr:
+        t0 = time.perf_counter()
+        rc = main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"cpsd {argv} returned {rc}")
+    return pr, wall, _launch_counts(gru, jacobi)
+
+
+def _kl(np, p, y) -> float:
+    """KL(P || Q) of an embedding ``y`` (float64 on the host)."""
+    p = np.asarray(p, np.float64)
+    y = np.asarray(y, np.float64)
+    d2 = ((y[:, None, :] - y[None, :, :]) ** 2).sum(-1)
+    w = 1.0 / (1.0 + d2)
+    np.fill_diagonal(w, 0.0)
+    q = w / w.sum()
+    m = ~np.eye(len(y), dtype=bool)
+    return float((p[m] * np.log(p[m] / np.maximum(q[m], 1e-300))).sum())
+
+
+def _repro_analysis(torch, np, dev, x, labels) -> dict:
+    """The analysis library on the card against the CPU from the same
+    pooled features: cluster scores, alignment quality of each source's
+    condition averages against the target's, and t-SNE (affinities, the
+    first steps from the CPU's state, the whole run's final KL, with its
+    time and idle share)."""
+    from cross_patient_speech_decoding_tpu_torch.analysis import cluster
+    from cross_patient_speech_decoding_tpu_torch.ops import metrics
+
+    xc, yc = x.cpu(), labels.cpu()
+    out = {"points": list(x.shape), "rtol": REPRO_ANALYSIS_RTOL}
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    for name in ("calinski_harabasz", "davies_bouldin"):
+        fn = getattr(cluster, name)
+        g, c = fn(x, labels, device=dev), fn(xc, yc, device="cpu")
+        out[name] = {"card": g, "cpu": c, "rel_err": rel(g, c)}
+        out[f"{name}_ok"] = rel(g, c) <= REPRO_ANALYSIS_RTOL
+    # the silhouette samples and the reference's score (the mean of the
+    # positive samples) to REPRO_ANALYSIS_RTOL of the silhouette's range
+    # [-1, 1] (tests/test_torch_analysis.py's bound for a sample): a sample
+    # is (b - a) / max(a, b), and the card's and the CPU's float32 mean
+    # distances a and b part at a fixed share of max(a, b), whatever the
+    # sample's size (on these noisy latents the samples lie within
+    # +-0.005, so an error relative to them measures the cancellation of b
+    # - a, not the card). Which samples are positive is not continuous: a
+    # sample whose sign differs must lie within the samples' error of 0,
+    # and the score is compared over the CPU's positive samples
+    s_g = cluster.silhouette_samples(x, labels, device=dev)
+    s_c = cluster.silhouette_samples(xc, yc, device="cpu")
+    err = float(np.abs(s_g - s_c).max())
+    flips = (s_g > 0) != (s_c > 0)
+    pos = s_c > 0
+    g = cluster.silhouette_positive_mean(x, labels, device=dev)
+    c = cluster.silhouette_positive_mean(xc, yc, device="cpu")
+    out["silhouette_samples"] = {
+        "max_abs_err": err, "cpu_range": [float(s_c.min()),
+                                          float(s_c.max())],
+        "sign_flips": int(flips.sum()),
+        "flips_max_abs_cpu": float(np.abs(s_c[flips]).max(initial=0.0))}
+    out["silhouette_samples_ok"] = (
+        err <= REPRO_ANALYSIS_RTOL
+        and bool((np.abs(s_c[flips]) <= err).all()))
+    same_set = abs(float(s_g[pos].mean()) - float(s_c[pos].mean()))
+    out["silhouette_positive_mean"] = {"card": g, "cpu": c,
+                                       "abs_err": abs(g - c),
+                                       "cpu_positive_set_abs_err": same_set}
+    out["silhouette_positive_mean_ok"] = same_set <= REPRO_ANALYSIS_RTOL
+
+    # alignment quality: class-averaged (T, K) trajectories of each
+    # patient, each source against the target at the matched conditions
+    # and at mismatched ones (source condition c + 1 against target c, the
+    # null: its r lie near 0 and its p spread over (0, 1); on cleanly
+    # aligned latents the matched p-values of 6400 points are 0 in
+    # float64)
+    n_pt = len(SUB_PTS)
+    per = xc.shape[0] // n_pt
+    T = SUB_T
+    X3 = xc.reshape(xc.shape[0], T, -1)
+    n_cls = int(yc.max()) + 1
+    cav = torch.stack([torch.stack([
+        X3[i * per:(i + 1) * per][yc[i * per:(i + 1) * per] == c].mean(0)
+        for c in range(n_cls)]) for i in range(n_pt)])  # (P, C, T, K)
+    r_g, p_g = metrics.pt_corr_multi(cav[0].to(dev),
+                                     [v.to(dev) for v in cav[1:]],
+                                     p_vals=True)
+    r_c, p_c = metrics.pt_corr_multi(cav[0], list(cav[1:]), p_vals=True)
+    null = [v.roll(1, 0) for v in cav[1:]]
+    rn_g, pn_g = metrics.pt_corr_multi(cav[0].to(dev),
+                                       [v.to(dev) for v in null],
+                                       p_vals=True)
+    rn_c, pn_c = metrics.pt_corr_multi(cav[0], null, p_vals=True)
+    d_g = torch.stack([metrics.pt_corr_dims(cav[0].to(dev), v.to(dev))
+                       for v in cav[1:]])
+    d_c = torch.stack([metrics.pt_corr_dims(cav[0], v) for v in cav[1:]])
+    for name, g, c in (("pt_corr_r", r_g, r_c), ("pt_corr_p", p_g, p_c),
+                       ("pt_corr_null_r", rn_g, rn_c),
+                       ("pt_corr_null_p", pn_g, pn_c),
+                       ("pt_corr_dims", d_g, d_c)):
+        err = float((g.cpu() - c).abs().max())
+        scale = 1.0 if name.endswith("_p") else float(c.abs().max())
+        out[name] = {"max_abs_err": err, "scale": scale,
+                     "cpu_range": [float(c.min()), float(c.max())]}
+        out[f"{name}_ok"] = err <= REPRO_ANALYSIS_RTOL * scale
+    inside = [float(v) for v in torch.cat([p_c.flatten(), pn_c.flatten()])
+              if 0.0 < v < 1.0]
+    out["pt_corr_p_inside"] = {"n": len(inside), "of": p_c.numel() * 2,
+                               "min": min(inside, default=None),
+                               "max": max(inside, default=None)}
+    out["pt_corr_p_inside_ok"] = len(inside) > 0
+
+    # t-SNE: the affinities, each of the first steps from the CPU's state
+    # (the free-running loops part within ~10 steps: float32 rounding grows
+    # ~1000x every 10 iterations), the whole run's final KL
+    n = x.shape[0]
+    perp = min(30.0, (n - 1) / 3.0)
+    lr = max(n / 48.0, 50.0)
+    ex = max(50, REPRO_TSNE_ITERS // 4)
+    p_c = cluster._tsne_p(xc, perp)
+    p_g = cluster._tsne_p(x, perp)
+    p_err = float((p_g.cpu() - p_c).abs().max() / p_c.abs().max())
+    out["tsne_p_rel_err"] = p_err
+    out["tsne_p_ok"] = p_err <= REPRO_TSNE_P_TOL
+    y0 = cluster._tsne_y0(n, 2, 0)
+    off_c = 1.0 - torch.eye(n)
+    off_g = off_c.to(dev)
+    state = (y0, torch.zeros_like(y0), torch.ones_like(y0))
+    p_ex, step_err, free_err = p_c * 12.0, [], []
+    for k in range(REPRO_TSNE_STEPS):
+        nxt = cluster._tsne_step(*state, p_ex, off_c, 0.5, lr)
+        got = cluster._tsne_step(*(s.to(dev) for s in state), p_ex.to(dev),
+                                 off_g, 0.5, lr)
+        step_err.append(float((got[0].cpu() - nxt[0]).abs().max()
+                              / nxt[0].abs().max()))
+        state = nxt
+        free = cluster._tsne_run(p_g, y0.to(dev), k + 1, ex, lr).cpu()
+        free_err.append(float((free - nxt[0]).abs().max()
+                              / nxt[0].abs().max()))
+    out["tsne_step_rel_err"] = step_err
+    out["tsne_free_running_rel_err"] = free_err
+    out["tsne_steps_ok"] = max(step_err) <= REPRO_TSNE_STEP_TOL
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y_g = cluster.tsne_embed(x, n_iter=REPRO_TSNE_ITERS, device=dev)
+    tsne_ms = (time.perf_counter() - t0) * 1e3
+    _, prof = profile_call(torch, lambda: cluster.tsne_embed(
+        x, n_iter=REPRO_TSNE_ITERS, device=dev))
+    t0 = time.perf_counter()
+    y_c = cluster.tsne_embed(xc, n_iter=REPRO_TSNE_ITERS, device="cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    kl_g, kl_c = _kl(np, p_g.cpu(), y_g), _kl(np, p_c, y_c)
+    out["tsne"] = {"iterations": REPRO_TSNE_ITERS, "ms": tsne_ms,
+                   "cpu_ms": cpu_ms, "kl_card": kl_g, "kl_cpu": kl_c,
+                   "kl_rel_err": rel(kl_g, kl_c),
+                   "idle_share": prof["device_idle_share"],
+                   "profiled_wall_ms": prof["wall_ms"],
+                   "device_busy_ms": prof["device_busy_ms"],
+                   "device_ms_by_kernel": dict(list(
+                       prof["device_ms_by_kernel"].items())[:6])}
+    out["tsne_kl_ok"] = (bool(np.isfinite(y_g).all())
+                         and rel(kl_g, kl_c) <= REPRO_TSNE_KL_RTOL)
+    return out
+
+
+def _repro_analyze(torch, np, exp, svm_outs: dict, root: Path) -> dict:
+    """``cpsd analyze`` over the three svm-decode results on the card
+    machine, against the same call on a copy of the inputs and against
+    ``scipy.stats.wilcoxon`` on the same per-iteration means."""
+    import shutil
+
+    from scipy import stats
+
+    from cross_patient_speech_decoding_tpu_torch.cli import main as cli
+    from cross_patient_speech_decoding_tpu_torch.utils.config import (
+        AnalyzeConfig,
+    )
+
+    inputs = ",".join(f"{k}={v}" for k, v in svm_outs.items())
+    got = []
+    orig = exp.run_analyze
+
+    def keep(cfg, verbose=True):
+        got.append(orig(cfg, verbose))
+        return got[-1]
+
+    exp.run_analyze = keep
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(["analyze", f"inputs={inputs}"])
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        exp.run_analyze = orig
+    (res,) = got
+    copy = root / "cpu_copy"
+    copy.mkdir()
+    inputs_c = ",".join(f"{k}={shutil.copy(v, copy / f'{k}.pkl')}"
+                        for k, v in svm_outs.items())
+    again = exp.run_analyze(AnalyzeConfig(inputs=inputs_c), verbose=False)
+    rows = [(r.a, r.b, r.statistic, r.pvalue, r.pvalue_fdr, r.significant)
+            for r in res["pairwise"]]
+    rows_c = [(r.a, r.b, r.statistic, r.pvalue, r.pvalue_fdr, r.significant)
+              for r in again["pairwise"]]
+    scipy_err = []
+    for r in res["pairwise"]:
+        a, b = res["groups"][r.a], res["groups"][r.b]
+        if np.all(a == b):
+            # no nonzero difference: the port gives NaN (tests/
+            # test_analysis.py), scipy NaN or, in older versions, raises
+            scipy_err.append(0.0 if np.isnan([r.statistic, r.pvalue]).all()
+                             else float("inf"))
+            continue
+        # the port's rule for method "auto" (the JAX package's and older
+        # scipy's): exact without ties or zeros up to n = 50, else the
+        # tie-corrected normal approximation (newer scipy goes exact with
+        # ties too)
+        d = a - b
+        ad = np.abs(d[d != 0])
+        exact = ad.size == d.size <= 50 and np.unique(ad).size == ad.size
+        w = stats.wilcoxon(a, b, method="exact" if exact else "approx")
+        scipy_err.append(max(abs(r.pvalue - w.pvalue),
+                             abs(r.statistic - w.statistic)))
+
+    def same(u, v):
+        return np.array_equal(np.asarray(u, np.float64),
+                              np.asarray(v, np.float64), equal_nan=True)
+
+    a, ac = res["anova"], again["anova"]
+    same_anova = (a is not None and ac is not None
+                  and same(a[1:3], ac[1:3])
+                  and same(a.tukey_p, ac.tukey_p)
+                  and same(a.tukey_statistic, ac.tukey_statistic))
+    same_rows = ([r[:2] + r[5:] for r in rows] == [r[:2] + r[5:]
+                                                    for r in rows_c]
+                 and same([r[2:5] for r in rows], [r[2:5] for r in rows_c]))
+    # a row whose p is neither NaN nor the least that n pairs allow (2 /
+    # 2^n, every difference of one sign), so that the match with scipy
+    # holds the statistic's distribution, not only its tail
+    n = min(len(v) for v in res["groups"].values())
+    open_rows = [r[:2] for r in rows
+                 if np.isfinite(r[3]) and r[3] > 2.0 / 2 ** n * (1 + 1e-9)]
+    return {"rc": rc, "ms": ms, "rows": rows,
+            "anova": None if a is None else [a.f_statistic, a.anova_p],
+            "group_means": {k: float(v.mean())
+                            for k, v in res["groups"].items()},
+            "groups": {k: [float(x) for x in v]
+                       for k, v in res["groups"].items()},
+            "rows_above_least_p": open_rows,
+            "scipy_wilcoxon_max_err": float(max(scipy_err)),
+            "ok": bool(rc == 0 and len(rows) == 3 and same_rows
+                       and same_anova and max(scipy_err) <= 1e-12
+                       and open_rows)}
+
+
+def phase_reproduce(torch, dev, gru, jacobi, smi):
+    """The paper-matrix runner end to end: ``cpsd reproduce`` over jobs of
+    manifests/paper.yaml (every ported driver, so all six kernels) with
+    exact launches a job, a resume and a read-only dry run; ``cpsd
+    analyze`` over the svm-decode results; the analysis library on the
+    card against the CPU."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from cross_patient_speech_decoding_tpu_torch.cli import experiments as exp
+    from cross_patient_speech_decoding_tpu_torch.cli import main as cli
+    from cross_patient_speech_decoding_tpu_torch.cli import reproduce as rep
+    from cross_patient_speech_decoding_tpu_torch.data.loaders import load_pkl
+
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    t0 = time.perf_counter()
+    files = _nn_files(root)
+    svm_data = _decoding_pkl(root, "svm", SUB_PTS, SUB_T, REPRO_SVM_NOISE)
+    data_s = time.perf_counter() - t0
+    widths = [c for pt, c in zip(SUB_PTS, SUB_CHANNELS) if pt != SUB_TARGET]
+    manifest = _repro_manifest(root, svm_data, files["full"])
+    mpath = root / "paper_s26.yaml"
+    mpath.write_text(json.dumps(manifest, indent=1))  # PyYAML reads JSON
+    jobs = rep.expand_manifest(manifest)
+    cfgs = {}
+    for job in jobs:
+        _, _, cfg = rep._job_config(job["command"], job["values"],
+                                    job["soft_keys"])
+        cfgs[cfg.out] = (job["label"], cfg)
+    argv = ["reproduce", f"manifest={mpath}"]
+
+    # run 1: the matrix, counts zeroed just before and read just after;
+    # the Jacobi kernel's first batch of each shape and the first GRU
+    # launch of each shape are kept (copies held on the card, so the peak
+    # they add is taken out of peak_mem_gb)
+    torch.cuda.reset_peak_memory_stats()
+    with _NoPlainOnCuda(torch, gru, jacobi), \
+            _DriverProbe(torch, exp) as ctc_pr, \
+            _RecordJacobi(jacobi, first_per_shape=True) as jrec, \
+            _RecordGru(torch, gru) as grec:
+        pr, wall_s, launches = _repro_run(torch, gru, jacobi, cli.main, argv,
+                                          capture=True)
+    kept = grec.nbytes + sum(A.numel() * A.element_size()
+                             for A in jrec.batches)
+    peak_raw = torch.cuda.max_memory_allocated()
+    ctc_pr.fit_args = None
+    bad, per_job = {}, {}
+
+    # every kernel launch kept from run 1 against its plain version on the
+    # same inputs
+    path_jacobi = {f"batch{i}_{'x'.join(map(str, A.shape))}":
+                   _check_jacobi(torch, jacobi, A)
+                   for i, A in enumerate(jrec.batches)}
+    path_gru = _check_path_gru(gru, grec)
+    del grec, jrec
+    bad.update({f"path jacobi {k}": v for k, v in path_jacobi.items()
+                if not _jacobi_ok(k, v)})
+    bad.update({f"path gru {k}": v for k, v in path_gru.items()
+                if not v["ok"]})
+    want_total = dict.fromkeys(launches, 0)
+    for rec in pr.jobs:
+        label, cfg = cfgs[rec["out"]]
+        want = _repro_want(jacobi, cfg, widths, ctc_pr)
+        per_job[label] = {"wall_s": rec["wall_s"], "device": rec["device"],
+                          "launches": rec["launches"],
+                          "launches_expected": want}
+        for k in want_total:
+            want_total[k] += want[k]
+        if rec["launches"] != want:
+            bad[f"launches {label}"] = rec["launches"]
+    summary = pr.summaries[-1] if pr.summaries else {}
+    if not (len(pr.jobs) == len(jobs) == summary.get("ran")
+            and not summary.get("failed")):
+        bad["run1"] = [summary, len(pr.jobs)]
+    if launches != want_total or not all(launches.values()):
+        bad["launches"] = launches
+    if any(rec["device"] != "cuda:0" for rec in pr.jobs):
+        bad["devices"] = [rec["device"] for rec in pr.jobs]
+    jobs_s = sum(rec["wall_s"] for rec in pr.jobs)
+    svm = {c.strategy if not c.chance else "chance": c.out
+           for _, c in cfgs.values() if hasattr(c, "strategy")}
+    ctc_cfg = next(c for _, c in cfgs.values() if hasattr(c, "context"))
+    tb = _tb_check(np, pr, ctc_cfg.out,
+                   f"{ctc_cfg.target_pt}_{exp._CONTEXT_NAMES[ctc_cfg.context]}"
+                   "_ctcRnn")
+    if not tb["ok"]:
+        bad["tb"] = tb
+    x, labels = pr.pooled_feats
+    del pr
+
+    # the sep_align job against a direct run_svm_decode of its config
+    _, sep_cfg = cfgs[svm["sep_align"]]
+    direct = exp.run_svm_decode(dataclasses.replace(
+        sep_cfg, out=str(root / "direct" / "svm.pkl")), verbose=False,
+        device=dev)
+    job_accs = np.stack(load_pkl(sep_cfg.out)["accs"])
+    same_direct = bool(np.array_equal(direct, job_accs))
+    if not same_direct:
+        bad["sep_align_vs_direct"] = float(np.abs(direct - job_accs).max())
+
+    # run 2: the same manifest resumes every job, no launch
+    pr2, wall2, launches2 = _repro_run(torch, gru, jacobi, cli.main, argv)
+    s2 = pr2.summaries[-1] if pr2.summaries else {}
+    if (pr2.jobs or any(launches2.values()) or s2.get("skipped") != len(jobs)
+            or wall2 >= REPRO_RESUME_S):
+        bad["run2"] = [s2, launches2, wall2]
+
+    # run 3: a dry run of the chance job reads and writes nothing
+    before = _snapshot(root / "results")
+    pr3, wall3, launches3 = _repro_run(
+        torch, gru, jacobi, cli.main, argv + ["dry_run=true", "only=chance"])
+    s3 = pr3.summaries[-1] if pr3.summaries else {}
+    read_only = _snapshot(root / "results") == before
+    if (pr3.jobs or any(launches3.values()) or not read_only
+            or s3.get("filtered") != len(jobs) - 1 or s3.get("skipped") != 1):
+        bad["run3"] = [s3, launches3, read_only]
+    del before
+
+    analyze = _repro_analyze(torch, np, exp, svm, root)
+    if not analyze["ok"]:
+        bad["analyze"] = analyze
+    analysis = _repro_analysis(torch, np, dev, x, labels)
+    bad.update({k: analysis.get(k[:-3], v) for k, v in analysis.items()
+                if k.endswith("_ok") and v is not True})
+    res = {"phase": "reproduce", "nvidia_smi": smi,
+           "manifest": manifest, "reduced": REPRO_REDUCED,
+           "data_write_s": data_s, "jobs": per_job,
+           "run_wall_s": wall_s, "jobs_wall_s": jobs_s,
+           "matrix_overhead_s": wall_s - jobs_s,
+           "matrix_overhead_share": (wall_s - jobs_s) / jobs_s,
+           "launches": launches, "launches_expected": want_total,
+           "peak_mem_gb": (peak_raw - kept) / 1e9,
+           "peak_mem_gb_with_kept_copies": peak_raw / 1e9,
+           "path_kernels_vs_plain": {
+               "jacobi_eigh": path_jacobi, "gru": path_gru,
+               "tolerance": {"jacobi": "bit for bit (_jacobi_ok)",
+                             "gru_fwd_abs": KERNEL_ATOL,
+                             "gru_bwd_rel": GRAD_RTOL}},
+           "tensorboard": tb,
+           "sep_align_equals_direct_run": same_direct,
+           "resume_wall_s": wall2, "resume_launches": launches2,
+           "resume_summary": s2, "dry_run_wall_s": wall3,
+           "dry_run_read_only": read_only, "dry_run_summary": s3,
+           "analyze": analyze, "analysis_card_vs_cpu": analysis}
+    emit(res)
+    tmp.cleanup()
+    if bad:
+        raise RuntimeError(f"reproduce checks failed: {bad}")
+    return {k: {"launches_reproduce": v} for k, v in launches.items()}
 
 
 def _weights(torch, gen, dev, F, Hh):

@@ -2,12 +2,12 @@
 ``run_svm_decode`` (``cpsd svm-decode``), ``run_train_seq2seq`` (``cpsd
 train-seq2seq``), ``run_train_nn`` (``cpsd train-nn``), the two prewarm
 commands, ``run_tune_ctc`` (``cpsd tune-ctc``), ``run_make_xforms``
-(``cpsd make-xforms``) and ``run_realtime_sim`` (``cpsd realtime-sim``).
+(``cpsd make-xforms``), ``run_realtime_sim`` (``cpsd realtime-sim``) and
+``run_analyze`` (``cpsd analyze``).
 
-Port of the CTC, seq2seq, NN-classifier, classical-decode, prewarm, tune,
-make-xforms and realtime-sim sections of
-``cross_patient_speech_decoding_tpu/cli/experiments.py`` (:57-132,
-:142-230, :245-1064, :1065-2300).
+Port of ``cross_patient_speech_decoding_tpu/cli/experiments.py``: its
+CTC, seq2seq, NN-classifier, classical-decode, prewarm, tune, make-xforms,
+realtime-sim and analyze sections.
 
 ``run_svm_decode`` is the analog of the reference's
 ``aligned_decode_svm[_ncv].py``: repeated stratified CV of pooled
@@ -71,10 +71,11 @@ float64 on the host, the ``gram`` CCA fits on the run's device.
 checkpoint-imported model (``models/torch_import.py``) and reports its
 latency; ``run_train_ctc``'s ``init_ckpt`` fine-tunes such a checkpoint.
 
+``run_analyze`` (``cpsd analyze``) computes the paper's statistics over
+saved results files on the host.
+
 Not ported yet, and refused: ``n_devices > 0`` (ROADMAP queue 1, item
-11), ``log_format='tb'`` (item 10b; refused by
-``train.loops.append_metrics`` on the first epoch logged, and by
-``run_train_seq2seq`` up front).
+11).
 """
 
 from __future__ import annotations
@@ -1355,7 +1356,7 @@ def run_train_seq2seq(cfg: TrainSeq2SeqConfig, verbose: bool = True,
     pays the card's library set-up, and writes nothing.
 
     Not ported yet, and refused: ``n_devices > 0`` (ROADMAP queue 1, item
-    11) and ``log_format='tb'`` (item 10b).
+    11).
     """
     if cfg.n_devices > 0 and not cfg.fold_parallel:
         raise ValueError(
@@ -1366,10 +1367,6 @@ def run_train_seq2seq(cfg: TrainSeq2SeqConfig, verbose: bool = True,
         raise NotImplementedError(
             "n_devices > 0: multi-GPU fold sharding is not ported yet "
             "(ROADMAP queue 1, item 11)")
-    if cfg.log_format == "tb":
-        raise NotImplementedError(
-            "log_format='tb' needs the TensorBoard event writer, not ported "
-            "yet (ROADMAP queue 1, item 10b: utils/tb_events)")
     dev = resolve_device(device)
     if prewarm_only:
         _build_libraries(dev)
@@ -1645,7 +1642,7 @@ def run_train_nn(cfg: TrainNNConfig, verbose: bool = True, device=None):
 
     Runs on ``device`` (default: the first CUDA card; raises without one
     unless ``device='cpu'``). Not ported yet, and refused: ``n_devices >
-    0`` (ROADMAP queue 1, item 11) and ``log_format='tb'`` (item 10b).
+    0`` (ROADMAP queue 1, item 11).
     """
     from cross_patient_speech_decoding_tpu_torch.data.splits import (
         stratified_kfold_masks,
@@ -1664,10 +1661,6 @@ def run_train_nn(cfg: TrainNNConfig, verbose: bool = True, device=None):
         raise NotImplementedError(
             "n_devices > 0: the data-parallel classifier step is not ported "
             "yet (ROADMAP queue 1, item 11)")
-    if cfg.log_format == "tb":
-        raise NotImplementedError(
-            "log_format='tb' needs the TensorBoard event writer, not ported "
-            "yet (ROADMAP queue 1, item 10b: utils/tb_events)")
     dev = resolve_device(device)
     tar, cross, n_y, n_a = patients_from_config(
         cfg.data, cfg.target_pt, cfg.p_ind, cfg.lab_type, cfg.algn_type,
@@ -2279,4 +2272,87 @@ def run_realtime_sim(cfg: RealtimeSimConfig, verbose: bool = True,
 
         Path(cfg.out).parent.mkdir(parents=True, exist_ok=True)
         save_pkl({"params": vars(cfg), **result}, cfg.out)
+    return result
+
+
+# ----------------------------------------------------------------- analyze --
+
+def run_analyze(cfg, verbose: bool = True):
+    """Statistical comparison of saved results files, the reference's
+    fig_4/fig_5 notebook flow over driver outputs (`figure_analyses/
+    fig_4.ipynb` cells 16/18, `fig_5.ipynb` stats cells).
+
+    Each input is an incremental results pickle (``append_results_pkl``)
+    or a reference CTC results h5 (h5py imported only for those);
+    per-iteration fold accuracies or PERs are reduced to per-iteration
+    means, then: all pairwise paired tests (Wilcoxon or sign-flip
+    permutation) with BH-FDR, plus one-way ANOVA + Tukey HSD when 3+
+    groups are given. Returns a dict with the comparison rows and the
+    ANOVA result. Host-only (numpy and ``scipy.special``): it takes no
+    device.
+    """
+    from cross_patient_speech_decoding_tpu_torch.analysis import (
+        anova_tukey_by_group,
+        context_comparison_table,
+        paired_permutation_test,
+        wilcoxon_signed_rank,
+    )
+
+    if cfg.test not in ("wilcoxon", "permutation"):
+        raise ValueError(
+            f"test must be 'wilcoxon' or 'permutation', got '{cfg.test}'"
+        )
+    groups: dict[str, np.ndarray] = {}
+    for spec in cfg.inputs.split(","):
+        spec = spec.strip()
+        if not spec:
+            continue
+        name, _, path = spec.partition("=")
+        if not path:
+            raise ValueError(f"input '{spec}' is not name=path")
+        if name in groups:
+            raise ValueError(f"duplicate input name '{name}'")
+        if path.endswith((".h5", ".hdf5")):
+            # a reference CTC results h5 (train_ctc_rnn.py:448-491)
+            from cross_patient_speech_decoding_tpu_torch.data.loaders import (
+                load_ctc_results_h5,
+            )
+
+            pers = load_ctc_results_h5(path)["phoneme_error_rate"]
+            groups[name] = np.array(
+                [float(np.ravel(p).mean()) for p in pers]
+            )
+            continue
+        store = load_pkl(path)
+        accs = store.get("accs", [])
+        if not accs:
+            raise ValueError(f"'{path}' has no per-iteration results")
+        groups[name] = np.array([float(np.ravel(a).mean()) for a in accs])
+    if len(groups) < 2:
+        raise ValueError("need at least two name=path inputs to compare")
+    lengths = {k: len(v) for k, v in groups.items()}
+    n_common = min(lengths.values())
+    if verbose and len(set(lengths.values())) > 1:
+        print(f"note: unequal iteration counts {lengths}; paired tests use "
+              f"the first {n_common} iterations of each", flush=True)
+    groups = {k: v[:n_common] for k, v in groups.items()}
+
+    test = (paired_permutation_test if cfg.test == "permutation"
+            else wilcoxon_signed_rank)
+    rows = context_comparison_table(groups, alpha=cfg.alpha, test=test)
+    result = {"groups": groups, "pairwise": rows, "anova": None}
+    if len(groups) >= 3:
+        (anova_row,) = anova_tukey_by_group({"all": list(groups.values())})
+        result["anova"] = anova_row
+    if verbose:
+        for name, vals in groups.items():
+            print(f"{name:12s}: {vals.mean():.3f} +- {vals.std():.3f} "
+                  f"(n={len(vals)})", flush=True)
+        for r in rows:
+            print(f"{cfg.test} {r.a} vs {r.b}: stat={r.statistic:.2f} "
+                  f"p={r.pvalue:.4f} p_fdr={r.pvalue_fdr:.4f}"
+                  f"{' *' if r.significant else ''}", flush=True)
+        if result["anova"] is not None:
+            a = result["anova"]
+            print(f"ANOVA: F={a.f_statistic:.2f} p={a.anova_p:.2e}", flush=True)
     return result

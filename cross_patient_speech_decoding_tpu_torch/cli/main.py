@@ -1,15 +1,11 @@
 """``cpsd`` command line of the port.
 
-Port of ``cross_patient_speech_decoding_tpu/cli/main.py``: a subcommand
-takes an optional ``--config file.yaml`` and Hydra-style ``key=value``
-overrides. ``train-ctc``, ``svm-decode``, ``train-seq2seq``, ``train-nn``,
-``prewarm-ctc``, ``prewarm-seq2seq``, the four subsample sweeps
-(``subsample-trials``, ``subsample-grid``, ``subsample-spatial``,
-``subsample-pitch``), ``tune-ctc``, ``make-xforms`` and ``realtime-sim``
-are ported so far; every other command of the JAX package is listed and
-refused with the ROADMAP item that ports it.
-``device=cpu`` (or ``device=cuda:1``) picks the device; the default is
-the first CUDA card.
+Port of ``cross_patient_speech_decoding_tpu/cli/main.py``, with all
+fifteen of its commands: a subcommand takes an optional ``--config
+file.yaml`` and Hydra-style ``key=value`` overrides. ``device=cpu`` (or
+``device=cuda:1``) picks the device; the default is the first CUDA card.
+``analyze`` runs on the host and takes no ``device=``; ``reproduce``
+hands its device to every job of the manifest.
 
 Example::
 
@@ -20,27 +16,34 @@ Example::
     python -m cross_patient_speech_decoding_tpu_torch.cli.main \\
         train-seq2seq synth_patients=3 synth_T=40 synth_trials=4 n_iter=2 \\
         n_folds=4 epochs=3 hidden=16 n_filters=8 device=cpu
-    python -m cross_patient_speech_decoding_tpu_torch.cli.main train-nn \
-        model=conv_rnn n_iter=2 n_folds=4 epochs=3 hidden=16 n_filters=8 \
+    python -m cross_patient_speech_decoding_tpu_torch.cli.main train-nn \\
+        model=conv_rnn n_iter=2 n_folds=4 epochs=3 hidden=16 n_filters=8 \\
         device=cpu
     python -m cross_patient_speech_decoding_tpu_torch.cli.main \\
         subsample-trials n_iter=2 k_step=40 device=cpu
     python -m cross_patient_speech_decoding_tpu_torch.cli.main tune-ctc \\
         n_trials=2 rungs=2 synth_T=60 manifest=/tmp/x/m.jsonl device=cpu
+    python -m cross_patient_speech_decoding_tpu_torch.cli.main reproduce \\
+        manifest=manifests/paper.yaml dry_run=true
+    python -m cross_patient_speech_decoding_tpu_torch.cli.main analyze \\
+        inputs=a=results/a.pkl,b=results/b.pkl
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import inspect
 import sys
 
 from cross_patient_speech_decoding_tpu_torch.cli.subsample_experiments \
     import SubsampleConfig
 from cross_patient_speech_decoding_tpu_torch.utils.config import (
     REQUIRED,
+    AnalyzeConfig,
     MakeXformsConfig,
     RealtimeSimConfig,
+    ReproduceConfig,
     SVMDecodeConfig,
     TrainCTCConfig,
     TrainNNConfig,
@@ -63,13 +66,10 @@ _COMMANDS = {
     "tune-ctc": (TuneCTCConfig, "run_tune_ctc"),
     "make-xforms": (MakeXformsConfig, "run_make_xforms"),
     "realtime-sim": (RealtimeSimConfig, "run_realtime_sim"),
-}
-
-# the JAX package's other commands -> the ROADMAP queue 1 item that ports
-# them
-_NOT_PORTED = {
-    "analyze": "10b",
-    "reproduce": "10b",
+    "analyze": (AnalyzeConfig, "run_analyze"),
+    # manifest-driven full-matrix orchestration (the reference's SLURM
+    # job-array workflow, README.md:27, as one resumable command)
+    "reproduce": (ReproduceConfig, "run_reproduce"),
 }
 
 
@@ -99,6 +99,24 @@ def _split_device(overrides):
     return device, rest
 
 
+def resolve_command(command: str):
+    """(config class, driver function, whether the driver takes
+    ``device=``) of a command. ``analyze`` runs on the host and takes no
+    device."""
+    from cross_patient_speech_decoding_tpu_torch.cli import (
+        experiments,
+        reproduce,
+        subsample_experiments,
+    )
+
+    cfg_cls, fn_name = _COMMANDS[command]
+    for mod in (experiments, subsample_experiments, reproduce):
+        if hasattr(mod, fn_name):
+            fn = getattr(mod, fn_name)
+            return cfg_cls, fn, "device" in inspect.signature(fn).parameters
+    raise AttributeError(fn_name)  # pragma: no cover - table/module drift
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="cpsd",
@@ -116,28 +134,18 @@ def main(argv=None) -> int:
         )
         p.add_argument("--config", default=None, help="YAML config file")
         p.add_argument("overrides", nargs="*", help="key=value overrides")
-    for name, item in _NOT_PORTED.items():
-        p = sub.add_parser(name, help=f"not ported yet (ROADMAP queue 1, "
-                                      f"item {item})")
-        p.add_argument("rest", nargs=argparse.REMAINDER)
 
     args = parser.parse_args(argv)
-    if args.command in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{args.command}: not ported yet (ROADMAP queue 1, item "
-            f"{_NOT_PORTED[args.command]})")
-    cfg_cls, fn_name = _COMMANDS[args.command]
+    cfg_cls, fn, on_device = resolve_command(args.command)
     device, overrides = _split_device(args.overrides)
     cfg = load_config(cfg_cls, args.config, overrides)
-
-    from cross_patient_speech_decoding_tpu_torch.cli import (
-        experiments,
-        subsample_experiments,
-    )
-
-    mod = (subsample_experiments if cfg_cls is SubsampleConfig
-           else experiments)
-    result = getattr(mod, fn_name)(cfg, device=device)
+    if on_device:
+        result = fn(cfg, device=device)
+    elif device is not None:
+        raise ValueError(f"{args.command} runs on the host: it takes no "
+                         f"device= (got {device!r})")
+    else:
+        result = fn(cfg)
     return 0 if result is not None else 1
 
 

@@ -416,11 +416,36 @@ def load_tuned_hparams(hparam_dir: str | Path, target_pt: str, context: str,
 
 # --------------------------------------------------------------- results ----
 
+def load_ctc_results_h5(path: str | Path) -> dict:
+    """Read a reference CTC results h5 (`train_ctc_rnn.save_results`,
+    train_ctc_rnn.py:448-491): per-iteration ``phoneme_error_rate``,
+    ``logits``, the ``phon_keys``/``phon_vals`` token table, and the
+    ``model_hparams`` attribute group, so existing reference result files
+    feed the analysis flows (``cpsd analyze``) directly."""
+    import h5py
+
+    out: dict = {}
+    with h5py.File(str(Path(path).expanduser()), "r") as f:
+        out["phoneme_error_rate"] = np.asarray(f["phoneme_error_rate"])
+        if "logits" in f:
+            out["logits"] = np.asarray(f["logits"])
+        if "phon_keys" in f and "phon_vals" in f:
+            keys = np.asarray(f["phon_keys"]).tolist()
+            vals = [
+                v.decode() if isinstance(v, bytes) else str(v)
+                for v in np.asarray(f["phon_vals"]).tolist()
+            ]
+            out["phon_dict"] = dict(zip(keys, vals))
+        if "model_hparams" in f:
+            out["model_hparams"] = dict(f["model_hparams"].attrs)
+    return out
+
+
 def save_ctc_results_h5(path: str | Path, pers, logits=None,
                         phon_dict: dict | None = None,
                         model_hparams: dict | None = None) -> Path:
-    """Write CTC results in the reference's h5 layout (the one the JAX
-    package's ``load_ctc_results_h5`` reads) so notebooks written against
+    """Write CTC results in the reference's h5 layout (the inverse of
+    :func:`load_ctc_results_h5`) so notebooks written against
     ``train_ctc_rnn``'s output keep working on this framework's runs."""
     import h5py
 

@@ -17,8 +17,8 @@ map is a transpose; the two biases stay separate (the new gate needs
 
 Checkpoints are read with ``torch.load(weights_only=False)``, because
 Lightning pickles the hyperparameter dict: load only checkpoints you
-trust. Not ported yet: the bidirectional model (ROADMAP queue 1, item
-7c) and the LSTM and seq2seq imports (item 10b).
+trust. Not ported yet: the bidirectional model and the LSTM and seq2seq
+imports (ROADMAP queue 1, item 7c).
 """
 
 from __future__ import annotations
@@ -98,10 +98,10 @@ def _realtime_keys(n_layers: int, bidirectional: bool = False):
 def lstm_params_from_torch(sd, prefix: str, layer: int,
                            reverse: bool = False) -> dict:
     """Not ported yet: the port has no LSTM layer (ROADMAP queue 1, item
-    10b)."""
+    7c)."""
     raise NotImplementedError(
         "lstm_params_from_torch: LSTM checkpoints are not ported yet "
-        "(ROADMAP queue 1, item 10b)")
+        "(ROADMAP queue 1, item 7c)")
 
 
 def stacked_rnn_params_from_torch(sd: Mapping[str, np.ndarray], prefix: str,
@@ -181,10 +181,10 @@ def realtime_rnn_from_ckpt(path, device=None):
 
 
 def seq2seq_from_ckpt(path, device=None):
-    """Not ported yet (ROADMAP queue 1, item 10b)."""
+    """Not ported yet (ROADMAP queue 1, item 7c: it needs 7c's LSTM)."""
     raise NotImplementedError(
         "seq2seq_from_ckpt: Seq2SeqRNN checkpoints are not ported yet "
-        "(ROADMAP queue 1, item 10b)")
+        "(ROADMAP queue 1, item 7c)")
 
 
 def realtime_rnn_to_state_dict(model) -> dict:

@@ -178,7 +178,9 @@ def fit(
 
 def append_metrics(path: str, rec: dict, fmt: str = "csv") -> None:
     """Append one per-epoch metrics record: ``csv`` (header on the first
-    write) or ``jsonl`` (one JSON object per line, flushed)."""
+    write), ``jsonl`` (one JSON object per line, flushed) or ``tb``
+    (TensorBoard event files: ``path`` is the run DIRECTORY, the record's
+    ``epoch`` the step and its other numbers the scalars)."""
     p = Path(path)
     if fmt == "csv":
         p.parent.mkdir(parents=True, exist_ok=True)
@@ -194,10 +196,14 @@ def append_metrics(path: str, rec: dict, fmt: str = "csv") -> None:
             f.write(json.dumps(rec) + "\n")
             f.flush()
     elif fmt == "tb":
-        raise NotImplementedError(
-            "log_format='tb' needs the TensorBoard event writer, not ported "
-            "yet (ROADMAP queue 1, item 10: utils/tb_events)"
+        from cross_patient_speech_decoding_tpu_torch.utils.tb_events import (
+            tb_writer,
         )
+
+        step = int(rec.get("epoch", 0))
+        scalars = {k: v for k, v in rec.items()
+                   if k != "epoch" and isinstance(v, (int, float))}
+        tb_writer(path).add_scalars(step, scalars)
     else:
         raise ValueError(f"unknown log_format {fmt!r} (csv|jsonl|tb)")
 

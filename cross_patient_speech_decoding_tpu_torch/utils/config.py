@@ -4,11 +4,11 @@ Port of ``cross_patient_speech_decoding_tpu/utils/config.py``: the
 key=value coercion, ``load_config`` (defaults <- YAML <- overrides; PyYAML
 imported only when a file is given), ``config_from_values``, the
 classical decoder's config, the seq2seq trainer's, the NN classifier
-driver's, the CTC trainer's, the CTC sweep's, the offline transforms' and
-the streaming simulation's. The subsample sweeps' config lives with their
-driver. Field
-names and defaults are the JAX package's, so a results file written by
-either driver resumes in the other.
+driver's, the CTC trainer's, the CTC sweep's, the offline transforms',
+the statistics' (``cpsd analyze``), the streaming simulation's and the
+matrix runner's (``cpsd reproduce``). The subsample sweeps' config lives
+with their driver. Field names and defaults are the JAX package's, so a
+results file written by either driver resumes in the other.
 """
 
 from __future__ import annotations
@@ -194,9 +194,7 @@ class TrainSeq2SeqConfig:
     # time_shifting,noise_jitter,scaling); '' = none, 'all' = all five
     augmentations: str = ""
     log_metrics: bool = True  # per-epoch (or per-iteration) CSV logs
-    # csv | jsonl (tailable) | tb (TensorBoard: not ported yet,
-    # run_train_seq2seq raises; ROADMAP queue 1, item 10b)
-    log_format: str = "csv"
+    log_format: str = "csv"  # csv | jsonl (tailable) | tb (TensorBoard)
     trace: bool = False  # device profile of the first iteration
     # synthetic-data scale (data='synthetic' only): 9 sequence classes x
     # synth_trials trials per patient (synth_trials is PER CLASS; the CTC
@@ -242,9 +240,7 @@ class TrainNNConfig:
     clip: float = 0.5
     decay_iters: int = 20
     log_metrics: bool = True  # per-epoch CSV under logs/{run_name}/
-    # csv | jsonl (tailable) | tb (TensorBoard: not ported yet,
-    # run_train_nn raises; ROADMAP queue 1, item 10b)
-    log_format: str = "csv"
+    log_format: str = "csv"  # csv | jsonl (tailable) | tb (TensorBoard)
     trace: bool = False  # device profile of the first iteration
     # data-parallel classifier step over the first n devices; 0 = one
     # device. Not ported yet: run_train_nn raises for n > 0 (ROADMAP
@@ -418,6 +414,18 @@ class MakeXformsConfig:
 
 
 @dataclass
+class AnalyzeConfig:
+    """Statistical comparison of saved experiment results (the fig_4 /
+    fig_5 notebook flows applied to driver output pickles)."""
+
+    # comma-separated name=path pairs of incremental results pickles,
+    # e.g. "patient=results/ps.pkl,aligned=results/aligned.pkl"
+    inputs: str = ""
+    alpha: float = 0.05
+    test: str = "wilcoxon"  # wilcoxon | permutation (paired, per iteration)
+
+
+@dataclass
 class RealtimeSimConfig:
     """Streaming decode simulation + latency report."""
 
@@ -441,3 +449,43 @@ class RealtimeSimConfig:
     # persist the measured latency distribution for offline analysis
     # (analysis.latency — the supp_fig_20/24 flows)
     out: str = ""
+
+
+@dataclass
+class ReproduceConfig:
+    """Manifest-driven full-matrix orchestration (``cpsd reproduce``).
+
+    The reference's de-facto top-level driver is a SLURM job array over
+    patients x strategies x contexts (the reference repository's `README.md:27`;
+    each script parameterized per target, e.g.
+    `aligned_decode_svm_ncv.py:114-120`). Here one manifest YAML expands
+    into sequenced driver invocations with cross-matrix resume: jobs
+    whose incremental result pickles already hold ``n_iter`` iterations
+    are skipped, partially-done jobs resume from their last completed
+    iteration (the per-driver ``_completed_results`` machinery).
+
+    Manifest format::
+
+        defaults:            # optional, merged into every job
+          data: synthetic
+          n_iter: 50
+        jobs:
+          - command: svm-decode
+            matrix:          # cross-product, expanded in listed order
+              target_pt: [S14, S26]
+              strategy: [sep_align, joint_pca]
+            overrides:       # per-job fixed values; strings may use
+              n_folds: 20    # {placeholders} from the matrix point
+              out: "results/svm/{target_pt}_{strategy}.pkl"
+    """
+
+    manifest: str = ""  # path to the matrix YAML (required)
+    dry_run: bool = False  # print the expanded matrix and exit
+    keep_going: bool = False  # continue past a failed job
+    # comma filter: run only jobs whose command OR expanded out-path
+    # contains one of these substrings ('' = all)
+    only: str = ""
+    # forwarded to every expanded config that has an n_devices field
+    # (0 = leave each job's own value). Not ported yet: run_reproduce
+    # raises for n > 0 before any job runs (ROADMAP queue 1, item 11)
+    n_devices: int = 0

@@ -133,8 +133,8 @@ def test_state_dict_round_trip(tmp_path):
 
 
 def test_unported_and_invalid_checkpoints_raise(tmp_path):
-    """A bidirectional checkpoint raises with ROADMAP item 7c; the LSTM
-    and seq2seq imports with 10b; an LSTM streaming checkpoint is not the
+    """A bidirectional checkpoint raises with ROADMAP item 7c, and so do
+    the LSTM and seq2seq imports; an LSTM streaming checkpoint is not the
     reference's (ValueError, as in JAX); the import needs a card unless
     the CPU is asked for."""
     bi, _ = _rt_ckpt(tmp_path, "bi.ckpt", bidir=True)
@@ -144,11 +144,11 @@ def test_unported_and_invalid_checkpoints_raise(tmp_path):
     with pytest.raises(ValueError, match="GRU-based"):
         ti.realtime_rnn_from_ckpt(lstm, device="cpu")
     sd, _ = ti.load_lightning_ckpt(lstm)
-    with pytest.raises(NotImplementedError, match="item 10b"):
+    with pytest.raises(NotImplementedError, match="item 7c"):
         ti.lstm_params_from_torch(sd, "rnn.rnn", 0)
-    with pytest.raises(NotImplementedError, match="item 10b"):
+    with pytest.raises(NotImplementedError, match="item 7c"):
         ti.stacked_rnn_params_from_torch(sd, "rnn.rnn", 2, cell="lstm")
-    with pytest.raises(NotImplementedError, match="item 10b"):
+    with pytest.raises(NotImplementedError, match="item 7c"):
         ti.seq2seq_from_ckpt(lstm, device="cpu")
     gru, _ = _rt_ckpt(tmp_path, "rt.ckpt")
     if not torch.cuda.is_available():

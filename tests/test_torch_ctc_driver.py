@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import yaml
 
 import cross_patient_speech_decoding_tpu.ops.pallas_gru as pg
 from cross_patient_speech_decoding_tpu.cli import experiments as je
@@ -385,8 +386,9 @@ def test_results_h5_read_by_jax(tmp_path, synth):
 
 def test_cli_train_ctc_runs_in_process(tmp_path, synth, capsys):
     """``cli.main train-ctc device=cpu`` runs the driver in this process,
-    with key=value overrides; device= is not a config field. Commands not
-    ported yet raise with their ROADMAP item."""
+    with key=value overrides; device= is not a config field. ``reproduce``
+    and ``analyze`` run too: a dry run of a manifest holding this job (it
+    is complete) and the statistics of two results pickles."""
     cfg = _quick(tmp_path)
     synth(cfg)
     args = [f"{k}={v}" for k, v in vars(cfg).items()
@@ -394,10 +396,21 @@ def test_cli_train_ctc_runs_in_process(tmp_path, synth, capsys):
     assert tmain.main(["train-ctc", "device=cpu", *args]) == 0
     assert "iter 0 [patient]: test PER" in capsys.readouterr().out
     assert "device" not in loaders.load_pkl(cfg.out)["params"]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tmain.main(["reproduce", "n_iter=1"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tmain.main(["analyze"])
+    manifest = tmp_path / "m.yaml"
+    manifest.write_text(yaml.safe_dump({"jobs": [{
+        "command": "train-ctc",
+        "overrides": {k: v for k, v in vars(cfg).items()
+                      if v != getattr(TrainCTCConfig, k)}}]}))
+    assert tmain.main(["reproduce", f"manifest={manifest}",
+                       "dry_run=true"]) == 0
+    assert "complete, skipping" in capsys.readouterr().out
+    rng = np.random.default_rng(0)
+    for name in ("a", "b"):
+        loaders.save_pkl({"accs": [rng.random(4) for _ in range(6)]},
+                         tmp_path / f"{name}.pkl")
+    assert tmain.main(["analyze", f"inputs=a={tmp_path / 'a.pkl'},"
+                       f"b={tmp_path / 'b.pkl'}"]) == 0
+    assert "wilcoxon a vs b" in capsys.readouterr().out
 
 
 def test_unported_branches_raise(tmp_path, synth):
@@ -418,9 +431,14 @@ def test_unported_branches_raise(tmp_path, synth):
     with pytest.raises(NotImplementedError, match="item 11"):
         te.run_train_ctc(_quick(tmp_path, n_devices=2), device="cpu")
     synth(cfg)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        te.run_train_ctc(_quick(tmp_path, log_format="tb"), verbose=False,
-                         device="cpu")
+    # the TensorBoard log (ported): one run directory an iteration
+    te.run_train_ctc(_quick(tmp_path, log_format="tb"), verbose=False,
+                     device="cpu")
+    run_dir = (tmp_path / "logs"
+               / f"S14_{te._CONTEXT_NAMES['patient']}_ctcRnn" / "iter000")
+    (ev,) = run_dir.glob("events.out.tfevents.*")
+    data = ev.read_bytes()
+    assert b"brain.Event:2" in data and b"loss" in data
 
 
 def test_augmentations_and_subsample_on_the_driver(tmp_path, synth):

@@ -286,8 +286,11 @@ def test_append_metrics_formats(tmp_path):
     assert lines == ["epoch,loss,per", "0,1.5,0.25", "1,1.5,0.25"]
     append_metrics(str(tmp_path / "m.jsonl"), rec, "jsonl")
     assert json.loads((tmp_path / "m.jsonl").read_text()) == rec
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
-        append_metrics(str(tmp_path / "tb"), rec, "tb")
+    append_metrics(str(tmp_path / "tb"), rec, "tb")
+    append_metrics(str(tmp_path / "tb"), {**rec, "epoch": 1}, "tb")
+    (ev,) = (tmp_path / "tb").glob("events.out.tfevents.*")
+    data = ev.read_bytes()
+    assert b"brain.Event:2" in data and b"per" in data
     with pytest.raises(ValueError, match="log_format"):
         append_metrics(str(tmp_path / "x"), rec, "xml")
 

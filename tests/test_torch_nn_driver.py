@@ -270,16 +270,21 @@ def test_cli_train_nn_runs_in_process(tmp_path, data_path, capsys):
 
 def test_unported_options_raise(tmp_path, data_path):
     """n_devices > 0 (multi-GPU data parallel, ROADMAP queue 1 item 11)
-    and the TensorBoard log (item 10b) are refused before any work; an
-    unknown model is refused by the model switch."""
+    is refused before any work; an unknown model is refused by the model
+    switch. The TensorBoard log (ported) runs: one run directory a fold."""
     _, cfg = _cfgs(tmp_path, data_path)
     with pytest.raises(NotImplementedError, match="item 11"):
         te.run_train_nn(TrainNNConfig(**{**vars(cfg), "n_devices": 2}),
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        te.run_train_nn(TrainNNConfig(**{**vars(cfg), "log_format": "tb"}),
                         device="cpu")
     with pytest.raises(ValueError, match="unknown model"):
         te._make_nn_classifier(TrainNNConfig(model="lstm"), 4, 3,
                                device="cpu")
     assert not (tmp_path / "t").exists()
+    te.run_train_nn(TrainNNConfig(**{**vars(cfg), "log_format": "tb"}),
+                    verbose=False, device="cpu")
+    logs = tmp_path / "t" / "logs" / f"S14_{cfg.model}_nnDecode"
+    runs = sorted(p.name for p in logs.iterdir())
+    assert runs == [f"iter000_fold{k:02d}" for k in range(cfg.n_folds)]
+    for run in runs:
+        (ev,) = (logs / run).glob("events.out.tfevents.*")
+        assert b"acc" in ev.read_bytes()

@@ -71,7 +71,7 @@ def test_default_device_is_cuda_and_raises_without_it(no_cuda):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_entry_points_default_to_cuda(no_cuda):
+def test_entry_points_default_to_cuda(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RealtimeRNN(4, 8, 1, 3)
     b = np.array([[1.0, 0.0, -1.0]])
@@ -127,6 +127,24 @@ def test_entry_points_default_to_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ctc.make_ctc_cv_bucket_trainer(batch, np.ones((1, 2)),
                                        np.ones((1, 2)), 11)
+    from cross_patient_speech_decoding_tpu_torch.analysis import cluster
+    from cross_patient_speech_decoding_tpu_torch.cli.reproduce import (
+        run_reproduce,
+    )
+
+    (tmp_path / "m.yaml").write_text(
+        "jobs:\n  - command: svm-decode\n    overrides: {out: ''}\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_reproduce(config.ReproduceConfig(
+            manifest=str(tmp_path / "m.yaml")), verbose=False)
+    x, labels = np.eye(4, dtype=np.float32), np.array([0, 0, 1, 1])
+    for fn in (cluster.silhouette_samples, cluster.silhouette_positive_mean,
+               cluster.calinski_harabasz, cluster.davies_bouldin):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(x, labels)
+    for fn in (cluster.pca_embed, cluster.tsne_embed):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(x)
 
 
 def test_state_from_numpy_defaults_to_cuda(no_cuda):

@@ -775,8 +775,8 @@ def _counting(make, store):
 
 def test_unported_options_raise(tmp_path):
     """n_devices without fold_parallel raises JAX's ValueError first;
-    n_devices > 0 raises with item 11, log_format='tb' with item 10b;
-    nothing is written."""
+    n_devices > 0 raises with item 11; nothing is written. The TensorBoard
+    log (ported) runs: sequential folds write a run directory each."""
     with pytest.raises(ValueError, match="requires fold_parallel"):
         _run(tmp_path, n_devices=2, fold_parallel=False)
     with pytest.raises(ValueError, match="requires fold_parallel"):
@@ -784,9 +784,12 @@ def test_unported_options_raise(tmp_path):
                                     out=str(tmp_path / "j.csv")))
     with pytest.raises(NotImplementedError, match="item 11"):
         _run(tmp_path, n_devices=2)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        _run(tmp_path, log_format="tb")
     assert not list(tmp_path.iterdir())
+    cfg, _ = _run(tmp_path, log_format="tb", fold_parallel=False, n_iter=1)
+    logs = tmp_path / "s2s" / "logs" / te._seq2seq_run_name(cfg)
+    for k in range(cfg.n_folds):
+        (ev,) = (logs / f"iter000_fold{k:02d}").glob("events.out.tfevents.*")
+        assert b"acc" in ev.read_bytes()
 
 
 def test_seq2seq_entry_points_default_to_cuda(monkeypatch, tmp_path):

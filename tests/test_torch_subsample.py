@@ -552,4 +552,5 @@ def test_cli_subsample_runs_in_process(tmp_path, host_synth, capsys, cmd,
                               "subsample-spatial": "spatial_avg",
                               "subsample-pitch": "pitch"}[cmd]
     assert "device" not in store["params"]
-    assert cmd not in tmain._NOT_PORTED and cmd in tmain._COMMANDS
+    # every command of the JAX CLI is ported: no refusal table is left
+    assert cmd in tmain._COMMANDS and not hasattr(tmain, "_NOT_PORTED")
