@@ -78,6 +78,31 @@ line is never printed:
    online logits checked against the offline forward, the offline forward
    against the plain versions, and one streaming window through
    ``gru_fwd`` against its plain version at B=1, T=1, layer by layer;
+5'. ctc_bidir (the bidirectional RealtimeRNN's main path): the model at
+   the same fig_5 width (hidden 512 x 3, window 14 / stride 4, B=2000,
+   T=600): with the launch counts zeroed just before and read just after,
+   one ``make_ctc_eval_step`` step must launch exactly 3 ``gru_bifwd``
+   and nothing else (BIDIR_EVAL_LAUNCHES), its logits held against the
+   same forward through the plain versions on the card; at dropout 0 the
+   loss and every gradient through the kernels against the plain
+   forwards and backward functions; one ``make_ctc_train_step`` step at
+   dropout 0.3 with AdamW must launch exactly 3 ``gru_bifwd`` and 6
+   ``gru_bwd`` (layer 0 bf16 without dx, both directions) and no windowed
+   kernel (BIDIR_TRAIN_LAUNCHES), the plain versions raising on CUDA
+   tensors throughout; the median of 3 steps of each kind, samples/s,
+   peak memory, one profiled train step. Then ``gru_bifwd`` alone at the
+   layer-0 shape (147 x 2000 windows of 840 bf16 features, H=512) against
+   its plain version, timed beside it and cuDNN's bidirectional GRU, and
+   ``gru_bwd`` reversed, bf16, no dx, at that shape against its plain
+   version. Then an LSTM Seq2SeqRNN at the seq2seq bench geometry (B=1000,
+   T=200, C=30, 100 filters of width 10, hidden 500) at dropout 0 and
+   teacher forcing 1 against the same model with ``torch.nn.LSTM`` (cuDNN)
+   on the same weights (logits 1e-4 relative, gradients GRAD_RTOL), and
+   its ``make_seq2seq_train_step`` (no GRU launch, the median of 3 steps);
+   last, a reference seq2seq checkpoint of a GRU and of an LSTM cell,
+   written by the script from torch modules at those widths, read by
+   ``seq2seq_from_ckpt`` onto the card, its eval logits at teacher forcing
+   1 against the modules' own forward (1e-4 relative, 64 trials);
 5a. seq2seq_train (slice 4's main path): a Seq2SeqRNN at the JAX
    package's bench geometry (bench.py:section_seq2seq: B=1000, T=200,
    C=30, 100 conv filters of width 10, hidden 500, 3 decoder steps, 9
@@ -282,7 +307,10 @@ line is never printed:
    ``jacobi_eigh`` their launches per ``seq2seq_driver`` iteration and,
    for ``gru_fwd``, ``gru_bwd`` and ``jacobi_eigh``, per ``train_nn``
    iteration of each family that launches them, and for every kernel its
-   launches in the ``reproduce`` phase's matrix (``launches_reproduce``).
+   launches in the ``reproduce`` phase's matrix (``launches_reproduce``),
+   and for ``gru_bifwd`` and ``gru_bwd`` their launches per ``ctc_bidir``
+   step (``launches_ctc_bidir_*``) and their times at its layer-0 shape
+   (``*_ctc_bidir_layer0``, ``*_ctc_bidir_layer0_reversed``).
 
 Then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA card, and in a directory without the port.
@@ -325,6 +353,12 @@ GRAD_RTOL = 1e-3
 # launches of one train step: layer 0 windowed, layers 1-2 plain
 TRAIN_LAUNCHES = {"gru_fwd": 2, "gru_wfwd": 1, "gru_bifwd": 0, "gru_bwd": 2,
                   "gru_wbwd": 1}
+# the bidirectional RealtimeRNN at the same width: layer 0 materialises
+# the windows once (bf16, no gradient), every layer is one gru_bifwd and,
+# in the backward, gru_bwd forward and reversed (layer 0 without dx)
+BIDIR_EVAL_LAUNCHES = {"gru_fwd": 0, "gru_wfwd": 0, "gru_bifwd": N_LAYERS,
+                       "gru_bwd": 0, "gru_wbwd": 0}
+BIDIR_TRAIN_LAUNCHES = {**BIDIR_EVAL_LAUNCHES, "gru_bwd": 2 * N_LAYERS}
 # seq2seq: the JAX package's bench geometry (bench.py:558-596)
 S2S_B, S2S_T, S2S_C, S2S_F, S2S_K, S2S_H, S2S_L, S2S_CLS = (
     1000, 200, 30, 100, 10, 500, 3, 9)
@@ -336,6 +370,14 @@ S2S_TC = S2S_T - S2S_K + 1  # VALID conv: the encoder's 191 steps
 SEQ2SEQ_EVAL_LAUNCHES = {"gru_fwd": S2S_L, "gru_wfwd": 0, "gru_bifwd": 1,
                          "gru_bwd": 0, "gru_wbwd": 0}
 SEQ2SEQ_TRAIN_LAUNCHES = {**SEQ2SEQ_EVAL_LAUNCHES, "gru_bwd": 2 + S2S_L}
+# the LSTM Seq2SeqRNN (plain torch ops) against torch.nn.LSTM (cuDNN) with
+# the same weights, both float32 (TF32 off): logits x max |logits|,
+# gradients per tensor as GRAD_RTOL
+LSTM_LOGITS_RTOL = 1e-4
+# a reference seq2seq checkpoint imported by seq2seq_from_ckpt against the
+# torch modules it was written from, on the card (x max |logits|)
+CKPT_LOGITS_RTOL = 1e-4
+CKPT_B = 64  # trials of the checkpoint check, at the seq2seq widths
 # the conv with the caller's TF32 on, against TF32 off (x max |out|): the
 # module pins float32, so the two agree to float32 roundoff (a TF32 conv
 # errs ~1e-3)
@@ -633,7 +675,9 @@ def main() -> int:
     phase_ctc_driver(torch, dev, gru, jacobi, smi)
     tune_launches = phase_tune_ctc(torch, dev, gru, jacobi, smi)
     phase_streaming(torch, dev, gru, model)
-    del model, batch
+    del model
+    bidir_rows = phase_ctc_bidir(torch, dev, gru, jacobi, batch)
+    del batch
     s2s_model, s2s_batch, s2s_launches = phase_seq2seq_train(torch, dev, gru)
     phase_seq2seq_eval(torch, dev, gru, s2s_model, s2s_batch)
     del s2s_model, s2s_batch
@@ -654,6 +698,7 @@ def main() -> int:
         row.update(tune_launches.get(row["name"], {}))
         row.update(nn_launches.get(row["name"], {}))
         row.update(repro_launches.get(row["name"], {}))
+        row.update(bidir_rows.get(row["name"], {}))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -3191,6 +3236,527 @@ def check_stream_step(torch, gru, model, window):
         errs[f"layer{i}"] = float((gru.gru_fwd_cuda(*args) - hs_p).abs().max())
         x = hs_p
     return errs
+
+
+# ---------------------------------------------------------------------------
+# bidirectional RealtimeRNN, LSTM, seq2seq checkpoints
+# ---------------------------------------------------------------------------
+
+
+def ctc_bidir_flops_per_step(B, T, C, H, NL, n_cls, win, stride):
+    """Model FLOPs of one bidirectional RealtimeRNN train step (forward +
+    ~2x backward), counted as :func:`ctc_flops_per_step` counts the
+    unidirectional one: both directions' windowed layer-0 projection, the
+    upper layers' projections of 2H features, both directions'
+    recurrences and the 2H-wide head."""
+    n_win = (T - win) // stride + 1
+    l0 = 2 * 2 * B * n_win * (win * C) * 3 * H
+    rest = (NL - 1) * 2 * 2 * B * n_win * 2 * H * 3 * H
+    rec = NL * 2 * 2 * B * n_win * H * 3 * H
+    head = 2 * B * n_win * 2 * H * n_cls
+    return 3 * (l0 + rest + rec + head)
+
+
+def _ctc_loss_grads(torch, model, batch):
+    """CTC loss of the model's forward in its current mode, and its
+    gradient per parameter name."""
+    from cross_patient_speech_decoding_tpu_torch.models import (
+        adjusted_input_lengths,
+    )
+    from cross_patient_speech_decoding_tpu_torch.ops.ctc import ctc_loss_mean
+
+    x, labels, il, ll = batch
+    loss = ctc_loss_mean(model(x), adjusted_input_lengths(il, WIN, STRIDE),
+                         labels, ll)
+    names, params = zip(*model.named_parameters())
+    return (float(loss.detach()),
+            dict(zip(names, torch.autograd.grad(loss, params))))
+
+
+def _timed(torch, fn, n: int = 3):
+    """(last result, host-clock seconds of each of n synchronised calls)."""
+    out, times = None, []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, times
+
+
+def phase_ctc_bidir(torch, dev, gru, jacobi, batch):
+    """The bidirectional RealtimeRNN at fig_5 width through
+    ``make_ctc_eval_step`` and ``make_ctc_train_step`` (exact launches,
+    logits and gradients against the plain versions on the card), its
+    layer-0 ``gru_bifwd`` and reversed ``gru_bwd`` (bf16, no dx) against
+    their plain versions, timed beside cuDNN; then the LSTM Seq2SeqRNN
+    against ``torch.nn.LSTM`` and a ``seq2seq_from_ckpt`` round trip of a
+    GRU and an LSTM checkpoint. Returns the kernels line's extra keys by
+    kernel name."""
+    import numpy as np
+
+    from cross_patient_speech_decoding_tpu_torch.models import (
+        RealtimeRNN,
+        adjusted_input_lengths,
+    )
+    from cross_patient_speech_decoding_tpu_torch.ops.ctc import ctc_loss_mean
+    from cross_patient_speech_decoding_tpu_torch.train import (
+        create_train_state,
+        make_ctc_eval_step,
+        make_ctc_train_step,
+        make_optimizer,
+    )
+
+    x, labels, il, ll = batch
+    model = RealtimeRNN(C, H, N_LAYERS, N_CLASSES, dropout=0.3,
+                        win_size=WIN, stride=STRIDE, bidirectional=True,
+                        seed=0, device=dev)
+    fails = {}
+
+    # eval step: launches of the first, median of 3
+    model.eval()
+    step = make_ctc_eval_step(model)
+    step(batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _NoPlainOnCuda(torch, gru, jacobi):
+        gru.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = step(batch)
+        torch.cuda.synchronize()
+        eval_times = [time.perf_counter() - t0]
+        eval_launches = dict(gru.LAUNCHES)
+        eval_times += _timed(torch, lambda: step(batch), 2)[1]
+    eval_peak = torch.cuda.max_memory_allocated() / 1e9
+    with torch.no_grad():
+        logits_k = model(x)
+        with _PlainGRU(gru):
+            logits_p = model(x)
+        loss_p = float(ctc_loss_mean(
+            logits_p, adjusted_input_lengths(il, WIN, STRIDE), labels, ll))
+    logit_err = float((logits_k - logits_p).abs().max())
+    eval_loss, eval_per = float(out["loss"]), float(out["per"])
+    eval_s = statistics.median(eval_times)
+    ev = {"loss": eval_loss, "per": eval_per, "loss_plain": loss_p,
+          "launches": eval_launches,
+          "logits_max_abs_err_vs_plain": logit_err,
+          "logits_shape": list(logits_k.shape), "step_s": eval_s,
+          "step_s_runs": eval_times, "samples_per_s": B / eval_s,
+          "peak_mem_gb": eval_peak}
+    if eval_launches != BIDIR_EVAL_LAUNCHES:
+        fails["eval_launches"] = eval_launches
+    if not logit_err <= LOGITS_ATOL:
+        fails["eval_logits"] = logit_err
+    if not abs(eval_loss - loss_p) <= LOSS_RTOL * abs(loss_p):
+        fails["eval_loss"] = (eval_loss, loss_p)
+    if not (np.isfinite(eval_loss) and np.isfinite(eval_per)
+            and bool(torch.isfinite(logits_k).all())
+            and tuple(logits_k.shape) == (B, N_WIN, N_CLASSES)):
+        fails["eval_output"] = (eval_loss, eval_per, list(logits_k.shape))
+    del logits_k, logits_p
+
+    # train: (a) dropout 0, loss and gradients, kernels vs plain
+    loss_k, grads_k = _ctc_loss_grads(torch, model, batch)
+    with _PlainGRU(gru):
+        loss_p0, grads_p = _ctc_loss_grads(torch, model, batch)
+    grad_errs = _rel_errs(grads_k, grads_p)
+    del grads_k, grads_p
+    # (b) one step at dropout 0.3 with AdamW, launches counted; 3 more
+    model.train()
+    tx = make_optimizer(1e-3, 1e-5, 100)
+    state = create_train_state(model, tx)
+    tstep = make_ctc_train_step(model, tx)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+
+    def one():
+        nonlocal state
+        state, m = tstep(state, batch, gen)
+        losses.append(float(m["loss"]))
+
+    with _NoPlainOnCuda(torch, gru, jacobi):
+        gru.reset_launch_counts()
+        _, first = _timed(torch, one, 1)
+        train_launches = dict(gru.LAUNCHES)
+        _, step_times = _timed(torch, one, 3)
+    step_s = statistics.median(step_times)
+    train_peak = torch.cuda.max_memory_allocated() / 1e9
+    state, profile = profile_step(torch, tstep, state, batch, gen)
+    flops = ctc_bidir_flops_per_step(B, T, C, H, N_LAYERS, N_CLASSES, WIN,
+                                     STRIDE)
+    finite = all(np.isfinite(losses)) and all(
+        bool(torch.isfinite(p).all()) for p in model.parameters())
+    tr = {"dropout": 0.3,
+          "optimizer": "AdamW lr 1e-3 wd 1e-5, linear decay over 100",
+          "loss_dropout0": loss_k, "loss_dropout0_plain": loss_p0,
+          "grad_max_rel_err_vs_plain": grad_errs,
+          "grad_tolerance": GRAD_RTOL, "launches": train_launches,
+          "first_step_s": first[0], "step_s": step_s,
+          "step_s_runs": step_times, "samples_per_s": B / step_s,
+          "model_tflops_per_s": flops / step_s / 1e12,
+          "model_flops_per_step": flops, "losses": losses,
+          "steps": state.step, "finite": finite, "peak_mem_gb": train_peak,
+          "profile": profile}
+    if not abs(loss_k - loss_p0) <= LOSS_RTOL * abs(loss_p0):
+        fails["train_loss"] = (loss_k, loss_p0)
+    bad = {k: v for k, v in grad_errs.items() if not v <= GRAD_RTOL}
+    if bad:
+        fails["train_grads"] = bad
+    if train_launches != BIDIR_TRAIN_LAUNCHES:
+        fails["train_launches"] = train_launches
+    if not finite:
+        fails["train_finite"] = losses
+
+    # the layer-0 kernels alone, on the model's own windows and weights
+    with torch.no_grad():
+        l0 = _bidir_layer0_kernels(torch, gru, dev, model, x)
+    del model, state, tstep
+    fails.update({f"layer0_{k}": v for k, v in l0.pop("fails").items()})
+    lstm = _lstm_vs_cudnn(torch, dev, gru, jacobi)
+    fails.update({f"lstm_{k}": v for k, v in lstm.pop("fails").items()})
+    ckpt = _s2s_ckpt_round_trip(torch, dev)
+    fails.update({f"ckpt_{k}": v for k, v in ckpt.pop("fails").items()})
+    emit({"phase": "ctc_bidir", "B": B, "T": T, "C": C, "hidden": H,
+          "n_layers": N_LAYERS, "n_win": N_WIN, "bidirectional": True,
+          "eval": ev, "train": tr, "layer0_kernels": l0, "lstm": lstm,
+          "ckpt": ckpt, "failed": sorted(fails)})
+    if fails:
+        raise RuntimeError(f"ctc_bidir checks failed: {fails}")
+    bi, bw = l0["gru_bifwd"], l0["gru_bwd"]
+    return {"gru_bifwd": {
+                "launches_ctc_bidir_eval_step": eval_launches["gru_bifwd"],
+                "launches_ctc_bidir_train_step": train_launches["gru_bifwd"],
+                **{f"{k}_ctc_bidir_layer0": bi[k] for k in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "max_abs_err")}},
+            "gru_bwd": {
+                "launches_ctc_bidir_train_step": train_launches["gru_bwd"],
+                **{f"{k}_ctc_bidir_layer0_reversed": bw[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "max_abs_err")}}}
+
+
+def _bidir_layer0_kernels(torch, gru, dev, model, x):
+    """``gru_bifwd`` at the bidirectional model's layer-0 shape (n_win x B
+    windows of WIN x C bf16 features, as the model hands them over: a
+    (T, B, F) view of the batch-major windows) against its plain version
+    and timed beside the plain version and cuDNN's bidirectional GRU (on
+    the same windows in float32); then ``gru_bwd`` reversed over them,
+    bf16 with no dx, against its plain version (relative error per output,
+    two runs bit for bit)."""
+    xw = gru.reformat_time_windows(x.to(torch.bfloat16), WIN,
+                                   STRIDE).transpose(0, 1)
+    f, b = model.rnn.layer(0), model.rnn.layer(0, "bwd")
+    ws = [t.detach() for t in (f.wi, f.bi, f.wh, f.bh,
+                               b.wi, b.bi, b.wh, b.bh)]
+    h0s = [model.h0[d, 0].detach().expand(B, H).contiguous()
+           for d in range(2)]
+    args = (xw, *h0s, *ws)
+    F0 = WIN * C
+    fails = {}
+
+    def kernel():
+        return gru.gru_bifwd_cuda(*args)
+
+    def plain():
+        return gru.gru_layer_bidir_plain(*args)
+
+    lib = _library_bigru(torch, ws)
+    lib_x = xw.float().contiguous()
+    h0l = torch.stack(h0s)
+    got, again, want = kernel(), kernel(), plain()
+    lib_out, _ = lib(lib_x, h0l)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    lib_err = float((lib_out - torch.cat(want, -1)).abs().max())
+    repeat = all(torch.equal(g, a) for g, a in zip(got, again))
+    del got, again, want, lib_out
+    times = (cuda_ms(torch, kernel), cuda_ms(torch, plain),
+             cuda_ms(torch, lambda: lib(lib_x, h0l)))
+    del lib_x
+    N = N_WIN * B
+    flops = {"projection": (2 * 2 * N * F0 * 3 * H, PEAK_2XTF32),
+             "recurrent": (2 * 2 * N * H * 3 * H, PEAK_3XTF32)}
+    bytes_ = xw.numel() * 2 + _nbytes(*h0s, *ws) + 2 * N * H * 4
+    row, _ = _row("gru_bifwd", "gru_fwd.cu", "", None, err, times, flops,
+                  bytes_)
+    bifwd = {k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                 "bound_by", "max_abs_err")}
+    bifwd.update({"library_max_abs_err_vs_plain": lib_err,
+                  "bitwise_repeat": repeat, "tolerance": KERNEL_ATOL,
+                  "shapes": {"x": [N_WIN, B, F0], "dtype": "bf16",
+                             "hs": [2, N_WIN, B, H]},
+                  "library_note": "torch.nn.GRU(bidirectional=True) "
+                                  "forward (cuDNN) on the windows in "
+                                  "float32"})
+    if not err <= KERNEL_ATOL:
+        fails["gru_bifwd"] = err
+    if not repeat:
+        fails["gru_bifwd_repeat"] = False
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    hprev = torch.rand((N_WIN, B, H), generator=gen, device=dev) * 2 - 1
+    dhs = torch.randn((N_WIN, B, H), generator=gen, device=dev) * 1e-3
+    wb = ws[4:]
+
+    def bkernel():
+        return gru.gru_bwd_cuda(xw, hprev, dhs, *wb, True, False)
+
+    def bplain():
+        return gru.gru_backward_plain(xw, hprev, dhs, *wb, True, False)
+
+    got = bkernel()
+    brepeat = _bitwise_repeat(torch, got, bkernel())
+    want = bplain()
+    errs = _bwd_errs(got, want)
+    abs_err = max(float((g - w).abs().max())
+                  for g, w in zip(got, want) if w is not None)
+    del got, want
+    btimes = (cuda_ms(torch, bkernel), cuda_ms(torch, bplain), None)
+    brow, _ = _row("gru_bwd", "gru_bwd.cu", "", None, abs_err, btimes,
+                   _bwd_flops(N, F0, H, x_bf16=True, need_dx=False),
+                   xw.numel() * 2 + _nbytes(hprev, dhs) + 2 * _nbytes(*wb)
+                   + B * H * 4)
+    bwd = {k: brow[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "max_abs_err")}
+    bwd.update({"max_rel_err": errs, "tolerance_rel": GRAD_RTOL,
+                "bitwise_repeat": brepeat,
+                "shapes": {"x": [N_WIN, B, F0], "dtype": "bf16",
+                           "reverse": True, "need_dx": False}})
+    bad = {k: v for k, v in errs.items() if not v <= GRAD_RTOL}
+    if bad:
+        fails["gru_bwd"] = bad
+    if not brepeat:
+        fails["gru_bwd_repeat"] = False
+    return {"gru_bifwd": bifwd, "gru_bwd": bwd, "fails": fails}
+
+
+def _library_lstm(torch, stack, F):
+    """``torch.nn.LSTM`` (cuDNN) holding a ``StackedRNN(cell="lstm")``'s
+    function: weight_ih = wi^T, weight_hh = wh^T, bias_ih = b, bias_hh =
+    0 (the same (i, f, g, o) order)."""
+    n_dir = 2 if stack.bidirectional else 1
+    g = torch.nn.LSTM(F, stack.hidden, num_layers=stack.n_layers,
+                      bidirectional=stack.bidirectional,
+                      batch_first=True).to(stack.layer(0).wi.device)
+    with torch.no_grad():
+        for k in range(stack.n_layers):
+            for d, sfx in (("fwd", ""), ("bwd", "_reverse"))[:n_dir]:
+                cell = stack.layer(k, d)
+                getattr(g, f"weight_ih_l{k}{sfx}").copy_(cell.wi.t())
+                getattr(g, f"weight_hh_l{k}{sfx}").copy_(cell.wh.t())
+                getattr(g, f"bias_ih_l{k}{sfx}").copy_(cell.b)
+                getattr(g, f"bias_hh_l{k}{sfx}").zero_()
+    g.flatten_parameters()
+    return g
+
+
+def _lstm_grads_as_port(stack, prefix: str, grads: dict) -> dict:
+    """The cuDNN LSTM's weight gradients under the port's names:
+    wi = weight_ih^T, wh = weight_hh^T, b = bias_ih (bias_hh's is the
+    same)."""
+    n_dir = 2 if stack.bidirectional else 1
+    out = {}
+    for k in range(stack.n_layers):
+        for d, sfx in (("fwd", ""), ("bwd", "_reverse"))[:n_dir]:
+            name = f"{prefix}.{d}{k}"
+            out[f"{name}.wi"] = grads[f"weight_ih_l{k}{sfx}"].t()
+            out[f"{name}.wh"] = grads[f"weight_hh_l{k}{sfx}"].t()
+            out[f"{name}.b"] = grads[f"bias_ih_l{k}{sfx}"]
+    return out
+
+
+def _teacher_forced(torch, embed, dec, head, hidden, y, n_cls):
+    """The reference decoder loop at teacher forcing 1: start token n_cls,
+    then each step's label; (B, L, n_cls) logits."""
+    token = torch.full((y.shape[0],), n_cls, dtype=torch.long,
+                       device=y.device)
+    outs = []
+    for i in range(y.shape[1]):
+        o, hidden = dec(embed(token)[:, None], hidden)
+        outs.append(head(o[:, 0]))
+        token = y[:, i].long()
+    return torch.stack(outs, dim=1)
+
+
+def _lstm_vs_cudnn(torch, dev, gru, jacobi):
+    """An LSTM Seq2SeqRNN at the seq2seq bench geometry, dropout 0,
+    teacher forcing 1, train mode: logits, loss and every parameter's
+    gradient against the same model with its encoder and decoder replaced
+    by ``torch.nn.LSTM`` (cuDNN) on the same weights; then one
+    ``make_seq2seq_train_step`` step at dropout 0.3 (it launches no GRU
+    kernel) and the median of 3 more."""
+    import torch.nn.functional as F
+
+    from cross_patient_speech_decoding_tpu_torch.models import Seq2SeqRNN
+    from cross_patient_speech_decoding_tpu_torch.train import (
+        create_train_state,
+        make_optimizer,
+        make_seq2seq_train_step,
+    )
+
+    x, y = _s2s_batch(torch, dev)
+    model = Seq2SeqRNN(S2S_C, S2S_F, S2S_H, S2S_CLS, kernel_size=S2S_K,
+                       seq_length=S2S_L, cnn_dropout=0.0, rnn_dropout=0.0,
+                       cell="lstm", seed=0, device=dev).train()
+    enc = _library_lstm(torch, model.encoder.rnn, S2S_F)
+    dec = _library_lstm(torch, model.decoder.rnn, S2S_H)
+    fails = {}
+
+    def loss_of(logits):
+        return F.cross_entropy(logits.reshape(-1, S2S_CLS), y.reshape(-1))
+
+    logits = model(x, y, 1.0)
+    loss = loss_of(logits)
+    names, params = zip(*model.named_parameters())
+    grads = dict(zip(names, torch.autograd.grad(loss, params)))
+    # the reference: the same conv, embedding and head, cuDNN's LSTMs
+    h = model.conv(x)
+    _, (hn, cn) = enc(h)
+    hidden = tuple((s[-2] + s[-1])[None].expand(
+        model.n_dec_layers, -1, -1).contiguous() for s in (hn, cn))
+    ref = _teacher_forced(torch, model.decoder.embed, dec,
+                          model.decoder.head, hidden, y, S2S_CLS)
+    ref_loss = loss_of(ref)
+    # gradients by name: the model's own for the shared modules, cuDNN's
+    # LSTM weights as "<stack>/<torch name>"
+    named = [(n, p) for n, p in model.named_parameters() if ".rnn." not in n]
+    libs = {"encoder.rnn": (enc, model.encoder.rnn),
+            "decoder.rnn": (dec, model.decoder.rnn)}
+    named += [(f"{k}/{n}", p) for k, (m, _) in libs.items()
+              for n, p in m.named_parameters()]
+    lib_grads = dict(zip([n for n, _ in named], torch.autograd.grad(
+        ref_loss, [p for _, p in named])))
+    want = {n: g for n, g in lib_grads.items() if "/" not in n}
+    for k, (_, stack) in libs.items():
+        want.update(_lstm_grads_as_port(stack, k, {
+            n.split("/", 1)[1]: g for n, g in lib_grads.items()
+            if n.startswith(k + "/")}))
+    logit_err = float((logits - ref).detach().abs().max()
+                      / ref.detach().abs().max())
+    loss_k, loss_ref = float(loss.detach()), float(ref_loss.detach())
+    # the conv bias's exact gradient is 0 under the BatchNorm: held against
+    # the conv weight's scale, as _s2s_grad_errs does
+    grad_errs = _s2s_grad_errs(grads, want)
+    del grads, want, lib_grads, logits, ref
+    if not logit_err <= LSTM_LOGITS_RTOL:
+        fails["logits"] = logit_err
+    if not abs(loss_k - loss_ref) <= LOSS_RTOL * abs(loss_ref):
+        fails["loss"] = (loss_k, loss_ref)
+    bad = {k: v for k, v in grad_errs.items() if not v <= GRAD_RTOL}
+    if bad:
+        fails["grads"] = bad
+
+    model.conv.dropout = 0.3
+    tx = make_optimizer(1e-3, 1e-5, 100)
+    state = create_train_state(model, tx)
+    step = make_seq2seq_train_step(model, tx, teacher_forcing=0.5)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    losses = []
+
+    def one():
+        nonlocal state
+        state, m = step(state, (x, y), gen)
+        losses.append(float(m["loss"]))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _NoPlainOnCuda(torch, gru, jacobi):
+        gru.reset_launch_counts()
+        _, first = _timed(torch, one, 1)
+        launches = dict(gru.LAUNCHES)
+        _, step_times = _timed(torch, one, 3)
+    step_s = statistics.median(step_times)
+    if any(launches.values()):
+        fails["launches"] = launches
+    if not all(math.isfinite(v) for v in losses):
+        fails["finite"] = losses
+    return {"B": S2S_B, "T": S2S_T, "C": S2S_C, "filters": S2S_F,
+            "kernel_size": S2S_K, "hidden": S2S_H, "seq_length": S2S_L,
+            "cell": "lstm", "reference": "torch.nn.LSTM (cuDNN), same "
+            "weights, bias_hh 0", "logits_max_rel_err": logit_err,
+            "logits_tolerance": LSTM_LOGITS_RTOL, "loss": loss_k,
+            "loss_reference": loss_ref, "grad_max_rel_err": grad_errs,
+            "grad_tolerance": GRAD_RTOL, "launches": launches,
+            "train_first_step_s": first[0], "train_step_s": step_s,
+            "train_step_s_runs": step_times,
+            "train_samples_per_s": S2S_B / step_s, "losses": losses,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "fails": fails}
+
+
+def _s2s_ckpt_modules(torch, cell: str):
+    """The reference ``Seq2SeqRNN``'s torch modules (nn_models/models.py:
+    235-251) at the seq2seq widths, random from a seed, the BatchNorm's
+    affine parameters and running statistics off their init."""
+    torch.manual_seed(11 if cell == "gru" else 12)
+    Rnn = torch.nn.GRU if cell == "gru" else torch.nn.LSTM
+    mods = {"temporal_conv.conv": torch.nn.Conv1d(S2S_C, S2S_F, S2S_K),
+            "temporal_conv.bn": torch.nn.BatchNorm1d(S2S_F),
+            "encoder.rnn": Rnn(S2S_F, S2S_H, batch_first=True,
+                               bidirectional=True),
+            "decoder.embedding": torch.nn.Embedding(S2S_CLS + 1, S2S_H),
+            "decoder.rnn": Rnn(S2S_H, S2S_H, batch_first=True),
+            "decoder.fc_out": torch.nn.Linear(S2S_H, S2S_CLS)}
+    bn = mods["temporal_conv.bn"]
+    with torch.no_grad():
+        bn.running_mean.uniform_(-0.2, 0.2)
+        bn.running_var.uniform_(0.5, 1.5)
+        bn.weight.uniform_(0.5, 1.5)
+        bn.bias.uniform_(-0.2, 0.2)
+    return mods
+
+
+def _s2s_ckpt_round_trip(torch, dev):
+    """For a GRU and an LSTM cell: the reference modules written as a
+    Lightning checkpoint, read back by ``seq2seq_from_ckpt`` onto the
+    card, and the imported model's eval-mode logits at teacher forcing 1
+    against the modules' own forward on the card (CKPT_B trials)."""
+    import tempfile
+
+    from cross_patient_speech_decoding_tpu_torch.models.torch_import import (
+        seq2seq_from_ckpt,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((CKPT_B, S2S_T, S2S_C), generator=gen, device=dev)
+    y = torch.randint(0, S2S_CLS, (CKPT_B, S2S_L), generator=gen,
+                      device=dev)
+    out, fails = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for cell in ("gru", "lstm"):
+            mods = _s2s_ckpt_modules(torch, cell)
+            sd = {f"{p}.{k}": v for p, m in mods.items()
+                  for k, v in m.state_dict().items()}
+            path = Path(tmp) / f"s2s_{cell}.ckpt"
+            torch.save({"state_dict": sd, "hyper_parameters": {
+                "n_filters": S2S_F, "hidden_size": S2S_H,
+                "num_classes": S2S_CLS, "kernel_size": S2S_K,
+                "seq_length": S2S_L, "model_type": cell, "padding": 0}},
+                path)
+            t0 = time.perf_counter()
+            model = seq2seq_from_ckpt(path, device=dev).eval()
+            load_s = time.perf_counter() - t0
+            ref_mods = {k: m.to(dev).eval() for k, m in mods.items()}
+            with torch.no_grad():
+                got = model(x, y, 1.0)
+                h = torch.relu(ref_mods["temporal_conv.bn"](
+                    ref_mods["temporal_conv.conv"](x.transpose(1, 2))))
+                _, hn = ref_mods["encoder.rnn"](h.transpose(1, 2))
+                hidden = tuple((s[-2] + s[-1])[None].contiguous()
+                               for s in (hn if cell == "lstm" else (hn,)))
+                want = _teacher_forced(
+                    torch, ref_mods["decoder.embedding"],
+                    ref_mods["decoder.rnn"], ref_mods["decoder.fc_out"],
+                    hidden if cell == "lstm" else hidden[0], y, S2S_CLS)
+            err = float((got - want).abs().max() / want.abs().max())
+            out[cell] = {"tensors": len(sd), "load_s": load_s,
+                         "device": str(model.device),
+                         "logits_max_rel_err": err}
+            if not (err <= CKPT_LOGITS_RTOL and model.device == dev):
+                fails[cell] = out[cell]
+    out.update({"B": CKPT_B, "tolerance": CKPT_LOGITS_RTOL, "fails": fails})
+    return out
 
 
 # ---------------------------------------------------------------------------

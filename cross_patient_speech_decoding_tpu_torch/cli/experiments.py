@@ -682,6 +682,13 @@ def run_train_ctc(cfg: TrainCTCConfig, verbose: bool = True, device=None):
             import realtime_rnn_from_ckpt
 
         ck_model = realtime_rnn_from_ckpt(cfg.init_ckpt, device=dev)
+        if ck_model.bidirectional:
+            # the JAX driver builds a unidirectional model and fails at
+            # its first apply on the (2 n_layers, 1, H) h0; say why here
+            raise ValueError(
+                "init_ckpt holds a bidirectional RealtimeRNN; train-ctc "
+                "trains the unidirectional (streaming) model"
+            )
         if ck_model.n_classes != 11:
             raise ValueError(
                 f"checkpoint has {ck_model.n_classes} classes; the CTC "
@@ -2177,6 +2184,11 @@ def run_realtime_sim(cfg: RealtimeSimConfig, verbose: bool = True,
             import realtime_rnn_from_ckpt
 
         model = realtime_rnn_from_ckpt(cfg.ckpt, device=dev)
+        if model.bidirectional:
+            raise ValueError(
+                "streaming needs a unidirectional model (a bidirectional "
+                "GRU cannot run causally)"
+            )
         cfg.n_channels = model.in_channels
         cfg.hidden, cfg.n_layers = model.hidden, model.n_layers
         cfg.n_classes = model.n_classes

@@ -1,5 +1,5 @@
 """Model families of the port: the realtime CTC RNN, the seq2seq RNN, the
-GRU, TCN and transformer classifiers and their layers."""
+GRU, TCN and transformer classifiers and their layers (GRU and LSTM)."""
 
 from cross_patient_speech_decoding_tpu_torch.models.convert import (
     nn_classifier_params_from_flax,
@@ -10,6 +10,7 @@ from cross_patient_speech_decoding_tpu_torch.models.layers import (
     BatchNorm,
     Dense,
     FusedGRU,
+    FusedLSTM,
     PositionalEncoding,
     StackedRNN,
     TemporalConv,
@@ -41,6 +42,7 @@ __all__ = [
     "Dense",
     "EncoderRNN",
     "FusedGRU",
+    "FusedLSTM",
     "PositionalEncoding",
     "RealtimeRNN",
     "Seq2SeqRNN",

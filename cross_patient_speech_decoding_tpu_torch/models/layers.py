@@ -2,18 +2,18 @@
 positional encoding, learning-rate schedules.
 
 Port of ``cross_patient_speech_decoding_tpu/models/layers.py``
-(``reformat_time_windows``, ``FusedGRU``, ``StackedRNN``,
+(``reformat_time_windows``, ``FusedGRU``, ``FusedLSTM``, ``StackedRNN``,
 ``TemporalConv``, ``PositionalEncoding``, ``linear_decay_schedule``,
 ``cosine_warmup_schedule``). Parameters keep the flax names and the (in, out)
 layout: ``wi`` (F, 3H), ``wh`` (H, 3H), ``bi`` and ``bh`` (3H,), gate order
-(r, z, n); a dense layer's ``kernel`` (in, out). Initialisation follows
-flax, not torch's defaults: xavier-uniform ``wi``, orthogonal ``wh``, zero
-biases, lecun-normal dense and conv kernels.
+(r, z, n); ``FusedLSTM``'s ``wi`` (F, 4H), ``wh`` (H, 4H) and one bias ``b``
+(4H,), gate order (i, f, g, o); a dense layer's ``kernel`` (in, out).
+Initialisation follows flax, not torch's defaults: xavier-uniform ``wi``,
+orthogonal ``wh``, zero biases, lecun-normal dense and conv kernels.
 """
 
 from __future__ import annotations
 
-import contextlib
 import math
 
 import torch
@@ -26,8 +26,10 @@ from cross_patient_speech_decoding_tpu_torch.ops.gru import (
     gru_layer_windowed,
     reformat_time_windows,
 )
+from cross_patient_speech_decoding_tpu_torch.ops.precision import conv_f32
 
-__all__ = ["BatchNorm", "Conv1dF32", "Dense", "FusedGRU", "PositionalEncoding",
+__all__ = ["BatchNorm", "Conv1dF32", "Dense", "FusedGRU", "FusedLSTM",
+           "PositionalEncoding",
            "StackedRNN", "TemporalConv", "conv_f32", "cosine_warmup_schedule",
            "linear_decay_schedule", "reformat_time_windows"]
 
@@ -101,14 +103,67 @@ class FusedGRU(nn.Module):
         return hs.transpose(0, 1), h_last
 
 
+class FusedLSTM(nn.Module):
+    """One LSTM layer (the JAX ``FusedLSTM``, models/layers.py:167-199).
+    (B, T, F) -> (outputs (B, T, H), (h_last, c_last) each (B, H)).
+
+    The input projection of every step is one matmul, then a loop over
+    time runs the recurrent product and the gates, in the order input,
+    forget, cell, output (torch's ``nn.LSTM`` order):
+
+        i, f, g, o = x W_i + b + h W_h  (split in four)
+        c' = sigmoid(f) * c + sigmoid(i) * tanh(g)
+        h' = sigmoid(o) * tanh(c')
+
+    Parameters keep the flax names: ``wi`` (F, 4H) xavier-uniform, ``wh``
+    (H, 4H) orthogonal and one bias ``b`` (4H,) at zero (torch's two
+    biases summed). The JAX package has no Pallas kernel for it, so this is
+    plain torch ops on every device.
+    """
+
+    def __init__(self, in_features: int, hidden: int, reverse: bool = False,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.hidden = hidden
+        self.reverse = reverse
+        H = hidden
+        self.wi = nn.Parameter(torch.empty(in_features, 4 * H))
+        self.wh = nn.Parameter(torch.empty(H, 4 * H))
+        self.b = nn.Parameter(torch.zeros(4 * H))
+        nn.init.xavier_uniform_(self.wi, generator=generator)
+        nn.init.orthogonal_(self.wh, generator=generator)
+
+    def forward(self, x, carry0=None):
+        B, T, F = x.shape
+        H = self.hidden
+        xi = (x.reshape(B * T, F) @ self.wi + self.b).reshape(B, T, 4 * H)
+        if carry0 is None:
+            z = torch.zeros((B, H), dtype=x.dtype, device=x.device)
+            carry0 = (z, z)
+        h, c = carry0
+        hs = [None] * T
+        for t in (reversed(range(T)) if self.reverse else range(T)):
+            g = xi[:, t] + h @ self.wh
+            i = torch.sigmoid(g[:, :H])
+            f = torch.sigmoid(g[:, H:2 * H])
+            gg = torch.tanh(g[:, 2 * H:3 * H])
+            o = torch.sigmoid(g[:, 3 * H:])
+            c = f * c + i * gg
+            h = o * torch.tanh(c)
+            hs[t] = h
+        if T == 0:
+            return xi.new_zeros((B, 0, H)), (h, c)
+        return torch.stack(hs, dim=1), (h, c)
+
+
 class StackedRNN(nn.Module):
-    """Multi-layer, optionally bidirectional GRU stack
-    (``nn.GRU(num_layers, bidirectional)``).
+    """Multi-layer, optionally bidirectional GRU or LSTM stack
+    (``nn.GRU`` / ``nn.LSTM(num_layers, bidirectional)``).
 
     Layer modules are ``fwd0``, ``fwd1``, ... and, when bidirectional,
     ``bwd0``, ``bwd1``, ... as in the flax tree; a bidirectional layer
     above the first reads the 2H features of the one below. Each
-    bidirectional layer runs both directions through the fused op
+    bidirectional GRU layer runs both directions through the fused op
     ``gru_layer_bidir`` (one kernel launch a step on the card). Returns
     (out (B, T, H * n_dir), last states (n_layers * n_dir, B, H)), the last
     states per layer forward then reverse (the reverse direction's is its
@@ -118,10 +173,23 @@ class StackedRNN(nn.Module):
     from ``generator``, the counterpart of the JAX step's dropout key
     (torch's default generator when None).
 
+    ``cell="lstm"`` stacks :class:`FusedLSTM` layers: ``h0`` may then be an
+    (h, c) pair of (n_layers * n_dir, B, H) stacks, a bare ``h0`` meaning h
+    with a zero c, and the last states come back as such a pair, so an
+    autoregressive caller carries the cell state too.
+
     ``input_grad=False`` marks the stack's input as data (``SimpleGRU``):
-    layer 0 reads it cast to bf16 on every device, as the JAX package's
-    kernel path streams such an input (models/layers.py:136-142), and,
-    since data needs no gradient, its backward forms no dx.
+    a GRU's layer 0 reads it cast to bf16 on every device, as the JAX
+    package's kernel path streams such an input (models/layers.py:136-142),
+    and, since data needs no gradient, its backward forms no dx.
+
+    ``window=(win, stride)`` reads raw frames (B, T, C) as overlapping
+    windows of width win*C. A unidirectional GRU stack leaves that to the
+    windowed op; a bidirectional or LSTM stack materialises the windows
+    once for both directions (the JAX package's models/layers.py:234-240).
+    Windows are data: a GRU stack reads them in bf16 with no gradient, as
+    the windowed op does, so on the card a bidirectional layer 0 is
+    ``gru_bifwd`` forward and ``gru_bwd`` without dx in each direction.
     """
 
     def __init__(self, in_features: int, hidden: int, n_layers: int = 1,
@@ -129,53 +197,60 @@ class StackedRNN(nn.Module):
                  cell: str = "gru", input_grad: bool = True,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if cell != "gru":
-            raise NotImplementedError(
-                "LSTM StackedRNN: waits for FusedLSTM (ROADMAP queue 1, "
-                "item 7: offline NN family)"
-            )
+        if cell not in ("gru", "lstm"):
+            raise ValueError(f"cell must be 'gru' or 'lstm', got {cell!r}")
         self.hidden = hidden
         self.n_layers = n_layers
         self.dropout = dropout
         self.bidirectional = bidirectional
+        self.cell = cell
         self.input_grad = input_grad
+        Cell = FusedGRU if cell == "gru" else FusedLSTM
         n_dir = 2 if bidirectional else 1
         for layer in range(n_layers):
             F = in_features if layer == 0 else hidden * n_dir
-            self.add_module(f"fwd{layer}", FusedGRU(F, hidden,
-                                                    generator=generator))
+            self.add_module(f"fwd{layer}", Cell(F, hidden,
+                                                generator=generator))
             if bidirectional:
-                self.add_module(f"bwd{layer}", FusedGRU(
+                self.add_module(f"bwd{layer}", Cell(
                     F, hidden, reverse=True, generator=generator))
 
-    def layer(self, i: int, direction: str = "fwd") -> FusedGRU:
+    def layer(self, i: int, direction: str = "fwd") -> nn.Module:
         return getattr(self, f"{direction}{i}")
 
     def forward(self, x, h0=None, window: tuple | None = None,
                 generator: torch.Generator | None = None):
-        if window is not None and self.bidirectional:
-            raise NotImplementedError(
-                "windowed bidirectional StackedRNN: comes with the "
-                "bidirectional RealtimeRNN (ROADMAP queue 1, item 7)")
+        gru = self.cell == "gru"
         out = x
-        if not self.input_grad and window is None:
+        if window is not None and (self.bidirectional or not gru):
+            if gru:
+                out = x.detach().to(torch.bfloat16)
+            out = reformat_time_windows(out, *window)
+            window = None
+        elif gru and not self.input_grad and window is None:
             out = x.detach().to(torch.bfloat16)
         lasts = []
         n_dir = 2 if self.bidirectional else 1
         for i in range(self.n_layers):
-            h0_i = [None if h0 is None else h0[i * n_dir + d]
-                    for d in range(n_dir)]
-            if self.bidirectional:
+            h0_i = [_initial(h0, i * n_dir + d, gru) for d in range(n_dir)]
+            if self.bidirectional and gru:
                 out, *last = self._bidir_layer(i, out, *h0_i)
                 lasts += last
+            elif self.bidirectional:
+                f, last_f = self.layer(i)(out, h0_i[0])
+                b, last_b = self.layer(i, "bwd")(out, h0_i[1])
+                out = torch.cat([f, b], dim=-1)
+                lasts += [last_f, last_b]
             else:
-                out, last = self.layer(i)(
-                    out, *h0_i, window=window if i == 0 else None
-                )
+                kw = {"window": window} if gru and i == 0 else {}
+                out, last = self.layer(i)(out, *h0_i, **kw)
                 lasts.append(last)
             if self.training and self.dropout > 0 and i < self.n_layers - 1:
                 out = _dropout(out, self.dropout, generator)
-        return out, torch.stack(lasts)
+        if gru:
+            return out, torch.stack(lasts)
+        return out, (torch.stack([h for h, _ in lasts]),
+                     torch.stack([c for _, c in lasts]))
 
     def _bidir_layer(self, i: int, x, h0_f, h0_b):
         """(out (B, T, 2H), forward last state, reverse last state)."""
@@ -190,29 +265,24 @@ class StackedRNN(nn.Module):
         return torch.cat([fwd, bwd], dim=-1), hs_f[-1], hs_b[0]
 
 
+def _initial(h0, k: int, gru: bool):
+    """Row k of a stack's initial state: h0[k] for a GRU; for an LSTM the
+    (h, c) pair of row k, with c zero where h0 is a bare h (or None)."""
+    if h0 is None:
+        return None
+    if gru:
+        return h0[k]
+    if isinstance(h0, tuple):
+        return h0[0][k], h0[1][k]
+    return h0[k], torch.zeros_like(h0[k])
+
+
 def _dropout(x, rate: float, generator: torch.Generator | None):
     """flax ``nn.Dropout``: where(mask, x / keep, 0), mask ~
     Bernoulli(keep)."""
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), device=x.device))
-
-
-@contextlib.contextmanager
-def conv_f32():
-    """cuDNN convolutions in full float32 inside the block, whatever the
-    caller set: PyTorch lets cuDNN run float32 convolutions in TF32 by
-    default (about three decimal digits), where the JAX package's conv is
-    float32. Only the convolution's own setting
-    (``torch.backends.cudnn.conv.fp32_precision``) is touched, and it is
-    restored on exit; setting it never makes the legacy getters raise."""
-    conv = torch.backends.cudnn.conv
-    before = conv.fp32_precision
-    conv.fp32_precision = "ieee"
-    try:
-        yield
-    finally:
-        conv.fp32_precision = before
 
 
 class Conv1dF32(torch.autograd.Function):

@@ -4,8 +4,15 @@ Port of ``cross_patient_speech_decoding_tpu/models/realtime_rnn.py``:
 sliding windows (win 14, stride 4) over the raw frames, a stacked GRU with
 a trainable initial state, and a per-window dense CTC head whose bias
 starts at -2 everywhere and +2 on blank. Parameter names and layouts are
-the flax tree's: ``h0`` (n_layers, 1, H), ``rnn.fwd{l}.{wi,wh,bi,bh}``,
-``head.kernel`` (H, V) and ``head.bias`` (V,).
+the flax tree's: ``h0`` (n_layers * n_dir, 1, H),
+``rnn.fwd{l}.{wi,wh,bi,bh}`` (and ``rnn.bwd{l}`` when bidirectional),
+``head.kernel`` (n_dir * H, V) and ``head.bias`` (V,).
+
+The bidirectional model (the reference's ``bidirectional`` hparam) is an
+offline model: its stack materialises the windows once and runs each layer
+through the fused bidirectional op, so on the card a train step launches
+``gru_bifwd`` and twice ``gru_bwd`` a layer and no windowed kernel. It
+cannot stream.
 """
 
 from __future__ import annotations
@@ -46,28 +53,27 @@ class RealtimeRNN(nn.Module):
                  blank: int = 0, seed: int = 0, device=None):
         super().__init__()
         dev = resolve_device(device)
-        if bidirectional:
-            raise NotImplementedError(
-                "bidirectional RealtimeRNN: its (n_layers*2) initial state "
-                "and 2H-wide head are not ported yet (ROADMAP queue 1, "
-                "item 7)")
         self.in_channels = in_channels
         self.hidden = hidden
         self.n_layers = n_layers
         self.n_classes = n_classes
         self.win_size = win_size
         self.stride = stride
+        self.bidirectional = bidirectional
         self.blank = blank
         gen = torch.Generator().manual_seed(seed)
 
-        # flax xavier_uniform on (n_layers, 1, H): receptive field
-        # n_layers, fan_in n_layers, fan_out n_layers*H
-        self.h0 = nn.Parameter(torch.empty(n_layers, 1, hidden))
-        lim = math.sqrt(6.0 / (n_layers * (1 + hidden)))
+        # flax xavier_uniform on (n_layers * n_dir, 1, H): receptive field
+        # n_layers * n_dir, fan_in that, fan_out that times H
+        n_dir = 2 if bidirectional else 1
+        rows = n_layers * n_dir
+        self.h0 = nn.Parameter(torch.empty(rows, 1, hidden))
+        lim = math.sqrt(6.0 / (rows * (1 + hidden)))
         nn.init.uniform_(self.h0, -lim, lim, generator=gen)
         self.rnn = StackedRNN(win_size * in_channels, hidden, n_layers,
-                              dropout=dropout, generator=gen)
-        self.head = Dense(hidden, n_classes, generator=gen)
+                              dropout=dropout, bidirectional=bidirectional,
+                              generator=gen)
+        self.head = Dense(n_dir * hidden, n_classes, generator=gen)
         with torch.no_grad():
             self.head.bias.fill_(-2.0)  # suppress phonemes early
             self.head.bias[blank] = 2.0  # encourage blank early
@@ -86,17 +92,21 @@ class RealtimeRNN(nn.Module):
         return self.head(out)
 
     def initial_hidden(self, batch: int = 1):
-        """Trainable initial state broadcast to (n_layers, batch, H); its
-        gradient sums over the batch, as JAX's broadcast does."""
-        return self.h0.expand(self.n_layers, batch, self.hidden)
+        """Trainable initial state broadcast to (n_layers * n_dir, batch,
+        H); its gradient sums over the batch, as JAX's broadcast does."""
+        return self.h0.expand(self.h0.shape[0], batch, self.hidden)
 
     def single_step(self, window, h):
         """One streaming step. window (B, win*C), h (n_layers, B, H) ->
-        (logits (B, n_classes), new_h (n_layers, B, H)).
+        (logits (B, n_classes), new_h (n_layers, B, H)). Unidirectional
+        models only: a bidirectional one raises ``ValueError``.
 
         The window goes to the GRU in float32, as in the JAX package; the
         offline forward rounds its layer-0 frames to bf16, so the two agree
         to bf16 input tolerance.
         """
+        if self.bidirectional:
+            raise ValueError("single_step needs a unidirectional model (a "
+                             "bidirectional GRU cannot run causally)")
         out, new_h = self.rnn(window[:, None, :], h)
         return self.head(out[:, 0, :]), new_h

@@ -1,15 +1,15 @@
 """Seq2seq phoneme-sequence model and the GRU classifiers (offline NN
-family), GRU cell.
+family).
 
 Port of ``cross_patient_speech_decoding_tpu/models/seq2seq.py``
 (``EncoderRNN``, ``DecoderRNN``, ``Seq2SeqRNN``, ``SimpleGRU``,
 ``TemporalConvRNN``): for the seq2seq model a temporal conv, a
-bidirectional GRU encoder whose last layer's forward and reverse last
-states are summed, and an autoregressive GRU decoder that starts from the
-token ``num_classes`` and feeds back its argmax (the first index on ties)
-or, with teacher forcing, the label. The two classifiers read the last
-time step of a unidirectional GRU stack, on the data (``SimpleGRU``) or
-after a temporal conv (``TemporalConvRNN``).
+bidirectional GRU or LSTM encoder whose last layer's forward and reverse
+last states are summed, and an autoregressive decoder of the same cell that
+starts from the token ``num_classes`` and feeds back its argmax (the first
+index on ties) or, with teacher forcing, the label. The two classifiers
+read the last time step of a unidirectional GRU stack, on the data
+(``SimpleGRU``) or after a temporal conv (``TemporalConvRNN``).
 
 Random draws in training mode come from the ``generator`` given to
 ``forward`` (the JAX step's 'dropout' and 'tf' keys), in this order: the
@@ -53,8 +53,11 @@ class Embed(nn.Module):
 
 
 class EncoderRNN(nn.Module):
-    """Bidirectional GRU stack; returns (out (B, T, 2H), the last layer's
-    forward + reverse last states (B, H))."""
+    """Bidirectional GRU or LSTM stack; returns (out (B, T, 2H), the last
+    layer's forward + reverse last states (B, H)). For an LSTM both h and
+    c are summed and returned as an (h, c) pair, as in the JAX package
+    (models/seq2seq.py:52-55, where this fixes the reference's own LSTM
+    path, which crashes on its tuple state)."""
 
     def __init__(self, in_features: int, hidden: int, n_layers: int = 1,
                  dropout: float = 0.3, cell: str = "gru",
@@ -66,11 +69,15 @@ class EncoderRNN(nn.Module):
 
     def forward(self, x, generator: torch.Generator | None = None):
         out, lasts = self.rnn(x, generator=generator)
+        if isinstance(lasts, tuple):
+            h, c = lasts
+            return out, (h[-2] + h[-1], c[-2] + c[-1])
         return out, lasts[-2] + lasts[-1]
 
 
 class DecoderRNN(nn.Module):
-    """Embedding + GRU stack + dense head, one token step at a time."""
+    """Embedding + GRU or LSTM stack + dense head, one token step at a
+    time."""
 
     def __init__(self, hidden: int, num_classes: int, n_layers: int = 1,
                  dropout: float = 0.3, cell: str = "gru",
@@ -83,8 +90,9 @@ class DecoderRNN(nn.Module):
         self.head = Dense(hidden, num_classes, generator)
 
     def forward(self, token, hidden, generator: torch.Generator | None = None):
-        """token (B,) int; hidden (n_layers, B, H) -> (logits (B,
-        num_classes), new hidden (n_layers, B, H))."""
+        """token (B,) int; hidden (n_layers, B, H), an (h, c) pair of them
+        for an LSTM -> (logits (B, num_classes), new hidden of the same
+        form)."""
         e = self.embed(token)[:, None, :]  # (B, 1, H)
         out, new_hidden = self.rnn(e, hidden, generator=generator)
         return self.head(out[:, 0, :]), new_hidden
@@ -136,7 +144,12 @@ class Seq2SeqRNN(nn.Module):
         B = x.shape[0]
         x = self.conv(x, generator)
         _, enc_hidden = self.encoder(x, generator)
-        hidden = enc_hidden[None].expand(self.n_dec_layers, B, self.hidden)
+        shape = (self.n_dec_layers, B, self.hidden)
+        if isinstance(enc_hidden, tuple):
+            # an LSTM tiles both halves of its carry (models/seq2seq.py:130)
+            hidden = tuple(s[None].expand(shape) for s in enc_hidden)
+        else:
+            hidden = enc_hidden[None].expand(shape)
         token = torch.full((B,), self.num_classes, dtype=torch.long,
                            device=x.device)
         use_tf = y is not None and teacher_forcing_ratio > 0

@@ -1,24 +1,31 @@
 """The reference's Lightning checkpoints as the port's models.
 
-Port of the GRU half of ``cross_patient_speech_decoding_tpu/models/
-torch_import.py``. The reference trains its streaming model as a
-Lightning module (``RealtimeRNNModel``, realtime_nn_model.py:122-147):
-a ``torch.nn.GRU`` under ``rnn.rnn.*``, a trainable initial state ``h0``
-and a linear head ``classifier.fc.*``. This module reads such a
-checkpoint into the port's :class:`RealtimeRNN`, so a model trained by
-the reference streams or fine-tunes here, and writes the port's weights
-back in the reference's layout.
+Port of ``cross_patient_speech_decoding_tpu/models/torch_import.py``. The
+reference trains its streaming model as a Lightning module
+(``RealtimeRNNModel``, realtime_nn_model.py:122-147): a ``torch.nn.GRU``
+under ``rnn.rnn.*``, a trainable initial state ``h0`` and a linear head
+``classifier.fc.*``; and its seq2seq model as another
+(``Seq2SeqRNN``, models.py:235-251): ``temporal_conv.{conv,bn}``, a
+bidirectional ``encoder.rnn`` and ``decoder.{embedding,rnn,fc_out}``, the
+RNNs GRUs or LSTMs. This module reads such checkpoints into the port's
+:class:`RealtimeRNN` and :class:`Seq2SeqRNN`, so a model trained by the
+reference streams, decodes or fine-tunes here, and writes the port's
+streaming weights back in the reference's layout.
 
 Layouts: ``weight_ih_l{k}`` is (3H, F) with the gate rows in reset,
 update, new order, the order of the port's (F, 3H) ``wi`` columns, so the
 map is a transpose; the two biases stay separate (the new gate needs
-``r * (h Wh_n + b_hn)``); ``nn.Linear`` (out, in) becomes the head's
-(in, out) kernel.
+``r * (h Wh_n + b_hn)``). An ``nn.LSTM``'s (4H, F) rows are in input,
+forget, cell, output order, ``FusedLSTM``'s, and its two biases fold into
+the one ``b = b_ih + b_hh``. ``nn.Linear`` (out, in) becomes a dense
+(in, out) kernel; ``nn.Conv1d``'s (out, in, k) weight is the port's
+layout as it is; ``nn.BatchNorm1d``'s weight, bias and running statistics
+become ``BatchNorm``'s scale, bias, mean and var.
 
 Checkpoints are read with ``torch.load(weights_only=False)``, because
 Lightning pickles the hyperparameter dict: load only checkpoints you
-trust. Not ported yet: the bidirectional model and the LSTM and seq2seq
-imports (ROADMAP queue 1, item 7c).
+trust. Where the JAX functions return (model, variables), these return
+the port's model with the weights loaded.
 """
 
 from __future__ import annotations
@@ -95,20 +102,21 @@ def _realtime_keys(n_layers: int, bidirectional: bool = False):
     yield from _HEAD_KEYS
 
 
-def lstm_params_from_torch(sd, prefix: str, layer: int,
-                           reverse: bool = False) -> dict:
-    """Not ported yet: the port has no LSTM layer (ROADMAP queue 1, item
-    7c)."""
-    raise NotImplementedError(
-        "lstm_params_from_torch: LSTM checkpoints are not ported yet "
-        "(ROADMAP queue 1, item 7c)")
+def lstm_params_from_torch(sd: Mapping[str, np.ndarray], prefix: str,
+                           layer: int, reverse: bool = False) -> dict:
+    """One torch LSTM layer -> the port's ``FusedLSTM`` weights {wi, wh,
+    b} (numpy, (in, 4H) and (H, 4H) kernels, the two biases summed)."""
+    sfx = f"_l{layer}" + ("_reverse" if reverse else "")
+    return {"wi": _move(sd[f"{prefix}.weight_ih{sfx}"], True),
+            "wh": _move(sd[f"{prefix}.weight_hh{sfx}"], True),
+            "b": sd[f"{prefix}.bias_ih{sfx}"] + sd[f"{prefix}.bias_hh{sfx}"]}
 
 
 def stacked_rnn_params_from_torch(sd: Mapping[str, np.ndarray], prefix: str,
                                   n_layers: int, bidirectional: bool = False,
                                   cell: str = "gru") -> dict:
-    """Torch ``nn.GRU`` stack -> the ``StackedRNN`` weights
-    ({fwd0, bwd0, fwd1, ...}, each {wi, wh, bi, bh})."""
+    """Torch ``nn.GRU`` / ``nn.LSTM`` stack -> the ``StackedRNN`` weights
+    ({fwd0, bwd0, fwd1, ...}, each {wi, wh, bi, bh} or {wi, wh, b})."""
     per_layer = (gru_params_from_torch if cell == "gru"
                  else lstm_params_from_torch)
     out = {}
@@ -141,8 +149,7 @@ def realtime_rnn_from_ckpt(path, device=None):
 
     The architecture comes from the checkpoint's ``save_hyperparameters``
     dict, falling back to the state dict's shapes; the channel count is
-    layer 0's input width over the window size. A bidirectional
-    checkpoint raises (ROADMAP queue 1, item 7c), an LSTM one raises
+    layer 0's input width over the window size. An LSTM checkpoint raises
     ``ValueError`` (the reference's model is GRU-based).
     """
     from cross_patient_speech_decoding_tpu_torch.models.realtime_rnn import (
@@ -153,10 +160,7 @@ def realtime_rnn_from_ckpt(path, device=None):
     n_layers, bidir, cell, hidden = _infer_gru_stack(sd, "rnn.rnn")
     if cell != "gru":
         raise ValueError("reference RealtimeRNNModel is GRU-based")
-    if bool(hp.get("bidirectional", bidir)):
-        raise NotImplementedError(
-            "bidirectional RealtimeRNN checkpoints: the bidirectional model "
-            "is not ported yet (ROADMAP queue 1, item 7c)")
+    bidir = bool(hp.get("bidirectional", bidir))
     win = int(hp.get("win_size", 14))
     in_size = sd["rnn.rnn.weight_ih_l0"].shape[1]
     if in_size % win:
@@ -171,20 +175,89 @@ def realtime_rnn_from_ckpt(path, device=None):
         dropout=float(hp.get("dropout", 0.3)),
         win_size=win,
         stride=int(hp.get("stride", 4)),
+        bidirectional=bidir,
         blank=int(hp.get("blank", 0)),
         device=device,
     )
     model.load_state_dict({
         ours: torch.from_numpy(_move(sd[theirs], t, np.float32))
-        for ours, theirs, t in _realtime_keys(n_layers)})
+        for ours, theirs, t in _realtime_keys(n_layers, bidir)})
     return model
 
 
+def _stack_state(name: str, sd, prefix: str, n_layers: int,
+                 bidirectional: bool, cell: str) -> dict:
+    """A torch RNN stack as the port's ``{name}.fwd0.wi``, ... entries."""
+    layers = stacked_rnn_params_from_torch(sd, prefix, n_layers,
+                                           bidirectional, cell)
+    return {f"{name}.{layer}.{k}": v for layer, p in layers.items()
+            for k, v in p.items()}
+
+
 def seq2seq_from_ckpt(path, device=None):
-    """Not ported yet (ROADMAP queue 1, item 7c: it needs 7c's LSTM)."""
-    raise NotImplementedError(
-        "seq2seq_from_ckpt: Seq2SeqRNN checkpoints are not ported yet "
-        "(ROADMAP queue 1, item 7c)")
+    """The reference's ``Seq2SeqRNN`` checkpoint -> the port's
+    :class:`Seq2SeqRNN` on ``device`` (default: the first CUDA card;
+    raises without one) with the checkpoint's weights and the BatchNorm's
+    running statistics loaded, so its eval-mode outputs are the torch
+    model's.
+
+    The architecture comes from the hyperparameters, falling back to the
+    state dict's shapes; the cell (GRU or LSTM) from the encoder's gate
+    rows. A unidirectional encoder or a conv padding other than 0 raises
+    ``ValueError``, as in the JAX package.
+    """
+    from cross_patient_speech_decoding_tpu_torch.models.seq2seq import (
+        Seq2SeqRNN,
+    )
+
+    sd, hp = load_lightning_ckpt(path)
+    n_enc, enc_bidir, cell, hidden = _infer_gru_stack(sd, "encoder.rnn")
+    if not enc_bidir:
+        raise ValueError("reference Seq2SeqRNN encoder is bidirectional")
+    n_dec, _, _, _ = _infer_gru_stack(sd, "decoder.rnn")
+    conv_w = sd["temporal_conv.conv.weight"]  # (out, in, k)
+    n_filters, in_ch, kernel_size = conv_w.shape
+    num_classes = sd["decoder.fc_out.bias"].shape[0]
+    if int(hp.get("padding", 0)) != 0:
+        raise ValueError(
+            "nonzero conv padding is not used by the reference drivers and "
+            "is not supported by the importer"
+        )
+    cell = str(hp.get("model_type", cell))
+    n_enc = int(hp.get("n_enc_layers", n_enc))
+    n_dec = int(hp.get("n_dec_layers", n_dec))
+    model = Seq2SeqRNN(
+        in_ch,
+        n_filters=int(hp.get("n_filters", n_filters)),
+        hidden=int(hp.get("hidden_size", hidden)),
+        num_classes=int(hp.get("num_classes", num_classes)),
+        n_enc_layers=n_enc,
+        n_dec_layers=n_dec,
+        kernel_size=int(hp.get("kernel_size", kernel_size)),
+        stride=int(hp.get("stride", 1)),
+        cnn_dropout=float(hp.get("cnn_dropout", 0.3)),
+        rnn_dropout=float(hp.get("rnn_dropout", 0.3)),
+        cell=cell,
+        seq_length=int(hp.get("seq_length", 3)),
+        activation=bool(hp.get("activation", True)),
+        device=device,
+    )
+    state = {
+        "conv.weight": conv_w,
+        "conv.bias": sd["temporal_conv.conv.bias"],
+        "conv.norm.scale": sd["temporal_conv.bn.weight"],
+        "conv.norm.bias": sd["temporal_conv.bn.bias"],
+        "conv.norm.mean": sd["temporal_conv.bn.running_mean"],
+        "conv.norm.var": sd["temporal_conv.bn.running_var"],
+        **_stack_state("encoder.rnn", sd, "encoder.rnn", n_enc, True, cell),
+        "decoder.embed.embedding": sd["decoder.embedding.weight"],
+        **_stack_state("decoder.rnn", sd, "decoder.rnn", n_dec, False, cell),
+        "decoder.head.kernel": _move(sd["decoder.fc_out.weight"], True),
+        "decoder.head.bias": sd["decoder.fc_out.bias"],
+    }
+    model.load_state_dict({k: torch.from_numpy(_move(v, False, np.float32))
+                           for k, v in state.items()})
+    return model
 
 
 def realtime_rnn_to_state_dict(model) -> dict:

@@ -70,12 +70,12 @@ def cmat_acc_iter(y_true_iter, y_pred_iter):
     return np.array(out)
 
 
-def pearson_r(x, y, dim: int = -1):
-    """Pearson correlation along ``dim``."""
-    xc = x - x.mean(dim, keepdim=True)
-    yc = y - y.mean(dim, keepdim=True)
-    num = (xc * yc).sum(dim)
-    den = torch.sqrt((xc**2).sum(dim) * (yc**2).sum(dim))
+def pearson_r(x, y, axis: int = -1):
+    """Pearson correlation along ``axis``."""
+    xc = x - x.mean(axis, keepdim=True)
+    yc = y - y.mean(axis, keepdim=True)
+    num = (xc * yc).sum(axis)
+    den = torch.sqrt((xc**2).sum(axis) * (yc**2).sum(axis))
     return num / den.clamp(min=torch.finfo(x.dtype).tiny)
 
 
@@ -118,7 +118,7 @@ def pt_corr(target, to_corr, class_mask=None, p_vals: bool = False):
     C = target.shape[0]
     a = target.reshape(C, -1)
     b = to_corr.reshape(C, -1)
-    r = pearson_r(a, b, dim=-1)
+    r = pearson_r(a, b, axis=-1)
     if class_mask is not None:
         r = r * class_mask.to(r.dtype)
     if not p_vals:
@@ -152,7 +152,7 @@ def pt_corr_dims(L_a, L_b, class_mask=None):
     Returns:
         (K,) per-dim correlation averaged over valid classes.
     """
-    r = pearson_r(L_a.movedim(1, -1), L_b.movedim(1, -1), dim=-1)  # (C, K)
+    r = pearson_r(L_a.movedim(1, -1), L_b.movedim(1, -1), axis=-1)  # (C, K)
     if class_mask is None:
         return r.mean(0)
     w = class_mask.to(r.dtype)[:, None]

@@ -8,6 +8,8 @@ float32 products when ``torch.backends.cuda.matmul.allow_tf32`` is set or
 the float32 matmul precision is below "highest". :func:`true_f32` switches
 both off for a block and gives the caller's settings back after it, so the
 alignment core computes in float32 whatever the caller chose.
+:func:`conv_f32` does the same for cuDNN's convolutions (the temporal conv,
+the FIR filter).
 """
 
 from __future__ import annotations
@@ -47,6 +49,23 @@ def true_f32():
         if legacy is not None:
             torch.set_float32_matmul_precision(legacy)
         torch.backends.cuda.matmul.fp32_precision = new
+
+
+@contextlib.contextmanager
+def conv_f32():
+    """cuDNN convolutions in full float32 inside the block, whatever the
+    caller set: PyTorch lets cuDNN run float32 convolutions in TF32 by
+    default (about three decimal digits), where the JAX package's conv is
+    float32. Only the convolution's own setting
+    (``torch.backends.cudnn.conv.fp32_precision``) is touched, and it is
+    restored on exit; setting it never makes the legacy getters raise."""
+    conv = torch.backends.cudnn.conv
+    before = conv.fp32_precision
+    conv.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        conv.fp32_precision = before
 
 
 def hdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

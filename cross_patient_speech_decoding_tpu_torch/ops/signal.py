@@ -16,8 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cross_patient_speech_decoding_tpu_torch.models.layers import conv_f32
-
+from cross_patient_speech_decoding_tpu_torch.ops.precision import conv_f32
 from cross_patient_speech_decoding_tpu_torch.utils.device import (
     resolve_device,
 )

@@ -436,6 +436,20 @@ def test_pearson_and_pt_corr_equal_jax():
             atol=CORR_TOL)
 
 
+@pytest.mark.parametrize("axis", [0, -1])
+def test_pearson_r_takes_jax_axis_keyword(axis):
+    """``pearson_r(x, y, axis=...)`` as in the JAX package, along either
+    axis of (4, 50) arrays."""
+    r = _rng(9)
+    a = r.normal(size=(4, 50)).astype(np.float32)
+    b = (0.5 * a + r.normal(size=a.shape)).astype(np.float32)
+    got = tm.pearson_r(torch.from_numpy(a), torch.from_numpy(b), axis=axis)
+    want = jm.pearson_r(jnp.asarray(a), jnp.asarray(b), axis=axis)
+    assert got.shape == want.shape == ((50,) if axis == 0 else (4,))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=CORR_TOL)
+
+
 def test_pt_corr_p_values_against_scipy():
     """The host float64 p-values are scipy's ``pearsonr`` null; |r| = 1
     gives p = 0."""

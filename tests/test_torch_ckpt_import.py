@@ -31,6 +31,7 @@ from cross_patient_speech_decoding_tpu_torch.cli import experiments as te
 from cross_patient_speech_decoding_tpu_torch.cli import main as tmain
 from cross_patient_speech_decoding_tpu_torch.models import (
     realtime_rnn_params_from_flax,
+    seq2seq_params_from_flax,
 )
 from cross_patient_speech_decoding_tpu_torch.models import torch_import as ti
 from cross_patient_speech_decoding_tpu_torch.utils.config import (
@@ -91,7 +92,8 @@ def test_load_and_layer_maps_match_jax(tmp_path):
 
 
 @pytest.mark.parametrize("geom", [dict(), dict(C=4, win=4, stride=3, H=6,
-                                               L=3, K=11)])
+                                               L=3, K=11),
+                                  dict(bidir=True, H=6, L=3)])
 def test_realtime_rnn_from_ckpt_matches_jax(tmp_path, geom,
                                             jax_kernel_path):
     """One checkpoint into both packages: the architecture, the weights
@@ -100,7 +102,7 @@ def test_realtime_rnn_from_ckpt_matches_jax(tmp_path, geom,
     model = ti.realtime_rnn_from_ckpt(path, device="cpu")
     jm, jvars = jti.realtime_rnn_from_ckpt(path)
     for attr in ("hidden", "n_layers", "n_classes", "win_size", "stride",
-                 "blank"):
+                 "bidirectional", "blank"):
         assert getattr(model, attr) == getattr(jm, attr), attr
     want = realtime_rnn_params_from_flax(
         jax.tree_util.tree_map(np.asarray, jvars))
@@ -133,27 +135,115 @@ def test_state_dict_round_trip(tmp_path):
 
 
 def test_unported_and_invalid_checkpoints_raise(tmp_path):
-    """A bidirectional checkpoint raises with ROADMAP item 7c, and so do
-    the LSTM and seq2seq imports; an LSTM streaming checkpoint is not the
-    reference's (ValueError, as in JAX); the import needs a card unless
+    """What was refused before the LSTM and bidirectional ports now
+    imports: a bidirectional streaming checkpoint, and the LSTM layer and
+    stack maps (bit for bit JAX's, the two biases summed). Invalid
+    checkpoints still raise as in JAX: an LSTM streaming checkpoint is not
+    the reference's (ValueError), a seq2seq import of a streaming
+    checkpoint finds no encoder (KeyError); the import needs a card unless
     the CPU is asked for."""
     bi, _ = _rt_ckpt(tmp_path, "bi.ckpt", bidir=True)
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        ti.realtime_rnn_from_ckpt(bi, device="cpu")
+    assert ti.realtime_rnn_from_ckpt(bi, device="cpu").bidirectional
     lstm, _ = _rt_ckpt(tmp_path, "lstm.ckpt", cell="lstm")
     with pytest.raises(ValueError, match="GRU-based"):
         ti.realtime_rnn_from_ckpt(lstm, device="cpu")
+    with pytest.raises(ValueError, match="GRU-based"):
+        jti.realtime_rnn_from_ckpt(lstm)
     sd, _ = ti.load_lightning_ckpt(lstm)
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        ti.lstm_params_from_torch(sd, "rnn.rnn", 0)
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        ti.stacked_rnn_params_from_torch(sd, "rnn.rnn", 2, cell="lstm")
-    with pytest.raises(NotImplementedError, match="item 7c"):
+    got = ti.lstm_params_from_torch(sd, "rnn.rnn", 1)
+    want = jti.lstm_params_from_torch(sd, "rnn.rnn", 1)
+    assert got.keys() == want.keys() == {"wi", "wh", "b"}
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+    got = ti.stacked_rnn_params_from_torch(sd, "rnn.rnn", 2, cell="lstm")
+    want = jti.stacked_rnn_params_from_torch(sd, "rnn.rnn", 2, cell="lstm")
+    assert got.keys() == want.keys()
+    for layer in want:
+        for k in want[layer]:
+            np.testing.assert_array_equal(got[layer][k], want[layer][k])
+    with pytest.raises(KeyError, match="encoder.rnn"):
         ti.seq2seq_from_ckpt(lstm, device="cpu")
+    with pytest.raises(KeyError, match="encoder.rnn"):
+        jti.seq2seq_from_ckpt(lstm)
     gru, _ = _rt_ckpt(tmp_path, "rt.ckpt")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ti.realtime_rnn_from_ckpt(gru)
+
+
+# ------------------------------------------------------------- seq2seq --
+
+
+def _s2s_ckpt(tmp_path, cell, C=3, NF=5, K=4, H=7, n_enc=2, n_dec=1,
+              n_cls=6, enc_bidir=True, hp_extra=None):
+    """A reference ``Seq2SeqRNN`` checkpoint (models.py:235-251) made from
+    torch modules, the BatchNorm's running statistics off their init."""
+    torch.manual_seed(7)
+    Rnn = tnn.GRU if cell == "gru" else tnn.LSTM
+    mods = {"temporal_conv.conv": tnn.Conv1d(C, NF, K),
+            "temporal_conv.bn": tnn.BatchNorm1d(NF),
+            "encoder.rnn": Rnn(NF, H, num_layers=n_enc, batch_first=True,
+                               bidirectional=enc_bidir),
+            "decoder.embedding": tnn.Embedding(n_cls + 1, H),
+            "decoder.rnn": Rnn(H, H, num_layers=n_dec, batch_first=True),
+            "decoder.fc_out": tnn.Linear(H, n_cls)}
+    with torch.no_grad():
+        mods["temporal_conv.bn"].running_mean.uniform_(-0.2, 0.2)
+        mods["temporal_conv.bn"].running_var.uniform_(0.5, 1.5)
+        mods["temporal_conv.bn"].weight.uniform_(0.5, 1.5)
+        mods["temporal_conv.bn"].bias.uniform_(-0.2, 0.2)
+    sd = {f"{p}.{k}": v for p, m in mods.items()
+          for k, v in m.state_dict().items()}
+    hp = dict(n_filters=NF, hidden_size=H, num_classes=n_cls,
+              n_enc_layers=n_enc, n_dec_layers=n_dec, kernel_size=K,
+              stride=1, cnn_dropout=0.3, rnn_dropout=0.3, model_type=cell,
+              seq_length=3, activation=True, padding=0)
+    hp.update(hp_extra or {})
+    path = tmp_path / f"s2s_{cell}.ckpt"
+    torch.save({"state_dict": sd, "hyper_parameters": hp}, path)
+    return path
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_seq2seq_from_ckpt_matches_jax(tmp_path, cell):
+    """One reference seq2seq checkpoint into both packages: the
+    architecture, every weight and running statistic bit for bit
+    (``seq2seq_params_from_flax`` of JAX's variables), and the eval-mode
+    logits at teacher forcing 0 within 1e-5 of JAX's at full float32 (the
+    JAX GRU on its scan path)."""
+    path = _s2s_ckpt(tmp_path, cell)
+    model = ti.seq2seq_from_ckpt(path, device="cpu")
+    jm, jvars = jti.seq2seq_from_ckpt(path)
+    assert jm.cell == cell and model.encoder.rnn.cell == cell
+    assert model.n_dec_layers == jm.n_dec_layers == 1
+    want = seq2seq_params_from_flax(
+        jax.tree_util.tree_map(np.asarray, jvars["params"]),
+        jax.tree_util.tree_map(np.asarray, jvars["batch_stats"]))
+    got = model.state_dict()
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    x = np.random.default_rng(2).normal(size=(4, 12, 3)).astype(np.float32)
+    with torch.no_grad():
+        logits = model.eval()(torch.from_numpy(x), None, 0.0).numpy()
+    with jax.default_matmul_precision("highest"):
+        logits_j = np.asarray(jax.jit(lambda v, x: jm.apply(
+            v, x, None, 0.0, True))(jvars, jnp.asarray(x)))
+    np.testing.assert_allclose(logits, logits_j, atol=LOGITS_ATOL)
+    top2 = np.sort(logits_j[:, :-1], axis=-1)[..., -2:]
+    assert (top2[..., 1] - top2[..., 0]).min() > 10 * LOGITS_ATOL
+
+
+def test_seq2seq_from_ckpt_refusals(tmp_path):
+    """A unidirectional encoder and a nonzero conv padding raise
+    ``ValueError`` in both packages."""
+    uni = _s2s_ckpt(tmp_path, "gru", enc_bidir=False)
+    pad = _s2s_ckpt(tmp_path, "lstm", hp_extra=dict(padding=2))
+    for path, match in ((uni, "bidirectional"), (pad, "padding")):
+        with pytest.raises(ValueError, match=match):
+            ti.seq2seq_from_ckpt(path, device="cpu")
+        with pytest.raises(ValueError, match=match):
+            jti.seq2seq_from_ckpt(path)
 
 
 # ------------------------------------------------------- train-ctc init_ckpt --

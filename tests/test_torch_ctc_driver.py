@@ -415,7 +415,10 @@ def test_cli_train_ctc_runs_in_process(tmp_path, synth, capsys):
 
 def test_unported_branches_raise(tmp_path, synth):
     cfg = _quick(tmp_path)
-    # a bidirectional checkpoint: the bidirectional RealtimeRNN is item 7c
+    # a bidirectional checkpoint: the port refuses it before any training,
+    # with a ValueError that names the cause; JAX's driver builds a
+    # unidirectional model and fails at its first apply on the checkpoint's
+    # (4, 1, 8) h0 (an intended difference, checked below)
     gru = torch.nn.GRU(6 * 64, 8, num_layers=2, batch_first=True,
                        bidirectional=True)
     sd = {f"rnn.rnn.{k}": v for k, v in gru.state_dict().items()}
@@ -425,12 +428,16 @@ def test_unported_branches_raise(tmp_path, synth):
     torch.save({"state_dict": sd, "hyper_parameters": {
         "win_size": 6, "stride": 2, "bidirectional": True}},
         tmp_path / "bi.ckpt")
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        te.run_train_ctc(_quick(tmp_path, init_ckpt=str(tmp_path / "bi.ckpt")),
-                         device="cpu")
+    bi_cfg = _quick(tmp_path, init_ckpt=str(tmp_path / "bi.ckpt"))
+    with pytest.raises(ValueError, match="bidirectional"):
+        te.run_train_ctc(bi_cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         te.run_train_ctc(_quick(tmp_path, n_devices=2), device="cpu")
     synth(cfg)
+    with pytest.raises(Exception, match="h0"):
+        je.run_train_ctc(JaxCfg(**{**vars(bi_cfg),
+                                   "out": str(tmp_path / "j" / "ctc.pkl")}),
+                         verbose=False)
     # the TensorBoard log (ported): one run directory an iteration
     te.run_train_ctc(_quick(tmp_path, log_format="tb"), verbose=False,
                      device="cpu")

@@ -1,8 +1,13 @@
-"""Package-level contracts of the PyTorch port: import hygiene, default
-device, and the C interface of the kernel library."""
+"""Package-level contracts of the PyTorch port: import hygiene, the
+package namespaces against the JAX package's, default device, and the C
+interface of the kernel library."""
 
 import ast
+import importlib
 import re
+import subprocess
+import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -56,6 +61,51 @@ def test_hygiene_check_catches_a_jax_import(tmp_path):
     tops = [n.split(".")[0] for n in _imports(p)]
     assert tops == ["jax", "cross_patient_speech_decoding_tpu",
                     "cross_patient_speech_decoding_tpu_torch"]
+
+
+SUBPACKAGES = ("analysis", "cli", "data", "decoders", "models", "ops",
+               "realtime", "sweep", "train", "utils")
+
+
+def _public(mod) -> set:
+    """A package's public names: ``__all__``, else the non-module names
+    without a leading underscore that its ``__init__`` binds."""
+    names = getattr(mod, "__all__", None)
+    if names is None:
+        names = [n for n, v in vars(mod).items()
+                 if not n.startswith("_") and n != "annotations"
+                 and not isinstance(v, types.ModuleType)]
+    return set(names)
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_subpackage_exports_every_name_jax_does(sub):
+    """Every public name of a JAX subpackage is a public name of the port's
+    (the port may have more). The one allowance: ``decoders`` reaches the
+    scikit-learn estimators of ``sklearn_compat`` on first access instead
+    of at import (the card machine has no scikit-learn); they must still
+    resolve here."""
+    jax_pkg = importlib.import_module(
+        f"cross_patient_speech_decoding_tpu.{sub}")
+    port = importlib.import_module(
+        f"cross_patient_speech_decoding_tpu_torch.{sub}")
+    missing = _public(jax_pkg) - _public(port)
+    lazy = set(getattr(port, "_SKLEARN_COMPAT", ()))
+    assert missing <= lazy, sorted(missing - lazy)
+    if sub == "decoders":
+        assert missing == lazy
+    for name in _public(jax_pkg):
+        assert getattr(port, name) is not None, name
+
+
+def test_ops_package_imports_without_scipy_or_h5py():
+    """The ops namespace re-exports the JAX package's (the metrics' scipy
+    p-values included) yet imports neither scipy nor h5py."""
+    code = ("import sys; import cross_patient_speech_decoding_tpu_torch.ops; "
+            "print(sorted({'scipy', 'h5py'} & set(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, cwd=ROOT)
+    assert out.stdout.strip() == "[]"
 
 
 @pytest.fixture

@@ -22,6 +22,7 @@ from cross_patient_speech_decoding_tpu_torch.models import (
     RealtimeRNN,
     adjusted_input_lengths,
     realtime_rnn_params_from_flax,
+    reformat_time_windows,
 )
 
 torch.set_num_threads(2)
@@ -125,20 +126,34 @@ def test_adjusted_input_lengths_matches_jax():
 
 
 def test_lstm_is_not_ported_yet():
-    from cross_patient_speech_decoding_tpu_torch.models import StackedRNN
+    """The LSTM stack is ported (tests/test_torch_lstm.py holds it against
+    JAX): ``cell="lstm"`` builds ``FusedLSTM`` layers, one- and
+    two-directional, that return (h, c) stacks; another cell raises."""
+    from cross_patient_speech_decoding_tpu_torch.models import (
+        FusedLSTM,
+        StackedRNN,
+    )
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StackedRNN(4, 8, cell="lstm")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StackedRNN(4, 8, bidirectional=True, cell="lstm")
+    uni = StackedRNN(4, 8, cell="lstm")
+    assert isinstance(uni.layer(0), FusedLSTM)
+    assert uni.layer(0).wi.shape == (4, 32) and uni.layer(0).b.shape == (32,)
+    bi = StackedRNN(4, 8, n_layers=2, bidirectional=True, cell="lstm")
+    assert bi.layer(1, "bwd").wi.shape == (16, 32)
+    x = torch.from_numpy(_x(B=3, T=5, C=4))
+    with torch.no_grad():
+        out, (h, c) = bi(x)
+    assert out.shape == (3, 5, 16) and h.shape == c.shape == (4, 3, 8)
+    with pytest.raises(ValueError, match="cell"):
+        StackedRNN(4, 8, cell="rnn")
 
 
 def test_bidirectional_stack_runs_both_directions():
     """StackedRNN(bidirectional=True): modules fwd{l} and bwd{l}, layer 1
     reads 2H features; out is [forward | reverse] and the last states are
     per layer the forward's at T-1 and the reverse's at 0, each equal to
-    its own one-direction layer. The bidirectional RealtimeRNN (a 2H head)
-    is not ported."""
+    its own one-direction layer. With ``window=`` the stack reads the
+    windows of the bf16-rounded frames (tests/test_torch_bidir_realtime.py
+    holds the bidirectional RealtimeRNN against JAX)."""
     from cross_patient_speech_decoding_tpu_torch.models import StackedRNN
 
     stack = StackedRNN(4, 8, n_layers=2, bidirectional=True,
@@ -157,7 +172,14 @@ def test_bidirectional_stack_runs_both_directions():
                                rtol=0)
     want = torch.stack([f0[:, -1], b0[:, 0], f1[:, -1], b1[:, 0]])
     torch.testing.assert_close(lasts, want, atol=1e-6, rtol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RealtimeRNN(5, 8, 1, 3, bidirectional=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        stack(x, window=(2, 1))
+    model = RealtimeRNN(5, 8, 1, 3, bidirectional=True, device="cpu")
+    assert model.h0.shape == (2, 1, 8) and model.head.kernel.shape == (16, 3)
+    wstack = StackedRNN(2 * 4, 8, n_layers=2, bidirectional=True,
+                        generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        got, got_lasts = wstack(x, window=(2, 1))
+        xw = reformat_time_windows(x.to(torch.bfloat16), 2, 1)
+        want, want_lasts = wstack(xw)
+    assert got.shape == (3, 6, 16)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    torch.testing.assert_close(got_lasts, want_lasts, atol=0, rtol=0)
