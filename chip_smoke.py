@@ -215,6 +215,27 @@ line is never printed:
    iterations within 2 % (the free-running first 10 iterations are
    reported: the loop is chaotic). Job walls, the matrix's overhead, the
    resume's wall, analyze ms, t-SNE ms and idle share, peak memory;
+5f. parallel (slice 17's main path): ``parallel/`` over
+   ``torch.distributed``, ranks started by ``parallel.launch``. (a) One
+   NCCL rank: ``make_padded_sharded_ctc_train_step`` at fig_5 width
+   (B=2000) at dropout 0 against ``make_ctc_train_step`` from the same
+   state (loss 1e-4 relative, every gradient 1e-3 x max abs), with the
+   launch counts zeroed just before one step and read just after
+   (exactly 1 ``gru_wfwd``, 2 ``gru_fwd``, 1 ``gru_wbwd``, 2 ``gru_bwd``)
+   and the first launch of each kernel shape against its plain version;
+   then the step at dropout 0.3 timed beside the one-device step (median
+   of 3), the all-reduce's time, the NCCL kernels' device time and the
+   idle share of a profiled step. (b) Two gloo ranks sharing cuda:0: the
+   same step on B - 1 = 1999 rows (one zero-weight pad row, 1000 rows a
+   rank) against the one-device step on those rows, the launches and the
+   first launches checked on each rank, the replicas' parameters equal;
+   ``run_svm_decode`` sep_align with ``n_devices=2`` on the reproduce
+   phase's noise-24 pickle (20 folds, 10 a rank) against ``n_devices=0``:
+   predictions equal on the decided trials, exactly 7 ``jacobi_eigh`` a
+   rank, each rank's first Jacobi batch bit for bit its plain version;
+   ``run_train_seq2seq`` fold-parallel (4 folds) with ``n_devices=2``
+   against ``n_devices=0``: every fold's accuracy and every fold-epoch's
+   loss bit for bit; ``dryrun_multichip(2)``;
 6. alignment (slice 3's main path): the natively batched
    ``fit_cca_aligner`` at the JAX package's bench geometry
    (bench.py:section_alignment: 128 pairs of 150 trials x 200 bins x 40
@@ -310,7 +331,9 @@ line is never printed:
    launches in the ``reproduce`` phase's matrix (``launches_reproduce``),
    and for ``gru_bifwd`` and ``gru_bwd`` their launches per ``ctc_bidir``
    step (``launches_ctc_bidir_*``) and their times at its layer-0 shape
-   (``*_ctc_bidir_layer0``, ``*_ctc_bidir_layer0_reversed``).
+   (``*_ctc_bidir_layer0``, ``*_ctc_bidir_layer0_reversed``), and for
+   every kernel its launches a rank in the ``parallel`` phase
+   (``launches_parallel_*``).
 
 Then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA card, and in a directory without the port.
@@ -684,6 +707,7 @@ def main() -> int:
     s2s_drv_launches = phase_seq2seq_driver(torch, dev, gru, jacobi, smi)
     nn_launches = phase_train_nn(torch, dev, gru, jacobi, smi)
     repro_launches = phase_reproduce(torch, dev, gru, jacobi, smi)
+    par_launches = phase_parallel(torch, dev, gru, jacobi, smi)
     align = phase_alignment(torch, dev, jacobi)
     svm_launches = phase_svm_decode(torch, dev, gru, jacobi, smi)
     sub_launches = phase_subsample(torch, dev, gru, jacobi, smi)
@@ -698,6 +722,7 @@ def main() -> int:
         row.update(tune_launches.get(row["name"], {}))
         row.update(nn_launches.get(row["name"], {}))
         row.update(repro_launches.get(row["name"], {}))
+        row.update(par_launches.get(row["name"], {}))
         row.update(bidir_rows.get(row["name"], {}))
     emit({"kernels": kernels})
     print(smi, flush=True)
@@ -766,6 +791,22 @@ def plain_logits(torch, model, x):
     return model.head(hs.transpose(0, 1))
 
 
+def _fig5_batch(torch, dev, rows: int):
+    """The first ``rows`` rows of the fig_5 batch (B x T x C random frames,
+    labels 10 10 d d d 10 10 of seed 0, full lengths) on ``dev``."""
+    import numpy as np
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((B, T, C), generator=gen, device=dev)
+    rng = np.random.default_rng(0)
+    labels = torch.as_tensor(np.concatenate(
+        [np.full((B, 2), 10), rng.integers(1, 10, (B, 3)),
+         np.full((B, 2), 10)], axis=1).astype(np.int32), device=dev)
+    il = torch.full((B,), T, dtype=torch.int32, device=dev)
+    ll = torch.full((B,), 7, dtype=torch.int32, device=dev)
+    return tuple(a[:rows] for a in (x, labels, il, ll))
+
+
 def phase_ctc_eval(torch, dev, gru):
     import numpy as np
 
@@ -778,15 +819,8 @@ def phase_ctc_eval(torch, dev, gru):
         make_ctc_eval_step,
     )
 
-    gen = torch.Generator(device=dev).manual_seed(0)
-    x = torch.randn((B, T, C), generator=gen, device=dev)
-    rng = np.random.default_rng(0)
-    labels = torch.as_tensor(np.concatenate(
-        [np.full((B, 2), 10), rng.integers(1, 10, (B, 3)),
-         np.full((B, 2), 10)], axis=1).astype(np.int32), device=dev)
-    il = torch.full((B,), T, dtype=torch.int32, device=dev)
-    ll = torch.full((B,), 7, dtype=torch.int32, device=dev)
-    batch = (x, labels, il, ll)
+    batch = _fig5_batch(torch, dev, B)
+    x, labels, il, ll = batch
 
     model = RealtimeRNN(C, H, N_LAYERS, N_CLASSES, dropout=0.3,
                         win_size=WIN, stride=STRIDE, seed=0, device=dev)
@@ -876,13 +910,14 @@ def _kernel_name(name: str) -> str:
     return name.split("(")[0].split("<")[0].split("::")[-1].strip()
 
 
-def profile_call(torch, fn, cpu: bool = True):
+def profile_call(torch, fn, cpu: bool = True, match: str | None = None):
     """``fn()`` once under ``torch.profiler``: device time summed by kernel
     name, the device's busy time (one stream, so kernels do not overlap)
     against the call's host-clock time, and its idle share. ``cpu=False``
     records the CUDA activity alone, for a call of ~10^5 kernels whose
-    host-side events would take minutes to summarise. Returns (fn's
-    result, that summary)."""
+    host-side events would take minutes to summarise. ``match`` adds the
+    device time of every kernel whose name holds it (any case). Returns
+    (fn's result, that summary)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -903,10 +938,16 @@ def profile_call(torch, fn, cpu: bool = True):
         by_kernel[key] = by_kernel.get(key, 0.0) + us / 1e3
     busy_ms = sum(by_kernel.values())
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
-    return out, {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                 "device_idle_share": 1.0 - busy_ms / wall_ms
-                 if busy_ms else None,
-                 "device_ms_by_kernel": top}
+    summary = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+               "device_idle_share": 1.0 - busy_ms / wall_ms
+               if busy_ms else None,
+               "device_ms_by_kernel": top}
+    if match is not None:
+        hits = {k: v for k, v in by_kernel.items()
+                if match.lower() in k.lower()}
+        summary[f"device_ms_{match}"] = sum(hits.values())
+        summary[f"kernels_{match}"] = hits
+    return out, summary
 
 
 def profile_step(torch, step, state, batch, gen):
@@ -2724,8 +2765,8 @@ class _SweepProbe:
             self.channels.append(np.asarray(idx))
             return orig["_gather_channels"](pt, idx)
 
-        def make(strategy, dcfg):
-            dec = orig["make_cv_decoder"](strategy, dcfg)
+        def make(strategy, dcfg, **kw):
+            dec = orig["make_cv_decoder"](strategy, dcfg, **kw)
             self.max_k = dcfg.max_k
 
             def run(tar, cross, tr, te):
@@ -3434,7 +3475,8 @@ def phase_ctc_bidir(torch, dev, gru, jacobi, batch):
             "gru_bwd": {
                 "launches_ctc_bidir_train_step": train_launches["gru_bwd"],
                 **{f"{k}_ctc_bidir_layer0_reversed": bw[k] for k in (
-                    "ms", "plain_ms", "bound_ms", "max_abs_err")}}}
+                    "ms", "plain_ms", "library_ms", "bound_ms",
+                    "max_abs_err")}}}
 
 
 def _bidir_layer0_kernels(torch, gru, dev, model, x):
@@ -3512,15 +3554,30 @@ def _bidir_layer0_kernels(torch, gru, dev, model, x):
     abs_err = max(float((g - w).abs().max())
                   for g, w in zip(got, want) if w is not None)
     del got, want
-    btimes = (cuda_ms(torch, bkernel), cuda_ms(torch, bplain), None)
+    # cuDNN's backward of the same layer (torch.nn.GRU in float32, TF32
+    # off): forward once over the windows in reverse order, then the
+    # backward alone, without dx, as the kernel runs it
+    lib_b = _library_gru(torch, *wb)
+    with torch.enable_grad():
+        xl = xw.flip(0).float().contiguous()
+        h0l = h0s[1][None].detach().clone().requires_grad_()
+        hs_l, _ = lib_b(xl, h0l)
+        wrt = [h0l, *lib_b.parameters()]
+        dhs_l = dhs.flip(0).contiguous()
+        lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            hs_l, wrt, dhs_l, retain_graph=True))
+    del hs_l, xl, dhs_l, lib_b
+    btimes = (cuda_ms(torch, bkernel), cuda_ms(torch, bplain), lib_ms)
     brow, _ = _row("gru_bwd", "gru_bwd.cu", "", None, abs_err, btimes,
                    _bwd_flops(N, F0, H, x_bf16=True, need_dx=False),
                    xw.numel() * 2 + _nbytes(hprev, dhs) + 2 * _nbytes(*wb)
                    + B * H * 4)
-    bwd = {k: brow[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                "max_abs_err")}
+    bwd = {k: brow[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by", "max_abs_err")}
     bwd.update({"max_rel_err": errs, "tolerance_rel": GRAD_RTOL,
                 "bitwise_repeat": brepeat,
+                "library_note": "torch.nn.GRU backward (cuDNN, float32) "
+                                "over the reversed windows, no dx",
                 "shapes": {"x": [N_WIN, B, F0], "dtype": "bf16",
                            "reverse": True, "need_dx": False}})
     bad = {k: v for k, v in errs.items() if not v <= GRAD_RTOL}
@@ -5470,6 +5527,425 @@ def phase_reproduce(torch, dev, gru, jacobi, smi):
     if bad:
         raise RuntimeError(f"reproduce checks failed: {bad}")
     return {k: {"launches_reproduce": v} for k, v in launches.items()}
+
+
+# ---------------------------------------------------------------------------
+# parallel (slice 17): parallel/ over torch.distributed on the one card
+# ---------------------------------------------------------------------------
+
+# world size 2 on one card: the fig_5 batch less one row, so rank 1's
+# shard holds one zero-weight pad row (1000 rows a rank)
+PAR_B2 = B - 1
+# svm-decode sep_align at the svm_decode phase's scale (8 patients x 135
+# trials, T=200, max_k 32, RBF, 20 folds: 10 a rank, in one batch), one
+# fixed iteration, on the reproduce phase's noise-24 decoding pickle
+# (target S26), so that accuracies vary and some trials are undecided; the
+# predictions kept for the check on the decided trials
+PAR_SVM = dict(strategy="sep_align", target_pt=SUB_TARGET, max_k=32,
+               kernel="rbf", n_folds=20, fold_batch=20, n_iter=1, seed=0,
+               save_preds=True)
+PAR_SVM_JACOBI = len(SUB_PTS) - 1  # a rank's: one a source
+# train-seq2seq fold-parallel at small depth: 4 folds, 2 a rank
+PAR_S2S = dict(S2S_SMALL)
+PAR_TIMEOUT_S = 600  # each launch's deadline
+
+
+def _params_digest(torch, model) -> str:
+    import hashlib
+
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+
+class _TimedReduce:
+    """Within the block, the host time of each gradient all-reduce of the
+    sharded steps (the card synchronised before and after)."""
+
+    def __init__(self, torch, pm):
+        self.torch, self.pm, self.ms = torch, pm, []
+
+    def __enter__(self):
+        self.orig = self.pm.all_reduce_sum
+        torch, orig = self.torch, self.orig
+
+        def timed(t, mesh):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(t, mesh)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        self.pm.all_reduce_sum = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.pm.all_reduce_sum = self.orig
+
+
+def _par_ctc(torch, dev, gru, jacobi, pm, mesh, rows: int) -> dict:
+    """The padded data-parallel CTC step at fig_5 width on ``rows`` rows:
+    at dropout 0 against the one-device step from the same state (rank 0
+    runs it), launches counted just around one step and the first launch
+    of each kernel shape against its plain version; then step times at
+    dropout 0.3 beside the one-device step's, the reduction's time and a
+    profiled step."""
+    import copy
+
+    from cross_patient_speech_decoding_tpu_torch.models import RealtimeRNN
+    from cross_patient_speech_decoding_tpu_torch.parallel import (
+        make_padded_sharded_ctc_train_step,
+    )
+    from cross_patient_speech_decoding_tpu_torch.train import (
+        create_train_state,
+        make_ctc_train_step,
+        make_optimizer,
+    )
+
+    batch = _fig5_batch(torch, dev, rows)
+    tx = make_optimizer(1e-3, 1e-5, 100)
+
+    def model(dropout):
+        return RealtimeRNN(C, H, N_LAYERS, N_CLASSES, dropout=dropout,
+                           win_size=WIN, stride=STRIDE, seed=0, device=dev)
+
+    res = {"rows": rows, "rows_a_rank": -(-rows // mesh.size)}
+    m0 = model(0.0)
+    if mesh.rank == 0:
+        m1 = copy.deepcopy(m0)
+        _, met1 = make_ctc_train_step(m1, tx)(create_train_state(m1, tx),
+                                              batch, None)
+        ref = (float(met1["loss"]),
+               {n: p.grad for n, p in m1.named_parameters()})
+        del m1
+    step = make_padded_sharded_ctc_train_step(m0, tx, mesh)
+    torch.cuda.synchronize()
+    _reset_counts(gru, jacobi)
+    with _NoPlainOnCuda(torch, gru, jacobi), _RecordGru(torch, gru) as rec:
+        _, met = step(create_train_state(m0, tx), batch, None)
+        torch.cuda.synchronize()
+    res["launches"] = _launch_counts(gru, jacobi)
+    res["path_vs_plain"] = _check_path_gru(gru, rec)
+    del rec
+    res["loss"] = float(met["loss"])
+    if mesh.rank == 0:
+        res["loss_one_device"] = ref[0]
+        res["loss_rel_err"] = (abs(res["loss"] - ref[0])
+                               / max(abs(ref[0]), 1e-30))
+        res["grad_max_rel_err_vs_one_device"] = _rel_errs(
+            {n: p.grad for n, p in m0.named_parameters()}, ref[1])
+        del ref
+    res["params_digest"] = _params_digest(torch, m0)
+    del m0, step
+
+    mt = model(0.3)
+    state = create_train_state(mt, tx)
+    step = make_padded_sharded_ctc_train_step(mt, tx, mesh)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    state, _ = step(state, batch, gen)  # warm-up
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    res["step_ms_runs"] = times
+    res["step_ms"] = statistics.median(times)
+    res["losses_finite"] = bool(torch.isfinite(met["loss"]))
+    with _TimedReduce(torch, pm) as tr:
+        state, _ = step(state, batch, gen)
+    res["all_reduce_host_ms"] = tr.ms
+    (state, _), prof = profile_call(torch, lambda: step(state, batch, gen),
+                                    match="nccl")
+    res["profile"] = prof
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state, step, mt
+    if mesh.rank == 0:  # the one-device step on the same rows, same card
+        m1 = model(0.3)
+        s1 = create_train_state(m1, tx)
+        step1 = make_ctc_train_step(m1, tx)
+        s1, _ = step1(s1, batch, gen)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s1, _ = step1(s1, batch, gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        res["one_device_step_ms_runs"] = times
+        res["one_device_step_ms"] = statistics.median(times)
+        del s1, step1, m1
+    pm.gather_objects(None, mesh)  # rank 1 waits for rank 0's timing
+    torch.cuda.empty_cache()
+    return res
+
+
+class _DecoderOutputs:
+    """Within the block, every decoder that ``make_cv_decoder`` returns
+    keeps its inputs' target labels and test masks and its outputs."""
+
+    def __init__(self):
+        from cross_patient_speech_decoding_tpu_torch.decoders import pooled
+
+        self.pooled, self.calls = pooled, []
+
+    def __enter__(self):
+        self.make = make = self.pooled.make_cv_decoder
+
+        def wrapped(*a, **k):
+            dec = make(*a, **k)
+
+            def run(tar, cross, tr, te):
+                out = dec(tar, cross, tr, te)
+                self.calls.append((tar.y, te, out))
+                return out
+            return run
+        self.pooled.make_cv_decoder = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.pooled.make_cv_decoder = self.make
+
+
+def _par_svm(torch, dev, gru, jacobi, mesh, root: Path, data: str) -> dict:
+    """``run_svm_decode`` with its 20 folds sharded over the ranks against
+    the one-device run on rank 0: predictions equal on the trials the
+    one-device scores decide, fold accuracies within the weight of the
+    others (:func:`_held`); each rank's Jacobi launches counted just
+    around the sharded run, its first Jacobi batch against the plain
+    version."""
+    from cross_patient_speech_decoding_tpu_torch.cli import experiments as exp
+    from cross_patient_speech_decoding_tpu_torch.utils.config import (
+        SVMDecodeConfig,
+    )
+
+    res = {}
+    if mesh.rank == 0:
+        with _ScoreProbe() as sp, _DecoderOutputs() as one:
+            exp.run_svm_decode(SVMDecodeConfig(
+                **PAR_SVM, data=data, out=str(root / "one" / "svm.pkl")),
+                False, dev)
+    torch.cuda.synchronize()
+    _reset_counts(gru, jacobi)
+    t0 = time.perf_counter()
+    with _NoPlainOnCuda(torch, gru, jacobi), _DecoderOutputs() as two, \
+            _RecordJacobi(jacobi, first_per_shape=True) as rj:
+        accs = exp.run_svm_decode(SVMDecodeConfig(
+            **PAR_SVM, data=data, n_devices=2,
+            out=str(root / "two" / "svm.pkl")), False, dev)
+        torch.cuda.synchronize()
+    res["wall_s"] = time.perf_counter() - t0
+    res["launches"] = _launch_counts(gru, jacobi)
+    res["jacobi_first_batch"] = {
+        "x".join(map(str, A.shape)): _check_jacobi(torch, jacobi, A)
+        for A in rj.batches[:1]}
+    res["jacobi_first_batch_ok"] = bool(rj.batches) and all(
+        _jacobi_ok(k, r) for k, r in res["jacobi_first_batch"].items())
+    res["mean_acc"] = float(accs.mean())
+    if mesh.rank == 0:
+        (y, te, (a1, p1)), = one.calls
+        (_, _, (a2, p2)), = two.calls
+        res["held_vs_one_device"] = _held(
+            torch, y.cpu().numpy(), te.cpu().numpy(), (a2, p2), (a1, p1),
+            [s.cpu() for s in sp.scores])
+    return res
+
+
+def _par_s2s(torch, dev, gru, jacobi, mesh, root: Path) -> dict:
+    """``run_train_seq2seq`` with its 4 folds sharded over the ranks
+    against the one-device run on rank 0: every fold's accuracy and every
+    fold-epoch's loss bit for bit (the same folds, seeds and kernels on
+    the same card); launches counted just around the sharded run."""
+    from cross_patient_speech_decoding_tpu_torch.cli import experiments as exp
+    from cross_patient_speech_decoding_tpu_torch.train import fold_parallel
+    from cross_patient_speech_decoding_tpu_torch.utils.config import (
+        TrainSeq2SeqConfig,
+    )
+
+    orig = fold_parallel._fold_epoch
+    losses = []
+
+    def recorded(*a, **k):
+        loss = orig(*a, **k)
+        losses.append(float(loss))
+        return loss
+
+    fold_parallel._fold_epoch = recorded
+    try:
+        res = {}
+        if mesh.rank == 0:
+            one = exp.run_train_seq2seq(TrainSeq2SeqConfig(
+                **PAR_S2S, out=str(root / "one" / "s2s.csv")), False, dev)
+            losses_one, losses[:] = list(losses), []
+        torch.cuda.synchronize()
+        _reset_counts(gru, jacobi)
+        with _NoPlainOnCuda(torch, gru, jacobi):
+            two = exp.run_train_seq2seq(TrainSeq2SeqConfig(
+                **PAR_S2S, n_devices=2, out=str(root / "two" / "s2s.csv")),
+                False, dev)
+            torch.cuda.synchronize()
+        res["launches"] = _launch_counts(gru, jacobi)
+    finally:
+        fold_parallel._fold_epoch = orig
+    from cross_patient_speech_decoding_tpu_torch.parallel import mesh as pm
+
+    every = [x for part in pm.gather_objects(losses, mesh) for x in part]
+    res["accs"] = two.tolist()
+    if mesh.rank == 0:
+        res["accs_equal_one_device"] = one.tolist() == two.tolist()
+        res["losses_equal_one_device"] = every == losses_one
+        res["fold_epochs"] = len(every)
+    return res
+
+
+def _par_rank(kind: str, rows: int, svm_data: str = ""):
+    """A rank of the parallel phase: the data-parallel CTC step, and at
+    world size 2 also svm-decode, train-seq2seq and the dry run; returns
+    every rank's report (gathered)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from cross_patient_speech_decoding_tpu_torch import parallel
+    from cross_patient_speech_decoding_tpu_torch.ops import _ext, gru, jacobi
+    from cross_patient_speech_decoding_tpu_torch.parallel import dryrun
+    from cross_patient_speech_decoding_tpu_torch.parallel import mesh as pm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _ext.lib()
+    mesh = parallel.make_mesh()
+    dev = mesh.device
+    out = {"rank": mesh.rank, "size": mesh.size, "device": str(dev),
+           "backend": dist.get_backend(mesh.group)}
+    out["ctc"] = _par_ctc(torch, dev, gru, jacobi, pm, mesh, rows)
+    if kind == "ws2":
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            out["svm"] = _par_svm(torch, dev, gru, jacobi, mesh, Path(tmp),
+                                  svm_data)
+            out["seq2seq"] = _par_s2s(torch, dev, gru, jacobi, mesh,
+                                      Path(tmp))
+            out["drivers_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["dryrun"] = dryrun.dryrun_multichip(2, verbose=False)
+        out["dryrun_s"] = time.perf_counter() - t0
+    return pm.gather_objects(out, mesh)
+
+
+def _par_ctc_fails(name, r, rank0: bool) -> dict:
+    fails = {}
+    want = {**TRAIN_LAUNCHES, "jacobi_eigh": 0}
+    if r["launches"] != want:
+        fails[f"{name}_launches"] = r["launches"]
+    bad = {k: v for k, v in r["path_vs_plain"].items() if not v["ok"]}
+    if bad or not r["path_vs_plain"]:
+        fails[f"{name}_path_vs_plain"] = bad or "none recorded"
+    if not r["losses_finite"]:
+        fails[f"{name}_finite"] = False
+    if rank0:
+        if not r["loss_rel_err"] <= LOSS_RTOL:
+            fails[f"{name}_loss"] = r["loss_rel_err"]
+        bad = {k: v for k, v in r["grad_max_rel_err_vs_one_device"].items()
+               if not v <= GRAD_RTOL}
+        if bad:
+            fails[f"{name}_grads"] = bad
+    return fails
+
+
+def phase_parallel(torch, dev, gru, jacobi, smi):
+    """``parallel/`` on the one H100: the padded data-parallel CTC step at
+    fig_5 width on one NCCL rank, then on two gloo ranks that share the
+    card (B - 1 rows: one zero-weight pad row), each against the
+    one-device step; at world size 2 also svm-decode and train-seq2seq
+    with their folds sharded, against their one-device runs, and the
+    dry run of every sharded surface. Exact launches on every rank, every
+    first launch against its plain version."""
+    import tempfile
+
+    from cross_patient_speech_decoding_tpu_torch import parallel
+
+    tmp = tempfile.TemporaryDirectory()
+    svm_data = _decoding_pkl(Path(tmp.name), "svm", SUB_PTS, SUB_T,
+                             REPRO_SVM_NOISE)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (ws1,) = parallel.launch(_par_rank, 1, ("ws1", B), devices=["cuda:0"],
+                             backend="nccl", timeout=PAR_TIMEOUT_S)
+    ws1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ws2 = parallel.launch(_par_rank, 2, ("ws2", PAR_B2, svm_data),
+                          devices=["cuda:0", "cuda:0"], backend="gloo",
+                          timeout=PAR_TIMEOUT_S)
+    ws2_s = time.perf_counter() - t0
+    tmp.cleanup()
+    fails = {}
+    if (ws1["size"], ws1["backend"]) != (1, "nccl"):
+        fails["ws1_group"] = (ws1["size"], ws1["backend"])
+    fails.update(_par_ctc_fails("ws1", ws1["ctc"], True))
+    for r in ws2:
+        if (r["size"], r["backend"]) != (2, "gloo"):
+            fails[f"ws2_rank{r['rank']}_group"] = (r["size"], r["backend"])
+        fails.update(_par_ctc_fails(f"ws2_rank{r['rank']}", r["ctc"],
+                                    r["rank"] == 0))
+        sv, s2 = r["svm"], r["seq2seq"]
+        if sv["launches"] != {**{k: 0 for k in gru.LAUNCHES},
+                              "jacobi_eigh": PAR_SVM_JACOBI}:
+            fails[f"ws2_rank{r['rank']}_svm_launches"] = sv["launches"]
+        if not sv["jacobi_first_batch_ok"]:
+            fails[f"ws2_rank{r['rank']}_svm_jacobi"] = sv[
+                "jacobi_first_batch"]
+    if len({r["ctc"]["params_digest"] for r in ws2}) != 1:
+        fails["ws2_replicas_differ"] = [r["ctc"]["params_digest"]
+                                        for r in ws2]
+    r0 = ws2[0]
+    if not r0["svm"]["held_vs_one_device"]["ok"]:
+        fails["ws2_svm_vs_one_device"] = r0["svm"]["held_vs_one_device"]
+    if not (r0["seq2seq"]["accs_equal_one_device"]
+            and r0["seq2seq"]["losses_equal_one_device"]):
+        fails["ws2_seq2seq_vs_one_device"] = r0["seq2seq"]
+    s2s_launches = [r["seq2seq"]["launches"] for r in ws2]
+    if s2s_launches[0] != s2s_launches[1] or not s2s_launches[0]["gru_bifwd"]:
+        fails["ws2_seq2seq_launches"] = s2s_launches
+    c1, c2 = ws1["ctc"], [r["ctc"] for r in ws2]
+    res = {"phase": "parallel", "nvidia_smi": smi,
+           "ws1_nccl": {**c1, "launch_s": ws1_s,
+                        "step_ms_over_one_device":
+                            c1["step_ms"] / c1["one_device_step_ms"],
+                        "nccl_note": "device_ms_nccl is the profiled "
+                                     "step's NCCL kernels: an in-place "
+                                     "all-reduce over one rank may "
+                                     "launch none"},
+           "ws2_gloo_one_card": {
+               "launch_s": ws2_s, "ctc": c2,
+               "svm": [r["svm"] for r in ws2],
+               "seq2seq": [r["seq2seq"] for r in ws2],
+               "drivers_s": r0["drivers_s"], "dryrun": r0["dryrun"],
+               "dryrun_s": r0["dryrun_s"]},
+           "tolerances": {"loss_rel": LOSS_RTOL, "grad_rel": GRAD_RTOL,
+                          "gru_fwd_abs": KERNEL_ATOL,
+                          "gru_bwd_rel": GRAD_RTOL,
+                          "jacobi": "bit for bit (_jacobi_ok)",
+                          "svm": "decided trials (_held)",
+                          "seq2seq": "bit for bit"},
+           "failed": sorted(fails)}
+    emit(res)
+    if fails:
+        raise RuntimeError(f"parallel checks failed: {fails}")
+    rows = {k: {"launches_parallel_ctc_step_ws1": c1["launches"][k],
+                "launches_parallel_ctc_step_ws2": [c["launches"][k]
+                                                   for c in c2],
+                "launches_parallel_seq2seq_ws2": [s[k]
+                                                  for s in s2s_launches]}
+            for k in gru.LAUNCHES}
+    rows["jacobi_eigh"] = {
+        "launches_parallel_svm_iteration_ws2": [
+            r["svm"]["launches"]["jacobi_eigh"] for r in ws2],
+        "launches_parallel_seq2seq_ws2": [s["jacobi_eigh"]
+                                          for s in s2s_launches]}
+    return rows
 
 
 def _weights(torch, gen, dev, F, Hh):

@@ -74,8 +74,13 @@ latency; ``run_train_ctc``'s ``init_ckpt`` fine-tunes such a checkpoint.
 ``run_analyze`` (``cpsd analyze``) computes the paper's statistics over
 saved results files on the host.
 
-Not ported yet, and refused: ``n_devices > 0`` (ROADMAP queue 1, item
-11).
+``n_devices > 0`` runs a driver on that many ranks (``parallel/``): the
+CTC and classifier steps data-parallel, the decoders' and the seq2seq
+trainer's folds and the tune buckets' models sharded. Each rank runs the
+driver's seeded preparation the same way; only the sharded work and its
+reductions cross ranks, and only rank 0 writes files. Called with no
+process group initialised, a driver launches its ranks itself and returns
+rank 0's result.
 """
 
 from __future__ import annotations
@@ -100,6 +105,13 @@ from cross_patient_speech_decoding_tpu_torch.data.loaders import (
 )
 from cross_patient_speech_decoding_tpu_torch.data.splits import (
     train_val_test_masks,
+)
+from cross_patient_speech_decoding_tpu_torch.parallel.mesh import (
+    from_rank0,
+    is_writer,
+    launch_driver,
+    mesh_and_device,
+    needs_launch,
 )
 from cross_patient_speech_decoding_tpu_torch.utils.config import (
     MakeXformsConfig,
@@ -657,7 +669,20 @@ def run_train_ctc(cfg: TrainCTCConfig, verbose: bool = True, device=None):
     the reference pipeline: h5 ingestion and pooling, tuned-hparam
     override, per-iteration incremental persistence to ``out``, and resume
     (completed iterations are skipped on restart).
+
+    ``n_devices > 0`` trains data-parallel on that many ranks
+    (``parallel.make_padded_sharded_ctc_train_step``): each rank prepares
+    the same data, trains on its block of every mini-batch, and the
+    gradients are summed over the ranks. Called outside a process group,
+    the driver launches the ranks itself (``device`` as
+    ``parallel.mesh.rank_devices`` reads it) and returns rank 0's PERs;
+    only rank 0 writes files. At dropout 0 the PERs are the one-device
+    run's up to the order of the gradient sums; the dropout masks of rank
+    r > 0 come from a generator of its own.
     """
+    from cross_patient_speech_decoding_tpu_torch.parallel import (
+        make_padded_sharded_ctc_train_step,
+    )
     from cross_patient_speech_decoding_tpu_torch.train import (
         create_train_state,
         make_ctc_eval_step,
@@ -668,11 +693,12 @@ def run_train_ctc(cfg: TrainCTCConfig, verbose: bool = True, device=None):
         make_optimizer,
     )
 
-    dev = resolve_device(device)
-    if getattr(cfg, "n_devices", 0) > 0:
-        raise NotImplementedError(
-            "n_devices > 0: multi-device training is not ported yet "
-            "(ROADMAP queue 1, item 11: parallel/)")
+    if needs_launch(cfg.n_devices):
+        return launch_driver(run_train_ctc, cfg.n_devices, device, cfg,
+                             verbose)
+    mesh, dev = mesh_and_device(cfg.n_devices, device)
+    writes = is_writer(mesh)
+    verbose = verbose and writes
     cfg = _apply_tuned_hparams(cfg)
     init_sd = None
     if cfg.init_ckpt:
@@ -698,7 +724,7 @@ def run_train_ctc(cfg: TrainCTCConfig, verbose: bool = True, device=None):
         cfg.win_size, cfg.stride = ck_model.win_size, ck_model.stride
         init_sd = ck_model.state_dict()
         del ck_model
-    if cfg.results_h5 and not (cfg.save_logits and cfg.out):
+    if writes and cfg.results_h5 and not (cfg.save_logits and cfg.out):
         # the reference's save_results writes `logits` unconditionally
         # (train_ctc_rnn.py:448-491): warn before training, not after
         print(
@@ -707,12 +733,12 @@ def run_train_ctc(cfg: TrainCTCConfig, verbose: bool = True, device=None):
             "reference notebooks reading f['logits'] will fail on it",
             flush=True,
         )
-    done = _completed_results(cfg.out, vars(cfg)) if cfg.out else []
+    done = from_rank0(lambda: _completed_results(cfg.out, vars(cfg)), mesh)
     pers = list(done[: cfg.n_iter])
     if pers and verbose:
         print(f"resuming: {len(pers)}/{cfg.n_iter} iterations already done",
               flush=True)
-    if cfg.out:
+    if cfg.out and writes:
         Path(cfg.out).parent.mkdir(parents=True, exist_ok=True)
     run_name = f"{cfg.target_pt}_{_CONTEXT_NAMES[cfg.context]}_ctcRnn"
     start_it = len(pers)
@@ -807,10 +833,12 @@ def run_train_ctc(cfg: TrainCTCConfig, verbose: bool = True, device=None):
             model.load_state_dict(init_sd)
         state = create_train_state(model, tx)
         gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1000 + it)
-        with _maybe_trace(cfg.trace and it == start_it, cfg.out, run_name):
+        with _maybe_trace(cfg.trace and it == start_it and writes, cfg.out,
+                          run_name):
             res = fit_loop(
                 state,
-                make_ctc_train_step(model, tx),
+                make_ctc_train_step(model, tx) if mesh is None
+                else make_padded_sharded_ctc_train_step(model, tx, mesh),
                 make_ctc_eval_step(model),
                 train_batch,
                 batch(va_i),
@@ -823,7 +851,7 @@ def run_train_ctc(cfg: TrainCTCConfig, verbose: bool = True, device=None):
                 log_path=(
                     _run_log_path(cfg.out, run_name, it,
                                   fmt=cfg.log_format)
-                    if cfg.log_metrics else None
+                    if cfg.log_metrics and writes else None
                 ),
                 log_format=cfg.log_format,
             )
@@ -837,13 +865,13 @@ def run_train_ctc(cfg: TrainCTCConfig, verbose: bool = True, device=None):
             # per-iteration test log-probs, the reference results-h5
             # 'logits' dataset (train_ctc_rnn.py:215-224, 483)
             extra = {"logits": _test_log_probs(best, test_batch[0])}
-        if cfg.out:
+        if cfg.out and writes:
             append_results_pkl(cfg.out, np.asarray([per]), params=vars(cfg),
                                extra=extra)
         if verbose:
             print(f"iter {it} [{cfg.context}]: test PER {per:.1f}%", flush=True)
         del res, state, model, best, train_batch
-    if cfg.results_h5:
+    if cfg.results_h5 and writes:
         _write_results_h5(cfg, pers)
     return np.asarray(pers)
 
@@ -1039,8 +1067,12 @@ def run_svm_decode(cfg: SVMDecodeConfig, verbose: bool = True, device=None):
     ``surrogate='shuffle'`` with mode-shuffle surrogates. ``device`` is
     the first CUDA card by default.
 
-    Not ported yet, and refused: ``n_devices > 0`` (ROADMAP queue 1,
-    item 11).
+    ``n_devices > 0`` shards the folds over that many ranks (fixed
+    parameters: ``make_cv_decoder(mesh=)``; nested: the outer folds of
+    ``nested_cv_decode_bayes(mesh=)``): each rank prepares the same data,
+    decodes its block of folds and gathers the rest. Called outside a
+    process group, the driver launches the ranks itself and returns rank
+    0's accuracies; only rank 0 writes ``out``.
     """
     from cross_patient_speech_decoding_tpu_torch.data.splits import (
         repeated_stratified_kfold_masks,
@@ -1055,11 +1087,12 @@ def run_svm_decode(cfg: SVMDecodeConfig, verbose: bool = True, device=None):
         make_cv_decoder,
     )
 
-    if cfg.n_devices > 0:
-        raise NotImplementedError(
-            "n_devices > 0: multi-GPU fold sharding is not ported yet "
-            "(ROADMAP queue 1, item 11)")
-    dev = resolve_device(device)
+    if needs_launch(cfg.n_devices):
+        return launch_driver(run_svm_decode, cfg.n_devices, device, cfg,
+                             verbose)
+    mesh, dev = mesh_and_device(cfg.n_devices, device)
+    writes = is_writer(mesh)
+    verbose = verbose and writes
     tar, cross, n_y, n_a, names = patients_from_config(
         cfg.data, cfg.target_pt, cfg.p_ind, cfg.lab_type, cfg.algn_type,
         cfg.seed, cfg.random_data, trials_per_class=cfg.synth_trials,
@@ -1096,9 +1129,10 @@ def run_svm_decode(cfg: SVMDecodeConfig, verbose: bool = True, device=None):
     )
     y_host = tar.y.cpu().numpy()
 
-    Path(cfg.out).parent.mkdir(parents=True, exist_ok=True)
-    all_accs = _completed_results(cfg.out, vars(cfg), scalar=False)[
-        : cfg.n_iter]
+    if writes:
+        Path(cfg.out).parent.mkdir(parents=True, exist_ok=True)
+    all_accs = from_rank0(lambda: _completed_results(
+        cfg.out, vars(cfg), scalar=False), mesh)[: cfg.n_iter]
     if all_accs and verbose:
         print(f"resuming: {len(all_accs)}/{cfg.n_iter} iterations done",
               flush=True)
@@ -1112,6 +1146,7 @@ def run_svm_decode(cfg: SVMDecodeConfig, verbose: bool = True, device=None):
                 seed=cfg.seed + 104729 * it,
                 train_frac=cfg.trial_subsample,
                 return_preds=cfg.save_preds,
+                mesh=mesh,
             )
             extra = {}
             if cfg.save_preds:
@@ -1122,14 +1157,16 @@ def run_svm_decode(cfg: SVMDecodeConfig, verbose: bool = True, device=None):
                 accs, hp_best = out
             extra.update({k: v.cpu().numpy() for k, v in hp_best.items()})
             all_accs.append(accs)
-            append_results_pkl(cfg.out, accs, params=vars(cfg), extra=extra)
+            if writes:
+                append_results_pkl(cfg.out, accs, params=vars(cfg),
+                                   extra=extra)
             if verbose:
                 print(f"iter {it} [nested]: balanced acc {accs.mean():.3f} "
                       f"(chance {1.0 / n_y:.3f})", flush=True)
         return np.stack(all_accs)
 
     decoder = make_cv_decoder(cfg.strategy, dcfg, fold_batch=cfg.fold_batch,
-                              return_preds=cfg.save_preds)
+                              mesh=mesh, return_preds=cfg.save_preds)
     ib = max(1, cfg.iter_batch)
     it = len(all_accs)
     while it < cfg.n_iter:
@@ -1166,7 +1203,9 @@ def run_svm_decode(cfg: SVMDecodeConfig, verbose: bool = True, device=None):
             if preds_all is not None:
                 yt, yp, wr = _prediction_records(y_host, preds_all[sl], te[sl])
                 extra = {"y_true": yt, "y_pred": yp, "wrong_trs": wr}
-            append_results_pkl(cfg.out, accs, params=vars(cfg), extra=extra)
+            if writes:
+                append_results_pkl(cfg.out, accs, params=vars(cfg),
+                                   extra=extra)
             if verbose:
                 print(f"iter {it + j}: balanced acc {accs.mean():.3f} "
                       f"(chance {1.0 / n_y:.3f})", flush=True)
@@ -1362,19 +1401,22 @@ def run_train_seq2seq(cfg: TrainSeq2SeqConfig, verbose: bool = True,
     and runs one epoch of one fold chunk (one fold sequentially), which
     pays the card's library set-up, and writes nothing.
 
-    Not ported yet, and refused: ``n_devices > 0`` (ROADMAP queue 1, item
-    11).
+    ``n_devices > 0`` (with ``fold_parallel``) shards every fold chunk
+    over that many ranks: each rank prepares the same features, trains its
+    block of the chunk's folds from the same per-fold seeds, and the
+    accuracies are gathered, so the result equals the one-device run's.
+    The world size must divide ``fold_chunk`` (or ``n_folds``), as in
+    JAX. Called outside a process group, the driver launches the ranks
+    itself and returns rank 0's accuracies; only rank 0 writes files.
     """
-    if cfg.n_devices > 0 and not cfg.fold_parallel:
-        raise ValueError(
-            "n_devices requires fold_parallel=true: fold-axis sharding "
-            "is the seq2seq driver's multi-chip strategy (the sequential "
-            "path trains one fold at a time on one device)")
     if cfg.n_devices > 0:
-        raise NotImplementedError(
-            "n_devices > 0: multi-GPU fold sharding is not ported yet "
-            "(ROADMAP queue 1, item 11)")
-    dev = resolve_device(device)
+        _check_seq2seq_mesh(cfg, device)
+    if needs_launch(cfg.n_devices):
+        return launch_driver(run_train_seq2seq, cfg.n_devices, device, cfg,
+                             verbose, prewarm_only=prewarm_only)
+    mesh, dev = mesh_and_device(cfg.n_devices, device)
+    writes = is_writer(mesh)
+    verbose = verbose and writes
     if prewarm_only:
         _build_libraries(dev)
         cfg = dataclasses.replace(cfg, n_iter=1, epochs=1, out="",
@@ -1382,24 +1424,56 @@ def run_train_seq2seq(cfg: TrainSeq2SeqConfig, verbose: bool = True,
 
     progress = (str(Path(cfg.out).with_suffix(".progress.pkl")) if cfg.out
                 else "")
-    done = _completed_results(progress, vars(cfg), scalar=False)[: cfg.n_iter]
+    done = from_rank0(lambda: _completed_results(
+        progress, vars(cfg), scalar=False), mesh)[: cfg.n_iter]
     if done and verbose:
         print(f"resuming: {len(done)}/{cfg.n_iter} iterations done",
               flush=True)
     results = [float(a) for accs in done for a in np.ravel(accs)]
     if len(done) < cfg.n_iter:
-        if progress:
+        if progress and writes:
             Path(progress).parent.mkdir(parents=True, exist_ok=True)
-        run = (_seq2seq_fold_parallel if cfg.fold_parallel
-               else _seq2seq_sequential)
-        results += run(cfg, dev, len(done), progress, verbose, prewarm_only)
+        if cfg.fold_parallel:
+            results += _seq2seq_fold_parallel(
+                cfg, dev, len(done), progress if writes else "", verbose,
+                prewarm_only, mesh)
+        else:
+            results += _seq2seq_sequential(cfg, dev, len(done), progress,
+                                           verbose, prewarm_only)
     if prewarm_only:
         return np.asarray([])
     out = np.asarray(results)
-    if cfg.out:
+    if cfg.out and writes:
         Path(cfg.out).parent.mkdir(parents=True, exist_ok=True)
         np.savetxt(cfg.out, out, delimiter=",")
     return out
+
+
+def _check_seq2seq_mesh(cfg: TrainSeq2SeqConfig, device) -> None:
+    """JAX's checks of ``n_devices`` for ``run_train_seq2seq``, before any
+    rank starts: fold-parallel training only, no more ranks than cards
+    (``parallel.mesh.rank_devices``), a world size that divides the fold
+    chunk, and no ``rnn_impl='pallas'``."""
+    from cross_patient_speech_decoding_tpu_torch.parallel.mesh import (
+        rank_devices,
+    )
+
+    if not cfg.fold_parallel:
+        raise ValueError(
+            "n_devices requires fold_parallel=true: fold-axis sharding "
+            "is the seq2seq driver's multi-chip strategy (the sequential "
+            "path trains one fold at a time on one device)")
+    if needs_launch(cfg.n_devices):
+        rank_devices(cfg.n_devices, device)
+    eff = cfg.fold_chunk if cfg.fold_chunk > 0 else cfg.n_folds
+    if eff % cfg.n_devices:
+        raise ValueError(
+            f"mesh width {cfg.n_devices} must divide the per-program fold "
+            f"count ({eff}: fold_chunk or n_folds) for fold-axis sharding")
+    if cfg.rnn_impl == "pallas":
+        raise ValueError(
+            "rnn_impl='pallas' cannot be combined with a mesh: the "
+            "sharded fold axis is the Pallas kernel's grid dimension")
 
 
 def _seq2seq_run_name(cfg: TrainSeq2SeqConfig) -> str:
@@ -1412,11 +1486,12 @@ def _seq2seq_iter_rng(cfg: TrainSeq2SeqConfig, it: int):
 
 
 def _seq2seq_fold_parallel(cfg, dev, start_it, progress, verbose,
-                           prewarm_only):
+                           prewarm_only, mesh=None):
     """The fold-parallel iterations from ``start_it``: every fold of an
     iteration through the fold trainer (in chunks of ``fold_chunk``, the
-    chunk at fold c0 seeded ``seed + it + 31 c0``); one row of per-fold
-    accuracies an iteration in ``logs/<run>/fold_accs.csv``."""
+    chunk at fold c0 seeded ``seed + it + 31 c0``, its folds sharded over
+    ``mesh``); one row of per-fold accuracies an iteration in
+    ``logs/<run>/fold_accs.csv``, written by rank 0."""
     from cross_patient_speech_decoding_tpu_torch.data.splits import (
         stratified_kfold_masks,
     )
@@ -1428,11 +1503,12 @@ def _seq2seq_fold_parallel(cfg, dev, start_it, progress, verbose,
     prep = _seq2seq_prep(cfg, dev)
     trainer_fn = fold_parallel.make_seq2seq_fold_trainer_fn(
         _seq2seq_model(cfg), lr=cfg.lr, weight_decay=cfg.weight_decay,
-        decay_iters=cfg.decay_iters, clip=cfg.clip, rnn_impl=cfg.rnn_impl)
+        decay_iters=cfg.decay_iters, clip=cfg.clip, mesh=mesh,
+        rnn_impl=cfg.rnn_impl)
     aug_names = _parse_augmentations(cfg.augmentations)
     run_name = _seq2seq_run_name(cfg)
     fold_log = (Path(cfg.out).parent / "logs" / run_name / "fold_accs.csv"
-                if cfg.log_metrics and cfg.out else None)
+                if cfg.log_metrics and cfg.out and is_writer(mesh) else None)
     if fold_log is not None and start_it == 0 and fold_log.exists():
         # a fresh run: a log already there is an earlier run's
         fold_log.unlink()
@@ -1474,7 +1550,8 @@ def _seq2seq_fold_parallel(cfg, dev, start_it, progress, verbose,
         if prewarm_only:
             trainer_fn(*chunk_args(0), cfg.seed + it, cfg.epochs)
             return []
-        with _maybe_trace(cfg.trace and it == start_it, cfg.out, run_name):
+        with _maybe_trace(cfg.trace and it == start_it and is_writer(mesh),
+                          cfg.out, run_name):
             parts = [trainer_fn(*chunk_args(c0), cfg.seed + it + 31 * c0,
                                 cfg.epochs)[0]
                      for c0 in range(0, n_folds, chunk)]
@@ -1648,11 +1725,18 @@ def run_train_nn(cfg: TrainNNConfig, verbose: bool = True, device=None):
     rerun resumes; per-fold logs go to ``logs/<run>/``.
 
     Runs on ``device`` (default: the first CUDA card; raises without one
-    unless ``device='cpu'``). Not ported yet, and refused: ``n_devices >
-    0`` (ROADMAP queue 1, item 11).
+    unless ``device='cpu'``). ``n_devices > 0`` trains every fold
+    data-parallel on that many ranks
+    (``parallel.make_sharded_classifier_train_step``: each rank's block of
+    every mini-batch, gradients summed, BatchNorm statistics per shard).
+    Called outside a process group, the driver launches the ranks itself
+    and returns rank 0's accuracies; only rank 0 writes files.
     """
     from cross_patient_speech_decoding_tpu_torch.data.splits import (
         stratified_kfold_masks,
+    )
+    from cross_patient_speech_decoding_tpu_torch.parallel import (
+        make_sharded_classifier_train_step,
     )
     from cross_patient_speech_decoding_tpu_torch.train import (
         create_train_state,
@@ -1664,11 +1748,12 @@ def run_train_nn(cfg: TrainNNConfig, verbose: bool = True, device=None):
         make_optimizer,
     )
 
-    if cfg.n_devices > 0:
-        raise NotImplementedError(
-            "n_devices > 0: the data-parallel classifier step is not ported "
-            "yet (ROADMAP queue 1, item 11)")
-    dev = resolve_device(device)
+    if needs_launch(cfg.n_devices):
+        return launch_driver(run_train_nn, cfg.n_devices, device, cfg,
+                             verbose)
+    mesh, dev = mesh_and_device(cfg.n_devices, device)
+    writes = is_writer(mesh)
+    verbose = verbose and writes
     tar, cross, n_y, n_a = patients_from_config(
         cfg.data, cfg.target_pt, cfg.p_ind, cfg.lab_type, cfg.algn_type,
         cfg.seed, device=dev)
@@ -1681,13 +1766,18 @@ def run_train_nn(cfg: TrainNNConfig, verbose: bool = True, device=None):
                         end_factor=0.01, clip=cfg.clip)
     y_host = tar.y.cpu().numpy()
 
-    if cfg.out:
+    if cfg.out and writes:
         Path(cfg.out).parent.mkdir(parents=True, exist_ok=True)
-    all_accs = _completed_results(cfg.out, vars(cfg), scalar=False)[
-        : cfg.n_iter]
+    all_accs = from_rank0(lambda: _completed_results(
+        cfg.out, vars(cfg), scalar=False), mesh)[: cfg.n_iter]
     if all_accs and verbose:
         print(f"resuming: {len(all_accs)}/{cfg.n_iter} iterations done",
               flush=True)
+
+    def train_step(model):
+        if mesh is None:
+            return make_classifier_train_step(model, tx)
+        return make_sharded_classifier_train_step(model, tx, mesh)
 
     run_name = f"{cfg.target_pt}_{cfg.model}_nnDecode"
     start_it = len(all_accs)
@@ -1709,11 +1799,10 @@ def run_train_nn(cfg: TrainNNConfig, verbose: bool = True, device=None):
                                         device=dev)
             gen = torch.Generator(device=dev).manual_seed(
                 cfg.seed + 1000 + 31 * it + k)
-            with _maybe_trace(cfg.trace and it == start_it and k == 0,
-                              cfg.out, run_name):
+            with _maybe_trace(cfg.trace and it == start_it and k == 0
+                              and writes, cfg.out, run_name):
                 res = fit_loop(
-                    create_train_state(model, tx),
-                    make_classifier_train_step(model, tx),
+                    create_train_state(model, tx), train_step(model),
                     make_classifier_eval_step(model), (X_train, y_train),
                     test, epochs=cfg.epochs, generator=gen, monitor="acc",
                     mode="max", batch_size=cfg.batch_size,
@@ -1722,12 +1811,12 @@ def run_train_nn(cfg: TrainNNConfig, verbose: bool = True, device=None):
                     eval_every=cfg.epochs,
                     log_path=(_run_log_path(cfg.out, run_name, it, k,
                                             fmt=cfg.log_format)
-                              if cfg.log_metrics else None),
+                              if cfg.log_metrics and writes else None),
                     log_format=cfg.log_format)
             fold_accs.append(res.history[-1]["acc"])
         fold_accs = np.asarray(fold_accs)
         all_accs.append(fold_accs)
-        if cfg.out:
+        if cfg.out and writes:
             append_results_pkl(cfg.out, fold_accs, params=vars(cfg))
         if verbose:
             print(f"iter {it} [{cfg.model}]: mean test acc "
@@ -1751,7 +1840,7 @@ def run_prewarm_ctc(cfg: TrainCTCConfig, verbose: bool = True, device=None):
     run_train_ctc(dataclasses.replace(cfg, n_iter=1, epochs=1, out="",
                                       log_metrics=False, trace=False,
                                       results_h5=""),
-                  verbose=False, device=dev)
+                  verbose=False, device=device)
     if verbose:
         print(f"ctc libraries built and one epoch run in "
               f"{time.perf_counter() - t0:.1f}s (context={cfg.context})",
@@ -1801,7 +1890,7 @@ def _label_seq_class_ids(y) -> np.ndarray:
 
 
 def _tune_cv_trainer(cfg: TuneCTCConfig, rng: np.random.Generator, F: int,
-                     device=None):
+                     device=None, mesh=None):
     """The reference's CV trainable (train_func_cv, tune_ctc_rnn.py:550-634):
     per-trial k-fold CV with the fold-mean validation PER.
 
@@ -1853,22 +1942,22 @@ def _tune_cv_trainer(cfg: TuneCTCConfig, rng: np.random.Generator, F: int,
         x = _on(X, dev)
     return make_ctc_cv_bucket_trainer(
         (x, y, il, ll), w_tr, w_va, n_classes=11, seed=cfg.seed,
-        model_chunk=cfg.model_chunk,
+        mesh=mesh, model_chunk=cfg.model_chunk,
     )
 
 
-def _tune_mesh(cfg: TuneCTCConfig):
-    """The trial mesh of ``n_devices``: None for one device; more are not
-    ported yet. ``run_tune_ctc`` checks it before any work."""
+def _tune_mesh(cfg: TuneCTCConfig, device=None):
+    """The trial mesh of ``n_devices`` (this rank's, inside the process
+    group), None for one device."""
     if cfg.n_devices <= 0:
         return None
-    raise NotImplementedError(
-        "n_devices > 0: trial sharding over several cards is not ported "
-        "yet (ROADMAP queue 1, item 11: parallel/)")
+    from cross_patient_speech_decoding_tpu_torch.parallel import make_mesh
+
+    return make_mesh(cfg.n_devices, device=device)
 
 
 def _tune_holdout_trainer(cfg: TuneCTCConfig, rng: np.random.Generator,
-                          dev):
+                          dev, mesh=None):
     """The single held-out validation split: precomputed transforms
     (pca_path) or on-the-fly PCA and CCA pooling of file or synthetic data
     (tune_ctc_rnn[_align]), or the target alone."""
@@ -1902,7 +1991,8 @@ def _tune_holdout_trainer(cfg: TuneCTCConfig, rng: np.random.Generator,
         tr_i, va_i = np.where(tr > 0)[0], np.where(va > 0)[0]
         train = tuple(_on(_take(a, tr_i), dev) for a in (X, y, il, ll))
         val = tuple(_on(_take(a, va_i), dev) for a in (X, y, il, ll))
-    return make_ctc_bucket_trainer(train, val, n_classes=11, seed=cfg.seed)
+    return make_ctc_bucket_trainer(train, val, n_classes=11, seed=cfg.seed,
+                                   mesh=mesh)
 
 
 def run_tune_ctc(cfg: TuneCTCConfig, verbose: bool = True, device=None):
@@ -1918,7 +2008,11 @@ def run_tune_ctc(cfg: TuneCTCConfig, verbose: bool = True, device=None):
 
     Runs on ``device`` (default: the first CUDA card; raises without one
     unless ``device='cpu'``). Returns the search's records, best first.
-    ``n_devices > 0`` is not ported yet (ROADMAP queue 1, item 11).
+    ``n_devices > 0`` shards each bucket's (trial x fold) models over that
+    many ranks (``sweep/ctc.py``'s ``mesh=``); every rank runs the same
+    search from the same seeds. Called outside a process group, the
+    driver launches the ranks itself and returns rank 0's records; only
+    rank 0 writes the manifest and ``hparam_out``.
     """
     from cross_patient_speech_decoding_tpu_torch.sweep import (
         Manifest,
@@ -1929,8 +2023,13 @@ def run_tune_ctc(cfg: TuneCTCConfig, verbose: bool = True, device=None):
         sample_trials,
     )
 
-    dev = resolve_device(device)
-    _tune_mesh(cfg)
+    if needs_launch(cfg.n_devices):
+        return launch_driver(run_tune_ctc, cfg.n_devices, device, cfg,
+                             verbose)
+    mesh = _tune_mesh(cfg, device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    writes = is_writer(mesh)
+    verbose = verbose and writes
     rng = np.random.default_rng(cfg.seed)
     built = []
 
@@ -1940,26 +2039,30 @@ def run_tune_ctc(cfg: TuneCTCConfig, verbose: bool = True, device=None):
         # without fitting anything; the JAX package preps up front
         if not built:
             built.append(
-                _tune_cv_trainer(cfg, rng, int(cfg.cv_folds), dev)
-                if cfg.cv_folds > 0 else _tune_holdout_trainer(cfg, rng, dev))
+                _tune_cv_trainer(cfg, rng, int(cfg.cv_folds), dev, mesh)
+                if cfg.cv_folds > 0
+                else _tune_holdout_trainer(cfg, rng, dev, mesh))
         return built[0](cfgs, epochs)
 
-    Path(cfg.manifest).parent.mkdir(parents=True, exist_ok=True)
+    if writes:
+        Path(cfg.manifest).parent.mkdir(parents=True, exist_ok=True)
+    # rank 0 reads and appends the manifest; the others take its records
+    manifest = Manifest(cfg.manifest if writes else None)
+    manifest.done = from_rank0(lambda: manifest.done, mesh)
     rungs = tuple(int(r) for r in cfg.rungs.split(","))
     if cfg.sampler == "tpe":
         # BOHB-style model-based acquisition (tune_ctc_rnn.py:224-232)
         results = run_bohb(
             default_ctc_space(), trainer, n_trials=cfg.n_trials,
             batch=min(6, cfg.n_trials), rungs=rungs, eta=cfg.eta,
-            manifest=Manifest(cfg.manifest), seed=cfg.seed,
+            manifest=manifest, seed=cfg.seed,
         )
     else:
         trials = sample_trials(SweepSpace(), cfg.n_trials, seed=cfg.seed)
         results = run_sweep(
-            trials, trainer, manifest=Manifest(cfg.manifest), rungs=rungs,
-            eta=cfg.eta,
+            trials, trainer, manifest=manifest, rungs=rungs, eta=cfg.eta,
         )
-    if results and cfg.hparam_out:
+    if results and cfg.hparam_out and writes:
         # the tune -> train handoff, in the reference's tuned-hparams
         # layout (train_ctc_rnn.py:375-423)
         from cross_patient_speech_decoding_tpu_torch.data.loaders import (

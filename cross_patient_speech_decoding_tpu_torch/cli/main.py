@@ -7,6 +7,12 @@ file.yaml`` and Hydra-style ``key=value`` overrides. ``device=cpu`` (or
 ``analyze`` runs on the host and takes no ``device=``; ``reproduce``
 hands its device to every job of the manifest.
 
+``n_devices=N`` runs a driver on N ranks, one process a device
+(``parallel/``): the driver starts them itself, on ``cuda:0`` ..
+``cuda:N-1`` (``device=cpu``: N CPU ranks over gloo). Under ``torchrun
+--nproc_per_node=N`` each process joins torchrun's process group instead
+and the driver runs in it.
+
 Example::
 
     python -m cross_patient_speech_decoding_tpu_torch.cli.main train-ctc \\
@@ -140,7 +146,18 @@ def main(argv=None) -> int:
     device, overrides = _split_device(args.overrides)
     cfg = load_config(cfg_cls, args.config, overrides)
     if on_device:
-        result = fn(cfg, device=device)
+        from cross_patient_speech_decoding_tpu_torch.parallel.mesh import (
+            init_from_env,
+        )
+
+        joined = init_from_env(device)
+        try:
+            result = fn(cfg, device=device)
+        finally:
+            if joined:
+                import torch.distributed as dist
+
+                dist.destroy_process_group()
     elif device is not None:
         raise ValueError(f"{args.command} runs on the host: it takes no "
                          f"device= (got {device!r})")

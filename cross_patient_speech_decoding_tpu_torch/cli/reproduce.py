@@ -21,8 +21,9 @@ Where the port differs from the JAX package, on purpose:
 - a formatted value is never formatted again: ``{{...}}`` in a template
   is a literal ``{...}`` whatever it names (the JAX loop formats it a
   second time, and raises or substitutes a key);
-- ``n_devices > 0`` (the run's or a job's) is refused before any job runs
-  (ROADMAP queue 1, item 11);
+- ``n_devices > 0`` is forwarded to every job config that has the field,
+  as in JAX; such a job gets the caller's device as given, so that its
+  driver launches its ranks on ``cuda:0`` .. ``cuda:n-1`` by default;
 - a ``train-seq2seq`` job's completion is read from its progress pickle
   (``<out stem>.progress.pkl``): its ``out`` is a CSV, which the JAX
   package reads as a pickle and fails on once the job has run.
@@ -211,17 +212,6 @@ def _already_complete(job_cfg, mutate: bool = True) -> bool:
     return False
 
 
-def _refuse_n_devices(cfg: ReproduceConfig, plan) -> None:
-    """Raise, before any job runs, when the run or a planned job asks for
-    several devices."""
-    jobs = [job["label"] for job, _, job_cfg, _ in plan
-            if getattr(job_cfg, "n_devices", 0) > 0]
-    if cfg.n_devices > 0 or jobs:
-        raise NotImplementedError(
-            f"n_devices > 0 ({f'jobs {jobs}' if jobs else 'the run'}): "
-            "multi-GPU runs are not ported yet (ROADMAP queue 1, item 11)")
-
-
 def run_manifest(manifest: dict, cfg: ReproduceConfig, verbose: bool = True,
                  device=None):
     """Expand ``manifest`` (a dict, as read from the YAML) and run or
@@ -247,7 +237,6 @@ def run_manifest(manifest: dict, cfg: ReproduceConfig, verbose: bool = True,
             summary["filtered"] += 1
             continue
         plan.append((job, fn, job_cfg, _resolve_command(job["command"])[2]))
-    _refuse_n_devices(cfg, plan)
     dev = None if cfg.dry_run else resolve_device(device)
 
     width = len(str(len(plan)))
@@ -270,6 +259,9 @@ def run_manifest(manifest: dict, cfg: ReproduceConfig, verbose: bool = True,
         if verbose:
             print(f"{tag}: running...", flush=True)
         kw = {"device": dev} if on_device else {}
+        if on_device and getattr(job_cfg, "n_devices", 0) > 0:
+            # the caller's device as given: None puts rank r on cuda:r
+            kw["device"] = device
         try:
             fn(job_cfg, verbose=verbose, **kw)
         except Exception as e:  # keep the matrix going when asked to

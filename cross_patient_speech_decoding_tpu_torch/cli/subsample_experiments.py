@@ -36,7 +36,12 @@ card where the source keeps at least ``ops.jacobi.ANY_BATCH_K`` latents
 per configuration to avoid retracing; the port runs eagerly, so it builds
 the decoder at each sweep point (``make_cv_decoder`` holds no state).
 
-Not ported yet, and refused: ``n_devices > 0`` (ROADMAP queue 1, item 11).
+``n_devices > 0`` shards each sweep point's folds over that many ranks
+(``make_cv_decoder(mesh=)``, the nested search's outer folds likewise):
+every rank draws the same indices and folds, decodes its block of folds
+and gathers the rest. Called with no process group initialised, a sweep
+launches its ranks itself and returns rank 0's result; only rank 0 writes
+``out``.
 """
 
 from __future__ import annotations
@@ -80,8 +85,12 @@ from cross_patient_speech_decoding_tpu_torch.decoders.pooled import (
     make_cv_decoder,
 )
 from cross_patient_speech_decoding_tpu_torch.ops.precision import hdot
-from cross_patient_speech_decoding_tpu_torch.utils.device import (
-    resolve_device,
+from cross_patient_speech_decoding_tpu_torch.parallel.mesh import (
+    is_writer,
+    launch_driver,
+    make_mesh,
+    mesh_and_device,
+    needs_launch,
 )
 
 
@@ -115,8 +124,7 @@ class SubsampleConfig:
     nested_rounds: int = 2
     nested_points: int = 3
     nested_inner: int = 3
-    # fold sharding over the first n devices; 0 = one device. Not ported
-    # yet: the sweeps raise for n > 0 (ROADMAP queue 1, item 11)
+    # fold sharding over n ranks, one device each; 0 = one device
     n_devices: int = 0
     seed: int = 0
     # real electrode geometry: dir holding {pt}/{pt}_channelMap.mat +
@@ -139,11 +147,17 @@ class SubsampleConfig:
     out: str = ""  # optional results pickle
 
 
-def _refuse_unported(cfg: SubsampleConfig) -> None:
-    if cfg.n_devices > 0:
-        raise NotImplementedError(
-            "n_devices > 0: multi-GPU fold sharding is not ported yet "
-            "(ROADMAP queue 1, item 11)")
+def _sweep_device(cfg: SubsampleConfig, device):
+    """(this rank's device, whether it writes ``out``) of a sweep run
+    inside its ranks (or on one device for ``n_devices == 0``)."""
+    mesh, dev = mesh_and_device(cfg.n_devices, device)
+    return dev, is_writer(mesh)
+
+
+def _mesh(cfg: SubsampleConfig, dev):
+    """The fold mesh of a decode on ``dev``: None for one device."""
+    return make_mesh(cfg.n_devices, device=dev) if cfg.n_devices > 0 \
+        else None
 
 
 def _decode_config(cfg: SubsampleConfig, n_y: int, n_a: int) -> DecodeConfig:
@@ -179,9 +193,11 @@ def _decode(tar, cross, dcfg, cfg: SubsampleConfig, rng, tar_y_host=None):
             n_rounds=cfg.nested_rounds, n_points=cfg.nested_points,
             n_inner=cfg.nested_inner, strategy=cfg.strategy,
             seed=int(rng.integers(2**31)),
+            mesh=_mesh(cfg, tar.X.device),
         )
         return float(np.asarray(accs).mean())
-    decoder = make_cv_decoder(cfg.strategy, dcfg)
+    decoder = make_cv_decoder(cfg.strategy, dcfg,
+                              mesh=_mesh(cfg, tar.X.device))
     if tar_y_host is None:
         tar_y_host = tar.y.cpu().numpy()
     tr, te = stratified_kfold_masks(tar_y_host, cfg.n_folds, rng)
@@ -192,8 +208,9 @@ def _decode(tar, cross, dcfg, cfg: SubsampleConfig, rng, tar_y_host=None):
     return float(accs.cpu().numpy().mean())
 
 
-def _save_results(cfg: SubsampleConfig, sweep: str, results):
-    if cfg.out:
+def _save_results(cfg: SubsampleConfig, sweep: str, results,
+                  writes: bool = True):
+    if cfg.out and writes:
         path = Path(cfg.out)
         path.parent.mkdir(parents=True, exist_ok=True)
         save_pkl({"params": vars(cfg), "sweep": sweep, "results": results},
@@ -209,8 +226,10 @@ def run_trial_subsample(cfg: SubsampleConfig, verbose: bool = True,
                         device=None):
     """Accuracy vs cross-patient trial count -> (ks, (n_k, n_iter)
     accuracies)."""
-    _refuse_unported(cfg)
-    dev = resolve_device(device)
+    if needs_launch(cfg.n_devices):
+        return launch_driver(run_trial_subsample, cfg.n_devices, device, cfg, verbose)
+    dev, writes = _sweep_device(cfg, device)
+    verbose = verbose and writes
     tar, cross, dcfg, _ = _setup(cfg, dev)
     if not cross:
         raise ValueError(
@@ -236,7 +255,8 @@ def run_trial_subsample(cfg: SubsampleConfig, verbose: bool = True,
                                       tar_y_host=tar_y_host)
         if verbose:
             print(f"k={k}: acc {results[ki].mean():.3f}", flush=True)
-    _save_results(cfg, "trials", {"ks": np.asarray(ks), "accs": results})
+    _save_results(cfg, "trials", {"ks": np.asarray(ks), "accs": results},
+                  writes)
     return np.asarray(ks), results
 
 
@@ -309,8 +329,10 @@ def run_grid_subsample(cfg: SubsampleConfig, verbose: bool = True,
     edge-trimmed and the window transposed as the reference does
     (grid_subsampling.py:33-38).
     """
-    _refuse_unported(cfg)
-    dev = resolve_device(device)
+    if needs_launch(cfg.n_devices):
+        return launch_driver(run_grid_subsample, cfg.n_devices, device, cfg, verbose)
+    dev, writes = _sweep_device(cfg, device)
+    verbose = verbose and writes
     tar, cross, dcfg, names = _setup(cfg, dev)
     rng = np.random.default_rng(cfg.seed)
     geom = _patient_geometry(cfg, names, (tar, *cross))
@@ -353,7 +375,7 @@ def run_grid_subsample(cfg: SubsampleConfig, verbose: bool = True,
                 f"{n_run}/{len(grids[0])} target sub-grids",
                 flush=True,
             )
-    _save_results(cfg, "grid", results)
+    _save_results(cfg, "grid", results, writes)
     return results
 
 
@@ -402,8 +424,10 @@ def run_spatial_avg(cfg: SubsampleConfig, verbose: bool = True,
     device (``X @ A`` in true float32, ``A`` the host-built tile-average
     matrix of ``spatial_avg_subsampling.py``'s tiling).
     """
-    _refuse_unported(cfg)
-    dev = resolve_device(device)
+    if needs_launch(cfg.n_devices):
+        return launch_driver(run_spatial_avg, cfg.n_devices, device, cfg, verbose)
+    dev, writes = _sweep_device(cfg, device)
+    verbose = verbose and writes
     results = {}
     if cfg.data != "synthetic":
         rng = np.random.default_rng(cfg.seed)
@@ -419,7 +443,7 @@ def run_spatial_avg(cfg: SubsampleConfig, verbose: bool = True,
             if verbose:
                 print(f"contact={cs}x{cs}: acc {results[cs].mean():.3f}",
                       flush=True)
-        _save_results(cfg, "spatial_avg", results)
+        _save_results(cfg, "spatial_avg", results, writes)
         return results
 
     tar, cross, dcfg, names = _setup(cfg, dev)
@@ -443,7 +467,7 @@ def run_spatial_avg(cfg: SubsampleConfig, verbose: bool = True,
         if verbose:
             print(f"contact={cs}x{cs}: acc {results[cs].mean():.3f}",
                   flush=True)
-    _save_results(cfg, "spatial_avg", results)
+    _save_results(cfg, "spatial_avg", results, writes)
     return results
 
 
@@ -458,8 +482,10 @@ def run_pitch_subsample(cfg: SubsampleConfig, verbose: bool = True,
     sampling runs on the patient's channel map. The synthetic fallback
     treats pitch in unit-grid spacing on the fabricated map.
     """
-    _refuse_unported(cfg)
-    dev = resolve_device(device)
+    if needs_launch(cfg.n_devices):
+        return launch_driver(run_pitch_subsample, cfg.n_devices, device, cfg, verbose)
+    dev, writes = _sweep_device(cfg, device)
+    verbose = verbose and writes
     tar, cross, dcfg, names = _setup(cfg, dev)
     rng = np.random.default_rng(cfg.seed)
     geom = _patient_geometry(cfg, names, (tar, *cross))
@@ -497,5 +523,5 @@ def run_pitch_subsample(cfg: SubsampleConfig, verbose: bool = True,
         if verbose:
             print(f"pitch={pitch}: acc {results[pitch].mean():.3f}",
                   flush=True)
-    _save_results(cfg, "pitch", results)
+    _save_results(cfg, "pitch", results, writes)
     return results

@@ -11,8 +11,11 @@ hyperparameters (``decoders/pooled.py``). The TPE proposals stay on the
 host (``sweep/bayes.py``), as in the JAX package, and the numpy draws of
 the splits and proposals are the JAX package's, call for call.
 
-``mesh=`` (outer folds sharded over several cards) is not ported yet and
-raises (ROADMAP queue 1, item 11).
+With ``mesh=`` the outer folds are sharded over the mesh's ranks
+(``parallel.mesh.map_fold_blocks``): each rank scores and refits its
+contiguous block of outer folds, padded by repeated folds to a multiple
+of the world size, and the results are gathered. Each rank keeps the
+``fit_batch`` chunking of its block, where JAX's mesh path drops it.
 """
 
 from __future__ import annotations
@@ -31,6 +34,9 @@ from cross_patient_speech_decoding_tpu_torch.decoders.pooled import (
     DecodeConfig,
     PatientArrays,
 )
+from cross_patient_speech_decoding_tpu_torch.parallel.mesh import (
+    map_fold_blocks,
+)
 from cross_patient_speech_decoding_tpu_torch.sweep.bayes import (
     Float,
     TPESampler,
@@ -39,10 +45,6 @@ from cross_patient_speech_decoding_tpu_torch.sweep.bayes import (
 from cross_patient_speech_decoding_tpu_torch.utils.device import (
     resolve_device,
 )
-
-_NO_MESH = ("multi-GPU sharding of the outer folds is not ported yet "
-            "(ROADMAP queue 1, item 11)")
-
 
 def _on(a, dev) -> torch.Tensor:
     """Host masks or hyperparameter values as float32 on ``dev``."""
@@ -134,7 +136,8 @@ def make_nested_cv_decoder(strategy: str, cfg: DecodeConfig,
 
 
 def make_candidate_scorer(strategy: str, cfg: DecodeConfig,
-                          fit_batch: int = 100, mesh=None):
+                          fit_batch: int = 100, mesh=None,
+                          fold_axis: str = "data"):
     """``(score, final_eval)`` of the nested search.
 
     score(tar, cross, inner_tr, inner_te, hp_table) -> (n_outer, P) mean
@@ -148,13 +151,15 @@ def make_candidate_scorer(strategy: str, cfg: DecodeConfig,
     (n_outer,), preds (n_outer, N)): each outer fold refitted at its best
     hyperparameters (dict of (n_outer,) tensors), min(n_outer, fit_batch)
     folds a batch.
+
+    With ``mesh`` the outer-fold axis of both is sharded over its ranks
+    (``fold_axis`` is the mesh's one axis), padded by repeating leading
+    folds when it does not divide the world size; each rank batches its
+    block by ``fit_batch`` as above, and every rank returns all folds.
     """
-    if mesh is not None:
-        raise NotImplementedError(f"make_candidate_scorer(mesh=...): "
-                                  f"{_NO_MESH}")
     fold_fn = _STRATEGIES[strategy]
 
-    def score(tar, cross, inner_tr, inner_te, hp_table):
+    def score_local(tar, cross, inner_tr, inner_te, hp_table):
         cross = tuple(cross)
         n_outer, n_inner = inner_tr.shape[:2]
         n_points = next(iter(hp_table.values())).shape[1]
@@ -166,7 +171,7 @@ def make_candidate_scorer(strategy: str, cfg: DecodeConfig,
             for o in range(0, n_outer, bs)]
         return torch.cat(out)
 
-    def final_eval(tar, cross, train_masks, test_masks, hp_best):
+    def final_local(tar, cross, train_masks, test_masks, hp_best):
         cross = tuple(cross)
         n = train_masks.shape[0]
         bs = min(n, max(1, fit_batch))
@@ -178,6 +183,19 @@ def make_candidate_scorer(strategy: str, cfg: DecodeConfig,
             accs.append(a)
             preds.append(p)
         return torch.cat(accs), torch.cat(preds)
+
+    if mesh is None:
+        return score_local, final_local
+
+    def score(tar, cross, inner_tr, inner_te, hp_table):
+        return map_fold_blocks(
+            lambda *folds: score_local(tar, cross, *folds), mesh, inner_tr,
+            inner_te, hp_table)
+
+    def final_eval(tar, cross, train_masks, test_masks, hp_best):
+        return map_fold_blocks(
+            lambda *folds: final_local(tar, cross, *folds), mesh,
+            train_masks, test_masks, hp_best)
 
     return score, final_eval
 
@@ -217,13 +235,14 @@ def nested_cv_decode_bayes(
     ``train_frac < 1`` subsamples the target's train split per outer fold,
     stratified, before the search (the reference's ``-tss``).
 
+    With ``mesh`` the outer folds of the scoring and of the refit are
+    sharded over its ranks (:func:`make_candidate_scorer`); the TPE
+    proposals stay on the host, the same on every rank.
+
     Runs on the data's device. Returns (accs (n_folds,) numpy, best_hp
     dict of (n_folds,) float32 tensors), and with ``return_preds`` also
     preds (n_folds, N) numpy over all target rows and the test masks.
     """
-    if mesh is not None:
-        raise NotImplementedError(f"nested_cv_decode_bayes(mesh=...): "
-                                  f"{_NO_MESH}")
     dev = tar.X.device
     space = {
         "n_comp": Float(0.5, 0.99),
@@ -240,7 +259,7 @@ def nested_cv_decode_bayes(
     for k in range(n_folds):
         itr[k], ite[k] = inner_cv_masks(tr[k], y, n_inner, rng)
 
-    score, final_eval = _cached_scorer(strategy, cfg, fit_batch)
+    score, final_eval = _cached_scorer(strategy, cfg, fit_batch, mesh=mesh)
     cross = tuple(cross)
     itr_d, ite_d = _on(itr, dev), _on(ite, dev)
 
@@ -282,10 +301,13 @@ def nested_cv_decode(
     n_inner: int = 5,
     strategy: str = "sep_align",
     seed: int = 0,
+    mesh=None,
 ):
     """Masks, then nested CV over a random candidate table: (accs,
     best candidate index per outer fold, the candidates), the first two
-    as numpy."""
+    as numpy. With ``mesh`` the outer folds are sharded over its ranks as
+    in :func:`make_candidate_scorer` (an extension: JAX's takes no
+    mesh)."""
     rng = np.random.default_rng(seed)
     y = tar.y.cpu().numpy()
     tr, te = stratified_kfold_masks(y, n_folds, rng)
@@ -297,6 +319,10 @@ def nested_cv_decode(
     dev = tar.X.device
     run, cands = make_nested_cv_decoder(strategy, cfg, n_candidates,
                                         n_inner, seed=seed, device=dev)
-    accs, best = run(tar, tuple(cross), _on(tr, dev), _on(te, dev),
-                     _on(itr, dev), _on(ite, dev))
+    folds = (_on(tr, dev), _on(te, dev), _on(itr, dev), _on(ite, dev))
+    if mesh is None:
+        accs, best = run(tar, tuple(cross), *folds)
+    else:
+        accs, best = map_fold_blocks(
+            lambda *f: run(tar, tuple(cross), *f), mesh, *folds)
     return accs.cpu().numpy(), best.cpu().numpy(), cands

@@ -29,6 +29,8 @@ problem each, so those two strategies loop over the folds of a batch.
 
 from __future__ import annotations
 
+import functools
+
 from dataclasses import dataclass
 from typing import NamedTuple, Sequence
 
@@ -52,6 +54,9 @@ from cross_patient_speech_decoding_tpu_torch.ops.joint_pca import (
 from cross_patient_speech_decoding_tpu_torch.ops.mcca import (
     fit_mcca_aligner,
     mcca_transform,
+)
+from cross_patient_speech_decoding_tpu_torch.parallel.mesh import (
+    map_fold_blocks,
 )
 from cross_patient_speech_decoding_tpu_torch.ops.metrics import (
     balanced_accuracy,
@@ -369,7 +374,8 @@ _STRATEGIES = {
 
 
 def make_cv_decoder(strategy: str, cfg: DecodeConfig, fold_batch: int = 0,
-                    mesh=None, return_preds: bool = False):
+                    mesh=None, fold_axis: str = "data",
+                    return_preds: bool = False):
     """A CV decoder: (tar, cross, train_masks, test_masks) -> accs.
 
     ``train_masks``/``test_masks`` are (n_folds, N0) tensors on the data's
@@ -379,16 +385,17 @@ def make_cv_decoder(strategy: str, cfg: DecodeConfig, fold_batch: int = 0,
     ``preds`` (n_folds, N0) labels over all target rows (the caller picks
     the test rows with its masks).
 
-    ``mesh`` (fold sharding over several cards) is not ported yet and
-    raises (ROADMAP queue 1, item 11).
+    With ``mesh`` (``parallel.make_mesh``) the fold axis is sharded over
+    its ranks (``fold_axis`` is the mesh's one axis): the folds are padded
+    to a multiple of the world size by repeating leading folds (JAX pads
+    zero masks; either pad is sliced away), each rank decodes its
+    contiguous block of folds in ``fold_batch`` chunks, and the
+    accuracies (and predictions) are gathered, so every rank returns all
+    of them. Folds are independent, so nothing else crosses ranks.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_cv_decoder(mesh=...): multi-GPU fold sharding is not "
-            "ported yet (ROADMAP queue 1, item 11)")
     fold_fn = _STRATEGIES[strategy]
 
-    def run(tar, cross, train_masks, test_masks):
+    def run_local(tar, cross, train_masks, test_masks):
         n = train_masks.shape[0]
         step = fold_batch if fold_batch and n > fold_batch else n
         accs, preds = [], []
@@ -397,7 +404,15 @@ def make_cv_decoder(strategy: str, cfg: DecodeConfig, fold_batch: int = 0,
                            test_masks[i:i + step], cfg)
             accs.append(a)
             preds.append(p)
-        accs = torch.cat(accs)
-        return (accs, torch.cat(preds)) if return_preds else accs
+        return torch.cat(accs), torch.cat(preds)
+
+    def run(tar, cross, train_masks, test_masks):
+        if mesh is None:
+            accs, preds = run_local(tar, cross, train_masks, test_masks)
+        else:
+            accs, preds = map_fold_blocks(
+                functools.partial(run_local, tar, cross), mesh, train_masks,
+                test_masks)
+        return (accs, preds) if return_preds else accs
 
     return run

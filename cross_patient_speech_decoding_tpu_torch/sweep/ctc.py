@@ -25,6 +25,13 @@ dropout masks from a generator on the device seeded
 ``seed + DROPOUT_SEED_OFFSET + i``; ``train_bucket(..., init_params=)``
 loads given weights instead (the tests start from the JAX package's).
 
+With a ``mesh`` (``parallel.make_mesh``) a bucket's models are sharded
+over its ranks: each rank trains its contiguous block of the (trial x
+fold) models from the same per-model seeds, and the PERs are gathered, so
+the result is the one-device run's. A bucket whose model count does not
+divide the world size trains every model on every rank (JAX runs it
+unsharded; its CV trainer warns).
+
 ``CPSD_EPOCH_SEG`` keeps its JAX meaning: the epochs run in segments of
 that many, with a one-element host read after each, and each model's
 generator runs on across the segments, so the segment length changes no
@@ -34,6 +41,7 @@ result.
 from __future__ import annotations
 
 import os
+import warnings
 from typing import Sequence
 
 import numpy as np
@@ -48,6 +56,10 @@ from cross_patient_speech_decoding_tpu_torch.ops.ctc import (
     greedy_decode,
 )
 from cross_patient_speech_decoding_tpu_torch.ops.metrics import edit_distance
+from cross_patient_speech_decoding_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    block_range,
+)
 from cross_patient_speech_decoding_tpu_torch.train.loops import make_optimizer
 from cross_patient_speech_decoding_tpu_torch.train.state import (
     create_train_state,
@@ -100,6 +112,29 @@ def _as_tensor(a, dev, dtype=None):
     if torch.is_tensor(a):
         return a.to(device=dev, dtype=dtype or a.dtype)
     return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+
+def _model_block(n_models: int, mesh, axis: str, warn: str | None):
+    """(models this rank trains, whether they are a shard): the rank's
+    contiguous block of the bucket's ``n_models`` when the mesh divides
+    them, else all of them (with the warning ``warn``, if given)."""
+    if mesh is None:
+        return range(n_models), False
+    width = mesh.shape[axis]
+    if n_models % width:
+        if warn:
+            warnings.warn(f"{warn} does not divide the {width}-rank mesh; "
+                          "running UNSHARDED on every rank", stacklevel=3)
+        return range(n_models), False
+    return range(*block_range(n_models, mesh)), True
+
+
+def _gathered(pers: torch.Tensor, mesh, sharded: bool) -> np.ndarray:
+    """Every model's PER on every rank: this rank's block gathered when
+    the models are a shard."""
+    if sharded:
+        pers = all_gather_rows(pers, mesh)
+    return pers.cpu().numpy()
 
 
 class _Bucket:
@@ -177,8 +212,10 @@ def make_ctc_cv_bucket_trainer(
         seed: model i's weights from ``seed + i``, its dropout from
             ``seed + DROPOUT_SEED_OFFSET + i`` (i fold-fastest over the
             bucket's trials x folds).
-        mesh, trial_axis: not ported yet (ROADMAP queue 1, item 11); mesh
-            must be None.
+        mesh, trial_axis: the bucket's B x F models sharded over the
+            mesh's ranks (``trial_axis`` is its one axis) when B * F
+            divides the world size; else a warning, and every rank trains
+            all of them.
         model_chunk: how many fold models train concurrently in the JAX
             package (a single-device memory bound, so it cannot go with a
             mesh). The port trains one model at a time whatever its value.
@@ -198,10 +235,6 @@ def make_ctc_cv_bucket_trainer(
             "model_chunk is a single-device memory bound; with a mesh the "
             "model axis is already sharded — drop one of the two"
         )
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: trial sharding over several cards is not ported yet "
-            "(ROADMAP queue 1, item 11)")
     dev = x.device if torch.is_tensor(x) else resolve_device(None)
     x = _as_tensor(x, dev, torch.float32)
     y = _as_tensor(y, dev, torch.long)
@@ -214,18 +247,20 @@ def make_ctc_cv_bucket_trainer(
     def train_bucket(cfgs: Sequence[dict], epochs: int, init_params=None):
         bucket = _Bucket(cfgs[0], x.shape[-1], n_classes, win_size, stride,
                          blank, decay_steps, seed, dev)
-        pers = np.zeros((len(cfgs), F))
-        for b, c in enumerate(cfgs):
-            for f in range(F):
-                i = b * F + f
-                xf = x[f] if per_fold_x else x
-                model = bucket.train(
-                    i, c["lr"], c["weight_decay"], epochs, xf, y, in_adj,
-                    ll, w_tr[f],
-                    None if init_params is None else init_params[i])
-                pers[b, f] = _val_per(model, xf, y, ll, in_adj, blank,
-                                      w_va[f])
-                del model
+        models, sharded = _model_block(
+            len(cfgs) * F, mesh, trial_axis,
+            f"CV bucket of {len(cfgs)} trials x {F} folds")
+        pers = []
+        for i in models:
+            c, f = cfgs[i // F], i % F
+            xf = x[f] if per_fold_x else x
+            model = bucket.train(
+                i, c["lr"], c["weight_decay"], epochs, xf, y, in_adj, ll,
+                w_tr[f], None if init_params is None else init_params[i])
+            pers.append(_val_per(model, xf, y, ll, in_adj, blank, w_va[f]))
+            del model
+        pers = _gathered(torch.tensor(pers, dtype=torch.float64, device=dev),
+                         mesh, sharded).reshape(len(cfgs), F)
         return [float(p) for p in pers.mean(axis=1)]
 
     return train_bucket
@@ -253,13 +288,11 @@ def make_ctc_bucket_trainer(
     train ``x``'s device. Model i of a bucket (i its trial's position)
     draws its weights from ``seed + i`` and its dropout from
     ``seed + DROPOUT_SEED_OFFSET + i``; ``init_params`` (one state dict per
-    trial) replaces the weights. ``mesh``, ``trial_axis``: not ported yet
-    (ROADMAP queue 1, item 11); mesh must be None.
+    trial) replaces the weights. With ``mesh`` the trials are sharded over
+    its ranks (``trial_axis`` is its one axis) when their count divides
+    the world size, else every rank trains all of them (JAX's silent
+    fallback).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: trial sharding over several cards is not ported yet "
-            "(ROADMAP queue 1, item 11)")
     x_tr = train_batch[0]
     dev = x_tr.device if torch.is_tensor(x_tr) else resolve_device(None)
 
@@ -277,13 +310,17 @@ def make_ctc_bucket_trainer(
     def train_bucket(cfgs: Sequence[dict], epochs: int, init_params=None):
         bucket = _Bucket(cfgs[0], x_tr.shape[-1], n_classes, win_size,
                          stride, blank, decay_steps, seed, dev)
+        models, sharded = _model_block(len(cfgs), mesh, trial_axis, None)
         pers = []
-        for i, c in enumerate(cfgs):
+        for i in models:
+            c = cfgs[i]
             model = bucket.train(
                 i, c["lr"], c["weight_decay"], epochs, x_tr, y_tr, ia_tr,
                 ll_tr, None, None if init_params is None else init_params[i])
             pers.append(_val_per(model, x_v, y_v, ll_v, ia_v, blank))
             del model
-        return pers
+        return [float(p) for p in _gathered(
+            torch.tensor(pers, dtype=torch.float64, device=dev), mesh,
+            sharded)]
 
     return train_bucket

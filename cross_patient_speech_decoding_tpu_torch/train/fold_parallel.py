@@ -18,17 +18,27 @@ Two levels, as in JAX: :func:`make_seq2seq_fold_trainer_fn` builds
 ``train(X_pool, y_pool, train_weights, test_masks, seed, epochs)``, which
 the driver calls once per fold chunk; :func:`make_seq2seq_fold_trainer`
 closes over the arrays.
+
+With a ``mesh`` (``parallel.make_mesh``) the folds are sharded over its
+ranks: each rank trains the contiguous block of folds it owns, in turn,
+from the same per-fold seeds, and the accuracies are gathered, so the
+result equals the one-device run's bit for bit on the same device.
 """
 
 from __future__ import annotations
 
 import functools
+import warnings
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from cross_patient_speech_decoding_tpu_torch.ops.metrics import cmat_acc
+from cross_patient_speech_decoding_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    block_range,
+)
 from cross_patient_speech_decoding_tpu_torch.train.loops import make_optimizer
 from cross_patient_speech_decoding_tpu_torch.train.state import (
     create_train_state,
@@ -87,6 +97,7 @@ def make_seq2seq_fold_trainer_fn(
     clip: float = 0.5,
     teacher_forcing: float = 0.5,
     mesh=None,
+    fold_axis: str = "data",
     rnn_impl: str = "scan",
 ):
     """Build the fold trainer.
@@ -100,11 +111,16 @@ def make_seq2seq_fold_trainer_fn(
             AdamW on ``linear_schedule(lr, lr * end_factor, decay_iters)``,
             stepped once an epoch.
         teacher_forcing: the training forward's teacher-forcing ratio.
-        mesh: not ported yet (ROADMAP queue 1, item 11); must be None.
-        rnn_impl: 'scan' or 'pallas', anything else raises. The JAX
-            package picks its scan GRU or its Pallas kernels with it; the
-            port has one GRU route per device, so both values run the
-            kernels on a CUDA tensor and their plain versions on a CPU one.
+        mesh, fold_axis: the folds sharded over the mesh's ranks, each
+            rank training its contiguous block (``fold_axis`` is the
+            mesh's one axis). A fold count that does not divide the world
+            size warns and trains every fold on every rank, as JAX runs it
+            unsharded.
+        rnn_impl: 'scan' or 'pallas', anything else raises; 'pallas' with
+            a mesh raises, as in JAX. The JAX package picks its scan GRU
+            or its Pallas kernels with it; the port has one GRU route per
+            device, so both values run the kernels on a CUDA tensor and
+            their plain versions on a CPU one.
 
     Returns ``train(X_pool, y_pool, train_weights, test_masks, seed,
     epochs, init_states=None) -> (accs (F,), models)``:
@@ -122,15 +138,18 @@ def make_seq2seq_fold_trainer_fn(
             weights with them).
 
     ``models`` are the F trained ``Seq2SeqRNN`` (the JAX trainer returns
-    the stacked parameters).
+    the stacked parameters); with a sharding mesh, this rank's block of
+    them. ``accs`` holds every fold on every rank.
     """
     if rnn_impl not in ("scan", "pallas"):
         raise ValueError(
             f"rnn_impl must be 'scan' or 'pallas', got {rnn_impl!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: fold sharding over several cards is not ported yet "
-            "(ROADMAP queue 1, item 11)")
+    if rnn_impl == "pallas" and mesh is not None:
+        # JAX's refusal (its fold axis is both the mesh axis and the
+        # Pallas kernel's grid dimension); kept for the same interface
+        raise ValueError(
+            "rnn_impl='pallas' cannot be combined with a mesh: the "
+            "sharded fold axis is the Pallas kernel's grid dimension")
     tx = make_optimizer(lr, weight_decay, decay_iters, end_factor=end_factor,
                         clip=clip)
 
@@ -142,8 +161,18 @@ def make_seq2seq_fold_trainer_fn(
         y = torch.as_tensor(y_pool, device=dev).long()
         w = torch.as_tensor(train_weights, dtype=torch.float32, device=dev)
         te = torch.as_tensor(test_masks, dtype=torch.float32, device=dev)
+        folds, sharded = range(n_folds), False
+        if mesh is not None:
+            width = mesh.shape[fold_axis]
+            if n_folds % width:
+                warnings.warn(
+                    f"{n_folds} folds do not divide the {width}-rank mesh; "
+                    "this fold chunk runs UNSHARDED on every rank",
+                    stacklevel=2)
+            else:
+                folds, sharded = range(*block_range(n_folds, mesh)), True
         accs, models = [], []
-        for f in range(n_folds):
+        for f in folds:
             x = X_pool[f] if per_fold_x else X_pool
             m = model(x.shape[-1], seed=seed + f, device=dev)
             if init_states is not None:
@@ -156,7 +185,10 @@ def make_seq2seq_fold_trainer_fn(
             state.optimizer.zero_grad(set_to_none=True)
             accs.append(_fold_eval(m, x, y, te[f]))
             models.append(m)
-        return torch.stack(accs), models
+        accs = torch.stack(accs)
+        if sharded:
+            accs = all_gather_rows(accs, mesh)
+        return accs, models
 
     return train_folds
 
@@ -176,6 +208,7 @@ def make_seq2seq_fold_trainer(
     teacher_forcing: float = 0.5,
     seed: int = 0,
     mesh=None,
+    fold_axis: str = "data",
     rnn_impl: str = "scan",
 ):
     """``train_folds(epochs) -> (accs (F,), models)`` for F folds: the
@@ -185,7 +218,7 @@ def make_seq2seq_fold_trainer(
     fn = make_seq2seq_fold_trainer_fn(
         model, lr=lr, weight_decay=weight_decay, decay_iters=decay_iters,
         end_factor=end_factor, clip=clip, teacher_forcing=teacher_forcing,
-        mesh=mesh, rnn_impl=rnn_impl)
+        mesh=mesh, fold_axis=fold_axis, rnn_impl=rnn_impl)
     return functools.partial(fn, X_pool, y_pool, train_weights, test_masks,
                              seed)
 

@@ -135,8 +135,8 @@ class SVMDecodeConfig:
     # iterations per batch of folds (stacked as extra fold rows;
     # per-iteration seeds and persistence unchanged)
     iter_batch: int = 1
-    # fold sharding over the first n devices; 0 = one device. Not ported
-    # yet: run_svm_decode raises for n > 0 (ROADMAP queue 1, item 11)
+    # fold sharding over n ranks, one device each (parallel/); 0 = one
+    # device
     n_devices: int = 0
     # synthetic-data scale (data='synthetic' only): patients / trial length
     # / trials-per-class; reference scale is 8 patients, T=200
@@ -186,8 +186,8 @@ class TrainSeq2SeqConfig:
     # has one GRU route per device (the kernels on a CUDA tensor, their
     # plain versions on a CPU one), so both run the same code
     rnn_impl: str = "scan"
-    # fold sharding over the first n devices; 0 = one device. Not ported
-    # yet: run_train_seq2seq raises for n > 0 (ROADMAP queue 1, item 11)
+    # fold sharding over n ranks, one device each (parallel/; needs
+    # fold_parallel, n must divide fold_chunk or n_folds); 0 = one device
     n_devices: int = 0
     # augmented copies of the pooled ALIGNED train rows (the reference's
     # post-alignment augmentation list, train_seq2seq.py:91:
@@ -242,9 +242,8 @@ class TrainNNConfig:
     log_metrics: bool = True  # per-epoch CSV under logs/{run_name}/
     log_format: str = "csv"  # csv | jsonl (tailable) | tb (TensorBoard)
     trace: bool = False  # device profile of the first iteration
-    # data-parallel classifier step over the first n devices; 0 = one
-    # device. Not ported yet: run_train_nn raises for n > 0 (ROADMAP
-    # queue 1, item 11)
+    # data-parallel classifier step over n ranks, one device each
+    # (parallel/); 0 = one device
     n_devices: int = 0
     seed: int = 0
     out: str = "results/nn_decode.pkl"
@@ -320,9 +319,8 @@ class TrainCTCConfig:
     # train.loops.append_metrics on the first epoch logged)
     log_format: str = "csv"
     trace: bool = False  # device profile of the first iteration
-    # data-parallel training over the first n devices; 0 = one device.
-    # Multi-device training is not ported yet: run_train_ctc raises for
-    # n > 0 (ROADMAP queue 1, item 11)
+    # data-parallel training over n ranks, one device each (parallel/);
+    # 0 = one device
     n_devices: int = 0
     # synthetic-data scale (data='synthetic' only): reference CTC
     # production scale is 8 patients, ~250 trials, T=600 bins (4 s @
@@ -371,8 +369,8 @@ class TuneCTCConfig:
     align_train: bool = False  # tune_ctc_rnn_align: pool aligned cross data
     pool_train: bool = False  # pool unaligned cross data (tune_ctc_rnn)
     sampler: str = "random"  # random | tpe (BOHB-style model-based search)
-    # trial sharding over several devices; 0 = one device. Not ported yet:
-    # run_tune_ctc raises for n > 0 (ROADMAP queue 1, item 11)
+    # (trial x fold) model sharding over n ranks, one device each
+    # (parallel/); 0 = one device
     n_devices: int = 0
     # how many fold models of the CV trainable train concurrently in the
     # JAX package (0 = all at once); validated as there, but the port
@@ -486,6 +484,5 @@ class ReproduceConfig:
     # contains one of these substrings ('' = all)
     only: str = ""
     # forwarded to every expanded config that has an n_devices field
-    # (0 = leave each job's own value). Not ported yet: run_reproduce
-    # raises for n > 0 before any job runs (ROADMAP queue 1, item 11)
+    # (0 = leave each job's own value)
     n_devices: int = 0

@@ -431,8 +431,13 @@ def test_unported_branches_raise(tmp_path, synth):
     bi_cfg = _quick(tmp_path, init_ckpt=str(tmp_path / "bi.ckpt"))
     with pytest.raises(ValueError, match="bidirectional"):
         te.run_train_ctc(bi_cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        te.run_train_ctc(_quick(tmp_path, n_devices=2), device="cpu")
+    # n_devices=2 (data-parallel, two gloo ranks the driver launches; they
+    # make their own synthetic data): finite PER, written once by rank 0
+    mesh_cfg = _quick(tmp_path, n_devices=2,
+                      out=str(tmp_path / "mesh" / "ctc.pkl"))
+    per = te.run_train_ctc(mesh_cfg, verbose=False, device="cpu")
+    assert per.shape == (1,) and np.isfinite(per).all()
+    assert len(loaders.load_pkl(mesh_cfg.out)["accs"]) == 1
     synth(cfg)
     with pytest.raises(Exception, match="h0"):
         je.run_train_ctc(JaxCfg(**{**vars(bi_cfg),

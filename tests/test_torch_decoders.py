@@ -362,14 +362,68 @@ def test_nested_cv_decode_matches_jax(data):
 
 
 def test_mesh_raises_with_its_item(data):
+    """The decoders' ``mesh=`` paths on two gloo ranks
+    (``torch_parallel_ranks.decode_checks``): ``make_cv_decoder`` with its
+    4 folds sharded, the nested scorer and refit with 3 outer folds
+    (padded to 4 by a repeated fold), ``nested_cv_decode_bayes`` and
+    ``nested_cv_decode`` (3 outer folds) give
+    the one-device port's accuracies (atol 1e-6), predictions and scores
+    (every rank batches its block as the one device batches all, by
+    ``fit_batch``)."""
+    import torch_parallel_ranks as ranks
+
+    from cross_patient_speech_decoding_tpu_torch import parallel
+
     cfg = tpool.DecodeConfig(**data["cfg"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tpool.make_cv_decoder("sep_align", cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tnest.make_candidate_scorer("sep_align", cfg, mesh=object())
     tp = data["port"]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tnest.nested_cv_decode_bayes(tp[0], tp[1:], cfg, mesh=object())
+    y = tp[0].y.numpy()
+    rng = np.random.default_rng(2)
+    tr3, te3 = stratified_kfold_masks(y, 3, rng)
+    itr = np.zeros((3, 2, len(y)))
+    ite = np.zeros((3, 2, len(y)))
+    for k in range(3):
+        itr[k], ite[k] = tnest.inner_cv_masks(tr3[k], y, 2, rng)
+    hp = {"n_comp": rng.uniform(0.6, 0.95, (3, 2)),
+          "lam": rng.uniform(0.01, 1.0, (3, 2)),
+          "gamma_scale": np.ones((3, 2))}
+    bayes = dict(n_folds=3, n_rounds=2, n_points=2, n_inner=2, seed=1,
+                 fit_batch=12)
+    random = dict(n_folds=3, n_candidates=4, n_inner=2, seed=0)
+    spec = dict(pts=[tuple(t.numpy() for t in p) for p in tp],
+                cfg=data["cfg"], tr=data["tr"], te=data["te"], fold_batch=3,
+                fit_batch=4, itr=itr, ite=ite, hp=hp, tr3=tr3, te3=te3,
+                bayes=bayes, random=random)
+    got = parallel.launch(ranks.decode_checks, 2, (spec,), devices="cpu",
+                          timeout=120)
+
+    with ranks.threads(1):
+        accs, preds = tpool.make_cv_decoder(
+            "sep_align", cfg, fold_batch=3, return_preds=True)(
+            tp[0], tp[1:], _f32(data["tr"]), _f32(data["te"]))
+        score, final = tnest.make_candidate_scorer("sep_align", cfg,
+                                                   fit_batch=4)
+        hp_t = {k: _f32(v) for k, v in hp.items()}
+        scores = score(tp[0], tp[1:], _f32(itr), _f32(ite), hp_t)
+        f_accs, f_preds = final(tp[0], tp[1:], _f32(tr3), _f32(te3),
+                                {k: v[:, 0] for k, v in hp_t.items()})
+        b_accs, _ = tnest.nested_cv_decode_bayes(tp[0], tp[1:], cfg,
+                                                 **bayes)
+        r_accs, r_best, _ = tnest.nested_cv_decode(tp[0], tp[1:], cfg,
+                                                   **random)
+    np.testing.assert_allclose(got["accs"], accs.numpy(), atol=ACC_ATOL)
+    np.testing.assert_array_equal(got["preds"], preds.numpy())
+    assert got["scores"].shape == (3, 2)
+    np.testing.assert_allclose(got["scores"], scores.numpy(), atol=ACC_ATOL)
+    # an intended difference: each rank keeps fit_batch (4 fits: one outer
+    # fold x 2 candidates x 2 inner folds a call) on its 2 outer folds,
+    # where JAX's mesh path scores a device's block in one program
+    assert got["score_fits"] == [4, 4]
+    np.testing.assert_allclose(got["final_accs"], f_accs.numpy(),
+                               atol=ACC_ATOL)
+    np.testing.assert_array_equal(got["final_preds"], f_preds.numpy())
+    np.testing.assert_allclose(got["bayes_accs"], b_accs, atol=ACC_ATOL)
+    np.testing.assert_allclose(got["random_accs"], r_accs, atol=ACC_ATOL)
+    np.testing.assert_array_equal(got["random_best"], r_best)
 
 
 def _imports(path):

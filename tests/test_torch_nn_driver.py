@@ -269,13 +269,20 @@ def test_cli_train_nn_runs_in_process(tmp_path, data_path, capsys):
 
 
 def test_unported_options_raise(tmp_path, data_path):
-    """n_devices > 0 (multi-GPU data parallel, ROADMAP queue 1 item 11)
-    is refused before any work; an unknown model is refused by the model
-    switch. The TensorBoard log (ported) runs: one run directory a fold."""
+    """n_devices=2 trains every fold data-parallel on two gloo ranks that
+    the driver launches (``conv_rnn``: per-shard BatchNorm statistics, a
+    pad row in rank 1's shard of each odd batch): accuracies in [0, 1],
+    the results pickle written once, by rank 0. An unknown model is
+    refused by the model switch. The TensorBoard log (ported) runs: one
+    run directory a fold."""
     _, cfg = _cfgs(tmp_path, data_path)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        te.run_train_nn(TrainNNConfig(**{**vars(cfg), "n_devices": 2}),
-                        device="cpu")
+    mesh_out = tmp_path / "mesh" / "nn.pkl"
+    accs = te.run_train_nn(TrainNNConfig(**{
+        **vars(cfg), "n_devices": 2, "model": "conv_rnn", "batch_size": 7,
+        "out": str(mesh_out)}), verbose=False, device="cpu")
+    assert accs.shape == (1, N_FOLDS)
+    assert ((accs >= 0) & (accs <= 1)).all()
+    assert len(loaders.load_pkl(mesh_out)["accs"]) == 1
     with pytest.raises(ValueError, match="unknown model"):
         te._make_nn_classifier(TrainNNConfig(model="lstm"), 4, 3,
                                device="cpu")

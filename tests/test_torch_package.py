@@ -24,8 +24,10 @@ FORBIDDEN = {"jax", "flax", "optax"}
 
 
 def _port_files():
-    # the card's tests run where JAX is not installed
-    extra = [ROOT / "tests" / "test_torch_kernels.py", ROOT / "chip_smoke.py"]
+    # the card's tests run where JAX is not installed; the multi-rank
+    # tests' rank bodies run in processes that must not import it
+    extra = [ROOT / "tests" / "test_torch_kernels.py",
+             ROOT / "tests" / "torch_parallel_ranks.py", ROOT / "chip_smoke.py"]
     return sorted(PORT.rglob("*.py")) + extra
 
 
@@ -64,7 +66,7 @@ def test_hygiene_check_catches_a_jax_import(tmp_path):
 
 
 SUBPACKAGES = ("analysis", "cli", "data", "decoders", "models", "ops",
-               "realtime", "sweep", "train", "utils")
+               "parallel", "realtime", "sweep", "train", "utils")
 
 
 def _public(mod) -> set:
@@ -195,6 +197,17 @@ def test_entry_points_default_to_cuda(no_cuda, tmp_path):
     for fn in (cluster.pca_embed, cluster.tsne_embed):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(x)
+    from cross_patient_speech_decoding_tpu_torch import parallel
+    from cross_patient_speech_decoding_tpu_torch.parallel import dryrun
+
+    for n in (1, 2):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            parallel.make_mesh(n)
+    assert parallel.make_mesh(1, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.dryrun_multichip(2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        experiments.run_svm_decode(config.SVMDecodeConfig(n_devices=2))
 
 
 def test_state_from_numpy_defaults_to_cuda(no_cuda):

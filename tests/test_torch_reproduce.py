@@ -3,8 +3,8 @@ package's: the JAX package's own cases (tests/test_reproduce.py) run on
 the port, the expansion equal to JAX's on every manifest here and on
 ``manifests/paper.yaml`` (86 jobs), a mini matrix end to end on the CPU
 with its resume, a results file written by JAX's job counted complete by
-the port, and the intended differences: the literal-brace fix, the
-device as an argument, and ``n_devices > 0`` refused before any job.
+the port, and the intended differences (the literal-brace fix, the device as an
+argument), and ``n_devices`` forwarded to every job as in JAX.
 """
 
 from pathlib import Path
@@ -310,24 +310,38 @@ def test_dry_run_is_read_only_on_mismatched_results(tmp_path):
 
 
 def test_n_devices_refused_before_any_job(tmp_path, monkeypatch):
-    """``n_devices > 0``, of the run or of one job, raises with ROADMAP
-    item 11 before any job runs (JAX forwards it and the port's drivers
-    would refuse it job by job)."""
+    """``n_devices > 0`` of the run is forwarded to every job config that
+    has the field, as JAX's cli/reproduce.py:185-187 does (each such
+    driver launches its own ranks); 0 leaves a job's own value; a dry run
+    calls no driver. A job with ``n_devices > 0`` gets the caller's
+    device as given (None: its ranks take cuda:0 .. cuda:n-1), the others
+    the resolved device. The drivers are spies here:
+    tests/test_torch_driver_mesh.py runs a job on two ranks."""
     calls = []
-    monkeypatch.setattr(te, "run_svm_decode",
-                        lambda *a, **k: calls.append(1))
+
+    def spy(cfg, verbose=True, device=None):
+        calls.append((type(cfg).__name__, cfg.n_devices, device))
+        return np.zeros((1, 1))
+
+    monkeypatch.setattr(te, "run_svm_decode", spy)
+    monkeypatch.setattr(te, "run_train_nn", spy)
     m = _write(tmp_path, _mini_manifest(tmp_path))
-    for cfg in (ReproduceConfig(manifest=str(m), n_devices=2),
-                ReproduceConfig(manifest=str(m), n_devices=2, dry_run=True)):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            _run(cfg)
+    s = _run(ReproduceConfig(manifest=str(m), n_devices=2, dry_run=True))
+    assert s["ran"] == 4 and calls == []
+    s = _run(ReproduceConfig(manifest=str(m), n_devices=2))
+    assert s["ran"] == 4
+    assert calls == [("SVMDecodeConfig", 2, "cpu")] * 4
+    calls.clear()
     man = _mini_manifest(tmp_path)
     man["jobs"].append({"command": "train-nn",
                         "overrides": {"n_devices": 4,
                                       "out": str(tmp_path / "nn.pkl")}})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        run_manifest(man, ReproduceConfig(), verbose=False, device="cpu")
-    assert calls == [] and not list(tmp_path.glob("*.pkl"))
+    run_manifest(man, ReproduceConfig(), verbose=False, device="cpu")
+    assert [c[:2] for c in calls] == [("SVMDecodeConfig", 0)] * 4 + [
+        ("TrainNNConfig", 4)]
+    # a job of several ranks gets the caller's device as given
+    assert calls[-1][2] == "cpu" and calls[0][2] == torch.device("cpu")
+    assert not list(tmp_path.glob("*.pkl"))
 
 
 def test_n_devices_not_part_of_resume_identity():

@@ -34,6 +34,7 @@ import pytest
 import torch
 
 import cross_patient_speech_decoding_tpu.models as jmodels
+import torch_parallel_ranks as ranks
 import cross_patient_speech_decoding_tpu.train as jtrain
 from cross_patient_speech_decoding_tpu.cli import experiments as je
 from cross_patient_speech_decoding_tpu.data import synthetic as jsyn
@@ -44,6 +45,7 @@ from cross_patient_speech_decoding_tpu.utils.config import (
     TrainSeq2SeqConfig as JaxCfg,
 )
 import cross_patient_speech_decoding_tpu_torch.train as ttrain
+from cross_patient_speech_decoding_tpu_torch import parallel
 from cross_patient_speech_decoding_tpu_torch.cli import experiments as te
 from cross_patient_speech_decoding_tpu_torch.cli import main as tmain
 from cross_patient_speech_decoding_tpu_torch.data import loaders
@@ -349,8 +351,12 @@ def test_fold_trainer_seeds_shared_features_and_options():
     """Without ``init_states`` fold f starts from ``Seq2SeqRNN(seed=seed +
     f)``; X shared by the folds (3-D) trains as the same X given per fold
     (4-D); both ``rnn_impl`` values run the same code, any other raises,
-    as does a mesh (item 11); ``make_seq2seq_fold_trainer`` closes over
-    the arrays."""
+    as does 'pallas' with a mesh (JAX's refusal);
+    ``make_seq2seq_fold_trainer`` closes over the arrays. With a mesh of
+    two gloo ranks (``torch_parallel_ranks.fold_trainer_checks``) each
+    rank trains one of the 2 folds and the accuracies are the one-device
+    trainer's bit for bit; 3 folds do not divide the ranks: a warning, and
+    every rank trains all three."""
     rng = np.random.default_rng(1)
     X = torch.from_numpy(rng.normal(size=(10, 12, 3)).astype(np.float32))
     y = torch.from_numpy(rng.integers(0, 9, size=(10, 3)))
@@ -378,8 +384,26 @@ def test_fold_trainer_seeds_shared_features_and_options():
     torch.testing.assert_close(closed(2)[0], a3, rtol=0, atol=0)
     with pytest.raises(ValueError, match="rnn_impl"):
         tfp.make_seq2seq_fold_trainer_fn(model, rnn_impl="cudnn")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tfp.make_seq2seq_fold_trainer_fn(model, mesh=object())
+    one = parallel.make_mesh(1, device="cpu")
+    with pytest.raises(ValueError, match="pallas"):
+        tfp.make_seq2seq_fold_trainer_fn(model, mesh=one, rnn_impl="pallas")
+    tr3 = (rng.random((3, 10)) < 0.7).astype(np.float64)
+    _, _, w3, tm3 = tfp.pooled_fold_arrays(X, y, [], [], tr3)
+    spec = dict(model=dict(n_filters=4, hidden=6, num_classes=9,
+                           kernel_size=3),
+                arrays=[a.numpy() for a in (X, y, w, tm)],
+                arrays_odd=[a.numpy() for a in (X, y, w3, tm3)], seed=7,
+                epochs=2)
+    got = parallel.launch(ranks.fold_trainer_checks, 2, (spec,),
+                          devices="cpu", timeout=120)
+    with ranks.threads(1):
+        a2 = fn(X, y, w, tm, 7, 2)[0].numpy()
+        a3odd = fn(X, y, w3, tm3, 7, 2)[0].numpy()
+    np.testing.assert_array_equal(got["arrays"]["accs"], a2)
+    assert got["arrays"]["n_local"] == 1 and not got["arrays"]["warned"]
+    np.testing.assert_array_equal(got["arrays_odd"]["accs"], a3odd)
+    assert got["arrays_odd"]["n_local"] == 3
+    assert any("UNSHARDED" in m for m in got["arrays_odd"]["warned"])
 
 
 def test_rnn_impl_values_on_the_driver(tmp_path, host_synth):
@@ -774,17 +798,21 @@ def _counting(make, store):
 
 
 def test_unported_options_raise(tmp_path):
-    """n_devices without fold_parallel raises JAX's ValueError first;
-    n_devices > 0 raises with item 11; nothing is written. The TensorBoard
-    log (ported) runs: sequential folds write a run directory each."""
+    """n_devices without fold_parallel raises JAX's ValueError first and
+    writes nothing; n_devices=2 trains every iteration's folds sharded
+    over two gloo ranks that the driver launches, and rank 0 alone writes
+    the CSV of the 2 x 4 fold accuracies. The TensorBoard log (ported)
+    runs: sequential folds write a run directory each."""
     with pytest.raises(ValueError, match="requires fold_parallel"):
         _run(tmp_path, n_devices=2, fold_parallel=False)
     with pytest.raises(ValueError, match="requires fold_parallel"):
         je.run_train_seq2seq(JaxCfg(n_devices=2, fold_parallel=False,
                                     out=str(tmp_path / "j.csv")))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        _run(tmp_path, n_devices=2)
     assert not list(tmp_path.iterdir())
+    mcfg, accs = _run(tmp_path, name="mesh", n_devices=2)
+    assert accs.shape == (SMALL["n_iter"] * SMALL["n_folds"],)
+    assert ((accs >= 0) & (accs <= 1)).all()
+    np.testing.assert_array_equal(np.loadtxt(mcfg.out, delimiter=","), accs)
     cfg, _ = _run(tmp_path, log_format="tb", fold_parallel=False, n_iter=1)
     logs = tmp_path / "s2s" / "logs" / te._seq2seq_run_name(cfg)
     for k in range(cfg.n_folds):

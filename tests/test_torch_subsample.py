@@ -180,8 +180,9 @@ def recorded(monkeypatch):
     monkeypatch.setattr(js, "_cv_decoder", lambda strategy, dcfg, n=0: wrap(
         jpool.make_cv_decoder(strategy, dcfg), jr))
     make = tpool.make_cv_decoder
-    monkeypatch.setattr(ts, "make_cv_decoder", lambda strategy, dcfg: wrap(
-        make(strategy, dcfg), tr))
+    monkeypatch.setattr(ts, "make_cv_decoder",
+                        lambda strategy, dcfg, mesh=None: wrap(
+                            make(strategy, dcfg, mesh=mesh), tr))
     predict = tpool.kernel_classifier_predict
 
     def scored(clf, X, kernel):
@@ -491,10 +492,28 @@ def test_nested_sweep_point_matches_jax(files, tmp_path, recorded,
 @pytest.mark.parametrize("fn", ["run_trial_subsample", "run_grid_subsample",
                                 "run_spatial_avg", "run_pitch_subsample"])
 def test_n_devices_raises_before_any_work(tmp_path, fn):
-    cfg = ts.SubsampleConfig(n_devices=2, out=str(tmp_path / "x.pkl"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        getattr(ts, fn)(cfg, device="cpu")
-    assert not list(tmp_path.iterdir())
+    """n_devices=2 shards each sweep point's folds over two gloo ranks
+    that the sweep launches (every rank draws the same indices and
+    folds): the one-device results (atol 1e-6), the sweep pickle written
+    once, by rank 0."""
+    import torch_parallel_ranks as ranks
+
+    kw = dict(n_iter=1, n_folds=2, max_k=10, trials_per_class=6,
+              k_start=5, k_step=50, win_sizes=(2,), contact_sizes=(2,),
+              pitches=(2.5,), seed=0)
+    with ranks.threads(1):
+        one = getattr(ts, fn)(ts.SubsampleConfig(**kw), verbose=False,
+                              device="cpu")
+    two = getattr(ts, fn)(ts.SubsampleConfig(
+        n_devices=2, out=str(tmp_path / "x.pkl"), **kw), verbose=False,
+        device="cpu")
+    if isinstance(one, tuple):  # the trial sweep: (ks, accuracies)
+        np.testing.assert_array_equal(two[0], one[0])
+        one, two = {"accs": one[1]}, {"accs": two[1]}
+    assert set(two) == set(one) and one
+    for k in one:
+        np.testing.assert_allclose(two[k], one[k], atol=1e-6)
+    assert [p.name for p in tmp_path.iterdir()] == ["x.pkl"]
 
 
 def test_sweep_errors_match_jax(files, tmp_path):

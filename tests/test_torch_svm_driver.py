@@ -153,17 +153,20 @@ def test_cli_svm_decode_runs_in_process(tmp_path, host_synth, capsys):
 
 
 def test_unported_options_raise(tmp_path):
-    """n_devices > 0 is refused before any work, a surrogate control
-    with it too (no data made, no file written)."""
-    with pytest.raises(NotImplementedError, match="item 11"):
-        te.run_svm_decode(SVMDecodeConfig(n_devices=2,
-                                          out=str(tmp_path / "d.pkl")),
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        te.run_svm_decode(SVMDecodeConfig(n_devices=2, surrogate="shuffle",
-                                          out=str(tmp_path / "s.pkl")),
-                          device="cpu")
-    assert not list(tmp_path.iterdir())
+    """n_devices=2 shards the folds over two gloo ranks that the driver
+    launches, a surrogate control with it (the mode-shuffle surrogates
+    drawn the same on every rank): the one-device accuracies (atol 1e-6),
+    the results pickle written once, by rank 0."""
+    import torch_parallel_ranks as ranks
+
+    kw = dict(SMALL, n_iter=1, surrogate="shuffle")
+    with ranks.threads(1):
+        one = te.run_svm_decode(SVMDecodeConfig(
+            out=str(tmp_path / "one.pkl"), **kw), False, "cpu")
+    two = te.run_svm_decode(SVMDecodeConfig(
+        n_devices=2, out=str(tmp_path / "two.pkl"), **kw), False, "cpu")
+    np.testing.assert_allclose(two, one, atol=1e-6)
+    assert len(loaders.load_pkl(tmp_path / "two.pkl")["accs"]) == 1
 
 
 def test_svm_decode_defaults_to_cuda(monkeypatch, tmp_path):

@@ -202,18 +202,35 @@ def test_models_draw_their_own_seeds():
 
 def test_trainer_validation():
     """JAX's argument checks: per-fold x with the wrong fold count and
-    model_chunk with a mesh raise ValueError; a mesh alone raises with
-    ROADMAP item 11 on both trainers."""
+    model_chunk with a mesh raise ValueError. With a mesh of two gloo
+    ranks (``torch_parallel_ranks.bucket_checks``) both trainers shard
+    their models: the CV bucket's 2 trials x 3 folds and the holdout
+    bucket's 2 trials give the unsharded trainers' PERs (atol 1e-9: the
+    same models trained in turn); 1 trial x 3 folds do not divide the
+    ranks, which warns, and every rank trains all three."""
+    import torch_parallel_ranks as ranks
+
+    from cross_patient_speech_decoding_tpu_torch import parallel
+
     batch, tr, va = _data(per_fold=True)
     tb = (torch.from_numpy(batch[0]),) + batch[1:]
     with pytest.raises(ValueError, match="folds"):
         ctc.make_ctc_cv_bucket_trainer(tb, tr[:1], va[:1], n_classes=V)
+    one = parallel.make_mesh(1, device="cpu")
     with pytest.raises(ValueError, match="model_chunk"):
         ctc.make_ctc_cv_bucket_trainer(tb, tr, va, n_classes=V,
-                                       model_chunk=1, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ctc.make_ctc_cv_bucket_trainer(tb, tr, va, n_classes=V,
-                                       mesh=object())
-    plain = (torch.from_numpy(batch[0][0]),) + batch[1:]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ctc.make_ctc_bucket_trainer(plain, plain, n_classes=V, mesh=object())
+                                       model_chunk=1, mesh=one)
+    batch, tr, va = _data(folds=3)
+    kw = dict(n_classes=V, win_size=WIN, stride=STRIDE, seed=SEED)
+    spec = dict(batch=batch, w_tr=tr, w_va=va, kw=kw, cfgs=CFGS, epochs=4)
+    got = parallel.launch(ranks.bucket_checks, 2, (spec,), devices="cpu",
+                          timeout=120)
+    tb = (torch.from_numpy(batch[0]),) + batch[1:]
+    with ranks.threads(1):
+        cv = ctc.make_ctc_cv_bucket_trainer(tb, tr, va, **kw)
+        want_cv, want_odd = cv(CFGS, 4), cv(CFGS[:1], 4)
+        want_hold = ctc.make_ctc_bucket_trainer(tb, tb, **kw)(CFGS, 4)
+    np.testing.assert_allclose(got["cv"], want_cv, atol=1e-9)
+    np.testing.assert_allclose(got["cv_odd"], want_odd, atol=1e-9)
+    np.testing.assert_allclose(got["holdout"], want_hold, atol=1e-9)
+    assert any("UNSHARDED" in m for m in got["warned"])

@@ -239,16 +239,30 @@ def test_resume_and_hparam_handoff(tmp_path, monkeypatch, synth,
 
 def test_cli_tune_ctc_and_refusals(tmp_path, synth, capsys, small_space):
     """``cli.main tune-ctc device=cpu`` runs the sweep and returns 0;
-    n_devices > 0 raises with ROADMAP item 11; without a card and without
-    device=cpu the driver raises."""
+    n_devices=2 runs it with each bucket's trials sharded over two gloo
+    ranks (the search space narrowed inside the ranks,
+    ``torch_parallel_ranks.tune_small``): every trial gets a finite
+    metric, and rank 0 alone writes the manifest; without a card and
+    without device=cpu the driver raises."""
     cfg = TuneCTCConfig(**SMALL)
     synth(cfg)
     args = [f"{k}={v}" for k, v in SMALL.items()]
     assert tmain.main(["tune-ctc", "device=cpu", *args,
                        f"manifest={tmp_path / 'm.jsonl'}"]) == 0
     assert "best val PER" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 11"):
-        te.run_tune_ctc(TuneCTCConfig(**SMALL, n_devices=2), device="cpu")
+    import torch_parallel_ranks as ranks
+
+    from cross_patient_speech_decoding_tpu_torch import parallel
+
+    manifest = tmp_path / "mesh.jsonl"
+    res = parallel.launch(ranks.tune_small, 2, (TuneCTCConfig(
+        **SMALL, n_devices=2, manifest=str(manifest)),), devices="cpu",
+        timeout=300)
+    assert len(res) == SMALL["n_trials"]
+    assert all(np.isfinite(r["metric"]) for r in res)
+    keys = [json.loads(line)["key"]
+            for line in manifest.read_text().splitlines()]
+    assert len(keys) == len(set(keys)) >= SMALL["n_trials"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             te.run_tune_ctc(TuneCTCConfig(**SMALL))
