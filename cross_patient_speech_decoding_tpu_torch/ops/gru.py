@@ -36,6 +36,8 @@ import ctypes
 
 import torch
 
+from cross_patient_speech_decoding_tpu_torch.utils.profiling import annotate
+
 # Launch counts of the kernel wrappers: one per layer call that launched
 # the kernel. On the device a gru_fwd or gru_wfwd call is 1 + T grids (the
 # input projection, then one a step), a gru_bifwd call 2 + 2T (the same,
@@ -419,6 +421,18 @@ def gru_wbwd_cuda(x, hprev, dhs, wi, bi, wh, bh, win: int, stride: int):
 # ---------------------------------------------------------------------------
 
 
+def _kernel_span(name: str, x, T: int, F: int, H: int, need_dx: bool,
+                 plain: bool, directions: int = 1):
+    """The span of one kernel call (or its plain version), named by its
+    ``LAUNCHES`` key: the recurrence's T steps of B rows, F input features
+    and H units, the bytes of the input it reads, whether it forms dx, and
+    its route; on a CUDA tensor it times the call's device work."""
+    return annotate(name, device=x.device, T=T, B=x.shape[1], F=F, H=H,
+                    x_bytes=x.numel() * x.element_size(),
+                    need_dx=bool(need_dx), directions=directions,
+                    route="plain" if plain else "cuda")
+
+
 class GRULayerFn(torch.autograd.Function):
     """``hs = gru_layer(x, h0, wi, bi, wh, bh, reverse)`` with its backward
     (``_gru_core``, pallas_gru.py:766-800). ``plain`` picks the plain
@@ -427,7 +441,9 @@ class GRULayerFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, h0, wi, bi, wh, bh, reverse: bool, plain: bool):
         fwd = gru_layer_plain if plain else gru_fwd_cuda
-        hs = fwd(x, h0, wi, bi, wh, bh, reverse)
+        with _kernel_span("gru_fwd", x, x.shape[0], x.shape[2], wh.shape[0],
+                          ctx.needs_input_grad[0], plain):
+            hs = fwd(x, h0, wi, bi, wh, bh, reverse)
         ctx.save_for_backward(x, h0, wi, bi, wh, bh, hs)
         ctx.reverse, ctx.plain = reverse, plain
         return hs
@@ -441,9 +457,12 @@ class GRULayerFn(torch.autograd.Function):
         else:
             hprev = torch.cat([h0[None], hs[:-1]])
         bwd = gru_backward_plain if ctx.plain else gru_bwd_cuda
-        dx, dh0, dwi, dwh, dbi, dbh = bwd(
-            x, hprev, dhs.contiguous(), wi, bi, wh, bh, ctx.reverse,
-            need_dx=ctx.needs_input_grad[0])
+        need_dx = ctx.needs_input_grad[0]
+        with _kernel_span("gru_bwd", x, x.shape[0], x.shape[2], wh.shape[0],
+                          need_dx, ctx.plain):
+            dx, dh0, dwi, dwh, dbi, dbh = bwd(
+                x, hprev, dhs.contiguous(), wi, bi, wh, bh, ctx.reverse,
+                need_dx=need_dx)
         if dx is not None:
             dx = dx.to(x.dtype)  # the kernel emits float32 (:796)
         return dx, dh0, dwi, dbi, dwh, dbh, None, None
@@ -460,8 +479,11 @@ class GRUBidirFn(torch.autograd.Function):
     def forward(ctx, x, h0_f, h0_b, wi_f, bi_f, wh_f, bh_f, wi_b, bi_b, wh_b,
                 bh_b, plain: bool):
         fwd = gru_layer_bidir_plain if plain else gru_bifwd_cuda
-        hs_f, hs_b = fwd(x, h0_f, h0_b, wi_f, bi_f, wh_f, bh_f, wi_b, bi_b,
-                         wh_b, bh_b)
+        with _kernel_span("gru_bifwd", x, x.shape[0], x.shape[2],
+                          wh_f.shape[0], ctx.needs_input_grad[0], plain,
+                          directions=2):
+            hs_f, hs_b = fwd(x, h0_f, h0_b, wi_f, bi_f, wh_f, bh_f, wi_b,
+                             bi_b, wh_b, bh_b)
         ctx.save_for_backward(x, h0_f, h0_b, wi_f, bi_f, wh_f, bh_f, wi_b,
                               bi_b, wh_b, bh_b, hs_f, hs_b)
         ctx.plain = plain
@@ -473,13 +495,16 @@ class GRUBidirFn(torch.autograd.Function):
          hs_f, hs_b) = ctx.saved_tensors
         need_dx = ctx.needs_input_grad[0]
         bwd = gru_backward_plain if ctx.plain else gru_bwd_cuda
+        T, F, H = x.shape[0], x.shape[2], wh_f.shape[0]
         # h_{t-1} of each step in each direction's sweep (:860, :865)
-        dx_f, dh0_f, dwi_f, dwh_f, dbi_f, dbh_f = bwd(
-            x, torch.cat([h0_f[None], hs_f[:-1]]), dhs_f.contiguous(), wi_f,
-            bi_f, wh_f, bh_f, False, need_dx=need_dx)
-        dx_b, dh0_b, dwi_b, dwh_b, dbi_b, dbh_b = bwd(
-            x, torch.cat([hs_b[1:], h0_b[None]]), dhs_b.contiguous(), wi_b,
-            bi_b, wh_b, bh_b, True, need_dx=need_dx)
+        with _kernel_span("gru_bwd", x, T, F, H, need_dx, ctx.plain):
+            dx_f, dh0_f, dwi_f, dwh_f, dbi_f, dbh_f = bwd(
+                x, torch.cat([h0_f[None], hs_f[:-1]]), dhs_f.contiguous(),
+                wi_f, bi_f, wh_f, bh_f, False, need_dx=need_dx)
+        with _kernel_span("gru_bwd", x, T, F, H, need_dx, ctx.plain):
+            dx_b, dh0_b, dwi_b, dwh_b, dbi_b, dbh_b = bwd(
+                x, torch.cat([hs_b[1:], h0_b[None]]), dhs_b.contiguous(),
+                wi_b, bi_b, wh_b, bh_b, True, need_dx=need_dx)
         dx = (dx_f + dx_b).to(x.dtype) if need_dx else None
         return (dx, dh0_f, dh0_b, dwi_f, dbi_f, dwh_f, dbh_f, dwi_b, dbi_b,
                 dwh_b, dbh_b, None)
@@ -494,7 +519,9 @@ class GRUWindowedFn(torch.autograd.Function):
     def forward(ctx, x, h0, wi, bi, wh, bh, win: int, stride: int,
                 plain: bool):
         fwd = gru_layer_windowed_plain if plain else gru_wfwd_cuda
-        hs = fwd(x, h0, wi, bi, wh, bh, win, stride)
+        with _kernel_span("gru_wfwd", x, n_windows(x.shape[0], win, stride),
+                          wi.shape[0], wh.shape[0], False, plain):
+            hs = fwd(x, h0, wi, bi, wh, bh, win, stride)
         ctx.save_for_backward(x, h0, wi, bi, wh, bh, hs)
         ctx.win, ctx.stride, ctx.plain = win, stride, plain
         return hs
@@ -504,8 +531,10 @@ class GRUWindowedFn(torch.autograd.Function):
         x, h0, wi, bi, wh, bh, hs = ctx.saved_tensors
         hprev = torch.cat([h0[None], hs[:-1]])  # pallas_gru.py:509
         bwd = gru_win_backward_plain if ctx.plain else gru_wbwd_cuda
-        _, dh0, dwi, dwh, dbi, dbh = bwd(x, hprev, dhs.contiguous(), wi, bi,
-                                         wh, bh, ctx.win, ctx.stride)
+        with _kernel_span("gru_wbwd", x, hs.shape[0], wi.shape[0],
+                          wh.shape[0], False, ctx.plain):
+            _, dh0, dwi, dwh, dbi, dbh = bwd(x, hprev, dhs.contiguous(), wi,
+                                             bi, wh, bh, ctx.win, ctx.stride)
         return None, dh0, dwi, dbi, dwh, dbh, None, None, None
 
 

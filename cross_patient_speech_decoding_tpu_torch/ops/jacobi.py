@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from cross_patient_speech_decoding_tpu_torch.ops.precision import hdot
+from cross_patient_speech_decoding_tpu_torch.utils.profiling import annotate
 
 # launches of the kernel wrapper (one per solve of a batch)
 LAUNCHES = {"jacobi_eigh": 0}
@@ -287,7 +288,8 @@ def jacobi_eigh_cuda(A: torch.Tensor, sweeps: int = 8):
     n_sweeps = torch.empty(B, dtype=torch.int32, device=A.device)
     if B == 0:
         return w, V, n_sweeps
-    with torch.cuda.device(A.device):
+    with annotate("jacobi_eigh", device=A.device, batch=B, K=Kp,
+                  sweeps=sweeps), torch.cuda.device(A.device):
         err = _ext.lib().jacobi_eigh_f32(
             A.data_ptr(), w.data_ptr(), V.data_ptr(), n_sweeps.data_ptr(), B,
             Kp, sweeps,

@@ -26,6 +26,7 @@ from cross_patient_speech_decoding_tpu_torch.ops.signal import (
     init_stream_state,
     process_hg_chunk,
 )
+from cross_patient_speech_decoding_tpu_torch.utils.profiling import annotate
 
 
 @dataclass(frozen=True)
@@ -77,20 +78,24 @@ def make_realtime_step(model: RealtimeRNN,
         cfg = RealtimeConfig(model.win_size, model.stride, model.blank)
 
     def step(state: RealtimeState, chunk, b, a):
-        with torch.no_grad():
-            power, dsp = process_hg_chunk(chunk, b, a, state.dsp)
-            ring = torch.cat([state.ring[1:], power[None, :]], dim=0)
-            n_bins = state.n_bins + 1
+        n_bins = state.n_bins + 1
+        with annotate("realtime_step", root=True, bin=n_bins), \
+                torch.no_grad():
+            with annotate("dsp"):
+                power, dsp = process_hg_chunk(chunk, b, a, state.dsp)
+            with annotate("ring"):
+                ring = torch.cat([state.ring[1:], power[None, :]], dim=0)
             do_run = (n_bins >= cfg.win_size
                       and (n_bins - cfg.win_size) % cfg.stride == 0)
             if do_run:
-                window = ring.reshape(1, -1)  # (1, win*C), time-major
-                logits, hidden = model.single_step(window, state.hidden)
-                logits = logits[0]
-                sym = logits.argmax()
-                emitted = torch.where(
-                    (sym != cfg.blank) & (sym != state.prev_sym), sym,
-                    torch.full_like(sym, -1))
+                with annotate("gru_step"):
+                    window = ring.reshape(1, -1)  # (1, win*C), time-major
+                    logits, hidden = model.single_step(window, state.hidden)
+                    logits = logits[0]
+                    sym = logits.argmax()
+                    emitted = torch.where(
+                        (sym != cfg.blank) & (sym != state.prev_sym), sym,
+                        torch.full_like(sym, -1))
                 prev = sym
             else:
                 logits = torch.zeros(model.n_classes, dtype=torch.float32,

@@ -43,7 +43,11 @@ from cross_patient_speech_decoding_tpu_torch.train.loops import make_optimizer
 from cross_patient_speech_decoding_tpu_torch.train.state import (
     create_train_state,
 )
-from cross_patient_speech_decoding_tpu_torch.train.steps import _update
+from cross_patient_speech_decoding_tpu_torch.train.steps import (
+    _backward,
+    _update,
+)
+from cross_patient_speech_decoding_tpu_torch.utils.profiling import annotate
 
 # a fold's dropout masks and teacher-forcing coins come from a generator
 # seeded seed + DROPOUT_SEED_OFFSET + fold, its weights from seed + fold
@@ -66,13 +70,16 @@ def _fold_epoch(state, tx, x, y, w, teacher_forcing: float, generator):
     teacher forcing at ``teacher_forcing``, the BatchNorm's running
     averages moved by the whole batch); returns the 0-d loss, before the
     update."""
-    m = state.model
-    m.train()
-    state.optimizer.zero_grad(set_to_none=True)
-    logits = m(x, y, teacher_forcing, generator=generator)
-    loss = _weighted_token_loss(logits, y, w)
-    loss.backward()
-    _update(state, tx)
+    with annotate("train_step", root=True, rows=int(x.shape[0])):
+        m = state.model
+        m.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        with annotate("forward"):
+            logits = m(x, y, teacher_forcing, generator=generator)
+        with annotate("loss"):
+            loss = _weighted_token_loss(logits, y, w)
+        _backward(loss)
+        _update(state, tx)
     return loss.detach()
 
 
@@ -180,10 +187,12 @@ def make_seq2seq_fold_trainer_fn(
             state = create_train_state(m, tx)
             gen = torch.Generator(device=dev).manual_seed(
                 seed + DROPOUT_SEED_OFFSET + f)
-            for _ in range(epochs):
-                _fold_epoch(state, tx, x, y, w[f], teacher_forcing, gen)
+            for epoch in range(epochs):
+                with annotate("epoch", epoch=epoch, fold=f):
+                    _fold_epoch(state, tx, x, y, w[f], teacher_forcing, gen)
             state.optimizer.zero_grad(set_to_none=True)
-            accs.append(_fold_eval(m, x, y, te[f]))
+            with annotate("validation", fold=f):
+                accs.append(_fold_eval(m, x, y, te[f]))
             models.append(m)
         accs = torch.stack(accs)
         if sharded:

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from cross_patient_speech_decoding_tpu_torch.train.state import TrainState
+from cross_patient_speech_decoding_tpu_torch.utils.profiling import annotate
 
 
 @dataclass
@@ -148,30 +149,33 @@ def fit(
     mini = batch_size is not None and batch_size < n
 
     for epoch in range(epochs):
-        for idx in _batches(n, batch_size, host_rng):
-            if mini:
-                mb = tuple(a[torch.as_tensor(idx, device=a.device)]
-                           for a in train_batch)
-            else:
-                mb = train_batch
-            state, _ = train_step(state, mb, generator)
+        with annotate("epoch", epoch=epoch):
+            for idx in _batches(n, batch_size, host_rng):
+                with annotate("gather"):
+                    if mini:
+                        mb = tuple(a[torch.as_tensor(idx, device=a.device)]
+                                   for a in train_batch)
+                    else:
+                        mb = train_batch
+                state, _ = train_step(state, mb, generator)
 
-        if (epoch + 1) % eval_every == 0 or epoch == epochs - 1:
-            val_metrics = eval_step(val_batch)
-            m = float(val_metrics[monitor])
-            rec = {"epoch": epoch,
-                   **{k: float(v) for k, v in val_metrics.items()}}
-            history.append(rec)
-            if log_path:
-                append_metrics(log_path, rec, log_format)
-            if sign * m < best:
-                best = sign * m
-                best_state = copy.deepcopy(state)
-                best_epoch = epoch
-            if verbose:
-                print(f"epoch {epoch}: " + ", ".join(
-                    f"{k}={float(v):.4f}" for k, v in val_metrics.items()
-                ), flush=True)
+            if (epoch + 1) % eval_every == 0 or epoch == epochs - 1:
+                with annotate("validation"):
+                    val_metrics = eval_step(val_batch)
+                    m = float(val_metrics[monitor])
+                    rec = {"epoch": epoch,
+                           **{k: float(v) for k, v in val_metrics.items()}}
+                    history.append(rec)
+                    if log_path:
+                        append_metrics(log_path, rec, log_format)
+                    if sign * m < best:
+                        best = sign * m
+                        best_state = copy.deepcopy(state)
+                        best_epoch = epoch
+                if verbose:
+                    print(f"epoch {epoch}: " + ", ".join(
+                        f"{k}={float(v):.4f}" for k, v in val_metrics.items()
+                    ), flush=True)
 
     return FitResult(best_state, sign * best, best_epoch, history)
 

@@ -36,17 +36,24 @@ from cross_patient_speech_decoding_tpu_torch.ops.metrics import (
 from cross_patient_speech_decoding_tpu_torch.train.loops import (
     clip_by_global_norm_,
 )
+from cross_patient_speech_decoding_tpu_torch.utils.profiling import annotate
 
 
 def _update(state, tx) -> None:
     """Clip (when ``tx`` clips), step the optimizer and the schedule, count
-    the step."""
-    if tx.clip is not None:
-        clip_by_global_norm_([p.grad for p in state.model.parameters()],
-                             tx.clip)
-    state.optimizer.step()
-    state.schedule.step()
+    the step: the span ``update``."""
+    with annotate("update"):
+        if tx.clip is not None:
+            clip_by_global_norm_([p.grad for p in state.model.parameters()],
+                                 tx.clip)
+        state.optimizer.step()
+        state.schedule.step()
     state.step += 1
+
+
+def _backward(loss) -> None:
+    with annotate("backward"):
+        loss.backward()
 
 
 def make_ctc_train_step(model, tx):
@@ -64,15 +71,20 @@ def make_ctc_train_step(model, tx):
     win, stride, blank = model.win_size, model.stride, model.blank
 
     def step(state, batch, generator: torch.Generator | None = None):
-        m = state.model
-        x, labels, input_lens, label_lens = (t.to(m.device) for t in batch)
-        in_adj = adjusted_input_lengths(input_lens, win, stride)
-        m.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        logits = m(x, generator=generator)
-        loss = ctc_loss_mean(logits, in_adj, labels, label_lens, blank)
-        loss.backward()
-        _update(state, tx)
+        with annotate("train_step", root=True, rows=int(batch[0].shape[0])):
+            m = state.model
+            x, labels, input_lens, label_lens = (t.to(m.device)
+                                                 for t in batch)
+            in_adj = adjusted_input_lengths(input_lens, win, stride)
+            m.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            with annotate("forward"):
+                logits = m(x, generator=generator)
+            with annotate("loss"):
+                loss = ctc_loss_mean(logits, in_adj, labels, label_lens,
+                                     blank)
+            _backward(loss)
+            _update(state, tx)
         return state, {"loss": loss.detach()}
 
     return step
@@ -88,23 +100,29 @@ def make_ctc_eval_step(model):
 
     def step(batch):
         dev = model.device
-        x, labels, input_lens, label_lens = (t.to(dev) for t in batch)
         was_training = model.training
         model.eval()
         try:
-            with torch.no_grad():
+            with annotate("eval_step", root=True,
+                          rows=int(batch[0].shape[0])), torch.no_grad():
+                x, labels, input_lens, label_lens = (t.to(dev)
+                                                     for t in batch)
                 in_adj = adjusted_input_lengths(input_lens, model.win_size,
                                                 model.stride)
-                logits = model(x)
-                loss = ctc_loss_mean(logits, in_adj, labels, label_lens,
-                                     model.blank)
-                log_probs = torch.log_softmax(logits, dim=-1)
-                n_win = logits.shape[1]
-                frame_mask = (torch.arange(n_win, device=dev)[None, :]
-                              < in_adj[:, None])
-                decoded, dec_lens = greedy_decode(log_probs, model.blank,
-                                                  frame_mask)
-                per = per_batch(decoded, dec_lens, labels, label_lens)
+                with annotate("forward"):
+                    logits = model(x)
+                with annotate("loss"):
+                    loss = ctc_loss_mean(logits, in_adj, labels, label_lens,
+                                         model.blank)
+                with annotate("decode"):
+                    log_probs = torch.log_softmax(logits, dim=-1)
+                    n_win = logits.shape[1]
+                    frame_mask = (torch.arange(n_win, device=dev)[None, :]
+                                  < in_adj[:, None])
+                    decoded, dec_lens = greedy_decode(log_probs, model.blank,
+                                                      frame_mask)
+                with annotate("per"):
+                    per = per_batch(decoded, dec_lens, labels, label_lens)
         finally:
             model.train(was_training)
         return {"loss": loss, "per": per}
@@ -138,14 +156,17 @@ def make_seq2seq_train_step(model, tx, teacher_forcing: float = 0.5):
     n_classes = model.num_classes
 
     def step(state, batch, generator: torch.Generator | None = None):
-        m = state.model
-        x, y = (t.to(m.device) for t in batch)
-        m.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        logits = m(x, y, teacher_forcing, generator=generator)
-        loss, acc = _seq2seq_metrics(logits, y, n_classes)
-        loss.backward()
-        _update(state, tx)
+        with annotate("train_step", root=True, rows=int(batch[0].shape[0])):
+            m = state.model
+            x, y = (t.to(m.device) for t in batch)
+            m.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            with annotate("forward"):
+                logits = m(x, y, teacher_forcing, generator=generator)
+            with annotate("loss"):
+                loss, acc = _seq2seq_metrics(logits, y, n_classes)
+            _backward(loss)
+            _update(state, tx)
         return state, {"loss": loss.detach(), "acc": acc}
 
     return step
@@ -161,13 +182,17 @@ def make_seq2seq_eval_step(model):
     """
 
     def step(batch):
-        x, y = (t.to(model.device) for t in batch)
         was_training = model.training
         model.eval()
         try:
-            with torch.no_grad():
-                logits = model(x, None, 0.0)
-                loss, acc = _seq2seq_metrics(logits, y, model.num_classes)
+            with annotate("eval_step", root=True,
+                          rows=int(batch[0].shape[0])), torch.no_grad():
+                x, y = (t.to(model.device) for t in batch)
+                with annotate("forward"):
+                    logits = model(x, None, 0.0)
+                with annotate("loss"):
+                    loss, acc = _seq2seq_metrics(logits, y,
+                                                 model.num_classes)
         finally:
             model.train(was_training)
         return {"loss": loss, "acc": acc}
@@ -203,14 +228,17 @@ def make_classifier_train_step(model, tx):
     n_classes = model.num_classes
 
     def step(state, batch, generator: torch.Generator | None = None):
-        m = state.model
-        x, y = (t.to(_param_device(m)) for t in batch)
-        m.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, acc = _classifier_metrics(m(x, generator=generator), y,
-                                        n_classes)
-        loss.backward()
-        _update(state, tx)
+        with annotate("train_step", root=True, rows=int(batch[0].shape[0])):
+            m = state.model
+            x, y = (t.to(_param_device(m)) for t in batch)
+            m.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            with annotate("forward"):
+                logits = m(x, generator=generator)
+            with annotate("loss"):
+                loss, acc = _classifier_metrics(logits, y, n_classes)
+            _backward(loss)
+            _update(state, tx)
         return state, {"loss": loss.detach(), "acc": acc}
 
     return step
@@ -226,13 +254,17 @@ def make_classifier_eval_step(model):
     """
 
     def step(batch):
-        x, y = (t.to(_param_device(model)) for t in batch)
         was_training = model.training
         model.eval()
         try:
-            with torch.no_grad():
-                loss, acc = _classifier_metrics(model(x), y,
-                                                model.num_classes)
+            with annotate("eval_step", root=True,
+                          rows=int(batch[0].shape[0])), torch.no_grad():
+                x, y = (t.to(_param_device(model)) for t in batch)
+                with annotate("forward"):
+                    logits = model(x)
+                with annotate("loss"):
+                    loss, acc = _classifier_metrics(logits, y,
+                                                    model.num_classes)
         finally:
             model.train(was_training)
         return {"loss": loss, "acc": acc}

@@ -1,29 +1,51 @@
-"""Tracing and per-stage timing.
+"""Tracing, the port's spans and per-stage timing.
 
 Port of ``cross_patient_speech_decoding_tpu/utils/profiling.py``:
 
 - :func:`trace`: ``jax.profiler``'s trace becomes a ``torch.profiler``
   profile of the host and, where there is one, the CUDA card, written as a
   Chrome/Perfetto trace file into the directory given;
-- :func:`annotate`: a named range (``torch.profiler.record_function``),
-  shown in that trace;
+- :func:`annotate`: the port's one span. Off, it costs one check and does
+  nothing. On (a ``torch.profiler`` is recording, or a :func:`recording`
+  block is open), it opens a named range (``record_function``, shown in a
+  profiler's trace) and keeps a record of the span in memory
+  (:func:`spans`);
 - :class:`StageTimer`: wall clock per named stage, synchronising the
   result's CUDA devices before it reads the clock.
+
+A span's record holds its name, its id, its parent's id (the innermost
+span open on its thread; on a thread with none open, such as the autograd
+engine's CUDA thread, the innermost span open on the thread of the current
+step), the step's id (the id of the last root span opened, process-wide),
+its host start and end in ns on the profiler's clock (``time.time_ns``,
+the clock of ``torch.profiler``'s events), its attributes and, for a span
+opened with a CUDA ``device``, the device ms of the work it enqueued on
+that device's current stream, between two CUDA events in stream order.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import threading
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 from pathlib import Path
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 from cross_patient_speech_decoding_tpu_torch.utils.timers import (
     _block,
     _tensors,
 )
+
+# the most span records kept; past it the oldest go first
+MAX_SPANS = 100_000
+# CUDA event pairs made once for each device and reused span after span
+# (a train step takes 6-9); when every pair is taken, the finished spans'
+# device times are read (waiting for the device) and their pairs come back
+EVENT_PAIRS = 64
 
 
 @contextlib.contextmanager
@@ -43,9 +65,206 @@ def trace(log_dir: str):
     prof.export_chrome_trace(str(out / "trace.json"))
 
 
-def annotate(name: str):
-    """Named range in the port's traces (use as a context manager)."""
-    return torch.profiler.record_function(name)
+class _Off:
+    """The span of :func:`annotate` when nothing records: one shared
+    object that does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Record:
+    __slots__ = ("name", "id", "parent", "step", "thread", "start_ns",
+                 "end_ns", "attrs", "device", "events", "device_ms")
+
+    def as_dict(self) -> dict:
+        return {"name": self.name, "id": self.id, "parent": self.parent,
+                "step": self.step, "thread": self.thread,
+                "start_ns": self.start_ns, "end_ns": self.end_ns,
+                "attrs": self.attrs, "device_ms": self.device_ms}
+
+
+class _Recorder:
+    """The process's span store, its event pools and the current step."""
+
+    def __init__(self):
+        self.on = 0  # open recording() blocks
+        self.ids = itertools.count(1)
+        self.local = threading.local()
+        self.lock = threading.Lock()
+        self.pools = {}  # device index -> free (start, end) event pairs
+        self.pending = []  # closed spans whose device ms is unread
+        self.clear()
+
+    def clear(self) -> None:
+        with self.lock:
+            self.records = deque(maxlen=MAX_SPANS)
+            for rec in self.pending:
+                self.pools[rec.device].append(rec.events)
+                rec.events = None
+            self.pending = []
+        self.step = None
+        self.root_stack = None  # the open spans of the step's thread
+
+    def stack(self) -> list:
+        st = getattr(self.local, "stack", None)
+        if st is None:
+            st = self.local.stack = []
+        return st
+
+    def take_pair(self, index: int):
+        """A free event pair of device ``index``, or None when every pair
+        belongs to a span still open."""
+        with self.lock:
+            pool = self.pools.get(index)
+            if pool is None:
+                pool = self.pools[index] = _make_pool()
+            if not pool:
+                self._resolve(wait=True)
+            return pool.pop() if pool else None
+
+    def close(self, rec) -> None:
+        with self.lock:
+            self.pending.append(rec)
+
+    def resolve(self, wait: bool) -> None:
+        with self.lock:
+            self._resolve(wait)
+
+    def _resolve(self, wait: bool) -> None:
+        """Read the device ms of the closed spans whose end event has
+        completed (with ``wait``, of all, waiting for each), and free
+        their pairs."""
+        keep = []
+        for rec in self.pending:
+            start, end = rec.events
+            if not end.query():
+                if not wait:
+                    keep.append(rec)
+                    continue
+                end.synchronize()
+            rec.device_ms = start.elapsed_time(end)
+            self.pools[rec.device].append(rec.events)
+            rec.events = None
+        self.pending = keep
+
+
+def _make_pool() -> list:
+    """EVENT_PAIRS timing event pairs. PyTorch makes an event's CUDA event
+    at its first record, on the recording stream's device (so a pool
+    serves one device); reuse makes none."""
+    return [(torch.cuda.Event(enable_timing=True),
+             torch.cuda.Event(enable_timing=True))
+            for _ in range(EVENT_PAIRS)]
+
+
+_REC = _Recorder()
+
+
+class _Span:
+    __slots__ = ("rec", "root", "rf", "stream")
+
+    def __init__(self, name, root, device, attrs):
+        rec = self.rec = _Record()
+        rec.name, rec.attrs, rec.device_ms = name, attrs, None
+        rec.events, rec.device = None, None
+        self.root, self.rf = root, None
+        if device is not None and device.type == "cuda":
+            rec.device = (device.index if device.index is not None
+                          else torch.cuda.current_device())
+
+    def __enter__(self):
+        rec = self.rec
+        if _autograd_profiler._is_profiler_enabled:
+            self.rf = torch.profiler.record_function(rec.name)
+            self.rf.__enter__()
+        rec.id = next(_REC.ids)
+        stack = _REC.stack()
+        if stack:
+            rec.parent = stack[-1].id
+        else:
+            try:
+                rec.parent = _REC.root_stack[-1].id
+            except (IndexError, TypeError):
+                rec.parent = None
+        if self.root:
+            _REC.step, _REC.root_stack = rec.id, stack
+        rec.step = _REC.step
+        rec.thread = threading.get_ident()
+        stack.append(rec)
+        _REC.records.append(rec)
+        if rec.device is not None:
+            rec.events = _REC.take_pair(rec.device)
+            if rec.events is not None:
+                self.stream = torch.cuda.current_stream(rec.device)
+                rec.events[0].record(self.stream)
+        rec.start_ns = time.time_ns()
+        return rec
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        rec.end_ns = time.time_ns()
+        if rec.events is not None:
+            rec.events[1].record(self.stream)
+            _REC.close(rec)
+        stack = _REC.stack()
+        if stack and stack[-1] is rec:
+            stack.pop()
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
+def annotate(name: str, *, root: bool = False, device=None, **attrs):
+    """The port's span, a context manager: ``with annotate("forward"):``.
+
+    Off (no ``torch.profiler`` recording and no :func:`recording` block
+    open) it returns a shared object that does nothing. On, it opens the
+    range ``name`` in the profiler's trace (while a profiler records) and
+    keeps a record (:func:`spans`) with ``attrs``. ``root`` marks a span
+    that starts a step: it and every span opened until the next root carry
+    its id as their step. ``device``: the device the span's work runs on;
+    on a CUDA device two events from a pool bracket the work enqueued on
+    its current stream, and the record gives their device ms.
+    """
+    if not (_autograd_profiler._is_profiler_enabled or _REC.on):
+        return _OFF
+    return _Span(name, root, device, attrs)
+
+
+@contextlib.contextmanager
+def recording():
+    """Keep span records without a profiler (no ranges are opened)."""
+    with _REC.lock:
+        _REC.on += 1
+    try:
+        yield
+    finally:
+        with _REC.lock:
+            _REC.on -= 1
+
+
+def spans() -> list:
+    """The kept records, oldest first, as dicts (``name``, ``id``,
+    ``parent``, ``step``, ``thread``, ``start_ns``, ``end_ns``, ``attrs``,
+    ``device_ms``), without clearing them. ``device_ms`` is None for a span
+    without a CUDA device or whose work the device has not finished:
+    synchronise first."""
+    _REC.resolve(wait=False)
+    return [rec.as_dict() for rec in list(_REC.records)]
+
+
+def reset() -> None:
+    """Drop every kept record and the current step."""
+    _REC.clear()
 
 
 class StageTimer:
