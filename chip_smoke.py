@@ -895,7 +895,8 @@ def _kernel_name(name: str) -> str:
     """'void (anonymous namespace)::step_grad_kernel(float*, ...)' ->
     'step_grad_kernel': no namespace, template or arguments; the tensor-core
     product keeps its tile, A type and operand layouts, which tell the
-    backward's phases apart ('mma_gemm_kernel<128x128,bf16,MK,KN>')."""
+    backward's phases apart ('mma_gemm_kernel<128x128,bf16,MK,KN>'), and
+    the wgmma product its A type ('wgmma_gemm_kernel<f32>')."""
     import re
 
     name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
@@ -907,6 +908,10 @@ def _kernel_name(name: str) -> str:
                 f"{'bf16' if 'bfloat16' in ta else 'f32'},"
                 f"{'KM' if km == 'true' else 'MK'},"
                 f"{'KN' if kn == 'true' else 'NK'}>")
+    m = re.match(r"wgmma_gemm_kernel<(\w+)>", name)
+    if m:
+        return (f"wgmma_gemm_kernel<"
+                f"{'bf16' if 'bfloat16' in m.group(1) else 'f32'}>")
     return name.split("(")[0].split("<")[0].split("::")[-1].strip()
 
 

@@ -35,37 +35,46 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
-# x, sx_t, sx_b, h0, wi, bi, wh, bh, hs, gi, T, B, F, H, reverse, stream
-_FWD = (_P, _LL, _LL) + (_P,) * 7 + (_I, _I, _I, _I, _I, _P)
+_LLP = ctypes.POINTER(_LL)
+# x, sx_t, sx_b, h0, wi, bi, wh, bh, hs, gi, wimg, T, B, F, H, reverse,
+# stream
+_FWD = (_P, _LL, _LL) + (_P,) * 8 + (_I, _I, _I, _I, _I, _P)
 # x, sx_t, sx_b, hprev, dhs, wi, bi, wh, bh, g, dhz, dh0, dx, part, dwi,
-# dwh, T, B, F, H, reverse, stream
-_BWD = (_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _P)
+# dwh, wimg, T, B, F, H, reverse, stream
+_BWD = (_P, _LL, _LL) + (_P,) * 14 + (_I, _I, _I, _I, _I, _P)
 # x, sx_t, sx_b, h0_f, wi_f, bi_f, wh_f, bh_f, h0_b, wi_b, bi_b, wh_b, bh_b,
-# hs_f, hs_b, gi, T, B, F, H, stream
-_BIFWD = (_P, _LL, _LL) + (_P,) * 13 + (_I, _I, _I, _I, _P)
+# hs_f, hs_b, gi, wimg, T, B, F, H, stream
+_BIFWD = (_P, _LL, _LL) + (_P,) * 14 + (_I, _I, _I, _I, _P)
+# counts (out: weight products on wgmma, on mma.sync), reset
+_ROUTES = (_LLP, _I)
 # source -> {exported function: argtypes}; every exported function returns
 # a cudaError_t as int (0 = success)
 SOURCES = {
     "gru_fwd.cu": {
+        # n_rows, F, H, n (out: floats of the wimg scratch)
+        "gru_fwd_wimg": (_LL, _I, _I, _LLP),
+        "gru_fwd_routes": _ROUTES,
         "gru_fwd_f32": _FWD,
         "gru_fwd_bf16": _FWD,
-        # x, sx_b, C, win, stride, h0, wi, bi, wh, bh, hs, gi, n_win, B, H,
-        # stream
-        "gru_wfwd_bf16": ((_P, _LL, _I, _I, _I) + (_P,) * 7
+        # x, sx_b, C, win, stride, h0, wi, bi, wh, bh, hs, gi, wimg, n_win,
+        # B, H, stream
+        "gru_wfwd_bf16": ((_P, _LL, _I, _I, _I) + (_P,) * 8
                           + (_I, _I, _I, _P)),
         "gru_bifwd_f32": _BIFWD,
         "gru_bifwd_bf16": _BIFWD,
     },
     "gru_bwd.cu": {
         # n_steps, B, F, H, part (out: floats of the `part` scratch)
-        "gru_bwd_scratch": (_I, _I, _I, _I, ctypes.POINTER(_LL)),
+        "gru_bwd_scratch": (_I, _I, _I, _I, _LLP),
+        # n_rows, F, H, need_dx, n (out: floats of the wimg scratch)
+        "gru_bwd_wimg": (_LL, _I, _I, _I, _LLP),
+        "gru_bwd_routes": _ROUTES,
         "gru_bwd_f32": _BWD,
         "gru_bwd_bf16": _BWD,
         # x, sx_b, C, win, stride, hprev, dhs, wi, bi, wh, bh, g, dhz, dh0,
-        # part, dwi, dwh, n_win, B, H, stream
-        "gru_wbwd_bf16": (_P, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                          _P, _P, _P, _P, _P, _I, _I, _I, _P),
+        # part, dwi, dwh, wimg, n_win, B, H, stream
+        "gru_wbwd_bf16": (_P, _LL, _I, _I, _I) + (_P,) * 13 + (_I, _I, _I,
+                                                               _P),
     },
     "jacobi.cu": {
         # A, w, V, n_sweeps, B, Kp, sweeps, stream
@@ -188,6 +197,12 @@ def lib() -> SimpleNamespace:
         if _lib is None:
             _lib = load()
         return _lib
+
+
+def loaded() -> bool:
+    """Whether the libraries are loaded (``lib`` has run): reading a
+    kernel library's counters never builds it."""
+    return _lib is not None
 
 
 def check(err: int, name: str) -> None:

@@ -34,7 +34,10 @@
 //      three products over [x_t | h_{t-1}], biases added in the epilogue,
 //      into the scratch stream g (T, B, 4H) as [r_pre | z_pre | in_pre |
 //      hn_pre]: r and z take x Wi + h Wh, n keeps x Wi_n and h Wh_n apart
-//      (r scales the second). For the windowed kernel row (t, b) of x is
+//      (r scales the second). From GRU_WGMMA_MIN_ROWS rows on these and
+//      dx take wgmma from images of Wi, Wh and Wi^T written at the call's
+//      start into the caller's wimg scratch (gru_mma.cuh). For the windowed
+//      kernel row (t, b) of x is
 //      window t of batch row b, read in place from the batch-major frames:
 //      the (n_win, B, win*C) window stream is never built.
 //   2. The sweep, one step at a time from the host loop below (the launch
@@ -218,21 +221,40 @@ int weight_grad(const MmaSeg& a, int M, const float* g, bool gapped,
   return 0;
 }
 
+// The images of a backward's weights in its wimg scratch, one after the
+// other: Wi (F x 3H) and Wh (H x 3H), each in runs [0, 2H) and [2H, 3H)
+// as the recompute's products take them, then Wi^T (3H x F) for dx.
+struct BwdImages {
+  WImage wi, wh, wit;
+  long long floats;
+};
+
+BwdImages bwd_images(float* wimg, int F, int H, bool need_dx) {
+  BwdImages im;
+  im.wi = wimage(wimg, F, 3 * H, 2 * H);
+  long long off = wimage_floats(im.wi);
+  im.wh = wimage(wimg == nullptr ? nullptr : wimg + off, H, 3 * H, 2 * H);
+  off += wimage_floats(im.wh);
+  im.wit = wimage(wimg == nullptr ? nullptr : wimg + off, 3 * H, F, F);
+  im.floats = off + (need_dx ? wimage_floats(im.wit) : 0);
+  return im;
+}
+
 // The backward of one layer. Step s of the sweep handles time t = T-1-s
 // (or s when the forward ran reversed). x rows of step t start at
 // x + t*sx_t, row b sx_b further on; hprev[t] is the state the forward
 // step t read. dh receives dh0. dx may
 // be null (no input gradient). dwi (F+1, 3H) and dwh (H+1, 3H) receive the
 // weight gradients with the bias gradient as their last row. g (T, B, 4H),
-// dhz (B, H) and part (bwd_plan(...).part floats, gru_bwd_scratch) are
-// scratch.
+// dhz (B, H), part (bwd_plan(...).part floats, gru_bwd_scratch) and wimg
+// (gru_bwd_wimg floats; null below the wgmma route's rows) are scratch.
 template <typename T>
 int run_backward(const T* x, long long sx_t, long long sx_b,
                  const float* hprev, const float* dhs, const float* wi,
                  const float* bi, const float* wh, const float* bh, float* g,
                  float* dhz, float* dh, float* dx, float* part, float* dwi,
-                 float* dwh, int n_steps, int B, int F, int H, int reverse,
-                 cudaStream_t stream) {
+                 float* dwh, float* wimg, int n_steps, int B, int F, int H,
+                 int reverse, cudaStream_t stream) {
   const long long N = static_cast<long long>(n_steps) * B;
   const long long BH = static_cast<long long>(B) * H;
   const long long G4 = 4LL * H;
@@ -240,6 +262,15 @@ int run_backward(const T* x, long long sx_t, long long sx_b,
   const BwdPlan pl = bwd_plan(n_steps, B, F, H);
   const MmaSeg xs = x_seg<T>(x, sx_t, sx_b, B, F);
   const MmaSeg hs = f32_seg(hprev, H, H);
+  const BwdImages im = bwd_images(wimg, F, H, dx != nullptr);
+  const bool on_wgmma = wimg != nullptr && wgmma_rows(N);
+  if (on_wgmma) {
+    RETURN_IF_FAILED(presplit(im.wi, wi, H3, false, stream));
+    RETURN_IF_FAILED(presplit(im.wh, wh, H3, false, stream));
+    if (dx != nullptr) {
+      RETURN_IF_FAILED(presplit(im.wit, wi, H3, true, stream));
+    }
+  }
 
   // 1. gate pre-activations of all rows: [r | z] over [x | h], n's input
   // half over x, its recurrent half over h
@@ -251,21 +282,24 @@ int run_backward(const T* x, long long sx_t, long long sx_b,
     set_b(p.seg[1], wh, H3);
     p.bias0 = bi;
     p.bias1 = bh;
-    RETURN_IF_FAILED((launch_mma<MmaBig, T, false, true>(p, 1, stream)));
+    RETURN_IF_FAILED((weight_product<T, true>(p, &im.wi, &im.wh, 0,
+                                              on_wgmma, stream)));
   }
   {
     MmaArgs p = out_args(g, G4, 2 * H, N, H);
     p.seg[0] = xs;
     set_b(p.seg[0], wi + 2 * H, H3);
     p.bias0 = bi + 2 * H;
-    RETURN_IF_FAILED((launch_mma<MmaBig, T, false, true>(p, 1, stream)));
+    RETURN_IF_FAILED((weight_product<T, true>(p, &im.wi, nullptr, 2 * H,
+                                              on_wgmma, stream)));
   }
   {
     MmaArgs p = out_args(g, G4, 3 * H, N, H);
     p.seg[1] = hs;
     set_b(p.seg[1], wh + 2 * H, H3);
     p.bias0 = bh + 2 * H;
-    RETURN_IF_FAILED((launch_mma<MmaBig, T, false, true>(p, 1, stream)));
+    RETURN_IF_FAILED((weight_product<T, true>(p, nullptr, &im.wh, 2 * H,
+                                              on_wgmma, stream)));
   }
 
   // 2. the sweep. dgh Wh^T = [dr | dz] Wh[:, :2H]^T + dgn Wh[:, 2H:]^T is
@@ -299,7 +333,8 @@ int run_backward(const T* x, long long sx_t, long long sx_b,
     MmaArgs p = out_args(dx, F, 0, N, F);
     p.seg[0] = f32_seg(g, G4, 3 * H);
     set_b(p.seg[0], wi, H3);
-    RETURN_IF_FAILED((launch_mma<MmaBig, float, false, false>(p, 1, stream)));
+    RETURN_IF_FAILED((weight_product<float, false>(p, &im.wit, nullptr, 0,
+                                                   on_wgmma, stream)));
   }
   RETURN_IF_FAILED(weight_grad<T>(xs, F, g, false, part, pl.split_i, dwi, N,
                                   H, stream));
@@ -320,15 +355,31 @@ int gru_bwd_scratch(int n_steps, int B, int F, int H, long long* part) {
   return 0;
 }
 
+// The floats of the wimg scratch that a backward of n_rows = T B rows, F
+// inputs and H units (dx formed when need_dx) needs, into *n: 0 where its
+// weight products take mma.sync (then wimg may be null).
+int gru_bwd_wimg(long long n_rows, int F, int H, int need_dx, long long* n) {
+  *n = wgmma_rows(n_rows) ? bwd_images(nullptr, F, H, need_dx != 0).floats
+                          : 0;
+  return 0;
+}
+
+// The weight products launched by route since the last reset: counts[0]
+// on wgmma, counts[1] on mma.sync; zeroed after the read when `reset`.
+int gru_bwd_routes(long long* counts, int reset) {
+  read_routes(counts, reset);
+  return 0;
+}
+
 // Backward of the plain GRU layer over x (T, B, F) with strides
 // (sx_t, sx_b, 1); hprev, dhs (T, B, H) float32 contiguous. See
-// run_backward for the outputs and scratch.
+// run_backward for the outputs and scratch (wimg: gru_bwd_wimg floats).
 int gru_bwd_f32(const void* x, long long sx_t, long long sx_b,
                 const void* hprev, const void* dhs, const void* wi,
                 const void* bi, const void* wh, const void* bh, void* g,
                 void* dhz, void* dh0, void* dx, void* part, void* dwi,
-                void* dwh, int T, int B, int F, int H, int reverse,
-                void* stream) {
+                void* dwh, void* wimg, int T, int B, int F, int H,
+                int reverse, void* stream) {
   return run_backward<float>(
       static_cast<const float*>(x), sx_t, sx_b,
       static_cast<const float*>(hprev), static_cast<const float*>(dhs),
@@ -337,16 +388,16 @@ int gru_bwd_f32(const void* x, long long sx_t, long long sx_b,
       static_cast<float*>(g), static_cast<float*>(dhz),
       static_cast<float*>(dh0), static_cast<float*>(dx),
       static_cast<float*>(part), static_cast<float*>(dwi),
-      static_cast<float*>(dwh), T, B, F, H, reverse,
-      static_cast<cudaStream_t>(stream));
+      static_cast<float*>(dwh), static_cast<float*>(wimg), T, B, F, H,
+      reverse, static_cast<cudaStream_t>(stream));
 }
 
 int gru_bwd_bf16(const void* x, long long sx_t, long long sx_b,
                  const void* hprev, const void* dhs, const void* wi,
                  const void* bi, const void* wh, const void* bh, void* g,
                  void* dhz, void* dh0, void* dx, void* part, void* dwi,
-                 void* dwh, int T, int B, int F, int H, int reverse,
-                 void* stream) {
+                 void* dwh, void* wimg, int T, int B, int F, int H,
+                 int reverse, void* stream) {
   return run_backward<__nv_bfloat16>(
       static_cast<const __nv_bfloat16*>(x), sx_t, sx_b,
       static_cast<const float*>(hprev), static_cast<const float*>(dhs),
@@ -355,8 +406,8 @@ int gru_bwd_bf16(const void* x, long long sx_t, long long sx_b,
       static_cast<float*>(g), static_cast<float*>(dhz),
       static_cast<float*>(dh0), static_cast<float*>(dx),
       static_cast<float*>(part), static_cast<float*>(dwi),
-      static_cast<float*>(dwh), T, B, F, H, reverse,
-      static_cast<cudaStream_t>(stream));
+      static_cast<float*>(dwh), static_cast<float*>(wimg), T, B, F, H,
+      reverse, static_cast<cudaStream_t>(stream));
 }
 
 // Backward of the windowed layer over raw bf16 frames, batch-major: frame f
@@ -367,7 +418,7 @@ int gru_wbwd_bf16(const void* x, long long sx_b, int C, int win, int stride,
                   const void* hprev, const void* dhs, const void* wi,
                   const void* bi, const void* wh, const void* bh, void* g,
                   void* dhz, void* dh0, void* part, void* dwi, void* dwh,
-                  int n_win, int B, int H, void* stream) {
+                  void* wimg, int n_win, int B, int H, void* stream) {
   return run_backward<__nv_bfloat16>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<long long>(stride) * C, sx_b,
@@ -376,8 +427,9 @@ int gru_wbwd_bf16(const void* x, long long sx_b, int C, int win, int stride,
       static_cast<const float*>(wh), static_cast<const float*>(bh),
       static_cast<float*>(g), static_cast<float*>(dhz),
       static_cast<float*>(dh0), nullptr, static_cast<float*>(part),
-      static_cast<float*>(dwi), static_cast<float*>(dwh), n_win, B, win * C,
-      H, 0, static_cast<cudaStream_t>(stream));
+      static_cast<float*>(dwi), static_cast<float*>(dwh),
+      static_cast<float*>(wimg), n_win, B, win * C, H, 0,
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

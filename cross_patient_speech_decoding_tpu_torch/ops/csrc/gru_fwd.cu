@@ -21,9 +21,11 @@
 // every product on the tensor cores (gru_mma.cuh: 3xTF32 mma.sync fed by a
 // cp.async ring). The two differ only in where a row of x starts.
 //   1. Before the sweep, the input projection of all N = T B rows,
-//      gi = x Wi + bi (T, B, 3H), as one product (mma_gemm_kernel): x Wi
-//      does not depend on the recurrence, so it leaves the step loop and
-//      runs at the rate of a large product. For the windowed kernel, row
+//      gi = x Wi + bi (T, B, 3H), as one product: x Wi does not depend on
+//      the recurrence, so it leaves the step loop and runs at the rate of a
+//      large product, on wgmma from Wi's image (written at the call's start
+//      into the caller's wimg scratch) from GRU_WGMMA_MIN_ROWS rows on,
+//      else on mma_gemm_kernel (gru_mma.cuh). For the windowed kernel, row
 //      (t, b) of x is window t of batch row b, read in place from the
 //      batch-major frames: the window w of row b, flattened time-major then
 //      channel (_window_row, pallas_gru.py:254-260), is the run of win*C
@@ -54,11 +56,11 @@
 // a small grid (ceil(B/BM) x ceil(H/(BN/3)) CTAs, 512 at fig_5 width's
 // B = 2000, H = 512) that reads h_{t-1} and its slices of Wh from L2 each
 // step; its latency, more than the tensor cores' rate, sets the sweep's
-// pace. Faster form, for later work: wgmma. A persistent kernel that keeps
-// each CTA's slice of Wh in shared memory across steps and syncs only the
-// CTAs that share rows of h was tried for the bidirectional layer at the
-// seq2seq bench's shape and ran no faster than one launch a step
-// (PERF.md, section 6).
+// pace. The step's faster form, for later work: wgmma. A persistent
+// kernel that keeps each CTA's slice of Wh in shared memory across steps
+// and syncs only the CTAs that share rows of h was tried for the
+// bidirectional layer at the seq2seq bench's shape and ran no faster than
+// one launch a step (PERF.md, section 6).
 //
 // Bidirectional layer (gru_bifwd): the unidirectional layer twice, forward
 // then reversed, each in its two phases, over the one x (its strides as
@@ -229,25 +231,36 @@ int launch_step(const StepArgs& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// Wi's image (F x 3H, runs [0, 2H) and [2H, 3H), as the backward cuts it)
+// in the scratch wimg
+WImage wi_image(float* wimg, int F, int H) {
+  return wimage(wimg, F, 3 * H, 2 * H);
+}
+
 // The unidirectional layer over the A segment xs (rows (t, b), K = F, of
 // type T): 1. gi = x Wi + bi over all rows; 2. the sweep, step s at time
 // t = s (or T-1-s when reverse), its h_{t-1} h0 at s == 0, else the hs
-// row written by the step before. gi (n_steps, B, 3H) is scratch. Returns
-// the first launch error, else cudaGetLastError().
+// row written by the step before. gi (n_steps, B, 3H) is scratch, and so
+// is wimg (gru_fwd_wimg floats; null below the wgmma route's rows).
+// Returns the first launch error, else cudaGetLastError().
 template <typename T>
 int run_layer(const MmaSeg& xs, const float* h0, const float* wi,
               const float* bi, const float* wh, const float* bh, float* hs,
-              float* gi, int n_steps, int B, int H, int reverse,
+              float* gi, float* wimg, int n_steps, int B, int H, int reverse,
               cudaStream_t stream) {
   const long long H3 = 3LL * H;
   const long long BH = static_cast<long long>(B) * H;
   {
-    MmaArgs p = out_args(gi, H3, 0, static_cast<long long>(n_steps) * B,
-                         3 * H);
+    const long long N = static_cast<long long>(n_steps) * B;
+    const bool on_wgmma = wimg != nullptr && wgmma_rows(N);
+    const WImage im = wi_image(wimg, xs.K, H);
+    if (on_wgmma) RETURN_IF_FAILED(presplit(im, wi, H3, false, stream));
+    MmaArgs p = out_args(gi, H3, 0, N, 3 * H);
     p.seg[0] = xs;
     set_b(p.seg[0], wi, H3);
     p.bias0 = bi;
-    RETURN_IF_FAILED((launch_mma<MmaBig, T, false, true>(p, 1, stream)));
+    RETURN_IF_FAILED((weight_product<T, true>(p, &im, nullptr, 0, on_wgmma,
+                                              stream)));
   }
   StepArgs p = {};
   p.wh = wh;
@@ -272,16 +285,18 @@ int bifwd(const void* x, long long sx_t, long long sx_b, const void* h0_f,
           const void* wi_f, const void* bi_f, const void* wh_f,
           const void* bh_f, const void* h0_b, const void* wi_b,
           const void* bi_b, const void* wh_b, const void* bh_b, void* hs_f,
-          void* hs_b, void* gi, int T_, int B, int F, int H, void* stream) {
+          void* hs_b, void* gi, void* wimg, int T_, int B, int F, int H,
+          void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   const MmaSeg xs = x_seg<T>(static_cast<const T*>(x), sx_t, sx_b, B, F);
   const auto s = static_cast<cudaStream_t>(stream);
+  float* w = static_cast<float*>(wimg);
   RETURN_IF_FAILED(run_layer<T>(xs, f(h0_f), f(wi_f), f(bi_f), f(wh_f),
                                 f(bh_f), static_cast<float*>(hs_f),
-                                static_cast<float*>(gi), T_, B, H, 0, s));
+                                static_cast<float*>(gi), w, T_, B, H, 0, s));
   return run_layer<T>(xs, f(h0_b), f(wi_b), f(bi_b), f(wh_b), f(bh_b),
-                      static_cast<float*>(hs_b), static_cast<float*>(gi), T_,
-                      B, H, 1, s);
+                      static_cast<float*>(hs_b), static_cast<float*>(gi), w,
+                      T_, B, H, 1, s);
 }
 
 }  // namespace
@@ -289,43 +304,62 @@ int bifwd(const void* x, long long sx_t, long long sx_b, const void* h0_f,
 
 extern "C" {
 
+// The floats of the wimg scratch that a forward of n_rows = T B rows, F
+// inputs and H units needs, into *n: 0 where its projection takes
+// mma.sync (then wimg may be null).
+int gru_fwd_wimg(long long n_rows, int F, int H, long long* n) {
+  *n = wgmma_rows(n_rows) ? wimage_floats(wi_image(nullptr, F, H)) : 0;
+  return 0;
+}
+
+// The weight products launched by route since the last reset: counts[0]
+// on wgmma, counts[1] on mma.sync; zeroed after the read when `reset`.
+int gru_fwd_routes(long long* counts, int reset) {
+  read_routes(counts, reset);
+  return 0;
+}
+
 // Plain GRU layer over x (T, B, F) with strides (sx_t, sx_b, 1):
-// hs (T, B, H) float32, contiguous; gi (T, B, 3H) float32 scratch.
+// hs (T, B, H) float32, contiguous; gi (T, B, 3H) and wimg
+// (gru_fwd_wimg floats) float32 scratch.
 int gru_fwd_f32(const void* x, long long sx_t, long long sx_b,
                 const void* h0, const void* wi, const void* bi,
-                const void* wh, const void* bh, void* hs, void* gi, int T,
-                int B, int F, int H, int reverse, void* stream) {
+                const void* wh, const void* bh, void* hs, void* gi,
+                void* wimg, int T, int B, int F, int H, int reverse,
+                void* stream) {
   const float* f = static_cast<const float*>(x);
   return run_layer<float>(
       x_seg<float>(f, sx_t, sx_b, B, F), static_cast<const float*>(h0),
       static_cast<const float*>(wi), static_cast<const float*>(bi),
       static_cast<const float*>(wh), static_cast<const float*>(bh),
-      static_cast<float*>(hs), static_cast<float*>(gi), T, B, H, reverse,
+      static_cast<float*>(hs), static_cast<float*>(gi),
+      static_cast<float*>(wimg), T, B, H, reverse,
       static_cast<cudaStream_t>(stream));
 }
 
 int gru_fwd_bf16(const void* x, long long sx_t, long long sx_b,
                  const void* h0, const void* wi, const void* bi,
-                 const void* wh, const void* bh, void* hs, void* gi, int T,
-                 int B, int F, int H, int reverse, void* stream) {
+                 const void* wh, const void* bh, void* hs, void* gi,
+                 void* wimg, int T, int B, int F, int H, int reverse,
+                 void* stream) {
   const __nv_bfloat16* f = static_cast<const __nv_bfloat16*>(x);
   return run_layer<__nv_bfloat16>(
       x_seg<__nv_bfloat16>(f, sx_t, sx_b, B, F),
       static_cast<const float*>(h0), static_cast<const float*>(wi),
       static_cast<const float*>(bi), static_cast<const float*>(wh),
       static_cast<const float*>(bh), static_cast<float*>(hs),
-      static_cast<float*>(gi), T, B, H, reverse,
+      static_cast<float*>(gi), static_cast<float*>(wimg), T, B, H, reverse,
       static_cast<cudaStream_t>(stream));
 }
 
 // Windowed GRU layer over raw bf16 frames, batch-major: frame f of batch
 // row b starts at x + b*sx_b + f*C and holds C contiguous channels. Window
 // w is frames [w*stride, w*stride + win), F = win*C; hs (n_win, B, H)
-// float32, contiguous; gi (n_win, B, 3H) float32 scratch.
+// float32, contiguous; gi (n_win, B, 3H) and wimg float32 scratch.
 int gru_wfwd_bf16(const void* x, long long sx_b, int C, int win, int stride,
                   const void* h0, const void* wi, const void* bi,
                   const void* wh, const void* bh, void* hs, void* gi,
-                  int n_win, int B, int H, void* stream) {
+                  void* wimg, int n_win, int B, int H, void* stream) {
   const __nv_bfloat16* f = static_cast<const __nv_bfloat16*>(x);
   return run_layer<__nv_bfloat16>(
       x_seg<__nv_bfloat16>(f, static_cast<long long>(stride) * C, sx_b, B,
@@ -333,34 +367,34 @@ int gru_wfwd_bf16(const void* x, long long sx_b, int C, int win, int stride,
       static_cast<const float*>(h0), static_cast<const float*>(wi),
       static_cast<const float*>(bi), static_cast<const float*>(wh),
       static_cast<const float*>(bh), static_cast<float*>(hs),
-      static_cast<float*>(gi), n_win, B, H, 0,
+      static_cast<float*>(gi), static_cast<float*>(wimg), n_win, B, H, 0,
       static_cast<cudaStream_t>(stream));
 }
 
 // Bidirectional GRU layer over x (T, B, F) with strides (sx_t, sx_b, 1),
 // one weight set per direction: hs_f and hs_b (T, B, H) float32,
-// contiguous, both in the original time order; gi (T, B, 3H) float32
-// scratch, used by one direction after the other.
+// contiguous, both in the original time order; gi (T, B, 3H) and wimg
+// float32 scratch, each used by one direction after the other.
 int gru_bifwd_f32(const void* x, long long sx_t, long long sx_b,
                   const void* h0_f, const void* wi_f, const void* bi_f,
                   const void* wh_f, const void* bh_f, const void* h0_b,
                   const void* wi_b, const void* bi_b, const void* wh_b,
-                  const void* bh_b, void* hs_f, void* hs_b, void* gi, int T,
-                  int B, int F, int H, void* stream) {
+                  const void* bh_b, void* hs_f, void* hs_b, void* gi,
+                  void* wimg, int T, int B, int F, int H, void* stream) {
   return bifwd<float>(x, sx_t, sx_b, h0_f, wi_f, bi_f, wh_f, bh_f, h0_b,
-                      wi_b, bi_b, wh_b, bh_b, hs_f, hs_b, gi, T, B, F, H,
-                      stream);
+                      wi_b, bi_b, wh_b, bh_b, hs_f, hs_b, gi, wimg, T, B, F,
+                      H, stream);
 }
 
 int gru_bifwd_bf16(const void* x, long long sx_t, long long sx_b,
                    const void* h0_f, const void* wi_f, const void* bi_f,
                    const void* wh_f, const void* bh_f, const void* h0_b,
                    const void* wi_b, const void* bi_b, const void* wh_b,
-                   const void* bh_b, void* hs_f, void* hs_b, void* gi, int T,
-                   int B, int F, int H, void* stream) {
+                   const void* bh_b, void* hs_f, void* hs_b, void* gi,
+                   void* wimg, int T, int B, int F, int H, void* stream) {
   return bifwd<__nv_bfloat16>(x, sx_t, sx_b, h0_f, wi_f, bi_f, wh_f, bh_f,
-                              h0_b, wi_b, bi_b, wh_b, bh_b, hs_f, hs_b, gi, T,
-                              B, F, H, stream);
+                              h0_b, wi_b, bi_b, wh_b, bh_b, hs_f, hs_b, gi,
+                              wimg, T, B, F, H, stream);
 }
 
 }  // extern "C"

@@ -44,11 +44,38 @@ from cross_patient_speech_decoding_tpu_torch.utils.profiling import annotate
 # forward, then reversed).
 LAUNCHES = {"gru_fwd": 0, "gru_wfwd": 0, "gru_bifwd": 0, "gru_bwd": 0,
             "gru_wbwd": 0}
+# The kernels of the products whose B is a weight (x Wi, the backward's
+# gate recompute, dx; csrc/gru_mma.cuh): wgmma where a call has enough
+# T B rows (GRU_WGMMA_MIN_ROWS), mma.sync below. The libraries count the
+# products by route.
+ROUTES = ("wgmma", "mma_sync")
+
+
+def _route_counts(reset: bool) -> list:
+    from cross_patient_speech_decoding_tpu_torch.ops import _ext
+
+    total = [0, 0]
+    if not _ext.loaded():
+        return total
+    lib = _ext.lib()
+    for name in ("gru_fwd_routes", "gru_bwd_routes"):
+        counts = (ctypes.c_longlong * 2)()
+        _ext.check(getattr(lib, name)(counts, int(reset)), name)
+        total = [a + b for a, b in zip(total, counts)]
+    return total
+
+
+def product_counts() -> dict:
+    """The weight products launched since the last
+    :func:`reset_launch_counts`, by route (``ROUTES``); all 0 before the
+    kernels are first loaded."""
+    return dict(zip(ROUTES, _route_counts(reset=False)))
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    _route_counts(reset=True)
 
 
 def n_windows(T: int, win: int, stride: int) -> int:
@@ -225,6 +252,24 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _wimg_scratch(query: str, n_rows: int, *shape, device):
+    """The scratch in which a call writes the TF32 images of its weights
+    (csrc/gru_mma.cuh: a few MB), sized by the library's ``query``; None
+    where the call's T B rows take mma.sync, which reads the weights as
+    they are."""
+    from cross_patient_speech_decoding_tpu_torch.ops import _ext
+
+    n = ctypes.c_longlong()
+    _ext.check(getattr(_ext.lib(), query)(n_rows, *shape, ctypes.byref(n)),
+               query)
+    return (torch.empty(n.value, dtype=torch.float32, device=device)
+            if n.value else None)
+
+
 def _gi_scratch(n_steps: int, B: int, H: int, device):
     """The input projection x Wi + bi of every row, (n_steps, B, 3H)
     float32, that the forward kernels write before their sweep (1.8 GB at
@@ -245,13 +290,14 @@ def gru_fwd_cuda(x, h0, wi, bi, wh, bh, reverse: bool = False):
     if T == 0:
         return hs
     gi = _gi_scratch(T, B, H, x.device)
+    wimg = _wimg_scratch("gru_fwd_wimg", T * B, F, H, device=x.device)
     name = "gru_fwd_bf16" if x.dtype == torch.bfloat16 else "gru_fwd_f32"
     with torch.cuda.device(x.device):
         err = getattr(_ext.lib(), name)(
             x.data_ptr(), x.stride(0), x.stride(1), h0.data_ptr(),
             wi.data_ptr(), bi.data_ptr(), wh.data_ptr(), bh.data_ptr(),
-            hs.data_ptr(), gi.data_ptr(), T, B, F, H, int(reverse),
-            _stream(),
+            hs.data_ptr(), gi.data_ptr(), _ptr(wimg), T, B, F, H,
+            int(reverse), _stream(),
         )
     _ext.check(err, name)
     LAUNCHES["gru_fwd"] += 1
@@ -277,14 +323,15 @@ def gru_bifwd_cuda(x, h0_f, h0_b, wi_f, bi_f, wh_f, bh_f, wi_b, bi_b, wh_b,
     if T == 0 or B == 0:
         return hs_f, hs_b
     gi = _gi_scratch(T, B, H, x.device)
+    wimg = _wimg_scratch("gru_fwd_wimg", T * B, F, H, device=x.device)
     name = "gru_bifwd_bf16" if x.dtype == torch.bfloat16 else "gru_bifwd_f32"
     with torch.cuda.device(x.device):
         err = getattr(_ext.lib(), name)(
             x.data_ptr(), x.stride(0), x.stride(1),
             *(t.data_ptr() for t in (h0_f, wi_f, bi_f, wh_f, bh_f,
                                      h0_b, wi_b, bi_b, wh_b, bh_b)),
-            hs_f.data_ptr(), hs_b.data_ptr(), gi.data_ptr(), T, B, F, H,
-            _stream(),
+            hs_f.data_ptr(), hs_b.data_ptr(), gi.data_ptr(), _ptr(wimg), T,
+            B, F, H, _stream(),
         )
     _ext.check(err, name)
     LAUNCHES["gru_bifwd"] += 1
@@ -317,23 +364,26 @@ def gru_wfwd_cuda(x, h0, wi, bi, wh, bh, win: int, stride: int):
     x = _batch_major(x)
     hs = torch.empty((n_win, B, H), dtype=torch.float32, device=x.device)
     gi = _gi_scratch(n_win, B, H, x.device)
+    wimg = _wimg_scratch("gru_fwd_wimg", n_win * B, win * C, H,
+                         device=x.device)
     with torch.cuda.device(x.device):
         err = _ext.lib().gru_wfwd_bf16(
             x.data_ptr(), x.stride(1), C, win, stride, h0.data_ptr(),
             wi.data_ptr(), bi.data_ptr(), wh.data_ptr(), bh.data_ptr(),
-            hs.data_ptr(), gi.data_ptr(), n_win, B, H, _stream(),
+            hs.data_ptr(), gi.data_ptr(), _ptr(wimg), n_win, B, H,
+            _stream(),
         )
     _ext.check(err, "gru_wfwd_bf16")
     LAUNCHES["gru_wfwd"] += 1
     return hs
 
 
-def _bwd_buffers(x, n_steps: int, B: int, F: int, H: int):
+def _bwd_buffers(x, n_steps: int, B: int, F: int, H: int, need_dx: bool):
     """Outputs and scratch of a backward launch (see run_backward,
     gru_bwd.cu): the gate-gradient stream g (n_steps, B, 4H) is the large
     one (2.4 GB at fig_5 width) and is freed when the caller drops it. The
-    size of the partial-sum scratch comes from the library, which decides
-    the splits that fill it."""
+    sizes of the partial-sum scratch and of the weights' images come from
+    the library, which decides the splits and the route."""
     from cross_patient_speech_decoding_tpu_torch.ops import _ext
 
     part = ctypes.c_longlong()
@@ -348,6 +398,8 @@ def _bwd_buffers(x, n_steps: int, B: int, F: int, H: int):
         part=torch.empty(part.value, **f32),
         dwi=torch.empty((F + 1, 3 * H), **f32),
         dwh=torch.empty((H + 1, 3 * H), **f32),
+        wimg=_wimg_scratch("gru_bwd_wimg", n_steps * B, F, H, int(need_dx),
+                           device=x.device),
     )
 
 
@@ -372,7 +424,7 @@ def gru_bwd_cuda(x, hprev, dhs, wi, bi, wh, bh, reverse: bool = False,
     _check_streams(x, T, H, hprev=hprev, dhs=dhs)
     dx = (torch.empty((T, B, F), dtype=torch.float32, device=x.device)
           if need_dx else None)
-    buf = _bwd_buffers(x, T, B, F, H)
+    buf = _bwd_buffers(x, T, B, F, H, need_dx)
     name = "gru_bwd_bf16" if x.dtype == torch.bfloat16 else "gru_bwd_f32"
     with torch.cuda.device(x.device):
         err = getattr(_ext.lib(), name)(
@@ -381,7 +433,8 @@ def gru_bwd_cuda(x, hprev, dhs, wi, bi, wh, bh, reverse: bool = False,
             bh.data_ptr(), buf["g"].data_ptr(), buf["dhz"].data_ptr(),
             buf["dh0"].data_ptr(), None if dx is None else dx.data_ptr(),
             buf["part"].data_ptr(), buf["dwi"].data_ptr(),
-            buf["dwh"].data_ptr(), T, B, F, H, int(reverse), _stream(),
+            buf["dwh"].data_ptr(), _ptr(buf["wimg"]), T, B, F, H,
+            int(reverse), _stream(),
         )
     _ext.check(err, name)
     LAUNCHES["gru_bwd"] += 1
@@ -401,15 +454,15 @@ def gru_wbwd_cuda(x, hprev, dhs, wi, bi, wh, bh, win: int, stride: int):
     _check_streams(x, n_win, H, hprev=hprev, dhs=dhs)
     _check_frames(x, "gru_wbwd")
     x = _batch_major(x)
-    buf = _bwd_buffers(x, n_win, B, F, H)
+    buf = _bwd_buffers(x, n_win, B, F, H, False)
     with torch.cuda.device(x.device):
         err = _ext.lib().gru_wbwd_bf16(
             x.data_ptr(), x.stride(1), C, win, stride, hprev.data_ptr(),
             dhs.data_ptr(), wi.data_ptr(), bi.data_ptr(), wh.data_ptr(),
             bh.data_ptr(), buf["g"].data_ptr(), buf["dhz"].data_ptr(),
             buf["dh0"].data_ptr(), buf["part"].data_ptr(),
-            buf["dwi"].data_ptr(), buf["dwh"].data_ptr(), n_win, B, H,
-            _stream(),
+            buf["dwi"].data_ptr(), buf["dwh"].data_ptr(),
+            _ptr(buf["wimg"]), n_win, B, H, _stream(),
         )
     _ext.check(err, "gru_wbwd_bf16")
     LAUNCHES["gru_wbwd"] += 1
@@ -421,16 +474,40 @@ def gru_wbwd_cuda(x, hprev, dhs, wi, bi, wh, bh, win: int, stride: int):
 # ---------------------------------------------------------------------------
 
 
+class _KernelSpan:
+    """A kernel call's span that, where it records, adds the call's weight
+    products by route (:func:`product_counts`) to its attributes."""
+
+    __slots__ = ("span", "rec", "before")
+
+    def __init__(self, span):
+        self.span = span
+
+    def __enter__(self):
+        self.rec = self.span.__enter__()
+        self.before = None if self.rec is None else product_counts()
+        return self.rec
+
+    def __exit__(self, *exc):
+        if self.before is not None:
+            after = product_counts()
+            self.rec.attrs.update(
+                {k: after[k] - self.before[k] for k in ROUTES})
+        return self.span.__exit__(*exc)
+
+
 def _kernel_span(name: str, x, T: int, F: int, H: int, need_dx: bool,
                  plain: bool, directions: int = 1):
     """The span of one kernel call (or its plain version), named by its
     ``LAUNCHES`` key: the recurrence's T steps of B rows, F input features
     and H units, the bytes of the input it reads, whether it forms dx, and
-    its route; on a CUDA tensor it times the call's device work."""
-    return annotate(name, device=x.device, T=T, B=x.shape[1], F=F, H=H,
+    its route; on a CUDA tensor it times the call's device work and counts
+    its weight products by kernel (``wgmma``, ``mma_sync``)."""
+    span = annotate(name, device=x.device, T=T, B=x.shape[1], F=F, H=H,
                     x_bytes=x.numel() * x.element_size(),
                     need_dx=bool(need_dx), directions=directions,
                     route="plain" if plain else "cuda")
+    return span if plain else _KernelSpan(span)
 
 
 class GRULayerFn(torch.autograd.Function):

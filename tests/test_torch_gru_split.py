@@ -363,3 +363,146 @@ def test_gate_math_on_the_tile_layout_matches_plain(tile):
         h = (1.0 - z) * n + z * h
         hs[t] = h
     assert torch.equal(hs, gru.gru_layer_plain(x, h0, wi, bi, wh, bh))
+
+
+# ---------------------------------------------------------------------------
+# the wgmma route of the weight products (csrc/gru_mma.cuh): the weight's
+# hi and lo planes written once a call into an image, a 32-deep stage
+# summed into `part` from 0 in k8 steps (lo_a hi_b, hi_a lo_b, hi_a hi_b
+# each), part added to the accumulator in float32
+# ---------------------------------------------------------------------------
+
+
+def _wg_constants():
+    """BN, BK of wgmma_gemm_kernel's tiles, from the header."""
+    import re
+    from pathlib import Path
+
+    src = (Path(__file__).resolve().parents[1]
+           / "cross_patient_speech_decoding_tpu_torch" / "ops" / "csrc"
+           / "gru_mma.cuh").read_text()
+    m = re.search(r"constexpr int BM = (\d+), BN = (\d+), BK = (\d+),", src)
+    return int(m.group(2)), int(m.group(3))
+
+
+WG_BN, WG_BK = _wg_constants()
+
+
+def _rz(v):
+    """float64 values to float32, rounded toward zero (the tensor cores'
+    sums)."""
+    r = v.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(v)
+    r[over] = np.nextafter(r[over], np.float32(0))
+    return r
+
+
+def image_index(K: int, n_cols: int, c_split: int):
+    """presplit_kernel's map, mirrored: for every float of one plane of
+    the image, the weight element (k, c) it holds, or (-1, -1) for the
+    zero padding. Returns (k, c) arrays in image order."""
+    nb0 = -(-c_split // WG_BN)
+    nb1 = -(-(n_cols - c_split) // WG_BN)
+    nkt = -(-K // WG_BK)
+    plane = WG_BK * WG_BN
+    e = np.arange(plane)
+    cm, r, q = e // 32, (e // 4) % 8, e % 4
+    kc, j = cm // (WG_BN // 8), (cm % (WG_BN // 8)) * 8 + r
+    slot = (kc % 2) * 4 + q
+    k_in = (kc // 2) * 8 + np.where(slot < 4, 2 * slot, 2 * (slot - 4) + 1)
+    ks, cs = [], []
+    for b in range(nb0 + nb1):
+        first = b < nb0
+        c = (b * WG_BN if first else c_split + (b - nb0) * WG_BN) + j
+        c_end = c_split if first else n_cols
+        for kt in range(nkt):
+            k = kt * WG_BK + k_in
+            ok = (k < K) & (c < c_end)
+            ks.append(np.where(ok, k, -1))
+            cs.append(np.where(ok, c, -1))
+    return np.concatenate(ks), np.concatenate(cs)
+
+
+# (K, n_cols, c_split): fig_5's Wi of layer 0 and 1-2 and its Wh (runs
+# [0, 2H) and [2H, 3H)), the seq2seq encoder's Wi and Wh (3H = 1500 off
+# the 128-column blocks), dx's Wi^T (one run), and odd small ones
+IMAGES = [(840, 1536, 1024), (512, 1536, 1024), (100, 1500, 1000),
+          (500, 1500, 1000), (1536, 512, 512), (1500, 100, 100),
+          (7, 9, 6), (33, 3, 2)]
+
+
+@pytest.mark.parametrize("K,n_cols,c_split", IMAGES)
+def test_weight_image_holds_every_element_once(K, n_cols, c_split):
+    ks, cs = image_index(K, n_cols, c_split)
+    held = ks >= 0
+    flat = ks[held] * n_cols + cs[held]
+    assert np.array_equal(np.sort(flat), np.arange(K * n_cols))
+    # a k8 step's slots t and t + 4 hold k = 8s + 2t and 8s + 2t + 1: the
+    # columns that a thread's A fragment reads in one float2
+    # (k chunk kc, q) of block column 0 in the first tile
+    k_in = ks[np.arange(WG_BK // 4)[:, None] * (WG_BN // 8) * 32
+              + np.arange(4)]
+    if K >= WG_BK:
+        for s in range(WG_BK // 8):
+            for t in range(4):
+                assert k_in[2 * s, t] == 8 * s + 2 * t
+                assert k_in[2 * s + 1, t] == 8 * s + 2 * t + 1
+
+
+def wgmma_product(segments, b_hi, b_lo):
+    """out = [A_0 | A_1 | ...] B as wgmma_gemm_kernel orders it. Each
+    segment (A, a_exact) is cut into 32-deep stages (its last zero padded);
+    a stage's part starts from 0 and takes, for each k8 step, lo_a hi_b,
+    hi_a lo_b, hi_a hi_b (no lo_a hi_b for an exact A), each an exact k8
+    sum added into part rounding toward zero; part is added to the float32
+    accumulator rounding to nearest. b_hi, b_lo: the planes of the image,
+    (sum of the segments' K, N)."""
+    acc = np.zeros((segments[0][0].shape[0], b_hi.shape[1]), np.float32)
+    k0 = 0
+    for a, exact in segments:
+        K = a.shape[1]
+        ah, al = (tf32(a), None) if exact else split(a)
+        for kt in range(0, K, WG_BK):
+            part = np.zeros_like(acc)
+            for s in range(kt, min(kt + WG_BK, K), 8):
+                ks = slice(s, min(s + 8, K))
+                kb = slice(k0 + s, k0 + min(s + 8, K))
+                terms = [(ah, b_lo), (ah, b_hi)]
+                if al is not None:
+                    terms.insert(0, (al, b_hi))
+                for x, y in terms:
+                    part = _rz(part.astype(np.float64) + x[:, ks].astype(
+                        np.float64) @ y[kb].astype(np.float64))
+            acc = acc + part
+        k0 += K
+    return acc
+
+
+# (segments [(K, a's dtype)], N): x Wi over bf16 windows (K = 840), the
+# gate recompute over [x | h] at fig_5's layer 0 (840 bf16 + 512), the
+# seq2seq encoder's x Wi (K = 100) and dx = dgi Wi^T (K = 3H = 1536)
+WG_CASES = {
+    "x_wi_bf16_windows": ([(840, "bf16")], 64),
+    "gate_recompute_two_segments": ([(840, "bf16"), (512, np.float32)], 64),
+    "s2s_x_wi": ([(100, np.float32)], 64),
+    "dx": ([(1536, np.float32)], 64),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WG_CASES))
+def test_wgmma_product_is_float32_class(name):
+    segs, N = WG_CASES[name]
+    rng = np.random.default_rng(40 + sorted(WG_CASES).index(name))
+    segments = []
+    for K, dt in segs:
+        a = rng.uniform(-1, 1, size=(64, K)).astype(np.float32)
+        segments.append((bf16(a) if dt == "bf16" else a, dt == "bf16"))
+    K = sum(a.shape[1] for a, _ in segments)
+    b = (rng.normal(size=(K, N)) * 1e-3).astype(np.float32)
+    a_all = np.concatenate([a for a, _ in segments], axis=1)
+    want = a_all.astype(np.float64) @ b.astype(np.float64)
+    err = _rel(wgmma_product(segments, *split(b)), want)
+    f32 = _rel(_tiled(a_all, b), want)
+    print(f"{name}: wgmma 3xTF32 {err:.2e}, float32 {f32:.2e}")
+    assert err <= GRAD_RTOL / 10
+    assert err <= 4 * f32 + 1e-7

@@ -10,7 +10,10 @@ PyTorch:
 GRU forward: every forward kernel's products run on tensor cores as
 3xTF32 (float32-class), the bidirectional kernel as the unidirectional
 one's two phases per direction; each against the plain version in float32
-sums of another order: atol 1e-4 on hs. GRU backward: the kernels' products run
+sums of another order: atol 1e-4 on hs. The products whose B is a weight
+(the projections, the backward's gate recompute, dx) run on wgmma where a
+call's T B rows reach the library's threshold and on mma.sync below it;
+the tile-edge shapes cross it. GRU backward: the kernels' products run
 on tensor cores as 3xTF32 (float32-class, ~1e-7 of the largest output per
 product) with float32 sums in another order: on gradients, max |diff| <=
 1e-5 x max |plain| per tensor (sums over batch and time). Jacobi: the kernel rounds every
@@ -20,12 +23,14 @@ alignment fit on the card agrees with the CPU's within 1e-4 on the
 canonical correlations and 1e-3 x max |proj| on the projections.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
 from cross_patient_speech_decoding_tpu_torch.models import RealtimeRNN
-from cross_patient_speech_decoding_tpu_torch.ops import cca, gru, jacobi
+from cross_patient_speech_decoding_tpu_torch.ops import _ext, cca, gru, jacobi
 
 ATOL = 1e-4
 GRAD_RTOL = 1e-5
@@ -39,6 +44,15 @@ def card():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda", 0)
+
+
+def _wgmma_rows(n_rows: int) -> bool:
+    """Whether the library takes the weight products of a call of n_rows
+    = T B rows on wgmma (GRU_WGMMA_MIN_ROWS, csrc/gru_mma.cuh)."""
+    n = ctypes.c_longlong()
+    _ext.check(_ext.lib().gru_fwd_wimg(n_rows, 1, 1, ctypes.byref(n)),
+               "gru_fwd_wimg")
+    return n.value > 0
 
 
 def _args(card, seed, T, B, F, H):
@@ -95,28 +109,34 @@ def test_gru_wfwd_kernel_matches_plain(card, win, stride, T, batch_major):
 
 # shapes that cross the forward's tiles: B off the step kernel's 64-row
 # tile and the projection's 128-row tile, H = 500 (off the 32-unit tile),
-# H = 1, T = 1, odd F
+# H = 1, T = 1, odd F; T B past the wgmma route's threshold (ragged 128-row
+# tiles, K = 100 and 840, 3H = 1500 off the 128-column tile)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("T,B,F,H", [(3, 131, 100, 500), (1, 1000, 500, 500),
                                      (4, 65, 33, 1), (1, 1, 840, 512),
-                                     (2, 129, 70, 97)])
+                                     (2, 129, 70, 97), (5, 1001, 100, 500),
+                                     (3, 1500, 840, 512)])
 def test_gru_fwd_kernel_tile_edges(card, dtype, reverse, T, B, F, H):
     args = _args(card, 14, T, B, F, H)
     args[0] = args[0].to(dtype)
     with torch.no_grad():
         got = gru.gru_fwd_cuda(*args, reverse=reverse)
+        again = gru.gru_fwd_cuda(*args, reverse=reverse)
         want = gru.gru_layer_plain(*args, reverse=reverse)
+    assert torch.equal(got, again)
     torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
 
 
 # window rows of F = win*C = 840 (C = 60, 16-byte aligned, as at fig_5
-# width) and of C = 5 (2-byte aligned), B off the tiles, H = 500, 97, 1
+# width) and of C = 5 (2-byte aligned), B off the tiles, H = 500, 97, 1;
+# 35 x 131 windows take the wgmma route
 @pytest.mark.parametrize("batch_major", [True, False])
 @pytest.mark.parametrize("win,stride,T,C,B,H", [(14, 4, 30, 60, 67, 500),
                                                 (14, 4, 40, 60, 130, 97),
                                                 (6, 2, 27, 5, 129, 64),
-                                                (6, 2, 11, 5, 3, 1)])
+                                                (6, 2, 11, 5, 3, 1),
+                                                (14, 4, 150, 60, 131, 500)])
 def test_gru_wfwd_kernel_tile_edges(card, win, stride, T, C, B, H,
                                     batch_major):
     args = _args(card, 15, T, B, win * C, H)
@@ -124,6 +144,7 @@ def test_gru_wfwd_kernel_tile_edges(card, win, stride, T, C, B, H,
     args[0] = x if batch_major else x.contiguous()
     with torch.no_grad():
         got = gru.gru_wfwd_cuda(*args, win, stride)
+        assert torch.equal(got, gru.gru_wfwd_cuda(*args, win, stride))
         want = gru.gru_layer_windowed_plain(*args, win, stride)
     assert got.shape == ((T - win) // stride + 1, B, H)
     torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
@@ -193,12 +214,16 @@ def test_gru_wbwd_kernel_matches_plain(card, win, stride, T, batch_major):
 
 
 # shapes that cross the tensor-core tiles' edges: H = 500 (3H = 1500),
-# F = 840, T = 1, B off the 128- and 64-row tiles, odd H and F
+# F = 840, T = 1, B off the 128- and 64-row tiles, odd H and F; T B past
+# the wgmma route's threshold with K = 100, and K = 840 + 512 = 1352 over
+# the recompute's two segments
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("need_dx", [True, False])
 @pytest.mark.parametrize("T,B,F,H", [(3, 131, 100, 500), (1, 1000, 500, 500),
-                                     (2, 70, 840, 64), (1, 129, 33, 97)])
+                                     (2, 70, 840, 64), (1, 129, 33, 97),
+                                     (5, 1001, 100, 500),
+                                     (4, 1100, 840, 512)])
 def test_gru_bwd_kernel_tile_edges(card, dtype, reverse, need_dx, T, B, F,
                                    H):
     x, _, *w = _args(card, 12, T, B, F, H)
@@ -213,11 +238,13 @@ def test_gru_bwd_kernel_tile_edges(card, dtype, reverse, need_dx, T, B, F,
 
 
 # window rows of F = win*C = 840 (C = 60, 16-byte aligned, as at fig_5
-# width) and of C = 5 (2-byte aligned), B off the tiles, H = 500 and 97
+# width) and of C = 5 (2-byte aligned), B off the tiles, H = 500 and 97;
+# 35 x 131 windows take the wgmma route
 @pytest.mark.parametrize("batch_major", [True, False])
 @pytest.mark.parametrize("win,stride,T,C,B,H", [(14, 4, 30, 60, 67, 500),
                                                 (14, 4, 40, 60, 130, 97),
-                                                (6, 2, 27, 5, 129, 64)])
+                                                (6, 2, 27, 5, 129, 64),
+                                                (14, 4, 150, 60, 131, 500)])
 def test_gru_wbwd_kernel_tile_edges(card, win, stride, T, C, B, H,
                                     batch_major):
     n_win = (T - win) // stride + 1
@@ -243,6 +270,65 @@ def test_backward_wrappers_raise_on_cuda(card):
         gru.gru_wbwd_cuda(torch.randn((5, 8, 3), device=card), hprev[:2],
                           hprev[:2], torch.zeros((6, 48), device=card),
                           *w[1:], 2, 2)
+
+
+# calls past the wgmma route's threshold, with their weight products:
+# gru_fwd (x Wi), gru_wfwd (windows read in place), gru_bifwd (x Wi of
+# each direction), gru_bwd (the three gate-recompute products, dx) and
+# gru_wbwd (the recompute alone)
+def _route_calls(card):
+    x, h0, *w = _args(card, 20, 5, 1001, 100, 500)
+    hp = torch.randn((5, 1001, 500), device=card) * 0.3
+    dh = torch.randn((5, 1001, 500), device=card)
+    frames = torch.randn((131, 150, 60), device=card).to(
+        torch.bfloat16).transpose(0, 1)
+    _, h0w, *ww = _args(card, 21, 1, 131, 840, 500)
+    hpw = torch.randn((35, 131, 500), device=card) * 0.3
+    dhw = torch.randn((35, 131, 500), device=card)
+    return {
+        "gru_fwd": (1, lambda: gru.gru_fwd_cuda(x, h0, *w)),
+        "gru_wfwd": (1, lambda: gru.gru_wfwd_cuda(frames, h0w, *ww, 14, 4)),
+        "gru_bifwd": (2, lambda: gru.gru_bifwd_cuda(x, h0, h0, *w, *w)),
+        "gru_bwd": (4, lambda: gru.gru_bwd_cuda(x, hp, dh, *w)),
+        "gru_bwd_no_dx": (3, lambda: gru.gru_bwd_cuda(x, hp, dh, *w,
+                                                      need_dx=False)),
+        "gru_wbwd": (3, lambda: gru.gru_wbwd_cuda(frames, hpw, dhw, *ww, 14,
+                                                  4)),
+    }
+
+
+@pytest.mark.parametrize("call", ["gru_fwd", "gru_wfwd", "gru_bifwd",
+                                  "gru_bwd", "gru_bwd_no_dx", "gru_wbwd"])
+def test_weight_products_take_wgmma_past_the_threshold(card, call):
+    """Each call's weight products, counted by route: all on wgmma at
+    5 x 1001 and 35 x 131 rows, and reset with the launch counts."""
+    assert _wgmma_rows(5 * 1001) and _wgmma_rows(35 * 131)
+    n, fn = _route_calls(card)[call]
+    gru.reset_launch_counts()
+    with torch.no_grad():
+        fn()
+    assert gru.product_counts() == {"wgmma": n, "mma_sync": 0}
+    gru.reset_launch_counts()
+    assert gru.product_counts() == {"wgmma": 0, "mma_sync": 0}
+
+
+def test_fig5_step_takes_wgmma_and_a_stream_step_mma_sync(card):
+    """A train step of the fig_5 model (64 rows of 600 frames: 147 x 64
+    rows a layer) sends all 14 of its weight products through wgmma (3
+    projections, 9 gate recomputes, dx of layers 1-2); a streaming step
+    (B = 1, T = 1) sends its 3 projections through mma.sync."""
+    model = RealtimeRNN(60, 512, 3, 11, dropout=0.0, win_size=14, stride=4,
+                        seed=0, device=card)
+    x = torch.randn((64, 600, 60), device=card)
+    assert _wgmma_rows(147 * 64) and not _wgmma_rows(1)
+    gru.reset_launch_counts()
+    model(x).square().mean().backward()
+    assert gru.product_counts() == {"wgmma": 14, "mma_sync": 0}
+    gru.reset_launch_counts()
+    with torch.no_grad():
+        model.single_step(x[:1, :14].reshape(1, -1),
+                          model.initial_hidden(1).contiguous())
+    assert gru.product_counts() == {"wgmma": 0, "mma_sync": 3}
 
 
 def test_realtime_rnn_on_card_matches_cpu(card):

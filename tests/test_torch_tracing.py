@@ -305,12 +305,19 @@ def test_fold_trainer_records_its_epochs():
 def test_kernel_spans_count_the_launches(monkeypatch):
     """With the kernel route taken (the wrappers replaced by counted plain
     versions), a step's kernel spans of route 'cuda' are its LAUNCHES
-    deltas, one name for one name."""
+    deltas, one name for one name, and each carries the weight products
+    its call launched by kernel (here two on wgmma, one on mma.sync)."""
+    products = {"wgmma": 0, "mma_sync": 0}
+
     def counted(name, plain):
         def launch(*args, **kw):
             gru.LAUNCHES[name] += 1
+            products["wgmma"] += 2
+            products["mma_sync"] += 1
             return plain(*args, **kw)
         return launch
+
+    monkeypatch.setattr(gru, "product_counts", lambda: dict(products))
 
     monkeypatch.setattr(gru, "_route", lambda x: "cuda")
     monkeypatch.setattr(gru, "_batch_major", lambda x: x)
@@ -331,6 +338,8 @@ def test_kernel_spans_count_the_launches(monkeypatch):
         got = Counter(r["name"] for r in recs if r["name"] in KERNELS)
         assert all(r["attrs"]["route"] == "cuda" for r in recs
                    if r["name"] in KERNELS)
+        assert all((r["attrs"]["wgmma"], r["attrs"]["mma_sync"]) == (2, 1)
+                   for r in recs if r["name"] in KERNELS)
         assert got == Counter({k: v for k, v in gru.LAUNCHES.items() if v})
 
 

@@ -8,6 +8,7 @@ Run from the repository root:
     python tools/port_probes.py bifwd    # on a CUDA card
     python tools/port_probes.py bwd      # on a CUDA card
     python tools/port_probes.py fwd      # on a CUDA card
+    python tools/port_probes.py sweep    # on a CUDA card
     python tools/port_probes.py tf32     # on a CUDA card
     python tools/port_probes.py ab --against DIR [--phases streaming]
         [--repeats 5]                    # on a CUDA card
@@ -42,26 +43,33 @@ Run from the repository root:
   projections' and the sweeps' device ms, µs a step, and each kernel's
   registers, shared memory and CTAs per SM.
 - ``bwd``: builds the kernels (printing the ptxas report) and the
-  backward library's variants of ``BWD_VARIANTS`` (one TF32 pass, three
-  passes without the split, other tile shapes), then, at ``chip_smoke.py``'s
-  fig_5 backward shapes and the seq2seq encoder's (T=191, B=1000, F=100,
-  H=500, reversed, dx) and decoder's (T=1), holds each variant against the
-  plain version (relative error, bitwise repeat) and times it (CUDA events,
+  backward library's variants of ``BWD_VARIANTS`` (the weight products on
+  mma.sync, one TF32 pass, three passes without the split, other tile
+  shapes), then, at ``chip_smoke.py``'s fig_5 backward shapes (B=2000 and
+  the benchmark's 512), the seq2seq encoder's (T=191, B=1000 and 1224,
+  F=100, H=500, reversed, dx), its decoder's (T=1) and ``conv_rnn``'s
+  (T=191, B=1073, F=100, H=128), holds each variant against the plain
+  version (relative error, bitwise repeat) and times it (CUDA events,
   median of 5), with device ms, registers, shared memory and the CTAs per
   SM they allow for each kernel name (``torch.profiler`` trace). The
   defaults run first and last. Small shapes are the card tests' (``-m gpu``
-  in ``tests/test_torch_kernels.py``).
+  in ``tests/test_torch_kernels.py``). Last, the route sweep: the weight
+  products of T=1 backward calls of 128-16384 rows at the cells' widths,
+  on wgmma and on mma.sync, from which ``GRU_WGMMA_MIN_ROWS`` is set.
 - ``fwd``: builds the kernels (printing the ptxas report) and the forward
-  library's variants of ``FWD_VARIANTS`` (one TF32 pass, other step tile
-  shapes), then, at ``chip_smoke.py``'s fig_5 forward shapes (``gru_fwd``
-  over float32 x, ``gru_wfwd`` over the bf16 frames), the seq2seq
-  decoder's (T=1, B=1000, F=H=500) and the streaming step's (T=1, B=1,
-  F=840, H=512), holds each variant against the plain version (max abs
-  error on hs) and times it (CUDA events, median of 5), with device ms,
-  launches, registers, shared memory and CTAs per SM of the projection
-  and the step kernel (``torch.profiler`` trace). The defaults run first
-  and last. Then streaming ms per bin (``chip_smoke.phase_streaming``, 400
-  bins at fig_5 width) with the defaults, twice.
+  library's variants of ``FWD_VARIANTS`` (the projection on mma.sync, the
+  wgmma kernel's ring, one TF32 pass, other step tile shapes), then, at
+  ``chip_smoke.py``'s fig_5 forward shapes (``gru_fwd`` over float32 x,
+  ``gru_wfwd`` over the bf16 frames; B=2000 and 512), the seq2seq
+  encoder's (``gru_bifwd``, B=1224) and decoder's (T=1, B=1000, F=H=500),
+  ``conv_rnn``'s and the streaming step's (T=1, B=1, F=840, H=512), holds
+  each variant against the plain version (max abs error on hs) and times
+  it (CUDA events, median of 5), with device ms, launches, registers,
+  shared memory and CTAs per SM of the projection and the step kernel
+  (``torch.profiler`` trace). The defaults run first and last. Then
+  streaming ms per bin (``chip_smoke.phase_streaming``, 400 bins at fig_5
+  width) with the defaults, twice, and the route sweep of T=1 forwards.
+- ``sweep``: the route sweeps of ``fwd`` and ``bwd`` alone.
 - ``tf32``: the error of a 1024^3 float32 product against float64, as a
   plain ``@`` and through ``ops.precision.hdot``, under four caller
   settings of TF32, with the settings before and after the call.
@@ -302,7 +310,7 @@ def _ptxas_report(source: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             mangled = m.group(1)
-            kernel = re.search(r"([a-z][a-z_]*_kernel)I", mangled).group(1)
+            kernel = re.search(r"([a-z][a-z_]*_kernel)[IE]", mangled).group(1)
             cfg = re.findall(r"Li(\d+)E", mangled)
             name = (f"{kernel}<{','.join(cfg)}"
                     f"{',bf16' if 'bfloat16' in mangled else ''}>")
@@ -395,8 +403,13 @@ def probe_bifwd() -> None:
 # MmaCfg<BM, BN, warps along M, warps along N, stages, CTAs per SM>):
 # the defaults, the two diagnostics that price the split (one TF32 pass;
 # three passes without the split), and tile shapes beside the defaults.
+# The weight products' routes (csrc/gru_mma.cuh) forced at any row count:
+# every one on mma.sync, as below GRU_WGMMA_MIN_ROWS rows, or on wgmma.
+MMA_SYNC = ("GRU_WGMMA_MIN_ROWS=(1LL << 62)",)
+WGMMA = ("GRU_WGMMA_MIN_ROWS=1",)
 BWD_VARIANTS = {
     "default": (),
+    "mma_sync": MMA_SYNC,
     "one_pass": ("GRU_MMA_PASSES=1",),
     "no_split": ("GRU_MMA_SPLIT=0",),
     "big_16_warps": ("GRU_MMA_BIG=128, 128, 4, 4, 3, 1",),
@@ -494,12 +507,27 @@ def probe_bwd() -> None:
         lambda: gru.gru_wbwd_cuda(frames, hp, dh, *w0, cs.WIN, cs.STRIDE),
         lambda: gru.gru_win_backward_plain(frames, hp, dh, *w0, cs.WIN,
                                            cs.STRIDE))
-    for name, T, F, rev in (("s2s_encoder", cs.S2S_TC, cs.S2S_F, True),
-                            ("s2s_decoder", 1, cs.S2S_H, False)):
-        xs = rn(T, cs.S2S_B, F, scale=0.5)
-        hs, ds = rn(T, cs.S2S_B, cs.S2S_H, scale=0.3), rn(
-            T, cs.S2S_B, cs.S2S_H, scale=1e-3)
-        ws = cs._weights(torch, gen, dev, F, cs.S2S_H)
+    # the benchmark's cells: fig_5 at B = 512, the seq2seq encoder and
+    # decoder at B = 1224 (and the bench's 1000), train-nn's conv_rnn
+    hp5, dh5 = hp[:, :512].contiguous(), dh[:, :512].contiguous()
+    x5 = x1[:, :512]
+    cases["gru_bwd_fig5_b512"] = (
+        lambda: gru.gru_bwd_cuda(x5, hp5, dh5, *w1),
+        lambda: gru.gru_backward_plain(x5, hp5, dh5, *w1))
+    f5 = frames[:, :512]
+    cases["gru_wbwd_fig5_b512"] = (
+        lambda: gru.gru_wbwd_cuda(f5, hp5, dh5, *w0, cs.WIN, cs.STRIDE),
+        lambda: gru.gru_win_backward_plain(f5, hp5, dh5, *w0, cs.WIN,
+                                           cs.STRIDE))
+    for name, T, Bc, F, Hc, rev in (
+            ("s2s_encoder", cs.S2S_TC, cs.S2S_B, cs.S2S_F, cs.S2S_H, True),
+            ("s2s_decoder", 1, cs.S2S_B, cs.S2S_H, cs.S2S_H, False),
+            ("s2s_encoder_b1224", cs.S2S_TC, 1224, cs.S2S_F, cs.S2S_H, True),
+            ("s2s_decoder_b1224", 1, 1224, cs.S2S_H, cs.S2S_H, False),
+            ("conv_rnn", cs.S2S_TC, 1073, 100, 128, False)):
+        xs = rn(T, Bc, F, scale=0.5)
+        hs, ds = rn(T, Bc, Hc, scale=0.3), rn(T, Bc, Hc, scale=1e-3)
+        ws = cs._weights(torch, gen, dev, F, Hc)
         cases[f"gru_bwd_{name}"] = (
             lambda xs=xs, hs=hs, ds=ds, ws=ws, rev=rev:
                 gru.gru_bwd_cuda(xs, hs, ds, *ws, rev),
@@ -526,6 +554,68 @@ def probe_bwd() -> None:
             _emit(res)
         _ext._lib = default
         del want
+    _route_sweep("bwd", "gru_bwd.cu")
+
+
+# Row counts of the route sweep: T = 1 calls of B rows
+SWEEP_ROWS = (128, 256, 512, 1024, 2048, 4096, 8192, 16384)
+# (F, H, x dtype) of the sweep: fig_5's layers 1-2 and layer 0 (bf16 x),
+# the seq2seq encoder and decoder, conv_rnn's first layer
+SWEEP_SHAPES = ((512, 512, "f32"), (840, 512, "bf16"), (100, 500, "f32"),
+                (500, 500, "f32"), (100, 128, "f32"))
+
+
+def _weight_ms(by_kernel: dict) -> float:
+    """Device ms of a call's weight products: the images' pass and the
+    wgmma kernel, or mma_gemm_kernel's 128 x 128 MK products."""
+    return sum(v["ms"] for k, v in by_kernel.items()
+               if k.startswith(("presplit_kernel", "wgmma_gemm_kernel",
+                                "mma_gemm_kernel<128x128,f32,MK",
+                                "mma_gemm_kernel<128x128,bf16,MK")))
+
+
+def _route_sweep(kind: str, source: str) -> None:
+    """The weight products of T = 1 calls (``kind`` fwd: gru_fwd; bwd:
+    gru_bwd with dx) at SWEEP_ROWS rows and SWEEP_SHAPES, on both routes
+    (builds of ``source`` with each forced): device ms of the products, and
+    of the whole call (CUDA events). GRU_WGMMA_MIN_ROWS comes from the
+    row count from which wgmma is the faster at every shape."""
+    from types import SimpleNamespace
+
+    import chip_smoke as cs
+
+    default = _ext.lib()
+    on_wgmma, on_mma = (
+        SimpleNamespace(**{**vars(default), **vars(_ext.load(d, [source]))})
+        for d in (WGMMA, MMA_SYNC))
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for F, H, dt in SWEEP_SHAPES:
+        w = cs._weights(torch, gen, dev, F, H)
+        for rows in SWEEP_ROWS:
+            x = torch.randn((1, rows, F), generator=gen, device=dev)
+            if dt == "bf16":
+                x = x.to(torch.bfloat16)
+            h0 = torch.randn((rows, H), generator=gen, device=dev) * 0.3
+            hp = h0[None]
+            dh = torch.randn((1, rows, H), generator=gen, device=dev) * 1e-3
+            if kind == "fwd":
+                def call():
+                    return gru.gru_fwd_cuda(x, h0, *w)
+            else:
+                def call():
+                    return gru.gru_bwd_cuda(x, hp, dh, *w, False, True)
+            res = {"sweep": kind, "F": F, "H": H, "x": dt, "rows": rows}
+            for route, lib in (("wgmma", on_wgmma), ("mma_sync", on_mma),
+                               ("wgmma", on_wgmma), ("mma_sync", on_mma)):
+                _ext._lib = lib
+                with torch.no_grad():
+                    res.setdefault(f"{route}_weight_ms", []).append(
+                        round(_weight_ms(_trace_kernels(call)), 5))
+                    res.setdefault(f"{route}_call_ms", []).append(
+                        round(_cuda_ms(call, inner=10), 5))
+            _ext._lib = default
+            _emit(res)
 
 
 # Builds of the forward library timed by ``fwd``: the defaults, one TF32
@@ -534,6 +624,9 @@ def probe_bwd() -> None:
 # M, warps along N, stages, CTAs per SM>).
 FWD_VARIANTS = {
     "default": (),
+    "mma_sync": MMA_SYNC,
+    # the wgmma kernel's ring and registers
+    "wgmma_4_stages": ("GRU_WGMMA_STAGES=4", "GRU_WGMMA_REGS=56, 224"),
     "one_pass": ("GRU_MMA_PASSES=1",),
     "step_128x32": ("GRU_FWD_STEP=128, 96, 4, 2, 3, 2",),
     "step_64x16": ("GRU_FWD_STEP=64, 48, 2, 1, 3, 4",),
@@ -587,9 +680,30 @@ def probe_fwd() -> None:
     wd = cs._weights(torch, gen, dev, cs.S2S_H, cs.S2S_H)
     xs = rn(1, 1, cs.WIN * cs.C)
     hs0 = rn(1, cs.H, scale=0.3)
+    # the benchmark's cells: fig_5 at B = 512, the seq2seq encoder (both
+    # directions) at B = 1224, train-nn's conv_rnn
+    x5, f5, h5 = x1[:, :512], frames[:, :512], h0[:512]
+    xe = rn(cs.S2S_TC, 1224, cs.S2S_F, scale=0.5)
+    he = rn(1224, cs.S2S_H, scale=0.3)
+    we = cs._weights(torch, gen, dev, cs.S2S_F, cs.S2S_H)
+    xc = rn(cs.S2S_TC, 1073, 100, scale=0.5)
+    hc = rn(1073, 128, scale=0.3)
+    wc = cs._weights(torch, gen, dev, 100, 128)
     cases = {
         "gru_fwd_fig5": (lambda: gru.gru_fwd_cuda(x1, h0, *w1),
                          lambda: gru.gru_layer_plain(x1, h0, *w1)),
+        "gru_fwd_fig5_b512": (lambda: gru.gru_fwd_cuda(x5, h5, *w1),
+                              lambda: gru.gru_layer_plain(x5, h5, *w1)),
+        "gru_wfwd_fig5_b512": (
+            lambda: gru.gru_wfwd_cuda(f5, h5, *w0, cs.WIN, cs.STRIDE),
+            lambda: gru.gru_layer_windowed_plain(f5, h5, *w0, cs.WIN,
+                                                 cs.STRIDE)),
+        "gru_bifwd_s2s_encoder_b1224": (
+            lambda: torch.cat(gru.gru_bifwd_cuda(xe, he, he, *we, *we)),
+            lambda: torch.cat(gru.gru_layer_bidir_plain(xe, he, he, *we,
+                                                        *we))),
+        "gru_fwd_conv_rnn": (lambda: gru.gru_fwd_cuda(xc, hc, *wc),
+                             lambda: gru.gru_layer_plain(xc, hc, *wc)),
         "gru_wfwd_fig5": (
             lambda: gru.gru_wfwd_cuda(frames, h0, *w0, cs.WIN, cs.STRIDE),
             lambda: gru.gru_layer_windowed_plain(frames, h0, *w0, cs.WIN,
@@ -622,6 +736,7 @@ def probe_fwd() -> None:
                             device=dev).eval()
         for _ in range(2):  # the spread of two runs
             cs.phase_streaming(torch, dev, gru, model)
+    _route_sweep("fwd", "gru_fwd.cu")
 
 
 # One turn of ``ab``, run with the checkout as working directory and
@@ -896,11 +1011,19 @@ def probe_oracle(n_pairs: int, seed: int) -> None:
         _emit(res)
 
 
+def probe_sweep() -> None:
+    """The route sweeps of ``fwd`` and ``bwd`` alone."""
+    _card()
+    _ext.build()
+    for kind, source in (("fwd", "gru_fwd.cu"), ("bwd", "gru_bwd.cu")):
+        _route_sweep(kind, source)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("probe",
                     choices=("jacobi", "route", "bifwd", "bwd", "fwd",
-                             "tf32", "ab", "oracle"))
+                             "sweep", "tf32", "ab", "oracle"))
     ap.add_argument("--against", help="ab: the other checkout")
     ap.add_argument("--phases", default=",".join(AB_PHASES),
                     help="ab: comma-separated, of " + ", ".join(AB_PHASES))
@@ -922,6 +1045,8 @@ def main() -> None:
         probe_bwd()
     elif args.probe == "fwd":
         probe_fwd()
+    elif args.probe == "sweep":
+        probe_sweep()
     elif args.probe == "tf32":
         probe_tf32()
     elif args.probe == "ab" and args.summary:
