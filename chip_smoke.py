@@ -5,6 +5,11 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
+or, for phases 1 and 2 and then the windowed backward with the frames'
+gradient at the ``b2t_gru`` cell's shape alone (the last row of phase 7):
+
+    python3 chip_smoke.py gru_wbwd_dx
+
 Phases, each printing JSON lines; any failure exits non-zero and the ok
 line is never printed:
 
@@ -333,7 +338,12 @@ line is never printed:
    step (``launches_ctc_bidir_*``) and their times at its layer-0 shape
    (``*_ctc_bidir_layer0``, ``*_ctc_bidir_layer0_reversed``), and for
    every kernel its launches a rank in the ``parallel`` phase
-   (``launches_parallel_*``).
+   (``launches_parallel_*``). Its last row, ``gru_wbwd_dx``, is
+   ``gru_wbwd`` with the frames' gradient at the ``b2t_gru`` cell's mean
+   padded shape, against its plain version to 1e-5 of each output's
+   largest value, its launches those of one ``BrainToTextGRU`` train step
+   at the published widths, timed beside cuDNN's backward over the
+   materialised windows (``phase_kernel_wbwd_dx``).
 
 Then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA card, and in a directory without the port.
@@ -376,6 +386,20 @@ GRAD_RTOL = 1e-3
 # launches of one train step: layer 0 windowed, layers 1-2 plain
 TRAIN_LAUNCHES = {"gru_fwd": 2, "gru_wfwd": 1, "gru_bifwd": 0, "gru_bwd": 2,
                   "gru_wbwd": 1}
+# b2t_gru's mean padded batch (portbench/traffic/b2t_days4_b64.json: 64
+# rows, 4 days of 16, cropped to the longest of 64 lengths uniform in
+# 200-1,000 bins) at the published widths (BrainToTextGRU: C 512, 45 days,
+# window 14, stride 4, hidden 768 x 5, 41 classes); layer 0's frames are
+# the day layers' output, so its backward forms their gradient
+B2T_B, B2T_T, B2T_C, B2T_H, B2T_L, B2T_CLS, B2T_DAYS = (
+    64, 988, 512, 768, 5, 41, 45)
+B2T_N_WIN = (B2T_T - WIN) // STRIDE + 1
+B2T_TRAIN_LAUNCHES = {"gru_fwd": 4, "gru_wfwd": 1, "gru_bifwd": 0,
+                      "gru_bwd": 4, "gru_wbwd": 1}
+# gru_wbwd with the frames' gradient vs its plain version, per output (max
+# |diff| over max |plain|): float32 sums in another order over at most
+# 244 x 64 (t, b) terms, the frames' gradient over 4 windows a frame
+B2T_GRAD_RTOL = 1e-5
 # the bidirectional RealtimeRNN at the same width: layer 0 materialises
 # the windows once (bf16, no gradient), every layer is one gru_bifwd and,
 # in the backward, gru_bwd forward and reversed (layer 0 without dx)
@@ -651,7 +675,7 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def main() -> int:
+def main(argv=()) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -692,6 +716,11 @@ def main() -> int:
     _ext.lib()
     emit({"phase": "build", "seconds": build_s,
           "libraries": [_ext.library_path(s).name for s in _ext.SOURCES]})
+    if list(argv) == ["gru_wbwd_dx"]:
+        emit({"kernels": [phase_kernel_wbwd_dx(torch, dev, gru)]})
+        return 0
+    if argv:
+        raise SystemExit(f"chip_smoke: unknown arguments {list(argv)}")
 
     model, batch = phase_ctc_eval(torch, dev, gru)
     train_res = phase_ctc_train(torch, dev, gru, batch)
@@ -6130,6 +6159,7 @@ def phase_kernels(torch, dev, gru, launches, s2s_launches):
         out.append(phase_kernel_bifwd(torch, dev, gru, gen,
                                       s2s_launches["gru_bifwd"]))
     out += phase_kernels_backward(torch, dev, gru, gen, h0, launches)
+    out.append(phase_kernel_wbwd_dx(torch, dev, gru))
     return out
 
 
@@ -6263,6 +6293,134 @@ def phase_kernels_backward(torch, dev, gru, gen, h0, launches):
         shapes={"frames": [T, B, C], "dtype": "bf16", "win": WIN,
                 "stride": STRIDE, "need_dx": False}))
     return out
+
+
+def phase_kernel_wbwd_dx(torch, dev, gru):
+    """``gru_wbwd`` with the frames' gradient (``need_dx``), layer 0 of a
+    ``BrainToTextGRU``, at the b2t_gru cell's mean padded shape. First one
+    ``make_ctc_train_step`` step of the model at the published widths on a
+    batch of that shape (after one to warm up), the launch counts zeroed
+    just before it and read just after (``B2T_TRAIN_LAUNCHES``). Then the
+    kernel on bf16 batch-major frames against its plain version (each
+    output within ``B2T_GRAD_RTOL`` x its largest value), one launch a
+    call, two calls bitwise equal, the other outputs bit for bit those of
+    the call without dx; timed beside the plain version, the call without
+    dx and ``torch.nn.GRU``'s backward (cuDNN) over the windows
+    materialised in float32, dx formed. Returns the kernels line's row
+    ``gru_wbwd_dx``."""
+    from cross_patient_speech_decoding_tpu_torch.models import (
+        BrainToTextGRU,
+    )
+    from cross_patient_speech_decoding_tpu_torch.train import (
+        create_train_state,
+        make_ctc_train_step,
+        make_optimizer,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    Tb, Bb, Cb, Hb, n_win = B2T_T, B2T_B, B2T_C, B2T_H, B2T_N_WIN
+    # one train step of the model, its launches counted by the wrappers
+    model = BrainToTextGRU(Cb, Hb, B2T_L, B2T_CLS, n_days=B2T_DAYS,
+                           device=dev)
+    tx = make_optimizer(0.005, 0.001, 120000, clip=10.0, eps=0.1,
+                        warmup_steps=1000, schedule="cosine", min_lr=1e-4,
+                        no_decay=("day.",))
+    state, step = create_train_state(model, tx), make_ctc_train_step(model,
+                                                                     tx)
+    n_lab = round(0.2 * n_win)
+    batch = (torch.randn((Bb, Tb, Cb), generator=gen, device=dev),
+             torch.randint(1, B2T_CLS, (Bb, n_lab), generator=gen,
+                           device=dev, dtype=torch.int32),
+             torch.full((Bb,), Tb, dtype=torch.int32, device=dev),
+             torch.full((Bb,), n_lab, dtype=torch.int32, device=dev),
+             torch.tensor([3, 17, 29, 44]).repeat_interleave(Bb // 4))
+    state, _ = step(state, batch, gen)
+    torch.cuda.synchronize()
+    gru.reset_launch_counts()
+    state, met = step(state, batch, gen)
+    loss = float(met["loss"])
+    step_launches = dict(gru.LAUNCHES)
+    del model, state, step, batch, met
+    torch.cuda.empty_cache()
+
+    frames = torch.randn((Bb, Tb, Cb), generator=gen, device=dev).to(
+        torch.bfloat16).transpose(0, 1)
+    F0 = WIN * Cb
+    w0 = _weights(torch, gen, dev, F0, Hb)
+    hprev = torch.rand((n_win, Bb, Hb), generator=gen, device=dev) * 2 - 1
+    dhs = torch.randn((n_win, Bb, Hb), generator=gen, device=dev) * 1e-3
+
+    def kernel():
+        return gru.gru_wbwd_cuda(frames, hprev, dhs, *w0, WIN, STRIDE,
+                                 need_dx=True)
+
+    def no_dx():
+        return gru.gru_wbwd_cuda(frames, hprev, dhs, *w0, WIN, STRIDE)
+
+    def plain():
+        return gru.gru_win_backward_plain(frames, hprev, dhs, *w0, WIN,
+                                          STRIDE, need_dx=True)
+
+    gru.reset_launch_counts()
+    got = kernel()
+    per_call = gru.LAUNCHES["gru_wbwd"]
+    repeat = _bitwise_repeat(torch, got, kernel())
+    other = no_dx()
+    others_equal = other[0] is None and all(
+        torch.equal(a, b) for a, b in zip(got[1:], other[1:]))
+    want = plain()
+    errs = _bwd_errs(got, want)
+    abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    del got, other, want
+    # cuDNN: forward once over the materialised windows, then the backward
+    # alone, dx formed as the kernel forms it
+    windows = gru.reformat_time_windows(
+        frames.transpose(0, 1), WIN, STRIDE).transpose(0, 1).float()
+    windows = windows.contiguous().requires_grad_(True)
+    lib = _library_gru(torch, *w0)
+    h0l = hprev[0][None].detach().requires_grad_()
+    hs_l, _ = lib(windows, h0l)
+    wrt = [h0l, *lib.parameters(), windows]
+    times = (cuda_ms(torch, kernel), cuda_ms(torch, plain),
+             cuda_ms(torch, lambda: torch.autograd.grad(hs_l, wrt, dhs,
+                                                        retain_graph=True)))
+    no_dx_ms = cuda_ms(torch, no_dx)
+    del hs_l, windows
+    N = n_win * Bb
+    flops = _bwd_flops(N, F0, Hb, x_bf16=True, need_dx=True)
+    flops["fold"] = (N * F0, PEAK_F32_SIMT)  # one add a window element
+    bytes_ = (frames.numel() * 2 + _nbytes(hprev, dhs) + 2 * _nbytes(*w0)
+              + Bb * Hb * 4 + Tb * Bb * Cb * 4)
+    row, extra = _row("gru_wbwd_dx", "gru_bwd.cu", "no TPU counterpart (the "
+                      "JAX package's windowed frames are data)",
+                      step_launches["gru_wbwd"], abs_err, times, flops,
+                      bytes_)
+    emit({"phase": "kernel", **row, **extra,
+          "bound_scheme": "3xTF32 tensor cores (495/3 TFLOP/s); bf16 A "
+                          "operands 2xTF32 (495/2); the fold float32 SIMT",
+          "max_rel_err": errs, "tolerance_rel": B2T_GRAD_RTOL,
+          "bitwise_repeat": repeat, "launches_per_call": per_call,
+          "b2t_train_step_launches": step_launches, "b2t_train_loss": loss,
+          "no_dx_ms": no_dx_ms,
+          "others_bitwise_equal_without_dx": others_equal,
+          "library_note": "torch.nn.GRU backward (cuDNN) over the windows "
+                          "materialised in float32, dx formed",
+          "shapes": {"frames": [Tb, Bb, Cb], "dtype": "bf16", "win": WIN,
+                     "stride": STRIDE, "H": Hb, "n_win": n_win,
+                     "need_dx": True}})
+    bad = {k: v for k, v in errs.items() if not v <= B2T_GRAD_RTOL}
+    if bad:
+        raise RuntimeError(f"gru_wbwd_dx differs from plain: {bad}")
+    if not repeat:
+        raise RuntimeError("gru_wbwd_dx: two runs are not bitwise equal")
+    if not others_equal:
+        raise RuntimeError("gru_wbwd_dx: need_dx changed another output")
+    if per_call != 1 or step_launches != B2T_TRAIN_LAUNCHES:
+        raise RuntimeError(f"gru_wbwd_dx: {per_call} launches a call, "
+                           f"{step_launches} a b2t train step")
+    if not math.isfinite(loss):
+        raise RuntimeError(f"b2t train step loss {loss}")
+    return row
 
 
 def _nbytes(*ts) -> int:
@@ -6893,4 +7051,4 @@ def phase_kernel_jacobi(torch, dev, jacobi, align):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

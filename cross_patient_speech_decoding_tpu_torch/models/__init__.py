@@ -1,6 +1,10 @@
-"""Model families of the port: the realtime CTC RNN, the seq2seq RNN, the
-GRU, TCN and transformer classifiers and their layers (GRU and LSTM)."""
+"""Model families of the port: the realtime CTC RNN, the brain-to-text
+GRU decoder, the seq2seq RNN, the GRU, TCN and transformer classifiers
+and their layers (GRU and LSTM, the day-specific input layer)."""
 
+from cross_patient_speech_decoding_tpu_torch.models.b2t_gru import (
+    BrainToTextGRU,
+)
 from cross_patient_speech_decoding_tpu_torch.models.convert import (
     nn_classifier_params_from_flax,
     realtime_rnn_params_from_flax,
@@ -8,6 +12,7 @@ from cross_patient_speech_decoding_tpu_torch.models.convert import (
 )
 from cross_patient_speech_decoding_tpu_torch.models.layers import (
     BatchNorm,
+    DayAffine,
     Dense,
     FusedGRU,
     FusedLSTM,
@@ -37,7 +42,9 @@ from cross_patient_speech_decoding_tpu_torch.models.tcn_transformer import (
 
 __all__ = [
     "BatchNorm",
+    "BrainToTextGRU",
     "CNNTransformer",
+    "DayAffine",
     "DecoderRNN",
     "Dense",
     "EncoderRNN",

@@ -4,7 +4,9 @@ positional encoding, learning-rate schedules.
 Port of ``cross_patient_speech_decoding_tpu/models/layers.py``
 (``reformat_time_windows``, ``FusedGRU``, ``FusedLSTM``, ``StackedRNN``,
 ``TemporalConv``, ``PositionalEncoding``, ``linear_decay_schedule``,
-``cosine_warmup_schedule``). Parameters keep the flax names and the (in, out)
+``cosine_warmup_schedule``), and the day-specific input layer
+(``DayAffine``) of the brain-to-text decoder, which the JAX package has
+not. Parameters keep the flax names and the (in, out)
 layout: ``wi`` (F, 3H), ``wh`` (H, 3H), ``bi`` and ``bh`` (3H,), gate order
 (r, z, n); ``FusedLSTM``'s ``wi`` (F, 4H), ``wh`` (H, 4H) and one bias ``b``
 (4H,), gate order (i, f, g, o); a dense layer's ``kernel`` (in, out).
@@ -27,9 +29,10 @@ from cross_patient_speech_decoding_tpu_torch.ops.gru import (
     reformat_time_windows,
 )
 from cross_patient_speech_decoding_tpu_torch.ops.precision import conv_f32
+from cross_patient_speech_decoding_tpu_torch.utils.profiling import annotate
 
-__all__ = ["BatchNorm", "Conv1dF32", "Dense", "FusedGRU", "FusedLSTM",
-           "PositionalEncoding",
+__all__ = ["BatchNorm", "Conv1dF32", "DayAffine", "Dense", "FusedGRU",
+           "FusedLSTM", "PositionalEncoding",
            "StackedRNN", "TemporalConv", "conv_f32", "cosine_warmup_schedule",
            "linear_decay_schedule", "reformat_time_windows"]
 
@@ -65,10 +68,12 @@ class FusedGRU(nn.Module):
 
     With ``window=(win, stride)`` the input is raw frames (B, T, C), read
     as overlapping windows of width win*C by the windowed op, which never
-    builds the window stream. That data stream is cast to bf16 first, on
-    every device, as the JAX package's kernel path does
+    builds the window stream. The frames are read in bf16, on every
+    device, as the JAX package's kernel path reads them
     (models/layers.py:98-100), so the plain path and the kernel compute
-    the same function.
+    the same function. Frames that require a gradient (the output of a
+    trainable layer) go to the op as they are: it rounds them itself and
+    returns their gradient unrounded. Other frames are data, cast here.
     """
 
     def __init__(self, in_features: int, hidden: int, reverse: bool = False,
@@ -92,10 +97,9 @@ class FusedGRU(nn.Module):
             h0 = torch.zeros((B, H), dtype=torch.float32, device=x.device)
         h0 = h0.float().contiguous()
         if window is not None:
-            win, stride = window
-            xt = x.to(torch.bfloat16).transpose(0, 1)  # (T, B, C) view
-            hs = gru_layer_windowed(xt, h0, self.wi, self.bi, self.wh,
-                                    self.bh, win, stride)
+            frames = x if x.requires_grad else x.to(torch.bfloat16)
+            hs = gru_layer_windowed(frames.transpose(0, 1), h0, self.wi,
+                                    self.bi, self.wh, self.bh, *window)
         else:
             hs = gru_layer(x.transpose(0, 1), h0, self.wi, self.bi,
                            self.wh, self.bh, self.reverse)
@@ -185,11 +189,15 @@ class StackedRNN(nn.Module):
 
     ``window=(win, stride)`` reads raw frames (B, T, C) as overlapping
     windows of width win*C. A unidirectional GRU stack leaves that to the
-    windowed op; a bidirectional or LSTM stack materialises the windows
-    once for both directions (the JAX package's models/layers.py:234-240).
-    Windows are data: a GRU stack reads them in bf16 with no gradient, as
-    the windowed op does, so on the card a bidirectional layer 0 is
-    ``gru_bifwd`` forward and ``gru_bwd`` without dx in each direction.
+    windowed op, which reads the frames in bf16 and gives them a gradient
+    when ``input_grad`` is set and they require one (the output of a
+    trainable layer below, as in ``BrainToTextGRU``); frames that require
+    none are data, as the raw frames of ``RealtimeRNN`` are. A
+    bidirectional or LSTM stack materialises the windows once for both
+    directions (the JAX package's models/layers.py:234-240) from detached
+    frames: its windows are always data, a GRU's read in bf16, so on the
+    card a bidirectional layer 0 is ``gru_bifwd`` forward and ``gru_bwd``
+    without dx in each direction.
     """
 
     def __init__(self, in_features: int, hidden: int, n_layers: int = 1,
@@ -227,7 +235,7 @@ class StackedRNN(nn.Module):
                 out = x.detach().to(torch.bfloat16)
             out = reformat_time_windows(out, *window)
             window = None
-        elif gru and not self.input_grad and window is None:
+        elif gru and not self.input_grad:
             out = x.detach().to(torch.bfloat16)
         lasts = []
         n_dir = 2 if self.bidirectional else 1
@@ -283,6 +291,96 @@ def _dropout(x, rate: float, generator: torch.Generator | None):
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), device=x.device))
+
+
+def day_groups(days, n_rows: int):
+    """The rows of each day in a batch: [(day, rows)] in the order the days
+    first appear, ``rows`` a slice where that day's rows are contiguous
+    (as a batch drawn day by day has them), else a list of row indices.
+    ``days`` (B,) int: a host tensor or list keeps the step free of a
+    device read; a device tensor is read back."""
+    ids = days.tolist() if torch.is_tensor(days) else list(days)
+    if len(ids) != n_rows:
+        raise ValueError(f"{len(ids)} day ids for {n_rows} rows")
+    rows = {}
+    for i, d in enumerate(ids):
+        rows.setdefault(int(d), []).append(i)
+    out = []
+    for d, r in rows.items():
+        contiguous = r[-1] - r[0] + 1 == len(r)
+        out.append((d, slice(r[0], r[-1] + 1) if contiguous else r))
+    return out
+
+
+def _rows_index(rows, device):
+    """A list of row indices as an index tensor on ``device``, copied from
+    pinned memory without waiting for the device."""
+    idx = torch.tensor(rows, dtype=torch.long)
+    if device.type == "cuda":
+        return idx.pin_memory().to(device, non_blocking=True)
+    return idx
+
+
+class DayAffineFn(torch.autograd.Function):
+    """``y = softsign(x_b W_{d(b)} + b_{d(b)})`` over (B, T, C) frames, one
+    product over the rows ``r`` of each day ``d`` in ``groups`` (a slice or
+    an index tensor on x's device), never a (B, C, C) gather of the
+    weights. The backward forms the gradients of the frames and of the days
+    present; the other days' are 0. Each pass is a ``day_layer`` span
+    (attrs ``rows``, ``days``, ``T``, ``C``; device ms on a card)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, groups):
+        B, T, C = x.shape
+        a = torch.empty_like(x)
+        with annotate("day_layer", device=x.device, rows=B, days=len(groups),
+                      T=T, C=C):
+            for d, r in groups:
+                a[r] = torch.addmm(b[d], x[r].reshape(-1, C),
+                                   w[d]).view(-1, T, C)
+            y = F.softsign(a)
+        ctx.save_for_backward(x, w, a)
+        ctx.groups = groups
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, a = ctx.saved_tensors
+        B, T, C = x.shape
+        need_x, need_w, need_b, _ = ctx.needs_input_grad
+        dx = torch.empty_like(x) if need_x else None
+        dw = torch.zeros_like(w) if need_w else None
+        db = torch.zeros((w.shape[0], C), dtype=w.dtype, device=w.device) \
+            if need_b else None
+        with annotate("day_layer", device=x.device, rows=B,
+                      days=len(ctx.groups), T=T, C=C):
+            for d, r in ctx.groups:
+                g = (dy[r] / (1.0 + a[r].abs()).square()).reshape(-1, C)
+                if need_x:
+                    dx[r] = (g @ w[d].t()).view(-1, T, C)
+                if need_w:
+                    dw[d] = x[r].reshape(-1, C).t() @ g
+                if need_b:
+                    db[d] = g.sum(0)
+        return dx, dw, db, None
+
+
+class DayAffine(nn.Module):
+    """The day-specific input layer of the brain-to-text decoder (Card et
+    al., NEJM 2024: ``GRUDecoder``'s day layers): (B, T, C) frames and
+    (B,) day ids -> softsign(x W_{d(b)} + b_{d(b)}), with ``w`` (n_days, C,
+    C) starting at the identity and ``b`` (n_days, C) at 0, as published.
+    Runs as :class:`DayAffineFn` (one product a day present)."""
+
+    def __init__(self, n_days: int, features: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.eye(features).repeat(n_days, 1, 1))
+        self.b = nn.Parameter(torch.zeros(n_days, features))
+
+    def forward(self, x, days):
+        groups = [(d, r if isinstance(r, slice) else _rows_index(r, x.device))
+                  for d, r in day_groups(days, x.shape[0])]
+        return DayAffineFn.apply(x, self.w, self.b, groups)
 
 
 class Conv1dF32(torch.autograd.Function):

@@ -72,9 +72,9 @@ SOURCES = {
         "gru_bwd_f32": _BWD,
         "gru_bwd_bf16": _BWD,
         # x, sx_b, C, win, stride, hprev, dhs, wi, bi, wh, bh, g, dhz, dh0,
-        # part, dwi, dwh, wimg, n_win, B, H, stream
-        "gru_wbwd_bf16": (_P, _LL, _I, _I, _I) + (_P,) * 13 + (_I, _I, _I,
-                                                               _P),
+        # dxw, dx, part, dwi, dwh, wimg, T, n_win, B, H, stream
+        "gru_wbwd_bf16": (_P, _LL, _I, _I, _I) + (_P,) * 15 + (_I, _I, _I,
+                                                               _I, _P),
     },
     "jacobi.cu": {
         # A, w, V, n_sweeps, B, Kp, sweeps, stream

@@ -7,7 +7,10 @@
 //     reversed in time; dx = dgi Wi^T when need_dx is set;
 //   - _wbwd_kernel (launched by _gru_win_backward, VJP of
 //     gru_layer_windowed): the backward of the layer-0 GRU over overlapping
-//     windows of the raw frames; no input gradient.
+//     windows of the raw frames. The TPU kernel forms no input gradient
+//     (its frames are data); here, when the frames train (the output of a
+//     trainable layer below), the windows' dgi Wi^T is formed as dx is and
+//     folded back onto the frames (fold_windows_kernel).
 // Both emit dh0, dWi, dWh and the two biases' gradients, summed over batch
 // and time with the per-step accumulate of _accum_dw (pallas_gru.py:536-541)
 // as the contract.
@@ -50,7 +53,9 @@
 //      step's elementwise pass forms dh' = d z + the partials in a fixed
 //      order.
 //   3. After the sweep, off the recurrence: dx = dgi Wi^T over all N rows
-//      when asked, and [dWi; dbi] = [x, 1]^T dgi, [dWh; dbh] = [hprev, 1]^T
+//      when asked (for the windowed kernel the windows' gradient, in an
+//      (n_win, B, win C) scratch that fold_windows_kernel then sums onto
+//      the frames), and [dWi; dbi] = [x, 1]^T dgi, [dWh; dbh] = [hprev, 1]^T
 //      dgh, the bias row (the ones column's) summed from the B tiles by the
 //      CTAs of the first row block. The N rows of each weight gradient are
 //      split over CTAs into a fixed number of partial sums, which
@@ -58,7 +63,11 @@
 //      give the same gradients bit for bit.
 // The elementwise pass stays its own launch: fusing it into the dh'
 // product's A loads would have every column block recompute its rows'
-// gradients from g, and the pass is a small share of the step.
+// gradients from g, and the pass is a small share of the step. So does the
+// windows' fold: the dx product keeps the wgmma route and epilogue it has
+// for gru_bwd, and the fold reads the product's output once (n_win B win C
+// floats, 0.45 GB at B 64 and 244 windows of 14 x 512) at the memory's
+// rate, a small share of the product's time at that shape.
 //
 // What bounds it. The products are 2 N 3H (3F + 3H) FLOPs (recompute,
 // dh Wh^T, dx, dWi, dWh; 2F + 3H without dx) against O(N (F + H)) bytes:
@@ -117,6 +126,34 @@ __global__ void step_grad_kernel(float* __restrict__ g,
   gb[2 * H + j] = dn;
   gb[3 * H + j] = dn * r;
   dhz[o] = d * z;
+}
+
+// The frames' gradient from the windows': dx[b, f, c] (batch-major, T
+// frames a row) sums dxw[k, b, (f - k stride) C + c] over the windows k
+// that hold frame f (k stride <= f < k stride + win), in the order k = 0,
+// 1, ... from 0; 0 where no window holds f. One thread an element, c
+// fastest, so a warp reads runs of a window row.
+__global__ void fold_windows_kernel(const float* __restrict__ dxw,
+                                    float* __restrict__ dx, int T, int B,
+                                    int C, int win, int stride, int n_win) {
+  const long long n = static_cast<long long>(B) * T * C;
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (e >= n) return;
+  const long long bf = e / C;
+  const int c = static_cast<int>(e - bf * C);
+  const int b = static_cast<int>(bf / T);
+  const int f = static_cast<int>(bf - static_cast<long long>(b) * T);
+  const int k_lo = f < win ? 0 : (f - win + stride) / stride;
+  int k_hi = f / stride;
+  k_hi = k_hi < n_win - 1 ? k_hi : n_win - 1;
+  const long long F = static_cast<long long>(win) * C;
+  float v = 0.0f;
+  for (int k = k_lo; k <= k_hi; ++k) {
+    v += dxw[(static_cast<long long>(k) * B + b) * F +
+             static_cast<long long>(f - k * stride) * C + c];
+  }
+  dx[e] = v;
 }
 
 // dh0 = the gradient carried out of the last step
@@ -412,24 +449,40 @@ int gru_bwd_bf16(const void* x, long long sx_t, long long sx_b,
 
 // Backward of the windowed layer over raw bf16 frames, batch-major: frame f
 // of batch row b starts at x + b*sx_b + f*C. Window w is frames
-// [w*stride, w*stride + win), F = win*C; hprev, dhs (n_win, B, H). No input
-// gradient.
+// [w*stride, w*stride + win), F = win*C; hprev, dhs (n_win, B, H). With dx
+// not null the frames' gradient, (B, T, C) float32 contiguous, T the
+// frames a row; dxw (n_win, B, F) float32 is its scratch. Null dx and dxw:
+// no input gradient.
 int gru_wbwd_bf16(const void* x, long long sx_b, int C, int win, int stride,
                   const void* hprev, const void* dhs, const void* wi,
                   const void* bi, const void* wh, const void* bh, void* g,
-                  void* dhz, void* dh0, void* part, void* dwi, void* dwh,
-                  void* wimg, int n_win, int B, int H, void* stream) {
-  return run_backward<__nv_bfloat16>(
+                  void* dhz, void* dh0, void* dxw, void* dx, void* part,
+                  void* dwi, void* dwh, void* wimg, int T, int n_win, int B,
+                  int H, void* stream) {
+  if ((dx == nullptr) != (dxw == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  RETURN_IF_FAILED(run_backward<__nv_bfloat16>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<long long>(stride) * C, sx_b,
       static_cast<const float*>(hprev), static_cast<const float*>(dhs),
       static_cast<const float*>(wi), static_cast<const float*>(bi),
       static_cast<const float*>(wh), static_cast<const float*>(bh),
       static_cast<float*>(g), static_cast<float*>(dhz),
-      static_cast<float*>(dh0), nullptr, static_cast<float*>(part),
-      static_cast<float*>(dwi), static_cast<float*>(dwh),
-      static_cast<float*>(wimg), n_win, B, win * C, H, 0,
-      static_cast<cudaStream_t>(stream));
+      static_cast<float*>(dh0), static_cast<float*>(dxw),
+      static_cast<float*>(part), static_cast<float*>(dwi),
+      static_cast<float*>(dwh), static_cast<float*>(wimg), n_win, B, win * C,
+      H, 0, st));
+  if (dx != nullptr) {
+    const long long n = static_cast<long long>(B) * T * C;
+    fold_windows_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                          st>>>(static_cast<const float*>(dxw),
+                                static_cast<float*>(dx), T, B, C, win, stride,
+                                n_win);
+    RETURN_IF_LAUNCH_FAILED();
+  }
+  return 0;
 }
 
 }  // extern "C"

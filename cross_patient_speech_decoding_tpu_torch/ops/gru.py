@@ -26,8 +26,11 @@ The backward mirrors the JAX custom VJPs (``_gru_bwd_rule``,
 ``_gru_win_bwd_rule``, ``_gru_bidir_bwd_rule``): the forward keeps
 ``(x, h0, weights, hs)``, and the backward recomputes the gates from x_t
 and h_{t-1} (h0 or a row of hs); the bidirectional layer's backward is the
-unidirectional one per direction, with dx summed. The windowed op gives no
-gradient to its frames, which are data.
+unidirectional one per direction, with dx summed. The windowed op gives
+its frames a gradient where they require one (the output of a trainable
+layer below it, as the day layers of ``models/b2t_gru.py``): the windows'
+gradient dgi Wi^T, folded back onto the frames; frames that require none
+are data.
 """
 
 from __future__ import annotations
@@ -192,15 +195,32 @@ def gru_backward_plain(x, hprev, dhs, wi, bi, wh, bh, reverse: bool = False,
     return dx, dh, dwi, dwh, dbi, dbh
 
 
+def fold_windows(dxw, T: int, win: int, stride: int):
+    """(n_win, B, win*C) gradients of the windows -> (T, B, C) float32
+    gradients of the frames: frame t sums row block t - k*stride of every
+    window k that holds it, in the order k = 0, 1, ... (the kernel's
+    order); frames that no window reaches get 0."""
+    n_win, B, F = dxw.shape
+    C = F // win
+    dx = torch.zeros((T, B, C), dtype=torch.float32, device=dxw.device)
+    rows = dxw.float().view(n_win, B, win, C)
+    for k in range(n_win):
+        dx[k * stride:k * stride + win] += rows[k].transpose(0, 1)
+    return dx
+
+
 def gru_win_backward_plain(x, hprev, dhs, wi, bi, wh, bh, win: int,
-                           stride: int):
+                           stride: int, need_dx: bool = False):
     """Backward of :func:`gru_layer_windowed_plain` (the math of
     ``_wbwd_kernel``): materialises the windows of the (T, B, C) frames,
-    then runs :func:`gru_backward_plain` without dx. Returns the same tuple,
-    with None for the frames' gradient."""
+    then runs :func:`gru_backward_plain`. Returns the same tuple, its first
+    entry the frames' gradient (T, B, C) float32 when ``need_dx`` (the
+    windows' dx folded by :func:`fold_windows`), else None."""
     xw = reformat_time_windows(x.transpose(0, 1), win, stride)
-    return gru_backward_plain(xw.transpose(0, 1), hprev, dhs, wi, bi, wh, bh,
-                              need_dx=False)
+    dxw, *grads = gru_backward_plain(xw.transpose(0, 1), hprev, dhs, wi, bi,
+                                     wh, bh, need_dx=need_dx)
+    dx = fold_windows(dxw, x.shape[0], win, stride) if need_dx else None
+    return (dx, *grads)
 
 
 # ---------------------------------------------------------------------------
@@ -441,9 +461,12 @@ def gru_bwd_cuda(x, hprev, dhs, wi, bi, wh, bh, reverse: bool = False,
     return (dx, *_grads(buf, F, H))
 
 
-def gru_wbwd_cuda(x, hprev, dhs, wi, bi, wh, bh, win: int, stride: int):
+def gru_wbwd_cuda(x, hprev, dhs, wi, bi, wh, bh, win: int, stride: int,
+                  need_dx: bool = False):
     """Launch the ``gru_wbwd`` kernels (port of ``_wbwd_kernel``) over bf16
-    frames. Arguments and result as :func:`gru_win_backward_plain`."""
+    frames. Arguments and result as :func:`gru_win_backward_plain`; with
+    ``need_dx`` the frames' gradient is a (T, B, C) view of batch-major
+    (B, T, C) float32 memory, the frames' own layout."""
     from cross_patient_speech_decoding_tpu_torch.ops import _ext
 
     T, B, C = x.shape
@@ -454,19 +477,25 @@ def gru_wbwd_cuda(x, hprev, dhs, wi, bi, wh, bh, win: int, stride: int):
     _check_streams(x, n_win, H, hprev=hprev, dhs=dhs)
     _check_frames(x, "gru_wbwd")
     x = _batch_major(x)
-    buf = _bwd_buffers(x, n_win, B, F, H, False)
+    buf = _bwd_buffers(x, n_win, B, F, H, need_dx)
+    dxw = dx = None
+    if need_dx:
+        f32 = dict(dtype=torch.float32, device=x.device)
+        dxw = torch.empty((n_win, B, F), **f32)  # the windows' dgi Wi^T
+        dx = torch.empty((B, T, C), **f32)
     with torch.cuda.device(x.device):
         err = _ext.lib().gru_wbwd_bf16(
             x.data_ptr(), x.stride(1), C, win, stride, hprev.data_ptr(),
             dhs.data_ptr(), wi.data_ptr(), bi.data_ptr(), wh.data_ptr(),
             bh.data_ptr(), buf["g"].data_ptr(), buf["dhz"].data_ptr(),
-            buf["dh0"].data_ptr(), buf["part"].data_ptr(),
-            buf["dwi"].data_ptr(), buf["dwh"].data_ptr(),
-            _ptr(buf["wimg"]), n_win, B, H, _stream(),
+            buf["dh0"].data_ptr(), _ptr(dxw), _ptr(dx),
+            buf["part"].data_ptr(), buf["dwi"].data_ptr(),
+            buf["dwh"].data_ptr(), _ptr(buf["wimg"]), T, n_win, B, H,
+            _stream(),
         )
     _ext.check(err, "gru_wbwd_bf16")
     LAUNCHES["gru_wbwd"] += 1
-    return (None, *_grads(buf, F, H))
+    return (None if dx is None else dx.transpose(0, 1), *_grads(buf, F, H))
 
 
 # ---------------------------------------------------------------------------
@@ -497,7 +526,7 @@ class _KernelSpan:
 
 
 def _kernel_span(name: str, x, T: int, F: int, H: int, need_dx: bool,
-                 plain: bool, directions: int = 1):
+                 plain: bool, directions: int = 1, **attrs):
     """The span of one kernel call (or its plain version), named by its
     ``LAUNCHES`` key: the recurrence's T steps of B rows, F input features
     and H units, the bytes of the input it reads, whether it forms dx, and
@@ -506,7 +535,7 @@ def _kernel_span(name: str, x, T: int, F: int, H: int, need_dx: bool,
     span = annotate(name, device=x.device, T=T, B=x.shape[1], F=F, H=H,
                     x_bytes=x.numel() * x.element_size(),
                     need_dx=bool(need_dx), directions=directions,
-                    route="plain" if plain else "cuda")
+                    route="plain" if plain else "cuda", **attrs)
     return span if plain else _KernelSpan(span)
 
 
@@ -589,12 +618,20 @@ class GRUBidirFn(torch.autograd.Function):
 
 class GRUWindowedFn(torch.autograd.Function):
     """``hs = gru_layer_windowed(x, h0, wi, bi, wh, bh, win, stride)`` with
-    its backward (``_gru_win_core``, pallas_gru.py:493-518): no gradient
-    for the frames. ``plain`` as in :class:`GRULayerFn`."""
+    its backward (``_gru_win_core``, pallas_gru.py:493-518). ``plain`` as
+    in :class:`GRULayerFn`. Frames that require no gradient get none.
+    Frames that require one are rounded to bf16 here, so that the gradient
+    the backward forms for them passes the rounding straight through in
+    x's dtype (autograd would round a gradient to bf16 at the input of a
+    Function fed the rounded frames)."""
 
     @staticmethod
     def forward(ctx, x, h0, wi, bi, wh, bh, win: int, stride: int,
                 plain: bool):
+        if ctx.needs_input_grad[0]:
+            x = x.to(torch.bfloat16)
+            if not plain:
+                x = _batch_major(x)
         fwd = gru_layer_windowed_plain if plain else gru_wfwd_cuda
         with _kernel_span("gru_wfwd", x, n_windows(x.shape[0], win, stride),
                           wi.shape[0], wh.shape[0], False, plain):
@@ -608,11 +645,15 @@ class GRUWindowedFn(torch.autograd.Function):
         x, h0, wi, bi, wh, bh, hs = ctx.saved_tensors
         hprev = torch.cat([h0[None], hs[:-1]])  # pallas_gru.py:509
         bwd = gru_win_backward_plain if ctx.plain else gru_wbwd_cuda
+        need_dx = ctx.needs_input_grad[0]
+        # with dx, the most windows a frame's gradient sums
+        fold = {"fold": -(-ctx.win // ctx.stride)} if need_dx else {}
         with _kernel_span("gru_wbwd", x, hs.shape[0], wi.shape[0],
-                          wh.shape[0], False, ctx.plain):
-            _, dh0, dwi, dwh, dbi, dbh = bwd(x, hprev, dhs.contiguous(), wi,
-                                             bi, wh, bh, ctx.win, ctx.stride)
-        return None, dh0, dwi, dbi, dwh, dbh, None, None, None
+                          wh.shape[0], need_dx, ctx.plain, **fold):
+            dx, dh0, dwi, dwh, dbi, dbh = bwd(
+                x, hprev, dhs.contiguous(), wi, bi, wh, bh, ctx.win,
+                ctx.stride, need_dx=need_dx)
+        return dx, dh0, dwi, dbi, dwh, dbh, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -673,20 +714,24 @@ def gru_layer_windowed(x, h0, wi, bi, wh, bh, win: int, stride: int):
     Args:
         x: (T, B, C) raw frames, channel axis contiguous. Window w is
             frames [w*stride, w*stride + win), flattened time-major then
-            channel. On a CUDA tensor the frames must be bfloat16 and are
-            read batch-major: a (T, B, C) view of a (B, T, C) tensor goes
-            in as it is, other layouts are copied to it first (and the
-            copy is what the backward reads). On the CPU, float32 or
-            bfloat16.
+            channel. Frames that require a gradient (the output of a
+            trainable layer) are read rounded to bf16 on every device, in
+            any float dtype. Other frames are data: on a CUDA tensor they
+            must be bfloat16, on the CPU float32 or bfloat16. On a CUDA
+            tensor the frames are read batch-major: a (T, B, C) view of a
+            (B, T, C) tensor goes in as it is, other layouts are copied to
+            it first (and the copy is what the backward reads).
         wi: (win*C, 3H); the other arguments as in :func:`gru_layer`.
 
     Returns:
         hs: (n_win, B, H) float32, n_win = (T - win)//stride + 1. Frames
-        after the last window are never read. The frames get no gradient
-        (they are data); h0 and the weights do.
+        after the last window are never read. h0 and the weights get their
+        gradients. Frames that require a gradient get the windows' dgi
+        Wi^T folded onto them (0 after the last window), in x's dtype,
+        past the rounding; data frames get none.
     """
     n_windows(x.shape[0], win, stride)
     plain = _route(x) == "cpu"
-    if not plain:
+    if not plain and not x.requires_grad:
         x = _batch_major(x)  # what the kernels read, kept for the backward
     return GRUWindowedFn.apply(x, h0, wi, bi, wh, bh, win, stride, plain)

@@ -47,6 +47,15 @@ class OptimizerConfig:
       a ``LambdaLR`` stepped after each update;
     - clipping before AdamW: g * clip / ||g|| when ||g|| >= clip
       (:func:`clip_by_global_norm_`).
+
+    The brain-to-text decoder's recipe (its trainer's
+    ``create_cosine_lr_scheduler``) adds, each off by default: ``eps``;
+    ``warmup_steps``, over which the factor rises as k / warmup_steps from
+    0; ``schedule="cosine"``, after the warm-up the factor
+    ``r + (1 - r) (1 + cos(pi p)) / 2``, r = min_lr / lr and p the share of
+    ``decay_steps - warmup_steps`` done, held at r from ``decay_steps`` on;
+    and ``no_decay``, the prefixes of the parameter names (``day.`` for
+    the day layers) that take no weight decay.
     """
 
     lr: float
@@ -54,18 +63,45 @@ class OptimizerConfig:
     decay_steps: int
     end_factor: float = 0.0
     clip: float | None = None
+    eps: float = 1e-8
+    warmup_steps: int = 0
+    schedule: str = "linear"
+    min_lr: float = 0.0
+    no_decay: tuple = ()
 
     def factor(self, count: int) -> float:
-        """Schedule factor of update ``count`` (optax linear_schedule)."""
+        """Schedule factor of update ``count`` (optax linear_schedule, or
+        the warm-up and cosine decay)."""
+        count = max(count, 0)
+        if count < self.warmup_steps:
+            return count / self.warmup_steps
+        if self.schedule == "cosine":
+            r = self.min_lr / self.lr
+            if count >= self.decay_steps:
+                return r
+            span = max(1, self.decay_steps - self.warmup_steps)
+            p = (count - self.warmup_steps) / span
+            return max(r, r + (1.0 - r) * 0.5 * (1.0 + math.cos(math.pi * p)))
         if self.decay_steps <= 0:
             return 1.0
-        frac = 1.0 - min(max(count, 0), self.decay_steps) / self.decay_steps
+        frac = 1.0 - min(count, self.decay_steps) / self.decay_steps
         return (1.0 - self.end_factor) * frac + self.end_factor
 
-    def init(self, params):
-        """(optimizer, schedule) over ``params``."""
+    def init(self, params, names=None):
+        """(optimizer, schedule) over ``params``; with ``no_decay``, their
+        ``names`` (in the same order) put the parameters under those
+        prefixes in a second group without weight decay."""
+        params = list(params)
+        if self.no_decay:
+            if names is None:
+                raise ValueError("no_decay needs the parameters' names")
+            off = [n.startswith(tuple(self.no_decay)) for n in names]
+            groups = [{"params": [p for p, o in zip(params, off) if not o]},
+                      {"params": [p for p, o in zip(params, off) if o],
+                       "weight_decay": 0.0}]
+            params = [g for g in groups if g["params"]]
         opt = torch.optim.AdamW(params, lr=self.lr, betas=(0.9, 0.999),
-                                eps=1e-8, weight_decay=self.weight_decay)
+                                eps=self.eps, weight_decay=self.weight_decay)
         # a plain function: LambdaLR leaves it out of its state dict
         sched = torch.optim.lr_scheduler.LambdaLR(
             opt, lambda count: self.factor(count))
@@ -74,11 +110,20 @@ class OptimizerConfig:
 
 def make_optimizer(lr: float, weight_decay: float, decay_steps: int,
                    end_factor: float = 0.0,
-                   clip: float | None = None) -> OptimizerConfig:
+                   clip: float | None = None, *, eps: float = 1e-8,
+                   warmup_steps: int = 0, schedule: str = "linear",
+                   min_lr: float = 0.0,
+                   no_decay=()) -> OptimizerConfig:
     """AdamW + linear LR decay (+ optional grad clipping), the reference's
     optimizer recipe (realtime_nn_model.py:287-304, models.py:368-383,
-    Trainer(gradient_clip_val=0.5))."""
-    return OptimizerConfig(lr, weight_decay, decay_steps, end_factor, clip)
+    Trainer(gradient_clip_val=0.5)); the keywords give the brain-to-text
+    decoder's (``OptimizerConfig``)."""
+    if schedule not in ("linear", "cosine"):
+        raise ValueError(f"schedule must be 'linear' or 'cosine', got "
+                         f"{schedule!r}")
+    return OptimizerConfig(lr, weight_decay, decay_steps, end_factor, clip,
+                           eps, warmup_steps, schedule, min_lr,
+                           tuple(no_decay))
 
 
 @torch.no_grad()

@@ -35,5 +35,6 @@ class TrainState:
 def create_train_state(model: nn.Module, tx) -> TrainState:
     """A fresh state for ``model`` with the optimizer ``tx`` (from
     ``train.loops.make_optimizer``)."""
-    optimizer, schedule = tx.init(model.parameters())
+    names, params = zip(*model.named_parameters())
+    optimizer, schedule = tx.init(params, names)
     return TrainState(0, model, optimizer, schedule)

@@ -56,6 +56,13 @@ def _backward(loss) -> None:
         loss.backward()
 
 
+def _days(batch) -> dict:
+    """The model's ``days`` keyword of a batch that carries each row's day
+    as its fifth entry, left where it is (on the host it costs the step no
+    device read); none for a four-entry batch."""
+    return {"days": batch[4]} if len(batch) == 5 else {}
+
+
 def make_ctc_train_step(model, tx):
     """Build ``step(state, batch, generator) -> (state, {"loss"})``.
 
@@ -64,22 +71,28 @@ def make_ctc_train_step(model, tx):
     train.state.TrainState` made with the optimizer ``tx`` of
     ``make_optimizer``) in place and returns the state with its step
     count advanced. ``batch`` is (x (B, T, C), labels (B, L), input_lens
-    (B,), label_lens (B,)), moved to the model's device; ``generator``
-    draws the dropout masks (the JAX step's ``key``). The loss is the
-    0-d tensor of the forward, before the update.
+    (B,), label_lens (B,)), moved to the model's device, and for a model
+    with day layers (``BrainToTextGRU``) a fifth entry, each row's day
+    (B,), passed to the model as ``days`` where it is, with the root span's
+    counter ``frames`` (B x T); ``generator`` draws the dropout
+    masks (the JAX step's ``key``). The loss is the 0-d tensor of the
+    forward, before the update.
     """
     win, stride, blank = model.win_size, model.stride, model.blank
 
     def step(state, batch, generator: torch.Generator | None = None):
-        with annotate("train_step", root=True, rows=int(batch[0].shape[0])):
+        days = _days(batch)
+        B, T = (int(n) for n in batch[0].shape[:2])
+        frames = {"frames": B * T} if days else {}
+        with annotate("train_step", root=True, rows=B, **frames):
             m = state.model
             x, labels, input_lens, label_lens = (t.to(m.device)
-                                                 for t in batch)
+                                                 for t in batch[:4])
             in_adj = adjusted_input_lengths(input_lens, win, stride)
             m.train()
             state.optimizer.zero_grad(set_to_none=True)
             with annotate("forward"):
-                logits = m(x, generator=generator)
+                logits = m(x, generator=generator, **days)
             with annotate("loss"):
                 loss = ctc_loss_mean(logits, in_adj, labels, label_lens,
                                      blank)
@@ -91,11 +104,13 @@ def make_ctc_train_step(model, tx):
 
 
 def make_ctc_eval_step(model):
-    """Build ``step(batch) -> {"loss", "per"}`` for a RealtimeRNN.
+    """Build ``step(batch) -> {"loss", "per"}`` for a RealtimeRNN (or a
+    ``BrainToTextGRU``).
 
     ``batch`` is (x (B, T, C), labels (B, L), input_lens (B,),
-    label_lens (B,)); the tensors are moved to the model's device and the
-    results are 0-d tensors there.
+    label_lens (B,)), and each row's day as a fifth entry for a model with
+    day layers; the tensors are moved to the model's device (the days are
+    passed as they are) and the results are 0-d tensors there.
     """
 
     def step(batch):
@@ -106,11 +121,11 @@ def make_ctc_eval_step(model):
             with annotate("eval_step", root=True,
                           rows=int(batch[0].shape[0])), torch.no_grad():
                 x, labels, input_lens, label_lens = (t.to(dev)
-                                                     for t in batch)
+                                                     for t in batch[:4])
                 in_adj = adjusted_input_lengths(input_lens, model.win_size,
                                                 model.stride)
                 with annotate("forward"):
-                    logits = model(x)
+                    logits = model(x, **_days(batch))
                 with annotate("loss"):
                     loss = ctc_loss_mean(logits, in_adj, labels, label_lens,
                                          model.blank)

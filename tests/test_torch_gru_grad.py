@@ -13,6 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+from cross_patient_speech_decoding_tpu.models.layers import (
+    reformat_time_windows as jax_reformat,
+)
 from cross_patient_speech_decoding_tpu.ops import pallas_gru
 from cross_patient_speech_decoding_tpu_torch.ops import gru
 
@@ -133,20 +136,32 @@ def test_bf16_input_grads_match_pallas_vjp():
                                           (4, 4, 16), (7, 3, 23)])
 def test_windowed_grads_match_pallas_vjp(win, stride, T):
     """Several strides, with trailing frames that no window reads
-    (tests/test_pallas_gru.py:314,327,439); the frames get no gradient."""
+    (tests/test_pallas_gru.py:314,327,439). The frames require a gradient
+    here, so the op reads them rounded to bf16, as the Pallas op is fed
+    them, and gives them one: ``jax.vjp`` of the scan oracle over the
+    windows of the rounded frames (0 on the trailing frames)."""
     args = _win_case(T=T, win=win)
+    x_j = jnp.asarray(args[0]).astype(jnp.bfloat16)
+    params = [jnp.asarray(a) for a in args[1:]]
     hs_j, vjp = jax.vjp(
-        lambda *p: pallas_gru.gru_layer_windowed(jnp.asarray(args[0]), *p,
-                                                 win, stride),
-        *[jnp.asarray(a) for a in args[1:]])
+        lambda *p: pallas_gru.gru_layer_windowed(x_j, *p, win, stride),
+        *params)
     dhs = _dhs(hs_j.shape, T)
     want = vjp(jnp.asarray(dhs))
+    _, vjp_x = jax.vjp(
+        lambda xx: pallas_gru.gru_layer_reference(
+            jax_reformat(xx.swapaxes(0, 1), win, stride).swapaxes(0, 1),
+            *params), x_j.astype(jnp.float32))
+    (want_dx,) = vjp_x(jnp.asarray(dhs))
     ts = _leaves(args)
     hs = gru.gru_layer_windowed(*ts, win, stride)
     hs.backward(torch.from_numpy(dhs))
-    assert ts[0].grad is None
     np.testing.assert_allclose(hs.detach().numpy(), np.asarray(hs_j),
                                atol=ATOL)
+    assert ts[0].grad.dtype == torch.float32
+    np.testing.assert_allclose(ts[0].grad.numpy(), np.asarray(want_dx),
+                               atol=ATOL, err_msg="x")
+    assert not ts[0].grad[(T - win) // stride * stride + win:].any()
     for name, t, w in zip(NAMES[1:], ts[1:], want):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=ATOL,
                                    err_msg=name)
