@@ -6,9 +6,12 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 or, for phases 1 and 2 and then the windowed backward with the frames'
-gradient at the ``b2t_gru`` cell's shape alone (the last row of phase 7):
+gradient at the ``b2t_gru`` cell's shape alone (row ``gru_wbwd_dx`` of
+phase 7), or the forward kernels at the shapes whose steps split K over a
+cluster alone (its last three rows):
 
     python3 chip_smoke.py gru_wbwd_dx
+    python3 chip_smoke.py fwd_split
 
 Phases, each printing JSON lines; any failure exits non-zero and the ok
 line is never printed:
@@ -338,12 +341,18 @@ line is never printed:
    step (``launches_ctc_bidir_*``) and their times at its layer-0 shape
    (``*_ctc_bidir_layer0``, ``*_ctc_bidir_layer0_reversed``), and for
    every kernel its launches a rank in the ``parallel`` phase
-   (``launches_parallel_*``). Its last row, ``gru_wbwd_dx``, is
+   (``launches_parallel_*``). Row ``gru_wbwd_dx`` is
    ``gru_wbwd`` with the frames' gradient at the ``b2t_gru`` cell's mean
    padded shape, against its plain version to 1e-5 of each output's
    largest value, its launches those of one ``BrainToTextGRU`` train step
-   at the published widths, timed beside cuDNN's backward over the
-   materialised windows (``phase_kernel_wbwd_dx``).
+   at the published widths (every forward step split over a cluster of
+   8), timed beside cuDNN's backward over the materialised windows
+   (``phase_kernel_wbwd_dx``). The last rows, ``gru_fwd_b2t``,
+   ``gru_wfwd_b2t`` and ``gru_fwd_fig5_train``, are the forward kernels at
+   the train cells' shapes whose steps split K over a cluster, against
+   their plain versions to KERNEL_ATOL, with the cluster size
+   (``step_split``) and the step kernel's µs a launch
+   (``phase_kernels_fwd_split``).
 
 Then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA card, and in a directory without the port.
@@ -396,6 +405,10 @@ B2T_B, B2T_T, B2T_C, B2T_H, B2T_L, B2T_CLS, B2T_DAYS = (
 B2T_N_WIN = (B2T_T - WIN) // STRIDE + 1
 B2T_TRAIN_LAUNCHES = {"gru_fwd": 4, "gru_wfwd": 1, "gru_bifwd": 0,
                       "gru_bwd": 4, "gru_wbwd": 1}
+# the forward step kernel's cluster size (gru_fwd.cu: step_split) on the
+# H100's 132 SMs: b2t's 24 step tiles of B = 64, H = 768 split over 8 CTAs,
+# fig_5 train's 128 of B = 512, H = 512 over 2
+B2T_STEP_SPLIT, FIG5_TRAIN_B, FIG5_TRAIN_STEP_SPLIT = 8, 512, 2
 # gru_wbwd with the frames' gradient vs its plain version, per output (max
 # |diff| over max |plain|): float32 sums in another order over at most
 # 244 x 64 (t, b) terms, the frames' gradient over 4 windows a frame
@@ -718,6 +731,9 @@ def main(argv=()) -> int:
           "libraries": [_ext.library_path(s).name for s in _ext.SOURCES]})
     if list(argv) == ["gru_wbwd_dx"]:
         emit({"kernels": [phase_kernel_wbwd_dx(torch, dev, gru)]})
+        return 0
+    if list(argv) == ["fwd_split"]:
+        emit({"kernels": phase_kernels_fwd_split(torch, dev, gru)})
         return 0
     if argv:
         raise SystemExit(f"chip_smoke: unknown arguments {list(argv)}")
@@ -6160,6 +6176,7 @@ def phase_kernels(torch, dev, gru, launches, s2s_launches):
                                       s2s_launches["gru_bifwd"]))
     out += phase_kernels_backward(torch, dev, gru, gen, h0, launches)
     out.append(phase_kernel_wbwd_dx(torch, dev, gru))
+    out += phase_kernels_fwd_split(torch, dev, gru)
     return out
 
 
@@ -6300,7 +6317,8 @@ def phase_kernel_wbwd_dx(torch, dev, gru):
     ``BrainToTextGRU``, at the b2t_gru cell's mean padded shape. First one
     ``make_ctc_train_step`` step of the model at the published widths on a
     batch of that shape (after one to warm up), the launch counts zeroed
-    just before it and read just after (``B2T_TRAIN_LAUNCHES``). Then the
+    just before it and read just after (``B2T_TRAIN_LAUNCHES``; every
+    forward step split over ``B2T_STEP_SPLIT`` CTAs). Then the
     kernel on bf16 batch-major frames against its plain version (each
     output within ``B2T_GRAD_RTOL`` x its largest value), one launch a
     call, two calls bitwise equal, the other outputs bit for bit those of
@@ -6340,6 +6358,7 @@ def phase_kernel_wbwd_dx(torch, dev, gru):
     state, met = step(state, batch, gen)
     loss = float(met["loss"])
     step_launches = dict(gru.LAUNCHES)
+    step_splits = gru.step_counts()
     del model, state, step, batch, met
     torch.cuda.empty_cache()
 
@@ -6401,6 +6420,7 @@ def phase_kernel_wbwd_dx(torch, dev, gru):
           "max_rel_err": errs, "tolerance_rel": B2T_GRAD_RTOL,
           "bitwise_repeat": repeat, "launches_per_call": per_call,
           "b2t_train_step_launches": step_launches, "b2t_train_loss": loss,
+          "b2t_train_step_splits": step_splits,
           "no_dx_ms": no_dx_ms,
           "others_bitwise_equal_without_dx": others_equal,
           "library_note": "torch.nn.GRU backward (cuDNN) over the windows "
@@ -6418,9 +6438,116 @@ def phase_kernel_wbwd_dx(torch, dev, gru):
     if per_call != 1 or step_launches != B2T_TRAIN_LAUNCHES:
         raise RuntimeError(f"gru_wbwd_dx: {per_call} launches a call, "
                            f"{step_launches} a b2t train step")
+    # the train step's forward steps: 5 layers of n_win, all split over 8
+    want_splits = {s_: B2T_L * n_win if s_ == B2T_STEP_SPLIT else 0
+                   for s_ in gru.STEP_SPLITS}
+    if step_splits != want_splits:
+        raise RuntimeError(f"gru_wbwd_dx: the b2t train step's forward "
+                           f"steps by cluster size {step_splits}, not "
+                           f"{want_splits}")
     if not math.isfinite(loss):
         raise RuntimeError(f"b2t train step loss {loss}")
     return row
+
+
+def phase_kernels_fwd_split(torch, dev, gru):
+    """The forward kernels at the shapes whose steps split K over a
+    cluster (``gru_fwd.cu``: ``step_split``): ``gru_fwd`` at b2t_gru's
+    layers 1-4 (T 244, B 64, F = H = 768, f32 x) and ``gru_wfwd`` at its
+    layer 0 (244 windows of 14 x 4 over 988 bf16 frames of 512, H 768),
+    both at the cell's mean padded length, and ``gru_fwd`` at fig_5 train's
+    layers 1-2 (T 147, B 512, F = H = 512). Each against its plain version
+    to KERNEL_ATOL, two calls bitwise equal, the call's step launches all
+    of the cluster size the shape takes on the H100 (``step_counts``);
+    timed beside the plain version and ``torch.nn.GRU`` (cuDNN), with the
+    step kernel's device µs a launch from a profiled call. Returns the
+    kernels line's rows ``gru_fwd_b2t``, ``gru_wfwd_b2t`` and
+    ``gru_fwd_fig5_train``."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    Tb, Bb, Cb, Hb, n_win = B2T_T, B2T_B, B2T_C, B2T_H, B2T_N_WIN
+    Bf = FIG5_TRAIN_B
+    frames = torch.randn((Bb, Tb, Cb), generator=gen, device=dev).to(
+        torch.bfloat16).transpose(0, 1)
+    F0 = WIN * Cb
+    w0 = _weights(torch, gen, dev, F0, Hb)
+    hb = torch.randn((Bb, Hb), generator=gen, device=dev) * 0.3
+    xb = torch.rand((n_win, Bb, Hb), generator=gen, device=dev) * 2 - 1
+    wb = _weights(torch, gen, dev, Hb, Hb)
+    hf = torch.randn((Bf, H), generator=gen, device=dev) * 0.3
+    xf = torch.rand((N_WIN, Bf, H), generator=gen, device=dev) * 2 - 1
+    wf = _weights(torch, gen, dev, H, H)
+    cases = (
+        ("gru_fwd_b2t", "pallas_gru.py:80", B2T_STEP_SPLIT,
+         B2T_TRAIN_LAUNCHES["gru_fwd"], lambda: gru.gru_fwd_cuda(xb, hb, *wb),
+         lambda: gru.gru_layer_plain(xb, hb, *wb), wb, lambda: xb, hb,
+         _fwd_flops(n_win * Bb, Hb, Hb, x_bf16=False),
+         _nbytes(xb, hb, *wb) + n_win * Bb * Hb * 4,
+         {"x": [n_win, Bb, Hb], "dtype": "f32", "hs": [n_win, Bb, Hb]}),
+        ("gru_wfwd_b2t", "pallas_gru.py:263", B2T_STEP_SPLIT,
+         B2T_TRAIN_LAUNCHES["gru_wfwd"],
+         lambda: gru.gru_wfwd_cuda(frames, hb, *w0, WIN, STRIDE),
+         lambda: gru.gru_layer_windowed_plain(frames, hb, *w0, WIN, STRIDE),
+         w0, lambda: gru.reformat_time_windows(
+             frames.transpose(0, 1), WIN, STRIDE).transpose(0, 1).float()
+         .contiguous(), hb,
+         _fwd_flops(n_win * Bb, F0, Hb, x_bf16=True),
+         frames.numel() * 2 + _nbytes(hb, *w0) + n_win * Bb * Hb * 4,
+         {"frames": [Tb, Bb, Cb], "dtype": "bf16", "win": WIN,
+          "stride": STRIDE, "hs": [n_win, Bb, Hb]}),
+        ("gru_fwd_fig5_train", "pallas_gru.py:80", FIG5_TRAIN_STEP_SPLIT,
+         TRAIN_LAUNCHES["gru_fwd"], lambda: gru.gru_fwd_cuda(xf, hf, *wf),
+         lambda: gru.gru_layer_plain(xf, hf, *wf), wf, lambda: xf, hf,
+         _fwd_flops(N_WIN * Bf, H, H, x_bf16=False),
+         _nbytes(xf, hf, *wf) + N_WIN * Bf * H * 4,
+         {"x": [N_WIN, Bf, H], "dtype": "f32", "hs": [N_WIN, Bf, H]}),
+    )
+    out = []
+    with torch.no_grad():
+        for (name, replaces, split, launches, kernel, plain, w, lib_x, h0,
+             flops, bytes_, shapes) in cases:
+            steps = shapes["hs"][0]
+            gru.reset_launch_counts()
+            got = kernel()
+            splits = gru.step_counts()
+            again = kernel()
+            want = plain()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            repeat = bool(torch.equal(got, again))
+            del got, again
+            lib, xl = _library_gru(torch, *w), lib_x()
+            lib_err = float((lib(xl, h0[None])[0] - want).abs().max())
+            del want
+            times = (cuda_ms(torch, kernel), cuda_ms(torch, plain),
+                     cuda_ms(torch, lambda: lib(xl, h0[None])))
+            _, prof = profile_call(torch, kernel, cpu=False,
+                                   match="gru_step_mma_kernel")
+            del lib, xl
+            step_us = prof["device_ms_gru_step_mma_kernel"] * 1e3 / steps
+            row, extra = _row(name, "gru_fwd.cu", "cross_patient_speech_"
+                              f"decoding_tpu/ops/{replaces}", launches, err,
+                              times, flops, bytes_)
+            row.update({"step_split": max(
+                (s_ for s_, n in splits.items() if n), default=0),
+                "step_us": step_us})
+            want_splits = {s_: steps if s_ == split else 0
+                           for s_ in gru.STEP_SPLITS}
+            emit({"phase": "kernel", **row, **extra,
+                  "bound_scheme": "3xTF32 tensor cores (495/3 TFLOP/s); "
+                                  "the projection of bf16 x 2xTF32 (495/2)",
+                  "step_launches_by_split": splits,
+                  "bitwise_repeat": repeat,
+                  "library_max_abs_err_vs_plain": lib_err,
+                  "tolerance": KERNEL_ATOL, "shapes": shapes})
+            if not err <= KERNEL_ATOL:
+                raise RuntimeError(f"{name} differs from plain by {err}")
+            if not repeat:
+                raise RuntimeError(f"{name}: two runs are not bitwise equal")
+            if splits != want_splits:
+                raise RuntimeError(f"{name}: step launches by cluster size "
+                                   f"{splits}, not {want_splits}")
+            out.append(row)
+    return out
 
 
 def _nbytes(*ts) -> int:

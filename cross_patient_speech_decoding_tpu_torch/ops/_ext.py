@@ -45,15 +45,17 @@ _BWD = (_P, _LL, _LL) + (_P,) * 14 + (_I, _I, _I, _I, _I, _P)
 # x, sx_t, sx_b, h0_f, wi_f, bi_f, wh_f, bh_f, h0_b, wi_b, bi_b, wh_b, bh_b,
 # hs_f, hs_b, gi, wimg, T, B, F, H, stream
 _BIFWD = (_P, _LL, _LL) + (_P,) * 14 + (_I, _I, _I, _I, _P)
-# counts (out: weight products on wgmma, on mma.sync), reset
-_ROUTES = (_LLP, _I)
+# counts (out: weight products on wgmma, on mma.sync; or forward step
+# launches whose cluster split K over 1, 2, 4, 8 CTAs), reset
+_COUNTS = (_LLP, _I)
 # source -> {exported function: argtypes}; every exported function returns
 # a cudaError_t as int (0 = success)
 SOURCES = {
     "gru_fwd.cu": {
         # n_rows, F, H, n (out: floats of the wimg scratch)
         "gru_fwd_wimg": (_LL, _I, _I, _LLP),
-        "gru_fwd_routes": _ROUTES,
+        "gru_fwd_routes": _COUNTS,
+        "gru_fwd_steps": _COUNTS,
         "gru_fwd_f32": _FWD,
         "gru_fwd_bf16": _FWD,
         # x, sx_b, C, win, stride, h0, wi, bi, wh, bh, hs, gi, wimg, n_win,
@@ -68,7 +70,7 @@ SOURCES = {
         "gru_bwd_scratch": (_I, _I, _I, _I, _LLP),
         # n_rows, F, H, need_dx, n (out: floats of the wimg scratch)
         "gru_bwd_wimg": (_LL, _I, _I, _I, _LLP),
-        "gru_bwd_routes": _ROUTES,
+        "gru_bwd_routes": _COUNTS,
         "gru_bwd_f32": _BWD,
         "gru_bwd_bf16": _BWD,
         # x, sx_b, C, win, stride, hprev, dhs, wi, bi, wh, bh, g, dhz, dh0,

@@ -35,12 +35,26 @@
 //      caller allocates (1.8 GB at fig_5 width) and frees after the call.
 //   2. The sweep: one launch of gru_step_mma_kernel a step, from the host
 //      loop below. Every step needs all of h_{t-1}, so the launch boundary
-//      is the grid-wide barrier. A CTA computes h_{t-1} Wh for BM batch rows
-//      and the r, z and n columns of BN/3 hidden units over the whole of
-//      K = H (no split over K: the gate math needs the whole sum), then
-//      applies the gate math in its epilogue, reading gi[t], bh and
-//      h_{t-1}, and writes h_t. bh is added there, to the product, as the
-//      plain version adds it to h Wh.
+//      is the grid-wide barrier. An output tile is h_{t-1} Wh for BM batch
+//      rows and the r, z and n columns of BN/3 hidden units, K = H; the
+//      gate math in the epilogue reads gi[t], bh and h_{t-1} and writes
+//      h_t. bh is added there, to the product, as the plain version adds
+//      it to h Wh. Where a step has few tiles (B = 64: 24 tiles of 132
+//      SMs), one tile's K is split over a thread-block cluster of S CTAs
+//      (step_split: S in {1, 2, 4, 8}, from the shape and the card alone,
+//      so that a run repeats its sums bit for bit). CTA rank r multiplies
+//      its contiguous run of K's tiles; each CTA then leaves its partial
+//      tile in its own shared memory (the ring, free by then), and after a
+//      cluster barrier rank r sums rows [r BM/S, (r+1) BM/S) of the S
+//      partial tiles through distributed shared memory in rank order 0..S-1
+//      and applies the gate math to them. No float atomics, no global
+//      scratch, one launch a step. At S = 1 the CTA keeps the whole sum in
+//      its registers and applies the gate math to it, as before the split:
+//      the split's epilogue at S = 1 (a cluster of 1; the diagnostic build
+//      GRU_FWD_ONE_EPILOGUE=1) gives the same bits, but its step ran 7-22 %
+//      slower on an H100 at the S = 1 shapes of the benchmark's cells:
+//      101-106 -> 123-124 µs at B = 2000, H = 512, 89 -> 107 µs in the
+//      seq2seq encoder (PERF.md, section 6).
 // The three gates' columns. A CTA reads Wh's three column runs
 // [g H + j0, g H + j0 + BN/3), g = r, z, n, where they lie, and places them
 // in its shared-memory tile so that each warp's columns hold the r, z and
@@ -56,11 +70,12 @@
 // a small grid (ceil(B/BM) x ceil(H/(BN/3)) CTAs, 512 at fig_5 width's
 // B = 2000, H = 512) that reads h_{t-1} and its slices of Wh from L2 each
 // step; its latency, more than the tensor cores' rate, sets the sweep's
-// pace. The step's faster form, for later work: wgmma. A persistent
-// kernel that keeps each CTA's slice of Wh in shared memory across steps
-// and syncs only the CTAs that share rows of h was tried for the
-// bidirectional layer at the seq2seq bench's shape and ran no faster than
-// one launch a step (PERF.md, section 6).
+// pace (at B = 64, H = 768, one CTA's chain of 24 k-tiles, which the
+// cluster split cuts to 3). The step's faster form, for later work: wgmma.
+// A persistent kernel that keeps each CTA's slice of Wh in shared memory
+// across steps and syncs only the CTAs that share rows of h was tried for
+// the bidirectional layer at the seq2seq bench's shape, whose grid fills
+// the card, and ran no faster than one launch a step (PERF.md, section 6).
 //
 // Bidirectional layer (gru_bifwd): the unidirectional layer twice, forward
 // then reversed, each in its two phases, over the one x (its strides as
@@ -79,10 +94,14 @@
 // it: 2 x 2 T B (F + H) 3H FLOPs at 495/3 TFLOP/s (3xTF32; the projection
 // of a bf16 x at 495/2): 4.17 ms at the seq2seq bench's shape.
 
+#include <cooperative_groups.h>
+
 #include "gru_mma.cuh"
 #include "gru_tile.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 // The sweep's step tile, as MmaCfg<BM, BN, warps along M, warps along N,
 // stages, CTAs per SM> with BN = 3 x the hidden units of a CTA: a warp
@@ -94,6 +113,23 @@ namespace {
 #define GRU_FWD_STEP 64, 96, 2, 2, 3, 2
 #endif
 using StepCfg = MmaCfg<GRU_FWD_STEP>;
+// The largest cluster a step's K is split over (step_split). A diagnostic
+// build pins the split off with -DGRU_FWD_MAX_SPLIT=1 (`python
+// tools/port_probes.py fwd` times it beside the default); nothing reads it
+// at run time.
+#ifndef GRU_FWD_MAX_SPLIT
+#define GRU_FWD_MAX_SPLIT 8
+#endif
+static_assert(GRU_FWD_MAX_SPLIT == 1 || GRU_FWD_MAX_SPLIT == 2 ||
+                  GRU_FWD_MAX_SPLIT == 4 || GRU_FWD_MAX_SPLIT == 8,
+              "a cluster of 1, 2, 4 or 8 CTAs");
+// Diagnostic: S = 1 takes the split's shared-memory epilogue and cluster
+// launch (a cluster of 1) in place of its register epilogue, which is
+// faster (see the note at the head; `python tools/port_probes.py fwd`
+// times it)
+#ifndef GRU_FWD_ONE_EPILOGUE
+#define GRU_FWD_ONE_EPILOGUE 0
+#endif
 
 // One step's operands: h = h_{t-1} (B, H) as the A segment, gi the step's
 // (B, 3H) rows of x Wi + bi, hout the step's (B, H) rows of hs.
@@ -126,9 +162,25 @@ __device__ __forceinline__ void stage_wh(unsigned char* st,
       });
 }
 
-// One step of the sweep (see the note at the head): this CTA's BM rows
-// and BN/3 units of h_t.
-template <class C>
+// h_t of unit j of batch row m from its gates' sums ar, az, an of
+// h_{t-1} Wh (the gate math; hprev = h_{t-1})
+__device__ __forceinline__ void gate_out(const StepArgs& p,
+                                         const float* __restrict__ hprev,
+                                         long long m, int j, float ar,
+                                         float az, float an) {
+  const int H = p.H;
+  const float* __restrict__ gi = p.gi + m * 3 * H;
+  const float r = sigmoid_f32(gi[j] + (ar + p.bh[j]));
+  const float z = sigmoid_f32(gi[H + j] + (az + p.bh[H + j]));
+  const float n = tanhf(gi[2 * H + j] + r * (an + p.bh[2 * H + j]));
+  const long long o = m * H + j;
+  p.hout[o] = (1.0f - z) * n + z * hprev[o];
+}
+
+// One step of the sweep (see the note at the head): the BM rows and BN/3
+// units of h_t of tile blockIdx.x / S, whose K this CTA shares with the
+// S - 1 others of its cluster (S = 1: no cluster, the whole K).
+template <class C, int S>
 __global__ void __launch_bounds__(C::NT, C::MIN_BLOCKS)
     gru_step_mma_kernel(const StepArgs p) {
   static_assert(C::BN % 3 == 0 && C::WN % 24 == 0,
@@ -142,16 +194,25 @@ __global__ void __launch_bounds__(C::NT, C::MIN_BLOCKS)
   // unit blocks run fastest, so that the CTAs that read the same rows of
   // h_{t-1} run together
   const int n_tu = (p.H + C::BN / 3 - 1) / (C::BN / 3);
+  const int tile = blockIdx.x / S;
   MmaCtx c = {};
-  c.m0 = static_cast<long long>(blockIdx.x / n_tu) * C::BM;
+  c.m0 = static_cast<long long>(tile / n_tu) * C::BM;
   c.M = p.B;
-  const int j0 = (blockIdx.x % n_tu) * (C::BN / 3);
-  const int n_it = (p.H + C::BK - 1) / C::BK;
+  const int j0 = (tile % n_tu) * (C::BN / 3);
+  // this CTA's run of K's tiles: contiguous, as even as possible, none
+  // empty (step_split keeps S <= n_k)
+  int rank = 0;
+  if constexpr (S > 1) {
+    rank = static_cast<int>(cg::this_cluster().block_rank());
+  }
+  const int n_k = (p.H + C::BK - 1) / C::BK;
+  const int kt0 = rank * n_k / S;
+  const int n_it = (rank + 1) * n_k / S - kt0;
 
   auto issue = [&](int i) {
     unsigned char* st = smem + (i % C::STAGES) * STAGE;
-    stage_a<C, float, false>(st, p.h, c, i * C::BK);
-    stage_wh<C>(st, p, j0, i * C::BK);
+    stage_a<C, float, false>(st, p.h, c, (kt0 + i) * C::BK);
+    stage_wh<C>(st, p, j0, (kt0 + i) * C::BK);
   };
 
   float acc[C::MI][C::NI][4];
@@ -176,59 +237,196 @@ __global__ void __launch_bounds__(C::NT, C::MIN_BLOCKS)
   }
   cp_async_wait<0>();
 
-  // the gate math: acc[mi][g NU + nu] holds gate g of units
-  // wu + nu*8 + 2t + e, rows g + 8h of the warp's tile mi
+  // acc[mi][g NU + nu] holds gate g of units wu + nu*8 + 2t + e, rows
+  // g + 8h of the warp's tile mi
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wm = (warp / C::WARPS_N) * C::WM;
-  const int wu = j0 + (warp % C::WARPS_N) * WU;
-  const int H = p.H;
+  const int wu = (warp % C::WARPS_N) * WU;  // from j0
   const float* __restrict__ hprev = static_cast<const float*>(p.h.a);
+  if constexpr (S == 1 && !GRU_FWD_ONE_EPILOGUE) {
 #pragma unroll
-  for (int mi = 0; mi < C::MI; ++mi) {
+    for (int mi = 0; mi < C::MI; ++mi) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long m = c.m0 + wm + mi * 16 + g + h * 8;
-      if (m >= p.B) continue;
-      const float* __restrict__ gi = p.gi + m * 3 * H;
+      for (int h = 0; h < 2; ++h) {
+        const long long m = c.m0 + wm + mi * 16 + g + h * 8;
+        if (m >= p.B) continue;
 #pragma unroll
-      for (int nu = 0; nu < NU; ++nu) {
+        for (int nu = 0; nu < NU; ++nu) {
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int j = wu + nu * 8 + 2 * t + e;
-          if (j >= H) continue;
-          const int q = 2 * h + e;
-          const float r = sigmoid_f32(gi[j] + (acc[mi][nu][q] + p.bh[j]));
-          const float z = sigmoid_f32(
-              gi[H + j] + (acc[mi][NU + nu][q] + p.bh[H + j]));
-          const float n = tanhf(
-              gi[2 * H + j] + r * (acc[mi][2 * NU + nu][q] + p.bh[2 * H + j]));
-          const long long o = m * H + j;
-          p.hout[o] = (1.0f - z) * n + z * hprev[o];
+          for (int e = 0; e < 2; ++e) {
+            const int j = j0 + wu + nu * 8 + 2 * t + e;
+            if (j >= p.H) continue;
+            const int q = 2 * h + e;
+            gate_out(p, hprev, m, j, acc[mi][nu][q], acc[mi][NU + nu][q],
+                     acc[mi][2 * NU + nu][q]);
+          }
         }
       }
     }
+  } else {
+    // the partial tile, [row][gate U + unit] at pitch RP (8 mod 32: the
+    // float2 stores of a half-warp hit 32 distinct banks), in the ring
+    constexpr int U = C::BN / 3, RP = C::BN + 8, RB = C::BM / S;
+    static_assert(C::BM % S == 0, "the tile's rows divide over the ranks");
+    static_assert(C::BM * RP * 4 <= C::STAGES * STAGE,
+                  "the partial tile fits in the ring");
+    float* red = reinterpret_cast<float*>(smem);
+    cg::cluster_group cluster = cg::this_cluster();
+    __syncthreads();  // every warp is done with the ring
+#pragma unroll
+    for (int mi = 0; mi < C::MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < C::NI; ++ni)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = wm + mi * 16 + g + h * 8;
+          const int col = (ni / NU) * U + wu + (ni % NU) * 8 + 2 * t;
+          *reinterpret_cast<float2*>(red + row * RP + col) =
+              make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+        }
+    cluster.sync();  // every rank's partial tile written
+    const float* part[S];
+#pragma unroll
+    for (int r = 0; r < S; ++r) part[r] = cluster.map_shared_rank(red, r);
+    // rank's rows, one row a warp at a time (U = 32 units: a warp's loads
+    // of a gate are one contiguous run of every rank's tile)
+    for (int i = threadIdx.x; i < RB * U; i += C::NT) {
+      const int row = rank * RB + i / U, u = i % U;
+      const long long m = c.m0 + row;
+      const int j = j0 + u;
+      if (m >= p.B || j >= p.H) continue;
+      float a[3];
+#pragma unroll
+      for (int gate = 0; gate < 3; ++gate) {
+        const int o = row * RP + gate * U + u;
+        float v = part[0][o];
+#pragma unroll
+        for (int r = 1; r < S; ++r) v += part[r][o];
+        a[gate] = v;
+      }
+      gate_out(p, hprev, m, j, a[0], a[1], a[2]);
+    }
+    cluster.sync();  // no CTA leaves while a peer reads its partial tile
   }
 }
 
+// Step launches by cluster size since the last read of gru_fwd_steps:
+// [k] counts S = 2^k.
+long long g_steps[4] = {0, 0, 0, 0};
+
+// The step kernel's dynamic shared memory, set once a process for each S
+// (the ring: over the 48 KB a launch gets without asking)
+template <class C, int S>
+cudaError_t step_smem() {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      gru_step_mma_kernel<C, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::STAGES * stage_bytes<C, false, true>());
+  return err;
+}
+
+// A launch of `ctas` step CTAs in clusters of S (attr: the cluster's
+// attribute, kept by the caller)
+template <class C, int S>
+cudaLaunchConfig_t step_config(long long ctas, cudaStream_t stream,
+                               cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(ctas));
+  cfg.blockDim = dim3(C::NT);
+  cfg.dynamicSmemBytes = C::STAGES * stage_bytes<C, false, true>();
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = S;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// How many clusters of S step CTAs the card holds at once, read once a
+// process (0 where the card takes no such cluster)
+template <class C, int S>
+int max_clusters() {
+  static const int n = [] {
+    int v = 0;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = step_config<C, S>(S, nullptr, &attr);
+    if (step_smem<C, S>() != cudaSuccess ||
+        cudaOccupancyMaxActiveClusters(&v, gru_step_mma_kernel<C, S>,
+                                       &cfg) != cudaSuccess) {
+      cudaGetLastError();  // a refused query is no launch error
+      v = 0;
+    }
+    return v;
+  }();
+  return n;
+}
+
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v;
+  }();
+  return n;
+}
+
 template <class C>
-int launch_step(const StepArgs& p, cudaStream_t stream) {
-  constexpr int SMEM = C::STAGES * stage_bytes<C, false, true>();
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gru_step_mma_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = true;
-  }
+long long step_tiles(int B, int H) {
   const int units = C::BN / 3;
-  const long long ctas = static_cast<long long>((p.B + C::BM - 1) / C::BM) *
-                         ((p.H + units - 1) / units);
-  if (ctas <= 0) return 0;
-  gru_step_mma_kernel<C><<<static_cast<unsigned>(ctas), C::NT, SMEM,
-                           stream>>>(p);
+  return static_cast<long long>((B + C::BM - 1) / C::BM) *
+         ((H + units - 1) / units);
+}
+
+// The cluster size a step of B rows and H units splits K over: the
+// largest S <= GRU_FWD_MAX_SPLIT whose tiles x S CTAs fit in one wave of
+// MIN_BLOCKS CTAs on each SM, whose clusters all fit on the card at once,
+// and that leaves every rank a k-tile. From the shape and the card alone,
+// so that a run repeats its sums bit for bit.
+template <class C>
+int step_split(int B, int H) {
+  const long long tiles = step_tiles<C>(B, H);
+  const int n_k = (H + C::BK - 1) / C::BK;
+  const long long wave = static_cast<long long>(C::MIN_BLOCKS) * sm_count();
+  auto fits = [&](int s) {
+    return s <= GRU_FWD_MAX_SPLIT && s <= n_k && tiles * s <= wave;
+  };
+  if (fits(8) && tiles <= max_clusters<C, 8>()) return 8;
+  if (fits(4) && tiles <= max_clusters<C, 4>()) return 4;
+  if (fits(2) && tiles <= max_clusters<C, 2>()) return 2;
+  return 1;
+}
+
+template <class C, int S>
+int launch_split(const StepArgs& p, long long tiles, cudaStream_t stream) {
+  const cudaError_t err = step_smem<C, S>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if constexpr (S == 1 && !GRU_FWD_ONE_EPILOGUE) {
+    gru_step_mma_kernel<C, 1><<<static_cast<unsigned>(tiles), C::NT,
+                                C::STAGES * stage_bytes<C, false, true>(),
+                                stream>>>(p);
+  } else {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = step_config<C, S>(tiles * S, stream, &attr);
+    RETURN_IF_FAILED(static_cast<int>(
+        cudaLaunchKernelEx(&cfg, gru_step_mma_kernel<C, S>, p)));
+  }
+  ++g_steps[S == 1 ? 0 : S == 2 ? 1 : S == 4 ? 2 : 3];
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class C>
+int launch_step(const StepArgs& p, int split, cudaStream_t stream) {
+  const long long tiles = step_tiles<C>(p.B, p.H);
+  if (tiles <= 0) return 0;
+  switch (split) {
+    case 8: return launch_split<C, 8>(p, tiles, stream);
+    case 4: return launch_split<C, 4>(p, tiles, stream);
+    case 2: return launch_split<C, 2>(p, tiles, stream);
+    default: return launch_split<C, 1>(p, tiles, stream);
+  }
 }
 
 // Wi's image (F x 3H, runs [0, 2H) and [2H, 3H), as the backward cuts it)
@@ -240,7 +438,8 @@ WImage wi_image(float* wimg, int F, int H) {
 // The unidirectional layer over the A segment xs (rows (t, b), K = F, of
 // type T): 1. gi = x Wi + bi over all rows; 2. the sweep, step s at time
 // t = s (or T-1-s when reverse), its h_{t-1} h0 at s == 0, else the hs
-// row written by the step before. gi (n_steps, B, 3H) is scratch, and so
+// row written by the step before, every step split over K alike
+// (step_split). gi (n_steps, B, 3H) is scratch, and so
 // is wimg (gru_fwd_wimg floats; null below the wgmma route's rows).
 // Returns the first launch error, else cudaGetLastError().
 template <typename T>
@@ -268,12 +467,13 @@ int run_layer(const MmaSeg& xs, const float* h0, const float* wi,
   p.B = B;
   p.H = H;
   p.wh_vec = aligned16(wh) && H % 4 == 0;
+  const int split = step_split<StepCfg>(B, H);
   for (int s = 0; s < n_steps; ++s) {
     const int t = reverse ? n_steps - 1 - s : s;
     p.h = f32_seg(s == 0 ? h0 : hs + (reverse ? t + 1 : t - 1) * BH, H, H);
     p.gi = gi + t * B * H3;
     p.hout = hs + t * BH;
-    RETURN_IF_FAILED(launch_step<StepCfg>(p, stream));
+    RETURN_IF_FAILED(launch_step<StepCfg>(p, split, stream));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -316,6 +516,17 @@ int gru_fwd_wimg(long long n_rows, int F, int H, long long* n) {
 // on wgmma, counts[1] on mma.sync; zeroed after the read when `reset`.
 int gru_fwd_routes(long long* counts, int reset) {
   read_routes(counts, reset);
+  return 0;
+}
+
+// The forward step launches by cluster size since the last reset:
+// counts[k] split K over S = 2^k CTAs (k < 4); zeroed after the read when
+// `reset`.
+int gru_fwd_steps(long long* counts, int reset) {
+  for (int k = 0; k < 4; ++k) {
+    counts[k] = g_steps[k];
+    if (reset) g_steps[k] = 0;
+  }
   return 0;
 }
 

@@ -52,17 +52,25 @@ LAUNCHES = {"gru_fwd": 0, "gru_wfwd": 0, "gru_bifwd": 0, "gru_bwd": 0,
 # T B rows (GRU_WGMMA_MIN_ROWS), mma.sync below. The libraries count the
 # products by route.
 ROUTES = ("wgmma", "mma_sync")
+# The forward step kernel splits a step's K = H over a cluster of S CTAs
+# where the step's grid is small (csrc/gru_fwd.cu: step_split); the
+# library counts its launches by S.
+STEP_SPLITS = (1, 2, 4, 8)
+# the kernel calls whose sweep launches the step kernel
+_STEP_CALLS = ("gru_fwd", "gru_wfwd", "gru_bifwd")
 
 
-def _route_counts(reset: bool) -> list:
+def _lib_counts(names, n: int, reset: bool) -> list:
+    """The sum of the libraries' counters ``names`` (n each); all 0
+    before the kernels are first loaded."""
     from cross_patient_speech_decoding_tpu_torch.ops import _ext
 
-    total = [0, 0]
+    total = [0] * n
     if not _ext.loaded():
         return total
     lib = _ext.lib()
-    for name in ("gru_fwd_routes", "gru_bwd_routes"):
-        counts = (ctypes.c_longlong * 2)()
+    for name in names:
+        counts = (ctypes.c_longlong * n)()
         _ext.check(getattr(lib, name)(counts, int(reset)), name)
         total = [a + b for a, b in zip(total, counts)]
     return total
@@ -72,13 +80,25 @@ def product_counts() -> dict:
     """The weight products launched since the last
     :func:`reset_launch_counts`, by route (``ROUTES``); all 0 before the
     kernels are first loaded."""
-    return dict(zip(ROUTES, _route_counts(reset=False)))
+    return dict(zip(ROUTES, _lib_counts(
+        ("gru_fwd_routes", "gru_bwd_routes"), len(ROUTES), reset=False)))
+
+
+def step_counts() -> dict:
+    """The forward step kernel's launches since the last
+    :func:`reset_launch_counts`, by the cluster size S that split each
+    step's K (``STEP_SPLITS``); all 0 before the kernels are first
+    loaded."""
+    return dict(zip(STEP_SPLITS, _lib_counts(
+        ("gru_fwd_steps",), len(STEP_SPLITS), reset=False)))
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    _route_counts(reset=True)
+    _lib_counts(("gru_fwd_routes", "gru_bwd_routes"), len(ROUTES),
+                reset=True)
+    _lib_counts(("gru_fwd_steps",), len(STEP_SPLITS), reset=True)
 
 
 def n_windows(T: int, win: int, stride: int) -> int:
@@ -505,16 +525,21 @@ def gru_wbwd_cuda(x, hprev, dhs, wi, bi, wh, bh, win: int, stride: int,
 
 class _KernelSpan:
     """A kernel call's span that, where it records, adds the call's weight
-    products by route (:func:`product_counts`) to its attributes."""
+    products by route (:func:`product_counts`) to its attributes, and for
+    a forward call ``step_split``: the cluster size S of its step
+    launches (:func:`step_counts`; 0 where it launched none)."""
 
-    __slots__ = ("span", "rec", "before")
+    __slots__ = ("span", "steps", "rec", "before", "steps_before")
 
-    def __init__(self, span):
+    def __init__(self, span, steps: bool):
         self.span = span
+        self.steps = steps
 
     def __enter__(self):
         self.rec = self.span.__enter__()
-        self.before = None if self.rec is None else product_counts()
+        on = self.rec is not None
+        self.before = product_counts() if on else None
+        self.steps_before = step_counts() if on and self.steps else None
         return self.rec
 
     def __exit__(self, *exc):
@@ -522,6 +547,10 @@ class _KernelSpan:
             after = product_counts()
             self.rec.attrs.update(
                 {k: after[k] - self.before[k] for k in ROUTES})
+        if self.steps_before is not None:
+            grew = [s for s, n in step_counts().items()
+                    if n > self.steps_before[s]]
+            self.rec.attrs["step_split"] = max(grew, default=0)
         return self.span.__exit__(*exc)
 
 
@@ -530,13 +559,14 @@ def _kernel_span(name: str, x, T: int, F: int, H: int, need_dx: bool,
     """The span of one kernel call (or its plain version), named by its
     ``LAUNCHES`` key: the recurrence's T steps of B rows, F input features
     and H units, the bytes of the input it reads, whether it forms dx, and
-    its route; on a CUDA tensor it times the call's device work and counts
-    its weight products by kernel (``wgmma``, ``mma_sync``)."""
+    its route; on a CUDA tensor it times the call's device work, counts
+    its weight products by kernel (``wgmma``, ``mma_sync``) and, for a
+    forward call, gives its step kernel's cluster size (``step_split``)."""
     span = annotate(name, device=x.device, T=T, B=x.shape[1], F=F, H=H,
                     x_bytes=x.numel() * x.element_size(),
                     need_dx=bool(need_dx), directions=directions,
                     route="plain" if plain else "cuda", **attrs)
-    return span if plain else _KernelSpan(span)
+    return span if plain else _KernelSpan(span, name in _STEP_CALLS)
 
 
 class GRULayerFn(torch.autograd.Function):

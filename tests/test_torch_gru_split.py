@@ -17,7 +17,9 @@ one-pass TF32 and bf16 products, which it replaces, are shown not to. The
 forward (csrc/gru_fwd.cu) is emulated over 120 steps of its recurrence
 against the 1e-4 that hs is held to, and over the seq2seq encoder's 191
 steps at H = 500 (gru_bifwd's shape there); its step kernel's column map
-is mirrored and checked.
+is mirrored and checked, and so are its split of K over a cluster (the
+ranks' runs, the partial tile's layout, the rule that picks the split) and
+the split's sums over 120 steps at H = 768.
 """
 
 import numpy as np
@@ -363,6 +365,147 @@ def test_gate_math_on_the_tile_layout_matches_plain(tile):
         h = (1.0 - z) * n + z * h
         hs[t] = h
     assert torch.equal(hs, gru.gru_layer_plain(x, h0, wi, bi, wh, bh))
+
+
+# ---------------------------------------------------------------------------
+# the step kernel's split of K over a cluster (gru_fwd.cu: step_split and
+# gru_step_mma_kernel's S > 1 epilogue), mirrored: rank r multiplies its
+# run of K's tiles, leaves its partial tile as [row][gate U + unit], and
+# sums rows [r BM/S, (r+1) BM/S) of every rank's tile in rank order
+# ---------------------------------------------------------------------------
+
+SPLITS = (1, 2, 4, 8)
+MAX_SPLIT = 8  # gru_fwd.cu: GRU_FWD_MAX_SPLIT's default
+H100_SMS = 132  # the H100 SXM's SMs (the card test pins the rule as built)
+
+
+def step_runs(n_k: int, S: int):
+    """The k-tiles [kt0, kt1) of each rank."""
+    return [(r * n_k // S, (r + 1) * n_k // S) for r in range(S)]
+
+
+def step_split(B, H, tile=STEP_TILES["default"], sms=H100_SMS,
+               max_clusters=None):
+    """step_split on a card of ``sms`` SMs whose clusters of S all fit at
+    once unless ``max_clusters[S]`` says otherwise."""
+    BM, BN, _, _, _, ctas = tile
+    tiles = -(-B // BM) * -(-H // (BN // 3))
+    n_k = -(-H // TILE)
+    for s in (8, 4, 2):
+        if (s <= MAX_SPLIT and s <= n_k and tiles * s <= ctas * sms
+                and tiles <= (max_clusters or {}).get(s, tiles)):
+            return s
+    return 1
+
+
+# (B, H, S): b2t (B 64, H 768: 24 tiles), fig5 train (512 x 512: 128),
+# seq2seq (1,224 x 500: 320), eval (2,000 x 512: 512), the stream (1 x
+# 512: 16), conv_rnn (1,073 x 128: 68 tiles), one k-tile (H 32)
+@pytest.mark.parametrize("B,H,S", [(64, 768, 8), (512, 512, 2),
+                                   (1224, 500, 1), (2000, 512, 1),
+                                   (1, 512, 8), (1073, 128, 2), (64, 32, 1)])
+def test_step_split_of_the_cells_shapes(B, H, S):
+    assert step_split(B, H) == S
+
+
+def test_step_split_steps_down_where_the_clusters_do_not_fit():
+    assert step_split(64, 768, max_clusters={8: 23, 4: 24}) == 4
+    assert step_split(64, 768, max_clusters={8: 0, 4: 0, 2: 0}) == 1
+
+
+@pytest.mark.parametrize("H,S", [(H, S) for H in (8, 50, 97, 200, 500, 512,
+                                                  768)
+                                  for S in SPLITS if S <= -(-H // TILE)])
+def test_step_runs_cover_k_once(H, S):
+    """Contiguous runs in rank order, none empty, sizes within one (S is
+    at most the k-tiles: step_split keeps it so)."""
+    n_k = -(-H // TILE)
+    runs = step_runs(n_k, S)
+    assert runs[0][0] == 0 and runs[-1][1] == n_k
+    assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+    sizes = [b - a for a, b in runs]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize("tile,S", [(k, S) for k in sorted(STEP_TILES)
+                                    for S in SPLITS[1:]
+                                    if STEP_TILES[k][0] % S == 0])
+def test_partial_tile_holds_each_gate_and_unit_once(tile, S):
+    """The float2 stores of every thread's acc[mi][ni][2h + e] fill the
+    partial tile once, gate g of local unit u at column g U + u (the Wh
+    column that the tile's column map gives that product), and the ranks'
+    rows cover the tile once; the default's stores are free of bank
+    conflicts (pitch 8 mod 32)."""
+    BM, BN, warps_m, warps_n, _, _ = STEP_TILES[tile]
+    WM, WN = BM // warps_m, BN // warps_n
+    WU, U, RP = WN // 3, BN // 3, BN + 8
+    NU, MI, NI = WU // 8, WM // 16, WN // 8
+    H = 3 * U  # one tile of units, every column in range
+    seen = {}
+    for warp in range(warps_m * warps_n):
+        wm, wn = (warp // warps_n) * WM, warp % warps_n
+        for mi in range(MI):
+            for ni in range(NI):
+                for h in range(2):
+                    banks = []
+                    for lane in range(32):
+                        g, t = lane >> 2, lane & 3
+                        row = wm + mi * 16 + g + h * 8
+                        col = (ni // NU) * U + wn * WU + (ni % NU) * 8 + 2 * t
+                        banks.append((row * RP + col) % 32)
+                        for e in range(2):
+                            wh_col = tile_column(wn * WN + ni * 8 + 2 * t + e,
+                                                 0, H, BN, warps_n)
+                            seen[(row, col + e)] = wh_col
+                    if tile == "default":
+                        for half in (banks[:16], banks[16:]):
+                            words = sorted(b + e for b in half
+                                           for e in range(2))
+                            assert words == list(range(32))
+    assert sorted(seen) == [(r, c) for r in range(BM) for c in range(BN)]
+    assert all(wh == (c // U) * H + c % U for (_, c), wh in seen.items())
+    rows = [rank * (BM // S) + i for rank in range(S)
+            for i in range(BM // S)]
+    assert rows == list(range(BM))
+
+
+def _split_step_product(S):
+    """h Wh as the split kernel sums it: each rank's run of 32-deep tiles
+    added into its float32 partial from 0, the partials added in rank
+    order (S = 1: the unsplit kernel)."""
+    cache = {}
+
+    def product(a, b, a_exact):
+        if b.shape[0] != b.shape[1] // 3:  # x Wi: the projection, unsplit
+            return split_product(a, b, a_exact=a_exact)
+        if id(b) not in cache:
+            cache[id(b)] = split(b)
+        bh, bl = cache[id(b)]
+        ah, al = split(a)
+        n_k = -(-a.shape[1] // TILE)
+        out = None
+        for kt0, kt1 in step_runs(n_k, S):
+            k0, k1 = kt0 * TILE, min(kt1 * TILE, a.shape[1])
+            part = (_tiled(ah[:, k0:k1], bh[k0:k1])
+                    + _tiled(ah[:, k0:k1], bl[k0:k1])
+                    + _tiled(al[:, k0:k1], bh[k0:k1]))
+            out = part if out is None else out + part
+        return out
+
+    return product
+
+
+@pytest.mark.parametrize("S", [1, 8])
+def test_split_step_recurrence_stays_within_kernel_atol(S):
+    """120 steps at the b2t width (H = 768, 24 k-tiles; B = 4 rows) with
+    the step product split over S ranks: within 1e-4 of float64 on every
+    h_t, 10x inside, as the unsplit sum."""
+    ops = _gru_operands(120, 4, 64, 768, True, seed=6)
+    want = forward_recurrence(*ops, _f64)
+    got = forward_recurrence(*ops, _split_step_product(S), x_exact=True)
+    err = float(np.abs(got - want).max())
+    print(f"H=768 S={S}: max |hs - hs64| {err:.2e}")
+    assert err <= KERNEL_ATOL / 10
 
 
 # ---------------------------------------------------------------------------

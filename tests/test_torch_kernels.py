@@ -10,10 +10,11 @@ PyTorch:
 GRU forward: every forward kernel's products run on tensor cores as
 3xTF32 (float32-class), the bidirectional kernel as the unidirectional
 one's two phases per direction; each against the plain version in float32
-sums of another order: atol 1e-4 on hs. The products whose B is a weight
-(the projections, the backward's gate recompute, dx) run on wgmma where a
-call's T B rows reach the library's threshold and on mma.sync below it;
-the tile-edge shapes cross it. GRU backward: the kernels' products run
+sums of another order: atol 1e-4 on hs. The step kernel's split of K over
+a cluster changes only that order, and two runs give the same bits. The
+products whose B is a weight (the projections, the backward's gate
+recompute, dx) run on wgmma where a call's T B rows reach the library's
+threshold and on mma.sync below it; the tile-edge shapes cross it. GRU backward: the kernels' products run
 on tensor cores as 3xTF32 (float32-class, ~1e-7 of the largest output per
 product) with float32 sums in another order: on gradients, max |diff| <=
 1e-5 x max |plain| per tensor (sums over batch and time). Jacobi: the kernel rounds every
@@ -147,6 +148,58 @@ def test_gru_wfwd_kernel_tile_edges(card, win, stride, T, C, B, H,
         assert torch.equal(got, gru.gru_wfwd_cuda(*args, win, stride))
         want = gru.gru_layer_windowed_plain(*args, win, stride)
     assert got.shape == ((T - win) // stride + 1, B, H)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+
+
+# the step kernel's split of K over a cluster of S CTAs (gru_fwd.cu:
+# step_split), at shapes that land on each S on the H100 (132 SMs, 2 step
+# CTAs on each): (T, B, F, H, S). B = 1224, 320 tiles: no split; B = 512
+# and 10 (H = 512, 50): 2; H = 200 (7 k-tiles, uneven runs of 1-2 over 4
+# ranks) and B = 130, H = 97 (K 97: its last k-tile ragged): 4; the b2t
+# shape B = 64, H = 768 (24 tiles) and B = 1, H = 500 (K off 8 x 32, H off
+# the 32-unit tile): 8
+STEP_SPLIT_CASES = [(2, 1224, 100, 500, 1), (3, 512, 64, 512, 2),
+                    (5, 10, 9, 50, 2), (4, 64, 30, 200, 4),
+                    (3, 130, 70, 97, 4), (4, 64, 768, 768, 8),
+                    (6, 1, 30, 500, 8)]
+
+
+def _steps(split: int, n: int) -> dict:
+    return {s: n if s == split else 0 for s in gru.STEP_SPLITS}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,F,H,split", STEP_SPLIT_CASES)
+def test_gru_fwd_step_split(card, dtype, T, B, F, H, split):
+    """Each shape's steps launch in clusters of its S (step_counts), hold
+    to the plain version at ATOL, and two runs give the same bits."""
+    args = _args(card, 16, T, B, F, H)
+    args[0] = args[0].to(dtype)
+    with torch.no_grad():
+        gru.reset_launch_counts()
+        got = gru.gru_fwd_cuda(*args)
+        assert gru.step_counts() == _steps(split, T)
+        again = gru.gru_fwd_cuda(*args)
+        want = gru.gru_layer_plain(*args)
+    assert gru.step_counts() == _steps(split, 2 * T)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+
+
+def test_gru_wfwd_step_split_at_the_b2t_shape(card):
+    """The b2t cell's layer 0: 14 x 4 windows over 512 features, B = 64,
+    H = 768, every step in clusters of 8."""
+    T, B, C, H, win, stride = 30, 64, 512, 768, 14, 4
+    args = _args(card, 17, 1, B, win * C, H)
+    x = torch.randn((B, T, C), device=card).to(torch.bfloat16).transpose(0, 1)
+    with torch.no_grad():
+        gru.reset_launch_counts()
+        got = gru.gru_wfwd_cuda(x, *args[1:], win, stride)
+        again = gru.gru_wfwd_cuda(x, *args[1:], win, stride)
+        want = gru.gru_layer_windowed_plain(x, *args[1:], win, stride)
+    n_win = (T - win) // stride + 1
+    assert gru.step_counts() == _steps(8, 2 * n_win)
+    assert torch.equal(got, again)
     torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
 
 
@@ -414,6 +467,22 @@ def test_gru_bifwd_kernel_matches_plain(card, dtype, T, B, F, H):
         assert torch.equal(g, a)
         assert torch.equal(g, u)
         torch.testing.assert_close(g, w_, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_bifwd_at_a_split_shape_equals_two_gru_fwd(card, dtype):
+    """At B = 64, H = 768 both directions' steps split over 8 CTAs, and
+    gru_bifwd stays bit for bit two gru_fwd launches."""
+    T = 3
+    x, h0_f, h0_b, *w = _bidir_args(card, 18, T, 64, 100, 768, dtype)
+    with torch.no_grad():
+        gru.reset_launch_counts()
+        got = gru.gru_bifwd_cuda(x, h0_f, h0_b, *w)
+        assert gru.step_counts() == _steps(8, 2 * T)
+        unfused = (gru.gru_fwd_cuda(x, h0_f, *w[:4]),
+                   gru.gru_fwd_cuda(x, h0_b, *w[4:], reverse=True))
+    for g, u in zip(got, unfused):
+        assert torch.equal(g, u)
 
 
 @pytest.mark.parametrize("need_dx", [True, False])

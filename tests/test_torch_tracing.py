@@ -343,6 +343,66 @@ def test_kernel_spans_count_the_launches(monkeypatch):
         assert got == Counter({k: v for k, v in gru.LAUNCHES.items() if v})
 
 
+FORWARD = ("gru_fwd", "gru_wfwd", "gru_bifwd")
+PLAIN_ATTRS = {"T", "B", "F", "H", "x_bytes", "need_dx", "directions",
+               "route"}
+
+
+def test_plain_forward_spans_carry_no_step_split():
+    """The plain route's forward spans keep their attributes as they were:
+    no ``step_split``, which only the kernels' spans carry."""
+    for model, step_of, batch in (
+            (_ctc_model(), make_ctc_train_step, _ctc_batch()),
+            (_s2s_model(), make_seq2seq_train_step, _s2s_batch())):
+        tx = make_optimizer(1e-3, 1e-5, 10)
+        state = create_train_state(model, tx)
+        profiling.reset()
+        _, recs = _profiled(lambda: step_of(model, tx)(state, batch))
+        fwd = [r for r in recs if r["name"] in FORWARD]
+        assert fwd and all(r["attrs"]["route"] == "plain" for r in fwd)
+        assert all(set(r["attrs"]) == PLAIN_ATTRS for r in fwd)
+
+
+def test_forward_kernel_spans_carry_their_step_split(monkeypatch):
+    """With the kernel route taken (the wrappers replaced by plain versions
+    that count their steps as split over 4 CTAs), each forward kernel
+    span's ``step_split`` is the cluster size whose count its call raised;
+    the backward's spans carry none."""
+    steps = dict.fromkeys(gru.STEP_SPLITS, 0)
+
+    def counted(name, plain):
+        def launch(*args, **kw):
+            gru.LAUNCHES[name] += 1
+            if name in FORWARD:
+                steps[4] += 1
+            return plain(*args, **kw)
+        return launch
+
+    monkeypatch.setattr(gru, "step_counts", lambda: dict(steps))
+    monkeypatch.setattr(gru, "_route", lambda x: "cuda")
+    monkeypatch.setattr(gru, "_batch_major", lambda x: x)
+    for name, plain in (("gru_fwd", gru.gru_layer_plain),
+                        ("gru_wfwd", gru.gru_layer_windowed_plain),
+                        ("gru_bifwd", gru.gru_layer_bidir_plain),
+                        ("gru_bwd", gru.gru_backward_plain),
+                        ("gru_wbwd", gru.gru_win_backward_plain)):
+        monkeypatch.setattr(gru, f"{name}_cuda", counted(name, plain))
+    for model, step_of, batch in (
+            (_ctc_model(), make_ctc_train_step, _ctc_batch()),
+            (_s2s_model(), make_seq2seq_train_step, _s2s_batch())):
+        tx = make_optimizer(1e-3, 1e-5, 10)
+        state = create_train_state(model, tx)
+        profiling.reset()
+        _, recs = _profiled(lambda: step_of(model, tx)(state, batch))
+        kern = [r for r in recs if r["name"] in KERNELS]
+        assert {r["name"] for r in kern} & set(FORWARD)
+        for r in kern:
+            if r["name"] in FORWARD:
+                assert r["attrs"]["step_split"] == 4
+            else:
+                assert "step_split" not in r["attrs"]
+
+
 def test_recording_keeps_records_without_a_profiler_and_is_bounded(
         monkeypatch):
     def no_range(*_):
@@ -448,6 +508,8 @@ def test_kernel_spans_equal_launches_and_time_the_device_on_the_card(
             assert math.isfinite(r["device_ms"]) and r["device_ms"] > 0
             if r["name"] in ("gru_bwd", "gru_wbwd"):
                 assert r["parent"] == bwd["id"]
+            else:  # H = 8, one k-tile: no split
+                assert r["attrs"]["step_split"] == 1
     A = torch.randn(3, 8, 8, device=dev)
     A = A @ A.transpose(1, 2)
     jacobi.reset_launch_counts()

@@ -58,17 +58,24 @@ Run from the repository root:
   on wgmma and on mma.sync, from which ``GRU_WGMMA_MIN_ROWS`` is set.
 - ``fwd``: builds the kernels (printing the ptxas report) and the forward
   library's variants of ``FWD_VARIANTS`` (the projection on mma.sync, the
-  wgmma kernel's ring, one TF32 pass, other step tile shapes), then, at
-  ``chip_smoke.py``'s fig_5 forward shapes (``gru_fwd`` over float32 x,
-  ``gru_wfwd`` over the bf16 frames; B=2000 and 512), the seq2seq
-  encoder's (``gru_bifwd``, B=1224) and decoder's (T=1, B=1000, F=H=500),
-  ``conv_rnn``'s and the streaming step's (T=1, B=1, F=840, H=512), holds
-  each variant against the plain version (max abs error on hs) and times
-  it (CUDA events, median of 5), with device ms, launches, registers,
-  shared memory and CTAs per SM of the projection and the step kernel
-  (``torch.profiler`` trace). The defaults run first and last. Then
+  wgmma kernel's ring, one TF32 pass, other step tile shapes, the step's
+  K split capped at 1, 2 or 4 CTAs, S = 1 through the split's epilogue),
+  then, at the b2t cell's shapes
+  (``gru_fwd`` B=64, T=244, F=H=768; ``gru_wfwd`` over 14 x 4 windows of
+  512 features), ``chip_smoke.py``'s fig_5 forward shapes (``gru_fwd``
+  over float32 x, ``gru_wfwd`` over the bf16 frames; B=2000 and 512), the
+  seq2seq encoder's (``gru_bifwd``, B=1224) and decoder's (T=1, B=1000,
+  F=H=500), ``conv_rnn``'s and the streaming step's (T=1, B=1, F=840,
+  H=512), holds each variant against the plain version (max abs error on
+  hs, bitwise repeat, bitwise equal to the default's first run) and
+  times it (CUDA events, median of 5), with the
+  step kernel's cluster size and µs a step, and device ms, launches,
+  registers, shared memory and CTAs per SM of the projection and the step
+  kernel (``torch.profiler`` trace). The defaults run first and last. Then
   streaming ms per bin (``chip_smoke.phase_streaming``, 400 bins at fig_5
   width) with the defaults, twice, and the route sweep of T=1 forwards.
+  ``--cases`` and ``--variants`` (comma-separated) run a subset, without
+  the streaming runs and the sweep.
 - ``sweep``: the route sweeps of ``fwd`` and ``bwd`` alone.
 - ``tf32``: the error of a 1024^3 float32 product against float64, as a
   plain ``@`` and through ``ops.precision.hdot``, under four caller
@@ -633,6 +640,13 @@ FWD_VARIANTS = {
     "step_warps_4x1": ("GRU_FWD_STEP=64, 96, 4, 1, 3, 2",),
     "step_3_ctas": ("GRU_FWD_STEP=64, 96, 2, 2, 3, 3",),
     "step_4_stages": ("GRU_FWD_STEP=64, 96, 2, 2, 4, 2",),
+    # the step kernel's split of K over a cluster capped at S (1: off, the
+    # kernel before the split)
+    "split_1": ("GRU_FWD_MAX_SPLIT=1",),
+    "split_2": ("GRU_FWD_MAX_SPLIT=2",),
+    "split_4": ("GRU_FWD_MAX_SPLIT=4",),
+    # S = 1 through the split's shared-memory epilogue, a cluster of 1
+    "one_epilogue": ("GRU_FWD_ONE_EPILOGUE=1",),
 }
 
 
@@ -655,15 +669,21 @@ def _build_variants(variants, source) -> dict:
     return builds
 
 
-def probe_fwd() -> None:
+def probe_fwd(only_cases=None, only_variants=None) -> None:
+    """``only_cases`` and ``only_variants``: the names to run (default
+    all; the default variant always runs last, the streaming phases and
+    the route sweep only with every case)."""
     from types import SimpleNamespace
 
     import chip_smoke as cs
     from cross_patient_speech_decoding_tpu_torch.models import RealtimeRNN
 
     dev = _card()
+    chosen = {k: v for k, v in FWD_VARIANTS.items()
+              if only_variants is None or k in only_variants
+              or k == "default"}
     _emit({"build_s": _ext.build(verbose=True)})
-    _emit({"variant_build_s": _build_variants(FWD_VARIANTS, "gru_fwd.cu")})
+    _emit({"variant_build_s": _build_variants(chosen, "gru_fwd.cu")})
     default = _ext.lib()
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -689,7 +709,19 @@ def probe_fwd() -> None:
     xc = rn(cs.S2S_TC, 1073, 100, scale=0.5)
     hc = rn(1073, 128, scale=0.3)
     wc = cs._weights(torch, gen, dev, 100, 128)
+    # the b2t cell at its mean padded length: 244 steps of B = 64, H = 768;
+    # layers 1-4 over F = 768, layer 0 over 14 x 4 windows of 512 features
+    xb = torch.rand((244, 64, 768), generator=gen, device=dev) * 2 - 1
+    hb = rn(64, 768, scale=0.3)
+    wb = cs._weights(torch, gen, dev, 768, 768)
+    fb = rn(64, 4 * 243 + 14, 512).to(torch.bfloat16).transpose(0, 1)
+    wb0 = cs._weights(torch, gen, dev, 14 * 512, 768)
     cases = {
+        "gru_fwd_b2t": (lambda: gru.gru_fwd_cuda(xb, hb, *wb),
+                        lambda: gru.gru_layer_plain(xb, hb, *wb)),
+        "gru_wfwd_b2t": (
+            lambda: gru.gru_wfwd_cuda(fb, hb, *wb0, 14, 4),
+            lambda: gru.gru_layer_windowed_plain(fb, hb, *wb0, 14, 4)),
         "gru_fwd_fig5": (lambda: gru.gru_fwd_cuda(x1, h0, *w1),
                          lambda: gru.gru_layer_plain(x1, h0, *w1)),
         "gru_fwd_fig5_b512": (lambda: gru.gru_fwd_cuda(x5, h5, *w1),
@@ -713,24 +745,42 @@ def probe_fwd() -> None:
         "gru_fwd_stream_step": (lambda: gru.gru_fwd_cuda(xs, hs0, *w0),
                                 lambda: gru.gru_layer_plain(xs, hs0, *w0)),
     }
-    order = [*FWD_VARIANTS, "default"]
+    order = [*chosen, "default"]
     with torch.no_grad():
         for case, (kernel, plain) in cases.items():
+            if only_cases is not None and case not in only_cases:
+                continue
             want = plain()
+            first = None  # the default's hs, from its first run
             _emit({"case": case, "plain_ms": _cuda_ms(plain)})
             for variant in order:
                 defines = FWD_VARIANTS[variant]
                 _ext._lib = (SimpleNamespace(**{**vars(default), **vars(
                     _ext.load(defines, ["gru_fwd.cu"]))})
                     if defines else default)
+                gru.reset_launch_counts()
                 got = kernel()
+                split = [k for k, n in gru.step_counts().items() if n]
+                again = kernel()
+                by = _trace_kernels(kernel)
+                step = by.get("gru_step_mma_kernel", {})
                 _emit({"case": case, "variant": variant, "defines": defines,
                        "max_abs_err": float((got - want).abs().max()),
-                       "kernel_ms": _cuda_ms(kernel),
-                       "by_kernel": _trace_kernels(kernel)})
-                del got
+                       "bitwise_repeat": bool(torch.equal(got, again)),
+                       "bitwise_equal_default": (
+                           None if first is None
+                           else bool(torch.equal(got, first))),
+                       "step_split": split,
+                       "step_us": (1e3 * step["ms"] / step["launches"]
+                                   if step.get("launches") else None),
+                       "kernel_ms": _cuda_ms(kernel), "by_kernel": by})
+                if first is None:
+                    first = got
+                del got, again
             _ext._lib = default
-            del want
+            del want, first
+        if only_cases is not None:
+            return
         model = RealtimeRNN(cs.C, cs.H, cs.N_LAYERS, cs.N_CLASSES,
                             win_size=cs.WIN, stride=cs.STRIDE, seed=0,
                             device=dev).eval()
@@ -1032,6 +1082,9 @@ def main() -> None:
     ap.add_argument("--repeats", type=int, default=1,
                     help="ab: how many times the turns DIR, this, this, "
                          "DIR run")
+    ap.add_argument("--cases", help="fwd: comma-separated cases")
+    ap.add_argument("--variants", help="fwd: comma-separated variants "
+                                       "(the default runs last always)")
     ap.add_argument("--pairs", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -1044,7 +1097,8 @@ def main() -> None:
     elif args.probe == "bwd":
         probe_bwd()
     elif args.probe == "fwd":
-        probe_fwd()
+        probe_fwd(*(None if a is None else a.split(",")
+                    for a in (args.cases, args.variants)))
     elif args.probe == "sweep":
         probe_sweep()
     elif args.probe == "tf32":
