@@ -36,47 +36,35 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _LLP = ctypes.POINTER(_LL)
-# x, sx_t, sx_b, h0, wi, bi, wh, bh, hs, gi, wimg, T, B, F, H, reverse,
-# stream
-_FWD = (_P, _LL, _LL) + (_P,) * 8 + (_I, _I, _I, _I, _I, _P)
-# x, sx_t, sx_b, hprev, dhs, wi, bi, wh, bh, g, dhz, dh0, dx, part, dwi,
-# dwh, wimg, T, B, F, H, reverse, stream
-_BWD = (_P, _LL, _LL) + (_P,) * 14 + (_I, _I, _I, _I, _I, _P)
-# x, sx_t, sx_b, h0_f, wi_f, bi_f, wh_f, bh_f, h0_b, wi_b, bi_b, wh_b, bh_b,
-# hs_f, hs_b, gi, wimg, T, B, F, H, stream
-_BIFWD = (_P, _LL, _LL) + (_P,) * 14 + (_I, _I, _I, _I, _P)
-# counts (out: weight products on wgmma, on mma.sync; or forward step
-# launches whose cluster split K over 1, 2, 4, 8 CTAs), reset
-_COUNTS = (_LLP, _I)
+# x, sx_t, sx_b, x_bf16: a GRU layer's input, its time and batch strides
+# and its dtype (bf16 where set, else float32)
+_X = (_P, _LL, _LL, _I)
 # source -> {exported function: argtypes}; every exported function returns
 # a cudaError_t as int (0 = success)
 SOURCES = {
     "gru_fwd.cu": {
         # n_rows, F, H, n (out: floats of the wimg scratch)
         "gru_fwd_wimg": (_LL, _I, _I, _LLP),
-        "gru_fwd_routes": _COUNTS,
-        "gru_fwd_steps": _COUNTS,
-        "gru_fwd_f32": _FWD,
-        "gru_fwd_bf16": _FWD,
-        # x, sx_b, C, win, stride, h0, wi, bi, wh, bh, hs, gi, wimg, n_win,
-        # B, H, stream
-        "gru_wfwd_bf16": ((_P, _LL, _I, _I, _I) + (_P,) * 8
-                          + (_I, _I, _I, _P)),
-        "gru_bifwd_f32": _BIFWD,
-        "gru_bifwd_bf16": _BIFWD,
+        # counts (out: weight products on wgmma, on mma.sync, then step
+        # launches whose cluster split K over 1, 2, 4, 8 CTAs), reset
+        "gru_fwd_counts": (_LLP, _I),
+        # x..., h0, wi, bi, wh, bh, hs, gi, wimg, T, B, F, H, reverse, stream
+        "gru_fwd": _X + (_P,) * 8 + (_I,) * 5 + (_P,),
+        # x..., h0, wi, bi, wh, bh of each direction, hs_f, hs_b, gi, wimg,
+        # T, B, F, H, stream
+        "gru_bifwd": _X + (_P,) * 14 + (_I,) * 4 + (_P,),
     },
     "gru_bwd.cu": {
-        # n_steps, B, F, H, part (out: floats of the `part` scratch)
-        "gru_bwd_scratch": (_I, _I, _I, _I, _LLP),
-        # n_rows, F, H, need_dx, n (out: floats of the wimg scratch)
-        "gru_bwd_wimg": (_LL, _I, _I, _I, _LLP),
-        "gru_bwd_routes": _COUNTS,
-        "gru_bwd_f32": _BWD,
-        "gru_bwd_bf16": _BWD,
-        # x, sx_b, C, win, stride, hprev, dhs, wi, bi, wh, bh, g, dhz, dh0,
-        # dxw, dx, part, dwi, dwh, wimg, T, n_win, B, H, stream
-        "gru_wbwd_bf16": (_P, _LL, _I, _I, _I) + (_P,) * 15 + (_I, _I, _I,
-                                                               _I, _P),
+        # n_steps, B, F, H, need_dx, part, wimg (out: floats of the two
+        # scratches)
+        "gru_bwd_sizes": (_I,) * 5 + (_LLP, _LLP),
+        # counts (out: weight products on wgmma, on mma.sync), reset
+        "gru_bwd_counts": (_LLP, _I),
+        # x..., hprev, dhs, wi, bi, wh, bh, g, dhz, dh0, dx, part, dwi, dwh,
+        # wimg, T, B, F, H, reverse, stream
+        "gru_bwd": _X + (_P,) * 14 + (_I,) * 5 + (_P,),
+        # dxw, dx, T, B, C, win, stride, n_win, stream
+        "gru_fold_windows": (_P, _P) + (_I,) * 6 + (_P,),
     },
     "jacobi.cu": {
         # A, w, V, n_sweeps, B, Kp, sweeps, stream
@@ -193,7 +181,7 @@ def load(defines=(), sources=None) -> SimpleNamespace:
 
 def lib() -> SimpleNamespace:
     """The exported functions of every kernel library, built on first use,
-    as attributes (``lib().gru_fwd_f32``)."""
+    as attributes (``lib().gru_fwd``)."""
     global _lib
     with _lock:
         if _lib is None:

@@ -39,10 +39,9 @@
 //      hn_pre]: r and z take x Wi + h Wh, n keeps x Wi_n and h Wh_n apart
 //      (r scales the second). From GRU_WGMMA_MIN_ROWS rows on these and
 //      dx take wgmma from images of Wi, Wh and Wi^T written at the call's
-//      start into the caller's wimg scratch (gru_mma.cuh). For the windowed
-//      kernel row (t, b) of x is
-//      window t of batch row b, read in place from the batch-major frames:
-//      the (n_win, B, win*C) window stream is never built.
+//      start into the caller's wimg scratch (gru_mma.cuh). The windowed
+//      layer's x is the overlapping (n_win, B, win*C) view of its
+//      batch-major frames (ops/gru.py: _windows), read in place.
 //   2. The sweep, one step at a time from the host loop below (the launch
 //      boundary is the grid-wide barrier), two launches a step:
 //      step_grad_kernel reads g[t], hprev[t], dhs[t] and the carried dh,
@@ -53,9 +52,8 @@
 //      step's elementwise pass forms dh' = d z + the partials in a fixed
 //      order.
 //   3. After the sweep, off the recurrence: dx = dgi Wi^T over all N rows
-//      when asked (for the windowed kernel the windows' gradient, in an
-//      (n_win, B, win C) scratch that fold_windows_kernel then sums onto
-//      the frames), and [dWi; dbi] = [x, 1]^T dgi, [dWh; dbh] = [hprev, 1]^T
+//      when asked (for the windowed layer the windows' gradient, which
+//      gru_fold_windows then sums onto the frames), and [dWi; dbi] = [x, 1]^T dgi, [dWh; dbh] = [hprev, 1]^T
 //      dgh, the bias row (the ones column's) summed from the B tiles by the
 //      CTAs of the first row block. The N rows of each weight gradient are
 //      split over CTAs into a fixed number of partial sums, which
@@ -278,15 +276,15 @@ BwdImages bwd_images(float* wimg, int F, int H, bool need_dx) {
 }
 
 // The backward of one layer. Step s of the sweep handles time t = T-1-s
-// (or s when the forward ran reversed). x rows of step t start at
+// (or s when the forward ran reversed). x rows (type T) of step t start at
 // x + t*sx_t, row b sx_b further on; hprev[t] is the state the forward
 // step t read. dh receives dh0. dx may
 // be null (no input gradient). dwi (F+1, 3H) and dwh (H+1, 3H) receive the
 // weight gradients with the bias gradient as their last row. g (T, B, 4H),
-// dhz (B, H), part (bwd_plan(...).part floats, gru_bwd_scratch) and wimg
-// (gru_bwd_wimg floats; null below the wgmma route's rows) are scratch.
+// dhz (B, H), part and wimg (gru_bwd_sizes floats; wimg null below the
+// wgmma route's rows) are scratch.
 template <typename T>
-int run_backward(const T* x, long long sx_t, long long sx_b,
+int run_backward(const void* x, long long sx_t, long long sx_b,
                  const float* hprev, const float* dhs, const float* wi,
                  const float* bi, const float* wh, const float* bh, float* g,
                  float* dhz, float* dh, float* dx, float* part, float* dwi,
@@ -297,7 +295,7 @@ int run_backward(const T* x, long long sx_t, long long sx_b,
   const long long G4 = 4LL * H;
   const long long H3 = 3LL * H;
   const BwdPlan pl = bwd_plan(n_steps, B, F, H);
-  const MmaSeg xs = x_seg<T>(x, sx_t, sx_b, B, F);
+  const MmaSeg xs = x_seg<T>(static_cast<const T*>(x), sx_t, sx_b, B, F);
   const MmaSeg hs = f32_seg(hprev, H, H);
   const BwdImages im = bwd_images(wimg, F, H, dx != nullptr);
   const bool on_wgmma = wimg != nullptr && wgmma_rows(N);
@@ -384,104 +382,53 @@ int run_backward(const T* x, long long sx_t, long long sx_b,
 
 extern "C" {
 
-// The floats of the `part` scratch that a backward of n_steps x B rows,
-// F inputs and H units needs, into *part: the caller sizes its buffer
-// from this, so the splits that fill it are decided here alone.
-int gru_bwd_scratch(int n_steps, int B, int F, int H, long long* part) {
+// The floats of the scratch that a backward of n_steps x B rows, F inputs
+// and H units (dx formed when need_dx) needs: into *part the partial sums'
+// (the splits that fill it are decided here alone), into *wimg the
+// weights' images (0 where its weight products take mma.sync; then wimg
+// may be null).
+int gru_bwd_sizes(int n_steps, int B, int F, int H, int need_dx,
+                  long long* part, long long* wimg) {
   *part = bwd_plan(n_steps, B, F, H).part;
-  return 0;
-}
-
-// The floats of the wimg scratch that a backward of n_rows = T B rows, F
-// inputs and H units (dx formed when need_dx) needs, into *n: 0 where its
-// weight products take mma.sync (then wimg may be null).
-int gru_bwd_wimg(long long n_rows, int F, int H, int need_dx, long long* n) {
-  *n = wgmma_rows(n_rows) ? bwd_images(nullptr, F, H, need_dx != 0).floats
-                          : 0;
+  *wimg = wgmma_rows(static_cast<long long>(n_steps) * B)
+              ? bwd_images(nullptr, F, H, need_dx != 0).floats
+              : 0;
   return 0;
 }
 
 // The weight products launched by route since the last reset: counts[0]
 // on wgmma, counts[1] on mma.sync; zeroed after the read when `reset`.
-int gru_bwd_routes(long long* counts, int reset) {
+int gru_bwd_counts(long long* counts, int reset) {
   read_routes(counts, reset);
   return 0;
 }
 
-// Backward of the plain GRU layer over x (T, B, F) with strides
-// (sx_t, sx_b, 1); hprev, dhs (T, B, H) float32 contiguous. See
-// run_backward for the outputs and scratch (wimg: gru_bwd_wimg floats).
-int gru_bwd_f32(const void* x, long long sx_t, long long sx_b,
-                const void* hprev, const void* dhs, const void* wi,
-                const void* bi, const void* wh, const void* bh, void* g,
-                void* dhz, void* dh0, void* dx, void* part, void* dwi,
-                void* dwh, void* wimg, int T, int B, int F, int H,
-                int reverse, void* stream) {
-  return run_backward<float>(
-      static_cast<const float*>(x), sx_t, sx_b,
-      static_cast<const float*>(hprev), static_cast<const float*>(dhs),
-      static_cast<const float*>(wi), static_cast<const float*>(bi),
-      static_cast<const float*>(wh), static_cast<const float*>(bh),
-      static_cast<float*>(g), static_cast<float*>(dhz),
-      static_cast<float*>(dh0), static_cast<float*>(dx),
-      static_cast<float*>(part), static_cast<float*>(dwi),
-      static_cast<float*>(dwh), static_cast<float*>(wimg), T, B, F, H,
-      reverse, static_cast<cudaStream_t>(stream));
+// Backward of the GRU layer over x (T, B, F), bf16 where x_bf16 else
+// float32, with strides (sx_t, sx_b, 1); hprev, dhs (T, B, H) float32
+// contiguous. See run_backward for the outputs and scratch.
+int gru_bwd(const void* x, long long sx_t, long long sx_b, int x_bf16,
+            const float* hprev, const float* dhs, const float* wi,
+            const float* bi, const float* wh, const float* bh, float* g,
+            float* dhz, float* dh0, float* dx, float* part, float* dwi,
+            float* dwh, float* wimg, int T, int B, int F, int H, int reverse,
+            void* stream) {
+  const auto run =
+      x_bf16 ? &run_backward<__nv_bfloat16> : &run_backward<float>;
+  return run(x, sx_t, sx_b, hprev, dhs, wi, bi, wh, bh, g, dhz, dh0, dx,
+             part, dwi, dwh, wimg, T, B, F, H, reverse,
+             static_cast<cudaStream_t>(stream));
 }
 
-int gru_bwd_bf16(const void* x, long long sx_t, long long sx_b,
-                 const void* hprev, const void* dhs, const void* wi,
-                 const void* bi, const void* wh, const void* bh, void* g,
-                 void* dhz, void* dh0, void* dx, void* part, void* dwi,
-                 void* dwh, void* wimg, int T, int B, int F, int H,
-                 int reverse, void* stream) {
-  return run_backward<__nv_bfloat16>(
-      static_cast<const __nv_bfloat16*>(x), sx_t, sx_b,
-      static_cast<const float*>(hprev), static_cast<const float*>(dhs),
-      static_cast<const float*>(wi), static_cast<const float*>(bi),
-      static_cast<const float*>(wh), static_cast<const float*>(bh),
-      static_cast<float*>(g), static_cast<float*>(dhz),
-      static_cast<float*>(dh0), static_cast<float*>(dx),
-      static_cast<float*>(part), static_cast<float*>(dwi),
-      static_cast<float*>(dwh), static_cast<float*>(wimg), T, B, F, H,
-      reverse, static_cast<cudaStream_t>(stream));
-}
-
-// Backward of the windowed layer over raw bf16 frames, batch-major: frame f
-// of batch row b starts at x + b*sx_b + f*C. Window w is frames
-// [w*stride, w*stride + win), F = win*C; hprev, dhs (n_win, B, H). With dx
-// not null the frames' gradient, (B, T, C) float32 contiguous, T the
-// frames a row; dxw (n_win, B, F) float32 is its scratch. Null dx and dxw:
-// no input gradient.
-int gru_wbwd_bf16(const void* x, long long sx_b, int C, int win, int stride,
-                  const void* hprev, const void* dhs, const void* wi,
-                  const void* bi, const void* wh, const void* bh, void* g,
-                  void* dhz, void* dh0, void* dxw, void* dx, void* part,
-                  void* dwi, void* dwh, void* wimg, int T, int n_win, int B,
-                  int H, void* stream) {
-  if ((dx == nullptr) != (dxw == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  RETURN_IF_FAILED(run_backward<__nv_bfloat16>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<long long>(stride) * C, sx_b,
-      static_cast<const float*>(hprev), static_cast<const float*>(dhs),
-      static_cast<const float*>(wi), static_cast<const float*>(bi),
-      static_cast<const float*>(wh), static_cast<const float*>(bh),
-      static_cast<float*>(g), static_cast<float*>(dhz),
-      static_cast<float*>(dh0), static_cast<float*>(dxw),
-      static_cast<float*>(part), static_cast<float*>(dwi),
-      static_cast<float*>(dwh), static_cast<float*>(wimg), n_win, B, win * C,
-      H, 0, st));
-  if (dx != nullptr) {
-    const long long n = static_cast<long long>(B) * T * C;
-    fold_windows_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
-                          st>>>(static_cast<const float*>(dxw),
-                                static_cast<float*>(dx), T, B, C, win, stride,
-                                n_win);
-    RETURN_IF_LAUNCH_FAILED();
-  }
+// The frames' gradient dx (B, T, C) float32, contiguous, T frames a row,
+// from the gradient dxw (n_win, B, win*C) float32 of the windows
+// [w*stride, w*stride + win) of the frames (fold_windows_kernel).
+int gru_fold_windows(const float* dxw, float* dx, int T, int B, int C,
+                     int win, int stride, int n_win, void* stream) {
+  const long long n = static_cast<long long>(B) * T * C;
+  fold_windows_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      dxw, dx, T, B, C, win, stride, n_win);
+  RETURN_IF_LAUNCH_FAILED();
   return 0;
 }
 

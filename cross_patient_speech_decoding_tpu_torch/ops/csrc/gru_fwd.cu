@@ -17,22 +17,20 @@
 //   n = tanh(x Wi_n + bi_n + r * (h Wh_n + bh_n))
 //   h' = (1 - z) * n + z * h
 //
-// Unidirectional layers (gru_fwd, gru_wfwd): one code path, two phases,
-// every product on the tensor cores (gru_mma.cuh: 3xTF32 mma.sync fed by a
-// cp.async ring). The two differ only in where a row of x starts.
+// Unidirectional layer (gru_fwd): two phases, every product on the tensor
+// cores (gru_mma.cuh: 3xTF32). x is any (T, B, F) view with a contiguous
+// feature axis: the windowed layer passes the overlapping (n_win, B,
+// win*C) view of its batch-major frames (ops/gru.py: _windows), so its
+// window stream is never built.
 //   1. Before the sweep, the input projection of all N = T B rows,
 //      gi = x Wi + bi (T, B, 3H), as one product: x Wi does not depend on
 //      the recurrence, so it leaves the step loop and runs at the rate of a
 //      large product, on wgmma from Wi's image (written at the call's start
 //      into the caller's wimg scratch) from GRU_WGMMA_MIN_ROWS rows on,
-//      else on mma_gemm_kernel (gru_mma.cuh). For the windowed kernel, row
-//      (t, b) of x is window t of batch row b, read in place from the
-//      batch-major frames: the window w of row b, flattened time-major then
-//      channel (_window_row, pallas_gru.py:254-260), is the run of win*C
-//      values that starts at frame w*stride, so the (n_win, B, win*C)
-//      window stream is never built. A bf16 x (the frames) is exact in
-//      TF32 and takes two passes, a float32 x three. gi is scratch that the
-//      caller allocates (1.8 GB at fig_5 width) and frees after the call.
+//      else on mma_gemm_kernel (gru_mma.cuh). A bf16 x (the frames) is
+//      exact in TF32 and takes two passes, a float32 x three. gi is scratch
+//      that the caller allocates (1.8 GB at fig_5 width) and frees after
+//      the call.
 //   2. The sweep: one launch of gru_step_mma_kernel a step, from the host
 //      loop below. Every step needs all of h_{t-1}, so the launch boundary
 //      is the grid-wide barrier. An output tile is h_{t-1} Wh for BM batch
@@ -49,12 +47,10 @@
 //      partial tiles through distributed shared memory in rank order 0..S-1
 //      and applies the gate math to them. No float atomics, no global
 //      scratch, one launch a step. At S = 1 the CTA keeps the whole sum in
-//      its registers and applies the gate math to it, as before the split:
-//      the split's epilogue at S = 1 (a cluster of 1; the diagnostic build
-//      GRU_FWD_ONE_EPILOGUE=1) gives the same bits, but its step ran 7-22 %
-//      slower on an H100 at the S = 1 shapes of the benchmark's cells:
-//      101-106 -> 123-124 µs at B = 2000, H = 512, 89 -> 107 µs in the
-//      seq2seq encoder (PERF.md, section 6).
+//      its registers and applies the gate math to it: the split's epilogue
+//      at S = 1 (a cluster of 1) gives the same bits, but its step ran
+//      7-22 % slower on an H100 at the S = 1 shapes of the benchmark's
+//      cells (PERF.md, section 6).
 // The three gates' columns. A CTA reads Wh's three column runs
 // [g H + j0, g H + j0 + BN/3), g = r, z, n, where they lie, and places them
 // in its shared-memory tile so that each warp's columns hold the r, z and
@@ -113,23 +109,6 @@ namespace cg = cooperative_groups;
 #define GRU_FWD_STEP 64, 96, 2, 2, 3, 2
 #endif
 using StepCfg = MmaCfg<GRU_FWD_STEP>;
-// The largest cluster a step's K is split over (step_split). A diagnostic
-// build pins the split off with -DGRU_FWD_MAX_SPLIT=1 (`python
-// tools/port_probes.py fwd` times it beside the default); nothing reads it
-// at run time.
-#ifndef GRU_FWD_MAX_SPLIT
-#define GRU_FWD_MAX_SPLIT 8
-#endif
-static_assert(GRU_FWD_MAX_SPLIT == 1 || GRU_FWD_MAX_SPLIT == 2 ||
-                  GRU_FWD_MAX_SPLIT == 4 || GRU_FWD_MAX_SPLIT == 8,
-              "a cluster of 1, 2, 4 or 8 CTAs");
-// Diagnostic: S = 1 takes the split's shared-memory epilogue and cluster
-// launch (a cluster of 1) in place of its register epilogue, which is
-// faster (see the note at the head; `python tools/port_probes.py fwd`
-// times it)
-#ifndef GRU_FWD_ONE_EPILOGUE
-#define GRU_FWD_ONE_EPILOGUE 0
-#endif
 
 // One step's operands: h = h_{t-1} (B, H) as the A segment, gi the step's
 // (B, 3H) rows of x Wi + bi, hout the step's (B, H) rows of hs.
@@ -244,7 +223,7 @@ __global__ void __launch_bounds__(C::NT, C::MIN_BLOCKS)
   const int wm = (warp / C::WARPS_N) * C::WM;
   const int wu = (warp % C::WARPS_N) * WU;  // from j0
   const float* __restrict__ hprev = static_cast<const float*>(p.h.a);
-  if constexpr (S == 1 && !GRU_FWD_ONE_EPILOGUE) {
+  if constexpr (S == 1) {
 #pragma unroll
     for (int mi = 0; mi < C::MI; ++mi) {
 #pragma unroll
@@ -311,7 +290,7 @@ __global__ void __launch_bounds__(C::NT, C::MIN_BLOCKS)
   }
 }
 
-// Step launches by cluster size since the last read of gru_fwd_steps:
+// Step launches by cluster size since the last reset (gru_fwd_counts):
 // [k] counts S = 2^k.
 long long g_steps[4] = {0, 0, 0, 0};
 
@@ -381,17 +360,18 @@ long long step_tiles(int B, int H) {
 }
 
 // The cluster size a step of B rows and H units splits K over: the
-// largest S <= GRU_FWD_MAX_SPLIT whose tiles x S CTAs fit in one wave of
+// largest S <= MAX_SPLIT whose tiles x S CTAs fit in one wave of
 // MIN_BLOCKS CTAs on each SM, whose clusters all fit on the card at once,
 // and that leaves every rank a k-tile. From the shape and the card alone,
 // so that a run repeats its sums bit for bit.
 template <class C>
 int step_split(int B, int H) {
+  constexpr int MAX_SPLIT = 8;
   const long long tiles = step_tiles<C>(B, H);
   const int n_k = (H + C::BK - 1) / C::BK;
   const long long wave = static_cast<long long>(C::MIN_BLOCKS) * sm_count();
   auto fits = [&](int s) {
-    return s <= GRU_FWD_MAX_SPLIT && s <= n_k && tiles * s <= wave;
+    return s <= MAX_SPLIT && s <= n_k && tiles * s <= wave;
   };
   if (fits(8) && tiles <= max_clusters<C, 8>()) return 8;
   if (fits(4) && tiles <= max_clusters<C, 4>()) return 4;
@@ -403,7 +383,7 @@ template <class C, int S>
 int launch_split(const StepArgs& p, long long tiles, cudaStream_t stream) {
   const cudaError_t err = step_smem<C, S>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if constexpr (S == 1 && !GRU_FWD_ONE_EPILOGUE) {
+  if constexpr (S == 1) {
     gru_step_mma_kernel<C, 1><<<static_cast<unsigned>(tiles), C::NT,
                                 C::STAGES * stage_bytes<C, false, true>(),
                                 stream>>>(p);
@@ -435,27 +415,28 @@ WImage wi_image(float* wimg, int F, int H) {
   return wimage(wimg, F, 3 * H, 2 * H);
 }
 
-// The unidirectional layer over the A segment xs (rows (t, b), K = F, of
-// type T): 1. gi = x Wi + bi over all rows; 2. the sweep, step s at time
-// t = s (or T-1-s when reverse), its h_{t-1} h0 at s == 0, else the hs
-// row written by the step before, every step split over K alike
-// (step_split). gi (n_steps, B, 3H) is scratch, and so
-// is wimg (gru_fwd_wimg floats; null below the wgmma route's rows).
-// Returns the first launch error, else cudaGetLastError().
+// The unidirectional layer over x (n_steps, B, F) of type T with strides
+// (sx_t, sx_b, 1): 1. gi = x Wi + bi over all rows; 2. the sweep, step s
+// at time t = s (or n_steps-1-s when reverse), its h_{t-1} h0 at s == 0,
+// else the hs row written by the step before, every step split over K
+// alike (step_split). gi (n_steps, B, 3H) is scratch, and so is wimg
+// (gru_fwd_wimg floats; null below the wgmma route's rows). Returns the
+// first launch error, else cudaGetLastError().
 template <typename T>
-int run_layer(const MmaSeg& xs, const float* h0, const float* wi,
-              const float* bi, const float* wh, const float* bh, float* hs,
-              float* gi, float* wimg, int n_steps, int B, int H, int reverse,
+int run_layer(const void* x, long long sx_t, long long sx_b, const float* h0,
+              const float* wi, const float* bi, const float* wh,
+              const float* bh, float* hs, float* gi, float* wimg,
+              int n_steps, int B, int F, int H, int reverse,
               cudaStream_t stream) {
   const long long H3 = 3LL * H;
   const long long BH = static_cast<long long>(B) * H;
   {
     const long long N = static_cast<long long>(n_steps) * B;
     const bool on_wgmma = wimg != nullptr && wgmma_rows(N);
-    const WImage im = wi_image(wimg, xs.K, H);
+    const WImage im = wi_image(wimg, F, H);
     if (on_wgmma) RETURN_IF_FAILED(presplit(im, wi, H3, false, stream));
     MmaArgs p = out_args(gi, H3, 0, N, 3 * H);
-    p.seg[0] = xs;
+    p.seg[0] = x_seg<T>(static_cast<const T*>(x), sx_t, sx_b, B, F);
     set_b(p.seg[0], wi, H3);
     p.bias0 = bi;
     RETURN_IF_FAILED((weight_product<T, true>(p, &im, nullptr, 0, on_wgmma,
@@ -478,27 +459,6 @@ int run_layer(const MmaSeg& xs, const float* h0, const float* wi,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bidirectional layer over the A segment xs (see the note at the
-// head): run_layer forward, then reversed, on one gi scratch.
-template <typename T>
-int bifwd(const void* x, long long sx_t, long long sx_b, const void* h0_f,
-          const void* wi_f, const void* bi_f, const void* wh_f,
-          const void* bh_f, const void* h0_b, const void* wi_b,
-          const void* bi_b, const void* wh_b, const void* bh_b, void* hs_f,
-          void* hs_b, void* gi, void* wimg, int T_, int B, int F, int H,
-          void* stream) {
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  const MmaSeg xs = x_seg<T>(static_cast<const T*>(x), sx_t, sx_b, B, F);
-  const auto s = static_cast<cudaStream_t>(stream);
-  float* w = static_cast<float*>(wimg);
-  RETURN_IF_FAILED(run_layer<T>(xs, f(h0_f), f(wi_f), f(bi_f), f(wh_f),
-                                f(bh_f), static_cast<float*>(hs_f),
-                                static_cast<float*>(gi), w, T_, B, H, 0, s));
-  return run_layer<T>(xs, f(h0_b), f(wi_b), f(bi_b), f(wh_b), f(bh_b),
-                      static_cast<float*>(hs_b), static_cast<float*>(gi), w,
-                      T_, B, H, 1, s);
-}
-
 }  // namespace
 
 
@@ -512,100 +472,48 @@ int gru_fwd_wimg(long long n_rows, int F, int H, long long* n) {
   return 0;
 }
 
-// The weight products launched by route since the last reset: counts[0]
-// on wgmma, counts[1] on mma.sync; zeroed after the read when `reset`.
-int gru_fwd_routes(long long* counts, int reset) {
+// The library's counts since the last reset: counts[0] and counts[1] the
+// weight products on wgmma and on mma.sync, counts[2 + k] the step
+// launches whose K was split over S = 2^k CTAs (k < 4); zeroed after the
+// read when `reset`.
+int gru_fwd_counts(long long* counts, int reset) {
   read_routes(counts, reset);
-  return 0;
-}
-
-// The forward step launches by cluster size since the last reset:
-// counts[k] split K over S = 2^k CTAs (k < 4); zeroed after the read when
-// `reset`.
-int gru_fwd_steps(long long* counts, int reset) {
   for (int k = 0; k < 4; ++k) {
-    counts[k] = g_steps[k];
+    counts[2 + k] = g_steps[k];
     if (reset) g_steps[k] = 0;
   }
   return 0;
 }
 
-// Plain GRU layer over x (T, B, F) with strides (sx_t, sx_b, 1):
-// hs (T, B, H) float32, contiguous; gi (T, B, 3H) and wimg
-// (gru_fwd_wimg floats) float32 scratch.
-int gru_fwd_f32(const void* x, long long sx_t, long long sx_b,
-                const void* h0, const void* wi, const void* bi,
-                const void* wh, const void* bh, void* hs, void* gi,
-                void* wimg, int T, int B, int F, int H, int reverse,
-                void* stream) {
-  const float* f = static_cast<const float*>(x);
-  return run_layer<float>(
-      x_seg<float>(f, sx_t, sx_b, B, F), static_cast<const float*>(h0),
-      static_cast<const float*>(wi), static_cast<const float*>(bi),
-      static_cast<const float*>(wh), static_cast<const float*>(bh),
-      static_cast<float*>(hs), static_cast<float*>(gi),
-      static_cast<float*>(wimg), T, B, H, reverse,
-      static_cast<cudaStream_t>(stream));
+// GRU layer over x (T, B, F), bf16 where x_bf16 else float32, with
+// strides (sx_t, sx_b, 1): hs (T, B, H) float32, contiguous; gi
+// (T, B, 3H) and wimg (gru_fwd_wimg floats) float32 scratch.
+int gru_fwd(const void* x, long long sx_t, long long sx_b, int x_bf16,
+            const float* h0, const float* wi, const float* bi,
+            const float* wh, const float* bh, float* hs, float* gi,
+            float* wimg, int T, int B, int F, int H, int reverse,
+            void* stream) {
+  const auto run = x_bf16 ? &run_layer<__nv_bfloat16> : &run_layer<float>;
+  return run(x, sx_t, sx_b, h0, wi, bi, wh, bh, hs, gi, wimg, T, B, F, H,
+             reverse, static_cast<cudaStream_t>(stream));
 }
 
-int gru_fwd_bf16(const void* x, long long sx_t, long long sx_b,
-                 const void* h0, const void* wi, const void* bi,
-                 const void* wh, const void* bh, void* hs, void* gi,
-                 void* wimg, int T, int B, int F, int H, int reverse,
-                 void* stream) {
-  const __nv_bfloat16* f = static_cast<const __nv_bfloat16*>(x);
-  return run_layer<__nv_bfloat16>(
-      x_seg<__nv_bfloat16>(f, sx_t, sx_b, B, F),
-      static_cast<const float*>(h0), static_cast<const float*>(wi),
-      static_cast<const float*>(bi), static_cast<const float*>(wh),
-      static_cast<const float*>(bh), static_cast<float*>(hs),
-      static_cast<float*>(gi), static_cast<float*>(wimg), T, B, H, reverse,
-      static_cast<cudaStream_t>(stream));
-}
-
-// Windowed GRU layer over raw bf16 frames, batch-major: frame f of batch
-// row b starts at x + b*sx_b + f*C and holds C contiguous channels. Window
-// w is frames [w*stride, w*stride + win), F = win*C; hs (n_win, B, H)
-// float32, contiguous; gi (n_win, B, 3H) and wimg float32 scratch.
-int gru_wfwd_bf16(const void* x, long long sx_b, int C, int win, int stride,
-                  const void* h0, const void* wi, const void* bi,
-                  const void* wh, const void* bh, void* hs, void* gi,
-                  void* wimg, int n_win, int B, int H, void* stream) {
-  const __nv_bfloat16* f = static_cast<const __nv_bfloat16*>(x);
-  return run_layer<__nv_bfloat16>(
-      x_seg<__nv_bfloat16>(f, static_cast<long long>(stride) * C, sx_b, B,
-                           win * C),
-      static_cast<const float*>(h0), static_cast<const float*>(wi),
-      static_cast<const float*>(bi), static_cast<const float*>(wh),
-      static_cast<const float*>(bh), static_cast<float*>(hs),
-      static_cast<float*>(gi), static_cast<float*>(wimg), n_win, B, H, 0,
-      static_cast<cudaStream_t>(stream));
-}
-
-// Bidirectional GRU layer over x (T, B, F) with strides (sx_t, sx_b, 1),
-// one weight set per direction: hs_f and hs_b (T, B, H) float32,
-// contiguous, both in the original time order; gi (T, B, 3H) and wimg
-// float32 scratch, each used by one direction after the other.
-int gru_bifwd_f32(const void* x, long long sx_t, long long sx_b,
-                  const void* h0_f, const void* wi_f, const void* bi_f,
-                  const void* wh_f, const void* bh_f, const void* h0_b,
-                  const void* wi_b, const void* bi_b, const void* wh_b,
-                  const void* bh_b, void* hs_f, void* hs_b, void* gi,
-                  void* wimg, int T, int B, int F, int H, void* stream) {
-  return bifwd<float>(x, sx_t, sx_b, h0_f, wi_f, bi_f, wh_f, bh_f, h0_b,
-                      wi_b, bi_b, wh_b, bh_b, hs_f, hs_b, gi, wimg, T, B, F,
-                      H, stream);
-}
-
-int gru_bifwd_bf16(const void* x, long long sx_t, long long sx_b,
-                   const void* h0_f, const void* wi_f, const void* bi_f,
-                   const void* wh_f, const void* bh_f, const void* h0_b,
-                   const void* wi_b, const void* bi_b, const void* wh_b,
-                   const void* bh_b, void* hs_f, void* hs_b, void* gi,
-                   void* wimg, int T, int B, int F, int H, void* stream) {
-  return bifwd<__nv_bfloat16>(x, sx_t, sx_b, h0_f, wi_f, bi_f, wh_f, bh_f,
-                              h0_b, wi_b, bi_b, wh_b, bh_b, hs_f, hs_b, gi,
-                              wimg, T, B, F, H, stream);
+// Bidirectional GRU layer over x as gru_fwd's, one weight set per
+// direction: hs_f and hs_b (T, B, H) float32, contiguous, both in the
+// original time order; gi and wimg as gru_fwd's, each used by one
+// direction after the other.
+int gru_bifwd(const void* x, long long sx_t, long long sx_b, int x_bf16,
+              const float* h0_f, const float* wi_f, const float* bi_f,
+              const float* wh_f, const float* bh_f, const float* h0_b,
+              const float* wi_b, const float* bi_b, const float* wh_b,
+              const float* bh_b, float* hs_f, float* hs_b, float* gi,
+              float* wimg, int T, int B, int F, int H, void* stream) {
+  const auto run = x_bf16 ? &run_layer<__nv_bfloat16> : &run_layer<float>;
+  const auto s = static_cast<cudaStream_t>(stream);
+  RETURN_IF_FAILED(run(x, sx_t, sx_b, h0_f, wi_f, bi_f, wh_f, bh_f, hs_f, gi,
+                       wimg, T, B, F, H, 0, s));
+  return run(x, sx_t, sx_b, h0_b, wi_b, bi_b, wh_b, bh_b, hs_b, gi, wimg, T,
+             B, F, H, 1, s);
 }
 
 }  // extern "C"

@@ -70,9 +70,8 @@ struct MmaCfg {
 
 // MmaCfg<BM, BN, warps along M, warps along N, stages, CTAs per SM>.
 // The defaults below can be overridden at build time (-DGRU_MMA_BIG=...,
-// -DGRU_MMA_SMALL=..., -DGRU_MMA_PASSES=1, -DGRU_MMA_SPLIT=0): `python
-// tools/port_probes.py bwd` builds such variants and times them beside the
-// defaults. The large products (gates, dx, dW): 8 warps of 64 x 32, 3
+// -DGRU_MMA_SMALL=...): `python tools/port_probes.py bwd` builds such
+// variants and times them beside the defaults. The large products (gates, dx, dW): 8 warps of 64 x 32, 3
 // stages.
 #ifndef GRU_MMA_BIG
 #define GRU_MMA_BIG 128, 128, 2, 4, 3, 1
@@ -83,16 +82,6 @@ struct MmaCfg {
 #ifndef GRU_MMA_SMALL
 #define GRU_MMA_SMALL 64, 64, 2, 2, 3, 3
 #endif
-// Diagnostics, not float32-class: GRU_MMA_PASSES=1 runs one TF32 product
-// (hi_a hi_b) in place of three; GRU_MMA_SPLIT=0 keeps the three products
-// but skips the split (lo = hi), which prices the split's arithmetic.
-#ifndef GRU_MMA_PASSES
-#define GRU_MMA_PASSES 3
-#endif
-#ifndef GRU_MMA_SPLIT
-#define GRU_MMA_SPLIT 1
-#endif
-static_assert(GRU_MMA_PASSES == 1 || GRU_MMA_PASSES == 3, "1 or 3 passes");
 using MmaBig = MmaCfg<GRU_MMA_BIG>;
 using MmaSmall = MmaCfg<GRU_MMA_SMALL>;
 
@@ -175,11 +164,7 @@ __device__ __forceinline__ uint32_t tf32_bits(float v) {
 __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
                                            uint32_t& lo) {
   hi = tf32_bits(v);
-#if GRU_MMA_PASSES == 3 && GRU_MMA_SPLIT
   lo = tf32_bits(v - __uint_as_float(hi));
-#else
-  lo = hi;
-#endif
 }
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
@@ -420,19 +405,16 @@ __device__ __forceinline__ void mma_stage(const unsigned char* st,
     }
     // the small terms first; each pass runs over all tiles, so that
     // consecutive mmas are independent
-    if (!EXACT_A && GRU_MMA_PASSES == 3) {
+    if (!EXACT_A) {
 #pragma unroll
       for (int mi = 0; mi < C::MI; ++mi)
 #pragma unroll
         for (int ni = 0; ni < C::NI; ++ni) mma_tf32(part[mi][ni], al[mi], bh[ni]);
     }
-    if (GRU_MMA_PASSES == 3) {
 #pragma unroll
-      for (int mi = 0; mi < C::MI; ++mi)
+    for (int mi = 0; mi < C::MI; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < C::NI; ++ni)
-          mma_tf32(part[mi][ni], ah[mi], bl[ni]);
-    }
+      for (int ni = 0; ni < C::NI; ++ni) mma_tf32(part[mi][ni], ah[mi], bl[ni]);
 #pragma unroll
     for (int mi = 0; mi < C::MI; ++mi)
 #pragma unroll
@@ -862,8 +844,6 @@ template <typename T>
 __device__ __forceinline__ void wg_stage(const unsigned char* st, int row0,
                                          float (&part)[64]) {
   constexpr bool EXACT_A = is_bf16<T>();
-  constexpr bool LO_A = !EXACT_A && GRU_MMA_PASSES == 3;
-  constexpr bool LO_B = GRU_MMA_PASSES == 3;
   constexpr int PA = a_pitch<wg::Load, T, false>();
   const T* sa = reinterpret_cast<const T*>(st);
   const uint32_t sb = smem_u32(st + wg::A_BYTES);
@@ -892,15 +872,12 @@ __device__ __forceinline__ void wg_stage(const unsigned char* st, int row0,
     const uint64_t dh = wg_desc(sb + kk * 2 * wg::LBO);
     const uint64_t dl = wg_desc(sb + wg::PLANE * 4 + kk * 2 * wg::LBO);
     int acc_d = kk > 0;
-    if (LO_A) {
+    if (!EXACT_A) {
       wgmma_tf32(part, al[kk], dh, acc_d);
       acc_d = 1;
     }
-    if (LO_B) {
-      wgmma_tf32(part, ah[kk], dl, acc_d);
-      acc_d = 1;
-    }
-    wgmma_tf32(part, ah[kk], dh, acc_d);
+    wgmma_tf32(part, ah[kk], dl, acc_d);
+    wgmma_tf32(part, ah[kk], dh, 1);
   }
   wgmma_commit();
   wgmma_wait_all();
@@ -911,7 +888,7 @@ __device__ __forceinline__ void wg_stage(const unsigned char* st, int row0,
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       reg_fence(ah[kk][r]);
-      if (LO_A) reg_fence(al[kk][r]);
+      if (!EXACT_A) reg_fence(al[kk][r]);
     }
 }
 

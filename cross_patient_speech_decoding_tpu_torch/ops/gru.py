@@ -60,28 +60,27 @@ STEP_SPLITS = (1, 2, 4, 8)
 _STEP_CALLS = ("gru_fwd", "gru_wfwd", "gru_bifwd")
 
 
-def _lib_counts(names, n: int, reset: bool) -> list:
-    """The sum of the libraries' counters ``names`` (n each); all 0
-    before the kernels are first loaded."""
+def _lib_counts(reset: bool = False):
+    """The libraries' counters: the weight products by route (``ROUTES``,
+    both libraries' summed) and the forward step launches by cluster size
+    (``STEP_SPLITS``); all 0 before the kernels are first loaded."""
     from cross_patient_speech_decoding_tpu_torch.ops import _ext
 
-    total = [0] * n
-    if not _ext.loaded():
-        return total
-    lib = _ext.lib()
-    for name in names:
-        counts = (ctypes.c_longlong * n)()
-        _ext.check(getattr(lib, name)(counts, int(reset)), name)
-        total = [a + b for a, b in zip(total, counts)]
-    return total
+    fwd = (ctypes.c_longlong * (len(ROUTES) + len(STEP_SPLITS)))()
+    bwd = (ctypes.c_longlong * len(ROUTES))()
+    if _ext.loaded():
+        lib = _ext.lib()
+        _ext.check(lib.gru_fwd_counts(fwd, int(reset)), "gru_fwd_counts")
+        _ext.check(lib.gru_bwd_counts(bwd, int(reset)), "gru_bwd_counts")
+    routes = [a + b for a, b in zip(fwd, bwd)]
+    return routes, list(fwd[len(ROUTES):])
 
 
 def product_counts() -> dict:
     """The weight products launched since the last
     :func:`reset_launch_counts`, by route (``ROUTES``); all 0 before the
     kernels are first loaded."""
-    return dict(zip(ROUTES, _lib_counts(
-        ("gru_fwd_routes", "gru_bwd_routes"), len(ROUTES), reset=False)))
+    return dict(zip(ROUTES, _lib_counts()[0]))
 
 
 def step_counts() -> dict:
@@ -89,16 +88,13 @@ def step_counts() -> dict:
     :func:`reset_launch_counts`, by the cluster size S that split each
     step's K (``STEP_SPLITS``); all 0 before the kernels are first
     loaded."""
-    return dict(zip(STEP_SPLITS, _lib_counts(
-        ("gru_fwd_steps",), len(STEP_SPLITS), reset=False)))
+    return dict(zip(STEP_SPLITS, _lib_counts()[1]))
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    _lib_counts(("gru_fwd_routes", "gru_bwd_routes"), len(ROUTES),
-                reset=True)
-    _lib_counts(("gru_fwd_steps",), len(STEP_SPLITS), reset=True)
+    _lib_counts(reset=True)
 
 
 def n_windows(T: int, win: int, stride: int) -> int:
@@ -296,51 +292,108 @@ def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def _wimg_scratch(query: str, n_rows: int, *shape, device):
-    """The scratch in which a call writes the TF32 images of its weights
-    (csrc/gru_mma.cuh: a few MB), sized by the library's ``query``; None
-    where the call's T B rows take mma.sync, which reads the weights as
-    they are."""
+def _call(export: str, device, *args) -> None:
+    """Run the library's ``export`` with ``args`` on the current stream of
+    ``device``; raise on the CUDA error it reports."""
     from cross_patient_speech_decoding_tpu_torch.ops import _ext
 
-    n = ctypes.c_longlong()
-    _ext.check(getattr(_ext.lib(), query)(n_rows, *shape, ctypes.byref(n)),
+    with torch.cuda.device(device):
+        err = getattr(_ext.lib(), export)(*args, _stream())
+    _ext.check(err, export)
+
+
+def _sizes(query: str, *args, n: int = 1) -> list:
+    """The ``n`` scratch sizes, in floats, that the library's ``query``
+    gives for a call's shape ``args``: the library decides the splits and
+    the routes that fill them."""
+    from cross_patient_speech_decoding_tpu_torch.ops import _ext
+
+    out = [ctypes.c_longlong() for _ in range(n)]
+    _ext.check(getattr(_ext.lib(), query)(*args, *map(ctypes.byref, out)),
                query)
-    return (torch.empty(n.value, dtype=torch.float32, device=device)
-            if n.value else None)
+    return [v.value for v in out]
 
 
-def _gi_scratch(n_steps: int, B: int, H: int, device):
-    """The input projection x Wi + bi of every row, (n_steps, B, 3H)
-    float32, that the forward kernels write before their sweep (1.8 GB at
-    fig_5 width; gru_bifwd's two directions use it in turn); freed when the
-    call returns."""
-    return torch.empty((n_steps, B, 3 * H), dtype=torch.float32,
-                       device=device)
+def _wimg(n: int, device):
+    """The scratch of ``n`` floats in which a call writes the TF32 images
+    of its weights (csrc/gru_mma.cuh: a few MB); None where the call's T B
+    rows take mma.sync, which reads the weights as they are (n = 0)."""
+    return torch.empty(n, dtype=torch.float32, device=device) if n else None
+
+
+def _x_args(x) -> tuple:
+    """How a launch names its input: the pointer, the strides of the time
+    and batch axes, and whether it is bf16 (else float32)."""
+    return (x.data_ptr(), x.stride(0), x.stride(1),
+            int(x.dtype == torch.bfloat16))
+
+
+def _forward(key: str, export: str, x, weights, *tail) -> list:
+    """The launch body of the forward kernels, counted under
+    ``LAUNCHES[key]``: ``weights`` holds one (h0, wi, bi, wh, bh) a
+    direction, swept in that order; ``tail`` the export's arguments after
+    the shape. Returns each direction's hs (T, B, H) float32.
+
+    Before its sweep each direction writes the input projection x Wi + bi
+    of every row into the gi scratch (T, B, 3H) float32 (1.8 GB at fig_5
+    width), which the next direction reuses; freed when the call returns.
+    """
+    T, B, F = x.shape
+    H = weights[0][3].shape[0]
+    for w in weights:
+        _check_args(x, *w, F)
+        if w[3].shape[0] != H:
+            raise ValueError(f"the directions' hidden sizes differ: {H} and "
+                             f"{w[3].shape[0]}")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    hs = [torch.empty((T, B, H), **f32) for _ in weights]
+    if T == 0 or B == 0:
+        return hs
+    gi = torch.empty((T, B, 3 * H), **f32)
+    wimg = _wimg(*_sizes("gru_fwd_wimg", T * B, F, H), x.device)
+    _call(export, x.device, *_x_args(x),
+          *map(_ptr, (*(t for w in weights for t in w), *hs, gi, wimg)),
+          T, B, F, H, *tail)
+    LAUNCHES[key] += 1
+    return hs
+
+
+def _backward(key: str, x, hprev, dhs, wi, bi, wh, bh, reverse: bool,
+              need_dx: bool) -> tuple:
+    """The launch body of the backward kernels (see run_backward,
+    gru_bwd.cu), counted under ``LAUNCHES[key]``. Arguments and result as
+    :func:`gru_backward_plain`. The gate-gradient stream g (T, B, 4H) is
+    the large scratch (2.4 GB at fig_5 width), freed when the call
+    returns; the bias gradients are the last rows of the weight
+    gradients' buffers."""
+    T, B, F = x.shape
+    H = wh.shape[0]
+    if T == 0:
+        raise ValueError(f"{key} needs at least one time step")
+    _check_args(x, hprev[0], wi, bi, wh, bh, F)
+    _check_streams(x, T, H, hprev=hprev, dhs=dhs)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty((T, B, F), **f32) if need_dx else None
+    n_part, n_wimg = _sizes("gru_bwd_sizes", T, B, F, H, int(need_dx), n=2)
+    g = torch.empty((T, B, 4 * H), **f32)
+    dhz = torch.empty((B, H), **f32)
+    dh0 = torch.empty((B, H), **f32)
+    part = torch.empty(n_part, **f32)
+    dwi = torch.empty((F + 1, 3 * H), **f32)
+    dwh = torch.empty((H + 1, 3 * H), **f32)
+    wimg = _wimg(n_wimg, x.device)
+    _call("gru_bwd", x.device, *_x_args(x),
+          *map(_ptr, (hprev, dhs, wi, bi, wh, bh, g, dhz, dh0, dx, part, dwi,
+                      dwh, wimg)),
+          T, B, F, H, int(reverse))
+    LAUNCHES[key] += 1
+    return dx, dh0, dwi[:F], dwh[:H], dwi[F], dwh[H]
 
 
 def gru_fwd_cuda(x, h0, wi, bi, wh, bh, reverse: bool = False):
     """Launch the ``gru_fwd`` kernel (port of ``_fwd_kernel``)."""
-    from cross_patient_speech_decoding_tpu_torch.ops import _ext
-
-    T, B, F = x.shape
-    H = wh.shape[0]
-    _check_args(x, h0, wi, bi, wh, bh, F)
-    hs = torch.empty((T, B, H), dtype=torch.float32, device=x.device)
-    if T == 0:
-        return hs
-    gi = _gi_scratch(T, B, H, x.device)
-    wimg = _wimg_scratch("gru_fwd_wimg", T * B, F, H, device=x.device)
-    name = "gru_fwd_bf16" if x.dtype == torch.bfloat16 else "gru_fwd_f32"
-    with torch.cuda.device(x.device):
-        err = getattr(_ext.lib(), name)(
-            x.data_ptr(), x.stride(0), x.stride(1), h0.data_ptr(),
-            wi.data_ptr(), bi.data_ptr(), wh.data_ptr(), bh.data_ptr(),
-            hs.data_ptr(), gi.data_ptr(), _ptr(wimg), T, B, F, H,
-            int(reverse), _stream(),
-        )
-    _ext.check(err, name)
-    LAUNCHES["gru_fwd"] += 1
+    (hs,) = _forward("gru_fwd", "gru_fwd", x, [(h0, wi, bi, wh, bh)],
+                     int(reverse))
     return hs
 
 
@@ -349,33 +402,9 @@ def gru_bifwd_cuda(x, h0_f, h0_b, wi_f, bi_f, wh_f, bh_f, wi_b, bi_b, wh_b,
     """Launch the ``gru_bifwd`` kernels (port of ``_bifwd_kernel``): the
     forward direction's projection and sweep, then the reversed one's, on
     one gi scratch. Arguments and result as :func:`gru_layer_bidir_plain`."""
-    from cross_patient_speech_decoding_tpu_torch.ops import _ext
-
-    T, B, F = x.shape
-    H = wh_f.shape[0]
-    _check_args(x, h0_f, wi_f, bi_f, wh_f, bh_f, F)
-    _check_args(x, h0_b, wi_b, bi_b, wh_b, bh_b, F)
-    if wh_b.shape[0] != H:
-        raise ValueError(f"the directions' hidden sizes differ: {H} and "
-                         f"{wh_b.shape[0]}")
-    hs_f = torch.empty((T, B, H), dtype=torch.float32, device=x.device)
-    hs_b = torch.empty_like(hs_f)
-    if T == 0 or B == 0:
-        return hs_f, hs_b
-    gi = _gi_scratch(T, B, H, x.device)
-    wimg = _wimg_scratch("gru_fwd_wimg", T * B, F, H, device=x.device)
-    name = "gru_bifwd_bf16" if x.dtype == torch.bfloat16 else "gru_bifwd_f32"
-    with torch.cuda.device(x.device):
-        err = getattr(_ext.lib(), name)(
-            x.data_ptr(), x.stride(0), x.stride(1),
-            *(t.data_ptr() for t in (h0_f, wi_f, bi_f, wh_f, bh_f,
-                                     h0_b, wi_b, bi_b, wh_b, bh_b)),
-            hs_f.data_ptr(), hs_b.data_ptr(), gi.data_ptr(), _ptr(wimg), T,
-            B, F, H, _stream(),
-        )
-    _ext.check(err, name)
-    LAUNCHES["gru_bifwd"] += 1
-    return hs_f, hs_b
+    return tuple(_forward("gru_bifwd", "gru_bifwd", x,
+                          [(h0_f, wi_f, bi_f, wh_f, bh_f),
+                           (h0_b, wi_b, bi_b, wh_b, bh_b)]))
 
 
 def _batch_major(x):
@@ -387,135 +416,61 @@ def _batch_major(x):
     return x
 
 
+def _windows(x, win: int, stride: int):
+    """The (n_win, B, win*C) windows of the (T, B, C) view of batch-major
+    frames that :func:`_batch_major` gives, as an overlapping view: window
+    w of row b, flattened time-major then channel (pallas_gru.py:254-260),
+    is the run of win*C values that starts at frame w*stride. Trailing
+    frames that no window reaches are not in it."""
+    n_win = n_windows(x.shape[0], win, stride)
+    C = x.shape[2]
+    return x.as_strided((n_win, x.shape[1], win * C),
+                        (stride * C, x.stride(1), 1), x.storage_offset())
+
+
 def _check_frames(x, name: str):
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name} reads bfloat16 frames, got {x.dtype}")
 
 
 def gru_wfwd_cuda(x, h0, wi, bi, wh, bh, win: int, stride: int):
-    """Launch the ``gru_wfwd`` kernel (port of ``_wfwd_kernel``)."""
-    from cross_patient_speech_decoding_tpu_torch.ops import _ext
-
-    T, B, C = x.shape
-    H = wh.shape[0]
-    n_win = n_windows(T, win, stride)
-    _check_args(x, h0, wi, bi, wh, bh, win * C)
+    """Launch the ``gru_fwd`` kernel over the windows of bf16 frames (port
+    of ``_wfwd_kernel``). Arguments and result as
+    :func:`gru_layer_windowed_plain`."""
     _check_frames(x, "gru_wfwd")
-    x = _batch_major(x)
-    hs = torch.empty((n_win, B, H), dtype=torch.float32, device=x.device)
-    gi = _gi_scratch(n_win, B, H, x.device)
-    wimg = _wimg_scratch("gru_fwd_wimg", n_win * B, win * C, H,
-                         device=x.device)
-    with torch.cuda.device(x.device):
-        err = _ext.lib().gru_wfwd_bf16(
-            x.data_ptr(), x.stride(1), C, win, stride, h0.data_ptr(),
-            wi.data_ptr(), bi.data_ptr(), wh.data_ptr(), bh.data_ptr(),
-            hs.data_ptr(), gi.data_ptr(), _ptr(wimg), n_win, B, H,
-            _stream(),
-        )
-    _ext.check(err, "gru_wfwd_bf16")
-    LAUNCHES["gru_wfwd"] += 1
+    (hs,) = _forward("gru_wfwd", "gru_fwd",
+                     _windows(_batch_major(x), win, stride),
+                     [(h0, wi, bi, wh, bh)], 0)
     return hs
-
-
-def _bwd_buffers(x, n_steps: int, B: int, F: int, H: int, need_dx: bool):
-    """Outputs and scratch of a backward launch (see run_backward,
-    gru_bwd.cu): the gate-gradient stream g (n_steps, B, 4H) is the large
-    one (2.4 GB at fig_5 width) and is freed when the caller drops it. The
-    sizes of the partial-sum scratch and of the weights' images come from
-    the library, which decides the splits and the route."""
-    from cross_patient_speech_decoding_tpu_torch.ops import _ext
-
-    part = ctypes.c_longlong()
-    _ext.check(_ext.lib().gru_bwd_scratch(n_steps, B, F, H,
-                                          ctypes.byref(part)),
-               "gru_bwd_scratch")
-    f32 = dict(dtype=torch.float32, device=x.device)
-    return dict(
-        g=torch.empty((n_steps, B, 4 * H), **f32),
-        dhz=torch.empty((B, H), **f32),
-        dh0=torch.empty((B, H), **f32),
-        part=torch.empty(part.value, **f32),
-        dwi=torch.empty((F + 1, 3 * H), **f32),
-        dwh=torch.empty((H + 1, 3 * H), **f32),
-        wimg=_wimg_scratch("gru_bwd_wimg", n_steps * B, F, H, int(need_dx),
-                           device=x.device),
-    )
-
-
-def _grads(buf, F: int, H: int):
-    """(dh0, dwi, dwh, dbi, dbh): the bias gradient is the last row of each
-    weight gradient."""
-    dwi, dwh = buf["dwi"], buf["dwh"]
-    return buf["dh0"], dwi[:F], dwh[:H], dwi[F], dwh[H]
 
 
 def gru_bwd_cuda(x, hprev, dhs, wi, bi, wh, bh, reverse: bool = False,
                  need_dx: bool = True):
     """Launch the ``gru_bwd`` kernels (port of ``_bwd_kernel``). Arguments
     and result as :func:`gru_backward_plain`."""
-    from cross_patient_speech_decoding_tpu_torch.ops import _ext
-
-    T, B, F = x.shape
-    H = wh.shape[0]
-    if T == 0:
-        raise ValueError("gru_bwd needs at least one time step")
-    _check_args(x, hprev[0], wi, bi, wh, bh, F)
-    _check_streams(x, T, H, hprev=hprev, dhs=dhs)
-    dx = (torch.empty((T, B, F), dtype=torch.float32, device=x.device)
-          if need_dx else None)
-    buf = _bwd_buffers(x, T, B, F, H, need_dx)
-    name = "gru_bwd_bf16" if x.dtype == torch.bfloat16 else "gru_bwd_f32"
-    with torch.cuda.device(x.device):
-        err = getattr(_ext.lib(), name)(
-            x.data_ptr(), x.stride(0), x.stride(1), hprev.data_ptr(),
-            dhs.data_ptr(), wi.data_ptr(), bi.data_ptr(), wh.data_ptr(),
-            bh.data_ptr(), buf["g"].data_ptr(), buf["dhz"].data_ptr(),
-            buf["dh0"].data_ptr(), None if dx is None else dx.data_ptr(),
-            buf["part"].data_ptr(), buf["dwi"].data_ptr(),
-            buf["dwh"].data_ptr(), _ptr(buf["wimg"]), T, B, F, H,
-            int(reverse), _stream(),
-        )
-    _ext.check(err, name)
-    LAUNCHES["gru_bwd"] += 1
-    return (dx, *_grads(buf, F, H))
+    return _backward("gru_bwd", x, hprev, dhs, wi, bi, wh, bh, reverse,
+                     need_dx)
 
 
 def gru_wbwd_cuda(x, hprev, dhs, wi, bi, wh, bh, win: int, stride: int,
                   need_dx: bool = False):
-    """Launch the ``gru_wbwd`` kernels (port of ``_wbwd_kernel``) over bf16
-    frames. Arguments and result as :func:`gru_win_backward_plain`; with
-    ``need_dx`` the frames' gradient is a (T, B, C) view of batch-major
-    (B, T, C) float32 memory, the frames' own layout."""
-    from cross_patient_speech_decoding_tpu_torch.ops import _ext
-
-    T, B, C = x.shape
-    H = wh.shape[0]
-    F = win * C
-    n_win = n_windows(T, win, stride)
-    _check_args(x, hprev[0], wi, bi, wh, bh, F)
-    _check_streams(x, n_win, H, hprev=hprev, dhs=dhs)
+    """Launch the ``gru_bwd`` kernels over the windows of bf16 frames (port
+    of ``_wbwd_kernel``), then, with ``need_dx``, fold the windows'
+    gradient onto the frames. Arguments and result as
+    :func:`gru_win_backward_plain`; the frames' gradient is a (T, B, C)
+    view of batch-major (B, T, C) float32 memory, the frames' own
+    layout."""
     _check_frames(x, "gru_wbwd")
-    x = _batch_major(x)
-    buf = _bwd_buffers(x, n_win, B, F, H, need_dx)
-    dxw = dx = None
-    if need_dx:
-        f32 = dict(dtype=torch.float32, device=x.device)
-        dxw = torch.empty((n_win, B, F), **f32)  # the windows' dgi Wi^T
-        dx = torch.empty((B, T, C), **f32)
-    with torch.cuda.device(x.device):
-        err = _ext.lib().gru_wbwd_bf16(
-            x.data_ptr(), x.stride(1), C, win, stride, hprev.data_ptr(),
-            dhs.data_ptr(), wi.data_ptr(), bi.data_ptr(), wh.data_ptr(),
-            bh.data_ptr(), buf["g"].data_ptr(), buf["dhz"].data_ptr(),
-            buf["dh0"].data_ptr(), _ptr(dxw), _ptr(dx),
-            buf["part"].data_ptr(), buf["dwi"].data_ptr(),
-            buf["dwh"].data_ptr(), _ptr(buf["wimg"]), T, n_win, B, H,
-            _stream(),
-        )
-    _ext.check(err, "gru_wbwd_bf16")
-    LAUNCHES["gru_wbwd"] += 1
-    return (None if dx is None else dx.transpose(0, 1), *_grads(buf, F, H))
+    T, B, C = x.shape
+    xw = _windows(_batch_major(x), win, stride)
+    dxw, *grads = _backward("gru_wbwd", xw, hprev, dhs, wi, bi, wh, bh,
+                            False, need_dx)
+    if dxw is None:
+        return (None, *grads)
+    dx = torch.empty((B, T, C), dtype=torch.float32, device=x.device)
+    _call("gru_fold_windows", x.device, dxw.data_ptr(), dx.data_ptr(), T, B,
+          C, win, stride, xw.shape[0])
+    return (dx.transpose(0, 1), *grads)
 
 
 # ---------------------------------------------------------------------------

@@ -315,9 +315,7 @@ class TrainCTCConfig:
     # reference's results-h5 'logits' dataset (train_ctc_rnn.py:448-491)
     save_logits: bool = False
     log_metrics: bool = True  # per-epoch CSV under logs/{run_name}/
-    # csv | jsonl (tailable) | tb (TensorBoard: not ported yet, refused by
-    # train.loops.append_metrics on the first epoch logged)
-    log_format: str = "csv"
+    log_format: str = "csv"  # csv | jsonl (tailable) | tb (TensorBoard)
     trace: bool = False  # device profile of the first iteration
     # data-parallel training over n ranks, one device each (parallel/);
     # 0 = one device

@@ -137,6 +137,40 @@ def test_reformat_time_windows_matches_jax(win, stride, T):
     np.testing.assert_array_equal(got, want)
 
 
+# (T, B, C, win, stride, layout of the frames): odd C, stride 1, stride =
+# win, T with trailing frames no window reads, one window, frames that
+# are time-major (copied by _batch_major) or a cropped view of batch-major
+# memory (a storage offset and a batch stride past T C)
+@pytest.mark.parametrize("T,B,C,win,stride,layout", [
+    (26, 4, 5, 6, 2, "batch_major"),
+    (25, 3, 7, 5, 1, "batch_major"),
+    (16, 2, 3, 4, 4, "batch_major"),
+    (27, 5, 5, 6, 2, "batch_major"),
+    (6, 3, 9, 6, 4, "batch_major"),
+    (23, 4, 7, 7, 3, "time_major"),
+    (20, 1, 5, 5, 5, "time_major"),
+    (24, 3, 3, 4, 3, "cropped"),
+])
+def test_windows_view_matches_reformat_time_windows(T, B, C, win, stride,
+                                                    layout):
+    """The windowed kernels' input, the overlapping view that _windows
+    makes of the frames _batch_major gives, holds bit for bit the rows of
+    reformat_time_windows, and is a view: no window stream is built."""
+    base = torch.randn(B, T + 3, C, generator=torch.Generator().manual_seed(
+        T + C)).to(torch.bfloat16)
+    frames = {"batch_major": base[:, :T].contiguous(),
+              "time_major": base[:, :T].transpose(0, 1).contiguous()
+              .transpose(0, 1),
+              "cropped": base[:, 2:T + 2]}[layout]
+    x = frames.transpose(0, 1)  # (T, B, C)
+    xb = gru._batch_major(x)
+    got = gru._windows(xb, win, stride)
+    assert got.shape == (gru.n_windows(T, win, stride), B, win * C)
+    assert got.untyped_storage().data_ptr() == xb.untyped_storage().data_ptr()
+    want = reformat_time_windows(frames, win, stride)
+    assert torch.equal(got.transpose(0, 1), want)
+
+
 def test_cpu_tensors_take_the_plain_version():
     """On the CPU no kernel is launched and the op equals its plain
     version exactly."""

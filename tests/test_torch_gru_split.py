@@ -375,7 +375,7 @@ def test_gate_math_on_the_tile_layout_matches_plain(tile):
 # ---------------------------------------------------------------------------
 
 SPLITS = (1, 2, 4, 8)
-MAX_SPLIT = 8  # gru_fwd.cu: GRU_FWD_MAX_SPLIT's default
+MAX_SPLIT = 8  # gru_fwd.cu: step_split's MAX_SPLIT
 H100_SMS = 132  # the H100 SXM's SMs (the card test pins the rule as built)
 
 

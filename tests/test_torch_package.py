@@ -245,6 +245,22 @@ def test_kernel_wrappers_check_their_arguments():
         gru._check_streams(x, T, H, hprev=torch.zeros(B, T, H).transpose(0, 1))
     with pytest.raises(TypeError, match="dhs must be float32"):
         gru._check_streams(x, T, H, hprev=hprev, dhs=hprev.double())
+    # the windowed wrappers: bf16 frames and a window geometry, checked
+    # before their windows reach the shared launch bodies
+    frames = torch.zeros(8, B, 2)
+    w = (torch.zeros(B, H), torch.zeros(6, 3 * H), torch.zeros(3 * H),
+         torch.zeros(H, 3 * H), torch.zeros(3 * H))
+    with pytest.raises(TypeError, match="gru_wfwd reads bfloat16 frames"):
+        gru.gru_wfwd_cuda(frames, *w, 3, 2)
+    with pytest.raises(TypeError, match="gru_wbwd reads bfloat16 frames"):
+        gru.gru_wbwd_cuda(frames, hprev, hprev, *w[1:], 3, 2)
+    with pytest.raises(ValueError, match="n_win"):
+        gru.gru_wfwd_cuda(frames.bfloat16(), *w, 9, 2)
+    with pytest.raises(ValueError, match="wi has shape"):
+        gru.gru_wfwd_cuda(frames.bfloat16(), w[0], torch.zeros(7, 3 * H),
+                          *w[2:], 3, 2)
+    with pytest.raises(ValueError, match="hprev has shape"):
+        gru.gru_wbwd_cuda(frames.bfloat16(), hprev, hprev, *w[1:], 3, 1)
 
 
 def test_c_interface_matches_the_source():

@@ -361,16 +361,21 @@ def test_dropout_draws_differ_between_ranks(steps):
 
 # ------------------------------------------------------------- launcher --
 
-def _dead(pid_dir) -> bool:
-    pids = [int(p.read_text()) for p in pid_dir.glob("*.pid")]
+def _alive(pid_dir) -> list:
+    """The pids written to ``pid_dir`` whose processes still exist."""
     alive = []
-    for pid in pids:
+    for p in pid_dir.glob("*.pid"):
+        pid = int(p.read_text())
         try:
             os.kill(pid, 0)
             alive.append(pid)
         except ProcessLookupError:
             pass
-    return len(pids) == 2 and not alive
+    return alive
+
+
+def _dead(pid_dir) -> bool:
+    return len(list(pid_dir.glob("*.pid"))) == 2 and not _alive(pid_dir)
 
 
 def test_a_failing_rank_fails_the_launch(tmp_path):
@@ -387,12 +392,25 @@ def test_a_failing_rank_fails_the_launch(tmp_path):
 
 
 def test_a_hanging_rank_hits_the_deadline(tmp_path):
-    t0 = time.perf_counter()
-    with pytest.raises(TimeoutError):
-        parallel.launch(ranks.hang_on_rank, 2, (1, str(tmp_path)),
-                        devices="cpu", timeout=4)
-    assert time.perf_counter() - t0 < 20
-    assert _dead(tmp_path)
+    """Rank 1 sleeps past the deadline: the launch raises TimeoutError
+    within 16 s of it, and no rank is left. The deadline starts before the
+    ranks are spawned, and a rank that starts beside busy test workers
+    (torch's import, the group's rendezvous) can take more than 4 s to
+    reach its body and write its pid; a launch that ends before both
+    ranks wrote theirs has not yet seen the hang, so it runs again with a
+    deadline twice as long."""
+    for timeout in (4, 8, 16, 32):
+        pid_dir = tmp_path / str(timeout)
+        pid_dir.mkdir()
+        t0 = time.perf_counter()
+        with pytest.raises(TimeoutError):
+            parallel.launch(ranks.hang_on_rank, 2, (1, str(pid_dir)),
+                            devices="cpu", timeout=timeout)
+        assert time.perf_counter() - t0 < timeout + 16
+        assert _alive(pid_dir) == []
+        if len(list(pid_dir.glob("*.pid"))) == 2:
+            break
+    assert _dead(pid_dir)
 
 
 @pytest.mark.parametrize("n", [2, 3])

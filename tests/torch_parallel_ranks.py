@@ -121,12 +121,20 @@ def dropout_step(spec: dict) -> dict:
     return {"losses": losses, **_step_result(mesh, m, met)}
 
 
+def _write_pid(pid_dir: str, rank: int) -> None:
+    """This process's pid in ``pid_dir``/<rank>.pid, whole or not at all:
+    the launcher may kill the rank at any point."""
+    tmp = os.path.join(pid_dir, f"{rank}.tmp")
+    with open(tmp, "w") as f:
+        f.write(str(os.getpid()))
+    os.replace(tmp, os.path.join(pid_dir, f"{rank}.pid"))
+
+
 def fail_on_rank(which: int, pid_dir: str) -> None:
     """Rank ``which`` raises; the others wait in an all-reduce that never
     completes. Each rank writes its pid to ``pid_dir`` first."""
     mesh = parallel.make_mesh(2, device="cpu")
-    with open(os.path.join(pid_dir, f"{mesh.rank}.pid"), "w") as f:
-        f.write(str(os.getpid()))
+    _write_pid(pid_dir, mesh.rank)
     if mesh.rank == which:
         raise ValueError(f"injected failure on rank {which}")
     pm.all_reduce_sum(torch.ones(1), mesh)
@@ -135,8 +143,7 @@ def fail_on_rank(which: int, pid_dir: str) -> None:
 def hang_on_rank(which: int, pid_dir: str) -> None:
     """Rank ``which`` sleeps past any deadline; the others return."""
     mesh = parallel.make_mesh(2, device="cpu")
-    with open(os.path.join(pid_dir, f"{mesh.rank}.pid"), "w") as f:
-        f.write(str(os.getpid()))
+    _write_pid(pid_dir, mesh.rank)
     if mesh.rank == which:
         time.sleep(600)
 

@@ -44,8 +44,7 @@ Run from the repository root:
   registers, shared memory and CTAs per SM.
 - ``bwd``: builds the kernels (printing the ptxas report) and the
   backward library's variants of ``BWD_VARIANTS`` (the weight products on
-  mma.sync, one TF32 pass, three passes without the split, other tile
-  shapes), then, at ``chip_smoke.py``'s fig_5 backward shapes (B=2000 and
+  mma.sync, other tile shapes), then, at ``chip_smoke.py``'s fig_5 backward shapes (B=2000 and
   the benchmark's 512), the seq2seq encoder's (T=191, B=1000 and 1224,
   F=100, H=500, reversed, dx), its decoder's (T=1) and ``conv_rnn``'s
   (T=191, B=1073, F=100, H=128), holds each variant against the plain
@@ -58,9 +57,8 @@ Run from the repository root:
   on wgmma and on mma.sync, from which ``GRU_WGMMA_MIN_ROWS`` is set.
 - ``fwd``: builds the kernels (printing the ptxas report) and the forward
   library's variants of ``FWD_VARIANTS`` (the projection on mma.sync, the
-  wgmma kernel's ring, one TF32 pass, other step tile shapes, the step's
-  K split capped at 1, 2 or 4 CTAs, S = 1 through the split's epilogue),
-  then, at the b2t cell's shapes
+  wgmma kernel's ring, other step tile shapes), then, at the b2t cell's
+  shapes
   (``gru_fwd`` B=64, T=244, F=H=768; ``gru_wfwd`` over 14 x 4 windows of
   512 features), ``chip_smoke.py``'s fig_5 forward shapes (``gru_fwd``
   over float32 x, ``gru_wfwd`` over the bf16 frames; B=2000 and 512), the
@@ -408,8 +406,7 @@ def probe_bifwd() -> None:
 
 # Builds of the backward library timed by ``bwd`` (gru_mma.cuh's macros,
 # MmaCfg<BM, BN, warps along M, warps along N, stages, CTAs per SM>):
-# the defaults, the two diagnostics that price the split (one TF32 pass;
-# three passes without the split), and tile shapes beside the defaults.
+# the defaults and tile shapes beside them.
 # The weight products' routes (csrc/gru_mma.cuh) forced at any row count:
 # every one on mma.sync, as below GRU_WGMMA_MIN_ROWS rows, or on wgmma.
 MMA_SYNC = ("GRU_WGMMA_MIN_ROWS=(1LL << 62)",)
@@ -417,8 +414,6 @@ WGMMA = ("GRU_WGMMA_MIN_ROWS=1",)
 BWD_VARIANTS = {
     "default": (),
     "mma_sync": MMA_SYNC,
-    "one_pass": ("GRU_MMA_PASSES=1",),
-    "no_split": ("GRU_MMA_SPLIT=0",),
     "big_16_warps": ("GRU_MMA_BIG=128, 128, 4, 4, 3, 1",),
     "big_4_stages": ("GRU_MMA_BIG=128, 128, 2, 4, 4, 1",),
     "big_128x64": ("GRU_MMA_BIG=128, 64, 2, 2, 3, 2",),
@@ -625,28 +620,20 @@ def _route_sweep(kind: str, source: str) -> None:
             _emit(res)
 
 
-# Builds of the forward library timed by ``fwd``: the defaults, one TF32
-# pass (gru_mma.cuh's diagnostic, in both phases), and step tiles beside
-# the default (gru_fwd.cu's GRU_FWD_STEP, MmaCfg<BM, 3 x units, warps along
-# M, warps along N, stages, CTAs per SM>).
+# Builds of the forward library timed by ``fwd``: the defaults, the
+# routes and the wgmma ring, and step tiles beside the default (gru_fwd.cu's
+# GRU_FWD_STEP, MmaCfg<BM, 3 x units, warps along M, warps along N, stages,
+# CTAs per SM>).
 FWD_VARIANTS = {
     "default": (),
     "mma_sync": MMA_SYNC,
     # the wgmma kernel's ring and registers
     "wgmma_4_stages": ("GRU_WGMMA_STAGES=4", "GRU_WGMMA_REGS=56, 224"),
-    "one_pass": ("GRU_MMA_PASSES=1",),
     "step_128x32": ("GRU_FWD_STEP=128, 96, 4, 2, 3, 2",),
     "step_64x16": ("GRU_FWD_STEP=64, 48, 2, 1, 3, 4",),
     "step_warps_4x1": ("GRU_FWD_STEP=64, 96, 4, 1, 3, 2",),
     "step_3_ctas": ("GRU_FWD_STEP=64, 96, 2, 2, 3, 3",),
     "step_4_stages": ("GRU_FWD_STEP=64, 96, 2, 2, 4, 2",),
-    # the step kernel's split of K over a cluster capped at S (1: off, the
-    # kernel before the split)
-    "split_1": ("GRU_FWD_MAX_SPLIT=1",),
-    "split_2": ("GRU_FWD_MAX_SPLIT=2",),
-    "split_4": ("GRU_FWD_MAX_SPLIT=4",),
-    # S = 1 through the split's shared-memory epilogue, a cluster of 1
-    "one_epilogue": ("GRU_FWD_ONE_EPILOGUE=1",),
 }
 
 
