@@ -7,11 +7,12 @@ Run from the repository root with no arguments:
 
 or, for phases 1 and 2 and then the windowed backward with the frames'
 gradient at the ``b2t_gru`` cell's shape alone (row ``gru_wbwd_dx`` of
-phase 7), or the forward kernels at the shapes whose steps split K over a
-cluster alone (its last three rows):
+phase 7), or the forward or the backward kernels at the shapes whose
+sweep steps split K over a cluster alone (its last rows):
 
     python3 chip_smoke.py gru_wbwd_dx
     python3 chip_smoke.py fwd_split
+    python3 chip_smoke.py bwd_split
 
 Phases, each printing JSON lines; any failure exits non-zero and the ok
 line is never printed:
@@ -346,13 +347,20 @@ line is never printed:
    padded shape, against its plain version to 1e-5 of each output's
    largest value, its launches those of one ``BrainToTextGRU`` train step
    at the published widths (every forward step split over a cluster of
-   8), timed beside cuDNN's backward over the materialised windows
-   (``phase_kernel_wbwd_dx``). The last rows, ``gru_fwd_b2t``,
-   ``gru_wfwd_b2t`` and ``gru_fwd_fig5_train``, are the forward kernels at
-   the train cells' shapes whose steps split K over a cluster, against
-   their plain versions to KERNEL_ATOL, with the cluster size
-   (``step_split``) and the step kernel's µs a launch
-   (``phase_kernels_fwd_split``).
+   8, every backward sweep step over one of 16), timed beside cuDNN's
+   backward over the materialised windows (``phase_kernel_wbwd_dx``).
+   Rows ``gru_fwd_b2t``, ``gru_wfwd_b2t`` and ``gru_fwd_fig5_train`` are
+   the forward kernels at the train cells' shapes whose steps split K over
+   a cluster, against their plain versions to KERNEL_ATOL, with the
+   cluster size (``step_split``) and the step kernel's µs a launch
+   (``phase_kernels_fwd_split``); the last rows, ``gru_bwd_b2t``,
+   ``gru_wbwd_b2t`` and ``gru_bwd_fig5_train``, the backward kernels
+   there, dx formed, against their plain versions to 1e-5 of each
+   output's largest value, with the backward sweep's cluster size and
+   its step launch's µs (``phase_kernels_bwd_split``). These six rows'
+   launches are those this run counted in a train step of their cell
+   (row ``gru_wbwd_dx``'s b2t step, phase 4's fig_5 step); run alone
+   (``fwd_split``, ``bwd_split``) they are null.
 
 Then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA card, and in a directory without the port.
@@ -409,6 +417,9 @@ B2T_TRAIN_LAUNCHES = {"gru_fwd": 4, "gru_wfwd": 1, "gru_bifwd": 0,
 # H100's 132 SMs: b2t's 24 step tiles of B = 64, H = 768 split over 8 CTAs,
 # fig_5 train's 128 of B = 512, H = 512 over 2
 B2T_STEP_SPLIT, FIG5_TRAIN_B, FIG5_TRAIN_STEP_SPLIT = 8, 512, 2
+# the backward sweep's cluster size (gru_mma.cuh: step_split): b2t's 12 step
+# tiles of 64 x 64 over 16 CTAs, fig_5 train's 64 over 4
+B2T_BWD_STEP_SPLIT, FIG5_TRAIN_BWD_STEP_SPLIT = 16, 4
 # gru_wbwd with the frames' gradient vs its plain version, per output (max
 # |diff| over max |plain|): float32 sums in another order over at most
 # 244 x 64 (t, b) terms, the frames' gradient over 4 windows a frame
@@ -730,10 +741,13 @@ def main(argv=()) -> int:
     emit({"phase": "build", "seconds": build_s,
           "libraries": [_ext.library_path(s).name for s in _ext.SOURCES]})
     if list(argv) == ["gru_wbwd_dx"]:
-        emit({"kernels": [phase_kernel_wbwd_dx(torch, dev, gru)]})
+        emit({"kernels": [phase_kernel_wbwd_dx(torch, dev, gru)[0]]})
         return 0
     if list(argv) == ["fwd_split"]:
         emit({"kernels": phase_kernels_fwd_split(torch, dev, gru)})
+        return 0
+    if list(argv) == ["bwd_split"]:
+        emit({"kernels": phase_kernels_bwd_split(torch, dev, gru)})
         return 0
     if argv:
         raise SystemExit(f"chip_smoke: unknown arguments {list(argv)}")
@@ -6175,8 +6189,10 @@ def phase_kernels(torch, dev, gru, launches, s2s_launches):
         out.append(phase_kernel_bifwd(torch, dev, gru, gen,
                                       s2s_launches["gru_bifwd"]))
     out += phase_kernels_backward(torch, dev, gru, gen, h0, launches)
-    out.append(phase_kernel_wbwd_dx(torch, dev, gru))
-    out += phase_kernels_fwd_split(torch, dev, gru)
+    row, b2t_launches = phase_kernel_wbwd_dx(torch, dev, gru)
+    out.append(row)
+    out += phase_kernels_fwd_split(torch, dev, gru, b2t_launches, launches)
+    out += phase_kernels_bwd_split(torch, dev, gru, b2t_launches, launches)
     return out
 
 
@@ -6325,7 +6341,7 @@ def phase_kernel_wbwd_dx(torch, dev, gru):
     the call without dx; timed beside the plain version, the call without
     dx and ``torch.nn.GRU``'s backward (cuDNN) over the windows
     materialised in float32, dx formed. Returns the kernels line's row
-    ``gru_wbwd_dx``."""
+    ``gru_wbwd_dx`` and the train step's launches by wrapper."""
     from cross_patient_speech_decoding_tpu_torch.models import (
         BrainToTextGRU,
     )
@@ -6359,6 +6375,7 @@ def phase_kernel_wbwd_dx(torch, dev, gru):
     loss = float(met["loss"])
     step_launches = dict(gru.LAUNCHES)
     step_splits = gru.step_counts()
+    bwd_splits = gru.bwd_step_counts()
     del model, state, step, batch, met
     torch.cuda.empty_cache()
 
@@ -6421,6 +6438,7 @@ def phase_kernel_wbwd_dx(torch, dev, gru):
           "bitwise_repeat": repeat, "launches_per_call": per_call,
           "b2t_train_step_launches": step_launches, "b2t_train_loss": loss,
           "b2t_train_step_splits": step_splits,
+          "b2t_train_bwd_step_splits": bwd_splits,
           "no_dx_ms": no_dx_ms,
           "others_bitwise_equal_without_dx": others_equal,
           "library_note": "torch.nn.GRU backward (cuDNN) over the windows "
@@ -6445,12 +6463,20 @@ def phase_kernel_wbwd_dx(torch, dev, gru):
         raise RuntimeError(f"gru_wbwd_dx: the b2t train step's forward "
                            f"steps by cluster size {step_splits}, not "
                            f"{want_splits}")
+    # and its backward sweeps: one launch a step, all in clusters of 16
+    want_bwd = {s_: B2T_L * n_win if s_ == B2T_BWD_STEP_SPLIT else 0
+                for s_ in gru.BWD_STEP_SPLITS}
+    if bwd_splits != want_bwd:
+        raise RuntimeError(f"gru_wbwd_dx: the b2t train step's backward "
+                           f"steps by cluster size {bwd_splits}, not "
+                           f"{want_bwd}")
     if not math.isfinite(loss):
         raise RuntimeError(f"b2t train step loss {loss}")
-    return row
+    return row, step_launches
 
 
-def phase_kernels_fwd_split(torch, dev, gru):
+def phase_kernels_fwd_split(torch, dev, gru, b2t_launches=None,
+                            fig5_launches=None):
     """The forward kernels at the shapes whose steps split K over a
     cluster (``gru_fwd.cu``: ``step_split``): ``gru_fwd`` at b2t_gru's
     layers 1-4 (T 244, B 64, F = H = 768, f32 x) and ``gru_wfwd`` at its
@@ -6460,9 +6486,13 @@ def phase_kernels_fwd_split(torch, dev, gru):
     to KERNEL_ATOL, two calls bitwise equal, the call's step launches all
     of the cluster size the shape takes on the H100 (``step_counts``);
     timed beside the plain version and ``torch.nn.GRU`` (cuDNN), with the
-    step kernel's device µs a launch from a profiled call. Returns the
-    kernels line's rows ``gru_fwd_b2t``, ``gru_wfwd_b2t`` and
-    ``gru_fwd_fig5_train``."""
+    step kernel's device µs a launch from a profiled call. A row's
+    ``launches`` are those of one train step of its cell as this run
+    counted them (``b2t_launches``: ``phase_kernel_wbwd_dx``'s;
+    ``fig5_launches``: ``phase_ctc_train``'s), null where this run did
+    not count them. Returns the kernels line's rows ``gru_fwd_b2t``,
+    ``gru_wfwd_b2t`` and ``gru_fwd_fig5_train``."""
+    b2t_launches, fig5_launches = b2t_launches or {}, fig5_launches or {}
     gen = torch.Generator(device=dev).manual_seed(23)
     Tb, Bb, Cb, Hb, n_win = B2T_T, B2T_B, B2T_C, B2T_H, B2T_N_WIN
     Bf = FIG5_TRAIN_B
@@ -6478,13 +6508,13 @@ def phase_kernels_fwd_split(torch, dev, gru):
     wf = _weights(torch, gen, dev, H, H)
     cases = (
         ("gru_fwd_b2t", "pallas_gru.py:80", B2T_STEP_SPLIT,
-         B2T_TRAIN_LAUNCHES["gru_fwd"], lambda: gru.gru_fwd_cuda(xb, hb, *wb),
+         b2t_launches.get("gru_fwd"), lambda: gru.gru_fwd_cuda(xb, hb, *wb),
          lambda: gru.gru_layer_plain(xb, hb, *wb), wb, lambda: xb, hb,
          _fwd_flops(n_win * Bb, Hb, Hb, x_bf16=False),
          _nbytes(xb, hb, *wb) + n_win * Bb * Hb * 4,
          {"x": [n_win, Bb, Hb], "dtype": "f32", "hs": [n_win, Bb, Hb]}),
         ("gru_wfwd_b2t", "pallas_gru.py:263", B2T_STEP_SPLIT,
-         B2T_TRAIN_LAUNCHES["gru_wfwd"],
+         b2t_launches.get("gru_wfwd"),
          lambda: gru.gru_wfwd_cuda(frames, hb, *w0, WIN, STRIDE),
          lambda: gru.gru_layer_windowed_plain(frames, hb, *w0, WIN, STRIDE),
          w0, lambda: gru.reformat_time_windows(
@@ -6495,7 +6525,8 @@ def phase_kernels_fwd_split(torch, dev, gru):
          {"frames": [Tb, Bb, Cb], "dtype": "bf16", "win": WIN,
           "stride": STRIDE, "hs": [n_win, Bb, Hb]}),
         ("gru_fwd_fig5_train", "pallas_gru.py:80", FIG5_TRAIN_STEP_SPLIT,
-         TRAIN_LAUNCHES["gru_fwd"], lambda: gru.gru_fwd_cuda(xf, hf, *wf),
+         fig5_launches.get("gru_fwd"),
+         lambda: gru.gru_fwd_cuda(xf, hf, *wf),
          lambda: gru.gru_layer_plain(xf, hf, *wf), wf, lambda: xf, hf,
          _fwd_flops(N_WIN * Bf, H, H, x_bf16=False),
          _nbytes(xf, hf, *wf) + N_WIN * Bf * H * 4,
@@ -6547,6 +6578,130 @@ def phase_kernels_fwd_split(torch, dev, gru):
                 raise RuntimeError(f"{name}: step launches by cluster size "
                                    f"{splits}, not {want_splits}")
             out.append(row)
+    return out
+
+
+def phase_kernels_bwd_split(torch, dev, gru, b2t_launches=None,
+                            fig5_launches=None):
+    """The backward kernels at the train cells' shapes whose sweep steps
+    split K = 3H over a cluster (``gru_mma.cuh``: ``step_split``), each step
+    one launch that also forms the next step's gate gradients: ``gru_bwd``
+    at b2t_gru's layers 1-4 (T 244, B 64, F = H = 768, f32 x, dx formed)
+    and ``gru_wbwd`` at its layer 0 with the frames' gradient (244 windows
+    of 14 x 4 over 988 bf16 frames of 512, H 768), both at the cell's mean
+    padded length, and ``gru_bwd`` at fig_5 train's layers 1-2 (T 147,
+    B 512, F = H = 512, dx formed). Each against its plain version (every
+    output within ``B2T_GRAD_RTOL`` x its largest value), two calls bitwise
+    equal, the call's sweep launches one a step, all of the cluster size
+    the shape takes on the H100 (``bwd_step_counts``); timed beside the
+    plain version and ``torch.nn.GRU``'s backward (cuDNN), with the step
+    kernel's device µs a launch from a profiled call. A row's
+    ``launches`` are those of one train step of its cell as this run
+    counted them, null where it did not (``phase_kernels_fwd_split``).
+    Returns the kernels line's rows ``gru_bwd_b2t``, ``gru_wbwd_b2t`` and
+    ``gru_bwd_fig5_train``."""
+    b2t_launches, fig5_launches = b2t_launches or {}, fig5_launches or {}
+    gen = torch.Generator(device=dev).manual_seed(25)
+    Tb, Bb, Cb, Hb, n_win = B2T_T, B2T_B, B2T_C, B2T_H, B2T_N_WIN
+    Bf = FIG5_TRAIN_B
+    F0 = WIN * Cb
+    frames = torch.randn((Bb, Tb, Cb), generator=gen, device=dev).to(
+        torch.bfloat16).transpose(0, 1)
+    w0 = _weights(torch, gen, dev, F0, Hb)
+    hb = torch.rand((n_win, Bb, Hb), generator=gen, device=dev) * 2 - 1
+    db = torch.randn((n_win, Bb, Hb), generator=gen, device=dev) * 1e-3
+    xb = torch.rand((n_win, Bb, Hb), generator=gen, device=dev) * 2 - 1
+    wb = _weights(torch, gen, dev, Hb, Hb)
+    hf = torch.rand((N_WIN, Bf, H), generator=gen, device=dev) * 2 - 1
+    df = torch.randn((N_WIN, Bf, H), generator=gen, device=dev) * 1e-3
+    xf = torch.rand((N_WIN, Bf, H), generator=gen, device=dev) * 2 - 1
+    wf = _weights(torch, gen, dev, H, H)
+
+    def windows():
+        return gru.reformat_time_windows(
+            frames.transpose(0, 1), WIN, STRIDE).transpose(0, 1).float()
+
+    cases = (
+        ("gru_bwd_b2t", "pallas_gru.py:569", B2T_BWD_STEP_SPLIT,
+         b2t_launches.get("gru_bwd"),
+         lambda: gru.gru_bwd_cuda(xb, hb, db, *wb),
+         lambda: gru.gru_backward_plain(xb, hb, db, *wb), wb, lambda: xb,
+         hb, db, _bwd_flops(n_win * Bb, Hb, Hb, x_bf16=False, need_dx=True),
+         _nbytes(xb, hb, db, *wb) * 2 - _nbytes(hb, db) + Bb * Hb * 4,
+         {"x": [n_win, Bb, Hb], "dtype": "f32", "need_dx": True}),
+        ("gru_wbwd_b2t", "pallas_gru.py:287", B2T_BWD_STEP_SPLIT,
+         b2t_launches.get("gru_wbwd"),
+         lambda: gru.gru_wbwd_cuda(frames, hb, db, *w0, WIN, STRIDE,
+                                   need_dx=True),
+         lambda: gru.gru_win_backward_plain(frames, hb, db, *w0, WIN,
+                                            STRIDE, need_dx=True),
+         w0, lambda: windows().contiguous(), hb, db,
+         _bwd_flops(n_win * Bb, F0, Hb, x_bf16=True, need_dx=True),
+         frames.numel() * 2 + _nbytes(hb, db) + 2 * _nbytes(*w0)
+         + Bb * Hb * 4 + Tb * Bb * Cb * 4,
+         {"frames": [Tb, Bb, Cb], "dtype": "bf16", "win": WIN,
+          "stride": STRIDE, "H": Hb, "n_win": n_win, "need_dx": True}),
+        ("gru_bwd_fig5_train", "pallas_gru.py:569",
+         FIG5_TRAIN_BWD_STEP_SPLIT, fig5_launches.get("gru_bwd"),
+         lambda: gru.gru_bwd_cuda(xf, hf, df, *wf),
+         lambda: gru.gru_backward_plain(xf, hf, df, *wf), wf, lambda: xf,
+         hf, df, _bwd_flops(N_WIN * Bf, H, H, x_bf16=False, need_dx=True),
+         _nbytes(xf, hf, df, *wf) * 2 - _nbytes(hf, df) + Bf * H * 4,
+         {"x": [N_WIN, Bf, H], "dtype": "f32", "need_dx": True}),
+    )
+    out = []
+    for (name, replaces, split, launches, kernel, plain, w, lib_x, hp, dhs,
+         flops, bytes_, shapes) in cases:
+        steps = hp.shape[0]
+        gru.reset_launch_counts()
+        got = kernel()
+        splits = gru.bwd_step_counts()
+        repeat = _bitwise_repeat(torch, got, kernel())
+        want = plain()
+        errs = _bwd_errs(got, want)
+        abs_err = max(float((g - w_).abs().max())
+                      for g, w_ in zip(got, want) if w_ is not None)
+        del got, want
+        # cuDNN: forward once from h_0, then time the backward alone, dx
+        # formed as the kernel forms it
+        lib = _library_gru(torch, *w)
+        xl = lib_x().detach().requires_grad_(True)
+        h0l = hp[0][None].detach().requires_grad_()
+        hs_l, _ = lib(xl, h0l)
+        wrt = [h0l, *lib.parameters(), xl]
+        times = (cuda_ms(torch, kernel), cuda_ms(torch, plain),
+                 cuda_ms(torch, lambda: torch.autograd.grad(
+                     hs_l, wrt, dhs, retain_graph=True)))
+        del hs_l, xl, lib
+        _, prof = profile_call(torch, kernel, cpu=False,
+                               match="bwd_step_kernel")
+        step_us = prof["device_ms_bwd_step_kernel"] * 1e3 / steps
+        row, extra = _row(name, "gru_bwd.cu", "cross_patient_speech_"
+                          f"decoding_tpu/ops/{replaces}", launches, abs_err,
+                          times, flops, bytes_)
+        row.update({"step_split": max(
+            (s_ for s_, n in splits.items() if n), default=0),
+            "step_us": step_us})
+        want_splits = {s_: steps if s_ == split else 0
+                       for s_ in gru.BWD_STEP_SPLITS}
+        emit({"phase": "kernel", **row, **extra,
+              "bound_scheme": "3xTF32 tensor cores (495/3 TFLOP/s); bf16 A "
+                              "operands 2xTF32 (495/2)",
+              "step_launches_by_split": splits, "max_rel_err": errs,
+              "tolerance_rel": B2T_GRAD_RTOL, "bitwise_repeat": repeat,
+              "library_note": "torch.nn.GRU backward (cuDNN), dx formed"
+                              + ("" if name.startswith("gru_bwd")
+                                 else ", on materialised windows"),
+              "shapes": shapes})
+        bad = {k: v for k, v in errs.items() if not v <= B2T_GRAD_RTOL}
+        if bad:
+            raise RuntimeError(f"{name} differs from plain: {bad}")
+        if not repeat:
+            raise RuntimeError(f"{name}: two runs are not bitwise equal")
+        if splits != want_splits:
+            raise RuntimeError(f"{name}: sweep launches by cluster size "
+                               f"{splits}, not {want_splits}")
+        out.append(row)
     return out
 
 

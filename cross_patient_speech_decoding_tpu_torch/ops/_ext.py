@@ -58,7 +58,9 @@ SOURCES = {
         # n_steps, B, F, H, need_dx, part, wimg (out: floats of the two
         # scratches)
         "gru_bwd_sizes": (_I,) * 5 + (_LLP, _LLP),
-        # counts (out: weight products on wgmma, on mma.sync), reset
+        # counts (out: weight products on wgmma, on mma.sync, then the
+        # sweep's step launches whose cluster split K over 1, 2, 4, 8, 16
+        # CTAs), reset
         "gru_bwd_counts": (_LLP, _I),
         # x..., hprev, dhs, wi, bi, wh, bh, g, dhz, dh0, dx, part, dwi, dwh,
         # wimg, T, B, F, H, reverse, stream

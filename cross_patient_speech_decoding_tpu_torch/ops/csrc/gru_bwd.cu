@@ -43,14 +43,35 @@
 //      layer's x is the overlapping (n_win, B, win*C) view of its
 //      batch-major frames (ops/gru.py: _windows), read in place.
 //   2. The sweep, one step at a time from the host loop below (the launch
-//      boundary is the grid-wide barrier), two launches a step:
-//      step_grad_kernel reads g[t], hprev[t], dhs[t] and the carried dh,
-//      overwrites g[t] in place with [dr | dz | dn | dgn] and writes d z;
-//      then the tensor-core product dgh Wh^T (B x 3H by 3H x H), dgh read
-//      from g[t] as two column runs ([dr | dz] and dgn), split over K into
-//      a few partial sums so that its small grid fills the card; the next
-//      step's elementwise pass forms dh' = d z + the partials in a fixed
-//      order.
+//      boundary is the grid-wide barrier), one launch a step after an
+//      elementwise launch that forms the first step's gate gradients
+//      (nothing carried in): it overwrites g[t] in place with
+//      [dr | dz | dn | dgn] and writes d z. The launch of step t
+//      (bwd_step_kernel) forms dh' = dgh Wh^T (B x 3H by 3H x H), dgh read
+//      from g[t] as two column runs ([dr | dz] against Wh[:, :2H]^T, dgn
+//      against Wh[:, 2H:]^T). Where a step has few tiles (B = 64, H = 768:
+//      12 tiles of 132 SMs) one tile's K is split over a thread-block
+//      cluster of S CTAs (step_split: S in {1, 2, 4, 8, 16}, from the shape
+//      and the card alone): rank r multiplies its contiguous run of the
+//      k-tiles, leaves its partial tile in its own shared memory (the
+//      ring, free by then) and, after a cluster barrier, sums rows
+//      [r BM/S, (r+1) BM/S) of the S partial tiles through distributed
+//      shared memory in rank order 0..S-1, as the forward's step kernel
+//      does (gru_fwd.cu). The rank then holds the whole dh'(b, j) of its
+//      rows, adds d z of step t and applies the gate gradients of the next
+//      step t' at the same (b, j): reads g[t'], hprev[t'] and dhs[t'],
+//      overwrites g[t'] and writes d' z' (dh0 after the last step). That
+//      is elementwise in (b, j), each (b, j) has one owner in the grid,
+//      and the launch reads g[t] and writes only g[t'] and d z, so the
+//      launch boundary stays the barrier between steps: T + 1 launches a
+//      call. The epilogue reads and writes runs of four units a thread
+//      from the block's sums in shared memory, at S = 1 too (the CTA's own
+//      tile): read from the accumulators' fragments (two units a thread,
+//      eight rows a warp), the same epilogue ran a step at fig_5's
+//      B = 2000 in 139 µs against 102 on an H100 (PERF.md, section 6).
+//      The clusters are placed by the load-balancing policy
+//      (cluster_config, gru_mma.cuh). No float atomics and no global
+//      partials: the sums run in a fixed order from the shape alone.
 //   3. After the sweep, off the recurrence: dx = dgi Wi^T over all N rows
 //      when asked (for the windowed layer the windows' gradient, which
 //      gru_fold_windows then sums onto the frames), and [dWi; dbi] = [x, 1]^T dgi, [dWh; dbh] = [hprev, 1]^T
@@ -59,13 +80,14 @@
 //      split over CTAs into a fixed number of partial sums, which
 //      sum_parts_kernel adds in a fixed order: no float atomics, so two runs
 //      give the same gradients bit for bit.
-// The elementwise pass stays its own launch: fusing it into the dh'
-// product's A loads would have every column block recompute its rows'
-// gradients from g, and the pass is a small share of the step. So does the
-// windows' fold: the dx product keeps the wgmma route and epilogue it has
-// for gru_bwd, and the fold reads the product's output once (n_win B win C
-// floats, 0.45 GB at B 64 and 244 windows of 14 x 512) at the memory's
-// rate, a small share of the product's time at that shape.
+// The gate gradients are formed once, in the product's epilogue, where
+// one CTA holds the whole K sum of its (b, j); forming them in the A loads
+// instead would have every column block recompute its rows' gradients
+// from g. The windows' fold stays its own launch: the dx product keeps the
+// wgmma route and epilogue it has for gru_bwd, and the fold reads the
+// product's output once (n_win B win C floats, 0.45 GB at B 64 and 244
+// windows of 14 x 512) at the memory's rate, a small share of the
+// product's time at that shape.
 //
 // What bounds it. The products are 2 N 3H (3F + 3H) FLOPs (recompute,
 // dh Wh^T, dx, dWi, dWh; 2F + 3H without dx) against O(N (F + H)) bytes:
@@ -77,53 +99,279 @@
 // the layer) is written once, read and rewritten once in the sweep, and
 // read three times after it: ~10 GB, a few ms beside the products.
 
+#include <cooperative_groups.h>
+
 #include "gru_mma.cuh"
 #include "gru_tile.cuh"
 
 namespace {
 
-// The carried gradient dh = dhz + dhp[0] + ... + dhp[n_part - 1] (B, H),
-// summed in that order: d z of the step before and the n_part partial sums
-// of its dgh Wh^T over K; 0 when n_part = 0 (the first step of the sweep).
-__device__ __forceinline__ float carried(const float* __restrict__ dhz,
-                                         const float* __restrict__ dhp,
-                                         int n_part, long long BH,
-                                         long long o) {
-  if (n_part == 0) return 0.0f;
-  float v = dhz[o];
-  for (int z = 0; z < n_part; ++z) v += dhp[z * BH + o];
-  return v;
+namespace cg = cooperative_groups;
+
+// The gate gradients of one step at one (b, j) from d = the gradient
+// carried into it + dhs: pre holds its pre-activations [r | z | in | hn]
+// (biases in) and receives [dr | dz | dn | dgn]; returns d z.
+__device__ __forceinline__ float gate_grads(float (&pre)[4], float hprev,
+                                            float d) {
+  const float r = sigmoid_f32(pre[0]);
+  const float z = sigmoid_f32(pre[1]);
+  const float ghn = pre[3];
+  const float n = tanhf(pre[2] + r * ghn);
+  const float dz = d * (hprev - n) * z * (1.0f - z);
+  const float dn = d * (1.0f - z) * (1.0f - n * n);
+  pre[0] = dn * ghn * r * (1.0f - r);
+  pre[1] = dz;
+  pre[2] = dn;
+  pre[3] = dn * r;
+  return d * z;
 }
 
-// Gate gradients of step t for one (b, j): g points at the step's (B, 4H)
-// pre-activations [r_pre | z_pre | in_pre | hn_pre] (biases in), which are
-// replaced by [dr | dz | dn | dgn]; dhz (read as the carried gradient's
-// first term, then) = d * z.
-__global__ void step_grad_kernel(float* __restrict__ g,
-                                 const float* __restrict__ hprev,
-                                 const float* __restrict__ dhs,
-                                 float* __restrict__ dhz,
-                                 const float* __restrict__ dhp, int n_part,
-                                 int B, int H) {
+// The first step of the sweep, one thread a (b, j): nothing carried in.
+// g is the step's (B, 4H) [r | z | in | hn] rows, replaced by its gate
+// gradients; dhz receives d z.
+__global__ void first_step_kernel(float* __restrict__ g,
+                                  const float* __restrict__ hprev,
+                                  const float* __restrict__ dhs,
+                                  float* __restrict__ dhz, int B, int H) {
   const long long BH = static_cast<long long>(B) * H;
   const long long o = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (o >= BH) return;
   const int b = static_cast<int>(o / H);
   const int j = static_cast<int>(o - static_cast<long long>(b) * H);
-  float* __restrict__ gb = g + static_cast<long long>(b) * 4 * H;
-  const float r = sigmoid_f32(gb[j]);
-  const float z = sigmoid_f32(gb[H + j]);
-  const float ghn = gb[3 * H + j];
-  const float n = tanhf(gb[2 * H + j] + r * ghn);
-  const float d = carried(dhz, dhp, n_part, BH, o) + dhs[o];
-  const float dz = d * (hprev[o] - n) * z * (1.0f - z);
-  const float dn = d * (1.0f - z) * (1.0f - n * n);
-  gb[j] = dn * ghn * r * (1.0f - r);
-  gb[H + j] = dz;
-  gb[2 * H + j] = dn;
-  gb[3 * H + j] = dn * r;
-  dhz[o] = d * z;
+  float* gb = g + static_cast<long long>(b) * 4 * H + j;
+  float pre[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) pre[q] = gb[q * H];
+  dhz[o] = gate_grads(pre, hprev[o], dhs[o]);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) gb[q * H] = pre[q];
+}
+
+// One launch of the sweep: step t's product and step t''s gate gradients.
+// seg[0] is [dr | dz] of g[t] against Wh[:, :2H]^T, seg[1] dgn of g[t]
+// against Wh[:, 2H:]^T (K = 3H in two runs of k-tiles). gn, hprev and dhs
+// are step t''s rows; gn null at the last step, whose carried gradient
+// goes to dh0.
+struct BwdStepArgs {
+  MmaSeg seg[2];
+  float* gn;
+  const float* hprev;
+  const float* dhs;
+  float* dhz;
+  float* dh0;
+  int B, H;
+  int vec;  // H % 4 == 0 and every stream 16-byte aligned: float4 access
+};
+
+// The epilogue's operands at units j..j+3 of row m (those below H): d z
+// of step t, and step t''s hprev, dhs and pre-activations r, z, in, hn.
+struct EpIn {
+  float dhz[4], hp[4], ds[4], pre[4][4];
+};
+
+__device__ __forceinline__ void load4(const float* __restrict__ a, int n,
+                                      bool vec, float (&v)[4]) {
+  if (vec) {
+    const float4 w = *reinterpret_cast<const float4*>(a);
+    v[0] = w.x, v[1] = w.y, v[2] = w.z, v[3] = w.w;
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = u < n ? a[u] : 0.0f;
+  }
+}
+
+__device__ __forceinline__ void store4(float* __restrict__ a, int n, bool vec,
+                                       const float (&v)[4]) {
+  if (vec) {
+    *reinterpret_cast<float4*>(a) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (u < n) a[u] = v[u];
+  }
+}
+
+// Read the epilogue's operands (n = the units of the four below H)
+__device__ __forceinline__ void epilogue_load(const BwdStepArgs& p,
+                                              long long m, int j, int n,
+                                              EpIn& e) {
+  const bool vec = p.vec && n == 4;
+  const long long o = m * p.H + j;
+  load4(p.dhz + o, n, vec, e.dhz);
+  if (p.gn == nullptr) return;
+  load4(p.hprev + o, n, vec, e.hp);
+  load4(p.dhs + o, n, vec, e.ds);
+  const float* gb = p.gn + m * 4 * p.H + j;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) load4(gb + q * p.H, n, vec, e.pre[q]);
+}
+
+// The epilogue at units j..j+3 of row m from the whole product sums v of
+// step t: the gradient carried out of t is c = d z + v; at the last step
+// it is dh0, else step t''s gate gradients take it.
+__device__ __forceinline__ void epilogue_store(const BwdStepArgs& p,
+                                               long long m, int j, int n,
+                                               const EpIn& e,
+                                               const float (&v)[4]) {
+  const bool vec = p.vec && n == 4;
+  const long long o = m * p.H + j;
+  float c[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) c[u] = e.dhz[u] + v[u];
+  if (p.gn == nullptr) {
+    store4(p.dh0 + o, n, vec, c);
+    return;
+  }
+  float out[4][4], dz_out[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    float pre[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) pre[q] = e.pre[q][u];
+    dz_out[u] = gate_grads(pre, e.hp[u], c[u] + e.ds[u]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) out[q][u] = pre[q];
+  }
+  float* gb = p.gn + m * 4 * p.H + j;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) store4(gb + q * p.H, n, vec, out[q]);
+  store4(p.dhz + o, n, vec, dz_out);
+}
+
+// One step of the sweep (see the note at the head): the BM x BN block of
+// dh' of tile blockIdx.x / S, whose K this CTA shares with the S - 1
+// others of its cluster (S = 1: no cluster, the whole K).
+template <class C, int S>
+__global__ void __launch_bounds__(C::NT, C::MIN_BLOCKS)
+    bwd_step_kernel(const BwdStepArgs p) {
+  constexpr int STAGE = stage_bytes<C, false, false>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  // column blocks run fastest, so that the CTAs that read the same rows
+  // of g[t] run together
+  const int n_tn = (p.H + C::BN - 1) / C::BN;
+  const int tile = blockIdx.x / S;
+  MmaCtx c = {};
+  c.m0 = static_cast<long long>(tile / n_tn) * C::BM;
+  c.M = p.B;
+  c.n0 = (tile % n_tn) * C::BN;
+  c.N = p.H;
+  // this CTA's run of K's tiles over both segments: contiguous, as even
+  // as possible, none empty (step_split keeps S <= n_k)
+  int rank = 0;
+  if constexpr (S > 1) {
+    rank = static_cast<int>(cg::this_cluster().block_rank());
+  }
+  const int nk0 = (p.seg[0].K + C::BK - 1) / C::BK;
+  const int n_k = nk0 + (p.seg[1].K + C::BK - 1) / C::BK;
+  const int kt0 = rank * n_k / S;
+  const int n_it = (rank + 1) * n_k / S - kt0;
+
+  auto issue = [&](int i) {
+    unsigned char* st = smem + (i % C::STAGES) * STAGE;
+    const int kt = kt0 + i;
+    if (kt < nk0) {
+      stage_a<C, float, false>(st, p.seg[0], c, kt * C::BK);
+      stage_b<C, false, false>(st, p.seg[0], c, kt * C::BK);
+    } else {
+      stage_a<C, float, false>(st, p.seg[1], c, (kt - nk0) * C::BK);
+      stage_b<C, false, false>(st, p.seg[1], c, (kt - nk0) * C::BK);
+    }
+  };
+
+  float acc[C::MI][C::NI][4];
+#pragma unroll
+  for (int mi = 0; mi < C::MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < C::NI; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < C::STAGES - 1; ++s) {
+    if (s < n_it) issue(s);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_it; ++i) {
+    cp_async_wait<C::STAGES - 2>();
+    __syncthreads();  // tile i landed; every warp is done with i - 1
+    if (i + C::STAGES - 1 < n_it) issue(i + C::STAGES - 1);
+    cp_async_commit();
+    mma_stage<C, float, false, false>(smem + (i % C::STAGES) * STAGE, acc);
+  }
+  cp_async_wait<0>();
+
+  // The block's sums go through shared memory, so that the epilogue reads
+  // and writes runs of four units a thread. acc[mi][ni][2h + e] holds row
+  // g + 8h of the warp's tile mi, column ni 8 + 2t + e of its tile
+  // columns; the partial tile is [row][column] at pitch RP (8 mod 32: the
+  // float2 stores of a half-warp hit 32 distinct banks), in the ring.
+  constexpr int RP = C::BN + 8, RB = C::BM / S, G4 = C::BN / 4;
+  static_assert(C::BM % S == 0, "the tile's rows divide over the ranks");
+  static_assert(RP % 32 == 8, "conflict-free partial tile stores");
+  static_assert(C::BM * RP * 4 <= C::STAGES * STAGE,
+                "the partial tile fits in the ring");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp / C::WARPS_N) * C::WM;
+  const int wn = (warp % C::WARPS_N) * C::WN;
+  float* red = reinterpret_cast<float*>(smem);
+  __syncthreads();  // every warp is done with the ring
+#pragma unroll
+  for (int mi = 0; mi < C::MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < C::NI; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = wm + mi * 16 + g + h * 8;
+        *reinterpret_cast<float2*>(red + row * RP + wn + ni * 8 + 2 * t) =
+            make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+      }
+  const float* part[S];
+  if constexpr (S > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // every rank's partial tile written
+#pragma unroll
+    for (int r = 0; r < S; ++r) part[r] = cluster.map_shared_rank(red, r);
+  } else {
+    __syncthreads();
+    part[0] = red;
+  }
+  // the rank's rows, four units a thread, two runs of them at once: their
+  // operands are read before any sum is formed, so that the reads of the
+  // epilogue are in flight together
+  constexpr int BATCH = 2;
+  for (int q0 = threadIdx.x; q0 < RB * G4; q0 += BATCH * C::NT) {
+    EpIn in[BATCH];
+    long long m[BATCH];
+    int j[BATCH], n[BATCH], o[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int q = q0 + u * C::NT;
+      const int row = rank * RB + q / G4, col = (q % G4) * 4;
+      m[u] = c.m0 + row;
+      j[u] = c.n0 + col;
+      o[u] = row * RP + col;
+      n[u] = q < RB * G4 && m[u] < p.B ? min(4, p.H - j[u]) : 0;
+      if (n[u] > 0) epilogue_load(p, m[u], j[u], n[u], in[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      if (n[u] <= 0) continue;
+      float4 v = *reinterpret_cast<const float4*>(part[0] + o[u]);
+#pragma unroll
+      for (int r = 1; r < S; ++r) {
+        const float4 w = *reinterpret_cast<const float4*>(part[r] + o[u]);
+        v.x += w.x, v.y += w.y, v.z += w.z, v.w += w.w;
+      }
+      const float sums[4] = {v.x, v.y, v.z, v.w};
+      epilogue_store(p, m[u], j[u], n[u], in[u], sums);
+    }
+  }
+  if constexpr (S > 1) {
+    // no CTA leaves while a peer reads its partial tile
+    cg::this_cluster().sync();
+  }
 }
 
 // The frames' gradient from the windows': dx[b, f, c] (batch-major, T
@@ -154,15 +402,6 @@ __global__ void fold_windows_kernel(const float* __restrict__ dxw,
   dx[e] = v;
 }
 
-// dh0 = the gradient carried out of the last step
-__global__ void carried_kernel(const float* __restrict__ dhz,
-                               const float* __restrict__ dhp, int n_part,
-                               long long BH, float* __restrict__ dh) {
-  const long long o = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (o < BH) dh[o] = carried(dhz, dhp, n_part, BH, o);
-}
-
 // out[e] = sum_{p < n_part} part[p*n + e], in the order p = 0, 1, ...
 __global__ void sum_parts_kernel(const float* __restrict__ part, int n_part,
                                  long long n, float* __restrict__ out) {
@@ -174,21 +413,17 @@ __global__ void sum_parts_kernel(const float* __restrict__ part, int n_part,
   out[e] = v;
 }
 
-// The step product's K split: about one wave of CTAs (MIN_BLOCKS MmaSmall
-// CTAs on each of the H100's 132 SMs), at most MAX_DH_PARTS parts.
-constexpr int DH_CTAS = MmaSmall::MIN_BLOCKS * 132;
-constexpr int MAX_DH_PARTS = 4;
+
 // The weight gradients' row split: as many CTAs as fit in four waves of
 // one MmaBig CTA on each SM, at most DW_MAX_SPLIT partials.
 constexpr long long DW_CTAS = 4 * 132;
 constexpr long long DW_MAX_SPLIT = 64;
 
-// How a backward of n_steps x B rows splits its sums, from the shapes
-// alone (so a run repeats its sums bit for bit), and the floats of the
-// `part` scratch that the splits fill.
+// How a backward of n_steps x B rows splits its weight gradients' sums,
+// from the shapes alone (so a run repeats its sums bit for bit), and the
+// floats of the `part` scratch that the splits fill.
 struct BwdPlan {
   int split_i, split_h;  // partials of [dWi; dbi] and [dWh; dbh]
-  int n_kz, kt_per;      // the step product's K split, tiles per part
   long long part;
 };
 
@@ -212,22 +447,30 @@ BwdPlan bwd_plan(int n_steps, int B, int F, int H) {
   const long long N = static_cast<long long>(n_steps) * B;
   pl.split_i = dw_split(F, H, N);
   pl.split_h = dw_split(H, H, N);
-  const int tiles = ((B + MmaSmall::BM - 1) / MmaSmall::BM) *
-                    ((H + MmaSmall::BN - 1) / MmaSmall::BN);
-  const int k_tiles = (2 * H + MmaSmall::BK - 1) / MmaSmall::BK +
-                      (H + MmaSmall::BK - 1) / MmaSmall::BK;
-  int n_kz = (DH_CTAS + tiles / 2) / tiles;
-  n_kz = n_kz < 1 ? 1 : (n_kz > MAX_DH_PARTS ? MAX_DH_PARTS : n_kz);
-  n_kz = n_kz > k_tiles ? k_tiles : n_kz;
-  pl.kt_per = (k_tiles + n_kz - 1) / n_kz;
-  pl.n_kz = (k_tiles + pl.kt_per - 1) / pl.kt_per;
-  const long long H3 = 3LL * H;
-  const long long a = pl.split_i * (F + 1LL) * H3;
-  const long long b = pl.split_h * (H + 1LL) * H3;
-  const long long c = static_cast<long long>(pl.n_kz) * B * H;
-  pl.part = a > b ? (a > c ? a : c) : (b > c ? b : c);
+  const long long a = pl.split_i * (F + 1LL) * 3 * H;
+  const long long b = pl.split_h * (H + 1LL) * 3 * H;
+  pl.part = a > b ? a : b;
   return pl;
 }
+
+// Sweep launches by cluster size since the last reset (gru_bwd_counts):
+// [k] counts S = 2^k.
+long long g_steps[5] = {0, 0, 0, 0, 0};
+
+// The step kernel as the cluster launcher (gru_mma.cuh) takes it: at most
+// 16 CTAs a cluster (the largest Hopper takes, a non-portable size)
+struct BwdStep {
+  using Args = BwdStepArgs;
+  template <int S>
+  static auto kernel() {
+    return &bwd_step_kernel<MmaSmall, S>;
+  }
+  static constexpr int NT = MmaSmall::NT, MIN_BLOCKS = MmaSmall::MIN_BLOCKS;
+  static constexpr int SMEM =
+      MmaSmall::STAGES * stage_bytes<MmaSmall, false, false>();
+  static constexpr int MAX_SPLIT = 16;
+  static long long* counts() { return g_steps; }
+};
 
 // [dW; db] (M + 1, 3H) = sum over all N data rows of [A_row, 1]^T G_row,
 // G the step's gate gradients at columns 0..3H of g, or (gapped)
@@ -337,31 +580,48 @@ int run_backward(const void* x, long long sx_t, long long sx_b,
                                               on_wgmma, stream)));
   }
 
-  // 2. the sweep. dgh Wh^T = [dr | dz] Wh[:, :2H]^T + dgn Wh[:, 2H:]^T is
-  // split over K into n_kz partial sums (into part), so that the step's
-  // small grid fills the card; the next step's elementwise pass adds them
-  // to d z in a fixed order.
-  const int n_kz = pl.n_kz;
-  const unsigned ew_blocks = static_cast<unsigned>((BH + 255) / 256);
+  // 2. the sweep: the first step's gate gradients, then one launch a step
+  // (bwd_step_kernel): step t's dgh Wh^T, split over K across a cluster
+  // where the step has few tiles (step_split), and in its epilogue the next
+  // step's gate gradients, or dh0 after the last step
+  {
+    const int t0 = reverse ? 0 : n_steps - 1;
+    first_step_kernel<<<static_cast<unsigned>((BH + 255) / 256), 256, 0,
+                        stream>>>(g + t0 * B * G4, hprev + t0 * BH,
+                                  dhs + t0 * BH, dhz, B, H);
+    RETURN_IF_LAUNCH_FAILED();
+  }
+  // the step's output tiles (BM rows x BN units) and its k-tiles over the
+  // two runs of K
+  const long long tiles =
+      static_cast<long long>((B + MmaSmall::BM - 1) / MmaSmall::BM) *
+      ((H + MmaSmall::BN - 1) / MmaSmall::BN);
+  const int split = step_split<BwdStep>(
+      tiles, (2 * H + MmaSmall::BK - 1) / MmaSmall::BK +
+                 (H + MmaSmall::BK - 1) / MmaSmall::BK);
+  BwdStepArgs sp = {};
+  sp.dhz = dhz;
+  sp.dh0 = dh;
+  sp.B = B;
+  sp.H = H;
+  sp.vec = H % 4 == 0 && aligned16(g) && aligned16(hprev) &&
+           aligned16(dhs) && aligned16(dhz) && aligned16(dh);
   for (int s = 0; s < n_steps; ++s) {
     const int t = reverse ? s : n_steps - 1 - s;
-    float* gt = g + static_cast<long long>(t) * B * G4;
-    step_grad_kernel<<<ew_blocks, 256, 0, stream>>>(
-        gt, hprev + t * BH, dhs + t * BH, dhz, part, s == 0 ? 0 : n_kz, B,
-        H);
-    RETURN_IF_LAUNCH_FAILED();
-    MmaArgs p = out_args(part, H, 0, B, H);
-    p.seg[0] = f32_seg(gt, G4, 2 * H);
-    set_b(p.seg[0], wh, H3);
-    p.seg[1] = f32_seg(gt + 3 * H, G4, H);
-    set_b(p.seg[1], wh + 2 * H, H3);
-    p.kt_per = pl.kt_per;
-    p.out_z = BH;
-    RETURN_IF_FAILED(
-        (launch_mma<MmaSmall, float, false, false>(p, n_kz, stream)));
+    const float* gt = g + t * B * G4;
+    sp.seg[0] = f32_seg(gt, G4, 2 * H);
+    set_b(sp.seg[0], wh, H3);
+    sp.seg[1] = f32_seg(gt + 3 * H, G4, H);
+    set_b(sp.seg[1], wh + 2 * H, H3);
+    sp.gn = nullptr;
+    if (s + 1 < n_steps) {
+      const int tn = reverse ? t + 1 : t - 1;
+      sp.gn = g + tn * B * G4;
+      sp.hprev = hprev + tn * BH;
+      sp.dhs = dhs + tn * BH;
+    }
+    RETURN_IF_FAILED(launch_step<BwdStep>(sp, tiles, split, stream));
   }
-  carried_kernel<<<ew_blocks, 256, 0, stream>>>(dhz, part, n_kz, BH, dh);
-  RETURN_IF_LAUNCH_FAILED();
 
   // 3. off the recurrence
   if (dx != nullptr) {
@@ -396,10 +656,16 @@ int gru_bwd_sizes(int n_steps, int B, int F, int H, int need_dx,
   return 0;
 }
 
-// The weight products launched by route since the last reset: counts[0]
-// on wgmma, counts[1] on mma.sync; zeroed after the read when `reset`.
+// The library's counts since the last reset: counts[0] and counts[1] the
+// weight products on wgmma and on mma.sync, counts[2 + k] the sweep's step
+// launches whose K was split over S = 2^k CTAs (k < 5); zeroed after the
+// read when `reset`.
 int gru_bwd_counts(long long* counts, int reset) {
   read_routes(counts, reset);
+  for (int k = 0; k < 5; ++k) {
+    counts[2 + k] = g_steps[k];
+    if (reset) g_steps[k] = 0;
+  }
   return 0;
 }
 

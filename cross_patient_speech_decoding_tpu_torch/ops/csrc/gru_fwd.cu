@@ -294,119 +294,26 @@ __global__ void __launch_bounds__(C::NT, C::MIN_BLOCKS)
 // [k] counts S = 2^k.
 long long g_steps[4] = {0, 0, 0, 0};
 
-// The step kernel's dynamic shared memory, set once a process for each S
-// (the ring: over the 48 KB a launch gets without asking)
-template <class C, int S>
-cudaError_t step_smem() {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      gru_step_mma_kernel<C, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      C::STAGES * stage_bytes<C, false, true>());
-  return err;
-}
+// The step kernel as the cluster launcher (gru_mma.cuh) takes it: at most
+// 8 CTAs a cluster
+struct FwdStep {
+  using Args = StepArgs;
+  template <int S>
+  static auto kernel() {
+    return &gru_step_mma_kernel<StepCfg, S>;
+  }
+  static constexpr int NT = StepCfg::NT, MIN_BLOCKS = StepCfg::MIN_BLOCKS;
+  static constexpr int SMEM =
+      StepCfg::STAGES * stage_bytes<StepCfg, false, true>();
+  static constexpr int MAX_SPLIT = 8;
+  static long long* counts() { return g_steps; }
+};
 
-// A launch of `ctas` step CTAs in clusters of S (attr: the cluster's
-// attribute, kept by the caller)
-template <class C, int S>
-cudaLaunchConfig_t step_config(long long ctas, cudaStream_t stream,
-                               cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(ctas));
-  cfg.blockDim = dim3(C::NT);
-  cfg.dynamicSmemBytes = C::STAGES * stage_bytes<C, false, true>();
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = S;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// How many clusters of S step CTAs the card holds at once, read once a
-// process (0 where the card takes no such cluster)
-template <class C, int S>
-int max_clusters() {
-  static const int n = [] {
-    int v = 0;
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = step_config<C, S>(S, nullptr, &attr);
-    if (step_smem<C, S>() != cudaSuccess ||
-        cudaOccupancyMaxActiveClusters(&v, gru_step_mma_kernel<C, S>,
-                                       &cfg) != cudaSuccess) {
-      cudaGetLastError();  // a refused query is no launch error
-      v = 0;
-    }
-    return v;
-  }();
-  return n;
-}
-
-int sm_count() {
-  static const int n = [] {
-    int dev = 0, v = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    return v;
-  }();
-  return n;
-}
-
-template <class C>
+// The step's output tiles: BM rows x BN/3 units
 long long step_tiles(int B, int H) {
-  const int units = C::BN / 3;
-  return static_cast<long long>((B + C::BM - 1) / C::BM) *
+  const int units = StepCfg::BN / 3;
+  return static_cast<long long>((B + StepCfg::BM - 1) / StepCfg::BM) *
          ((H + units - 1) / units);
-}
-
-// The cluster size a step of B rows and H units splits K over: the
-// largest S <= MAX_SPLIT whose tiles x S CTAs fit in one wave of
-// MIN_BLOCKS CTAs on each SM, whose clusters all fit on the card at once,
-// and that leaves every rank a k-tile. From the shape and the card alone,
-// so that a run repeats its sums bit for bit.
-template <class C>
-int step_split(int B, int H) {
-  constexpr int MAX_SPLIT = 8;
-  const long long tiles = step_tiles<C>(B, H);
-  const int n_k = (H + C::BK - 1) / C::BK;
-  const long long wave = static_cast<long long>(C::MIN_BLOCKS) * sm_count();
-  auto fits = [&](int s) {
-    return s <= MAX_SPLIT && s <= n_k && tiles * s <= wave;
-  };
-  if (fits(8) && tiles <= max_clusters<C, 8>()) return 8;
-  if (fits(4) && tiles <= max_clusters<C, 4>()) return 4;
-  if (fits(2) && tiles <= max_clusters<C, 2>()) return 2;
-  return 1;
-}
-
-template <class C, int S>
-int launch_split(const StepArgs& p, long long tiles, cudaStream_t stream) {
-  const cudaError_t err = step_smem<C, S>();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if constexpr (S == 1) {
-    gru_step_mma_kernel<C, 1><<<static_cast<unsigned>(tiles), C::NT,
-                                C::STAGES * stage_bytes<C, false, true>(),
-                                stream>>>(p);
-  } else {
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = step_config<C, S>(tiles * S, stream, &attr);
-    RETURN_IF_FAILED(static_cast<int>(
-        cudaLaunchKernelEx(&cfg, gru_step_mma_kernel<C, S>, p)));
-  }
-  ++g_steps[S == 1 ? 0 : S == 2 ? 1 : S == 4 ? 2 : 3];
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <class C>
-int launch_step(const StepArgs& p, int split, cudaStream_t stream) {
-  const long long tiles = step_tiles<C>(p.B, p.H);
-  if (tiles <= 0) return 0;
-  switch (split) {
-    case 8: return launch_split<C, 8>(p, tiles, stream);
-    case 4: return launch_split<C, 4>(p, tiles, stream);
-    case 2: return launch_split<C, 2>(p, tiles, stream);
-    default: return launch_split<C, 1>(p, tiles, stream);
-  }
 }
 
 // Wi's image (F x 3H, runs [0, 2H) and [2H, 3H), as the backward cuts it)
@@ -448,13 +355,15 @@ int run_layer(const void* x, long long sx_t, long long sx_b, const float* h0,
   p.B = B;
   p.H = H;
   p.wh_vec = aligned16(wh) && H % 4 == 0;
-  const int split = step_split<StepCfg>(B, H);
+  const long long tiles = step_tiles(B, H);
+  const int split =
+      step_split<FwdStep>(tiles, (H + StepCfg::BK - 1) / StepCfg::BK);
   for (int s = 0; s < n_steps; ++s) {
     const int t = reverse ? n_steps - 1 - s : s;
     p.h = f32_seg(s == 0 ? h0 : hs + (reverse ? t + 1 : t - 1) * BH, H, H);
     p.gi = gi + t * B * H3;
     p.hout = hs + t * BH;
-    RETURN_IF_FAILED(launch_step<StepCfg>(p, split, stream));
+    RETURN_IF_FAILED(launch_step<FwdStep>(p, tiles, split, stream));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,12 +30,14 @@
 //     issue m64n128k8 wgmmas.
 //   - mma_gemm_kernel (mma.sync.m16n8k8, fragments from registers) takes
 //     the rest: the weight gradients read both operands M- or N-major
-//     (x^T G), which wgmma does not take for TF32, and the per-step dh'
-//     product (MmaSmall) is a small grid a step. It also takes the weight
-//     products of calls too small for the image's pass to pay (a stream's
-//     B = 1 step): the route is by row count alone (GRU_WGMMA_MIN_ROWS).
-//     Both sum in the same order (k8 products, a stage's part, float32
-//     adds) and gave the same bits at every shape measured on the H100.
+//     (x^T G), which wgmma does not take for TF32. It also takes the
+//     weight products of calls too small for the image's pass to pay (a
+//     stream's B = 1 step): the route is by row count alone
+//     (GRU_WGMMA_MIN_ROWS). Both sum in the same order (k8 products, a
+//     stage's part, float32 adds) and gave the same bits at every shape
+//     measured on the H100. The sweeps' step kernels (gru_fwd.cu,
+//     gru_bwd.cu) are small grids a step and run mma_stage on their own
+//     tiles.
 //
 // mma_gemm_kernel's tiles. A CTA owns a BM x BN block of out, its warps
 // WM x WN each (MI x NI m16n8 tiles). A stage holds a BK-deep slice of
@@ -76,9 +78,10 @@ struct MmaCfg {
 #ifndef GRU_MMA_BIG
 #define GRU_MMA_BIG 128, 128, 2, 4, 3, 1
 #endif
-// the per-step dh' product (B x H, split over K): 4 warps of 32 x 32,
-// three CTAs on an SM, so that a step of B = 1000-2000 rows and H = 500
-// columns fills the card
+// the backward sweep's step tile (gru_bwd.cu: dh' = dgh Wh^T, B x H,
+// split over K across a cluster): 4 warps of 32 x 32, three CTAs on an
+// SM, so that a step of B = 1000-2000 rows and H = 500 columns fills the
+// card
 #ifndef GRU_MMA_SMALL
 #define GRU_MMA_SMALL 64, 64, 2, 2, 3, 3
 #endif
@@ -1157,6 +1160,146 @@ void read_routes(long long* counts, int reset) {
   counts[0] = g_routes[0];
   counts[1] = g_routes[1];
   if (reset) g_routes[0] = g_routes[1] = 0;
+}
+
+// ---------------------------------------------------------------------------
+// The sweeps' step kernels split K over a thread-block cluster where a
+// step has few output tiles (gru_fwd.cu's forward step, gru_bwd.cu's
+// backward step): rank r of a cluster of S CTAs multiplies its run of K's
+// tiles, and the ranks sum their partial tiles through distributed shared
+// memory in rank order. One launcher for both, from a description K of
+// the kernel: K::Args its argument, K::kernel<S>() its instance for
+// clusters of S, K::NT threads, K::SMEM bytes of dynamic shared memory
+// (its ring), K::MIN_BLOCKS CTAs an SM, K::MAX_SPLIT the largest S,
+// K::counts() its launches by S.
+// ---------------------------------------------------------------------------
+
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v;
+  }();
+  return n;
+}
+
+// A launch of `ctas` CTAs of K's kernel in clusters of S (attr: the
+// launch's attributes, kept by the caller), the clusters placed by load
+// balancing, which spreads them over the SMs as a plain launch's CTAs
+// are: with the default placement 64 clusters of 4 backward step CTAs
+// left 8 of the H100's SMs with 3 CTAs and 8 with none, and their step
+// took 38.2 µs against 29.9 (PERF.md, section 6).
+template <class K>
+cudaLaunchConfig_t cluster_config(long long ctas, int S, cudaStream_t stream,
+                                  cudaLaunchAttribute (&attr)[2]) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(ctas));
+  cfg.blockDim = dim3(K::NT);
+  cfg.dynamicSmemBytes = K::SMEM;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeClusterSchedulingPolicyPreference;
+  attr[1].val.clusterSchedulingPolicyPreference =
+      cudaClusterSchedulingPolicyLoadBalancing;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  return cfg;
+}
+
+// The kernel's dynamic shared memory (over the 48 KB a launch gets
+// without asking) and, for a cluster of 16, the non-portable cluster
+// size; set once a process for each S
+template <class K, int S>
+cudaError_t step_attrs() {
+  static const cudaError_t err = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        K::template kernel<S>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+        K::SMEM);
+    if (e == cudaSuccess && S > 8) {
+      e = cudaFuncSetAttribute(K::template kernel<S>(),
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+    }
+    return e;
+  }();
+  return err;
+}
+
+// How many clusters of S CTAs the card holds at once, read once a process
+// (0 where the card takes no such cluster)
+template <class K, int S>
+int max_clusters() {
+  static const int n = [] {
+    int v = 0;
+    cudaLaunchAttribute attr[2];
+    const cudaLaunchConfig_t cfg = cluster_config<K>(S, S, nullptr, attr);
+    if (step_attrs<K, S>() != cudaSuccess ||
+        cudaOccupancyMaxActiveClusters(&v, K::template kernel<S>(), &cfg) !=
+            cudaSuccess) {
+      cudaGetLastError();  // a refused query is no launch error
+      v = 0;
+    }
+    return v;
+  }();
+  return n;
+}
+
+template <class K, int S = K::MAX_SPLIT>
+int clusters_of(int s) {
+  if constexpr (S < 2) {
+    return 0;
+  } else {
+    return s == S ? max_clusters<K, S>() : clusters_of<K, S / 2>(s);
+  }
+}
+
+// The cluster size a step of `tiles` output tiles and n_k k-tiles splits
+// K over: the largest power of two S <= K::MAX_SPLIT whose tiles x S CTAs
+// fit in one wave of K::MIN_BLOCKS CTAs on each SM, whose clusters all
+// fit on the card at once, and that leaves every rank a k-tile. From the
+// shape and the card alone, so that a run repeats its sums bit for bit.
+template <class K>
+int step_split(long long tiles, int n_k) {
+  const long long wave = static_cast<long long>(K::MIN_BLOCKS) * sm_count();
+  for (int s = K::MAX_SPLIT; s > 1; s /= 2) {
+    if (s <= n_k && tiles * s <= wave && tiles <= clusters_of<K>(s)) {
+      return s;
+    }
+  }
+  return 1;
+}
+
+// The index k of S = 2^k in the libraries' step counters
+constexpr int split_index(int S) {
+  return S <= 1 ? 0 : 1 + split_index(S / 2);
+}
+
+// One step: `tiles` output tiles, each a cluster of `split` CTAs (a plain
+// launch at 1), counted in K::counts()
+template <class K, int S = K::MAX_SPLIT>
+int launch_step(const typename K::Args& p, long long tiles, int split,
+                cudaStream_t stream) {
+  if constexpr (S > 1) {
+    if (split != S) return launch_step<K, S / 2>(p, tiles, split, stream);
+  }
+  RETURN_IF_FAILED(static_cast<int>(step_attrs<K, S>()));
+  if (tiles <= 0) return 0;
+  if constexpr (S == 1) {
+    const auto kernel = K::template kernel<1>();
+    kernel<<<static_cast<unsigned>(tiles), K::NT, K::SMEM, stream>>>(p);
+  } else {
+    cudaLaunchAttribute attr[2];
+    const cudaLaunchConfig_t cfg = cluster_config<K>(tiles * S, S, stream,
+                                                     attr);
+    RETURN_IF_FAILED(static_cast<int>(
+        cudaLaunchKernelEx(&cfg, K::template kernel<S>(), p)));
+  }
+  ++K::counts()[split_index(S)];
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -52,28 +52,31 @@ LAUNCHES = {"gru_fwd": 0, "gru_wfwd": 0, "gru_bifwd": 0, "gru_bwd": 0,
 # T B rows (GRU_WGMMA_MIN_ROWS), mma.sync below. The libraries count the
 # products by route.
 ROUTES = ("wgmma", "mma_sync")
-# The forward step kernel splits a step's K = H over a cluster of S CTAs
-# where the step's grid is small (csrc/gru_fwd.cu: step_split); the
-# library counts its launches by S.
+# The sweeps' step kernels split a step's K over a cluster of S CTAs where
+# the step's grid is small (csrc/gru_mma.cuh: step_split; K = H in the
+# forward, 3H in the backward); each library counts its step launches by
+# S.
 STEP_SPLITS = (1, 2, 4, 8)
-# the kernel calls whose sweep launches the step kernel
-_STEP_CALLS = ("gru_fwd", "gru_wfwd", "gru_bifwd")
+BWD_STEP_SPLITS = (1, 2, 4, 8, 16)
+# the kernel calls whose sweep launches the backward's step kernel
+_BWD_CALLS = ("gru_bwd", "gru_wbwd")
 
 
 def _lib_counts(reset: bool = False):
     """The libraries' counters: the weight products by route (``ROUTES``,
-    both libraries' summed) and the forward step launches by cluster size
-    (``STEP_SPLITS``); all 0 before the kernels are first loaded."""
+    both libraries' summed), the forward step launches by cluster size
+    (``STEP_SPLITS``) and the backward's (``BWD_STEP_SPLITS``); all 0
+    before the kernels are first loaded."""
     from cross_patient_speech_decoding_tpu_torch.ops import _ext
 
     fwd = (ctypes.c_longlong * (len(ROUTES) + len(STEP_SPLITS)))()
-    bwd = (ctypes.c_longlong * len(ROUTES))()
+    bwd = (ctypes.c_longlong * (len(ROUTES) + len(BWD_STEP_SPLITS)))()
     if _ext.loaded():
         lib = _ext.lib()
         _ext.check(lib.gru_fwd_counts(fwd, int(reset)), "gru_fwd_counts")
         _ext.check(lib.gru_bwd_counts(bwd, int(reset)), "gru_bwd_counts")
     routes = [a + b for a, b in zip(fwd, bwd)]
-    return routes, list(fwd[len(ROUTES):])
+    return routes, list(fwd[len(ROUTES):]), list(bwd[len(ROUTES):])
 
 
 def product_counts() -> dict:
@@ -89,6 +92,15 @@ def step_counts() -> dict:
     step's K (``STEP_SPLITS``); all 0 before the kernels are first
     loaded."""
     return dict(zip(STEP_SPLITS, _lib_counts()[1]))
+
+
+def bwd_step_counts() -> dict:
+    """The backward sweep's step launches (one a step of every
+    ``gru_bwd``/``gru_wbwd`` call) since the last
+    :func:`reset_launch_counts`, by the cluster size S that split each
+    step's K (``BWD_STEP_SPLITS``); all 0 before the kernels are first
+    loaded."""
+    return dict(zip(BWD_STEP_SPLITS, _lib_counts()[2]))
 
 
 def reset_launch_counts() -> None:
@@ -480,30 +492,33 @@ def gru_wbwd_cuda(x, hprev, dhs, wi, bi, wh, bh, win: int, stride: int,
 
 class _KernelSpan:
     """A kernel call's span that, where it records, adds the call's weight
-    products by route (:func:`product_counts`) to its attributes, and for
-    a forward call ``step_split``: the cluster size S of its step
-    launches (:func:`step_counts`; 0 where it launched none)."""
+    products by route (:func:`product_counts`) to its attributes, and
+    ``step_split``: the cluster size S of its sweep's step launches
+    (:func:`step_counts` for a forward call, :func:`bwd_step_counts` for a
+    backward one; 0 where it launched none)."""
 
-    __slots__ = ("span", "steps", "rec", "before", "steps_before")
+    __slots__ = ("span", "backward", "rec", "before", "steps_before")
 
-    def __init__(self, span, steps: bool):
+    def __init__(self, span, backward: bool):
         self.span = span
-        self.steps = steps
+        self.backward = backward
+
+    def _steps(self) -> dict:
+        return bwd_step_counts() if self.backward else step_counts()
 
     def __enter__(self):
         self.rec = self.span.__enter__()
-        on = self.rec is not None
-        self.before = product_counts() if on else None
-        self.steps_before = step_counts() if on and self.steps else None
+        if self.rec is not None:
+            self.before = product_counts()
+            self.steps_before = self._steps()
         return self.rec
 
     def __exit__(self, *exc):
-        if self.before is not None:
+        if self.rec is not None:
             after = product_counts()
             self.rec.attrs.update(
                 {k: after[k] - self.before[k] for k in ROUTES})
-        if self.steps_before is not None:
-            grew = [s for s, n in step_counts().items()
+            grew = [s for s, n in self._steps().items()
                     if n > self.steps_before[s]]
             self.rec.attrs["step_split"] = max(grew, default=0)
         return self.span.__exit__(*exc)
@@ -515,13 +530,13 @@ def _kernel_span(name: str, x, T: int, F: int, H: int, need_dx: bool,
     ``LAUNCHES`` key: the recurrence's T steps of B rows, F input features
     and H units, the bytes of the input it reads, whether it forms dx, and
     its route; on a CUDA tensor it times the call's device work, counts
-    its weight products by kernel (``wgmma``, ``mma_sync``) and, for a
-    forward call, gives its step kernel's cluster size (``step_split``)."""
+    its weight products by kernel (``wgmma``, ``mma_sync``) and gives its
+    sweep's step kernel's cluster size (``step_split``)."""
     span = annotate(name, device=x.device, T=T, B=x.shape[1], F=F, H=H,
                     x_bytes=x.numel() * x.element_size(),
                     need_dx=bool(need_dx), directions=directions,
                     route="plain" if plain else "cuda", **attrs)
-    return span if plain else _KernelSpan(span, name in _STEP_CALLS)
+    return span if plain else _KernelSpan(span, name in _BWD_CALLS)
 
 
 class GRULayerFn(torch.autograd.Function):

@@ -19,7 +19,11 @@ against the 1e-4 that hs is held to, and over the seq2seq encoder's 191
 steps at H = 500 (gru_bifwd's shape there); its step kernel's column map
 is mirrored and checked, and so are its split of K over a cluster (the
 ranks' runs, the partial tile's layout, the rule that picks the split) and
-the split's sums over 120 steps at H = 768.
+the split's sums over 120 steps at H = 768. The backward sweep's step
+(csrc/gru_bwd.cu) is mirrored likewise: the rule that picks its cluster,
+the ranks' runs over the gapped K = 3H, the one owner of each (b, j) in
+its fused epilogue, and the split sweep's dh0 and dWh over 120 steps at
+B = 64, H = 768 against float64.
 """
 
 import numpy as np
@@ -368,14 +372,14 @@ def test_gate_math_on_the_tile_layout_matches_plain(tile):
 
 
 # ---------------------------------------------------------------------------
-# the step kernel's split of K over a cluster (gru_fwd.cu: step_split and
+# the step kernel's split of K over a cluster (gru_mma.cuh: step_split;
 # gru_step_mma_kernel's S > 1 epilogue), mirrored: rank r multiplies its
 # run of K's tiles, leaves its partial tile as [row][gate U + unit], and
 # sums rows [r BM/S, (r+1) BM/S) of every rank's tile in rank order
 # ---------------------------------------------------------------------------
 
 SPLITS = (1, 2, 4, 8)
-MAX_SPLIT = 8  # gru_fwd.cu: step_split's MAX_SPLIT
+MAX_SPLIT = 8  # gru_fwd.cu: FwdStep::MAX_SPLIT
 H100_SMS = 132  # the H100 SXM's SMs (the card test pins the rule as built)
 
 
@@ -649,3 +653,231 @@ def test_wgmma_product_is_float32_class(name):
     print(f"{name}: wgmma 3xTF32 {err:.2e}, float32 {f32:.2e}")
     assert err <= GRAD_RTOL / 10
     assert err <= 4 * f32 + 1e-7
+
+
+# ---------------------------------------------------------------------------
+# the backward sweep's step (gru_bwd.cu: BwdStep and bwd_step_kernel),
+# mirrored: one launch a step forms dh' = dgh Wh^T over K = 3H in two runs
+# of k-tiles ([dr | dz] of g[t] against Wh[:, :2H]^T, dgn against
+# Wh[:, 2H:]^T), split over a cluster of S CTAs where the step has few
+# tiles; rank r sums rows [r BM/S, (r+1) BM/S) of the partial tiles in rank
+# order and applies the next step's gate gradients to the whole sums
+# ---------------------------------------------------------------------------
+
+BWD_SPLITS = (1, 2, 4, 8, 16)
+BWD_MAX_SPLIT = 16  # gru_bwd.cu: BwdStep::MAX_SPLIT
+
+
+# The backward step's tile, GRU_MMA_SMALL of gru_mma.cuh, as (BM, BN, warps
+# along M, warps along N, stages, CTAs per SM); the card test
+# test_gru_bwd_step_split pins the rule as built
+BWD_TILE = (64, 64, 2, 2, 3, 3)
+
+
+def bwd_k_tiles(H: int):
+    """The step's k-tiles in order: (segment, first k of the segment), the
+    [dr | dz] run of 2H, then the dgn run of H, each cut at 32."""
+    return ([(0, k) for k in range(0, 2 * H, TILE)]
+            + [(1, k) for k in range(0, H, TILE)])
+
+
+def bwd_split(B, H, tile=BWD_TILE, sms=H100_SMS, max_clusters=None):
+    """step_split for BwdStep (at most 16) on a card of ``sms`` SMs whose
+    clusters of S all fit at once unless ``max_clusters[S]`` says
+    otherwise."""
+    BM, BN, _, _, _, ctas = tile
+    tiles = -(-B // BM) * -(-H // BN)
+    n_k = len(bwd_k_tiles(H))
+    for s in (16, 8, 4, 2):
+        if (s <= BWD_MAX_SPLIT and s <= n_k and tiles * s <= ctas * sms
+                and tiles <= (max_clusters or {}).get(s, tiles)):
+            return s
+    return 1
+
+
+# (B, H, S) on the H100 at the default tile: b2t (B 64, H 768: 12 tiles),
+# fig5 train (512 x 512: 64), seq2seq (1,224 x 500: 160), fig5 at the JAX
+# default's B 2,000 (256), the stream (1 x 512: 8), conv_rnn (1,073 x 128:
+# 34 tiles, 12 k-tiles), H 8 (two k-tiles)
+BWD_SPLIT_CASES = [(64, 768, 16), (512, 512, 4), (1224, 500, 2),
+                   (2000, 512, 1), (1, 512, 16), (1073, 128, 8), (64, 8, 2)]
+
+
+@pytest.mark.parametrize("B,H,S", BWD_SPLIT_CASES)
+def test_bwd_split_of_the_cells_shapes(B, H, S):
+    assert bwd_split(B, H) == S
+
+
+def test_bwd_split_steps_down_where_the_clusters_do_not_fit():
+    assert bwd_split(64, 768, max_clusters={16: 11}) == 8
+    assert bwd_split(64, 768, max_clusters={16: 0, 8: 0, 4: 0, 2: 0}) == 1
+    # the wave: 64 tiles of 4 fill 256 of 396 slots; of 8, 512 would not
+    assert bwd_split(512, 512, sms=66) == 2
+
+
+@pytest.mark.parametrize("H,S", [(H, S) for H in (8, 50, 97, 200, 500, 512,
+                                                  768)
+                                 for S in BWD_SPLITS
+                                 if S <= len(bwd_k_tiles(H))])
+def test_bwd_step_runs_cover_the_gapped_k_once(H, S):
+    """The ranks' runs of the k-tiles pair every column of g[t]'s [dr | dz]
+    and dgn runs with its row of Wh^T once: g column c with Wh column c
+    below 2H, g column 3H + c with Wh column 2H + c; g's dn run (columns
+    [2H, 3H)) is never read."""
+    tiles = bwd_k_tiles(H)
+    runs = step_runs(len(tiles), S)
+    assert runs[0][0] == 0 and runs[-1][1] == len(tiles)
+    assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+    sizes = [b - a for a, b in runs]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    pairs = []
+    for kt0, kt1 in runs:
+        for seg, k0 in tiles[kt0:kt1]:
+            K = 2 * H if seg == 0 else H
+            for k in range(k0, min(k0 + TILE, K)):  # the rest zero filled
+                pairs.append((k, k) if seg == 0 else (3 * H + k, 2 * H + k))
+    want = [(c, c) for c in range(2 * H)] + [(3 * H + c, 2 * H + c)
+                                             for c in range(H)]
+    assert sorted(pairs) == sorted(want)
+
+
+def bwd_owners(B, H, S, tile=BWD_TILE):
+    """Every (b, j) that the grid's epilogues write, with the CTA (tile,
+    rank) and thread that writes it: rank r of a tile's cluster takes rows
+    [r BM/S, (r+1) BM/S) of the summed block, in runs of four units, run q
+    to thread q % NT (S = 1: the CTA takes the whole block)."""
+    BM, BN, warps_m, warps_n, _, _ = tile
+    NT, RB, G4 = 32 * warps_m * warps_n, BM // S, BN // 4
+    n_tn = -(-H // BN)
+    out = []
+    for tile_i in range(-(-B // BM) * n_tn):
+        m0, n0 = (tile_i // n_tn) * BM, (tile_i % n_tn) * BN
+        for rank in range(S):
+            for q in range(RB * G4):
+                m = m0 + rank * RB + q // G4
+                for u in range(4):
+                    j = n0 + (q % G4) * 4 + u
+                    if m < B and j < H:
+                        out.append((m, j, tile_i, rank, q % NT))
+    return out
+
+
+@pytest.mark.parametrize("B,H,S", [(64, 768, 16), (64, 768, 1), (130, 97, 2),
+                                   (512, 512, 4), (1, 50, 8), (70, 64, 16)])
+def test_bwd_epilogue_owns_each_unit_once(B, H, S):
+    """Each (b, j) of dh' is written by one thread of one CTA of the grid:
+    the one that applies step t''s gate gradients there, so that the
+    in-place g[t'] and d z need no barrier inside the launch."""
+    owners = bwd_owners(B, H, S)
+    cells = sorted((m, j) for m, j, *_ in owners)
+    assert cells == [(m, j) for m in range(B) for j in range(H)]
+
+
+@pytest.mark.parametrize("S", [s for s in BWD_SPLITS
+                               if BWD_TILE[0] % s == 0])
+def test_bwd_partial_tile_holds_each_product_once(S):
+    """The float2 stores of every thread's acc[mi][ni][2h + e] fill the
+    partial tile [row][column] once, free of bank conflicts (pitch BN + 8,
+    8 mod 32), and the ranks' rows cover the tile once, in runs of four
+    units that start 16 bytes apart (float4 reads)."""
+    BM, BN, warps_m, warps_n, _, _ = BWD_TILE
+    WM, WN, RP = BM // warps_m, BN // warps_n, BN + 8
+    assert RP % 32 == 8 and (RP * 4) % 16 == 0 and BN % 4 == 0
+    seen = []
+    for warp in range(warps_m * warps_n):
+        wm, wn = (warp // warps_n) * WM, (warp % warps_n) * WN
+        for mi in range(WM // 16):
+            for ni in range(WN // 8):
+                for h in range(2):
+                    banks = []
+                    for lane in range(32):
+                        g, t = lane >> 2, lane & 3
+                        row, col = wm + mi * 16 + g + h * 8, wn + ni * 8 + 2 * t
+                        banks.append((row * RP + col) % 32)
+                        seen += [(row, col), (row, col + 1)]
+                    for half in (banks[:16], banks[16:]):
+                        words = sorted(b + e for b in half for e in range(2))
+                        assert words == list(range(32))
+    assert sorted(seen) == [(r, c) for r in range(BM) for c in range(BN)]
+    rows = [rank * (BM // S) + i for rank in range(S) for i in range(BM // S)]
+    assert rows == list(range(BM))
+
+
+def _gate_grads(pre, hprev, d, H):
+    """The gate gradients of a step from d = the carried gradient + dhs:
+    dgh = [dr | dz | dgn] and d z, in the working type of the inputs."""
+    r = 1 / (1 + np.exp(-pre[:, :H]))
+    z = 1 / (1 + np.exp(-pre[:, H:2 * H]))
+    ghn = pre[:, 3 * H:]
+    n = np.tanh(pre[:, 2 * H:3 * H] + r * ghn)
+    dz = d * (hprev - n) * z * (1 - z)
+    dn = d * (1 - z) * (1 - n * n)
+    dr = dn * ghn * r * (1 - r)
+    return np.concatenate([dr, dz, dn * r], axis=1), d * z
+
+
+def bwd_sweep(pre, hprev, dhs, wh, S=None):
+    """The backward sweep over T steps (the forward ran forward, so from
+    t = T - 1 down): dh0 and dWh = sum_t hprev[t]^T dgh[t]. S = None: in
+    float64. Else as the kernels take it in float32: each step's dgh Wh^T
+    over the k-tiles of bwd_k_tiles, each tile's three TF32 products summed
+    into a part from 0 and added into the rank's float32 partial, the
+    partials added in rank order; the carried gradient d z + that sum."""
+    T, B, G4 = pre.shape
+    H = G4 // 4
+    f64 = S is None
+    dt = np.float64 if f64 else np.float32
+    if not f64:
+        tiles = bwd_k_tiles(H)
+        runs = step_runs(len(tiles), S)
+        wt = wh.T  # (3H, H): rows [0, 2H) for [dr | dz], [2H, 3H) for dgn
+        bh, bl = split(wt)
+        rows = np.array([(0 if seg == 0 else 2 * H) + k0
+                         for seg, k0 in tiles])
+        cols = np.array([(0 if seg == 0 else 2 * H) + k0
+                         for seg, k0 in tiles])
+        b_hi = np.stack([bh[r:r + TILE] for r in rows])
+        b_lo = np.stack([bl[r:r + TILE] for r in rows])
+    dwh = np.zeros((H, 3 * H))
+    dhz = None
+    for s in range(T):
+        t = T - 1 - s
+        c = np.zeros((B, H), dt) if s == 0 else (dhz + prod).astype(dt)
+        dgh, dhz = _gate_grads(pre[t].astype(dt), hprev[t].astype(dt),
+                               (c + dhs[t].astype(dt)).astype(dt), H)
+        dhz = dhz.astype(dt)
+        dwh += hprev[t].astype(np.float64).T @ dgh.astype(np.float64)
+        if f64:
+            prod = dgh @ wh.T
+            continue
+        ah, al = split(dgh.astype(np.float32))
+        a_hi = np.stack([ah[:, c_:c_ + TILE] for c_ in cols])
+        a_lo = np.stack([al[:, c_:c_ + TILE] for c_ in cols])
+        part = (np.matmul(a_lo, b_hi) + np.matmul(a_hi, b_lo)
+                + np.matmul(a_hi, b_hi))  # (tiles, B, H) float32
+        prod = None
+        for kt0, kt1 in runs:
+            acc = np.zeros((B, H), np.float32)
+            for kt in range(kt0, kt1):
+                acc += part[kt]
+            prod = acc if prod is None else prod + acc
+    dh0 = (dhz + prod).astype(dt)
+    return dh0, dwh
+
+
+@pytest.mark.parametrize("S", [1, 16])
+def test_split_backward_sweep_stays_within_grad_rtol(S):
+    """120 steps of the backward sweep at the b2t width (B = 64, H = 768,
+    72 k-tiles) with each step's dh' split over S ranks: dh0 and dWh within
+    GRAD_RTOL of float64, 10x inside, as the unsplit sum."""
+    T, B, H = 120, 64, 768
+    rng = np.random.default_rng(7)
+    pre = rng.normal(size=(T, B, 4 * H)).astype(np.float32)
+    hprev = rng.uniform(-1, 1, (T, B, H)).astype(np.float32)
+    dhs = (rng.normal(size=(T, B, H)) * 1e-3).astype(np.float32)
+    wh = (rng.normal(size=(H, 3 * H)) / np.sqrt(H)).astype(np.float32)
+    want = bwd_sweep(pre, hprev, dhs, wh)
+    got = bwd_sweep(pre, hprev, dhs, wh, S)
+    errs = [_rel(g, w) for g, w in zip(got, want)]
+    print(f"B=64 H=768 S={S}: dh0 {errs[0]:.2e}, dWh {errs[1]:.2e}")
+    assert max(errs) <= GRAD_RTOL / 10

@@ -10,8 +10,9 @@ PyTorch:
 GRU forward: every forward kernel's products run on tensor cores as
 3xTF32 (float32-class), the bidirectional kernel as the unidirectional
 one's two phases per direction; each against the plain version in float32
-sums of another order: atol 1e-4 on hs. The step kernel's split of K over
-a cluster changes only that order, and two runs give the same bits. The
+sums of another order: atol 1e-4 on hs. The step kernels' split of K over
+a cluster (forward and backward) changes only that order, and two runs
+give the same bits. The
 products whose B is a weight (the projections, the backward's gate
 recompute, dx) run on wgmma where a call's T B rows reach the library's
 threshold and on mma.sync below it; the tile-edge shapes cross it. GRU backward: the kernels' products run
@@ -151,7 +152,7 @@ def test_gru_wfwd_kernel_tile_edges(card, win, stride, T, C, B, H,
     torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
 
 
-# the step kernel's split of K over a cluster of S CTAs (gru_fwd.cu:
+# the step kernel's split of K over a cluster of S CTAs (gru_mma.cuh:
 # step_split), at shapes that land on each S on the H100 (132 SMs, 2 step
 # CTAs on each): (T, B, F, H, S). B = 1224, 320 tiles: no split; B = 512
 # and 10 (H = 512, 50): 2; H = 200 (7 k-tiles, uneven runs of 1-2 over 4
@@ -311,6 +312,64 @@ def test_gru_wbwd_kernel_tile_edges(card, win, stride, T, C, B, H,
     want = gru.gru_win_backward_plain(x, hprev, dhs, *w, win, stride)
     _assert_grads_close(got, want)
     again = gru.gru_wbwd_cuda(x, hprev, dhs, *w, win, stride)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(again, got))
+
+
+# the backward sweep's step split over a cluster of S CTAs (gru_mma.cuh:
+# step_split), at the cells' shapes on the H100 (132 SMs, 3 step CTAs on
+# each, 64 x 64 tiles): (T, B, F, H, S). b2t's B = 64, H = 768 (12 tiles):
+# 16; fig5 train's B = 512, H = 512 (64 tiles): 4; the seq2seq encoder's and
+# decoder's B = 1224, H = 500 (160 tiles): 2; fig5 at B = 2000 (256 tiles):
+# none. T = 1: the first step's launch, then one that writes dh0.
+BWD_SPLIT_CASES = [(2, 64, 768, 768, 16), (1, 64, 768, 768, 16),
+                   (2, 512, 512, 512, 4), (1, 512, 512, 512, 4),
+                   (2, 1224, 100, 500, 2), (1, 1224, 500, 500, 2),
+                   (2, 2000, 512, 512, 1), (1, 2000, 512, 512, 1)]
+
+
+def _bwd_steps(split: int, n: int) -> dict:
+    return {s: n if s == split else 0 for s in gru.BWD_STEP_SPLITS}
+
+
+@pytest.mark.parametrize("need_dx", [True, False])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("T,B,F,H,split", BWD_SPLIT_CASES)
+def test_gru_bwd_step_split(card, reverse, need_dx, T, B, F, H, split):
+    """Each shape's sweep launches once a step, in clusters of its S
+    (bwd_step_counts), holds to the plain backward at GRAD_RTOL, and two
+    runs give the same bits."""
+    x, _, *w = _args(card, 30, T, B, F, H)
+    hprev = torch.randn((T, B, H), device=card) * 0.3
+    dhs = torch.randn((T, B, H), device=card)
+    gru.reset_launch_counts()
+    got = gru.gru_bwd_cuda(x, hprev, dhs, *w, reverse, need_dx)
+    assert gru.bwd_step_counts() == _bwd_steps(split, T)
+    again = gru.gru_bwd_cuda(x, hprev, dhs, *w, reverse, need_dx)
+    assert gru.bwd_step_counts() == _bwd_steps(split, 2 * T)
+    want = gru.gru_backward_plain(x, hprev, dhs, *w, reverse, need_dx)
+    _assert_grads_close(got, want)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.parametrize("need_dx", [True, False])
+@pytest.mark.parametrize("n_win", [1, 2, 5])
+def test_gru_wbwd_step_split_at_the_b2t_shape(card, need_dx, n_win):
+    """The b2t cell's layer 0: 14 x 4 windows over 512 features, B = 64,
+    H = 768, with and without the frames' gradient: every sweep step in
+    clusters of 16, against the plain version, two runs bitwise equal."""
+    B, C, H, win, stride = 64, 512, 768, 14, 4
+    T = win + (n_win - 1) * stride
+    _, _, *w = _args(card, 31, 1, B, win * C, H)
+    x = torch.randn((B, T, C), device=card).to(torch.bfloat16).transpose(0, 1)
+    hprev = torch.randn((n_win, B, H), device=card) * 0.3
+    dhs = torch.randn((n_win, B, H), device=card)
+    gru.reset_launch_counts()
+    got = gru.gru_wbwd_cuda(x, hprev, dhs, *w, win, stride, need_dx)
+    again = gru.gru_wbwd_cuda(x, hprev, dhs, *w, win, stride, need_dx)
+    assert gru.bwd_step_counts() == _bwd_steps(16, 2 * n_win)
+    want = gru.gru_win_backward_plain(x, hprev, dhs, *w, win, stride,
+                                      need_dx=need_dx)
+    _assert_grads_close(got, want)
     assert all(a is None or torch.equal(a, b) for a, b in zip(again, got))
 
 

@@ -363,22 +363,29 @@ def test_plain_forward_spans_carry_no_step_split():
         assert all(set(r["attrs"]) == PLAIN_ATTRS for r in fwd)
 
 
-def test_forward_kernel_spans_carry_their_step_split(monkeypatch):
-    """With the kernel route taken (the wrappers replaced by plain versions
-    that count their steps as split over 4 CTAs), each forward kernel
-    span's ``step_split`` is the cluster size whose count its call raised;
-    the backward's spans carry none."""
-    steps = dict.fromkeys(gru.STEP_SPLITS, 0)
+def _split_counting_route(monkeypatch, fwd_split, bwd_split):
+    """The kernel route taken, the wrappers replaced by plain versions
+    that count their steps as the libraries do: a forward call's T steps
+    as split over ``fwd_split`` CTAs (step_counts), a backward call's T
+    steps over ``bwd_split`` (bwd_step_counts), one launch a step."""
+    steps = {"fwd": dict.fromkeys(gru.STEP_SPLITS, 0),
+             "bwd": dict.fromkeys(gru.BWD_STEP_SPLITS, 0)}
 
     def counted(name, plain):
         def launch(*args, **kw):
             gru.LAUNCHES[name] += 1
+            out = plain(*args, **kw)
             if name in FORWARD:
-                steps[4] += 1
-            return plain(*args, **kw)
+                n = out[0].shape[0] if name == "gru_bifwd" else out.shape[0]
+                steps["fwd"][fwd_split] += n * (2 if name == "gru_bifwd"
+                                                else 1)
+            else:  # dhs, the third argument, holds the call's T steps
+                steps["bwd"][bwd_split] += args[2].shape[0]
+            return out
         return launch
 
-    monkeypatch.setattr(gru, "step_counts", lambda: dict(steps))
+    monkeypatch.setattr(gru, "step_counts", lambda: dict(steps["fwd"]))
+    monkeypatch.setattr(gru, "bwd_step_counts", lambda: dict(steps["bwd"]))
     monkeypatch.setattr(gru, "_route", lambda x: "cuda")
     monkeypatch.setattr(gru, "_batch_major", lambda x: x)
     for name, plain in (("gru_fwd", gru.gru_layer_plain),
@@ -387,6 +394,11 @@ def test_forward_kernel_spans_carry_their_step_split(monkeypatch):
                         ("gru_bwd", gru.gru_backward_plain),
                         ("gru_wbwd", gru.gru_win_backward_plain)):
         monkeypatch.setattr(gru, f"{name}_cuda", counted(name, plain))
+    return steps
+
+
+def _train_step_spans():
+    """A CTC and a seq2seq train step's kernel spans, each step's apart."""
     for model, step_of, batch in (
             (_ctc_model(), make_ctc_train_step, _ctc_batch()),
             (_s2s_model(), make_seq2seq_train_step, _s2s_batch())):
@@ -394,13 +406,42 @@ def test_forward_kernel_spans_carry_their_step_split(monkeypatch):
         state = create_train_state(model, tx)
         profiling.reset()
         _, recs = _profiled(lambda: step_of(model, tx)(state, batch))
-        kern = [r for r in recs if r["name"] in KERNELS]
+        yield [r for r in recs if r["name"] in KERNELS]
+
+
+def test_forward_kernel_spans_carry_their_step_split(monkeypatch):
+    """With the kernel route taken (the wrappers replaced by plain versions
+    that count their steps as split over 4 CTAs in the forward and 16 in
+    the backward), each forward kernel span's ``step_split`` is the cluster
+    size whose count its call raised; the backward's spans carry the
+    backward's (bwd_step_counts), not the forward's."""
+    _split_counting_route(monkeypatch, 4, 16)
+    for kern in _train_step_spans():
         assert {r["name"] for r in kern} & set(FORWARD)
         for r in kern:
-            if r["name"] in FORWARD:
-                assert r["attrs"]["step_split"] == 4
-            else:
-                assert "step_split" not in r["attrs"]
+            want = 4 if r["name"] in FORWARD else 16
+            assert r["attrs"]["step_split"] == want
+
+
+@pytest.mark.parametrize("bwd_split", gru.BWD_STEP_SPLITS)
+def test_backward_kernel_spans_carry_their_step_split(monkeypatch,
+                                                      bwd_split):
+    """Each backward kernel span (``gru_bwd``, ``gru_wbwd``, both
+    directions' of the bidirectional encoder) carries the cluster size its
+    call's steps were launched in, and the backward counter grows by the
+    span's T, one launch a step: the spans' T sum to the counter."""
+    steps = _split_counting_route(monkeypatch, 2, bwd_split)
+    counted = 0
+    for kern in _train_step_spans():
+        bwd = [r for r in kern if r["name"] in ("gru_bwd", "gru_wbwd")]
+        assert len(bwd) >= 2
+        assert all(r["attrs"]["step_split"] == bwd_split for r in bwd)
+        assert all(r["attrs"]["step_split"] == 2 for r in kern
+                   if r["name"] in FORWARD)
+        grew = steps["bwd"][bwd_split] - counted
+        assert grew == sum(r["attrs"]["T"] for r in bwd) > 0
+        counted += grew
+    assert all(n == 0 for s, n in steps["bwd"].items() if s != bwd_split)
 
 
 def test_recording_keeps_records_without_a_profiler_and_is_bounded(
@@ -508,8 +549,15 @@ def test_kernel_spans_equal_launches_and_time_the_device_on_the_card(
             assert math.isfinite(r["device_ms"]) and r["device_ms"] > 0
             if r["name"] in ("gru_bwd", "gru_wbwd"):
                 assert r["parent"] == bwd["id"]
+                # K = 3H in two k-tiles ([dr | dz], dgn): one a rank
+                assert r["attrs"]["step_split"] == 2
             else:  # H = 8, one k-tile: no split
                 assert r["attrs"]["step_split"] == 1
+        # the backward's sweeps: one step launch a step of every call
+        assert gru.bwd_step_counts() == {
+            s: sum(r["attrs"]["T"] for r in kern
+                   if r["name"] in ("gru_bwd", "gru_wbwd")) if s == 2 else 0
+            for s in gru.BWD_STEP_SPLITS}
     A = torch.randn(3, 8, 8, device=dev)
     A = A @ A.transpose(1, 2)
     jacobi.reset_launch_counts()
