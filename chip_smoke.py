@@ -8,11 +8,13 @@ Run from the repository root with no arguments:
 or, for phases 1 and 2 and then the windowed backward with the frames'
 gradient at the ``b2t_gru`` cell's shape alone (row ``gru_wbwd_dx`` of
 phase 7), or the forward or the backward kernels at the shapes whose
-sweep steps split K over a cluster alone (its last rows):
+sweep steps split K over a cluster alone, or the bidirectional windowed
+layer 0 at the ``b2t24_bigru`` cell's shape alone (its last rows):
 
     python3 chip_smoke.py gru_wbwd_dx
     python3 chip_smoke.py fwd_split
     python3 chip_smoke.py bwd_split
+    python3 chip_smoke.py wbidir
 
 Phases, each printing JSON lines; any failure exits non-zero and the ok
 line is never printed:
@@ -360,7 +362,19 @@ line is never printed:
    its step launch's µs (``phase_kernels_bwd_split``). These six rows'
    launches are those this run counted in a train step of their cell
    (row ``gru_wbwd_dx``'s b2t step, phase 4's fig_5 step); run alone
-   (``fwd_split``, ``bwd_split``) they are null.
+   (``fwd_split``, ``bwd_split``) they are null. Row ``gru_wbidir`` is
+   the bidirectional windowed layer 0 (a ``gru_wfwd`` and a ``gru_wbwd``
+   with the frames' gradient a direction, the second reversed) at the
+   ``b2t24_bigru`` cell's longest batch, forward and backward against
+   its plain version on the card to 1e-5 of each output's largest value,
+   two runs bitwise equal, the frames' gradient the two directions'
+   ``gru_wbwd`` folds added bit for bit, its launches those of one train
+   step of the '24 baseline at the published widths (with the cluster
+   size of every sweep step), timed beside cuDNN's bidirectional GRU over
+   the materialised windows, with the two forward calls against one
+   ``gru_bifwd`` over the same windows (bit for bit), the fold and the
+   add alone and the day layers at this cell's and at ``b2t_gru``'s batch
+   (``phase_kernel_wbidir``; alone: ``python3 chip_smoke.py wbidir``).
 
 Then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA card, and in a directory without the port.
@@ -420,6 +434,20 @@ B2T_STEP_SPLIT, FIG5_TRAIN_B, FIG5_TRAIN_STEP_SPLIT = 8, 512, 2
 # the backward sweep's cluster size (gru_mma.cuh: step_split): b2t's 12 step
 # tiles of 64 x 64 over 16 CTAs, fig_5 train's 64 over 4
 B2T_BWD_STEP_SPLIT, FIG5_TRAIN_BWD_STEP_SPLIT = 16, 4
+# the b2t24_bigru cell's longest batch (portbench/traffic/
+# b2t24_shuffle_b64.json: 64 trials shuffled over 24 days, lengths uniform
+# in 200-1,200 bins, the batch cropped to its longest, about 1,185) at the
+# published widths (BrainToTextGRU, bidirectional, a zero state, the
+# smoothing: C 256, 24 days, window 32, stride 4, hidden 1,024 x 5, 41
+# classes): layer 0 is the bidirectional windowed layer, the windowed op
+# forward and reversed, its frames the day layers' output, so each
+# direction's backward forms their gradient
+B24_B, B24_T, B24_C, B24_H, B24_L, B24_CLS, B24_DAYS = (
+    64, 1184, 256, 1024, 5, 41, 24)
+B24_WIN, B24_STRIDE = 32, 4
+B24_N_WIN = (B24_T - B24_WIN) // B24_STRIDE + 1
+B24_TRAIN_LAUNCHES = {"gru_fwd": 0, "gru_wfwd": 2, "gru_bifwd": B24_L - 1,
+                      "gru_bwd": 2 * (B24_L - 1), "gru_wbwd": 2}
 # gru_wbwd with the frames' gradient vs its plain version, per output (max
 # |diff| over max |plain|): float32 sums in another order over at most
 # 244 x 64 (t, b) terms, the frames' gradient over 4 windows a frame
@@ -749,6 +777,9 @@ def main(argv=()) -> int:
     if list(argv) == ["bwd_split"]:
         emit({"kernels": phase_kernels_bwd_split(torch, dev, gru)})
         return 0
+    if list(argv) == ["wbidir"]:
+        emit({"kernels": [phase_kernel_wbidir(torch, dev, gru)]})
+        return 0
     if argv:
         raise SystemExit(f"chip_smoke: unknown arguments {list(argv)}")
 
@@ -842,7 +873,7 @@ def plain_logits(torch, model, x):
     l0 = model.rnn.layer(0)
     hs = GRUWindowedFn.apply(
         x.to(torch.bfloat16).transpose(0, 1), h0[0].contiguous(), l0.wi,
-        l0.bi, l0.wh, l0.bh, model.win_size, model.stride, True)
+        l0.bi, l0.wh, l0.bh, model.win_size, model.stride, False, True)
     for i in range(1, model.n_layers):
         li = model.rnn.layer(i)
         hs = GRULayerFn.apply(hs, h0[i].contiguous(), li.wi, li.bi, li.wh,
@@ -6193,6 +6224,7 @@ def phase_kernels(torch, dev, gru, launches, s2s_launches):
     out.append(row)
     out += phase_kernels_fwd_split(torch, dev, gru, b2t_launches, launches)
     out += phase_kernels_bwd_split(torch, dev, gru, b2t_launches, launches)
+    out.append(phase_kernel_wbidir(torch, dev, gru))
     return out
 
 
@@ -6473,6 +6505,224 @@ def phase_kernel_wbwd_dx(torch, dev, gru):
     if not math.isfinite(loss):
         raise RuntimeError(f"b2t train step loss {loss}")
     return row, step_launches
+
+
+def _b24_train_step(torch, dev, gru, gen):
+    """One train step of the '24 baseline at the published widths on a
+    batch of the cell's longest shape, its days scattered over 22 of the
+    24 (the shuffled loader's), after one step to warm up: (loss, launches
+    by wrapper, forward and backward step launches by cluster size)."""
+    from cross_patient_speech_decoding_tpu_torch.models import (
+        BrainToTextGRU,
+    )
+    from cross_patient_speech_decoding_tpu_torch.train import (
+        create_train_state,
+        make_ctc_train_step,
+        make_optimizer,
+    )
+
+    model = BrainToTextGRU(B24_C, B24_H, B24_L, B24_CLS, n_days=B24_DAYS,
+                           input_dropout=0.0, win_size=B24_WIN,
+                           stride=B24_STRIDE, device=dev, bidirectional=True,
+                           learned_h0=False, smooth_sigma=2.0)
+    tx = make_optimizer(0.02, 1e-5, 10000, end_factor=1.0, eps=0.1,
+                        decoupled=False)
+    state = create_train_state(model, tx)
+    step = make_ctc_train_step(model, tx, augment=(0.8, 0.2))
+    n_lab = round(0.25 * B24_N_WIN)
+    days = torch.arange(B24_B) % 22
+    batch = (torch.randn((B24_B, B24_T, B24_C), generator=gen, device=dev),
+             torch.randint(1, B24_CLS, (B24_B, n_lab), generator=gen,
+                           device=dev, dtype=torch.int32),
+             torch.full((B24_B,), B24_T, dtype=torch.int32, device=dev),
+             torch.full((B24_B,), n_lab, dtype=torch.int32, device=dev),
+             days[torch.randperm(B24_B, generator=torch.Generator()
+                                 .manual_seed(26))])
+    state, _ = step(state, batch, gen)
+    torch.cuda.synchronize()
+    gru.reset_launch_counts()
+    state, met = step(state, batch, gen)
+    out = (float(met["loss"]), dict(gru.LAUNCHES), gru.step_counts(),
+           gru.bwd_step_counts())
+    del model, state, step, batch, met
+    torch.cuda.empty_cache()
+    return out
+
+
+def _day_layer_ms(torch, dev, gen, n_days, B, T, C, days):
+    """Device ms of a DayAffine forward and backward on (B, T, C) frames
+    with the row days ``days``."""
+    from cross_patient_speech_decoding_tpu_torch.models import DayAffine
+
+    layer = DayAffine(n_days, C).to(dev)
+    x = torch.randn((B, T, C), generator=gen, device=dev, requires_grad=True)
+    dy = torch.randn((B, T, C), generator=gen, device=dev)
+    return cuda_ms(torch, lambda: layer(x, days).backward(dy))
+
+
+def phase_kernel_wbidir(torch, dev, gru):
+    """The bidirectional windowed layer 0 of the Brain-to-Text '24 baseline
+    (``gru_layer_bidir_windowed``: the windowed op forward and reversed, a
+    ``gru_wfwd`` and a ``gru_wbwd`` with the frames' gradient a direction,
+    autograd adding the two folds) at the ``b2t24_bigru`` cell's longest
+    batch. First one train step of the model at the published widths
+    (``_b24_train_step``: ``B24_TRAIN_LAUNCHES``; the cluster size of every
+    sweep step recorded). Then the layer's two Functions on float32 frames
+    that train, forward and backward, against their plain versions on the
+    card (each output within ``B2T_GRAD_RTOL`` x its largest value), two
+    runs bitwise equal, the frames' gradient bit for bit the sum of the two
+    directions' ``gru_wbwd`` folds; timed beside the plain versions and
+    ``torch.nn.GRU(bidirectional=True)`` (cuDNN) forward and backward over
+    the windows materialised in float32, dx formed; the two forward calls
+    timed against one ``gru_bifwd`` over the same windows, whose outputs
+    must be theirs bit for bit; the fold and the add of the frames'
+    gradient timed alone; the day layers' forward and backward timed at
+    this cell's batch (rows sorted by day) and at ``b2t_gru``'s (4
+    contiguous days). Returns the kernels line's row ``gru_wbidir``."""
+    gen = torch.Generator(device=dev).manual_seed(26)
+    loss, step_launches, step_splits, bwd_splits = _b24_train_step(
+        torch, dev, gru, gen)
+    Tb, Bb, Cb, Hb, n_win = B24_T, B24_B, B24_C, B24_H, B24_N_WIN
+    win, stride = B24_WIN, B24_STRIDE
+    F0 = win * Cb
+    frames = torch.randn((Bb, Tb, Cb), generator=gen, device=dev)
+    ws = [*_weights(torch, gen, dev, F0, Hb), *_weights(torch, gen, dev, F0,
+                                                          Hb)]
+    h0 = torch.zeros((Bb, Hb), device=dev)
+    dhs = [torch.randn((n_win, Bb, Hb), generator=gen, device=dev) * 1e-3
+           for _ in range(2)]
+
+    def run(plain):
+        x = frames.clone().requires_grad_(True)
+        leaves = [t.clone().requires_grad_(True) for t in (h0, h0, *ws)]
+        hs = [gru.GRUWindowedFn.apply(x.transpose(0, 1), h, *w, win, stride,
+                                      rev, plain)
+              for h, w, rev in ((leaves[0], leaves[2:6], False),
+                                (leaves[1], leaves[6:], True))]
+        torch.autograd.backward(hs, dhs)
+        return [h.detach() for h in hs] + [x.grad] + [t.grad for t in
+                                                      leaves]
+
+    gru.reset_launch_counts()
+    got = run(False)
+    per_call = {k: v for k, v in gru.LAUNCHES.items() if v}
+    repeat = _bitwise_repeat(torch, got, run(False))
+    xb = frames.to(torch.bfloat16).transpose(0, 1)
+    folds = [gru.gru_wbwd_cuda(
+        xb, torch.cat([h0[None], got[0][:-1]]), dhs[0], *ws[:4], win,
+        stride, need_dx=True)[0], gru.gru_wbwd_cuda(
+        xb, torch.cat([got[1][1:], h0[None]]), dhs[1], *ws[4:], win, stride,
+        need_dx=True, reverse=True)[0]]
+    folds_added = bool(torch.equal(got[2], (folds[0] + folds[1])
+                                   .transpose(0, 1)))
+    del folds
+    # the two windowed forward calls against one gru_bifwd over the windows
+    wv = gru._windows(gru._batch_major(xb), win, stride)
+    hb = (h0, h0, *ws)
+    with torch.no_grad():
+        two = (gru.gru_wfwd_cuda(xb, h0, *ws[:4], win, stride),
+               gru.gru_wfwd_cuda(xb, h0, *ws[4:], win, stride, reverse=True))
+        one = gru.gru_bifwd_cuda(wv, *hb)
+        bifwd_same = all(torch.equal(a, b) for a, b in zip(two, one))
+        del two, one
+        fwd_ms = {
+            "two_gru_wfwd": cuda_ms(torch, lambda: (
+                gru.gru_wfwd_cuda(xb, h0, *ws[:4], win, stride),
+                gru.gru_wfwd_cuda(xb, h0, *ws[4:], win, stride,
+                                  reverse=True))),
+            "one_gru_bifwd": cuda_ms(torch,
+                                     lambda: gru.gru_bifwd_cuda(wv, *hb))}
+    want = run(True)
+    names = ["hs_f", "hs_b", "dframes", "dh0_f", "dh0_b", "dwi_f", "dbi_f",
+             "dwh_f", "dbh_f", "dwi_b", "dbi_b", "dwh_b", "dbh_b"]
+    errs = {n: float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+            for n, g, w in zip(names, got, want)}
+    abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    del got, want
+    # cuDNN over the windows materialised beforehand, float32, dx formed
+    windows = gru.reformat_time_windows(
+        frames.to(torch.bfloat16), win, stride).transpose(0, 1).float()
+    windows = windows.contiguous().requires_grad_(True)
+    lib = _library_bigru(torch, ws)
+    h0l = torch.zeros((2, Bb, Hb), device=dev, requires_grad=True)
+    dcat = torch.cat(dhs, dim=-1)
+
+    def library():
+        hs_l, _ = lib(windows, h0l)
+        torch.autograd.grad(hs_l, [h0l, *lib.parameters(), windows], dcat)
+
+    times = (cuda_ms(torch, lambda: run(False)),
+             cuda_ms(torch, lambda: run(True), reps=3),
+             cuda_ms(torch, library))
+    del windows, lib
+    # the frames' gradient's fold (one a direction) and the add, alone
+    dxw = torch.randn((n_win, Bb, F0), generator=gen, device=dev)
+    dx = torch.empty((Bb, Tb, Cb), device=dev)
+    fold_ms = cuda_ms(torch, lambda: gru._call(
+        "gru_fold_windows", dev, dxw.data_ptr(), dx.data_ptr(), Tb, Bb, Cb,
+        win, stride, n_win), inner=10)
+    add_ms = cuda_ms(torch, lambda: dx + dx, inner=10)
+    del dxw, dx
+    # the day layers: this cell's shuffled rows, b2t_gru's 4 whole days
+    day_ms = {
+        "b2t24_sorted_22_days": _day_layer_ms(
+            torch, dev, gen, B24_DAYS, Bb, Tb, Cb,
+            (torch.arange(Bb) % 22)[torch.randperm(
+                Bb, generator=torch.Generator().manual_seed(27))]),
+        "b2t_gru_4_days": _day_layer_ms(
+            torch, dev, gen, B2T_DAYS, B2T_B, B2T_T, B2T_C,
+            torch.tensor([3, 17, 29, 44]).repeat_interleave(B2T_B // 4))}
+    N = n_win * Bb
+    flops = {}
+    for d in ("f", "b"):
+        flops[f"proj_{d}"] = (2 * N * F0 * 3 * Hb, PEAK_2XTF32)
+        flops[f"rec_{d}"] = (2 * N * Hb * 3 * Hb, PEAK_3XTF32)
+        for k, v in _bwd_flops(N, F0, Hb, x_bf16=True, need_dx=True).items():
+            flops[f"{k}_{d}"] = v
+        flops[f"fold_{d}"] = (N * F0, PEAK_F32_SIMT)
+    bytes_ = (Bb * Tb * Cb * 2 + 2 * _nbytes(*ws) + 4 * N * Hb * 4
+              + Bb * Tb * Cb * 4)
+    row, extra = _row("gru_wbidir", "gru_fwd.cu, gru_bwd.cu",
+                      "no TPU counterpart (the JAX package's bidirectional "
+                      "windows are data)", step_launches["gru_wfwd"],
+                      abs_err, times, flops, bytes_)
+    emit({"phase": "kernel", **row, **extra,
+          "bound_scheme": "3xTF32 tensor cores (495/3 TFLOP/s); bf16 A "
+                          "operands 2xTF32 (495/2); the folds float32 SIMT",
+          "max_rel_err": errs, "tolerance_rel": B2T_GRAD_RTOL,
+          "bitwise_repeat": repeat, "frames_grad_is_folds_added":
+          folds_added, "launches_per_call": per_call,
+          "forward_ms": fwd_ms, "gru_bifwd_bit_for_bit": bifwd_same,
+          "b24_train_step_launches": step_launches, "b24_train_loss": loss,
+          "b24_train_step_splits": step_splits,
+          "b24_train_bwd_step_splits": bwd_splits,
+          "fold_ms_a_direction": fold_ms, "add_ms": add_ms,
+          "day_layer_fwd_bwd_ms": day_ms,
+          "library_note": "torch.nn.GRU(bidirectional=True) (cuDNN) "
+                          "forward and backward over the windows "
+                          "materialised in float32, dx formed",
+          "shapes": {"frames": [Tb, Bb, Cb], "dtype": "float32 rounded to "
+                     "bf16 in the op", "win": win, "stride": stride,
+                     "H": Hb, "n_win": n_win}})
+    bad = {k: v for k, v in errs.items() if not v <= B2T_GRAD_RTOL}
+    if bad:
+        raise RuntimeError(f"gru_wbidir differs from plain: {bad}")
+    if not (repeat and folds_added and bifwd_same):
+        raise RuntimeError(f"gru_wbidir: bitwise repeat {repeat}, frames' "
+                           f"gradient the folds added {folds_added}, "
+                           f"gru_bifwd's outputs {bifwd_same}")
+    if per_call != {"gru_wfwd": 2, "gru_wbwd": 2} or \
+            step_launches != B24_TRAIN_LAUNCHES:
+        raise RuntimeError(f"gru_wbidir: {per_call} launches a call, "
+                           f"{step_launches} a b2t24 train step")
+    # every sweep step of the train step: 5 layers x 2 directions x n_win
+    for name, got_s in (("forward", step_splits), ("backward", bwd_splits)):
+        if sum(got_s.values()) != 2 * B24_L * n_win:
+            raise RuntimeError(f"gru_wbidir: the b2t24 train step's {name} "
+                               f"steps by cluster size {got_s}")
+    if not math.isfinite(loss):
+        raise RuntimeError(f"b2t24 train step loss {loss}")
+    return row
 
 
 def phase_kernels_fwd_split(torch, dev, gru, b2t_launches=None,

@@ -5,9 +5,10 @@ Port of ``cross_patient_speech_decoding_tpu/models/layers.py``
 (``reformat_time_windows``, ``FusedGRU``, ``FusedLSTM``, ``StackedRNN``,
 ``TemporalConv``, ``PositionalEncoding``, ``linear_decay_schedule``,
 ``cosine_warmup_schedule``), and the day-specific input layer
-(``DayAffine``) of the brain-to-text decoder, which the JAX package has
-not. Parameters keep the flax names and the (in, out)
-layout: ``wi`` (F, 3H), ``wh`` (H, 3H), ``bi`` and ``bh`` (3H,), gate order
+(``DayAffine``) and the Gaussian smoothing over time (``smooth_time``) of
+the brain-to-text decoders, which the JAX package has not. Parameters keep
+the flax names and the (in, out) layout: ``wi`` (F, 3H), ``wh`` (H, 3H),
+``bi`` and ``bh`` (3H,), gate order
 (r, z, n); ``FusedLSTM``'s ``wi`` (F, 4H), ``wh`` (H, 4H) and one bias ``b``
 (4H,), gate order (i, f, g, o); a dense layer's ``kernel`` (in, out).
 Initialisation follows flax, not torch's defaults: xavier-uniform ``wi``,
@@ -25,6 +26,7 @@ from torch import nn
 from cross_patient_speech_decoding_tpu_torch.ops.gru import (
     gru_layer,
     gru_layer_bidir,
+    gru_layer_bidir_windowed,
     gru_layer_windowed,
     reformat_time_windows,
 )
@@ -34,7 +36,8 @@ from cross_patient_speech_decoding_tpu_torch.utils.profiling import annotate
 __all__ = ["BatchNorm", "Conv1dF32", "DayAffine", "Dense", "FusedGRU",
            "FusedLSTM", "PositionalEncoding",
            "StackedRNN", "TemporalConv", "conv_f32", "cosine_warmup_schedule",
-           "linear_decay_schedule", "reformat_time_windows"]
+           "gaussian_kernel", "linear_decay_schedule",
+           "reformat_time_windows", "smooth_time"]
 
 # flax lecun_normal draws from a normal truncated at +-2 and rescales by
 # this constant (the truncated unit normal's standard deviation)
@@ -188,16 +191,19 @@ class StackedRNN(nn.Module):
     and, since data needs no gradient, its backward forms no dx.
 
     ``window=(win, stride)`` reads raw frames (B, T, C) as overlapping
-    windows of width win*C. A unidirectional GRU stack leaves that to the
-    windowed op, which reads the frames in bf16 and gives them a gradient
-    when ``input_grad`` is set and they require one (the output of a
-    trainable layer below, as in ``BrainToTextGRU``); frames that require
-    none are data, as the raw frames of ``RealtimeRNN`` are. A
-    bidirectional or LSTM stack materialises the windows once for both
-    directions (the JAX package's models/layers.py:234-240) from detached
-    frames: its windows are always data, a GRU's read in bf16, so on the
-    card a bidirectional layer 0 is ``gru_bifwd`` forward and ``gru_bwd``
-    without dx in each direction.
+    windows of width win*C. A GRU stack leaves that to a windowed op when
+    ``input_grad`` is set and the frames require a gradient (the output of
+    a trainable layer below, as in ``BrainToTextGRU``): the op reads the
+    frames in bf16 and gives them a gradient, a unidirectional layer 0
+    through ``gru_layer_windowed``, a bidirectional one through
+    ``gru_layer_bidir_windowed`` (both directions' window gradients folded
+    onto the frames). A unidirectional GRU stack also leaves data frames
+    (the raw frames of ``RealtimeRNN``) to ``gru_layer_windowed``. Other
+    bidirectional stacks, and LSTM stacks, materialise the windows once
+    for both directions (the JAX package's models/layers.py:234-240) from
+    detached frames: those windows are data, a GRU's read in bf16, so on
+    the card such a bidirectional layer 0 is ``gru_bifwd`` forward and
+    ``gru_bwd`` without dx in each direction.
     """
 
     def __init__(self, in_features: int, hidden: int, n_layers: int = 1,
@@ -230,7 +236,12 @@ class StackedRNN(nn.Module):
                 generator: torch.Generator | None = None):
         gru = self.cell == "gru"
         out = x
-        if window is not None and (self.bidirectional or not gru):
+        # the window of a bidirectional GRU layer 0 whose frames train
+        win0 = None
+        if (window is not None and gru and self.bidirectional
+                and self.input_grad and x.requires_grad):
+            win0, window = window, None
+        elif window is not None and (self.bidirectional or not gru):
             if gru:
                 out = x.detach().to(torch.bfloat16)
             out = reformat_time_windows(out, *window)
@@ -242,7 +253,8 @@ class StackedRNN(nn.Module):
         for i in range(self.n_layers):
             h0_i = [_initial(h0, i * n_dir + d, gru) for d in range(n_dir)]
             if self.bidirectional and gru:
-                out, *last = self._bidir_layer(i, out, *h0_i)
+                out, *last = self._bidir_layer(
+                    i, out, *h0_i, window=win0 if i == 0 else None)
                 lasts += last
             elif self.bidirectional:
                 f, last_f = self.layer(i)(out, h0_i[0])
@@ -260,15 +272,20 @@ class StackedRNN(nn.Module):
         return out, (torch.stack([h for h, _ in lasts]),
                      torch.stack([c for _, c in lasts]))
 
-    def _bidir_layer(self, i: int, x, h0_f, h0_b):
-        """(out (B, T, 2H), forward last state, reverse last state)."""
+    def _bidir_layer(self, i: int, x, h0_f, h0_b, window=None):
+        """(out (B, T, 2H), forward last state, reverse last state); with
+        ``window``, x is frames that train, read as its windows."""
         f, b = self.layer(i), self.layer(i, "bwd")
         z = torch.zeros((x.shape[0], self.hidden), dtype=torch.float32,
                         device=x.device)
         h0_f, h0_b = ((z if h is None else h).float().contiguous()
                       for h in (h0_f, h0_b))
-        hs_f, hs_b = gru_layer_bidir(x.transpose(0, 1), h0_f, h0_b, f.wi,
-                                     f.bi, f.wh, f.bh, b.wi, b.bi, b.wh, b.bh)
+        args = (x.transpose(0, 1), h0_f, h0_b, f.wi, f.bi, f.wh, f.bh, b.wi,
+                b.bi, b.wh, b.bh)
+        if window is None:
+            hs_f, hs_b = gru_layer_bidir(*args)
+        else:
+            hs_f, hs_b = gru_layer_bidir_windowed(*args, *window)
         fwd, bwd = hs_f.transpose(0, 1), hs_b.transpose(0, 1)
         return torch.cat([fwd, bwd], dim=-1), hs_f[-1], hs_b[0]
 
@@ -312,6 +329,18 @@ def day_groups(days, n_rows: int):
     return out
 
 
+def _sorted_groups(groups):
+    """The rows of :func:`day_groups` brought together day by day, each
+    day's in batch order: (order, [(day, slice of the reordered rows)]),
+    row k of the reordered batch being row ``order[k]`` of the batch."""
+    order, out = [], []
+    for d, r in groups:
+        rows = list(range(r.start, r.stop)) if isinstance(r, slice) else r
+        out.append((d, slice(len(order), len(order) + len(rows))))
+        order += rows
+    return order, out
+
+
 def _rows_index(rows, device):
     """A list of row indices as an index tensor on ``device``, copied from
     pinned memory without waiting for the device."""
@@ -323,54 +352,74 @@ def _rows_index(rows, device):
 
 class DayAffineFn(torch.autograd.Function):
     """``y = softsign(x_b W_{d(b)} + b_{d(b)})`` over (B, T, C) frames, one
-    product over the rows ``r`` of each day ``d`` in ``groups`` (a slice or
-    an index tensor on x's device), never a (B, C, C) gather of the
-    weights. The backward forms the gradients of the frames and of the days
-    present; the other days' are 0. Each pass is a ``day_layer`` span
-    (attrs ``rows``, ``days``, ``T``, ``C``; device ms on a card)."""
+    product over the rows of each day ``d`` in ``groups`` [(d, slice)],
+    never a (B, C, C) gather of the weights. Without ``order`` the slices
+    are rows of x (a batch drawn day by day). With ``order`` (an index
+    tensor on x's device, from :func:`_sorted_groups`) they are rows of
+    x[order]: one gather brings the rows in day by day and one scatter
+    takes the result out, in the forward and again in the backward. The
+    backward forms the gradients of the frames and of the days present;
+    the other days' are 0. Each pass is a ``day_layer`` span (attrs
+    ``rows``, ``days``, ``T``, ``C``, ``path``: ``days`` or ``sorted``;
+    device ms on a card)."""
 
     @staticmethod
-    def forward(ctx, x, w, b, groups):
+    def forward(ctx, x, w, b, groups, order):
         B, T, C = x.shape
-        a = torch.empty_like(x)
         with annotate("day_layer", device=x.device, rows=B, days=len(groups),
-                      T=T, C=C):
+                      T=T, C=C, path="days" if order is None else "sorted"):
+            xs = x if order is None else x.index_select(0, order)
+            a = torch.empty_like(xs)
             for d, r in groups:
-                a[r] = torch.addmm(b[d], x[r].reshape(-1, C),
+                a[r] = torch.addmm(b[d], xs[r].reshape(-1, C),
                                    w[d]).view(-1, T, C)
-            y = F.softsign(a)
-        ctx.save_for_backward(x, w, a)
+            y = _unsort(F.softsign(a), order)
+        ctx.save_for_backward(xs, w, a, order)
         ctx.groups = groups
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, w, a = ctx.saved_tensors
-        B, T, C = x.shape
-        need_x, need_w, need_b, _ = ctx.needs_input_grad
-        dx = torch.empty_like(x) if need_x else None
+        xs, w, a, order = ctx.saved_tensors
+        B, T, C = xs.shape
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        dx = torch.empty_like(xs) if need_x else None
         dw = torch.zeros_like(w) if need_w else None
         db = torch.zeros((w.shape[0], C), dtype=w.dtype, device=w.device) \
             if need_b else None
-        with annotate("day_layer", device=x.device, rows=B,
-                      days=len(ctx.groups), T=T, C=C):
+        with annotate("day_layer", device=xs.device, rows=B,
+                      days=len(ctx.groups), T=T, C=C,
+                      path="days" if order is None else "sorted"):
+            dys = dy if order is None else dy.index_select(0, order)
             for d, r in ctx.groups:
-                g = (dy[r] / (1.0 + a[r].abs()).square()).reshape(-1, C)
+                g = (dys[r] / (1.0 + a[r].abs()).square()).reshape(-1, C)
                 if need_x:
                     dx[r] = (g @ w[d].t()).view(-1, T, C)
                 if need_w:
-                    dw[d] = x[r].reshape(-1, C).t() @ g
+                    dw[d] = xs[r].reshape(-1, C).t() @ g
                 if need_b:
                     db[d] = g.sum(0)
-        return dx, dw, db, None
+            if need_x:
+                dx = _unsort(dx, order)
+        return dx, dw, db, None, None
+
+
+def _unsort(ys, order):
+    """Rows reordered by ``order`` (or None) put back in batch order."""
+    return ys if order is None else torch.empty_like(ys).index_copy_(
+        0, order, ys)
 
 
 class DayAffine(nn.Module):
-    """The day-specific input layer of the brain-to-text decoder (Card et
-    al., NEJM 2024: ``GRUDecoder``'s day layers): (B, T, C) frames and
-    (B,) day ids -> softsign(x W_{d(b)} + b_{d(b)}), with ``w`` (n_days, C,
-    C) starting at the identity and ``b`` (n_days, C) at 0, as published.
-    Runs as :class:`DayAffineFn` (one product a day present)."""
+    """The day-specific input layer of the brain-to-text decoders (Card et
+    al., NEJM 2024: ``GRUDecoder``'s day layers; Willett et al., Nature
+    2023, the Brain-to-Text '24 baseline, alike): (B, T, C) frames and (B,)
+    day ids -> softsign(x W_{d(b)} + b_{d(b)}), with ``w`` (n_days, C, C)
+    starting at the identity and ``b`` (n_days, C) at 0, as published.
+    Runs as :class:`DayAffineFn`, one product a day present: over slices of
+    the batch where each day's rows are contiguous (a batch drawn day by
+    day), else over slices of the rows sorted by day once (a shuffled
+    batch: one index copy to the device a batch)."""
 
     def __init__(self, n_days: int, features: int):
         super().__init__()
@@ -378,9 +427,12 @@ class DayAffine(nn.Module):
         self.b = nn.Parameter(torch.zeros(n_days, features))
 
     def forward(self, x, days):
-        groups = [(d, r if isinstance(r, slice) else _rows_index(r, x.device))
-                  for d, r in day_groups(days, x.shape[0])]
-        return DayAffineFn.apply(x, self.w, self.b, groups)
+        groups = day_groups(days, x.shape[0])
+        order = None
+        if not all(isinstance(r, slice) for _, r in groups):
+            rows, groups = _sorted_groups(groups)
+            order = _rows_index(rows, x.device)
+        return DayAffineFn.apply(x, self.w, self.b, groups, order)
 
 
 class Conv1dF32(torch.autograd.Function):
@@ -409,6 +461,39 @@ class Conv1dF32(torch.autograd.Function):
         if need_b:
             db = g.sum((0, 2))
         return dx, dw, db, None
+
+
+# the Brain-to-Text '24 baseline's smoothing kernel length (neural_seq_decoder
+# model.py: GaussianSmoothing(nInputFeatures, 20, gaussianSmoothWidth))
+SMOOTH_TAPS = 20
+
+
+def gaussian_kernel(sigma: float):
+    """The Brain-to-Text '24 baseline's smoothing kernel (neural_seq_decoder
+    ``augmentations.py:GaussianSmoothing``, one dimension): float32 k_j
+    proportional to exp(-((j - (taps - 1)/2) / sigma)^2 / 2), j = 0 ..
+    taps - 1 (``SMOOTH_TAPS``), normalised to sum 1, computed in the
+    published order."""
+    taps = SMOOTH_TAPS
+    j = torch.arange(taps, dtype=torch.float32)
+    k = 1 / (sigma * math.sqrt(2 * math.pi)) * torch.exp(
+        -(((j - (taps - 1) / 2) / sigma) ** 2) / 2)
+    return k / torch.sum(k)
+
+
+def smooth_time(x, kernel):
+    """(B, T, C) frames convolved over time with ``kernel`` (taps,), each
+    channel alone, to (B, T, C) contiguous: the published
+    ``F.conv1d(groups=C, padding="same")``, which pads an even kernel with
+    (taps - 1) // 2 zero frames before and the rest after, in float32 with
+    TF32 off (:func:`conv_f32`). The frames it smooths are data: a gradient
+    through it would take the caller's precision. A ``smooth`` span (attrs
+    ``rows``, ``T``, ``C``; device ms on a card)."""
+    B, T, C = x.shape
+    w = kernel.to(x.dtype).expand(C, 1, kernel.shape[0]).contiguous()
+    with annotate("smooth", device=x.device, rows=B, T=T, C=C), conv_f32():
+        y = F.conv1d(x.transpose(1, 2), w, padding="same", groups=C)
+        return y.transpose(1, 2).contiguous()
 
 
 class BatchNorm(nn.Module):

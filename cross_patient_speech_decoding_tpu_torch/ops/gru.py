@@ -30,7 +30,8 @@ unidirectional one per direction, with dx summed. The windowed op gives
 its frames a gradient where they require one (the output of a trainable
 layer below it, as the day layers of ``models/b2t_gru.py``): the windows'
 gradient dgi Wi^T, folded back onto the frames; frames that require none
-are data.
+are data. The bidirectional windowed layer is the windowed op once
+forward and once reversed, autograd adding the two folds.
 """
 
 from __future__ import annotations
@@ -167,11 +168,13 @@ def reformat_time_windows(x, win: int, stride: int):
     return xw.transpose(2, 3).reshape(B, n_win, win * C)
 
 
-def gru_layer_windowed_plain(x, h0, wi, bi, wh, bh, win: int, stride: int):
+def gru_layer_windowed_plain(x, h0, wi, bi, wh, bh, win: int, stride: int,
+                             reverse: bool = False):
     """Materialises the windows of the (T, B, C) frames, then runs
-    :func:`gru_layer_plain`."""
+    :func:`gru_layer_plain` (with ``reverse``, over the windows from the
+    last)."""
     xw = reformat_time_windows(x.transpose(0, 1), win, stride)
-    return gru_layer_plain(xw.transpose(0, 1), h0, wi, bi, wh, bh)
+    return gru_layer_plain(xw.transpose(0, 1), h0, wi, bi, wh, bh, reverse)
 
 
 def gru_backward_plain(x, hprev, dhs, wi, bi, wh, bh, reverse: bool = False,
@@ -238,15 +241,17 @@ def fold_windows(dxw, T: int, win: int, stride: int):
 
 
 def gru_win_backward_plain(x, hprev, dhs, wi, bi, wh, bh, win: int,
-                           stride: int, need_dx: bool = False):
+                           stride: int, need_dx: bool = False,
+                           reverse: bool = False):
     """Backward of :func:`gru_layer_windowed_plain` (the math of
-    ``_wbwd_kernel``): materialises the windows of the (T, B, C) frames,
-    then runs :func:`gru_backward_plain`. Returns the same tuple, its first
-    entry the frames' gradient (T, B, C) float32 when ``need_dx`` (the
-    windows' dx folded by :func:`fold_windows`), else None."""
+    ``_wbwd_kernel``; with ``reverse``, of the sweep from the last window):
+    materialises the windows of the (T, B, C) frames, then runs
+    :func:`gru_backward_plain`. Returns the same tuple, its first entry the
+    frames' gradient (T, B, C) float32 when ``need_dx`` (the windows' dx
+    folded by :func:`fold_windows`), else None."""
     xw = reformat_time_windows(x.transpose(0, 1), win, stride)
     dxw, *grads = gru_backward_plain(xw.transpose(0, 1), hprev, dhs, wi, bi,
-                                     wh, bh, need_dx=need_dx)
+                                     wh, bh, reverse, need_dx=need_dx)
     dx = fold_windows(dxw, x.shape[0], win, stride) if need_dx else None
     return (dx, *grads)
 
@@ -445,14 +450,15 @@ def _check_frames(x, name: str):
         raise TypeError(f"{name} reads bfloat16 frames, got {x.dtype}")
 
 
-def gru_wfwd_cuda(x, h0, wi, bi, wh, bh, win: int, stride: int):
+def gru_wfwd_cuda(x, h0, wi, bi, wh, bh, win: int, stride: int,
+                  reverse: bool = False):
     """Launch the ``gru_fwd`` kernel over the windows of bf16 frames (port
     of ``_wfwd_kernel``). Arguments and result as
     :func:`gru_layer_windowed_plain`."""
     _check_frames(x, "gru_wfwd")
     (hs,) = _forward("gru_wfwd", "gru_fwd",
                      _windows(_batch_major(x), win, stride),
-                     [(h0, wi, bi, wh, bh)], 0)
+                     [(h0, wi, bi, wh, bh)], int(reverse))
     return hs
 
 
@@ -465,10 +471,11 @@ def gru_bwd_cuda(x, hprev, dhs, wi, bi, wh, bh, reverse: bool = False,
 
 
 def gru_wbwd_cuda(x, hprev, dhs, wi, bi, wh, bh, win: int, stride: int,
-                  need_dx: bool = False):
+                  need_dx: bool = False, reverse: bool = False):
     """Launch the ``gru_bwd`` kernels over the windows of bf16 frames (port
     of ``_wbwd_kernel``), then, with ``need_dx``, fold the windows'
-    gradient onto the frames. Arguments and result as
+    gradient onto the frames (``gru_fold_windows``: each frame's windows
+    summed in a fixed order). Arguments and result as
     :func:`gru_win_backward_plain`; the frames' gradient is a (T, B, C)
     view of batch-major (B, T, C) float32 memory, the frames' own
     layout."""
@@ -476,7 +483,7 @@ def gru_wbwd_cuda(x, hprev, dhs, wi, bi, wh, bh, win: int, stride: int,
     T, B, C = x.shape
     xw = _windows(_batch_major(x), win, stride)
     dxw, *grads = _backward("gru_wbwd", xw, hprev, dhs, wi, bi, wh, bh,
-                            False, need_dx)
+                            reverse, need_dx)
     if dxw is None:
         return (None, *grads)
     dx = torch.empty((B, T, C), dtype=torch.float32, device=x.device)
@@ -617,43 +624,52 @@ class GRUBidirFn(torch.autograd.Function):
 
 
 class GRUWindowedFn(torch.autograd.Function):
-    """``hs = gru_layer_windowed(x, h0, wi, bi, wh, bh, win, stride)`` with
-    its backward (``_gru_win_core``, pallas_gru.py:493-518). ``plain`` as
-    in :class:`GRULayerFn`. Frames that require no gradient get none.
-    Frames that require one are rounded to bf16 here, so that the gradient
-    the backward forms for them passes the rounding straight through in
-    x's dtype (autograd would round a gradient to bf16 at the input of a
-    Function fed the rounded frames)."""
+    """``hs = gru_layer_windowed(x, h0, wi, bi, wh, bh, win, stride,
+    reverse)`` with its backward (``_gru_win_core``,
+    pallas_gru.py:493-518). ``plain`` as in :class:`GRULayerFn`. Frames
+    that require no gradient get none. Frames that require one are rounded
+    to bf16 here, so that the gradient the backward forms for them passes
+    the rounding straight through in x's dtype (autograd would round a
+    gradient to bf16 at the input of a Function fed the rounded frames). A
+    reversed call's spans carry ``reverse``."""
 
     @staticmethod
     def forward(ctx, x, h0, wi, bi, wh, bh, win: int, stride: int,
-                plain: bool):
+                reverse: bool, plain: bool):
         if ctx.needs_input_grad[0]:
             x = x.to(torch.bfloat16)
             if not plain:
                 x = _batch_major(x)
         fwd = gru_layer_windowed_plain if plain else gru_wfwd_cuda
+        rev = {"reverse": True} if reverse else {}
         with _kernel_span("gru_wfwd", x, n_windows(x.shape[0], win, stride),
-                          wi.shape[0], wh.shape[0], False, plain):
-            hs = fwd(x, h0, wi, bi, wh, bh, win, stride)
+                          wi.shape[0], wh.shape[0], False, plain, **rev):
+            hs = fwd(x, h0, wi, bi, wh, bh, win, stride, reverse)
         ctx.save_for_backward(x, h0, wi, bi, wh, bh, hs)
-        ctx.win, ctx.stride, ctx.plain = win, stride, plain
+        ctx.win, ctx.stride, ctx.reverse, ctx.plain = (win, stride, reverse,
+                                                       plain)
         return hs
 
     @staticmethod
     def backward(ctx, dhs):
         x, h0, wi, bi, wh, bh, hs = ctx.saved_tensors
-        hprev = torch.cat([h0[None], hs[:-1]])  # pallas_gru.py:509
+        # h_{t-1} of each step in the sweep (pallas_gru.py:509)
+        if ctx.reverse:
+            hprev = torch.cat([hs[1:], h0[None]])
+        else:
+            hprev = torch.cat([h0[None], hs[:-1]])
         bwd = gru_win_backward_plain if ctx.plain else gru_wbwd_cuda
         need_dx = ctx.needs_input_grad[0]
         # with dx, the most windows a frame's gradient sums
-        fold = {"fold": -(-ctx.win // ctx.stride)} if need_dx else {}
+        attrs = {"fold": -(-ctx.win // ctx.stride)} if need_dx else {}
+        if ctx.reverse:
+            attrs["reverse"] = True
         with _kernel_span("gru_wbwd", x, hs.shape[0], wi.shape[0],
-                          wh.shape[0], need_dx, ctx.plain, **fold):
+                          wh.shape[0], need_dx, ctx.plain, **attrs):
             dx, dh0, dwi, dwh, dbi, dbh = bwd(
                 x, hprev, dhs.contiguous(), wi, bi, wh, bh, ctx.win,
-                ctx.stride, need_dx=need_dx)
-        return dx, dh0, dwi, dbi, dwh, dbh, None, None, None
+                ctx.stride, need_dx=need_dx, reverse=ctx.reverse)
+        return dx, dh0, dwi, dbi, dwh, dbh, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -708,8 +724,10 @@ def gru_layer_bidir(x, h0_f, h0_b, wi_f, bi_f, wh_f, bh_f, wi_b, bi_b, wh_b,
                             wh_b, bh_b, plain)
 
 
-def gru_layer_windowed(x, h0, wi, bi, wh, bh, win: int, stride: int):
-    """GRU layer over overlapping windows of raw frames.
+def gru_layer_windowed(x, h0, wi, bi, wh, bh, win: int, stride: int,
+                       reverse: bool = False):
+    """GRU layer over overlapping windows of raw frames; with ``reverse``
+    the sweep runs from the last window.
 
     Args:
         x: (T, B, C) raw frames, channel axis contiguous. Window w is
@@ -734,4 +752,31 @@ def gru_layer_windowed(x, h0, wi, bi, wh, bh, win: int, stride: int):
     plain = _route(x) == "cpu"
     if not plain and not x.requires_grad:
         x = _batch_major(x)  # what the kernels read, kept for the backward
-    return GRUWindowedFn.apply(x, h0, wi, bi, wh, bh, win, stride, plain)
+    return GRUWindowedFn.apply(x, h0, wi, bi, wh, bh, win, stride, reverse,
+                               plain)
+
+
+def gru_layer_bidir_windowed(x, h0_f, h0_b, wi_f, bi_f, wh_f, bh_f, wi_b,
+                             bi_b, wh_b, bh_b, win: int, stride: int):
+    """Bidirectional GRU layer over overlapping windows of raw frames,
+    differentiable in every argument: :func:`gru_layer_windowed` once
+    forward and once reversed over the same frames, whose windows are
+    never built.
+
+    Args:
+        x: (T, B, C) raw frames, as :func:`gru_layer_windowed` takes them.
+        h0_f, h0_b, wi_*, bi_*, wh_*, bh_*: as in :func:`gru_layer_bidir`,
+            ``wi_*`` (win*C, 3H).
+
+    Returns:
+        (hs_f, hs_b), each (n_win, B, H) float32 in the original time
+        order. Frames that require a gradient get both directions' dgi
+        Wi^T folded onto them, each direction's fold in a fixed order and
+        the two added by autograd (a + b, so bitwise the same in either
+        order), float32 past the rounding; data frames get none.
+    """
+    if _route(x) != "cpu" and not x.requires_grad:
+        x = _batch_major(x)  # one copy for both directions
+    return (gru_layer_windowed(x, h0_f, wi_f, bi_f, wh_f, bh_f, win, stride),
+            gru_layer_windowed(x, h0_b, wi_b, bi_b, wh_b, bh_b, win, stride,
+                               reverse=True))

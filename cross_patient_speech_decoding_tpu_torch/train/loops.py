@@ -55,7 +55,11 @@ class OptimizerConfig:
     ``r + (1 - r) (1 + cos(pi p)) / 2``, r = min_lr / lr and p the share of
     ``decay_steps - warmup_steps`` done, held at r from ``decay_steps`` on;
     and ``no_decay``, the prefixes of the parameter names (``day.`` for
-    the day layers) that take no weight decay.
+    the day layers) that take no weight decay. The Brain-to-Text '24
+    baseline's (``torch.optim.Adam(weight_decay=...)`` under a constant
+    ``LinearLR``) is ``decoupled=False``: the weight decay is added to the
+    gradient before the moments (coupled L2, ``torch.optim.Adam``), at
+    ``end_factor`` 1.
     """
 
     lr: float
@@ -68,6 +72,7 @@ class OptimizerConfig:
     schedule: str = "linear"
     min_lr: float = 0.0
     no_decay: tuple = ()
+    decoupled: bool = True
 
     def factor(self, count: int) -> float:
         """Schedule factor of update ``count`` (optax linear_schedule, or
@@ -100,8 +105,9 @@ class OptimizerConfig:
                       {"params": [p for p, o in zip(params, off) if o],
                        "weight_decay": 0.0}]
             params = [g for g in groups if g["params"]]
-        opt = torch.optim.AdamW(params, lr=self.lr, betas=(0.9, 0.999),
-                                eps=self.eps, weight_decay=self.weight_decay)
+        adam = torch.optim.AdamW if self.decoupled else torch.optim.Adam
+        opt = adam(params, lr=self.lr, betas=(0.9, 0.999), eps=self.eps,
+                   weight_decay=self.weight_decay)
         # a plain function: LambdaLR leaves it out of its state dict
         sched = torch.optim.lr_scheduler.LambdaLR(
             opt, lambda count: self.factor(count))
@@ -113,17 +119,17 @@ def make_optimizer(lr: float, weight_decay: float, decay_steps: int,
                    clip: float | None = None, *, eps: float = 1e-8,
                    warmup_steps: int = 0, schedule: str = "linear",
                    min_lr: float = 0.0,
-                   no_decay=()) -> OptimizerConfig:
+                   no_decay=(), decoupled: bool = True) -> OptimizerConfig:
     """AdamW + linear LR decay (+ optional grad clipping), the reference's
     optimizer recipe (realtime_nn_model.py:287-304, models.py:368-383,
     Trainer(gradient_clip_val=0.5)); the keywords give the brain-to-text
-    decoder's (``OptimizerConfig``)."""
+    decoders' (``OptimizerConfig``)."""
     if schedule not in ("linear", "cosine"):
         raise ValueError(f"schedule must be 'linear' or 'cosine', got "
                          f"{schedule!r}")
     return OptimizerConfig(lr, weight_decay, decay_steps, end_factor, clip,
                            eps, warmup_steps, schedule, min_lr,
-                           tuple(no_decay))
+                           tuple(no_decay), decoupled)
 
 
 @torch.no_grad()

@@ -63,7 +63,22 @@ def _days(batch) -> dict:
     return {"days": batch[4]} if len(batch) == 5 else {}
 
 
-def make_ctc_train_step(model, tx):
+def _augment(x, augment, generator):
+    """The Brain-to-Text '24 trainer's noise on a batch x (B, T, C): white
+    noise of sd ``augment[0]`` over (B, T, C) drawn first, then a constant
+    offset of sd ``augment[1]`` a row and channel, (B, 1, C), both from
+    ``generator``; an ``augment`` span (attrs ``rows``, ``T``, ``C``; device
+    ms on a card)."""
+    white, offset = augment
+    B, T, C = x.shape
+    with annotate("augment", device=x.device, rows=B, T=T, C=C):
+        x = x + torch.randn(x.shape, generator=generator,
+                            device=x.device) * white
+        return x + torch.randn((B, 1, C), generator=generator,
+                               device=x.device) * offset
+
+
+def make_ctc_train_step(model, tx, augment: tuple | None = None):
     """Build ``step(state, batch, generator) -> (state, {"loss"})``.
 
     ``model`` gives the window geometry and the blank id; the step trains
@@ -75,8 +90,10 @@ def make_ctc_train_step(model, tx):
     with day layers (``BrainToTextGRU``) a fifth entry, each row's day
     (B,), passed to the model as ``days`` where it is, with the root span's
     counter ``frames`` (B x T); ``generator`` draws the dropout
-    masks (the JAX step's ``key``). The loss is the 0-d tensor of the
-    forward, before the update.
+    masks (the JAX step's ``key``). With ``augment=(white_sd, offset_sd)``
+    the step first adds the '24 baseline trainer's noise to x from the
+    same generator (:func:`_augment`), before the forward draws its masks.
+    The loss is the 0-d tensor of the forward, before the update.
     """
     win, stride, blank = model.win_size, model.stride, model.blank
 
@@ -91,6 +108,8 @@ def make_ctc_train_step(model, tx):
             in_adj = adjusted_input_lengths(input_lens, win, stride)
             m.train()
             state.optimizer.zero_grad(set_to_none=True)
+            if augment is not None:
+                x = _augment(x, augment, generator)
             with annotate("forward"):
                 logits = m(x, generator=generator, **days)
             with annotate("loss"):

@@ -186,7 +186,7 @@ def test_data_frames_keep_the_realtime_path():
         a.sum().backward()
     finally:
         gru.gru_win_backward_plain = real
-    assert seen == {"need_dx": False}
+    assert seen == {"need_dx": False, "reverse": False}
 
 
 # ---------------------------------------------------------------------------
@@ -361,7 +361,8 @@ def test_four_entry_batches_keep_their_step():
     assert root["attrs"] == {"rows": 8, "frames": 8 * 24}
     day = [r for r in recs if r["name"] == "day_layer"]
     assert len(day) == 2 and all(
-        r["attrs"] == {"rows": 8, "days": 4, "T": 24, "C": 6} for r in day)
+        r["attrs"] == {"rows": 8, "days": 4, "T": 24, "C": 6,
+                       "path": "sorted"} for r in day)
     wb = next(r for r in recs if r["name"] == "gru_wbwd")
     assert wb["attrs"]["need_dx"] is True and wb["attrs"]["fold"] == 2
     profiling.reset()
